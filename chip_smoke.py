@@ -8,26 +8,42 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
  2. build: compiles zyg_tpu_torch/csrc/*.cu with nvcc (sm_90a) into the
     gitignored zyg_tpu_torch/_build/ and prints the build time and the
     per-kernel register/spill report
- 3. each kernel against its plain torch version on the card, at the main
-    path's shapes: sobol_block bit-exact; isect pid/blocked exact and
-    t/u/v within rtol 2e-5; accum exact; shade with lane lifecycles
-    (alive, depth, ray count) exact, live-lane o/d/bxdf_pdf/mis_n/
-    throughput within 1e-4/1e-5/1e-5/1e-5/5e-3 relative, and radiance
-    column sums within rtol 2e-3. Times each (median of runs, CUDA events).
+ 3. each kernel, called through the wrapper its path calls, against its
+    plain torch version on the card, at the main paths' shapes:
+    sobol_block bit-exact; accum exact; shade (Cornell) with lane
+    lifecycles (alive, depth, ray count) exact, live-lane o/d/bxdf_pdf/
+    mis_n/throughput within 1e-4/1e-5/1e-5/1e-5/5e-3 relative, and
+    radiance column sums within rtol 2e-3; then on the bench trefoil at
+    the mesh path's 921,600 lanes: isect over the scene's own reflection
+    and shadow prop tables (pid/blocked exact, t/u/v within rtol 2e-5);
+    surface with the shade rules plus the shadow rays and NEE values of
+    the NEE lanes; traverse (and a rotated two-instance scene) with hit
+    ids exact except at exact-t ties, t/u/v within rtol 2e-5 and any-hit
+    exact. Times each (median of runs, CUDA events) beside its bound
+    and, where one PyTorch call computes the same function, that call's
+    time
  4. a 128x128, 64 spp Cornell render on the card against the port's plain
     CPU render: mean energy within 1.5%, 4x4-downsampled RMSE within 6%
     of the mean (the JAX package's golden-gate statistics)
- 5. the main path: the CLI on examples/takes/cornell_ptmis.take at its own
-    512x512, then the Driver at 1920x1080 and 16 spp; the sobol_block,
-    shade and accum kernels must each have launched, the image must be
-    finite with a positive mean; one more 1080p render under torch.profiler
-    gives the device time by kernel and the device's busy share
-The line before the last is the JSON kernel report; the last line is
-{"ok": true, "device": {...}}.
+ 4b. the same gate for the 30,720-triangle trefoil at 96x56, 16 spp
+ 5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
+    its own 512x512, then the Driver at 1920x1080 and 16 spp; the
+    sobol_block, shade and accum kernels must each have launched, the image
+    must be finite with a positive mean; one more 1080p render under
+    torch.profiler gives the device time by kernel and the device's busy
+    share
+ 5b. the mesh main path: the CLI on examples/takes/trefoil.take (640x360,
+    8 spp), then the Driver at 1280x720 and 4 spp over the 491,520-triangle
+    trefoil; sobol_block, isect, surface, traverse and accum must each have
+    launched; the same report and profile
+Each main path is driven with the launch counts set to 0 just before it
+and read just after. The line before the last is the JSON kernel report;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -37,22 +53,52 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-N_MAIN = 1920 * 1080  # lanes of the 1080p main path
-N_CHECK = 1 << 21  # lanes of the kernel-vs-plain checks
+N_MAIN = 1920 * 1080  # lanes of the 1080p Cornell main path
+N_CHECK = 1 << 21  # lanes of the Cornell kernels' checks
+MESH_RES = (1280, 720)  # the mesh main path: bench_mesh's resolution, spp, depth
+MESH_SPP = 4
+N_MESH = MESH_RES[0] * MESH_RES[1]  # lanes of the mesh path's first stage and of its checks
 
 REPLACES = {
     "sobol_block": "zyg_tpu/ops/sobol_block.py:26",
     "isect": "zyg_tpu/ops/isect.py:155",
     "shade": "zyg_tpu/ops/shade.py:394",
     "accum": "zyg_tpu/ops/accum.py:31",
+    "surface": "zyg_tpu/ops/shade.py:917",
+    # not a TPU kernel: the JAX package walks the BVH in XLA
+    "traverse": "zyg_tpu/scene/trimesh.py:1053",
 }
 SOURCES = {
     "sobol_block": "zyg_tpu_torch/csrc/sobol_block.cu",
     "isect": "zyg_tpu_torch/csrc/isect.cu",
     "shade": "zyg_tpu_torch/csrc/shade.cu",
     "accum": "zyg_tpu_torch/csrc/accum.cu",
+    "surface": "zyg_tpu_torch/csrc/surface.cu",
+    "traverse": "zyg_tpu_torch/csrc/traverse.cu",
 }
-MAIN_PATH_KERNELS = ("sobol_block", "shade", "accum")
+CORNELL_KERNELS = ("sobol_block", "shade", "accum")
+MESH_KERNELS = ("sobol_block", "isect", "surface", "traverse", "accum")
+
+# the least time the card could take: bytes over the memory rate or
+# operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# operations per item, counted from the kernel sources (each add, multiply,
+# compare, select, bit operation or special function counts one)
+OPS_SOBOL_LANE = 530  # 32-bit x 5-dim direction loop, 6 scrambles, seed hash
+OPS_PROP_TEST = 45  # one analytic prop hit test
+OPS_SHADE_LANE = 2500  # fused bounce without its prop tests
+OPS_SURFACE_LANE = 2500  # the mesh bounce between the traversals
+OPS_NODE = 8 * 30  # one wide node: 8 slab tests, keys, nearest child, push
+OPS_LEAF = 12 * 55  # one leaf: 12 Moller-Trumbore tests and the min
+OPS_INSTANCE = 60  # one instance: AABB entry, pick, ray to object space
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms and bound_by for work of nbytes moved and ops done."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def log(msg: str) -> None:
@@ -121,37 +167,59 @@ def check_sobol(dev) -> dict:
         "max_abs_err": float((buf - rbuf).abs().max()),
         "ms": time_ms(lambda: sobol_block(s, r), 20),
         "plain_ms": time_ms(lambda: sobol_block_plain(s, r), 2, runs=3),
+        # in: sample, seed; out: 5 floats, next seed
+        **bound(N_MAIN * (8 + 24), N_MAIN * OPS_SOBOL_LANE),
+        "library_ms": None,
     }
 
 
-def _rays(n, dev, seed):
+def _isect_lanes(n, dev, seed=5):
+    """Lanes of the trefoil path's analytic hit tests: camera rays of
+    trefoil.take on the primary half; on the other half rays leaving the
+    trefoil's box, half of them toward the light's plane (y = 4), and
+    shadow rays from the box to points on the light. 10 % of the lanes are
+    dead (tmax 0). Returns (o, d, tmax, primary, shadow o, shadow d,
+    shadow tmax)."""
     import numpy as np
     import torch
+    from zyg_tpu_torch.scene.types import RAY_MAX_T
 
     rng = np.random.default_rng(seed)
-    o = rng.uniform(-1.2, 1.2, (n, 3)).astype(np.float32)
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
     prim = rng.random(n) < 0.5
-    return (torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
-            torch.from_numpy(prim).to(dev))
+    alive = rng.random(n) < 0.9
+    box = rng.uniform(-0.6, 0.6, (n, 3))
+    o = np.where(prim[:, None], np.array([0.0, 0.8, -5.5]), box)
+    up = rng.random(n) < 0.5
+    ceiling = np.stack([rng.uniform(-2, 2, n), np.full(n, 4.0), rng.uniform(-2, 2, n)], axis=1)
+    d = np.where(prim[:, None], rng.uniform(-1.5, 1.5, (n, 3)) - o,
+                 np.where(up[:, None], ceiling - o, rng.normal(size=(n, 3))))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.where(alive, RAY_MAX_T, 0.0)
+    lamp = np.stack([rng.uniform(-1.5, 1.5, n), np.full(n, 4.0), rng.uniform(-1.5, 1.5, n)], axis=1)
+    sd = lamp - box
+    slen = np.linalg.norm(sd, axis=-1)
+    sd /= slen[:, None]
+    smax = np.where(alive, slen, 0.0)
+
+    def t(x):
+        x = np.ascontiguousarray(x)
+        return torch.from_numpy(x if x.dtype == bool else x.astype(np.float32)).to(dev)
+
+    return tuple(t(x) for x in (o, d, tmax, prim, box, sd, smax))
 
 
 def check_isect(dev) -> dict:
     import torch
     from zyg_tpu_torch.ops import isect
 
-    scene = _cornell(dev)
-    kinds, ids = isect.static_layout(scene)
-    table = isect.pack_table(scene, ids, "reflection")
-    stable = isect.pack_table(scene, ids, "shadow")
-    o, d, prim = _rays(N_CHECK, dev, 5)
-    tmax = torch.full((N_CHECK,), 3.0e37, device=dev)
-    smax = torch.full((N_CHECK,), 2.0, device=dev)
-    k = isect._isect_cuda(kinds, table, ids, o, d, 1e-4, tmax, prim, False)
-    p = isect.isect_plain(kinds, table, ids, o, d, 1e-4, tmax, prim, False)
-    kb = isect._isect_cuda(kinds, stable, ids, o, d, 1e-4, smax, None, True)
-    pb = isect.isect_plain(kinds, stable, ids, o, d, 1e-4, smax, None, True)
+    scene = _trefoil(dev)
+    refl, shadow = isect.prop_table(scene, "reflection"), isect.prop_table(scene, "shadow")
+    n = N_MESH
+    o, d, tmax, prim, so, sd, smax = _isect_lanes(n, dev)
+    k = isect.closest_props(refl, o, d, 0.0, tmax, prim)
+    p = isect.isect_plain(refl.kinds, refl.table, refl.ids, o, d, 0.0, tmax, prim, False)
+    kb = isect.anyhit_props(shadow, so, sd, 0.0, smax)
+    pb = isect.isect_plain(shadow.kinds, shadow.table, shadow.ids, so, sd, 0.0, smax, None, True)
     torch.cuda.synchronize()
     if not torch.equal(k[1], p[1]):
         raise AssertionError(f"isect: {int((k[1] != p[1]).sum())} prop ids differ")
@@ -161,11 +229,16 @@ def check_isect(dev) -> dict:
     for a, b in ((k[0], p[0]), (k[2], p[2]), (k[3], p[3])):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
         err = max(err, float((a - b).abs().max()))
-    o, d, prim, tmax = o[:N_MAIN], d[:N_MAIN], prim[:N_MAIN], tmax[:N_MAIN]
+    log(f"isect: {int((p[1] >= 0).sum())} of {n} lanes hit the light, "
+        f"{int(pb.sum())} shadow rays blocked by analytic props")
     return {
         "max_abs_err": err,
-        "ms": time_ms(lambda: isect._isect_cuda(kinds, table, ids, o, d, 1e-4, tmax, prim, False), 20),
-        "plain_ms": time_ms(lambda: isect.isect_plain(kinds, table, ids, o, d, 1e-4, tmax, prim, False), 2, runs=3),
+        "ms": time_ms(lambda: isect.closest_props(refl, o, d, 0.0, tmax, prim), 20),
+        "plain_ms": time_ms(lambda: isect.isect_plain(refl.kinds, refl.table, refl.ids, o, d, 0.0,
+                                                      tmax, prim, False), 2, runs=3),
+        # in: o, d, tmax, primary; out: t, prop id, u, v
+        **bound(n * (29 + 16), n * len(refl.kinds) * OPS_PROP_TEST),
+        "library_ms": None,
     }
 
 
@@ -184,10 +257,20 @@ def check_accum(dev) -> dict:
     torch.cuda.synchronize()
     if not torch.equal(a1, a2):
         raise AssertionError("accum: kernel differs from the plain version")
+    # the one PyTorch call that computes the same flush: an indexed add
+    lanes = torch.nonzero(col >= 0).squeeze(1)
+    m = int(lanes.numel())
+    rows = torch.cat([4 * col[lanes].long() + c for c in range(4)])
+    cols = lanes.repeat(4)
+    vflat = torch.cat([planes[c][lanes] for c in range(4)])
+    a3 = acc.clone()
     return {
         "max_abs_err": float((a1 - a2).abs().max()),
         "ms": time_ms(lambda: flush_columns(a1, col, *planes), 20),
         "plain_ms": time_ms(lambda: flush_plain(a2, col, *planes), 3, runs=3),
+        # col of every lane; 4 values and 4 cells read and written per flushing lane
+        **bound(N_MAIN * 4 + m * (16 + 32), m * 4),
+        "library_ms": time_ms(lambda: a3.index_put_((rows, cols), vflat, accumulate=True), 20),
     }
 
 
@@ -223,7 +306,14 @@ def _shade_state(n, dev, seed=7):
     )
 
 
-def compare_bounce(r1: dict, r2: dict) -> float:
+# live-lane relative tolerances of tests/test_shade_kernel.py: the Cornell
+# bounce's, and the mesh bounce's (interpolated shading normals: 5e-5)
+BOUNCE_TOLS = (("o", 1e-4), ("d", 1e-5), ("bxdf_pdf", 1e-5), ("mis_n", 1e-5), ("throughput", 5e-3))
+MESH_BOUNCE_TOLS = (("o", 1e-4), ("d", 5e-5), ("bxdf_pdf", 5e-5), ("mis_n", 5e-5),
+                    ("throughput", 5e-3))
+
+
+def compare_bounce(r1: dict, r2: dict, tols=BOUNCE_TOLS) -> float:
     """The shade test's rules; returns the largest live-lane abs error."""
     import torch
 
@@ -232,8 +322,7 @@ def compare_bounce(r1: dict, r2: dict) -> float:
             raise AssertionError(f"shade: lane lifecycle field {name!r} differs")
     live = r1["alive"]
     err = 0.0
-    for name, tol in (("o", 1e-4), ("d", 1e-5), ("bxdf_pdf", 1e-5), ("mis_n", 1e-5),
-                      ("throughput", 5e-3)):
+    for name, tol in tols:
         a = r1[name][live].double()
         b = r2[name][live].double()
         rel = float(((a - b).abs() / (a.abs() + 1e-3)).max()) if a.numel() else 0.0
@@ -267,7 +356,7 @@ def check_shade(dev) -> dict:
 
     st, ua, ub = inputs(N_CHECK)
     args = (settings.max_depth, settings.caustics, settings.nee_only)
-    r1 = shade._bounce_cuda(tables, st, ua, ub, *args)
+    r1 = shade.fused_bounce(tables, st, ua, ub, *args)
     r2 = shade.bounce_plain(tables, st, ua, ub, *args)
     torch.cuda.synchronize()
     err = compare_bounce(r1, r2)
@@ -275,29 +364,231 @@ def check_shade(dev) -> dict:
     st, ua, ub = inputs(N_MAIN)
     return {
         "max_abs_err": err,
-        "ms": time_ms(lambda: shade._bounce_cuda(tables, st, ua, ub, *args), 10),
+        "ms": time_ms(lambda: shade.fused_bounce(tables, st, ua, ub, *args), 10),
         "plain_ms": time_ms(lambda: shade.bounce_plain(tables, st, ua, ub, *args), 1, runs=3),
+        # 12 state fields + 7 uniforms in (136 B), 11 state fields out (120 B)
+        **bound(N_MAIN * (136 + 120),
+                N_MAIN * (OPS_SHADE_LANE + 2 * len(tables.kinds) * OPS_PROP_TEST)),
+        "library_ms": None,
     }
 
 
-def _cornell_take(res, spp):
+@functools.lru_cache(maxsize=1)
+def _trefoil(dev):
+    """examples/scenes/trefoil.scene (the bench's 491,520-triangle trefoil),
+    loaded once for the mesh kernels' checks; prints the load and arena
+    build time."""
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    t0 = time.perf_counter()
+    scene = load_scene_file(os.path.join(REPO, "examples/scenes/trefoil.scene"), dev)
+    m = scene.meshes
+    log(f"trefoil scene load + arena build: {time.perf_counter() - t0:.2f} s "
+        f"({m.node_rows.shape[0]} node rows, {m.tri_rows.shape[0]} leaf rows, "
+        f"{m.attr_rows.shape[0]} attribute rows, max depth {m.max_depth})")
+    return scene
+
+
+def _mesh_rays(n, dev, seed=3):
+    """Rays as tests/test_shade_kernel.py's _mesh_state makes them: origins
+    in [-4, 4]^3 aimed at points in [-1.5, 1.5]^3; returns (o, d, target)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 1)
+    o = rng.uniform(-4, 4, size=(n, 3)).astype(np.float32)
+    tgt = rng.uniform(-1.5, 1.5, size=(n, 3)).astype(np.float32)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (o, d, tgt))
+
+
+def _compare_walks(k, p, name) -> float:
+    """Hit records of kernel and plain: ids exact except at exact-t ties,
+    t/u/v within rtol 2e-5. Returns the largest abs error."""
+    import torch
+
+    kt, kp, ku, kv, kprop = k
+    pt, pp, pu, pv, pprop = p
+    bad = ((kp != pp) | (kprop != pprop)) & (kt != pt)
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} hit ids differ away from exact ties")
+    err = 0.0
+    for a, b in ((kt, pt), (ku, pu), (kv, pv)):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def check_traverse(dev) -> dict:
+    import numpy as np
+    import torch
+    from zyg_tpu_torch.ops import traverse
+    from zyg_tpu_torch.scene import trimesh
+    from zyg_tpu_torch.scene.loader import rotation_matrix_from_euler_degrees
+    from zyg_tpu_torch.scene.types import RAY_MAX_T
+
+    def walks(arena, itab, o, d, tmax, primary, any_hit, vis):
+        ray_class = ("camera", "reflection", "shadow")[vis]
+        k = traverse.intersect_instances(arena, itab, o, d, 0.0, tmax, ray_class, primary, any_hit)
+        counts = {"nodes": 0, "leaves": 0}
+        p = traverse.traverse_plain(arena, itab, o, d, 0.0, tmax, vis, primary, any_hit, counts)
+        torch.cuda.synchronize()
+        traverse.check_errors(dev)
+        return k, p, counts
+
+    # a rotated, non-uniformly scaled, translated pair of instances
+    arena, host = trimesh.build_arena([trimesh.make_trefoil_mesh(48, 32)])
+    itab = trimesh.build_instance_table(host, [
+        dict(prop=1, mesh=0, rot=rotation_matrix_from_euler_degrees([30, -50, 70]),
+             pos=np.array([0.3, -0.2, 0.5], np.float32), scale=np.array([0.35, 0.5, 0.3], np.float32)),
+        dict(prop=2, mesh=0, rot=np.eye(3, dtype=np.float32), pos=np.array([-0.5, 0.4, 0.1], np.float32),
+             scale=np.full(3, 0.3, np.float32), vis=(False, True, False)),
+    ])
+    arena, itab = arena.to(dev), itab.to(dev)
+    o, d, _ = _mesh_rays(1 << 16, dev, seed=11)
+    tmax = torch.full((o.shape[0],), RAY_MAX_T, device=dev)
+    prim = torch.arange(o.shape[0], device=dev) % 2 == 0
+    k, p, _ = walks(arena, itab, o, d, tmax, prim, False, 1)
+    _compare_walks(k, p, "traverse (rotated instances)")
+
+    # the bench trefoil at the main path's width
+    scene = _trefoil(dev)
+    arena, itab = scene.meshes, scene.mesh_instances
+    n = N_MESH
+    o, d, tgt = _mesh_rays(n, dev)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    alive = torch.rand(n, generator=g).to(dev) < 0.9
+    prim = torch.rand(n, generator=g).to(dev) < 0.5
+    tmax = torch.where(alive, RAY_MAX_T, 0.0)
+    k, p, counts = walks(arena, itab, o, d, tmax, prim, False, 1)
+    err = _compare_walks(k, p, "traverse")
+    smax = torch.where(alive, (tgt - o).norm(dim=1), 0.0)
+    kb, pb, _ = walks(arena, itab, o, d, smax, None, True, 2)
+    if not torch.equal(kb, pb):
+        raise AssertionError(f"traverse: {int((kb != pb).sum())} any-hit results differ")
+    log(f"traverse: {int((p[1] >= 0).sum())} of {n} rays hit, {int(pb.sum())} shadow rays "
+        f"blocked; the closest-hit walks visited {counts['nodes']} node rows and "
+        f"{counts['leaves']} leaf rows")
+    arena_bytes = (arena.node_rows.numel() + arena.tri_rows.numel()) * 4
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: traverse.intersect_instances(arena, itab, o, d, 0.0, tmax, "reflection",
+                                                           prim), 5),
+        "anyhit_ms": time_ms(lambda: traverse.intersect_instances(arena, itab, o, d, 0.0, smax, "shadow",
+                                                                  any_hit=True), 5),
+        "plain_ms": time_ms(lambda: traverse.traverse_plain(arena, itab, o, d, 0.0, tmax, 1, prim, False),
+                            1, runs=1),
+        # in: o, d, tmax, primary and the arena once; out: t, prim, u, v, prop
+        **bound(n * (29 + 20) + arena_bytes,
+                counts["nodes"] * OPS_NODE + counts["leaves"] * OPS_LEAF + n * OPS_INSTANCE),
+        "library_ms": None,
+    }
+
+
+def compare_surface(r1: dict, r2: dict) -> float:
+    """compare_bounce's rules at the mesh tolerances, plus the NEE lanes
+    exact and their shadow rays within 1e-4 relative and pending values
+    summed within rtol 2e-3."""
+    import torch
+
+    err = compare_bounce(r1, r2, MESH_BOUNCE_TOLS)
+    if not torch.equal(r1["nee_active"], r2["nee_active"]):
+        raise AssertionError("surface: NEE lanes differ")
+    nee = r1["nee_active"]
+    for name in ("shadow_o", "shadow_d", "shadow_tmax"):
+        a, b = r1[name][nee].double(), r2[name][nee].double()
+        rel = float(((a - b).abs() / (a.abs() + 1e-3)).max()) if a.numel() else 0.0
+        if rel >= 1e-4:
+            raise AssertionError(f"surface: {name} relative error {rel} >= 1e-4")
+        err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+    torch.testing.assert_close(r1["nee"].double().sum(0), r2["nee"].double().sum(0), rtol=2e-3,
+                               atol=1e-4)
+    return err
+
+
+def check_surface(dev) -> dict:
+    import torch
+    from zyg_tpu_torch.core.sobol import SobolSampler
+    from zyg_tpu_torch.ops import shade, surface
+    from zyg_tpu_torch.scene import shapes
+    from zyg_tpu_torch.scene.types import RAY_MAX_T
+
+    scene = _trefoil(dev)
+    tables = surface.pack_mesh_tables(scene)
+    n = N_MESH
+    s = _shade_state(n, dev)
+    s.o, s.d, _ = _mesh_rays(n, dev)
+    s.mis_o, s.mis_n = s.o.clone(), s.d.clone()
+    smp = SobolSampler(s.sobol, dim=5)
+    smp.sample_4d()
+    ua = smp.arrays.buffer
+    smp.sample_3d()
+    ub = smp.arrays.buffer
+    hit = shapes.intersect_scene(scene, tables.refl, s.o, s.d, 0.0,
+                                 torch.where(s.alive, RAY_MAX_T, 0.0), primary=s.depth == 0)
+    frag = shapes.build_fragment(scene, hit, s.o, s.d)
+    st = s.fields()
+    st.update(
+        finite=hit.valid() & (hit.t < RAY_MAX_T), p=frag.p, geo_n=frag.geo_n, n=frag.n,
+        mslot=torch.clamp(frag.material, min=0).to(torch.int32),
+        light_id=torch.where(hit.valid(), scene.prop_light[torch.clamp(hit.prop, min=0).long()],
+                             -1).to(torch.int32),
+    )
+    args = (4, True, False)  # the trefoil take: PTMIS at depth 4
+    r1 = surface.surface(tables, st, ua, ub, *args)
+    r2 = surface.surface_plain(tables, st, ua, ub, *args)
+    torch.cuda.synchronize()
+    err = compare_surface(r1, r2)
+
+    def nbytes(fields):
+        return sum((4 if dt != torch.bool else 1) * max(w, 1) for _, dt, w in fields)
+
+    # the lane's fields in (ua/ub: 7 uniforms), its fields out
+    lane_bytes = nbytes(shade._IN_FIELDS + surface.FRAG_FIELDS) + 7 * 4 + nbytes(surface._OUT_FIELDS)
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: surface.surface(tables, st, ua, ub, *args), 10),
+        "plain_ms": time_ms(lambda: surface.surface_plain(tables, st, ua, ub, *args), 1, runs=3),
+        **bound(n * lane_bytes, n * OPS_SURFACE_LANE),
+        "library_ms": None,
+    }
+
+
+def _take(name, res, spp):
     from zyg_tpu_torch.io.take import load_take_file
 
-    take = load_take_file(os.path.join(REPO, "examples/takes/cornell_ptmis.take"))
+    take = load_take_file(os.path.join(REPO, "examples/takes", name))
     take.cameras[0].resolution = res
     take.num_samples_per_pixel = spp
     return take
 
 
+def _golden_gate(card_img, cpu_img, label: str, times: str) -> None:
+    """Mean energy within 1.5 %, 4x4-downsampled RMSE within 6 % of the mean."""
+    import numpy as np
+
+    h, w, _ = cpu_img.shape
+
+    def ds(x):
+        return x.reshape(h // 4, 4, w // 4, 4, 3).mean(axis=(1, 3))
+
+    scale = float(cpu_img.mean())
+    ratio = float(card_img.mean()) / scale
+    rmse4 = float(np.sqrt(np.mean((ds(card_img) - ds(cpu_img)) ** 2))) / scale
+    log(f"{label}: mean ratio {ratio:.6f}, rmse4/mean {rmse4:.6f} ({times})")
+    if not np.isfinite(card_img).all() or abs(ratio - 1.0) >= 0.015 or rmse4 >= 0.06:
+        raise AssertionError(f"{label}: card render disagrees with the plain CPU render")
+
+
 def phase_slice(dev) -> None:
     """128x128, 64 spp on the card (kernels) against the plain CPU path."""
-    import numpy as np
     import torch
     from zyg_tpu_torch.render.driver import Driver
     from zyg_tpu_torch.scene.loader import load_scene_file
 
     torch.set_num_threads(os.cpu_count() or 1)
-    take = _cornell_take((128, 128), 64)
+    take = _take("cornell_ptmis.take", (128, 128), 64)
     scene = load_scene_file(take.scene_filename)
     t0 = time.perf_counter()
     card = Driver(take, scene, device=dev).render_frame()
@@ -305,20 +596,57 @@ def phase_slice(dev) -> None:
     t0 = time.perf_counter()
     cpu = Driver(take, scene, device="cpu").render_frame()
     t_cpu = time.perf_counter() - t0
-
-    def ds(x):
-        return x.reshape(32, 4, 32, 4, 3).mean(axis=(1, 3))
-
-    scale = float(cpu.mean())
-    ratio = float(card.mean()) / scale
-    rmse4 = float(np.sqrt(np.mean((ds(card) - ds(cpu)) ** 2))) / scale
-    log(f"slice 128x128x64: mean ratio {ratio:.6f}, rmse4/mean {rmse4:.6f} "
-        f"(card {t_card:.2f} s, cpu {t_cpu:.2f} s)")
-    if not np.isfinite(card).all() or abs(ratio - 1.0) >= 0.015 or rmse4 >= 0.06:
-        raise AssertionError("slice: card render disagrees with the plain CPU render")
+    _golden_gate(card, cpu, "slice 128x128x64", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
-def profile_render(driver, spp: int) -> None:
+def _ci_trefoil(res, spp):
+    """(take, scene) of the JAX package's CI trefoil (tests/golden_configs.py
+    mesh_trefoil: a 30,720-triangle trefoil under one rectangle light,
+    PTMIS depth 4), built through the port's SceneBuilder."""
+    import numpy as np
+    from zyg_tpu_torch.io.take import IntegratorSettings, Take
+    from zyg_tpu_torch.render.camera import PerspectiveCamera
+    from zyg_tpu_torch.scene import loader, trimesh
+    from zyg_tpu_torch.scene.types import ShapeType
+
+    b = loader.SceneBuilder()
+    grey = b.add_material(loader.MaterialDesc(color=np.full(3, 0.6, np.float32), roughness=0.5))
+    lamp = b.add_material(loader.MaterialDesc(kind=2, emission=np.full(3, 30.0, np.float32)))
+    mid = b.add_mesh(trimesh.make_trefoil_mesh(128, 120))
+    b.add_mesh_prop(mid, loader.Transformation(scale=np.full(3, 0.35, np.float32)), grey)
+    b.add_prop(loader.PropDesc(
+        shape=int(ShapeType.RECTANGLE),
+        trafo=loader.Transformation(position=np.array([0, 4.0, 0], np.float32),
+                                    rotation=np.array([[1, 0, 0], [0, 0, -1], [0, -1, 0]], np.float32),
+                                    scale=np.array([3.0, 3.0, 1], np.float32)),
+        material=lamp, is_light=True, visible_shadow=False,
+    ))
+    take = Take()
+    take.num_samples_per_pixel = spp
+    take.integrator = IntegratorSettings(kind="PTMIS", max_depth_surface=4)
+    cam = PerspectiveCamera(resolution=res, fov=np.deg2rad(50))
+    cam.position = np.array([0, 0.8, -5.5], np.float32)
+    take.cameras = [cam]
+    return take, b.build()
+
+
+def phase_slice_mesh(dev) -> None:
+    """The CI trefoil at 96x56, 16 spp on the card against the plain CPU path."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+
+    take, scene = _ci_trefoil((96, 56), 16)
+    t0 = time.perf_counter()
+    card = Driver(take, scene, device=dev).render_frame()
+    t_card = time.perf_counter() - t0
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = Driver(take, scene, device="cpu").render_frame()
+    t_cpu = time.perf_counter() - t0
+    _golden_gate(card, cpu, "trefoil 96x56x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+
+
+def profile_render(driver, spp: int, label: str, kernels) -> None:
     """Device kernel time of one warm render by kernel, from a torch.profiler
     trace, and the device's busy share of the profiled wall time."""
     import torch
@@ -339,45 +667,51 @@ def profile_render(driver, spp: int) -> None:
         row[0] += e.time_range.elapsed_us() / 1e6
         row[1] += 1
     busy = sum(v[0] for v in by_name.values())
-    groups = {"shade": 0.0, "sobol_block": 0.0, "accum": 0.0, "other": 0.0}
-    for name, (sec, _) in by_name.items():
-        key = next((k for k in ("shade", "sobol_block", "accum") if f"{k}_kernel" in name), "other")
-        groups[key] += sec
+    groups = {k: [0.0, 0] for k in kernels}
+    groups["other"] = [0.0, 0]
+    for name, (sec, count) in by_name.items():
+        key = next((k for k in kernels if f"{k}_kernel" in name), "other")
+        groups[key][0] += sec
+        groups[key][1] += count
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    log(f"profile 1080p: wall {wall:.4f} s (profiled), device busy {busy:.4f} s "
-        f"({100 * busy / wall:.1f} %)" if busy > 0 else "profile 1080p: no device time recorded")
-    for k, v in groups.items():
-        log(f"  {k:12s} {v:.4f} s ({100 * v / max(busy, 1e-12):.1f} % of device time)")
+    log(f"profile {label}: wall {wall:.4f} s (profiled), device busy {busy:.4f} s "
+        f"({100 * busy / wall:.1f} %)" if busy > 0 else f"profile {label}: no device time recorded")
+    for k, (sec, count) in groups.items():
+        log(f"  {k:12s} {sec:.4f} s in {count} launches "
+            f"({100 * sec / max(busy, 1e-12):.1f} % of device time)")
     for name, (sec, count) in top:
         log(f"  {sec:.4f} s {count:6d}x {name[:100]}")
 
 
-def phase_main_path(dev, card: str) -> dict:
-    """Returns the kernel launch counts of the CLI run."""
+def phase_main_path(dev, card: str, label: str, take_name: str, res, spp: int, kernels) -> dict:
+    """A main path: the CLI on the take at its own size, then the Driver at
+    res and spp (warm-up, best of 3, one profiled render). Returns the
+    kernel launch counts of the CLI run."""
     import numpy as np
     import torch
     from zyg_tpu_torch import cli, ops
     from zyg_tpu_torch.render.driver import Driver
     from zyg_tpu_torch.scene.loader import load_scene_file
 
-    # the user's entry point at the take's own 512x512, 16 spp
+    # the user's entry point at the take's own size
     ops.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
-        png = os.path.join(tmp, "cornell.png")
-        rc = cli.main(["-i", os.path.join(REPO, "examples/takes/cornell_ptmis.take"),
-                       "-o", png, "-s"])
+        png = os.path.join(tmp, "out.png")
+        rc = cli.main(["-i", os.path.join(REPO, "examples/takes", take_name), "-o", png, "-s"])
         torch.cuda.synchronize()
         if rc != 0 or os.path.getsize(png) < 1000:
-            raise AssertionError("cli: no image written")
+            raise AssertionError(f"cli {take_name}: no image written")
     launches = ops.launch_counts()
-    log(f"main path (cli 512x512) launches: {launches}")
-    for name in MAIN_PATH_KERNELS:
+    log(f"main path (cli {take_name}) launches: {launches}")
+    for name in kernels:
         if launches[name] <= 0:
-            raise AssertionError(f"main path never launched the {name} kernel")
+            raise AssertionError(f"main path {take_name} never launched the {name} kernel")
 
-    # the 1080p render of the JAX package's bench_cornell
-    take = _cornell_take((1920, 1080), 16)
-    driver = Driver(take, load_scene_file(take.scene_filename), device=dev)
+    take = _take(take_name, res, spp)
+    t0 = time.perf_counter()
+    scene = load_scene_file(take.scene_filename)
+    log(f"{label}: scene load (with any mesh arena build) {time.perf_counter() - t0:.2f} s")
+    driver = Driver(take, scene, device=dev)
     driver.start_frame()
     driver.render_iterations(driver.chunk_size)  # warm-up
     torch.cuda.synchronize()
@@ -392,18 +726,19 @@ def phase_main_path(dev, card: str) -> dict:
         if best is None or dt < best["seconds"]:
             best = {"seconds": dt, "rays": driver.rays_traced,
                     "iterations": driver.last_iterations}
-    counts_1080 = ops.launch_counts()
-    for name in MAIN_PATH_KERNELS:
-        if counts_1080[name] <= 0:
-            raise AssertionError(f"1080p render never launched the {name} kernel")
+    counts = ops.launch_counts()
+    for name in kernels:
+        if counts[name] <= 0:
+            raise AssertionError(f"{label} render never launched the {name} kernel")
     img = driver.resolve()
     if not np.isfinite(img).all() or not img.mean() > 0.0:
-        raise AssertionError("1080p image is not finite with a positive mean")
-    per_render = {k: v // 3 for k, v in counts_1080.items()}
-    log(f"1080p 16spp Cornell PTMIS [{card}]: {best['seconds']:.4f} s, {best['rays']} rays, "
+        raise AssertionError(f"{label} image is not finite with a positive mean")
+    per_render = {k: v // 3 for k, v in counts.items() if v}
+    log(f"{label} {res[0]}x{res[1]} {spp}spp [{card}]: {best['seconds']:.4f} s, {best['rays']} rays, "
         f"{best['iterations']} wavefront iterations, "
         f"{best['rays'] / best['seconds'] / 1e6:.2f} Mrays/s, launches per render {per_render}")
-    profile_render(driver, take.num_samples_per_pixel)
+    profile_render(driver, take.num_samples_per_pixel, f"{label} {res[0]}x{res[1]} [{card}]",
+                   kernels)
     return launches
 
 
@@ -420,25 +755,35 @@ def main() -> int:
 
     checks = {}
     for name, fn in (("sobol_block", check_sobol), ("isect", check_isect),
-                     ("accum", check_accum), ("shade", check_shade)):
+                     ("accum", check_accum), ("shade", check_shade),
+                     ("surface", check_surface), ("traverse", check_traverse)):
         checks[name] = fn(dev)
         c = checks[name]
-        log(f"{name}: ok, max_abs_err {c['max_abs_err']:.3g}, kernel {c['ms']:.4f} ms, "
-            f"plain {c['plain_ms']:.4f} ms [{card}]")
+        lib = f", library {c['library_ms']:.4f} ms" if c["library_ms"] is not None else ""
+        anyhit = f" (any-hit {c['anyhit_ms']:.4f} ms)" if "anyhit_ms" in c else ""
+        log(f"{name}: ok, max_abs_err {c['max_abs_err']:.3g}, kernel {c['ms']:.4f} ms{anyhit}, "
+            f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}){lib} "
+            f"[{card}]")
         torch.cuda.empty_cache()
     phase_slice(dev)
-    launches = phase_main_path(dev, card)
+    phase_slice_mesh(dev)
+    cornell = phase_main_path(dev, card, "Cornell PTMIS", "cornell_ptmis.take", (1920, 1080), 16,
+                              CORNELL_KERNELS)
+    mesh = phase_main_path(dev, card, "trefoil PTMIS", "trefoil.take", MESH_RES, MESH_SPP,
+                           MESH_KERNELS)
 
-    def entry(name, n_launch):
+    def entry(name):
+        # launches: the CLI runs of the main paths the kernel is on
+        n_launch = (cornell[name] if name in CORNELL_KERNELS else 0) + (
+            mesh[name] if name in MESH_KERNELS else 0)
         c = checks[name]
         return {"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": n_launch,
-                "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"]}
+                "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": c["library_ms"]}
 
-    # isect is checked and timed above but is not on the main path (its
-    # prop_hit is inlined in the shade kernel)
-    print(json.dumps({"kernels_off_main_path": [entry("isect", 0)]}))
-    print(json.dumps({"kernels": [entry(k, launches[k]) for k in MAIN_PATH_KERNELS]}))
+    print(json.dumps({"kernels": [entry(k) for k in SOURCES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -54,7 +54,7 @@ def test_closest_matches_pallas_interpret(force_pallas, scenes, ray_class):
             js, js.prop_groups, jnp.asarray(o), jnp.asarray(d), jnp.float32(1e-4),
             jnp.float32(3.0e37), ray_class, jnp.asarray(prim)))
     t, pid, u, v = isect.closest_props(
-        ts, torch.from_numpy(o), torch.from_numpy(d), 1e-4, 3.0e37, ray_class,
+        isect.prop_table(ts, ray_class), torch.from_numpy(o), torch.from_numpy(d), 1e-4, 3.0e37,
         torch.from_numpy(prim))
     np.testing.assert_array_equal(pid.numpy(), jpid)
     _close(t.numpy(), jt)
@@ -73,8 +73,8 @@ def test_anyhit_matches_pallas_interpret(force_pallas, scenes):
         jb = np.asarray(jisect.anyhit_props(
             js, js.prop_groups, jnp.asarray(o), jnp.asarray(d), jnp.float32(1e-4),
             jnp.asarray(tmax)))
-    b = isect.anyhit_props(ts, torch.from_numpy(o), torch.from_numpy(d), 1e-4,
-                           torch.from_numpy(tmax))
+    b = isect.anyhit_props(isect.prop_table(ts, "shadow"), torch.from_numpy(o),
+                           torch.from_numpy(d), 1e-4, torch.from_numpy(tmax))
     np.testing.assert_array_equal(b.numpy(), jb)
 
 

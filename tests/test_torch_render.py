@@ -137,6 +137,15 @@ def test_port_imports_no_jax():
         "take.num_samples_per_pixel = 1\n"
         "img = Driver(take, load_scene_file(take.scene_filename), device='cpu').render_frame()\n"
         "assert img.shape == (8, 8, 3) and img.mean() > 0\n"
+        "import importlib, json, pkgutil\n"
+        "for m in pkgutil.walk_packages(zyg_tpu_torch.__path__, 'zyg_tpu_torch.'):\n"
+        "    if not m.name.endswith('__main__'):  # __main__ runs the CLI\n"
+        "        importlib.import_module(m.name)\n"
+        "from zyg_tpu_torch.scene.loader import load_scene_dict\n"
+        f"root = json.load(open({os.path.join(REPO, 'examples/scenes/trefoil.scene')!r}))\n"
+        "root['entities'][0]['shape']['file'] = 'proc:trefoil-16x8'\n"
+        "img = Driver(take, load_scene_dict(root), device='cpu').render_frame()\n"
+        "assert img.shape == (8, 8, 3) and img.mean() > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'zyg_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

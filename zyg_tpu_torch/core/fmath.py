@@ -1,4 +1,5 @@
-"""Fused multiply-add for the plain torch versions.
+"""Fused multiply-add and a correctly rounded square root for the plain
+torch versions.
 
 The JAX package's arithmetic runs through XLA, whose CPU backend contracts
 a multiply feeding an add into one fused multiply-add, and the port's CUDA
@@ -30,3 +31,11 @@ def dot3(a0, b0, a1, b1, a2, b2):
     """a0*b0 + a1*b1 + a2*b2 as a fused accumulation (the order of XLA's
     3-element reduction): fma(a2, b2, fma(a1, b1, a0 * b0))."""
     return fma(a2, b2, fma(a1, b1, a0 * b0))
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root rounded correctly, as XLA and CUDA's sqrtf (with
+    IEEE square roots) round it: torch's vectorized CPU sqrt is off by one
+    ulp on ~0.6 % of inputs. A float64 root rounded once to float32 is the
+    correctly rounded float32 root."""
+    return torch.sqrt(x.double()).to(torch.float32)

@@ -1,0 +1,84 @@
+"""Batched 3-vector, quaternion and transform math (the part of
+zyg_tpu/core/vecmath.py that the mesh path uses).
+
+Arrays carry the vector on the last axis and broadcast over leading batch
+axes. A transform is (rotation rows, position, scale), rot[i] being the
+i-th object axis in world space (ref composed_transformation.zig).
+
+Products are rounded as XLA rounds the JAX package's jitted bounces on
+the CPU (probed bit for bit): a 3-element reduction is the fused chain
+fma(a2, b2, fma(a1, b1, a0 * b0)) (core/fmath.dot3); in `a*b + c*d` and
+`a*b - c*d` the FIRST product is fused, fma(a, b, +-(c * d)); a third
+product term fuses onto that sum. Scene constants (an instance's
+quaternion and scale) are folded by XLA in plain float32 arithmetic, and
+a division by one becomes a multiplication by its reciprocal.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .fmath import dot3, fma, sqrt
+
+
+def _c(v):
+    return v[..., 0], v[..., 1], v[..., 2]
+
+
+def dot(a, b):
+    a0, a1, a2 = _c(a)
+    b0, b1, b2 = _c(b)
+    return dot3(a0, b0, a1, b1, a2, b2)
+
+
+def cross(a, b):
+    a0, a1, a2 = _c(a)
+    b0, b1, b2 = _c(b)
+    return torch.stack([
+        fma(a1, b2, -(a2 * b1)),
+        fma(a2, b0, -(a0 * b2)),
+        fma(a0, b1, -(a1 * b0)),
+    ], dim=-1)
+
+
+def length(v):
+    return sqrt(torch.clamp(dot(v, v), min=0.0))
+
+
+def safe_normalize(v):
+    return v * (1.0 / torch.clamp(length(v), min=1e-20))[..., None]
+
+
+def quat_to_mat3(q):
+    """Quaternion (x, y, z, w) -> 3x3 rotation, rows = rotated basis axes
+    (ref quaternion.zig toMat3x3). Unfused: in the JAX package's bounces
+    an instance's quaternion is a scene constant, which XLA folds with
+    plain float32 operations."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = 2.0 * x * x, 2.0 * y * y, 2.0 * z * z
+    xy, xz, yz = 2.0 * x * y, 2.0 * x * z, 2.0 * y * z
+    wx, wy, wz = 2.0 * w * x, 2.0 * w * y, 2.0 * w * z
+    r0 = torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], -1)
+    r1 = torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], -1)
+    r2 = torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], -1)
+    return torch.stack([r0, r1, r2], dim=-2)
+
+
+def object_to_world_normal(rot, v):
+    """sum_i v_i * rot[i] (rotation only: the reference's uniform-scale
+    normal transform)."""
+    v0, v1, v2 = (v[..., i : i + 1] for i in range(3))
+    return fma(v2, rot[..., 2, :], fma(v0, rot[..., 0, :], v1 * rot[..., 1, :]))
+
+
+def world_to_object_vector(rot, scale, v):
+    """(v @ rot^T) / scale, the division as a multiplication by 1/scale:
+    XLA's rounding where the transform is a folded scene constant (a
+    scene's instance and prop transforms are, in the JAX package's
+    jitted bounces)."""
+    o = torch.stack([dot(v, rot[..., 0, :]), dot(v, rot[..., 1, :]), dot(v, rot[..., 2, :])], -1)
+    return o * (1.0 / scale)
+
+
+def world_to_object_point(rot, scale, pos, p):
+    return world_to_object_vector(rot, scale, p - pos)

@@ -1,6 +1,8 @@
 """Closest-hit / any-hit over the static analytic props (counterpart of
 zyg_tpu/ops/isect.py). Kernel: csrc/isect.cu; `prop_hit` (csrc/prop_hit.cuh)
-is shared with the fused bounce (ops/shade.py).
+is shared with the fused bounce (ops/shade.py). The mesh path
+(scene/shapes.py) runs it over the analytic props before the mesh
+traversal, with tables packed once per render (`prop_table`).
 
 Formulas are the JAX package's, in the same operation order, written in
 component form so the plain version and the kernel round alike.
@@ -9,6 +11,7 @@ component form so the plain version and the kernel round alike.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -146,6 +149,25 @@ def pack_table(scene, ids: torch.Tensor, ray_class: str) -> torch.Tensor:
     ], dim=1).contiguous()
 
 
+@dataclass
+class PropTable:
+    """A scene's analytic props packed for one ray class."""
+
+    ray_class: str  # "camera", "reflection" or "shadow"
+    kinds: list  # ShapeType codes in table order
+    kinds_t: torch.Tensor  # int32[P] the same codes, on the table's device
+    ids: torch.Tensor  # int32[P] prop id of each row
+    table: torch.Tensor  # float32[P, 17] (pack_table)
+
+
+def prop_table(scene, ray_class: str) -> PropTable:
+    """The scene's analytic props for ray_class, packed once per render."""
+    kinds, ids = static_layout(scene)
+    table = pack_table(scene, ids, ray_class)
+    kinds_t = torch.tensor(kinds, dtype=torch.int32, device=table.device)
+    return PropTable(ray_class, kinds, kinds_t, ids.to(torch.int32), table)
+
+
 def _lanes(o, d, tmax):
     n = o.shape[0]
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=o.device).expand(n).contiguous()
@@ -184,13 +206,13 @@ def isect_plain(kinds, table, ids, o, d, tmin, tmax, primary, any_hit: bool):
     return t_b, pid, u_b, v_b
 
 
-def _isect_cuda(kinds, table, ids, o, d, tmin, tmax, primary, any_hit: bool):
+def _isect_cuda(pt: PropTable, o, d, tmin, tmax, primary, any_hit: bool):
     dev = o.device
     n, tmax = _lanes(o, d, tmax)
-    p = len(kinds)
-    kinds_t = torch.tensor(kinds, dtype=torch.int32, device=dev)
-    ids_t = ids.to(device=dev, dtype=torch.int32).contiguous()
-    check_cuda("isect.table", table, torch.float32, dev, (p, 17))
+    p = len(pt.kinds)
+    check_cuda("isect.table", pt.table, torch.float32, dev, (p, 17))
+    check_cuda("isect.kinds", pt.kinds_t, torch.int32, dev, (p,))
+    check_cuda("isect.ids", pt.ids, torch.int32, dev, (p,))
     check_cuda("isect.o", o, torch.float32, dev, (n, 3))
     check_cuda("isect.d", d, torch.float32, dev, (n, 3))
     if primary is not None:
@@ -202,7 +224,7 @@ def _isect_cuda(kinds, table, ids, o, d, tmin, tmax, primary, any_hit: bool):
                 torch.empty((n,), dtype=torch.int32, device=dev),
                 torch.empty((n,), dtype=torch.float32, device=dev),
                 torch.empty((n,), dtype=torch.float32, device=dev)]
-    ptrs = [table.data_ptr(), kinds_t.data_ptr(), ids_t.data_ptr(), o.data_ptr(),
+    ptrs = [pt.table.data_ptr(), pt.kinds_t.data_ptr(), pt.ids.data_ptr(), o.data_ptr(),
             d.data_ptr(), tmax.data_ptr(), primary.data_ptr() if primary is not None else None]
     ptrs += [x.data_ptr() for x in outs]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -211,19 +233,20 @@ def _isect_cuda(kinds, table, ids, o, d, tmin, tmax, primary, any_hit: bool):
     return outs[0] if any_hit else tuple(outs)
 
 
-def _isect(scene, o, d, tmin, tmax, ray_class, primary, any_hit):
-    kinds, ids = static_layout(scene)
-    table = pack_table(scene, ids, ray_class)
-    fn = isect_plain if o.device.type == "cpu" else _isect_cuda
-    return fn(kinds, table, ids, o, d, tmin, tmax, primary, any_hit)
+def _isect(pt: PropTable, o, d, tmin, tmax, primary, any_hit):
+    if o.device.type == "cpu":
+        return isect_plain(pt.kinds, pt.table, pt.ids, o, d, tmin, tmax, primary, any_hit)
+    return _isect_cuda(pt, o, d, tmin, tmax, primary, any_hit)
 
 
-def closest_props(scene, o, d, tmin, tmax, ray_class: str, primary=None):
-    """Closest hit over the scene's analytic props: (t, prop id or -1, u, v).
-    primary: bool[N] lanes that test camera visibility instead of ray_class's."""
-    return _isect(scene, o, d, tmin, tmax, ray_class, primary, False)
+def closest_props(table: PropTable, o, d, tmin, tmax, primary=None):
+    """Closest hit over the props of table (a prop_table of the scene):
+    (t, prop id or -1, u, v). primary: bool[N] lanes that test camera
+    visibility instead of the table's ray class's."""
+    return _isect(table, o, d, tmin, tmax, primary, False)
 
 
-def anyhit_props(scene, o, d, tmin, tmax):
-    """Shadow any-hit over the scene's analytic props: blocked bool[N]."""
-    return _isect(scene, o, d, tmin, tmax, "shadow", None, True)
+def anyhit_props(table: PropTable, o, d, tmin, tmax):
+    """Any-hit over the props of table (the scene's prop_table("shadow")):
+    blocked bool[N]."""
+    return _isect(table, o, d, tmin, tmax, None, True)

@@ -255,7 +255,8 @@ def _vndf_sample(wo_l, alpha, xi0, xi1):
 
 
 def _substitute_sample(mat, wo, n, geo_n, p_lobe, xi0, xi1):
-    """(wi, weight (3-tuple), pdf, ok)."""
+    """(wi, weight (3-tuple), pdf, ok, regularization alpha: 1 for the
+    diffuse lobe, alpha for the glossy one)."""
     same_side = _vdot(wo, geo_n) > 0.0
     ns = _vwhere(same_side, n, _vneg(n))
     t, b = _onb(ns)
@@ -280,12 +281,13 @@ def _substitute_sample(mat, wo, n, geo_n, p_lobe, xi0, xi1):
     dw = bsel / torch.clamp(e_avg + bsel, min=1e-12)
     dw = torch.where(mat["metallic"] >= 1.0, 0.0, dw)
 
-    wi = _vwhere(p_lobe < dw, wi_diffuse, wi_gloss)
+    take_diffuse = p_lobe < dw
+    wi = _vwhere(take_diffuse, wi_diffuse, wi_gloss)
     f, pdf, _ = _substitute_lobes(mat, wo, wi, ns)
     ok = (_vdot(wi, ns) > 0.0) & (pdf > 1e-10)
     inv_pdf = 1.0 / torch.clamp(pdf, min=1e-10)
     weight = tuple(torch.where(ok, c * inv_pdf, 0.0) for c in f)
-    return wi, weight, pdf, ok
+    return wi, weight, pdf, ok, torch.where(take_diffuse, 1.0, mat["alpha"])
 
 
 # ---------------------------------------------------------------------------
@@ -532,7 +534,7 @@ def bounce_plain(tables: Tables, st: dict, ua: torch.Tensor, ub: torch.Tensor,
     res_in = _vadd(res_in, tuple(torch.where(nee_dir, 0.0, c) for c in nee))
 
     # ---- BSDF sample + PathState merge
-    wi_s, weight, pdf_s, ok_s = _substitute_sample(mat, wo, frag_n, geo_n, s0, s1, s2)
+    wi_s, weight, pdf_s, ok_s, _ = _substitute_sample(mat, wo, frag_n, geo_n, s0, s1, s2)
     valid_s = ok_s & is_sub
     cont = cont & valid_s
     thr_out = tuple(t * torch.where(valid_s, w, 0.0) for t, w in zip(thr, weight))
@@ -621,6 +623,8 @@ _SUPPORTED_KINDS = {int(ShapeType.RECTANGLE), int(ShapeType.CUBE), int(ShapeType
 def structural_ok(scene) -> bool:
     """Can this scene run the fused bounce? (rectangle lights only, analytic
     rectangle/cube/sphere/disk props, substitute and light materials)."""
+    if scene.meshes is not None:
+        return False  # mesh scenes take the mesh bounce (ops/surface.py)
     if scene.lights.count < 1 or scene.lights.count > MAX_LIGHTS:
         return False
     light_shapes = {int(s) for s in scene.prop_shape[scene.lights.prop.long()].tolist()}
@@ -665,16 +669,22 @@ def pack_tables(scene) -> Tables:
         col1(rough * rough), col1(metallic), f0, col1(mats.specular[m]), mats.emission[m],
         col1(mats.two_sided[m]), col1(li), col1(selpdf),
     ], dim=1).contiguous()
+    return Tables(kinds, ptab, pack_ltab(scene), M.fit_table(ptab.device))
+
+
+def pack_ltab(scene) -> torch.Tensor:
+    """[L, 20] light table (layout above), shared with ops/surface.py."""
     L = scene.lights.count
+    cdf = scene.lights.cdf
+    mats = scene.materials
     lprop = scene.lights.prop.long()
     lm = torch.clamp(scene.prop_material[lprop], min=0).long()
-    ltab = torch.cat([
+    return torch.cat([
         cdf[1 : L + 1].reshape(L, 1), (cdf[1 : L + 1] - cdf[0:L]).reshape(L, 1),
         scene.prop_rot[lprop].reshape(L, 9), scene.prop_pos[lprop],
         scene.prop_scale[lprop][:, 0:2], mats.emission[lm],
-        mats.two_sided[lm].to(f32).reshape(L, 1),
+        mats.two_sided[lm].to(torch.float32).reshape(L, 1),
     ], dim=1).contiguous()
-    return Tables(kinds, ptab, ltab, M.fit_table(ptab.device))
 
 
 def make_fused_body(scene, settings):

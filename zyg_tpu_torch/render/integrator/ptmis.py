@@ -1,6 +1,6 @@
 """Wavefront PTMIS on the persistent wavefront (counterpart of
-zyg_tpu/render/integrator/ptmis.py:31-123 and :1049-1540, box filter,
-shuffled lanes, the fused Cornell-class bounce).
+zyg_tpu/render/integrator/ptmis.py:31-123, :326-346 and :1049-1540, box
+filter, shuffled lanes; the fused Cornell-class bounce or the mesh bounce).
 
 ref: src/core/rendering/integrator/surface/pathtracer_mis.zig. Radiance is
 tracked as the reference's IValue triple {emission, direct, indirect} so
@@ -17,8 +17,10 @@ import torch
 
 from ...core.rng import MASK, mul_u32
 from ...core.sobol import SobolArrays, SobolSampler
+from ...ops import traverse
 from ...ops.accum import flush_columns
-from ...ops.shade import make_fused_body
+from ...ops.shade import make_fused_body, structural_ok
+from ...ops.surface import make_mesh_fused_body, structural_ok_mesh
 from ..camera import generate_rays, sample_shutter_time
 from ..sensor import clamp_radiance
 
@@ -93,6 +95,16 @@ class PathState:
         )
 
 
+def _make_body(scene, settings: PtmisSettings):
+    """One wavefront bounce (ptmis.py:326-346): the fused bounce for
+    Cornell-class analytic scenes, the mesh bounce for mesh scenes."""
+    if structural_ok(scene):
+        return make_fused_body(scene, settings)
+    if structural_ok_mesh(scene):
+        return make_mesh_fused_body(scene, settings)
+    raise ValueError("scene is outside both the fused bounce and the mesh bounce")
+
+
 # smallest wavefront-drain stage width (tests lower it to exercise the
 # cascade at tiny dispatch sizes)
 _DRAIN_MIN = 1 << 13
@@ -144,7 +156,7 @@ def integrate_persistent(
         raise ValueError("integrate_persistent: the port renders shuffled dispatches only")
     dev = pixel_ids.device
     n = pixel_ids.shape[0]
-    body = make_fused_body(scene, settings)
+    body = _make_body(scene, settings)
     stride = _coprime_stride(n)
     base = int(pixel_ids[0])
     lanes = torch.arange(n, dtype=torch.int64, device=dev)
@@ -287,4 +299,6 @@ def integrate_persistent(
         tgt = pid_s[fin_s]
         radiance.index_add_(0, tgt, rgb_s[fin_s])
         counts.index_add_(0, tgt, torch.ones_like(tgt, dtype=f32))
+    if scene.meshes is not None and dev.type == "cuda":
+        traverse.check_errors(dev)  # the walks' stack-overflow flag
     return radiance, path.rays, iters, counts

@@ -1,11 +1,13 @@
-"""Host-side scene compiler for the analytic Cornell-class subset
-(counterpart of zyg_tpu/scene/loader.py, plain numpy then torch).
+"""Host-side scene compiler (counterpart of zyg_tpu/scene/loader.py,
+plain numpy then torch).
 
 Supported: Prop and Light entities with analytic Rectangle/Cube/Sphere/Disk
-shapes, nested child entities, Euler or look-at transformations,
-Substitute and Light materials with constant parameters, one rectangle
-light. Everything else raises `UnsupportedScene` — the port renders only
-what its fused bounce covers, and never silently drops a feature.
+shapes or procedural triangle meshes (shape "file": "proc:..."), nested
+child entities, Euler or look-at transformations, Substitute and Light
+materials with constant parameters, one rectangle light. Mesh props become
+instances over one BVH arena (scene/trimesh.py). Everything else raises
+`UnsupportedScene` — the port renders only what its bounces cover, and
+never silently drops a feature.
 """
 
 from __future__ import annotations
@@ -16,23 +18,21 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .types import Lights, Materials, MaterialKind, SceneData, ShapeType
+from ..io.mesh import load_mesh_file
+from .trimesh import HostMesh, InstanceTable, MeshArena, build_arena, build_instance_table
+from .types import Lights, Materials, MaterialKind, SceneData, ShapeType, UnsupportedScene
 
 # CIE 1931 Y weights for linear sRGB primaries (ref srgb.zig luminance)
 LUMINANCE_WEIGHTS = (0.212671, 0.715160, 0.072169)
 
-# analytic shapes the fused bounce intersects (ops/shade.py)
+# analytic shapes the bounces intersect (ops/isect.py)
 _SHAPE_NAMES = {
     "Cube": ShapeType.CUBE,
     "Disk": ShapeType.DISK,
     "Rectangle": ShapeType.RECTANGLE,
     "Sphere": ShapeType.SPHERE,
 }
-_MAX_PROPS = 32
-
-
-class UnsupportedScene(ValueError):
-    """The scene uses a feature outside the port's analytic subset."""
+_MAX_PROPS = 32  # analytic props (ops/shade.py MAX_PROPS)
 
 
 # ---------------------------------------------------------------------------
@@ -201,13 +201,16 @@ class PropDesc:
     visible_reflection: bool = True
     visible_shadow: bool = True
     is_light: bool = False
+    mesh_id: int = -1  # index into SceneBuilder.meshes for mesh props
 
 
 class SceneBuilder:
     def __init__(self):
         self.props: list[PropDesc] = []
         self.materials: list[MaterialDesc] = []
+        self.meshes: list[HostMesh] = []
         self._mat_by_name: dict[str, int] = {}
+        self._mesh_by_name: dict[str, int] = {}
         # fallback material id 0 (ref createFallbackMaterial)
         self._fallback = self.add_material(MaterialDesc(color=np.array([1.0, 0.0, 0.6], np.float32)))
 
@@ -228,6 +231,18 @@ class SceneBuilder:
         self.props.append(desc)
         return len(self.props) - 1
 
+    def add_mesh(self, mesh: HostMesh, name: str | None = None) -> int:
+        if name and name in self._mesh_by_name:
+            return self._mesh_by_name[name]
+        self.meshes.append(mesh)
+        if name:
+            self._mesh_by_name[name] = len(self.meshes) - 1
+        return len(self.meshes) - 1
+
+    def add_mesh_prop(self, mesh_id: int, trafo: Transformation, material: int, **kw) -> int:
+        return self.add_prop(PropDesc(shape=int(ShapeType.TRIANGLE_MESH), trafo=trafo,
+                                      material=material, mesh_id=mesh_id, **kw))
+
     def _light_weight(self, p: PropDesc) -> float:
         """Luminance-weighted emission times emitting area."""
         m = self.materials[p.material]
@@ -242,8 +257,10 @@ class SceneBuilder:
             area = float(np.pi * (0.5 * s[0]) ** 2)
         elif shape == ShapeType.SPHERE:
             area = float(4.0 * np.pi * (0.5 * s[0]) ** 2)
-        else:  # cube
+        elif shape == ShapeType.CUBE:
             area = float(2.0 * (s[0] * s[1] + s[0] * s[2] + s[1] * s[2]))
+        else:
+            raise UnsupportedScene("emissive meshes")
         if m.two_sided:
             area *= 2.0
         return lum * area
@@ -252,8 +269,9 @@ class SceneBuilder:
         props = self.props
         if not props:
             raise UnsupportedScene("scene without props")
-        if len(props) > _MAX_PROPS:
-            raise UnsupportedScene(f"{len(props)} props (at most {_MAX_PROPS})")
+        analytic = [i for i, p in enumerate(props) if p.mesh_id < 0]
+        if len(analytic) > _MAX_PROPS:
+            raise UnsupportedScene(f"{len(analytic)} analytic props (at most {_MAX_PROPS})")
         light_props = [i for i, p in enumerate(props) if p.is_light and self._light_weight(p) > 0.0]
         if len(light_props) != 1:
             # two or more lights select through a light tree in the JAX package
@@ -269,8 +287,9 @@ class SceneBuilder:
             prop_light[pi] = li
 
         groups: dict[int, list[int]] = {}
-        for i, p in enumerate(props):
-            groups.setdefault(p.shape, []).append(i)
+        for i in analytic:
+            groups.setdefault(props[i].shape, []).append(i)
+        meshes, instances = self._build_meshes()
 
         def t(x, dtype):
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
@@ -303,7 +322,25 @@ class SceneBuilder:
                 cdf=t(cdf, f32),
             ),
             prop_groups={k: t(v, i32) for k, v in sorted(groups.items())},
-        )
+            meshes=meshes,
+            mesh_instances=instances,
+        ).to(device)
+
+    def _build_meshes(self):
+        """(arena, instance table) over the mesh props, or (None, None)."""
+        mesh_props = [i for i, p in enumerate(self.props) if p.mesh_id >= 0]
+        if not mesh_props:
+            return None, None
+        arena, host = build_arena(self.meshes)
+        instances = []
+        for i in mesh_props:
+            p = self.props[i]
+            instances.append({
+                "prop": i, "mesh": p.mesh_id, "rot": p.trafo.rotation,
+                "pos": p.trafo.position, "scale": p.trafo.scale,
+                "vis": (p.visible_camera, p.visible_reflection, p.visible_shadow),
+            })
+        return arena, build_instance_table(host, instances)
 
 
 _ENTITY_KEYS = {"type", "shape", "materials", "transformation", "visibility",
@@ -319,9 +356,19 @@ def _load_entities(entities, parent: Transformation, local_materials, builder: S
         if extra:
             raise UnsupportedScene(f"entity keys {sorted(extra)}")
         trafo = parent.compose(read_transformation(e.get("transformation")))
-        stype = e.get("shape", {}).get("type")
-        if stype not in _SHAPE_NAMES:
-            raise UnsupportedScene(f"shape {e.get('shape')!r}")
+        shape_node = e.get("shape", {})
+        stype = shape_node.get("type")
+        mesh_id = -1
+        if stype in _SHAPE_NAMES:
+            shape = int(_SHAPE_NAMES[stype])
+        elif "file" in shape_node:
+            fname = shape_node["file"]
+            mesh_id = builder._mesh_by_name.get(fname, -1)
+            if mesh_id < 0:
+                mesh_id = builder.add_mesh(load_mesh_file(fname), fname)
+            shape = int(ShapeType.TRIANGLE_MESH)
+        else:
+            raise UnsupportedScene(f"shape {shape_node!r}")
         mat_names = e.get("materials", [])
         mat = builder.material_id(mat_names[0], local_materials) if mat_names else builder._fallback
         is_light = etype == "Light"
@@ -329,13 +376,14 @@ def _load_entities(entities, parent: Transformation, local_materials, builder: S
         # lights default to non-occluding (ref scene_loader.zig loadProp)
         occluding = bool(e.get("occluding", not is_light))
         builder.add_prop(PropDesc(
-            shape=int(_SHAPE_NAMES[stype]),
+            shape=shape,
             trafo=trafo,
             material=mat,
             visible_camera=bool(vis.get("in_camera", True)),
             visible_reflection=bool(vis.get("in_reflection", True)),
             visible_shadow=occluding and bool(vis.get("in_shadow", True)),
             is_light=is_light,
+            mesh_id=mesh_id,
         ))
         if "entities" in e:
             _load_entities(e["entities"], trafo, local_materials, builder)
@@ -364,11 +412,15 @@ _PLAIN = ("prop_shape", "prop_rot", "prop_pos", "prop_scale", "prop_material",
 _MATERIAL = ("kind", "color", "roughness", "metallic", "ior", "specular", "emission",
              "two_sided")
 _LIGHT = ("prop", "two_sided", "cdf")
+_ARENA = ("node_rows", "tri_rows", "attr_rows", "mesh_root")
+_INSTANCES = ("wmin", "wmax", "trafo", "vis")
 
 
 def scene_arrays(scene) -> dict[str, np.ndarray]:
-    """The fields this path reads, as numpy arrays, from either package's
-    SceneData: keys "prop_*", "materials.<f>", "lights.<f>", "prop_groups.<shape>"."""
+    """The fields the port reads, as numpy arrays, from either package's
+    SceneData: keys "prop_*", "materials.<f>", "lights.<f>",
+    "prop_groups.<shape>", and for mesh scenes "meshes.<f>" (with
+    "meshes.max_depth") and "mesh_instances.<f>"."""
     def arr(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -376,6 +428,14 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     d.update({f"materials.{k}": arr(getattr(scene.materials, k)) for k in _MATERIAL})
     d.update({f"lights.{k}": arr(getattr(scene.lights, k)) for k in _LIGHT})
     d.update({f"prop_groups.{int(k)}": arr(v) for k, v in (scene.prop_groups or {}).items()})
+    if scene.meshes is not None:
+        m = scene.meshes
+        d.update({f"meshes.{k}": arr(getattr(m, k)) for k in _ARENA})
+        # the JAX arena carries its depth as the static key of `meta`
+        depth = m.max_depth if hasattr(m, "max_depth") else next(iter(m.meta))[0]
+        d["meshes.max_depth"] = np.asarray(depth, np.int64)
+        d.update({f"mesh_instances.{k}": arr(getattr(scene.mesh_instances, k))
+                  for k in _INSTANCES})
     return d
 
 
@@ -386,9 +446,16 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
         return torch.as_tensor(np.array(d[k]), device=device)
 
     groups = {int(k.split(".", 1)[1]): t(k) for k in d if k.startswith("prop_groups.")}
+    meshes = instances = None
+    if "meshes.node_rows" in d:
+        meshes = MeshArena(**{k: t(f"meshes.{k}") for k in _ARENA},
+                           max_depth=int(d["meshes.max_depth"]))
+        instances = InstanceTable(**{k: t(f"mesh_instances.{k}") for k in _INSTANCES})
     return SceneData(
         **{k: t(k) for k in _PLAIN},
         materials=Materials(**{k: t(f"materials.{k}") for k in _MATERIAL}),
         lights=Lights(**{k: t(f"lights.{k}") for k in _LIGHT}),
         prop_groups=dict(sorted(groups.items())),
+        meshes=meshes,
+        mesh_instances=instances,
     )

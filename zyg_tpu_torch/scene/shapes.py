@@ -1,0 +1,123 @@
+"""Scene intersection, shadow visibility and the shading fragment for the
+mesh path (counterpart of zyg_tpu/scene/shapes.py:232 intersect_scene,
+:504 occluded, :616 build_fragment; static props). The ray offsets of the
+bounce are in ops/surface.py's kernel and plain version.
+
+A closest hit tests the analytic props first (ops/isect.py, kernel 2),
+then walks the mesh instances bounded by that hit (ops/traverse.py); a
+shadow ray tests the analytic props, then walks the meshes only where
+nothing blocked it yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..core import vecmath as vm
+from ..core.encoding import oct_normal_unpack
+from ..core.fmath import fma
+from ..ops import isect, traverse
+from .types import ShapeType
+
+
+@dataclass
+class Hit:
+    t: torch.Tensor  # float32[N] (isect.FAR on a miss)
+    prop: torch.Tensor  # int32[N] prop id, -1 on a miss
+    u: torch.Tensor  # float32[N]
+    v: torch.Tensor  # float32[N]
+    prim: torch.Tensor  # int32[N] padded arena triangle id, -1 off meshes
+
+    def valid(self) -> torch.Tensor:
+        return self.prop >= 0
+
+
+@dataclass
+class Fragment:
+    p: torch.Tensor  # [N, 3] hit point
+    geo_n: torch.Tensor  # [N, 3] geometric normal
+    n: torch.Tensor  # [N, 3] shading normal
+    material: torch.Tensor  # int32[N] material id of the hit prop
+
+
+def intersect_scene(scene, table: isect.PropTable, o, d, tmin: float, tmax, primary=None) -> Hit:
+    """Closest hit over all props for the ray class of table (the scene's
+    isect.prop_table); `primary` lanes use camera visibility."""
+    t_b, p_b, u_b, v_b = isect.closest_props(table, o, d, tmin, tmax, primary)
+    prim = torch.full_like(p_b, -1)
+    if scene.meshes is not None:
+        tmax_t = torch.as_tensor(tmax, dtype=torch.float32, device=o.device)
+        th, tp, tu, tv, tprop = traverse.intersect_instances(
+            scene.meshes, scene.mesh_instances, o, d, tmin, torch.minimum(tmax_t, t_b),
+            table.ray_class, primary=primary,
+        )
+        closer = tp >= 0  # the walk was bounded by the analytic hit
+        t_b = torch.where(closer, th, t_b)
+        p_b = torch.where(closer, tprop, p_b)
+        u_b = torch.where(closer, tu, u_b)
+        v_b = torch.where(closer, tv, v_b)
+        prim = torch.where(closer, tp, prim)
+    return Hit(t_b, p_b, u_b, v_b, prim)
+
+
+def occluded(scene, table: isect.PropTable, o, d, tmin: float, tmax) -> torch.Tensor:
+    """Any-hit visibility of shadow rays: True = blocked. table: the
+    scene's isect.prop_table("shadow")."""
+    blocked = isect.anyhit_props(table, o, d, tmin, tmax)
+    if scene.meshes is not None:
+        tmax_t = torch.as_tensor(tmax, dtype=torch.float32, device=o.device)
+        blocked = blocked | traverse.intersect_instances(
+            scene.meshes, scene.mesh_instances, o, d, tmin,
+            torch.where(blocked, tmin, tmax_t),  # already blocked: skip the walk
+            "shadow", any_hit=True,
+        )
+    return blocked
+
+
+def build_fragment(scene, hit: Hit, o, d) -> Fragment:
+    """Hit point, geometric and shading normals and material of the closest
+    hit (the shape branches present in the scene; no uv or tangents)."""
+    present = {int(k) for k in scene.prop_groups}
+    prop = torch.clamp(hit.prop, min=0).long()
+    shape = scene.prop_shape[prop]
+    rot = scene.prop_rot[prop]
+    pos = scene.prop_pos[prop]
+    scale = scene.prop_scale[prop]
+    p = o + hit.t[:, None] * d
+    r0, r1, r2 = rot[:, 0], rot[:, 1], rot[:, 2]
+
+    n_vals = {}
+    for st in (ShapeType.RECTANGLE, ShapeType.DISK):
+        if int(st) in present:
+            n_vals[int(st)] = r2
+    if int(ShapeType.SPHERE) in present:
+        n_vals[int(ShapeType.SPHERE)] = vm.safe_normalize(p - pos)
+    if int(ShapeType.CUBE) in present:
+        lp = vm.world_to_object_point(rot, scale, pos, p)
+        ax, ay, az = (0.5 - torch.abs(lp[:, k]) for k in range(3))
+        use_x = (ax <= ay) & (ax <= az)
+        use_y = (~use_x) & (ay <= az)
+        face_n = torch.where(use_x[:, None], r0, torch.where(use_y[:, None], r1, r2))
+        comp = torch.where(use_x, lp[:, 0], torch.where(use_y, lp[:, 1], lp[:, 2]))
+        n_vals[int(ShapeType.CUBE)] = torch.sign(comp)[:, None] * face_n
+    n = -d
+    for i, (st, val) in enumerate(n_vals.items()):
+        n = val if i == 0 else torch.where((shape == st)[:, None], val, n)
+    geo_n = n
+
+    if scene.meshes is not None:
+        is_mesh = ((shape == int(ShapeType.TRIANGLE_MESH)) & (hit.prim >= 0))[:, None]
+        row = scene.meshes.attr_rows[torch.clamp(hit.prim, min=0).long()]
+        gn_l = vm.safe_normalize(vm.cross(row[:, 3:6], row[:, 6:9]))
+        u, v = hit.u[:, None], hit.v[:, None]
+        w0 = 1.0 - hit.u - hit.v
+        tn = oct_normal_unpack(row[:, 9:12].contiguous().view(torch.int32))  # [N, 3, 3]
+        ns_l = fma(v, tn[:, 2], fma(w0[:, None], tn[:, 0], u * tn[:, 1]))
+        # normals turn by the rotation only (the reference's uniform-scale
+        # assumption, composed_transformation.zig objectToWorldNormal)
+        geo_n = torch.where(is_mesh, vm.safe_normalize(vm.object_to_world_normal(rot, gn_l)), geo_n)
+        n = torch.where(is_mesh, vm.safe_normalize(vm.object_to_world_normal(rot, ns_l)), n)
+    return Fragment(p=p, geo_n=geo_n, n=n, material=scene.prop_material[prop])
+

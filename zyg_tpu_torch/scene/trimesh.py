@@ -1,0 +1,461 @@
+"""Triangle meshes: the 8-wide BVH arena and the mesh instance table
+(counterpart of zyg_tpu/scene/trimesh.py, static meshes).
+
+Host side, numpy: per mesh a binary SAH tree (scene/bvh.py, C++) is
+collapsed into 8-wide node rows whose leaves are groups of up to 12
+triangles, and all meshes are packed into one arena. The arrays are the
+JAX package's, element for element, so a hit record (t, u, v, padded arena
+triangle id group*12 + j) means the same in both packages:
+
+- node_rows[W, 64]: one 8-wide node per row, structure of arrays within
+  the row: [0:8] min.x [8:16] min.y [16:24] min.z [24:32] max.x
+  [32:40] max.y [40:48] max.z [48:56] child refs [56:64] pad. A child ref
+  (float32, exact below 2^24) >= 0 is a wide node, <= -2 the leaf
+  triangle group -(ref + 2), -1 an empty slot.
+- tri_rows[G, 108]: a leaf's 12 triangles as (p0, e1, e2); padding
+  triangles are degenerate (never hit).
+- attr_rows[G*12, 20]: per padded triangle [0:3] p0 [3:6] e1 [6:9] e2
+  [9:12] oct-snorm16x2 vertex normal words (bit patterns in float32)
+  [12:18] uv [18] part [19] pad.
+
+Mesh props are instances over the arena (InstanceTable): world AABB,
+quaternion, position, scale, root node, prop id and visibility. The
+traversal over both is ops/traverse.py.
+
+Motion meshes (shutter-end positions) and animated instances are refused.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .bvh import FlatBVH, build_bvh
+from .types import UnsupportedScene, to_device
+
+LEAF_SIZE = 12  # triangles per leaf row (padded)
+COLLAPSE_GRAN = 4  # binary leaf size before the wide collapse
+BRANCH = 8  # wide-BVH branching factor
+# a wide slot whose subtree holds <= LEAF_COLLECT triangles becomes
+# ceil(cnt / LEAF_SIZE) evenly chunked leaf groups
+LEAF_COLLECT = LEAF_SIZE
+ROW_FLOATS = 8 * BRANCH
+
+
+@dataclass
+class MeshArena:
+    """All meshes of a scene, concatenated (layouts in the module docstring)."""
+
+    node_rows: torch.Tensor  # float32[W, 64]
+    tri_rows: torch.Tensor  # float32[G, 108]
+    attr_rows: torch.Tensor  # float32[G*12, 20]
+    mesh_root: torch.Tensor  # int32[K] root wide node per mesh
+    max_depth: int  # wide-tree depth (the traversal stack needs max_depth + 1)
+
+    def to(self, device) -> "MeshArena":
+        return to_device(self, device)
+
+
+@dataclass
+class InstanceTable:
+    """Mesh instances (ref prop_tree.zig): one row per mesh prop.
+
+    trafo[I, 24]: q(4) pos(3) scale(3), the same again for the shutter end
+    (a static scene repeats the start), root node, prop id, pad(2).
+    """
+
+    wmin: torch.Tensor  # float32[I, 3] world AABB
+    wmax: torch.Tensor  # float32[I, 3]
+    trafo: torch.Tensor  # float32[I, 24]
+    vis: torch.Tensor  # bool[I, 3] camera / reflection / shadow
+
+    def to(self, device) -> "InstanceTable":
+        return to_device(self, device)
+
+
+class HostMesh(NamedTuple):
+    """Host-side mesh description before arena packing."""
+
+    positions: np.ndarray  # [V, 3]
+    indices: np.ndarray  # [F, 3]
+    normals: np.ndarray | None = None  # [V, 3]
+    uvs: np.ndarray | None = None  # [V, 2]
+    parts: np.ndarray | None = None  # [F] part id
+    positions_end: np.ndarray | None = None  # [V, 3] deforming meshes (refused)
+
+
+def _subtree_ranges(bvh: FlatBVH):
+    """Per-node [lo, hi) range over leaf-order primitive positions: the
+    builder partitions prim_order, so every subtree owns a contiguous
+    range, and DFS numbering lets one reverse sweep fill them bottom-up."""
+    fp = bvh.first_prim
+    hl = bvh.hit_link
+    ml = bvh.miss_link
+    lo = np.where(fp >= 0, fp, 0).astype(np.int64)
+    hi = np.where(fp >= 0, fp + bvh.prim_count, 0).astype(np.int64)
+    for i in range(fp.shape[0] - 1, -1, -1):
+        if fp[i] < 0:
+            left = hl[i]
+            right = ml[left]
+            lo[i] = min(lo[left], lo[right])
+            hi[i] = max(hi[left], hi[right])
+    return lo, hi
+
+
+def _pack_wide(bvh: FlatBVH, group_off: int, node_off: int, tri_min, tri_max):
+    """Collapse the binary tree into BRANCH-wide rows, forming the
+    LEAF_SIZE-triangle leaf groups during the collapse (Ylitie et al.
+    2017 style): a slot whose subtree fits in LEAF_COLLECT triangles
+    becomes evenly chunked leaf groups over its contiguous prim range; the
+    largest-area slot still too big is expanded into its children while
+    the row's slot budget allows.
+
+    tri_min/tri_max: [P, 3] per-triangle AABBs in leaf order.
+    Returns (rows [W, 64] float32, depth, leaf group ranges [(lo, hi)])
+    with child refs offset by node_off (wide) and group_off (groups)."""
+    fp = bvh.first_prim
+    hl = bvh.hit_link
+    B = BRANCH
+    is_leaf = fp >= 0
+    slo, shi = _subtree_ranges(bvh)
+    cnt = shi - slo
+    ext = np.maximum(bvh.nodes_max - bvh.nodes_min, 0.0)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+
+    def children(i):
+        left = int(hl[i])
+        return left, int(bvh.miss_link[left])
+
+    def n_chunks(s):
+        return max(1, -(-int(cnt[s]) // LEAF_SIZE))
+
+    def chunks(s):
+        lo, hi = int(slo[s]), int(shi[s])
+        k = n_chunks(s)
+        bounds = [lo + ((hi - lo) * j) // k for j in range(k + 1)]
+        return [(bounds[j], bounds[j + 1]) for j in range(k)]
+
+    def wide(s, demoted):
+        return s in demoted or (cnt[s] > LEAF_COLLECT and not is_leaf[s])
+
+    # breadth first over wide rows; each queue entry is one binary node
+    order = [0]
+    depths = [0]
+    wide_of = {0: 0}
+    slot_lists = []  # (slots, demoted) per wide row
+    qi = 0
+    while qi < len(order):
+        b = order[qi]
+        dep = depths[qi]
+        qi += 1
+        demoted: set = set()
+        if cnt[b] <= LEAF_COLLECT or is_leaf[b]:
+            S = [b]  # pure leaf row
+        else:
+            S = list(children(b))
+
+            def slot_cost(s):
+                return 1 if wide(s, demoted) else n_chunks(s)
+
+            total = sum(slot_cost(s) for s in S)
+            # two leaf-destined children can overflow the row: demote the
+            # costliest to its own pure-leaf row
+            while total > B:
+                x = max((s for s in S if slot_cost(s) > 1), key=slot_cost)
+                total -= slot_cost(x) - 1
+                demoted.add(x)
+            while True:
+                cand = [s for s in S if cnt[s] > LEAF_COLLECT and not is_leaf[s]
+                        and s not in demoted]
+                cand.sort(key=lambda s: -area[s])
+                for x in cand:
+                    c0, c1 = children(x)
+                    nt = total - 1 + slot_cost(c0) + slot_cost(c1)
+                    if nt <= B:
+                        S.remove(x)
+                        S.extend((c0, c1))
+                        total = nt
+                        break
+                else:
+                    break
+        for s in S:
+            if wide(s, demoted):
+                wide_of[s] = len(order)
+                order.append(s)
+                depths.append(dep + 1)
+        slot_lists.append((S, demoted))
+
+    rows = np.zeros((len(slot_lists), ROW_FLOATS), np.float32)
+    rows[:, 6 * B : 7 * B] = -1.0
+    granges: list[tuple[int, int]] = []
+    for wi, (S, demoted) in enumerate(slot_lists):
+        k = 0
+        for s in S:
+            if wide(s, demoted):
+                boxes = [(bvh.nodes_min[s], bvh.nodes_max[s], float(wide_of[s] + node_off))]
+            else:
+                boxes = []
+                for lo, hi in chunks(s):
+                    boxes.append((tri_min[lo:hi].min(axis=0), tri_max[lo:hi].max(axis=0),
+                                  -float(len(granges) + group_off + 2)))
+                    granges.append((lo, hi))
+            for bmin, bmax, ref in boxes:
+                for a in range(3):
+                    rows[wi, a * B + k] = bmin[a]
+                    rows[wi, (3 + a) * B + k] = bmax[a]
+                rows[wi, 6 * B + k] = ref
+                k += 1
+        assert k <= B
+    return rows, max(depths) + 1, granges
+
+
+def _mesh_bounds(pos, idx):
+    v0, v1, v2 = pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]
+    return np.minimum(np.minimum(v0, v1), v2), np.maximum(np.maximum(v0, v1), v2)
+
+
+def build_arena(meshes: list[HostMesh]) -> tuple[MeshArena, dict]:
+    """Build per-mesh wide BVHs and pack them into one arena (CPU tensors).
+    Also returns host copies {"node_rows", "mesh_root"} for the instance
+    table build."""
+    from ..core.encoding import oct_normal_pack
+
+    all_rows, all_trirows, all_attr, roots = [], [], [], []
+    node_off = group_off = 0
+    max_depth = 1
+    for mesh in meshes:
+        if mesh.positions_end is not None:
+            raise UnsupportedScene("deforming meshes (shutter-end positions)")
+        pos = np.asarray(mesh.positions, np.float32)
+        idx = np.asarray(mesh.indices, np.int32)
+        bvh = build_bvh(*_mesh_bounds(pos, idx), leaf_size=COLLAPSE_GRAN)
+        order = bvh.prim_order
+        p0 = pos[idx[order, 0]]
+        e1 = pos[idx[order, 1]] - p0
+        e2 = pos[idx[order, 2]] - p0
+        if mesh.normals is not None:
+            nrm = np.asarray(mesh.normals, np.float32)
+            tn = np.stack([nrm[idx[order, k]] for k in range(3)], axis=1)
+        else:
+            gn = np.cross(e1, e2)
+            gn /= np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
+            tn = np.repeat(gn[:, None, :], 3, axis=1)
+        if mesh.uvs is not None:
+            uv = np.asarray(mesh.uvs, np.float32)
+            tuv = np.stack([uv[idx[order, k]] for k in range(3)], axis=1)
+        else:
+            tuv = np.zeros((len(order), 3, 2), np.float32)
+        part = (np.asarray(mesh.parts, np.int32)[order] if mesh.parts is not None
+                else np.zeros(len(order), np.int32))
+
+        # per-triangle AABBs in leaf order for the collapse's chunk boxes
+        t_lo = np.minimum(np.minimum(p0, p0 + e1), p0 + e2)
+        t_hi = np.maximum(np.maximum(p0, p0 + e1), p0 + e2)
+        rows, depth, granges = _pack_wide(bvh, group_off, node_off, t_lo, t_hi)
+        max_depth = max(max_depth, depth)
+
+        # scatter the leaf-order triangles into LEAF_SIZE-aligned groups
+        g_first = np.array([g[0] for g in granges], np.int64)
+        g_cnt = np.array([g[1] - g[0] for g in granges], np.int64)
+        num_groups = len(granges)
+        total = int(g_cnt.sum())
+        within = np.arange(total) - np.repeat(np.cumsum(g_cnt) - g_cnt, g_cnt)
+        src = np.repeat(g_first, g_cnt) + within
+        dst = np.repeat(np.arange(num_groups) * LEAF_SIZE, g_cnt) + within
+        tp = num_groups * LEAF_SIZE
+        pp0 = np.zeros((tp, 3), np.float32)
+        pe1 = np.zeros((tp, 3), np.float32)
+        pe2 = np.zeros((tp, 3), np.float32)
+        pn = np.zeros((tp, 3, 3), np.float32)
+        puv = np.zeros((tp, 3, 2), np.float32)
+        ppart = np.zeros(tp, np.int32)
+        pp0[dst] = p0[src]
+        pe1[dst] = e1[src]
+        pe2[dst] = e2[src]
+        pn[dst] = tn[src]
+        puv[dst] = tuv[src]
+        ppart[dst] = part[src]
+        tri_rows = np.concatenate(
+            [pp0.reshape(num_groups, -1, 3), pe1.reshape(num_groups, -1, 3),
+             pe2.reshape(num_groups, -1, 3)], axis=2,
+        ).reshape(num_groups, LEAF_SIZE * 9)
+
+        attr = np.zeros((tp, 20), np.float32)
+        attr[:, 0:3] = pp0
+        attr[:, 3:6] = pe1
+        attr[:, 6:9] = pe2
+        attr[:, 9:12] = np.ascontiguousarray(oct_normal_pack(pn).astype(np.uint32)).view(np.float32)
+        attr[:, 12:18] = puv.reshape(tp, 6)
+        attr[:, 18] = ppart.astype(np.float32)
+        all_rows.append(rows)
+        all_trirows.append(tri_rows)
+        all_attr.append(attr)
+        roots.append(node_off)
+        node_off += rows.shape[0]
+        group_off += num_groups
+
+    host_nodes = np.concatenate(all_rows, axis=0)
+    host_roots = np.array(roots, np.int32)
+    arena = MeshArena(
+        node_rows=torch.from_numpy(host_nodes),
+        tri_rows=torch.from_numpy(np.concatenate(all_trirows, axis=0)),
+        attr_rows=torch.from_numpy(np.concatenate(all_attr, axis=0)),
+        mesh_root=torch.from_numpy(host_roots),
+        max_depth=int(max_depth),
+    )
+    return arena, {"node_rows": host_nodes, "mesh_root": host_roots}
+
+
+def _np_quat(rot) -> np.ndarray:
+    """Rotation rows -> quaternion (x, y, z, w), w >= 0, in the convention
+    core/vecmath.quat_to_mat3 inverts."""
+    m = np.asarray(rot, np.float64)
+    tr = m[0, 0] + m[1, 1] + m[2, 2]
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2
+        q = np.array([(m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s,
+                      (m[1, 0] - m[0, 1]) / s, 0.25 * s])
+    elif m[0, 0] > m[1, 1] and m[0, 0] > m[2, 2]:
+        s = np.sqrt(1.0 + m[0, 0] - m[1, 1] - m[2, 2]) * 2
+        q = np.array([0.25 * s, (m[0, 1] + m[1, 0]) / s,
+                      (m[0, 2] + m[2, 0]) / s, (m[2, 1] - m[1, 2]) / s])
+    elif m[1, 1] > m[2, 2]:
+        s = np.sqrt(1.0 + m[1, 1] - m[0, 0] - m[2, 2]) * 2
+        q = np.array([(m[0, 1] + m[1, 0]) / s, 0.25 * s,
+                      (m[1, 2] + m[2, 1]) / s, (m[0, 2] - m[2, 0]) / s])
+    else:
+        s = np.sqrt(1.0 + m[2, 2] - m[0, 0] - m[1, 1]) * 2
+        q = np.array([(m[0, 2] + m[2, 0]) / s, (m[1, 2] + m[2, 1]) / s,
+                      0.25 * s, (m[1, 0] - m[0, 1]) / s])
+    if q[3] < 0.0:
+        q = -q
+    return q.astype(np.float32)
+
+
+def build_instance_table(host: dict, instances: list[dict]) -> InstanceTable:
+    """Instance table on the host. host: build_arena's numpy copies;
+    instances: per mesh prop {"prop", "mesh", "rot" [3, 3], "pos" [3],
+    "scale" [3], "vis" (3 bools)}."""
+    node_rows = host["node_rows"]
+    mesh_root = host["mesh_root"]
+    ninst = len(instances)
+    wmin = np.empty((ninst, 3), np.float32)
+    wmax = np.empty((ninst, 3), np.float32)
+    trafo = np.zeros((ninst, 24), np.float32)
+    vis = np.zeros((ninst, 3), bool)
+    B = BRANCH
+    for i, ins in enumerate(instances):
+        if "rot1" in ins:
+            raise UnsupportedScene("animated mesh instances")
+        root = int(mesh_root[ins["mesh"]])
+        # root box = union of the root row's child slots
+        row = node_rows[root]
+        filled = row[6 * B : 7 * B] != -1.0
+        bmin = np.array([row[k * B : (k + 1) * B][filled].min() for k in range(3)])
+        bmax = np.array([row[k * B : (k + 1) * B][filled].max() for k in range(3, 6)])
+        corners = np.array([[bmin[k] if (j >> k) & 1 == 0 else bmax[k] for k in range(3)]
+                            for j in range(8)], np.float64)
+        rot = np.asarray(ins["rot"], np.float64)
+        w = (corners * np.asarray(ins["scale"], np.float64)) @ rot + np.asarray(ins["pos"], np.float64)
+        wmin[i] = w.min(axis=0)
+        wmax[i] = w.max(axis=0)
+        trafo[i, 0:4] = _np_quat(ins["rot"])
+        trafo[i, 4:7] = ins["pos"]
+        trafo[i, 7:10] = ins["scale"]
+        trafo[i, 10:20] = trafo[i, 0:10]
+        trafo[i, 20] = float(root)
+        trafo[i, 21] = float(ins["prop"])
+        vis[i] = ins.get("vis", (True, True, True))
+    return InstanceTable(wmin=torch.from_numpy(wmin), wmax=torch.from_numpy(wmax),
+                         trafo=torch.from_numpy(trafo), vis=torch.from_numpy(vis))
+
+
+# ---------------------------------------------------------------------------
+# procedural meshes (the `proc:` shapes of io/mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def make_cube_mesh() -> HostMesh:
+    """Unit cube [-0.5, 0.5]^3, 12 triangles, outward winding."""
+    v = np.array([[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5) for z in (-0.5, 0.5)],
+                 np.float32)
+    # vertex index = x*4 + y*2 + z
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    faces = []
+    for a, b, c, d in quads:
+        faces += [(a, b, c), (a, c, d)]
+    return HostMesh(positions=v, indices=np.array(faces, np.int32))
+
+
+def make_trefoil_mesh(n_seg: int = 512, n_ring: int = 256, tube_r: float = 0.35,
+                      bumps: float = 0.12) -> HostMesh:
+    """A trefoil-knot tube with a bumpy displacement, 2*n_seg*n_ring
+    triangles (the bench's 512x480 is 491,520)."""
+    t = np.linspace(0, 2 * np.pi, n_seg, endpoint=False)
+    c = np.stack([np.sin(t) + 2.0 * np.sin(2 * t), np.cos(t) - 2.0 * np.cos(2 * t),
+                  -np.sin(3 * t)], -1)
+    # frame along the centerline by finite differences
+    tang = np.roll(c, -1, axis=0) - np.roll(c, 1, axis=0)
+    tang /= np.linalg.norm(tang, axis=-1, keepdims=True)
+    n1 = np.cross(tang, np.array([0.0, 0.0, 1.0]))
+    bad = np.linalg.norm(n1, axis=-1) < 1e-6
+    n1[bad] = np.cross(tang[bad], np.array([1.0, 0.0, 0.0]))
+    n1 /= np.linalg.norm(n1, axis=-1, keepdims=True)
+    n2 = np.cross(tang, n1)
+
+    ph = np.linspace(0, 2 * np.pi, n_ring, endpoint=False)
+    cosp, sinp = np.cos(ph), np.sin(ph)
+    T, P = np.meshgrid(t, ph, indexing="ij")
+    r = tube_r * (1.0 + bumps * np.sin(9 * T) * np.cos(7 * P)
+                  + 0.5 * bumps * np.sin(23 * T + 3 * P))
+    pos = (
+        c[:, None, :]
+        + (r * cosp[None, :])[..., None] * n1[:, None, :]
+        + (r * sinp[None, :])[..., None] * n2[:, None, :]
+    ).reshape(-1, 3).astype(np.float32)
+    uv = np.stack([T / (2 * np.pi), P / (2 * np.pi)], -1).reshape(-1, 2).astype(np.float32)
+
+    def vid(i, j):
+        return (i % n_seg) * n_ring + (j % n_ring)
+
+    i = np.arange(n_seg)[:, None]
+    j = np.arange(n_ring)[None, :]
+    a, b, cc, dd = vid(i, j), vid(i + 1, j), vid(i + 1, j + 1), vid(i, j + 1)
+    faces = np.concatenate([np.stack([a, cc, b], -1).reshape(-1, 3),
+                            np.stack([a, dd, cc], -1).reshape(-1, 3)]).astype(np.int32)
+    # smooth vertex normals by area-weighted face accumulation
+    v0, v1, v2 = pos[faces[:, 0]], pos[faces[:, 1]], pos[faces[:, 2]]
+    fn = np.cross(v1 - v0, v2 - v0)
+    nrm = np.zeros_like(pos)
+    for k in range(3):
+        np.add.at(nrm, faces[:, k], fn)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+    return HostMesh(positions=pos, indices=faces, normals=nrm.astype(np.float32), uvs=uv)
+
+
+def make_sphere_mesh(n_theta: int = 32, n_phi: int = 64, radius: float = 0.5) -> HostMesh:
+    th = np.linspace(0, np.pi, n_theta + 1)
+    ph = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    TH, PH = np.meshgrid(th, ph, indexing="ij")
+    pos = np.stack([np.sin(TH) * np.cos(PH), np.cos(TH), np.sin(TH) * np.sin(PH)],
+                   -1).reshape(-1, 3).astype(np.float32)
+    nrm = pos.copy()
+    pos = pos * radius
+    uv = np.stack([PH / (2 * np.pi), TH / np.pi], -1).reshape(-1, 2).astype(np.float32)
+
+    def vid(i, j):
+        return i * n_phi + (j % n_phi)
+
+    faces = []
+    for i in range(n_theta):
+        for j in range(n_phi):
+            a, b = vid(i, j), vid(i, j + 1)
+            c, d = vid(i + 1, j + 1), vid(i + 1, j)
+            if i > 0:
+                faces.append((a, b, c))
+            if i < n_theta - 1:
+                faces.append((a, c, d))
+    return HostMesh(positions=pos, indices=np.array(faces, np.int32), normals=nrm, uvs=uv)

@@ -1,8 +1,9 @@
 """Scene container on torch tensors (counterpart of zyg_tpu/scene/types.py).
 
-Holds only the fields the analytic Cornell-class path reads: per-prop
-transforms, shape and material ids, visibility, the material table, the
-light records with their power CDF, and the props grouped by shape type.
+Holds only the fields the port's paths read: per-prop transforms, shape
+and material ids, visibility, the material table, the light records with
+their power CDF, the analytic props grouped by shape type, and, for mesh
+scenes, the triangle arena and the mesh instance table (scene/trimesh.py).
 """
 
 from __future__ import annotations
@@ -12,6 +13,10 @@ from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
+
+
+class UnsupportedScene(ValueError):
+    """The scene uses a feature outside what the port renders."""
 
 
 class ShapeType(enum.IntEnum):
@@ -42,9 +47,11 @@ class MaterialKind(enum.IntEnum):
 RAY_MAX_T = float(np.float32(2.14748313e9))  # ref ray_offset.zig RayMaxT
 
 
-def _to(obj, device):
+def to_device(obj, device):
+    """A copy of the dataclass `obj` with its tensor fields on `device`."""
     return type(obj)(**{
-        f.name: getattr(obj, f.name).to(device) for f in fields(obj)
+        f.name: v.to(device) if isinstance(v, torch.Tensor) else v
+        for f in fields(obj) for v in (getattr(obj, f.name),)
     })
 
 
@@ -60,7 +67,7 @@ class Materials:
     two_sided: torch.Tensor  # bool[M]
 
     def to(self, device) -> "Materials":
-        return _to(self, device)
+        return to_device(self, device)
 
 
 @dataclass
@@ -74,7 +81,7 @@ class Lights:
         return self.prop.shape[0]
 
     def to(self, device) -> "Lights":
-        return _to(self, device)
+        return to_device(self, device)
 
 
 @dataclass
@@ -90,8 +97,11 @@ class SceneData:
     prop_light: torch.Tensor  # int32[P] light index, -1 if not a light
     materials: Materials
     lights: Lights
-    # {shape_type: int32[G] prop ids}, ascending shape type
+    # {shape_type: int32[G] prop ids} of the analytic props, ascending
+    # shape type (mesh props are in mesh_instances instead)
     prop_groups: dict
+    meshes: object = None  # trimesh.MeshArena, or None without meshes
+    mesh_instances: object = None  # trimesh.InstanceTable, or None
 
     def to(self, device) -> "SceneData":
         out = {}
@@ -100,5 +110,5 @@ class SceneData:
             if f.name == "prop_groups":
                 out[f.name] = {k: g.to(device) for k, g in v.items()}
             else:
-                out[f.name] = v.to(device)
+                out[f.name] = v if v is None else v.to(device)
         return SceneData(**out)
