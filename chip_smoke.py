@@ -25,7 +25,8 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
  4. a 128x128, 64 spp Cornell render on the card against the port's plain
     CPU render: mean energy within 1.5%, 4x4-downsampled RMSE within 6%
     of the mean (the JAX package's golden-gate statistics)
- 4b. the same gate for the 30,720-triangle trefoil at 96x56, 16 spp
+ 4b. the same gate for the 30,720-triangle trefoil at 96x56, 16 spp, and
+    4c. for the CI textured trefoil under a baked sky dome at 96x56, 16 spp
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
@@ -36,6 +37,14 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     8 spp), then the Driver at 1280x720 and 4 spp over the 491,520-triangle
     trefoil; sobol_block, isect, surface, traverse and accum must each have
     launched; the same report and profile
+ 5c. the textured main path: bench.py's textured trefoil (512^2 checker
+    albedo and noise roughness textures, a grey ground, a 256x128 Preetham
+    sky on a Dome light) through the Driver at 1280x720, 4 spp, depth 4;
+    sobol_block, isect, surface_v2, traverse and accum must each have
+    launched; the same report and profile
+ 6. one bounce of the mesh bounce (kernel 5) against one of the general
+    bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
+    directly, timed in turns (CUDA events, medians)
 Each main path is driven with the launch counts set to 0 just before it
 and read just after. The line before the last is the JSON kernel report;
 the last line is {"ok": true, "device": {...}}.
@@ -65,6 +74,7 @@ REPLACES = {
     "shade": "zyg_tpu/ops/shade.py:394",
     "accum": "zyg_tpu/ops/accum.py:31",
     "surface": "zyg_tpu/ops/shade.py:917",
+    "surface_v2": "zyg_tpu/ops/shade.py:1362",
     # not a TPU kernel: the JAX package walks the BVH in XLA
     "traverse": "zyg_tpu/scene/trimesh.py:1053",
 }
@@ -74,10 +84,12 @@ SOURCES = {
     "shade": "zyg_tpu_torch/csrc/shade.cu",
     "accum": "zyg_tpu_torch/csrc/accum.cu",
     "surface": "zyg_tpu_torch/csrc/surface.cu",
+    "surface_v2": "zyg_tpu_torch/csrc/surface_v2.cu",
     "traverse": "zyg_tpu_torch/csrc/traverse.cu",
 }
 CORNELL_KERNELS = ("sobol_block", "shade", "accum")
 MESH_KERNELS = ("sobol_block", "isect", "surface", "traverse", "accum")
+TEXTURED_KERNELS = ("sobol_block", "isect", "surface_v2", "traverse", "accum")
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -89,6 +101,10 @@ OPS_SOBOL_LANE = 530  # 32-bit x 5-dim direction loop, 6 scrambles, seed hash
 OPS_PROP_TEST = 45  # one analytic prop hit test
 OPS_SHADE_LANE = 2500  # fused bounce without its prop tests
 OPS_SURFACE_LANE = 2500  # the mesh bounce between the traversals
+# the general shade core: two substitute lobe evaluations (~420 each: six
+# energy-fit chains of 49 or 7 fused steps), the VNDF and cosine samples,
+# MIS, roulette, merge and the ray offset
+OPS_SURFACE_V2_LANE = 1200
 OPS_NODE = 8 * 30  # one wide node: 8 slab tests, keys, nearest child, push
 OPS_LEAF = 12 * 55  # one leaf: 12 Moller-Trumbore tests and the min
 OPS_INSTANCE = 60  # one instance: AABB entry, pick, ray to object space
@@ -278,6 +294,7 @@ def _shade_state(n, dev, seed=7):
     """The lane state of tests/test_torch_shade.py (Cornell, camera-ish rays)."""
     import numpy as np
     import torch
+    from zyg_tpu_torch.core.rng import hash_u32, to_i32
     from zyg_tpu_torch.core.sobol import SobolSampler
     from zyg_tpu_torch.render.integrator.ptmis import IValue, PathState
 
@@ -302,7 +319,7 @@ def _shade_state(n, dev, seed=7):
         bxdf_pdf=t(pdf), singular=t(singular), depth=t(depth),
         rays=torch.zeros((), dtype=torch.int64, device=dev),
         sobol=SobolSampler.start_pixel(ids, torch.zeros_like(ids)).arrays,
-        mis_o=t(o), mis_n=t(d), pid=ids,
+        vol_key=to_i32(hash_u32(ids)), mis_o=t(o), mis_n=t(d), pid=ids,
     )
 
 
@@ -517,9 +534,7 @@ def check_surface(dev) -> dict:
     scene = _trefoil(dev)
     tables = surface.pack_mesh_tables(scene)
     n = N_MESH
-    s = _shade_state(n, dev)
-    s.o, s.d, _ = _mesh_rays(n, dev)
-    s.mis_o, s.mis_n = s.o.clone(), s.d.clone()
+    s = _surface_lanes(n, dev)
     smp = SobolSampler(s.sobol, dim=5)
     smp.sample_4d()
     ua = smp.arrays.buffer
@@ -551,6 +566,55 @@ def check_surface(dev) -> dict:
         "ms": time_ms(lambda: surface.surface(tables, st, ua, ub, *args), 10),
         "plain_ms": time_ms(lambda: surface.surface_plain(tables, st, ua, ub, *args), 1, runs=3),
         **bound(n * lane_bytes, n * OPS_SURFACE_LANE),
+        "library_ms": None,
+    }
+
+
+def _surface_lanes(n, dev):
+    """The mesh checks' lane state: rays from [-4, 4]^3 aimed into
+    [-1.5, 1.5]^3 (they hit the knot, the ground, a light or the dome)."""
+    s = _shade_state(n, dev)
+    s.o, s.d, _ = _mesh_rays(n, dev)
+    s.mis_o, s.mis_n = s.o.clone(), s.d.clone()
+    return s
+
+
+def check_surface_v2(dev) -> dict:
+    """Kernel 6 on the bench textured scene's own lane inputs: the general
+    bounce's glue output for one bounce of 921,600 lanes."""
+    import torch
+    from zyg_tpu_torch.ops import surface_v2
+    from zyg_tpu_torch.render.integrator.ptmis import PtmisSettings
+
+    _, scene = _textured(dev, ci=False)
+    body = surface_v2.make_mesh_fused_body_v2(scene, PtmisSettings(max_depth=4))
+    n = N_MESH
+    st, ua, ub, *_ = body.inputs(_surface_lanes(n, dev))
+    args = (4, True, False)  # the bench's PTMIS at depth 4
+    r1 = surface_v2.surface_v2(body.fit, st, ua, ub, *args)
+    r2 = surface_v2.surface_v2_plain(st, ua, ub, *args)
+    torch.cuda.synchronize()
+    err = compare_bounce(r1, r2, MESH_BOUNCE_TOLS)
+    if not torch.equal(r1["nee_active"], r2["nee_active"]):
+        raise AssertionError("surface_v2: NEE lanes differ")
+    nee = r1["nee_active"]
+    torch.testing.assert_close(r1["shadow_tmax"][nee], r2["shadow_tmax"][nee], rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(r1["nee"].double().sum(0), r2["nee"].double().sum(0), rtol=2e-3,
+                               atol=1e-4)
+    textured = int((st["finite"] & (st["mat_kind"] == 0)).sum())
+    log(f"surface_v2: {int(st['alive'].sum())} live lanes, {textured} on surfaces, "
+        f"{int(nee.sum())} NEE lanes, {int(st['is_light'].sum())} on the dome")
+
+    def nbytes(fields):
+        return sum((4 if dt != torch.bool else 1) * max(w, 1) for _, dt, w in fields)
+
+    # the lane's fields in (u_rr and the 3 BSDF uniforms), its fields out
+    lane_bytes = nbytes(surface_v2.IN_FIELDS) + 4 * 4 + nbytes(surface_v2.OUT_FIELDS)
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: surface_v2.surface_v2(body.fit, st, ua, ub, *args), 10),
+        "plain_ms": time_ms(lambda: surface_v2.surface_v2_plain(st, ua, ub, *args), 1, runs=3),
+        **bound(n * lane_bytes, n * OPS_SURFACE_V2_LANE),
         "library_ms": None,
     }
 
@@ -630,6 +694,84 @@ def _ci_trefoil(res, spp):
     return take, b.build()
 
 
+@functools.lru_cache(maxsize=2)
+def _textured(dev, ci: bool):
+    """(take, scene) of bench.py's textured trefoil (bench_mesh_textured:
+    512^2 checker albedo and noise roughness textures on the 491,520-
+    triangle trefoil, a grey ground, a 256x128 Preetham sky baked onto a
+    Dome light; 1280x720, 4 spp, PTMIS depth 4), or with ci=True the JAX
+    package's CI copy (tests/test_shade_kernel.py textured_env_scene: 64^2
+    textures, a 32x16 sky, the 48x32 trefoil; 96x56, 16 spp), built through
+    the port's SceneBuilder from the same numpy recipes and seeds."""
+    import numpy as np
+    from zyg_tpu_torch.io.take import IntegratorSettings, Take
+    from zyg_tpu_torch.render.camera import PerspectiveCamera
+    from zyg_tpu_torch.scene import loader, trimesh
+    from zyg_tpu_torch.scene.sky import bake_sky
+    from zyg_tpu_torch.scene.types import ShapeType
+
+    t0 = time.perf_counter()
+    size, cell = (64, 8) if ci else (512, 32)
+    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    checker = ((xx // cell + yy // cell) % 2).astype(np.float32)
+    albedo = np.stack([0.15 + 0.6 * checker, 0.35 + 0.3 * (1 - checker), 0.25 + 0.1 * checker], -1)
+    if ci:
+        rough = np.clip(0.4 + 0.3 * np.sin(xx * 0.3) * np.cos(yy * 0.2), 0.05, 1.0)
+    else:
+        rng = np.random.RandomState(7)
+        rough = np.clip(0.35 + 0.3 * np.sin(xx * 0.11) * np.cos(yy * 0.07)
+                        + 0.1 * rng.rand(512, 512), 0.05, 1.0)
+    b = loader.SceneBuilder()
+    tex_c = b.add_texture_image(albedo.astype(np.float32))
+    tex_r = b.add_texture_image(rough.astype(np.float32)[..., None])
+    mat = b.add_material(loader.MaterialDesc(roughness=0.5, color_tex=tex_c, roughness_tex=tex_r))
+    grey = b.add_material(loader.MaterialDesc(color=np.full(3, 0.4, np.float32), roughness=0.9))
+    sun_dir = np.array([0.35, -0.65, 0.4], np.float32)
+    sun_dir /= np.linalg.norm(sun_dir)
+    sky = bake_sky(sun_dir, turbidity=2.8, width=32 if ci else 256, height=16 if ci else 128)
+    tex_sky = b.add_texture_image(np.asarray(sky, np.float32))
+    skym = b.add_material(loader.MaterialDesc(kind=2, emission_tex=tex_sky,
+                                              emission=np.ones(3, np.float32)))
+    mid = b.add_mesh(trimesh.make_trefoil_mesh(*((48, 32) if ci else (512, 480))))
+    b.add_mesh_prop(mid, loader.Transformation(scale=np.full(3, 0.35, np.float32)), mat)
+    b.add_prop(loader.PropDesc(
+        shape=int(ShapeType.RECTANGLE),
+        trafo=loader.Transformation(position=np.array([0, -1.6, 0], np.float32),
+                                    rotation=np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], np.float32),
+                                    scale=np.array([10.0, 10.0, 1], np.float32)),
+        material=grey,
+    ))
+    b.add_prop(loader.PropDesc(shape=int(ShapeType.DOME), trafo=loader.Transformation(),
+                               material=skym, is_light=True))
+    scene = b.build(dev)
+    take = Take()
+    take.num_samples_per_pixel = 16 if ci else MESH_SPP
+    take.integrator = IntegratorSettings(kind="PTMIS", max_depth_surface=4)
+    cam = PerspectiveCamera(resolution=(96, 56) if ci else MESH_RES, fov=np.deg2rad(50))
+    cam.position = np.array([0, 0.8, -5.5], np.float32)
+    take.cameras = [cam]
+    log(f"textured trefoil ({'CI' if ci else 'bench'}) scene build: "
+        f"{time.perf_counter() - t0:.2f} s")
+    return take, scene
+
+
+def phase_slice_textured(dev) -> None:
+    """The CI textured trefoil at 96x56, 16 spp on the card against the
+    plain CPU path."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+
+    take, scene = _textured(dev, ci=True)
+    t0 = time.perf_counter()
+    card = Driver(take, scene, device=dev).render_frame()
+    t_card = time.perf_counter() - t0
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = Driver(take, scene, device="cpu").render_frame()
+    t_cpu = time.perf_counter() - t0
+    _golden_gate(card, cpu, "textured trefoil 96x56x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+
+
 def phase_slice_mesh(dev) -> None:
     """The CI trefoil at 96x56, 16 spp on the card against the plain CPU path."""
     import torch
@@ -683,17 +825,12 @@ def profile_render(driver, spp: int, label: str, kernels) -> None:
         log(f"  {sec:.4f} s {count:6d}x {name[:100]}")
 
 
-def phase_main_path(dev, card: str, label: str, take_name: str, res, spp: int, kernels) -> dict:
-    """A main path: the CLI on the take at its own size, then the Driver at
-    res and spp (warm-up, best of 3, one profiled render). Returns the
-    kernel launch counts of the CLI run."""
-    import numpy as np
+def _cli_run(take_name: str, kernels) -> dict:
+    """The user's entry point at the take's own size; returns its kernel
+    launch counts."""
     import torch
     from zyg_tpu_torch import cli, ops
-    from zyg_tpu_torch.render.driver import Driver
-    from zyg_tpu_torch.scene.loader import load_scene_file
 
-    # the user's entry point at the take's own size
     ops.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "out.png")
@@ -706,11 +843,29 @@ def phase_main_path(dev, card: str, label: str, take_name: str, res, spp: int, k
     for name in kernels:
         if launches[name] <= 0:
             raise AssertionError(f"main path {take_name} never launched the {name} kernel")
+    return launches
+
+
+def _take_scene(take_name, res, spp, label):
+    from zyg_tpu_torch.scene.loader import load_scene_file
 
     take = _take(take_name, res, spp)
     t0 = time.perf_counter()
     scene = load_scene_file(take.scene_filename)
     log(f"{label}: scene load (with any mesh arena build) {time.perf_counter() - t0:.2f} s")
+    return take, scene
+
+
+def phase_main_path(dev, card: str, label: str, take, scene, kernels) -> dict:
+    """A main path through the Driver at the take's resolution and spp:
+    warm-up, best of 3, one profiled render. Returns the kernel launches
+    of one render."""
+    import numpy as np
+    import torch
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.render.driver import Driver
+
+    res, spp = take.cameras[0].resolution, take.num_samples_per_pixel
     driver = Driver(take, scene, device=dev)
     driver.start_frame()
     driver.render_iterations(driver.chunk_size)  # warm-up
@@ -720,7 +875,7 @@ def phase_main_path(dev, card: str, label: str, take_name: str, res, spp: int, k
     for _ in range(3):
         driver.start_frame()
         t0 = time.perf_counter()
-        driver.render_iterations(take.num_samples_per_pixel)
+        driver.render_iterations(spp)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if best is None or dt < best["seconds"]:
@@ -733,13 +888,40 @@ def phase_main_path(dev, card: str, label: str, take_name: str, res, spp: int, k
     img = driver.resolve()
     if not np.isfinite(img).all() or not img.mean() > 0.0:
         raise AssertionError(f"{label} image is not finite with a positive mean")
-    per_render = {k: v // 3 for k, v in counts.items() if v}
+    per_render = {k: v // 3 for k, v in counts.items()}
     log(f"{label} {res[0]}x{res[1]} {spp}spp [{card}]: {best['seconds']:.4f} s, {best['rays']} rays, "
         f"{best['iterations']} wavefront iterations, "
-        f"{best['rays'] / best['seconds'] / 1e6:.2f} Mrays/s, launches per render {per_render}")
-    profile_render(driver, take.num_samples_per_pixel, f"{label} {res[0]}x{res[1]} [{card}]",
-                   kernels)
-    return launches
+        f"{best['rays'] / best['seconds'] / 1e6:.2f} Mrays/s, image mean {float(img.mean()):.6f}, "
+        f"launches per render {({k: v for k, v in per_render.items() if v})}")
+    profile_render(driver, spp, f"{label} {res[0]}x{res[1]} [{card}]", kernels)
+    return per_render
+
+
+def measure_bounces(dev, card: str) -> None:
+    """One bounce of the mesh bounce (kernel 5) and of the general bounce
+    (kernel 6), each built directly, on the same 921,600-lane state over
+    the bench trefoil (rectangle light, no textures), timed in turns
+    (v1, v2, v2, v1) with CUDA events; medians."""
+    import torch
+    from zyg_tpu_torch.ops import surface, surface_v2
+    from zyg_tpu_torch.render.integrator.ptmis import PtmisSettings
+
+    scene = _trefoil(dev)
+    settings = PtmisSettings(max_depth=4)
+    v1 = surface.make_mesh_fused_body(scene, settings)
+    v2 = surface_v2.make_mesh_fused_body_v2(scene, settings)
+    s = _surface_lanes(N_MESH, dev)
+    r1, r2 = v1(s), v2(s)
+    torch.cuda.synchronize()
+    same = {k: bool(torch.equal(getattr(r1, k), getattr(r2, k))) for k in ("alive", "depth", "rays")}
+    times = {"v1": [], "v2": []}
+    for name in ("v1", "v2", "v2", "v1"):
+        body = v1 if name == "v1" else v2
+        times[name].append(time_ms(lambda: body(s), 5))
+    t1, t2 = statistics.median(times["v1"]), statistics.median(times["v2"])
+    log(f"bounce on the bench trefoil, {N_MESH} lanes [{card}]: mesh bounce (kernel 5) "
+        f"{t1:.4f} ms, general bounce (kernel 6) {t2:.4f} ms (runs v1 {times['v1']}, "
+        f"v2 {times['v2']}); lifecycles equal {same}")
 
 
 def main() -> int:
@@ -756,7 +938,8 @@ def main() -> int:
     checks = {}
     for name, fn in (("sobol_block", check_sobol), ("isect", check_isect),
                      ("accum", check_accum), ("shade", check_shade),
-                     ("surface", check_surface), ("traverse", check_traverse)):
+                     ("surface", check_surface), ("surface_v2", check_surface_v2),
+                     ("traverse", check_traverse)):
         checks[name] = fn(dev)
         c = checks[name]
         lib = f", library {c['library_ms']:.4f} ms" if c["library_ms"] is not None else ""
@@ -767,18 +950,29 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_slice(dev)
     phase_slice_mesh(dev)
-    cornell = phase_main_path(dev, card, "Cornell PTMIS", "cornell_ptmis.take", (1920, 1080), 16,
-                              CORNELL_KERNELS)
-    mesh = phase_main_path(dev, card, "trefoil PTMIS", "trefoil.take", MESH_RES, MESH_SPP,
-                           MESH_KERNELS)
+    phase_slice_textured(dev)
+    # launches: the CLI runs of the Cornell and trefoil paths and one render
+    # of the textured path
+    launches = {k: 0 for k in SOURCES}
+    for take_name, label, res, spp, kernels in (
+            ("cornell_ptmis.take", "Cornell PTMIS", (1920, 1080), 16, CORNELL_KERNELS),
+            ("trefoil.take", "trefoil PTMIS", MESH_RES, MESH_SPP, MESH_KERNELS)):
+        cli_counts = _cli_run(take_name, kernels)
+        for k in launches:
+            launches[k] += cli_counts[k]
+        phase_main_path(dev, card, label, *_take_scene(take_name, res, spp, label), kernels)
+    textured = phase_main_path(dev, card, "textured trefoil PTMIS", *_textured(dev, ci=False),
+                               TEXTURED_KERNELS)
+    for k in launches:
+        launches[k] += textured[k]
+    measure_bounces(dev, card)
 
     def entry(name):
-        # launches: the CLI runs of the main paths the kernel is on
-        n_launch = (cornell[name] if name in CORNELL_KERNELS else 0) + (
-            mesh[name] if name in MESH_KERNELS else 0)
         c = checks[name]
         return {"name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": n_launch,
+                "replaces": REPLACES[name], "launches": launches[name],
+                "launches_of": "cli cornell_ptmis.take + cli trefoil.take + one 1280x720 4 spp "
+                               "textured-trefoil render",
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"]}

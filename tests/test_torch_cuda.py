@@ -19,12 +19,14 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("kernel", ["sobol_block", "isect", "accum", "shade", "surface", "traverse"])
+@pytest.mark.parametrize("kernel", ["sobol_block", "isect", "accum", "shade", "surface", "traverse",
+                                    "surface_v2"])
 def test_kernel_matches_plain_on_card(cuda_device, kernel):
     import chip_smoke
 
     check = {"sobol_block": chip_smoke.check_sobol, "isect": chip_smoke.check_isect,
              "accum": chip_smoke.check_accum, "shade": chip_smoke.check_shade,
-             "surface": chip_smoke.check_surface, "traverse": chip_smoke.check_traverse}[kernel]
+             "surface": chip_smoke.check_surface, "traverse": chip_smoke.check_traverse,
+             "surface_v2": chip_smoke.check_surface_v2}[kernel]
     result = check(cuda_device)  # raises on any disagreement
     assert result["ms"] > 0.0

@@ -42,6 +42,25 @@ def test_scene_from_jax_arrays_roundtrip(jax_scene):
     assert list(port.prop_groups) == [1, 5]
 
 
+def test_textured_scene_from_jax_arrays_roundtrip():
+    """The textured-trefoil-under-a-dome scene (test_shade_kernel.py's
+    textured_env_scene): texture arena, material texture ids and the env
+    alias table carry across array-equal."""
+    import zyg_tpu.scene.loader as jl
+    import zyg_tpu.scene.types as jt
+    from test_torch_surface_v2 import textured_env_scene
+    from zyg_tpu.scene import trimesh
+    from zyg_tpu.scene.sky import bake_sky
+    from zyg_tpu_torch.scene.loader import scene_arrays, scene_from_jax_arrays
+
+    d = scene_arrays(textured_env_scene(jl, trimesh, bake_sky, jt.ShapeType))
+    assert {"textures.data", "textures.address", "env.table", "env.width",
+            "materials.emission_tex"} <= set(d)
+    port = scene_from_jax_arrays(d, "cpu")
+    _assert_same_arrays(d, scene_arrays(port))
+    assert (port.env.width, port.env.height) == (32, 16)
+
+
 def test_euler_rotation_matches_jax():
     from zyg_tpu.scene.loader import rotation_matrix_from_euler_degrees as jrot
     from zyg_tpu_torch.scene.loader import rotation_matrix_from_euler_degrees as trot

@@ -97,6 +97,7 @@ def _jax_state(a):
 
 
 def _port_state(a):
+    from zyg_tpu_torch.core.rng import hash_u32, to_i32
     from zyg_tpu_torch.core.sobol import SobolSampler
     from zyg_tpu_torch.render.integrator.ptmis import IValue, PathState
 
@@ -108,7 +109,7 @@ def _port_state(a):
         alive=t(a["alive"]), bxdf_pdf=t(a["pdf"]), singular=t(a["singular"]),
         depth=t(a["depth"]), rays=torch.zeros((), dtype=torch.int64),
         sobol=SobolSampler.start_pixel(ids, torch.zeros_like(ids)).arrays,
-        mis_o=t(a["o"]), mis_n=t(a["d"]), pid=ids,
+        vol_key=to_i32(hash_u32(ids)), mis_o=t(a["o"]), mis_n=t(a["d"]), pid=ids,
     )
 
 

@@ -49,6 +49,11 @@ def hash_combine(seed: torch.Tensor, v) -> torch.Tensor:
     return (seed ^ ((v + ((seed << 6) & MASK) + (seed >> 2)) & MASK)) & MASK
 
 
+def hash2_u32(key: torch.Tensor, counter) -> torch.Tensor:
+    """Two-word mix: distinct streams per key, distinct draws per counter."""
+    return hash_u32(hash_combine(hash_u32(key), counter))
+
+
 def u32_to_float(bits: torch.Tensor) -> torch.Tensor:
     """uint32 -> float32 in [0, 1) via the mantissa trick."""
     f = to_i32((u32(bits) >> 9) | 0x3F800000).view(torch.float32)

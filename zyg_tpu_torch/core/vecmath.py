@@ -71,13 +71,17 @@ def object_to_world_normal(rot, v):
     return fma(v2, rot[..., 2, :], fma(v0, rot[..., 0, :], v1 * rot[..., 1, :]))
 
 
+def world_to_object_normal(rot, v):
+    """(v . rot[0], v . rot[1], v . rot[2]): rotation only."""
+    return torch.stack([dot(v, rot[..., 0, :]), dot(v, rot[..., 1, :]), dot(v, rot[..., 2, :])], -1)
+
+
 def world_to_object_vector(rot, scale, v):
     """(v @ rot^T) / scale, the division as a multiplication by 1/scale:
     XLA's rounding where the transform is a folded scene constant (a
     scene's instance and prop transforms are, in the JAX package's
     jitted bounces)."""
-    o = torch.stack([dot(v, rot[..., 0, :]), dot(v, rot[..., 1, :]), dot(v, rot[..., 2, :])], -1)
-    return o * (1.0 / scale)
+    return world_to_object_normal(rot, v) * (1.0 / scale)
 
 
 def world_to_object_point(rot, scale, pos, p):

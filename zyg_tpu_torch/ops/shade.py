@@ -11,8 +11,9 @@ One bounce of the Cornell-class wavefront, per lane:
   compensation fits) -> PathState merge.
 
 Applicability (`structural_ok`): analytic rectangle/cube/sphere/disk props
-only, 1..8 rectangle lights, substitute and light materials. The port's
-loader refuses every other scene, and the port has no general bounce.
+only, 1..8 rectangle lights, substitute and light materials, no textures
+and no env map. Scenes outside it take the mesh bounce (ops/surface.py) or
+the general one (ops/surface_v2.py).
 
 The plain version below is the JAX Pallas kernel body in torch, in
 component form and the same operation order, with per-lane table rows read
@@ -625,6 +626,8 @@ def structural_ok(scene) -> bool:
     rectangle/cube/sphere/disk props, substitute and light materials)."""
     if scene.meshes is not None:
         return False  # mesh scenes take the mesh bounce (ops/surface.py)
+    if scene.textures is not None or scene.env is not None:
+        return False  # textured and env-lit scenes take ops/surface_v2.py
     if scene.lights.count < 1 or scene.lights.count > MAX_LIGHTS:
         return False
     light_shapes = {int(s) for s in scene.prop_shape[scene.lights.prop.long()].tolist()}

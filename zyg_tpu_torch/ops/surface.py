@@ -16,7 +16,8 @@ A mesh-scene bounce splits at its two traversals:
   -> the merge: pending NEE where the shadow ray got through.
 
 Applicability (`structural_ok_mesh`): a scene with meshes, 1..8 rectangle
-lights, <= 64 materials, all substitute or light. The material of a lane
+lights, <= 64 materials, all substitute or light, no textures and no env
+map. The material of a lane
 is its hit prop's (an index into the material table, [M, 14]); the light
 table is the fused bounce's (ops/shade.py pack_ltab, [L, 20]).
 
@@ -103,9 +104,12 @@ def pack_mesh_tables(scene) -> MeshTables:
 
 def structural_ok_mesh(scene) -> bool:
     """Can this scene run the mesh bounce? (meshes present, 1..8 rectangle
-    lights, <= 64 materials, substitute and light materials only)"""
+    lights, <= 64 materials, substitute and light materials only, no
+    textures or env map)"""
     if scene.meshes is None:
         return False  # analytic-only scenes take the fused bounce
+    if scene.textures is not None or scene.env is not None:
+        return False  # textured and env-lit scenes take ops/surface_v2.py
     if scene.lights.count < 1 or scene.lights.count > MAX_LIGHTS:
         return False
     light_shapes = {int(s) for s in scene.prop_shape[scene.lights.prop.long()].tolist()}

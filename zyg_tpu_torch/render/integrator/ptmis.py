@@ -1,6 +1,7 @@
 """Wavefront PTMIS on the persistent wavefront (counterpart of
 zyg_tpu/render/integrator/ptmis.py:31-123, :326-346 and :1049-1540, box
-filter, shuffled lanes; the fused Cornell-class bounce or the mesh bounce).
+filter, shuffled lanes; the fused Cornell-class bounce, the mesh bounce or
+the general bounce for textured and env-lit scenes).
 
 ref: src/core/rendering/integrator/surface/pathtracer_mis.zig. Radiance is
 tracked as the reference's IValue triple {emission, direct, indirect} so
@@ -15,12 +16,13 @@ from dataclasses import dataclass
 
 import torch
 
-from ...core.rng import MASK, mul_u32
+from ...core.rng import MASK, hash_u32, mul_u32, to_i32, u32
 from ...core.sobol import SobolArrays, SobolSampler
 from ...ops import traverse
 from ...ops.accum import flush_columns
 from ...ops.shade import make_fused_body, structural_ok
 from ...ops.surface import make_mesh_fused_body, structural_ok_mesh
+from ...ops.surface_v2 import make_mesh_fused_body_v2, structural_ok_mesh_v2
 from ..camera import generate_rays, sample_shutter_time
 from ..sensor import clamp_radiance
 
@@ -59,6 +61,8 @@ class PathState:
     depth: torch.Tensor  # int32[N] surface bounce depth
     rays: torch.Tensor  # int64 scalar: rays traced so far
     sobol: SobolArrays
+    vol_key: torch.Tensor  # int32[N] u32 bits: the lane's non-Sobol' key
+    # (texture jitter), seeded per sample and hashed once per bounce
     mis_o: torch.Tensor  # [N, 3] origin of the last real scatter vertex
     mis_n: torch.Tensor  # [N, 3] shading normal at the last real vertex
     pid: torch.Tensor  # int64[N] local pixel index of the lane's current sample
@@ -80,6 +84,7 @@ class PathState:
             alive=r["alive"], bxdf_pdf=r["bxdf_pdf"],
             singular=torch.zeros_like(self.singular),  # substitute samples are never delta
             depth=r["depth"], rays=self.rays + r["rays"], sobol=sobol,
+            vol_key=to_i32(hash_u32(u32(self.vol_key) ^ 0x27D4EB2F)),
             mis_o=r["mis_o"], mis_n=r["mis_n"], pid=self.pid,
         )
 
@@ -91,18 +96,21 @@ class PathState:
                           self.result.indirect[idx]),
             alive=self.alive[idx], bxdf_pdf=self.bxdf_pdf[idx], singular=self.singular[idx],
             depth=self.depth[idx], rays=self.rays, sobol=self.sobol.index(idx),
-            mis_o=self.mis_o[idx], mis_n=self.mis_n[idx], pid=self.pid[idx],
+            vol_key=self.vol_key[idx], mis_o=self.mis_o[idx], mis_n=self.mis_n[idx], pid=self.pid[idx],
         )
 
 
 def _make_body(scene, settings: PtmisSettings):
     """One wavefront bounce (ptmis.py:326-346): the fused bounce for
-    Cornell-class analytic scenes, the mesh bounce for mesh scenes."""
+    Cornell-class analytic scenes, the mesh bounce for untextured mesh
+    scenes under rectangle lights, the general bounce for the rest."""
     if structural_ok(scene):
         return make_fused_body(scene, settings)
     if structural_ok_mesh(scene):
         return make_mesh_fused_body(scene, settings)
-    raise ValueError("scene is outside both the fused bounce and the mesh bounce")
+    if structural_ok_mesh_v2(scene):
+        return make_mesh_fused_body_v2(scene, settings)
+    raise ValueError("scene is outside the fused, mesh and general bounces")
 
 
 # smallest wavefront-drain stage width (tests lower it to exercise the
@@ -172,6 +180,7 @@ def integrate_persistent(
         depth=torch.zeros(n, dtype=torch.int32, device=dev),
         rays=torch.zeros((), dtype=torch.int64, device=dev),
         sobol=SobolSampler.start_pixel(pixel_ids, torch.zeros_like(pixel_ids)).arrays,
+        vol_key=to_i32(hash_u32(pixel_ids ^ 0x2545F491)),
         mis_o=zero3, mis_n=z_up, pid=lanes,
     )
     # [4*kmax, n] (RGB + count planes), lane dim last
@@ -228,6 +237,7 @@ def integrate_persistent(
             depth=torch.where(regen, 0, s.depth),
             rays=s.rays,
             sobol=smp.arrays,
+            vol_key=torch.where(regen, to_i32(hash_u32(sample_index ^ 0x2545F491)), s.vol_key),
             mis_o=torch.where(rm, o_cam, s.mis_o),
             mis_n=torch.where(rm, d_cam, s.mis_n),
             pid=torch.where(regen, pid_new, s.pid),

@@ -1,5 +1,7 @@
-"""GGX energy fits of the substitute BSDF (counterpart of the energy
-functions in zyg_tpu/render/materials.py).
+"""Per-lane material parameters with image textures, emitted radiance,
+and the GGX energy fits of the substitute BSDF (counterpart of
+zyg_tpu/render/materials.py:121-239 `gather` for substitute and light
+materials, :440-451 `eval_radiance`, and the energy functions).
 
 Directional and average GGX albedos as tensor-polynomial fits of the
 reference's LUT integrals (coefficients of zyg_tpu/render/ggx_fit.npz,
@@ -17,8 +19,61 @@ from __future__ import annotations
 import torch
 
 from ..core.fmath import fma as _fma
+from ..core.vecmath import dot
+from ..scene.textures import sample_bilinear, sample_stochastic
 
 MIN_ROUGHNESS = 0.01314  # ref ggx.zig MinRoughness
+_VOLUMETRIC = 4  # scene.types.MaterialKind.VOLUMETRIC
+
+
+def gather(materials, mat_id, textures=None, uv=None, tex_xi=None) -> dict:
+    """Per-lane parameters of material mat_id (int32[N], < 0 reads 0).
+
+    With a texture arena and uv, mapped color and roughness multiply their
+    constant values, read by one stochastic texel (the reference's default
+    LinearStochastic filter) driven by tex_xi [N, 2]; emission maps stay
+    BILINEAR: a jittered single-texel read of an HDR map turns a bright
+    texel into rare large spikes on the MIS'd BSDF-hit estimator. Returns
+    kind (int32), albedo, f0 and emission [N, 3], alpha, metallic and
+    specular [N], two_sided (bool)."""
+    m = torch.clamp(mat_id, min=0).long()
+    color = materials.color[m]
+    roughness = materials.roughness[m]
+    metallic = materials.metallic[m]
+    ior = materials.ior[m]
+    emission = materials.emission[m]
+    if textures is not None and uv is not None:
+        def samp(tid):
+            return sample_stochastic(textures, tid, uv, tex_xi)
+
+        ct = materials.color_tex[m]
+        color = torch.where((ct >= 0)[:, None], color * samp(ct)[:, :3], color)
+        rt = materials.roughness_tex[m]
+        roughness = torch.where(rt >= 0, roughness * samp(rt)[:, 0], roughness)
+        et = materials.emission_tex[m]
+        emission = emission * torch.where((et >= 0)[:, None],
+                                          sample_bilinear(textures, et, uv)[:, :3], 1.0)
+    roughness = torch.clamp(roughness, min=MIN_ROUGHNESS)
+    t = (ior - 1.0) / (ior + 1.0)
+    f0_scalar = (t * t)[:, None]
+    return {
+        "kind": materials.kind[m],
+        "albedo": (1.0 - metallic[:, None]) * color,
+        "alpha": roughness * roughness,
+        "metallic": metallic,
+        "f0": _fma(color - f0_scalar, metallic[:, None], f0_scalar),  # lerp
+        "specular": materials.specular[m],
+        "emission": emission,
+        "two_sided": materials.two_sided[m],
+    }
+
+
+def eval_radiance(params: dict, wo, geo_n):
+    """Radiance the surface emits toward wo: its emission where it faces
+    wo or is two-sided (volumetric materials emit inside, not here)."""
+    facing = dot(wo, geo_n) > 0.0
+    visible = (facing | params["two_sided"]) & (params["kind"] != _VOLUMETRIC)
+    return torch.where(visible[:, None], params["emission"], 0.0)
 
 # [7, 7] coefficients over alpha^i * sqrt(mu)^j
 _CM = (

@@ -1,0 +1,206 @@
+"""Next-event estimation for rectangle and dome lights: light selection by
+the power CDF, per-shape sampling, emitted radiance and the hit-side pdfs
+for MIS (counterpart of zyg_tpu/scene/light_sampling.py:62-99 without a
+light tree, :248-271 rectangle, :360-369 dome, :472-488 env map, :580-636
+light_radiance, :660-665/:690-692/:731-737 light_hit_pdf). The loader
+refuses every other light shape and two or more lights.
+
+Only the light shapes present in the scene are evaluated: `present` is the
+set of their ShapeType codes (`light_shapes`, read once per render, the
+JAX package's static `scene.light_shapes`). Rectangles use the Urena
+spherical-rectangle helpers of ops/shade.py; a dome samples the
+hemisphere around the normal uniformly, or its emission map through the
+scene's env sampler when it has one.
+
+Arithmetic follows the JAX package's jitted bounces on the CPU: a multiply
+feeding an add is one fused multiply-add (core/fmath.py, core/vecmath.py).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from ..core import vecmath as vm
+from ..core.fmath import fma
+from ..ops.shade import _onb, _sphquad_init, _sphquad_pdf, _sphquad_sample
+from . import env_sampling
+from .shapes import select_by_shape as _sel
+from .textures import sample_bilinear
+from .types import RAY_MAX_T, ShapeType
+
+_RECT = int(ShapeType.RECTANGLE)
+_DOME = int(ShapeType.DOME)
+
+
+def light_shapes(scene) -> set[int]:
+    """ShapeType codes of the scene's lights."""
+    return {int(s) for s in scene.prop_shape[scene.lights.prop.long()].tolist()}
+
+
+@dataclass
+class LightSample:
+    wi: torch.Tensor  # [N, 3] direction from the shading point to the light
+    pdf: torch.Tensor  # [N] solid-angle pdf, 0 = invalid
+    light_p: torch.Tensor  # [N, 3] point on the light (shadow ray target)
+    light_n: torch.Tensor  # [N, 3] light surface normal
+    t_max: torch.Tensor  # [N] distance to the light (RAY_MAX_T if infinite)
+    infinite: torch.Tensor  # bool[N]
+    uv: torch.Tensor  # [N, 2] texture uv of the sampled point
+
+
+def select_light(scene, u):
+    """u in [0, 1) -> (light index int32[N], selection pdf [N]) by the
+    power CDF."""
+    cdf = scene.lights.cdf
+    idx = torch.clamp(torch.searchsorted(cdf, u.contiguous(), right=True) - 1, 0,
+                      scene.lights.count - 1)
+    return idx.to(torch.int32), cdf[idx + 1] - cdf[idx]
+
+
+def light_select_pdf(scene, light_idx):
+    """Selection pdf of light_idx under select_light."""
+    cdf = scene.lights.cdf
+    i = torch.clamp(light_idx, 0, scene.lights.count - 1).long()
+    return cdf[i + 1] - cdf[i]
+
+
+def _light_prop(scene, light_idx):
+    li = torch.clamp(light_idx, 0, scene.lights.count - 1).long()
+    return scene.lights.prop[li].long()
+
+
+def _rect_local(p, pos, rot):
+    dp = p - pos
+    return (vm.dot(dp, rot[:, 0]), vm.dot(dp, rot[:, 1]), vm.dot(dp, rot[:, 2]))
+
+
+def sample_light(scene, present: set, light_idx, p, n, xi) -> LightSample:
+    """Sample a direction toward light light_idx from the shading points p
+    with geometric normals n; xi [N, 2] uniforms."""
+    prop = _light_prop(scene, light_idx)
+    shape = scene.prop_shape[prop]
+    rot = scene.prop_rot[prop]
+    pos = scene.prop_pos[prop]
+    scale = scene.prop_scale[prop]
+    r0, r1, r2 = rot[:, 0], rot[:, 1], rot[:, 2]
+    nlanes = p.shape[0]
+    far_t = torch.full((nlanes,), RAY_MAX_T, dtype=torch.float32, device=p.device)
+    ones_b = torch.ones((nlanes,), dtype=torch.bool, device=p.device)
+    wi_v, pdf_v, lp_v, ln_v, valid_v, t_v, uv_v = {}, {}, {}, {}, {}, {}, {}
+
+    if _RECT in present:
+        sx, sy = scale[:, 0], scale[:, 1]
+        ol = _rect_local(p, pos, rot)
+        q = _sphquad_init(sx, sy, ol)
+        xu, yv = _sphquad_sample(q, xi[:, 0], xi[:, 1])
+        ax, ay = ol[0] + xu, ol[1] + yv
+        rect_p = fma(ay[:, None], r1, fma(ax[:, None], r0, pos))
+        axis = rect_p - p
+        rect_t = vm.length(axis)
+        wi_v[_RECT] = axis / torch.clamp(rect_t, min=1e-20)[:, None]
+        pdf_v[_RECT] = _sphquad_pdf(q, ol, sx, sy)
+        lp_v[_RECT] = rect_p
+        ln_v[_RECT] = r2
+        valid_v[_RECT] = q["S"] > 1e-7
+        t_v[_RECT] = rect_t
+        # the rectangle's own uv (ops/isect.py prop_hit): u = dot(-r0, k) / (sx/2)
+        ru = -ax / (0.5 * sx)
+        rv = -ay / (0.5 * sy)
+        uv_v[_RECT] = torch.stack([0.5 * (ru + 1.0), 0.5 * (rv + 1.0)], dim=-1)
+
+    if _DOME in present:
+        # the hemisphere around n, uniformly (map-less domes)
+        t, b = (torch.stack(v, dim=-1) for v in _onb(n.unbind(1)))
+        z = 1.0 - xi[:, 0]
+        r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+        phi = (2.0 * math.pi) * xi[:, 1]
+        local = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+        wi_v[_DOME] = vm.object_to_world_normal(torch.stack([t, b, n], dim=1), local)
+        pdf_v[_DOME] = torch.full((nlanes,), 1.0 / (2.0 * math.pi), dtype=torch.float32,
+                                  device=p.device)
+        valid_v[_DOME] = ones_b
+
+    wi = _sel(shape, wi_v, torch.zeros_like(p))
+    pdf = _sel(shape, pdf_v, torch.zeros_like(far_t))
+    light_p = _sel(shape, lp_v, fma(wi, RAY_MAX_T, p))
+    light_n = _sel(shape, ln_v, -wi)
+    valid = _sel(shape, valid_v, torch.zeros_like(ones_b))
+    t_max = _sel(shape, t_v, far_t)
+    uv = _sel(shape, uv_v, torch.zeros_like(p[:, :2]))
+    infinite = torch.zeros_like(ones_b)
+    if _DOME in present:
+        infinite = shape == _DOME
+        light_p = torch.where(infinite[:, None], fma(wi, RAY_MAX_T, p), light_p)
+        light_n = torch.where(infinite[:, None], -wi, light_n)
+        t_max = torch.where(infinite, far_t, t_max)
+
+    # mapped domes: importance-sample the emission map instead
+    is_env = torch.zeros_like(ones_b)
+    if scene.env is not None:
+        li = torch.clamp(light_idx, 0, scene.lights.count - 1)
+        entry = env_sampling.entry_of_light(scene.env, li)
+        is_env = entry >= 0
+        wi_env, pdf_env, uv_env = env_sampling.sample(scene.env, entry, rot, xi)
+        e3 = is_env[:, None]
+        wi = torch.where(e3, wi_env, wi)
+        pdf = torch.where(is_env, pdf_env, pdf)
+        uv = torch.where(e3, uv_env, uv)
+        light_p = torch.where(e3, fma(wi, RAY_MAX_T, p), light_p)
+        light_n = torch.where(e3, -wi, light_n)
+        t_max = torch.where(is_env, far_t, t_max)
+        infinite = infinite | is_env
+
+    # facing the shading hemisphere; env-sampled lanes sample the whole map
+    # and rely on f = 0 below the horizon (the NEE density then equals the
+    # pdf the BSDF-hit MIS weight uses)
+    front = vm.dot(wi, n) > 0.0
+    valid = valid & (front | is_env) & (pdf > 0.0)
+    return LightSample(wi, torch.where(valid, pdf, 0.0), light_p, light_n, t_max, infinite, uv)
+
+
+def light_radiance(scene, light_idx, wi, light_n, uv):
+    """Radiance light_idx emits toward the shading point along -wi: its
+    emission where it faces the point or is two-sided, scaled by its
+    emission map at the sampled uv (a dome's at the direction's lat-long
+    uv) exactly as eval_radiance scales it on the BSDF-hit side."""
+    prop = _light_prop(scene, light_idx)
+    m = scene.prop_material[prop].long()
+    emission = scene.materials.emission[m]
+    two_sided = scene.materials.two_sided[m]
+    if scene.textures is not None:
+        et = scene.materials.emission_tex[m]
+        is_dome = scene.prop_shape[prop] == _DOME
+        ldir = vm.safe_normalize(vm.world_to_object_normal(scene.prop_rot[prop], wi))
+        tex_uv = torch.where(is_dome[:, None], env_sampling.dome_uv(ldir), uv)
+        tex = sample_bilinear(scene.textures, et, tex_uv)[:, :3]
+        emission = torch.where((et >= 0)[:, None], emission * tex, emission)
+    facing = vm.dot(-wi, light_n) > 0.0
+    return torch.where((facing | two_sided)[:, None], emission, 0.0)
+
+
+def light_hit_pdf(scene, present: set, prop, ray_o, ray_d):
+    """Solid-angle pdf with which NEE from ray_o would have sampled the hit
+    on prop along ray_d: the light side of the BSDF-hit MIS weight."""
+    pm = torch.clamp(prop, min=0).long()
+    shape = scene.prop_shape[pm]
+    rot = scene.prop_rot[pm]
+    vals = {}
+    if _RECT in present:
+        scale = scene.prop_scale[pm]
+        ol = _rect_local(ray_o, scene.prop_pos[pm], rot)
+        q = _sphquad_init(scale[:, 0], scale[:, 1], ol)
+        vals[_RECT] = _sphquad_pdf(q, ol, scale[:, 0], scale[:, 1])
+    if _DOME in present:
+        vals[_DOME] = torch.full(shape.shape, 1.0 / (2.0 * math.pi), dtype=torch.float32,
+                                 device=ray_o.device)
+    out = _sel(shape, vals, torch.zeros(shape.shape, dtype=torch.float32, device=ray_o.device))
+    if scene.env is not None:
+        # mapped domes: NEE samples the map, so MIS needs the map's density
+        li = scene.prop_light[pm]
+        entry = env_sampling.entry_of_light(scene.env, li)
+        out = torch.where(entry >= 0, env_sampling.pdf(scene.env, li, rot, ray_d), out)
+    # shapes NEE cannot sample (cube emitters) have pdf 0: MIS weight 1
+    return torch.where(shape == int(ShapeType.CUBE), 0.0, out)

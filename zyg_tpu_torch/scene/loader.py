@@ -1,13 +1,17 @@
 """Host-side scene compiler (counterpart of zyg_tpu/scene/loader.py,
 plain numpy then torch).
 
-Supported: Prop and Light entities with analytic Rectangle/Cube/Sphere/Disk
-shapes or procedural triangle meshes (shape "file": "proc:..."), nested
-child entities, Euler or look-at transformations, Substitute and Light
-materials with constant parameters, one rectangle light. Mesh props become
-instances over one BVH arena (scene/trimesh.py). Everything else raises
-`UnsupportedScene` — the port renders only what its bounces cover, and
-never silently drops a feature.
+Supported: Prop and Light entities with analytic Rectangle/Cube/Sphere/
+Disk/Dome shapes or procedural triangle meshes (shape "file": "proc:..."),
+nested child entities, Euler or look-at transformations, Substitute and
+Light materials with constant parameters, one emitting light (a Rectangle
+or a Dome). Mesh props become instances over one BVH arena
+(scene/trimesh.py). Through `SceneBuilder` a material may also carry linear
+image textures (color, roughness, emission; `add_texture_image`); a dome
+with an emission map gets an env-map sampler (scene/env_sampling.py).
+Everything else raises `UnsupportedScene` (texture nodes in scene files
+too) — the port renders only what its bounces cover, and never silently
+drops a feature.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import numpy as np
 import torch
 
 from ..io.mesh import load_mesh_file
+from .env_sampling import EnvSampler, build_env_sampler
+from .textures import TextureArena, TextureBuilder
 from .trimesh import HostMesh, InstanceTable, MeshArena, build_arena, build_instance_table
 from .types import Lights, Materials, MaterialKind, SceneData, ShapeType, UnsupportedScene
 
@@ -29,10 +35,12 @@ LUMINANCE_WEIGHTS = (0.212671, 0.715160, 0.072169)
 _SHAPE_NAMES = {
     "Cube": ShapeType.CUBE,
     "Disk": ShapeType.DISK,
+    "Dome": ShapeType.DOME,
     "Rectangle": ShapeType.RECTANGLE,
     "Sphere": ShapeType.SPHERE,
 }
 _MAX_PROPS = 32  # analytic props (ops/shade.py MAX_PROPS)
+_LIGHT_SHAPES = (ShapeType.RECTANGLE, ShapeType.DOME)
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +131,10 @@ class MaterialDesc:
     specular: float = 1.0
     emission: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
     two_sided: bool = False
+    # image texture ids (SceneBuilder.add_texture_image), -1 for none
+    color_tex: int = -1
+    roughness_tex: int = -1
+    emission_tex: int = -1
 
 
 def _read_color(v) -> np.ndarray:
@@ -209,10 +221,18 @@ class SceneBuilder:
         self.props: list[PropDesc] = []
         self.materials: list[MaterialDesc] = []
         self.meshes: list[HostMesh] = []
+        self.textures = TextureBuilder()
         self._mat_by_name: dict[str, int] = {}
         self._mesh_by_name: dict[str, int] = {}
         # fallback material id 0 (ref createFallbackMaterial)
         self._fallback = self.add_material(MaterialDesc(color=np.array([1.0, 0.0, 0.6], np.float32)))
+
+    def add_texture_image(self, image: np.ndarray, srgb: bool = False) -> int:
+        """A linear image ([H, W, C] or [H, W]; uint8, uint16 or float32)
+        -> texture id for MaterialDesc's *_tex fields."""
+        if srgb:
+            raise UnsupportedScene("sRGB-encoded textures")
+        return self.textures.add(image)
 
     def add_material(self, desc: MaterialDesc, name: str | None = None) -> int:
         self.materials.append(desc)
@@ -244,9 +264,13 @@ class SceneBuilder:
                                       material=material, mesh_id=mesh_id, **kw))
 
     def _light_weight(self, p: PropDesc) -> float:
-        """Luminance-weighted emission times emitting area."""
+        """Luminance-weighted emission times emitting area (4 pi for a dome;
+        an emission map scales by its mean luminance)."""
         m = self.materials[p.material]
         lum = float(np.dot(np.asarray(LUMINANCE_WEIGHTS, np.float64), m.emission))
+        if m.emission_tex >= 0:
+            img = np.asarray(self.textures.image(m.emission_tex), np.float64)
+            lum *= float((img[..., :3] @ np.asarray(LUMINANCE_WEIGHTS, np.float64)).mean())
         if lum <= 0.0:
             return 0.0
         s = p.trafo.scale
@@ -259,6 +283,8 @@ class SceneBuilder:
             area = float(4.0 * np.pi * (0.5 * s[0]) ** 2)
         elif shape == ShapeType.CUBE:
             area = float(2.0 * (s[0] * s[1] + s[0] * s[2] + s[1] * s[2]))
+        elif shape == ShapeType.DOME:
+            area = 4.0 * np.pi
         else:
             raise UnsupportedScene("emissive meshes")
         if m.two_sided:
@@ -276,8 +302,12 @@ class SceneBuilder:
         if len(light_props) != 1:
             # two or more lights select through a light tree in the JAX package
             raise UnsupportedScene(f"{len(light_props)} emitting lights (exactly one supported)")
-        if props[light_props[0]].shape != int(ShapeType.RECTANGLE):
-            raise UnsupportedScene("the light must be a Rectangle")
+        if props[light_props[0]].shape not in {int(s) for s in _LIGHT_SHAPES}:
+            raise UnsupportedScene("the light must be a Rectangle or a Dome")
+        for d in self.materials:
+            for tid in (d.color_tex, d.roughness_tex, d.emission_tex):
+                if not -1 <= tid < len(self.textures):
+                    raise UnsupportedScene(f"texture id {tid} out of range")
         weights = np.array([self._light_weight(props[i]) for i in light_props], np.float32)
         total = weights.sum()
         cdf = np.concatenate([[0.0], np.cumsum(weights) / (total if total > 0 else 1.0)]).astype(np.float32)
@@ -290,6 +320,13 @@ class SceneBuilder:
         for i in analytic:
             groups.setdefault(props[i].shape, []).append(i)
         meshes, instances = self._build_meshes()
+        # env-map importance sampling of a dome with an emission map
+        env_entries = [
+            (self.textures.image(self.materials[props[pi].material].emission_tex), False, li)
+            for li, pi in enumerate(light_props)
+            if props[pi].shape == int(ShapeType.DOME)
+            and self.materials[props[pi].material].emission_tex >= 0
+        ]
 
         def t(x, dtype):
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
@@ -315,6 +352,9 @@ class SceneBuilder:
                 specular=t([d.specular for d in mats], f32),
                 emission=t(np.stack([d.emission for d in mats]), f32),
                 two_sided=t([d.two_sided for d in mats], torch.bool),
+                color_tex=t([d.color_tex for d in mats], i32),
+                roughness_tex=t([d.roughness_tex for d in mats], i32),
+                emission_tex=t([d.emission_tex for d in mats], i32),
             ),
             lights=Lights(
                 prop=t(light_props, i32),
@@ -324,6 +364,8 @@ class SceneBuilder:
             prop_groups={k: t(v, i32) for k, v in sorted(groups.items())},
             meshes=meshes,
             mesh_instances=instances,
+            textures=self.textures.build(),
+            env=build_env_sampler(env_entries),
         ).to(device)
 
     def _build_meshes(self):
@@ -410,17 +452,21 @@ _PLAIN = ("prop_shape", "prop_rot", "prop_pos", "prop_scale", "prop_material",
           "prop_visible_camera", "prop_visible_reflection", "prop_visible_shadow",
           "prop_light")
 _MATERIAL = ("kind", "color", "roughness", "metallic", "ior", "specular", "emission",
-             "two_sided")
+             "two_sided", "color_tex", "roughness_tex", "emission_tex")
 _LIGHT = ("prop", "two_sided", "cdf")
 _ARENA = ("node_rows", "tri_rows", "attr_rows", "mesh_root")
 _INSTANCES = ("wmin", "wmax", "trafo", "vis")
+_TEXTURES = ("data", "offset", "width", "height", "address")
+_ENV = ("table", "light")
 
 
 def scene_arrays(scene) -> dict[str, np.ndarray]:
     """The fields the port reads, as numpy arrays, from either package's
     SceneData: keys "prop_*", "materials.<f>", "lights.<f>",
-    "prop_groups.<shape>", and for mesh scenes "meshes.<f>" (with
-    "meshes.max_depth") and "mesh_instances.<f>"."""
+    "prop_groups.<shape>", for mesh scenes "meshes.<f>" (with
+    "meshes.max_depth") and "mesh_instances.<f>", for textured scenes
+    "textures.<f>", and for a mapped dome "env.<f>" (with "env.width" and
+    "env.height")."""
     def arr(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -436,6 +482,19 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
         d["meshes.max_depth"] = np.asarray(depth, np.int64)
         d.update({f"mesh_instances.{k}": arr(getattr(scene.mesh_instances, k))
                   for k in _INSTANCES})
+    tex = scene.textures
+    if tex is not None:
+        # the JAX arena's coordinate sets and procedurals are out of the port's subset
+        if getattr(tex, "procedurals", None) or (
+                getattr(tex, "texcoord", None) is not None and arr(tex.texcoord).any()):
+            raise UnsupportedScene("procedural or triplanar textures")
+        d.update({f"textures.{k}": arr(getattr(tex, k)) for k in _TEXTURES})
+    if scene.env is not None:
+        if any(getattr(scene.env, "canopy", ())):
+            raise UnsupportedScene("canopy env lights")
+        d.update({f"env.{k}": arr(getattr(scene.env, k)) for k in _ENV})
+        d["env.width"] = np.asarray(scene.env.width, np.int64)
+        d["env.height"] = np.asarray(scene.env.height, np.int64)
     return d
 
 
@@ -451,6 +510,12 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
         meshes = MeshArena(**{k: t(f"meshes.{k}") for k in _ARENA},
                            max_depth=int(d["meshes.max_depth"]))
         instances = InstanceTable(**{k: t(f"mesh_instances.{k}") for k in _INSTANCES})
+    textures = env = None
+    if "textures.data" in d:
+        textures = TextureArena(**{k: t(f"textures.{k}") for k in _TEXTURES})
+    if "env.table" in d:
+        env = EnvSampler(**{k: t(f"env.{k}") for k in _ENV}, width=int(d["env.width"]),
+                         height=int(d["env.height"]))
     return SceneData(
         **{k: t(k) for k in _PLAIN},
         materials=Materials(**{k: t(f"materials.{k}") for k in _MATERIAL}),
@@ -458,4 +523,6 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
         prop_groups=dict(sorted(groups.items())),
         meshes=meshes,
         mesh_instances=instances,
+        textures=textures,
+        env=env,
     )

@@ -1,7 +1,8 @@
 """Scene intersection, shadow visibility and the shading fragment for the
-mesh path (counterpart of zyg_tpu/scene/shapes.py:232 intersect_scene,
-:504 occluded, :616 build_fragment; static props). The ray offsets of the
-bounce are in ops/surface.py's kernel and plain version.
+mesh paths (counterpart of zyg_tpu/scene/shapes.py:232 intersect_scene,
+:504 occluded, :616 build_fragment; static props, no tangents). The ray
+offsets of the bounces are in ops/surface.py's and ops/surface_v2.py's
+kernels and plain versions.
 
 A closest hit tests the analytic props first (ops/isect.py, kernel 2),
 then walks the mesh instances bounded by that hit (ops/traverse.py); a
@@ -11,6 +12,7 @@ nothing blocked it yet.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -19,7 +21,7 @@ from ..core import vecmath as vm
 from ..core.encoding import oct_normal_unpack
 from ..core.fmath import fma
 from ..ops import isect, traverse
-from .types import ShapeType
+from .types import RAY_MAX_T, ShapeType
 
 
 @dataclass
@@ -40,6 +42,19 @@ class Fragment:
     geo_n: torch.Tensor  # [N, 3] geometric normal
     n: torch.Tensor  # [N, 3] shading normal
     material: torch.Tensor  # int32[N] material id of the hit prop
+    uv: torch.Tensor = None  # [N, 2] texture coordinates (need_uv), else None
+
+
+def select_by_shape(shape, vals: dict, default):
+    """Each lane's value for its shape type among vals {ShapeType code:
+    [N] or [N, k] value}, in the dict's order: the first entry is the value
+    of every lane whose shape has none (the JAX package's `sel`); default
+    when vals is empty."""
+    out = default
+    for i, (st, val) in enumerate(vals.items()):
+        cond = shape == st
+        out = val if i == 0 else torch.where(cond[:, None] if val.dim() > 1 else cond, val, out)
+    return out
 
 
 def intersect_scene(scene, table: isect.PropTable, o, d, tmin: float, tmax, primary=None) -> Hit:
@@ -76,9 +91,13 @@ def occluded(scene, table: isect.PropTable, o, d, tmin: float, tmax) -> torch.Te
     return blocked
 
 
-def build_fragment(scene, hit: Hit, o, d) -> Fragment:
-    """Hit point, geometric and shading normals and material of the closest
-    hit (the shape branches present in the scene; no uv or tangents)."""
+def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None) -> Fragment:
+    """Hit point, geometric and shading normals, material and (where
+    need_uv, by default for textured scenes) uv of the closest hit, over
+    the shape branches present in the scene. Lanes on an infinite shape
+    (the dome) get the point RAY_MAX_T * d and the normal -d."""
+    if need_uv is None:
+        need_uv = scene.textures is not None
     present = {int(k) for k in scene.prop_groups}
     prop = torch.clamp(hit.prop, min=0).long()
     shape = scene.prop_shape[prop]
@@ -88,12 +107,22 @@ def build_fragment(scene, hit: Hit, o, d) -> Fragment:
     p = o + hit.t[:, None] * d
     r0, r1, r2 = rot[:, 0], rot[:, 1], rot[:, 2]
 
-    n_vals = {}
+    # value per present shape type, selected by the lane's shape in the
+    # JAX package's key order (the first present type is the default)
+    n_vals, uv_vals = {}, {}
     for st in (ShapeType.RECTANGLE, ShapeType.DISK):
         if int(st) in present:
             n_vals[int(st)] = r2
+            uv_vals[int(st)] = torch.stack([0.5 * (hit.u + 1.0), 0.5 * (hit.v + 1.0)], dim=-1)
     if int(ShapeType.SPHERE) in present:
-        n_vals[int(ShapeType.SPHERE)] = vm.safe_normalize(p - pos)
+        sph_n = vm.safe_normalize(p - pos)
+        n_vals[int(ShapeType.SPHERE)] = sph_n
+        if need_uv:
+            xyz = vm.safe_normalize(vm.world_to_object_normal(rot, sph_n))
+            phi = -torch.atan2(xyz[:, 0], xyz[:, 2]) + math.pi
+            theta = torch.acos(torch.clamp(xyz[:, 1], -1.0, 1.0))
+            uv_vals[int(ShapeType.SPHERE)] = torch.stack(
+                [phi * (0.5 / math.pi), theta * (1.0 / math.pi)], dim=-1)
     if int(ShapeType.CUBE) in present:
         lp = vm.world_to_object_point(rot, scale, pos, p)
         ax, ay, az = (0.5 - torch.abs(lp[:, k]) for k in range(3))
@@ -102,9 +131,20 @@ def build_fragment(scene, hit: Hit, o, d) -> Fragment:
         face_n = torch.where(use_x[:, None], r0, torch.where(use_y[:, None], r1, r2))
         comp = torch.where(use_x, lp[:, 0], torch.where(use_y, lp[:, 1], lp[:, 2]))
         n_vals[int(ShapeType.CUBE)] = torch.sign(comp)[:, None] * face_n
-    n = -d
-    for i, (st, val) in enumerate(n_vals.items()):
-        n = val if i == 0 else torch.where((shape == st)[:, None], val, n)
+    is_dome = None
+    if int(ShapeType.DOME) in present:
+        is_dome = shape == int(ShapeType.DOME)
+        n_vals[int(ShapeType.DOME)] = -d
+        if need_uv:
+            from .env_sampling import dome_uv
+
+            uv_vals[int(ShapeType.DOME)] = dome_uv(
+                vm.safe_normalize(vm.world_to_object_normal(rot, d)))
+
+    n = select_by_shape(shape, n_vals, -d)
+    uv = select_by_shape(shape, uv_vals, torch.zeros_like(p[:, :2])) if need_uv else None
+    if is_dome is not None:
+        p = torch.where(is_dome[:, None], RAY_MAX_T * d, p)
     geo_n = n
 
     if scene.meshes is not None:
@@ -112,12 +152,14 @@ def build_fragment(scene, hit: Hit, o, d) -> Fragment:
         row = scene.meshes.attr_rows[torch.clamp(hit.prim, min=0).long()]
         gn_l = vm.safe_normalize(vm.cross(row[:, 3:6], row[:, 6:9]))
         u, v = hit.u[:, None], hit.v[:, None]
-        w0 = 1.0 - hit.u - hit.v
+        w0 = (1.0 - hit.u - hit.v)[:, None]
         tn = oct_normal_unpack(row[:, 9:12].contiguous().view(torch.int32))  # [N, 3, 3]
-        ns_l = fma(v, tn[:, 2], fma(w0[:, None], tn[:, 0], u * tn[:, 1]))
+        ns_l = fma(v, tn[:, 2], fma(w0, tn[:, 0], u * tn[:, 1]))
         # normals turn by the rotation only (the reference's uniform-scale
         # assumption, composed_transformation.zig objectToWorldNormal)
         geo_n = torch.where(is_mesh, vm.safe_normalize(vm.object_to_world_normal(rot, gn_l)), geo_n)
         n = torch.where(is_mesh, vm.safe_normalize(vm.object_to_world_normal(rot, ns_l)), n)
-    return Fragment(p=p, geo_n=geo_n, n=n, material=scene.prop_material[prop])
-
+        if need_uv:
+            uv_m = fma(v, row[:, 16:18], fma(w0, row[:, 12:14], u * row[:, 14:16]))
+            uv = torch.where(is_mesh, uv_m, uv)
+    return Fragment(p=p, geo_n=geo_n, n=n, material=scene.prop_material[prop], uv=uv)

@@ -1,9 +1,11 @@
 """Scene container on torch tensors (counterpart of zyg_tpu/scene/types.py).
 
 Holds only the fields the port's paths read: per-prop transforms, shape
-and material ids, visibility, the material table, the light records with
-their power CDF, the analytic props grouped by shape type, and, for mesh
-scenes, the triangle arena and the mesh instance table (scene/trimesh.py).
+and material ids, visibility, the material table (with its image-texture
+ids), the light records with their power CDF, the analytic props grouped by
+shape type, for mesh scenes the triangle arena and the mesh instance table
+(scene/trimesh.py), and for textured scenes the texture arena
+(scene/textures.py) and the env-map sampler (scene/env_sampling.py).
 """
 
 from __future__ import annotations
@@ -65,6 +67,11 @@ class Materials:
     specular: torch.Tensor  # float32[M]
     emission: torch.Tensor  # float32[M, 3]
     two_sided: torch.Tensor  # bool[M]
+    # image textures (ids into SceneData.textures, -1 for none): color and
+    # roughness multiply their constant values, emission scales emission
+    color_tex: torch.Tensor  # int32[M]
+    roughness_tex: torch.Tensor  # int32[M]
+    emission_tex: torch.Tensor  # int32[M]
 
     def to(self, device) -> "Materials":
         return to_device(self, device)
@@ -102,6 +109,8 @@ class SceneData:
     prop_groups: dict
     meshes: object = None  # trimesh.MeshArena, or None without meshes
     mesh_instances: object = None  # trimesh.InstanceTable, or None
+    textures: object = None  # textures.TextureArena, or None without images
+    env: object = None  # env_sampling.EnvSampler of a mapped dome, or None
 
     def to(self, device) -> "SceneData":
         out = {}
