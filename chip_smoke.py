@@ -6,8 +6,10 @@
 Phases (each raises on failure; the exit code is non-zero on any failure):
  1. the card: CUDA must be available; prints nvidia-smi's name and power limit
  2. build: compiles zyg_tpu_torch/csrc/*.cu with nvcc (sm_90a) into the
-    gitignored zyg_tpu_torch/_build/ and prints the build time and the
-    per-kernel register/spill report
+    gitignored zyg_tpu_torch/_build/ and prints the build time, the
+    per-kernel register/spill report, each kernel's static SASS
+    instruction count (cuobjdump -sass) and the lanes one pass of the
+    persistent shade and traverse grids covers
  3. each kernel, called through the wrapper its path calls, against its
     plain torch version on the card, at the main paths' shapes:
     sobol_block bit-exact; accum exact; shade (Cornell) with lane
@@ -55,6 +57,8 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -149,6 +153,24 @@ def phase_card() -> str:
     return out
 
 
+def sass_counts(so_path: str) -> dict:
+    """Static SASS instructions of each kernel in a built library (NOPs not
+    counted), from `cuobjdump -sass`."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([exe, "-sass", so_path], capture_output=True, text=True, check=True).stdout
+    counts: dict = {}
+    cur = None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            # mangled names hold the kernel's name after its length
+            cur = next((k for k in SOURCES if f"{len(k) + 7}{k}_kernel" in m.group(1)), m.group(1))
+            counts[cur] = 0
+        elif cur is not None and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S", ln):
+            counts[cur] += 1
+    return counts
+
+
 def phase_build() -> None:
     from zyg_tpu_torch import ops
 
@@ -158,6 +180,10 @@ def phase_build() -> None:
     for ln in info["ptxas"].splitlines():
         if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
             log(f"  {ln.strip()}")
+    log(f"static SASS instructions (NOPs not counted): {sass_counts(info['path'])}")
+    for name in ("shade", "traverse"):
+        log(f"{name}: one pass of the resident grid covers "
+            f"{ops.resident_lanes(f'zyg_{name}_resident_lanes')} lanes")
 
 
 def _cornell(device):
@@ -433,7 +459,7 @@ def _compare_walks(k, p, name) -> float:
     err = 0.0
     for a, b in ((kt, pt), (ku, pu), (kv, pv)):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
-        err = max(err, float((a - b).abs().max()))
+        err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
     return err
 
 

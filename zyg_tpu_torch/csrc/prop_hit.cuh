@@ -34,18 +34,45 @@ struct PropHit {
   bool hit;
 };
 
+// The terms of a prop's hit test that depend on the prop alone (its plane
+// distance and scale reciprocals), as prop_hit computes them inline. A
+// kernel that tests many rays against one table computes them once.
+struct PropConsts {
+  float c[3];  // rectangle: plane distance, 1/(sx/2), 1/(sy/2); disk: plane
+               // distance, 1/radius; cube: 1/sx, 1/sy, 1/sz
+};
+
 // r: the prop's table row, rot row-major [0:9], pos [9:12], scale [12:15]
-__device__ __forceinline__ PropHit prop_hit(int kind, const float* r, float ox, float oy,
-                                            float oz, float dx, float dy, float dz,
-                                            float tmin, float tmax) {
+__device__ __forceinline__ PropConsts prop_consts(int kind, const float* r) {
+  PropConsts k{{0.0f, 0.0f, 0.0f}};
+  if (kind == kRectangle || kind == kDisk) {
+    k.c[0] = dot3f(r[6], r[9], r[7], r[10], r[8], r[11]);
+    if (kind == kRectangle) {
+      k.c[1] = 1.0f / (0.5f * r[12]);
+      k.c[2] = 1.0f / (0.5f * r[13]);
+    } else {
+      k.c[1] = 1.0f / zmax(0.5f * r[12], 1e-20f);
+    }
+  } else if (kind == kCube) {
+    k.c[0] = 1.0f / r[12];
+    k.c[1] = 1.0f / r[13];
+    k.c[2] = 1.0f / r[14];
+  }
+  return k;
+}
+
+// prop_hit from the prop's precomputed terms k (prop_consts)
+__device__ __forceinline__ PropHit prop_hit_k(int kind, const float* r, const PropConsts& k,
+                                              float ox, float oy, float oz, float dx, float dy,
+                                              float dz, float tmin, float tmax) {
   const float px = r[9], py = r[10], pz = r[11];
-  const float sx = r[12], sy = r[13], sz = r[14];
+  const float sx = r[12];
   PropHit h;
   h.u = 0.0f;
   h.v = 0.0f;
   if (kind == kRectangle || kind == kDisk) {
     const float dd = dot3f(r[6], dx, r[7], dy, r[8], dz);
-    const float dist = dot3f(r[6], px, r[7], py, r[8], pz);
+    const float dist = k.c[0];
     const float no = dot3f(r[6], ox, r[7], oy, r[8], oz);
     const float t = -(no - dist) / (fabsf(dd) < 1e-20f ? 1e-20f : dd);
     const float kx = ox + t * dx - px;
@@ -53,14 +80,14 @@ __device__ __forceinline__ PropHit prop_hit(int kind, const float* r, float ox, 
     const float kz = oz + t * dz - pz;
     bool hit;
     if (kind == kRectangle) {
-      h.u = -dot3f(r[0], kx, r[1], ky, r[2], kz) * (1.0f / (0.5f * sx));
-      h.v = -dot3f(r[3], kx, r[4], ky, r[5], kz) * (1.0f / (0.5f * sy));
+      h.u = -dot3f(r[0], kx, r[1], ky, r[2], kz) * k.c[1];
+      h.v = -dot3f(r[3], kx, r[4], ky, r[5], kz) * k.c[2];
       hit = (t >= tmin) & (t <= tmax) & (fabsf(h.u) <= 1.0f) & (fabsf(h.v) <= 1.0f);
     } else {
       const float l2 = dot3f(kx, kx, ky, ky, kz, kz);
       const float rr = 0.5f * sx;
       hit = (t >= tmin) & (t <= tmax) & (l2 <= rr * rr);
-      const float inv_r = 1.0f / zmax(rr, 1e-20f);
+      const float inv_r = k.c[1];
       h.u = -dot3f(r[0], kx, r[1], ky, r[2], kz) * inv_r;
       h.v = -dot3f(r[3], kx, r[4], ky, r[5], kz) * inv_r;
     }
@@ -86,7 +113,7 @@ __device__ __forceinline__ PropHit prop_hit(int kind, const float* r, float ox, 
   }
   if (kind == kCube) {
     const float wx = ox - px, wy = oy - py, wz = oz - pz;
-    const float inv_s[3] = {1.0f / sx, 1.0f / sy, 1.0f / sz};
+    const float* inv_s = k.c;
     float tn = 0.0f, tf = 0.0f;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -125,4 +152,11 @@ __device__ __forceinline__ PropHit prop_hit(int kind, const float* r, float ox, 
   h.t = hit ? ZYG_RAY_MAX_T : ZYG_FAR;
   h.hit = hit;
   return h;
+}
+
+// one prop's hit, its per-prop terms computed inline
+__device__ __forceinline__ PropHit prop_hit(int kind, const float* r, float ox, float oy,
+                                            float oz, float dx, float dy, float dz,
+                                            float tmin, float tmax) {
+  return prop_hit_k(kind, r, prop_consts(kind, r), ox, oy, oz, dx, dy, dz, tmin, tmax);
 }

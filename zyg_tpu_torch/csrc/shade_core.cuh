@@ -1,12 +1,20 @@
-// Device functions shared by the two bounce kernels: the fused Cornell
-// bounce (shade.cu) and the mesh bounce between the traversals
-// (surface.cu). Ports of zyg_tpu/ops/shade.py:72-378 (the substitute
-// BSDF with its GGX energy fits, the Urena spherical-rectangle sampler,
-// the ray offset and the MIS heuristics), following the plain torch
-// versions in zyg_tpu_torch/ops/shade.py in their operation order: dot
-// products and the energy-fit Horner steps are explicit fmaf calls where
-// the plain versions call core/fmath.py, and the library is built with
-// -fmad=false so nothing else is contracted.
+// Device functions shared by the three bounce kernels: the fused Cornell
+// bounce (shade.cu), the mesh bounce between the traversals (surface.cu)
+// and the general bounce (surface_v2.cu). Ports of
+// zyg_tpu/ops/shade.py:72-378 (the substitute BSDF with its GGX energy
+// fits, the Urena spherical-rectangle sampler, the ray offset and the MIS
+// heuristics), following the plain torch versions in
+// zyg_tpu_torch/ops/shade.py in their operation order: dot products and
+// the energy-fit Horner steps are explicit fmaf calls where the plain
+// versions call core/fmath.py, and the library is built with -fmad=false
+// so nothing else is contracted.
+//
+// The BSDF is split by what its terms depend on: the material alone
+// (MatTerms), wo and the shading normal (WoTerms), and wi (lobes). The
+// fused bounce computes each once (the material terms once per prop and
+// block); substitute_eval / substitute_sample compute all three per call,
+// as kernels 5 and 6 use them. Either way every value is the same
+// operations on the same inputs.
 #pragma once
 #include "prop_hit.cuh"
 
@@ -105,59 +113,87 @@ __device__ __forceinline__ float schlick1(float f0, float cos) {
   return f0 + (1.0f - f0) * pow5(zmax(1.0f - cos, 0.0f));
 }
 
-// materials._substitute_lobes: f*cos and pdf
-__device__ void substitute_lobes(const float* fit, const Mat& m, V3 wo, V3 wi, V3 ns, V3& f,
-                                 float& pdf) {
+// The terms of materials._substitute_lobes that depend on the material
+// alone: the energy averages, the lobe pick weights (dw for the pdf, dw_s
+// for the sample's lobe choice, which rounds its own division) and the
+// multiple-scattering Fresnel factors. Same operations as inline.
+struct MatTerms {
+  float f0m, inv_pi_1me, dw, dw_s, mm_den, fc[3];
+};
+
+__device__ __forceinline__ MatTerms mat_terms(const float* fit, const Mat& m) {
+  MatTerms t;
+  t.f0m = max3(m.f0);
+  const float am = max3(m.albedo);
+  const float e_avg = e_s_avg(fit, t.f0m, m.alpha);
+  t.inv_pi_1me = 1.0f / zmax(kPi * (1.0f - e_avg), 1e-6f);
+  const float bsel = am * t.inv_pi_1me;
+  const float dw = bsel / zmax(e_avg + bsel, 1e-12f);
+  t.dw = m.metallic >= 1.0f ? 0.0f : dw;
+  const float bsel_s = am / zmax(kPi * (1.0f - e_avg), 1e-6f);
+  const float dw_s = bsel_s / zmax(e_avg + bsel_s, 1e-12f);
+  t.dw_s = m.metallic >= 1.0f ? 0.0f : dw_s;
+  const float em_avg = e_m_avg(fit, m.alpha);
+  t.mm_den = zmax(kPi * (1.0f - em_avg), 1e-6f);
+  const float f0c[3] = {m.f0.x, m.f0.y, m.f0.z};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float f_avg = kF20_21 * f0c[c] + kF1_21;
+    t.fc[c] = (f_avg * f_avg * em_avg) / zmax(1.0f - f_avg * (1.0f - em_avg), 1e-6f);
+  }
+  return t;
+}
+
+// The terms that depend on wo and the shading normal only: the same in the
+// evaluation toward the light and in the sample's evaluation.
+struct WoTerms {
+  float n_dot_wo, t_wo, e_wo, em_wo;
+};
+
+__device__ __forceinline__ WoTerms wo_terms(const float* fit, float alpha, float f0m, V3 wo,
+                                            V3 ns) {
+  WoTerms w;
+  const float a2 = alpha * alpha;
+  w.n_dot_wo = clampf(fabsf(dot3(ns, wo)));
+  w.t_wo = sqrtf((1.0f - a2) * w.n_dot_wo * w.n_dot_wo + a2);
+  w.em_wo = e_m(fit, alpha, w.n_dot_wo);
+  w.e_wo = f0m * w.em_wo + (1.0f - f0m) * e_p(fit, alpha, w.n_dot_wo);  // e_s
+  return w;
+}
+
+// materials._substitute_lobes: f*cos and pdf, from the precomputed terms
+__device__ __forceinline__ void lobes(const float* fit, const Mat& m, const MatTerms& mt,
+                                      const WoTerms& w, V3 wo, V3 wi, V3 ns, V3& f, float& pdf) {
   const float alpha = m.alpha;
   const float a2 = alpha * alpha;
-  const float f0m = max3(m.f0);
-  const float am = max3(m.albedo);
 
   const float n_dot_wi = clampf(dot3(ns, wi));
-  const float n_dot_wo = clampf(fabsf(dot3(ns, wo)));
   const V3 h = normalize3(add3(wo, wi));
   const float wo_dot_h = clampf(dot3(wo, h));
   const float n_dot_h = clamp01(dot3(ns, h));
 
-  const float e_wo = e_s(fit, f0m, alpha, n_dot_wo);
-  const float e_wi = e_s(fit, f0m, alpha, n_dot_wi);
-  const float e_avg = e_s_avg(fit, f0m, alpha);
-  const float inv_pi_1me = 1.0f / zmax(kPi * (1.0f - e_avg), 1e-6f);
-  const float d_scal = (1.0f - e_wo) * (1.0f - e_wi) * inv_pi_1me;
+  const float em_wi = e_m(fit, alpha, n_dot_wi);
+  const float e_wi = mt.f0m * em_wi + (1.0f - mt.f0m) * e_p(fit, alpha, n_dot_wi);  // e_s
+  const float d_scal = (1.0f - w.e_wo) * (1.0f - e_wi) * mt.inv_pi_1me;
   const V3 d_refl = scale3(m.albedo, d_scal);
   const float d_pdf = n_dot_wi * kInvPi;
-  const float bsel = am * inv_pi_1me;
-  float dw = bsel / zmax(e_avg + bsel, 1e-12f);
-  dw = m.metallic >= 1.0f ? 0.0f : dw;
 
   const float x = n_dot_h * n_dot_h * (a2 - 1.0f) + 1.0f;
   const float d_ggx = a2 / zmax(kPi * (x * x), 1e-20f);
   const float t_wi = sqrtf((1.0f - a2) * n_dot_wi * n_dot_wi + a2);
-  const float t_wo = sqrtf((1.0f - a2) * n_dot_wo * n_dot_wo + a2);
-  const float vis = 0.5f / zmax(n_dot_wi * t_wo + n_dot_wo * t_wi, 1e-20f);
-  const float g1_denom = t_wo + n_dot_wo;
+  const float vis = 0.5f / zmax(n_dot_wi * w.t_wo + w.n_dot_wo * t_wi, 1e-20f);
+  const float g1_denom = w.t_wo + w.n_dot_wo;
   const V3 gg_refl = v3(d_ggx * vis * schlick1(m.f0.x, wo_dot_h),
                         d_ggx * vis * schlick1(m.f0.y, wo_dot_h),
                         d_ggx * vis * schlick1(m.f0.z, wo_dot_h));
   const float gg_pdf = (0.5f * d_ggx) / zmax(g1_denom, 1e-20f);
 
-  const float em_wo = e_m(fit, alpha, n_dot_wo);
-  const float em_wi = e_m(fit, alpha, n_dot_wi);
-  const float em_avg = e_m_avg(fit, alpha);
-  const float mm = ((1.0f - em_wo) * (1.0f - em_wi)) / zmax(kPi * (1.0f - em_avg), 1e-6f);
-  float ms[3];
-  const float f0c[3] = {m.f0.x, m.f0.y, m.f0.z};
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float f_avg = kF20_21 * f0c[c] + kF1_21;
-    const float fc = (f_avg * f_avg * em_avg) / zmax(1.0f - f_avg * (1.0f - em_avg), 1e-6f);
-    ms[c] = mm * fc;
-  }
+  const float mm = ((1.0f - w.em_wo) * (1.0f - em_wi)) / mt.mm_den;
   const float s = m.specular;
-  f = v3(n_dot_wi * (d_refl.x + s * (gg_refl.x + ms[0])),
-         n_dot_wi * (d_refl.y + s * (gg_refl.y + ms[1])),
-         n_dot_wi * (d_refl.z + s * (gg_refl.z + ms[2])));
-  pdf = dw * d_pdf + (1.0f - dw) * gg_pdf;
+  f = v3(n_dot_wi * (d_refl.x + s * (gg_refl.x + mm * mt.fc[0])),
+         n_dot_wi * (d_refl.y + s * (gg_refl.y + mm * mt.fc[1])),
+         n_dot_wi * (d_refl.z + s * (gg_refl.z + mm * mt.fc[2])));
+  pdf = mt.dw * d_pdf + (1.0f - mt.dw) * gg_pdf;
 }
 
 // Duff et al. branch-free ONB
@@ -249,23 +285,38 @@ __device__ __forceinline__ float predivided_power_heuristic(float f_pdf, float g
   return f_pdf / zmax(g_pdf * g_pdf + f2, 1e-20f);
 }
 
-// materials._substitute_eval: f*cos and pdf toward wi, zero below the
-// shading hemisphere (the shading normal flipped to wo's geometric side)
-__device__ void substitute_eval(const float* fit, const Mat& mat, V3 wo, V3 wi, V3 n, V3 geo_n,
-                                V3& f, float& pdf) {
-  const V3 ns = sel3(dot3(wo, geo_n) > 0.0f, n, neg3(n));
+// the shading normal flipped to wo's geometric side
+__device__ __forceinline__ V3 shading_normal(V3 wo, V3 n, V3 geo_n) {
+  return sel3(dot3(wo, geo_n) > 0.0f, n, neg3(n));
+}
+
+// materials._substitute_eval from the precomputed terms: f*cos and pdf
+// toward wi, zero below the shading hemisphere ns
+__device__ __forceinline__ void eval_terms(const float* fit, const Mat& mat, const MatTerms& mt,
+                                           const WoTerms& w, V3 wo, V3 wi, V3 ns, V3& f,
+                                           float& pdf) {
   const bool refl_side = dot3(wi, ns) > 0.0f;
-  substitute_lobes(fit, mat, wo, wi, ns, f, pdf);
+  lobes(fit, mat, mt, w, wo, wi, ns, f, pdf);
   f = refl_side ? f : v3(0.0f, 0.0f, 0.0f);
   pdf = refl_side ? pdf : 0.0f;
 }
 
-// materials._substitute_sample: cosine or VNDF lobe by s0 with (s1, s2);
-// reg_a is the regularization alpha (1 for the diffuse lobe)
-__device__ void substitute_sample(const float* fit, const Mat& mat, V3 wo, V3 n, V3 geo_n,
-                                  float s0, float s1, float s2, V3& wi, V3& weight, float& pdf,
-                                  bool& ok, float& reg_a) {
-  const V3 ns = sel3(dot3(wo, geo_n) > 0.0f, n, neg3(n));
+// materials._substitute_eval: f*cos and pdf toward wi, zero below the
+// shading hemisphere (the shading normal flipped to wo's geometric side)
+__device__ void substitute_eval(const float* fit, const Mat& mat, V3 wo, V3 wi, V3 n, V3 geo_n,
+                                V3& f, float& pdf) {
+  const V3 ns = shading_normal(wo, n, geo_n);
+  const MatTerms mt = mat_terms(fit, mat);
+  eval_terms(fit, mat, mt, wo_terms(fit, mat.alpha, mt.f0m, wo, ns), wo, wi, ns, f, pdf);
+}
+
+// materials._substitute_sample from the precomputed terms: cosine or VNDF
+// lobe by s0 with (s1, s2) around the shading normal ns; reg_a is the
+// regularization alpha (1 for the diffuse lobe)
+__device__ __forceinline__ void sample_terms(const float* fit, const Mat& mat, const MatTerms& mt,
+                                             const WoTerms& w, V3 wo, V3 ns, float s0, float s1,
+                                             float s2, V3& wi, V3& weight, float& pdf, bool& ok,
+                                             float& reg_a) {
   V3 t, b;
   onb(ns, t, b);
   const float r = sqrtf(s1);
@@ -287,21 +338,25 @@ __device__ void substitute_sample(const float* fit, const Mat& mat, V3 wo, V3 n,
   const float wo_dot_h = clampf(dot3(wo, h));
   const V3 wi_gloss = normalize3(sub3(scale3(h, 2.0f * wo_dot_h), wo));
 
-  const float f0m = max3(mat.f0);
-  const float am = max3(mat.albedo);
-  const float e_avg = e_s_avg(fit, f0m, mat.alpha);
-  const float bsel = am / zmax(kPi * (1.0f - e_avg), 1e-6f);
-  float dw = bsel / zmax(e_avg + bsel, 1e-12f);
-  dw = mat.metallic >= 1.0f ? 0.0f : dw;
-
-  const bool take_diffuse = s0 < dw;
+  const bool take_diffuse = s0 < mt.dw_s;
   wi = sel3(take_diffuse, wi_diffuse, wi_gloss);
   reg_a = take_diffuse ? 1.0f : mat.alpha;
   V3 f;
-  substitute_lobes(fit, mat, wo, wi, ns, f, pdf);
+  lobes(fit, mat, mt, w, wo, wi, ns, f, pdf);
   ok = (dot3(wi, ns) > 0.0f) & (pdf > 1e-10f);
   const float inv_pdf = 1.0f / zmax(pdf, 1e-10f);
   weight = ok ? v3(f.x * inv_pdf, f.y * inv_pdf, f.z * inv_pdf) : v3(0.0f, 0.0f, 0.0f);
+}
+
+// materials._substitute_sample: cosine or VNDF lobe by s0 with (s1, s2);
+// reg_a is the regularization alpha (1 for the diffuse lobe)
+__device__ void substitute_sample(const float* fit, const Mat& mat, V3 wo, V3 n, V3 geo_n,
+                                  float s0, float s1, float s2, V3& wi, V3& weight, float& pdf,
+                                  bool& ok, float& reg_a) {
+  const V3 ns = shading_normal(wo, n, geo_n);
+  const MatTerms mt = mat_terms(fit, mat);
+  sample_terms(fit, mat, mt, wo_terms(fit, mat.alpha, mt.f0m, wo, ns), wo, ns, s0, s1, s2, wi,
+               weight, pdf, ok, reg_a);
 }
 
 

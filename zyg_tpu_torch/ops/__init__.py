@@ -129,6 +129,20 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
+def resident_lanes(symbol: str) -> int:
+    """The lanes one pass of a persistent kernel's resident grid covers on
+    the current device (SMs x resident blocks x block size), from the
+    library's `symbol` (zyg_shade_resident_lanes, zyg_traverse_resident_lanes)."""
+    fn = getattr(library(), symbol)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int64(0)
+    err = fn(ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"{symbol}: cudaError_t {err}")
+    return out.value
+
+
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

@@ -2,7 +2,9 @@
 the 8-wide BLAS traversal (counterpart of zyg_tpu/scene/trimesh.py:544-935
 `_tri_test`, `traverse`, `_traverse_stage` and :1053 `intersect_instances`).
 Kernel: csrc/traverse.cu. The JAX package walks the BVH in XLA; on the
-card it is this port's own kernel, one thread per ray.
+card it is this port's own kernel: persistent warps that take rays from a
+counter, one ray per lane at a time, reading the arena rows as 16-byte
+loads (the wrapper checks the arena's alignment).
 
 The walk, per ray (the JAX package's, so both pick the same triangle):
 - instances in strict (entry t, index) order: the nearest world AABB
@@ -275,8 +277,15 @@ def _traverse_cuda(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, 
     check_cuda("traverse.tmax", tmax, torch.float32, dev, (n,))
     if primary is not None:
         check_cuda("traverse.primary", primary, torch.bool, dev, (n,))
+    for name, rows in (("node_rows", arena.node_rows), ("tri_rows", arena.tri_rows)):
+        if rows.data_ptr() % 16:
+            raise ValueError(f"traverse.{name}: the kernel reads rows as 16-byte loads and needs "
+                             "a 16-byte aligned tensor")
     if dev not in _errors:
         _errors[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    # the ray counter the kernel's warps take ray ids from (the entry point
+    # zeroes it on the stream before the launch)
+    next_ray = torch.empty(1, dtype=torch.int64, device=dev)
     if any_hit:
         outs = [torch.empty(n, dtype=torch.bool, device=dev)]
     else:
@@ -288,7 +297,7 @@ def _traverse_cuda(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, 
     ptrs = [arena.node_rows.data_ptr(), arena.tri_rows.data_ptr(), itab.wmin.data_ptr(),
             itab.wmax.data_ptr(), itab.trafo.data_ptr(), itab.vis.data_ptr(), o.data_ptr(),
             d.data_ptr(), tmax.data_ptr(), primary.data_ptr() if primary is not None else None,
-            _errors[dev].data_ptr()]
+            _errors[dev].data_ptr(), next_ray.data_ptr()]
     ptrs += [x.data_ptr() for x in outs]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     if n > 0:
