@@ -12,7 +12,9 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     persistent shade and traverse grids covers
  3. each kernel, called through the wrapper its path calls, against its
     plain torch version on the card, at the main paths' shapes:
-    sobol_block bit-exact; accum exact; shade (Cornell) with lane
+    sobol_block bit-exact (also at 0, 1, 31, 129 and one block + 1 lanes,
+    with the shared-memory cost of its table reads counted on the data); accum (the per-pixel flush) with RGB within rtol 4e-6 and counts
+    exact, at the Cornell path's own finish share and at all lanes; shade (Cornell) with lane
     lifecycles (alive, depth, ray count) exact, live-lane o/d/bxdf_pdf/
     mis_n/throughput within 1e-4/1e-5/1e-5/1e-5/5e-3 relative, and
     radiance column sums within rtol 2e-3; then on the bench trefoil at
@@ -21,9 +23,10 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     surface with the shade rules plus the shadow rays and NEE values of
     the NEE lanes; traverse (and a rotated two-instance scene) with hit
     ids exact except at exact-t ties, t/u/v within rtol 2e-5 and any-hit
-    exact. Times each (median of runs, CUDA events) beside its bound
-    and, where one PyTorch call computes the same function, that call's
-    time
+    exact. Times each (median of runs, CUDA events; and its device time
+    from the profiler, which leaves out the host's gaps between a short
+    kernel's launches) beside its bound and, where one PyTorch call
+    computes the same function, that call's time
  4. a 128x128, 64 spp Cornell render on the card against the port's plain
     CPU render: mean energy within 1.5%, 4x4-downsampled RMSE within 6%
     of the mean (the JAX package's golden-gate statistics)
@@ -33,8 +36,9 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
     must be finite with a positive mean; one more 1080p render under
-    torch.profiler gives the device time by kernel and the device's busy
-    share
+    torch.profiler gives the device time by kernel, the glue's launches and
+    the device's busy share; one more gives the peak device memory, and one
+    more the share of launched lanes each flush finishes
  5b. the mesh main path: the CLI on examples/takes/trefoil.take (640x360,
     8 spp), then the Driver at 1280x720 and 4 spp over the 491,520-triangle
     trefoil; sobol_block, isect, surface, traverse and accum must each have
@@ -92,6 +96,9 @@ SOURCES = {
     "traverse": "zyg_tpu_torch/csrc/traverse.cu",
 }
 CORNELL_KERNELS = ("sobol_block", "shade", "accum")
+# sobol_block's launch shapes besides the checks' width: 513 is one
+# 512-thread block and a lane (each block fills its own table)
+SOBOL_SHAPES = (0, 1, 31, 129, 513)
 MESH_KERNELS = ("sobol_block", "isect", "surface", "traverse", "accum")
 TEXTURED_KERNELS = ("sobol_block", "isect", "surface_v2", "traverse", "accum")
 
@@ -99,9 +106,17 @@ TEXTURED_KERNELS = ("sobol_block", "isect", "surface_v2", "traverse", "accum")
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# integer issue: 64 INT32 lanes a clock on each of 132 SMs at 1.98 GHz
+INT32_OPS_PER_S = 16.7e12
+# share of a full-width flush launch's lanes whose sample finishes there
+# on the Cornell 1080p 16 spp path: 0.2005, measured by phase 5's
+# flush_share (NVIDIA H100 80GB HBM3; PERF.md)
+CORNELL_FLUSH_SHARE = 0.2005
 # operations per item, counted from the kernel sources (each add, multiply,
 # compare, select, bit operation or special function counts one)
-OPS_SOBOL_LANE = 530  # 32-bit x 5-dim direction loop, 6 scrambles, seed hash
+# sobol_block: 2 + 5 bit reversals, 6 scrambles of 10, 4 table indices and
+# loads, 12 XORs, 5 seed combines of 2 (+3 shared), 5 floats of 3, seed hash
+OPS_SOBOL_LANE = 127
 OPS_PROP_TEST = 45  # one analytic prop hit test
 OPS_SHADE_LANE = 2500  # fused bounce without its prop tests
 OPS_SURFACE_LANE = 2500  # the mesh bounce between the traversals
@@ -119,6 +134,11 @@ def bound(nbytes: float, ops: float) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def int_issue_ms(instructions: int, lanes: int) -> float:
+    """Time to issue `instructions` per lane at the card's INT32 rate."""
+    return instructions * lanes / INT32_OPS_PER_S * 1e3
 
 
 def log(msg: str) -> None:
@@ -142,6 +162,27 @@ def time_ms(fn, reps: int, runs: int = 5) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time of the `kernel` launches of `reps` calls of fn, from
+    torch.profiler's device timestamps: unlike time_ms it does not count the
+    device's idle gaps while the host issues a short kernel's launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and f"{kernel}_kernel" in e.name]
+    if not us:
+        raise AssertionError(f"{kernel}: the profiler recorded no device time")
+    return sum(us) / len(us) / 1e3
 
 
 def phase_card() -> str:
@@ -180,7 +221,12 @@ def phase_build() -> None:
     for ln in info["ptxas"].splitlines():
         if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
             log(f"  {ln.strip()}")
-    log(f"static SASS instructions (NOPs not counted): {sass_counts(info['path'])}")
+    sass = sass_counts(info["path"])
+    log(f"static SASS instructions (NOPs not counted): {sass}")
+    if "sobol_block" in sass:
+        log(f"sobol_block: {sass['sobol_block']} static instructions; at one issue a lane each, "
+            f"{N_MAIN} lanes take {int_issue_ms(sass['sobol_block'], N_MAIN):.4f} ms of integer "
+            f"issue (byte bound {bound(N_MAIN * (8 + 24), 0)['bound_ms']:.4f} ms)")
     for name in ("shade", "traverse"):
         log(f"{name}: one pass of the resident grid covers "
             f"{ops.resident_lanes(f'zyg_{name}_resident_lanes')} lanes")
@@ -199,20 +245,47 @@ def check_sobol(dev) -> dict:
     g = torch.Generator(device="cpu").manual_seed(3)
     sample = torch.randint(-2**31, 2**31, (N_CHECK,), generator=g, dtype=torch.int32).to(dev)
     seed = torch.randint(-2**31, 2**31, (N_CHECK,), generator=g, dtype=torch.int32).to(dev)
-    buf, ns = sobol_block(sample, seed)
-    rbuf, rns = sobol_block_plain(sample, seed)
-    torch.cuda.synchronize()
-    if not (torch.equal(buf.view(torch.int32), rbuf.view(torch.int32)) and torch.equal(ns, rns)):
-        raise AssertionError("sobol_block: kernel differs from the plain version")
+    for n in SOBOL_SHAPES + (N_CHECK,):
+        buf, ns = sobol_block(sample[:n], seed[:n])
+        rbuf, rns = sobol_block_plain(sample[:n], seed[:n])
+        torch.cuda.synchronize()
+        if not (torch.equal(buf.view(torch.int32), rbuf.view(torch.int32)) and torch.equal(ns, rns)):
+            raise AssertionError(f"sobol_block: kernel differs from the plain version at {n} lanes")
     s, r = sample[:N_MAIN], seed[:N_MAIN]
+    log(f"sobol_block: bit-exact at {SOBOL_SHAPES} and {N_CHECK} lanes; "
+        f"its table reads take {table_wavefronts(s, r):.3f} "
+        f"shared-memory wavefronts per warp-wide 16-byte load (4 without bank conflicts)")
     return {
         "max_abs_err": float((buf - rbuf).abs().max()),
         "ms": time_ms(lambda: sobol_block(s, r), 20),
+        "device_ms": device_ms(lambda: sobol_block(s, r), "sobol_block"),
         "plain_ms": time_ms(lambda: sobol_block_plain(s, r), 2, runs=3),
         # in: sample, seed; out: 5 floats, next seed
         **bound(N_MAIN * (8 + 24), N_MAIN * OPS_SOBOL_LANE),
         "library_ms": None,
     }
+
+
+def table_wavefronts(sample, run_seed) -> float:
+    """Shared-memory wavefronts of csrc/sobol_block.cu's four byte-table
+    loads per warp on these lanes, by the 16-byte load model: each quarter
+    warp is one phase, an entry takes 4 banks (bank group = entry mod 8),
+    and a phase takes as many wavefronts as the most distinct entries any
+    bank group holds. Returns the mean per warp-wide load (4 = no conflicts)."""
+    import torch
+    from zyg_tpu_torch.core.rng import u32
+    from zyg_tpu_torch.core.sobol import bit_reverse32, nested_uniform_scramble
+
+    n = sample.shape[0] // 32 * 32
+    y = bit_reverse32(nested_uniform_scramble(sample[:n], u32(run_seed[:n])))
+    phase = torch.arange(n, device=y.device) // 8
+    total = 0
+    for b in range(4):
+        entry = (y >> (8 * b)) & 255
+        key = torch.unique(phase * 256 + entry)  # distinct entries of each phase
+        slot = (key // 256) * 8 + (key % 256) % 8  # (phase, bank group)
+        total += int(torch.bincount(slot, minlength=(n // 8) * 8).view(n // 8, 8).amax(1).sum())
+    return total / (4 * n // 32)
 
 
 def _isect_lanes(n, dev, seed=5):
@@ -276,6 +349,7 @@ def check_isect(dev) -> dict:
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: isect.closest_props(refl, o, d, 0.0, tmax, prim), 20),
+        "device_ms": device_ms(lambda: isect.closest_props(refl, o, d, 0.0, tmax, prim), "isect"),
         "plain_ms": time_ms(lambda: isect.isect_plain(refl.kinds, refl.table, refl.ids, o, d, 0.0,
                                                       tmax, prim, False), 2, runs=3),
         # in: o, d, tmax, primary; out: t, prop id, u, v
@@ -284,36 +358,61 @@ def check_isect(dev) -> dict:
     }
 
 
-def check_accum(dev) -> dict:
+def _flush_lanes(n, share, dev, seed=11):
+    """One flush step's inputs at the Cornell path's width: lane i's sample
+    k sits on pixel (i + k * stride) mod n with k random in [0, 24) (16 spp
+    and 8 slack, so pixels collide), `share` of the lanes finish, 80 % of
+    the rest stay alive; radiance in [0, 4)."""
     import torch
-    from zyg_tpu_torch.ops.accum import flush_columns, flush_plain
+    from zyg_tpu_torch.render.integrator.ptmis import _coprime_stride
 
-    g = torch.Generator(device="cpu").manual_seed(11)
-    k = 24  # 16 spp + 8 slack: the 1080p final chunk
-    acc = torch.rand((4 * k, N_MAIN), generator=g).to(dev)
-    col = torch.randint(-1, k, (N_MAIN,), generator=g, dtype=torch.int32).to(dev)
-    vals = torch.rand((N_MAIN, 4), generator=g).to(dev)
-    planes = [vals[:, c] for c in range(4)]
-    a1 = flush_columns(acc.clone(), col, *planes)
-    a2 = flush_plain(acc.clone(), col, *planes)
-    torch.cuda.synchronize()
-    if not torch.equal(a1, a2):
-        raise AssertionError("accum: kernel differs from the plain version")
-    # the one PyTorch call that computes the same flush: an indexed add
-    lanes = torch.nonzero(col >= 0).squeeze(1)
-    m = int(lanes.numel())
-    rows = torch.cat([4 * col[lanes].long() + c for c in range(4)])
-    cols = lanes.repeat(4)
-    vflat = torch.cat([planes[c][lanes] for c in range(4)])
-    a3 = acc.clone()
-    return {
-        "max_abs_err": float((a1 - a2).abs().max()),
-        "ms": time_ms(lambda: flush_columns(a1, col, *planes), 20),
-        "plain_ms": time_ms(lambda: flush_plain(a2, col, *planes), 3, runs=3),
-        # col of every lane; 4 values and 4 cells read and written per flushing lane
-        **bound(N_MAIN * 4 + m * (16 + 32), m * 4),
-        "library_ms": time_ms(lambda: a3.index_put_((rows, cols), vflat, accumulate=True), 20),
-    }
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    k = torch.randint(0, 24, (n,), generator=g)
+    pid = (torch.arange(n) + k * _coprime_stride(n)) % n
+    fin = torch.rand(n, generator=g) < share
+    was_alive = fin | (torch.rand(n, generator=g) < 0.8)
+    planes = [torch.rand((n, 3), generator=g) * 4.0 for _ in range(3)]
+    return [t.to(dev) for t in (pid, was_alive, was_alive & ~fin, *planes)]
+
+
+def check_accum(dev) -> dict:
+    """The per-pixel flush against its plain version (RGB within rtol 4e-6,
+    counts exact: the kernel's atomics add in another order) at the Cornell
+    path's finish share with no clamp, and at all lanes with a finite
+    indirect clamp. Times at the path's share, and at all lanes."""
+    import torch
+    from zyg_tpu_torch.ops.accum import flush_pixels, flush_plain, flush_rows
+
+    n = N_MAIN
+    fb0 = torch.rand((n, 4), generator=torch.Generator(device="cpu").manual_seed(12)).to(dev)
+    out = {}
+    for tag, share, clamp in (("", CORNELL_FLUSH_SHARE, (float("inf"),) * 3),
+                              ("all_lanes_", 1.0, (float("inf"), float("inf"), 8.0))):
+        lanes = _flush_lanes(n, share, dev)
+        a1 = flush_pixels(fb0.clone(), *lanes, clamp)
+        a2 = flush_plain(fb0.clone(), *lanes, clamp)
+        torch.cuda.synchronize()
+        if not torch.equal(a1[:, 3], a2[:, 3]):
+            raise AssertionError("accum: sample counts differ from the plain version")
+        torch.testing.assert_close(a1, a2, rtol=4e-6, atol=4e-6 * float(a2[:, 0:3].abs().max()))
+        m = int((lanes[1] & ~lanes[2]).sum())
+        rows = flush_rows(lanes[1], lanes[2], *lanes[3:], clamp)
+        a3 = fb0.clone()
+        out.update({
+            f"{tag}max_abs_err": float((a1 - a2).abs().max()),
+            f"{tag}ms": time_ms(lambda: flush_pixels(a1, *lanes, clamp), 20),
+            f"{tag}device_ms": device_ms(lambda: flush_pixels(a1, *lanes, clamp), "accum"),
+            f"{tag}plain_ms": time_ms(lambda: flush_plain(a2, *lanes, clamp), 3, runs=3),
+            # the one PyTorch call that adds the same rows by pixel
+            f"{tag}library_ms": time_ms(lambda: a3.index_add_(0, lanes[0], rows), 20),
+        })
+        if not tag:
+            # pid and the two masks of every lane, the three radiance rows of
+            # each finishing lane; the [N, 4] rows stay in L2 (33 MB)
+            out.update(bound(n * (8 + 2) + m * 36, m * 16))
+            log(f"accum: {m} of {n} lanes finish at the path's share {share}")
+        del lanes, rows, a1, a2, a3
+    return out
 
 
 def _shade_state(n, dev, seed=7):
@@ -408,6 +507,7 @@ def check_shade(dev) -> dict:
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: shade.fused_bounce(tables, st, ua, ub, *args), 10),
+        "device_ms": device_ms(lambda: shade.fused_bounce(tables, st, ua, ub, *args), "shade", 10),
         "plain_ms": time_ms(lambda: shade.bounce_plain(tables, st, ua, ub, *args), 1, runs=3),
         # 12 state fields + 7 uniforms in (136 B), 11 state fields out (120 B)
         **bound(N_MAIN * (136 + 120),
@@ -518,6 +618,8 @@ def check_traverse(dev) -> dict:
         "max_abs_err": err,
         "ms": time_ms(lambda: traverse.intersect_instances(arena, itab, o, d, 0.0, tmax, "reflection",
                                                            prim), 5),
+        "device_ms": device_ms(lambda: traverse.intersect_instances(arena, itab, o, d, 0.0, tmax,
+                                                                    "reflection", prim), "traverse", 5),
         "anyhit_ms": time_ms(lambda: traverse.intersect_instances(arena, itab, o, d, 0.0, smax, "shadow",
                                                                   any_hit=True), 5),
         "plain_ms": time_ms(lambda: traverse.traverse_plain(arena, itab, o, d, 0.0, tmax, 1, prim, False),
@@ -590,6 +692,7 @@ def check_surface(dev) -> dict:
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: surface.surface(tables, st, ua, ub, *args), 10),
+        "device_ms": device_ms(lambda: surface.surface(tables, st, ua, ub, *args), "surface", 10),
         "plain_ms": time_ms(lambda: surface.surface_plain(tables, st, ua, ub, *args), 1, runs=3),
         **bound(n * lane_bytes, n * OPS_SURFACE_LANE),
         "library_ms": None,
@@ -639,6 +742,8 @@ def check_surface_v2(dev) -> dict:
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: surface_v2.surface_v2(body.fit, st, ua, ub, *args), 10),
+        "device_ms": device_ms(lambda: surface_v2.surface_v2(body.fit, st, ua, ub, *args), "surface_v2",
+                               10),
         "plain_ms": time_ms(lambda: surface_v2.surface_v2_plain(st, ua, ub, *args), 1, runs=3),
         **bound(n * lane_bytes, n * OPS_SURFACE_V2_LANE),
         "library_ms": None,
@@ -814,9 +919,10 @@ def phase_slice_mesh(dev) -> None:
     _golden_gate(card, cpu, "trefoil 96x56x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
-def profile_render(driver, spp: int, label: str, kernels) -> None:
+def profile_render(driver, spp: int, label: str, kernels) -> int:
     """Device kernel time of one warm render by kernel, from a torch.profiler
-    trace, and the device's busy share of the profiled wall time."""
+    trace, and the device's busy share of the profiled wall time. Returns
+    the launches of kernels that are not the port's (the torch glue)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -849,6 +955,33 @@ def profile_render(driver, spp: int, label: str, kernels) -> None:
             f"({100 * sec / max(busy, 1e-12):.1f} % of device time)")
     for name, (sec, count) in top:
         log(f"  {sec:.4f} s {count:6d}x {name[:100]}")
+    return groups["other"][1]
+
+
+def flush_share(driver, spp: int) -> tuple[float, float]:
+    """The share of a flush launch's lanes whose sample finishes in it, over
+    one render: (full-width launches, all launches). Counts the lanes on the
+    host around each flush, so the render is not timed."""
+    import torch
+    from zyg_tpu_torch.render.integrator import ptmis
+
+    calls = []  # (finished, lanes) per flush
+    orig = ptmis.flush_pixels
+
+    def counting(fb, pid, was_alive, alive, *rest):
+        calls.append((int((was_alive & ~alive).sum()), pid.shape[0]))
+        return orig(fb, pid, was_alive, alive, *rest)
+
+    ptmis.flush_pixels = counting
+    try:
+        driver.start_frame()
+        driver.render_iterations(spp)
+        torch.cuda.synchronize()
+    finally:
+        ptmis.flush_pixels = orig
+    width = max(w for _, w in calls)
+    full = [f for f, w in calls if w == width]
+    return sum(full) / (len(full) * width), sum(f for f, _ in calls) / sum(w for _, w in calls)
 
 
 def _cli_run(take_name: str, kernels) -> dict:
@@ -919,7 +1052,16 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels) -> dict:
         f"{best['iterations']} wavefront iterations, "
         f"{best['rays'] / best['seconds'] / 1e6:.2f} Mrays/s, image mean {float(img.mean()):.6f}, "
         f"launches per render {({k: v for k, v in per_render.items() if v})}")
-    profile_render(driver, spp, f"{label} {res[0]}x{res[1]} [{card}]", kernels)
+    glue = profile_render(driver, spp, f"{label} {res[0]}x{res[1]} [{card}]", kernels)
+    torch.cuda.reset_peak_memory_stats(dev)
+    driver.start_frame()
+    driver.render_iterations(spp)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    full, mean = flush_share(driver, spp)
+    log(f"{label} [{card}]: peak device memory of one render {peak} B ({peak / 2**30:.3f} GiB); "
+        f"glue launches per render {glue}; flushes finish {full:.4f} of the lanes of a full-width "
+        f"launch, {mean:.4f} over all launches")
     return per_render
 
 
@@ -970,7 +1112,12 @@ def main() -> int:
         c = checks[name]
         lib = f", library {c['library_ms']:.4f} ms" if c["library_ms"] is not None else ""
         anyhit = f" (any-hit {c['anyhit_ms']:.4f} ms)" if "anyhit_ms" in c else ""
-        log(f"{name}: ok, max_abs_err {c['max_abs_err']:.3g}, kernel {c['ms']:.4f} ms{anyhit}, "
+        if "all_lanes_ms" in c:
+            anyhit = (f" (all lanes {c['all_lanes_ms']:.4f} ms, device {c['all_lanes_device_ms']:.4f} ms, "
+                      f"plain {c['all_lanes_plain_ms']:.4f} ms, "
+                      f"library {c['all_lanes_library_ms']:.4f} ms)")
+        log(f"{name}: ok, max_abs_err {c['max_abs_err']:.3g}, kernel {c['ms']:.4f} ms "
+            f"(device {c['device_ms']:.4f} ms){anyhit}, "
             f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}){lib} "
             f"[{card}]")
         torch.cuda.empty_cache()
@@ -999,7 +1146,8 @@ def main() -> int:
                 "replaces": REPLACES[name], "launches": launches[name],
                 "launches_of": "cli cornell_ptmis.take + cli trefoil.take + one 1280x720 4 spp "
                                "textured-trefoil render",
-                "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "max_abs_err": c["max_abs_err"], "ms": c["ms"], "device_ms": c["device_ms"],
+                "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"]}
 

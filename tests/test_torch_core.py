@@ -90,6 +90,36 @@ def test_kernel_direction_table_matches():
     np.testing.assert_array_equal(np.asarray(vals, np.uint32).reshape(5, 32), _DIRECTIONS)
 
 
+def test_byte_table_is_xor_of_directions():
+    """Every entry of the byte-sliced table (dims 1-4) is the bit-reversed XOR
+    of the direction numbers its byte's set bits select, counted bit by bit."""
+    from zyg_tpu_torch.core.sobol import _DIRECTIONS, BYTE_TABLE
+
+    assert BYTE_TABLE.shape == (4, 256, 4) and BYTE_TABLE.dtype == np.uint32
+    for b in range(4):
+        for v in range(256):
+            for d in range(1, 5):
+                x = 0
+                for i in range(8):
+                    if (v >> i) & 1:
+                        x ^= int(_DIRECTIONS[d, 31 - (8 * b + i)])
+                assert int(BYTE_TABLE[b, v, d - 1]) == int(f"{x:032b}"[::-1], 2), (b, v, d)
+
+
+def test_table_walk_matches_sobol5():
+    """The kernel's table walk equals the 32-bit direction loop bit for bit,
+    on 2^16 random indices plus 0 and 0xFFFFFFFF."""
+    from zyg_tpu.core import sobol as js
+    from zyg_tpu_torch.core import sobol as ts
+
+    rng = np.random.default_rng(0x5EED)
+    x = rng.integers(0, 2**32, 1 << 16, dtype=np.uint64).astype(np.uint32)
+    x = np.concatenate([x, np.array([0, 0xFFFFFFFF], np.uint32)])
+    walk = _u32(ts.sobol5_bytes(_t(x)))
+    np.testing.assert_array_equal(walk, _u32(ts.sobol5(_t(x))))
+    np.testing.assert_array_equal(walk, np.asarray(js.sobol5(x)))
+
+
 def _draws_jax(sample, seed):
     from zyg_tpu.core.sobol import SobolSampler
 

@@ -1,7 +1,8 @@
 """Each CUDA kernel of the port against its plain torch version on the card,
-at the main path's shapes (the checks of chip_smoke.py phase 3), and the two
+at the main path's shapes (the checks of chip_smoke.py phase 3), the
 persistent kernels (shade, traverse) at the launch shapes their grid-stride
-and ray-fetch loops must get right. Skipped without a card. This file
+and ray-fetch loops must get right, sobol_block and the per-pixel flush at
+small widths. Skipped without a card. This file
 imports no jax, so it also runs on a machine without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -41,6 +42,35 @@ def _lanes(shape, symbol: str) -> int:
     from zyg_tpu_torch import ops
 
     return ops.resident_lanes(symbol) + 1 if shape == "resident+1" else shape
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 129, 513])
+def test_sobol_block_launch_shapes(cuda_device, n):
+    g = torch.Generator(device="cpu").manual_seed(9)
+    from zyg_tpu_torch.ops.sobol_block import sobol_block, sobol_block_plain
+
+    sample = torch.randint(-2**31, 2**31, (n,), generator=g, dtype=torch.int32).to(cuda_device)
+    seed = torch.randint(-2**31, 2**31, (n,), generator=g, dtype=torch.int32).to(cuda_device)
+    buf, ns = sobol_block(sample, seed)
+    rbuf, rns = sobol_block_plain(sample, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(buf.view(torch.int32), rbuf.view(torch.int32)) and torch.equal(ns, rns)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 129])
+def test_accum_small_widths(cuda_device, n):
+    """A few lanes flushing into a 64-pixel framebuffer, several on one pixel."""
+    import chip_smoke
+    from zyg_tpu_torch.ops.accum import flush_pixels, flush_plain
+
+    pid, was_alive, alive, *planes = chip_smoke._flush_lanes(max(n, 1), 0.5, cuda_device)
+    lanes = [pid[:n] % 64, was_alive[:n], alive[:n]] + [p[:n] for p in planes]
+    fb0 = torch.rand((64, 4), generator=torch.Generator(device="cpu").manual_seed(1)).to(cuda_device)
+    a1 = flush_pixels(fb0.clone(), *lanes, (float("inf"), 2.0, 1.0))
+    a2 = flush_plain(fb0.clone(), *lanes, (float("inf"), 2.0, 1.0))
+    torch.cuda.synchronize()
+    assert torch.equal(a1[:, 3], a2[:, 3])
+    torch.testing.assert_close(a1, a2, rtol=4e-6, atol=4e-6 * float(a2[:, 0:3].abs().max()))
 
 
 @pytest.mark.parametrize("case", SHAPES + ["all dead"])

@@ -55,6 +55,24 @@ def bit_reverse32(x: torch.Tensor) -> torch.Tensor:
     return ((x >> 16) | (x << 16)) & MASK
 
 
+def _byte_table(directions: np.ndarray) -> np.ndarray:
+    """Byte-sliced XOR table of dims 1-4, (4, 256, 4) uint32: entry
+    [b, v, d - 1] is the bit-reversed XOR of dim d's direction numbers for
+    the index bits 31 - (8b + i) at the set bits i of v, i.e. the bits that
+    byte b = v of y = bit_reverse32(index) selects."""
+    rev = bit_reverse32(torch.from_numpy(directions[1:5].astype(np.int64))).numpy().astype(np.uint32)
+    v = np.arange(256)
+    out = np.zeros((4, 256, 4), np.uint32)
+    for b in range(4):
+        for i in range(8):
+            out[b, ((v >> i) & 1).astype(bool)] ^= rev[:, 31 - (8 * b + i)]
+    return out
+
+
+# the table csrc/sobol_block.cu fills in shared memory
+BYTE_TABLE = _byte_table(_DIRECTIONS)
+
+
 def laine_karras_permutation(x: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     """Improved LK hash (psychopath.io 2021), the reference's constants."""
     x = u32(x)
@@ -80,6 +98,16 @@ def sobol5(index: torch.Tensor) -> torch.Tensor:
         take = -((index >> bit) & 1)  # 0 or all ones (int64)
         acc = acc ^ (take[..., None] & dirs[:, bit])
     return acc
+
+
+def sobol5_bytes(index: torch.Tensor) -> torch.Tensor:
+    """sobol5 by the byte-sliced table walk of csrc/sobol_block.cu: dim 0's
+    sum is the bit-reversed index; dims 1-4 XOR one BYTE_TABLE row per byte
+    of y = bit_reverse32(index) and reverse the result back."""
+    y = bit_reverse32(index)
+    table = torch.as_tensor(BYTE_TABLE.astype(np.int64), device=y.device)
+    r = table[0][y & 255] ^ table[1][(y >> 8) & 255] ^ table[2][(y >> 16) & 255] ^ table[3][y >> 24]
+    return torch.cat([y[..., None], bit_reverse32(r)], dim=-1)
 
 
 class SobolArrays:
@@ -156,11 +184,12 @@ class SobolSampler:
 
 
 def sobol_block_reference(sample: torch.Tensor, run_seed: torch.Tensor):
-    """The block draw as the chain of the functions above:
-    (buffer float32[N, 5], next run seed as int32 bits)."""
+    """The block draw as the chain of the functions above, with the kernel's
+    table walk for the direction sums: (buffer float32[N, 5], next run seed
+    as int32 bits)."""
     s = u32(run_seed)
     idx = nested_uniform_scramble(sample, s)
-    sob = sobol5(idx)
+    sob = sobol5_bytes(idx)
     seeds = hash_combine(s[..., None], torch.arange(5, dtype=torch.int64, device=s.device))
     buf = u32_to_float(nested_uniform_scramble(sob, seeds))
     return buf, to_i32(hash_u32((s + 1) & MASK))

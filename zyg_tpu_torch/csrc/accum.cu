@@ -1,60 +1,79 @@
-// Sample flush of the persistent wavefront: acc[C*col[i]+c, i] += vals[c][i]
-// for every lane i with col[i] >= 0, in place.
+// Per-pixel sample flush of the persistent wavefront: for every lane i
+// whose path ended in this launch (was_alive[i] && !alive[i]),
+//
+//     fb[pid[i]] += (clamp(e_i, c0) + clamp(d_i, c1) + clamp(x_i, c2), 1)
+//
+// with e, d, x the lane's emission, direct and indirect radiance, in place.
 //
 // Replaces the TPU kernel zyg_tpu/ops/accum.py::_flush_kernel (launched by
-// flush_columns through _flush_pallas, pallas_call at :57). The TPU kernel
-// rewrote all C*K rows of a lane tile (a masked one-hot add); this one
-// touches only the C entries a flushing lane owns.
+// flush_columns through _flush_pallas, pallas_call at :57) together with
+// the affine unpermute after the loop (zyg_tpu/render/integrator/
+// ptmis.py:1465-1503). A TPU scatter by pixel id cost ~80 ms an iteration
+// (ptmis.py:1143-1152), so the TPU flushes each sample into a per-lane
+// [4*kmax, N] column buffer and puts the columns back on their pixels with
+// circular shifts once per dispatch. Hopper scatters natively and has
+// vector atomics, so each finished sample goes straight to its pixel's
+// float4 [R, G, B, count] row, as the reference's sensor adds samples
+// (sensor.zig addSample).
 //
-// What bounds it on an H100: bytes. Per lane it reads col (4 B) and the C
-// values (16 B), and a flushing lane reads and writes its C accumulator
-// entries (32 B) — ~0.1 GB per launch at 2,073,600 lanes, tens of
-// microseconds, against a [96, N] (~0.8 GB) buffer the TPU kernel streamed
-// whole. Design: one thread per lane; each (row, lane) pair belongs to
-// exactly one thread, so the add needs no atomics. Accumulator rows are
-// N floats apart, so a warp's accesses to one row are contiguous.
+// What bounds it on an H100: bytes. Every lane reads its pid (8 B) and its
+// two masks (2 B); a finishing lane reads its three radiance rows (36 B)
+// and adds one float4 with a single vector atomic. The [N, 4]
+// framebuffer (33 MB at 1080p) stays in the 50 MB L2, so the atomics
+// resolve there and do not reach device memory per launch.
+//
+// Two lanes of one launch can finish samples of the same pixel (sample k
+// and sample k' of a pixel sit on different lanes under the affine
+// shuffle); the order of their float adds then varies from run to run, and
+// RGB agrees with an ordered sum to about kmax float32 epsilons. Counts are
+// small integers in float32 and exact in any order.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define ACCUM_MAX_C 4
-
 struct AccumArgs {
-  float* acc;  // [C*K, N]
-  const int32_t* col;  // [N], -1 = no flush
-  const float* vals[ACCUM_MAX_C];  // C rows, element stride val_stride[c]
-  int64_t val_stride[ACCUM_MAX_C];
-  int c, k;
+  float* fb;  // [rows, 4]: R, G, B, sample count
+  const int64_t* pid;  // [n] the lane's pixel, in [0, rows)
+  const uint8_t* was_alive;  // [n] bool
+  const uint8_t* alive;  // [n] bool
+  const float* rad[3];  // emission, direct, indirect: [n, 3] rows
+  int64_t rad_stride[3];  // row strides in floats
+  float clamp[3];  // per-class clamp limits (inf = none)
   int64_t n;
 };
 
+// torch.clamp(x, max=m): NaN stays NaN, an infinite m changes nothing
+__device__ __forceinline__ float clamp_max(float x, float m) { return x > m ? m : x; }
+
 __global__ void accum_kernel(AccumArgs a) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const int col = a.col[i];
-  if (col < 0 || col >= a.k) return;
+  if (i >= a.n || !a.was_alive[i] || a.alive[i]) return;
+  float v[3];
 #pragma unroll
-  for (int c = 0; c < ACCUM_MAX_C; ++c) {
-    if (c < a.c) {
-      float* cell = a.acc + ((int64_t)a.c * col + c) * a.n + i;
-      *cell = *cell + a.vals[c][i * a.val_stride[c]];
-    }
+  for (int c = 0; c < 3; ++c) {
+    // the JAX integrator's clamp_cur order: (emission + direct) + indirect
+    const float e = clamp_max(a.rad[0][i * a.rad_stride[0] + c], a.clamp[0]);
+    const float d = clamp_max(a.rad[1][i * a.rad_stride[1] + c], a.clamp[1]);
+    const float x = clamp_max(a.rad[2][i * a.rad_stride[2] + c], a.clamp[2]);
+    v[c] = (e + d) + x;
   }
+  // one REDG.E.ADD.F32x4 (sm_90); four scalar adds measured 1.3-1.7x slower
+  atomicAdd(reinterpret_cast<float4*>(a.fb + 4 * a.pid[i]), make_float4(v[0], v[1], v[2], 1.0f));
 }
 
-// vals: C pointers, strides: C element strides
-extern "C" int zyg_flush_columns(void* acc, const void* col, const void** vals,
-                                 const int64_t* strides, int c, int k, int64_t n,
-                                 void* stream) {
-  if (c < 1 || c > ACCUM_MAX_C) return (int)cudaErrorInvalidValue;
+// rad: 3 pointers, strides: 3 row strides, clamp: 3 limits
+extern "C" int zyg_flush_pixels(void* fb, const void* pid, const void* was_alive,
+                                const void* alive, const void** rad, const int64_t* strides,
+                                const float* clamp, int64_t n, void* stream) {
   AccumArgs a;
-  a.acc = (float*)acc;
-  a.col = (const int32_t*)col;
-  for (int j = 0; j < ACCUM_MAX_C; ++j) {
-    a.vals[j] = j < c ? (const float*)vals[j] : nullptr;
-    a.val_stride[j] = j < c ? strides[j] : 0;
+  a.fb = (float*)fb;
+  a.pid = (const int64_t*)pid;
+  a.was_alive = (const uint8_t*)was_alive;
+  a.alive = (const uint8_t*)alive;
+  for (int c = 0; c < 3; ++c) {
+    a.rad[c] = (const float*)rad[c];
+    a.rad_stride[c] = strides[c];
+    a.clamp[c] = clamp[c];
   }
-  a.c = c;
-  a.k = k;
   a.n = n;
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);

@@ -19,7 +19,8 @@ _KERNEL = register(
 
 
 def sobol_block_plain(sample: torch.Tensor, run_seed: torch.Tensor):
-    """Plain torch version: the core/sobol.py chain."""
+    """Plain torch version: the core/sobol.py chain, its direction sums by
+    the kernel's byte-sliced table walk."""
     return sobol_block_reference(sample, run_seed)
 
 

@@ -20,8 +20,10 @@ from . import sensor as sensor_mod
 from .integrator import ptmis as ptmis_mod
 from .sensor import Framebuffer
 
-# samples per dispatch: a shuffled dispatch carries a [4*(chunk+slack), N]
-# flush buffer, so chunks stay at 16 samples (~0.8 GB at 1080p)
+# samples per dispatch: the JAX driver dispatches shuffled frames in
+# 16-sample chunks (zyg_tpu/render/driver.py), and the lane->pixel shuffle
+# and the final chunk's slack follow the chunk, so the port chunks the same
+# way to keep the sample streams equal
 _CHUNK = 16
 
 

@@ -6,7 +6,8 @@ the general bounce for textured and env-lit scenes).
 ref: src/core/rendering/integrator/surface/pathtracer_mis.zig. Radiance is
 tracked as the reference's IValue triple {emission, direct, indirect} so
 the sensor can clamp each class separately. The JAX `lax.while_loop`
-becomes a host loop of launches.
+becomes a host loop of launches, and the JAX column buffer with its
+unpermute becomes one per-pixel flush a step (ops/accum.py).
 """
 
 from __future__ import annotations
@@ -19,12 +20,11 @@ import torch
 from ...core.rng import MASK, hash_u32, mul_u32, to_i32, u32
 from ...core.sobol import SobolArrays, SobolSampler
 from ...ops import traverse
-from ...ops.accum import flush_columns
+from ...ops.accum import flush_pixels
 from ...ops.shade import make_fused_body, structural_ok
 from ...ops.surface import make_mesh_fused_body, structural_ok_mesh
 from ...ops.surface_v2 import make_mesh_fused_body_v2, structural_ok_mesh_v2
 from ..camera import generate_rays, sample_shutter_time
-from ..sensor import clamp_radiance
 
 
 @dataclass(frozen=True)
@@ -152,7 +152,8 @@ def integrate_persistent(
     """Render `num_samples` samples/pixel with lane regeneration AND
     per-sample lane->pixel shuffling (see the JAX docstring for the design:
     work balancing by the coprime-stride shuffle, work stealing by the
-    oversample slack, the drain cascade, and the affine unpermute).
+    oversample slack and the drain cascade). Finished samples go straight
+    to their pixels' rows of one [N, 4] framebuffer (RGB + sample count).
 
     CONTRACT: pixel_ids (int64[N]) is a contiguous ascending range; the
     pixel of lane i's sample k is pixel_ids[0] + (i + k*stride) mod N, and
@@ -183,20 +184,17 @@ def integrate_persistent(
         vol_key=to_i32(hash_u32(pixel_ids ^ 0x2545F491)),
         mis_o=zero3, mis_n=z_up, pid=lanes,
     )
-    # [4*kmax, n] (RGB + count planes), lane dim last
     kmax = num_samples + oversample_slack
     target = n * num_samples
-    acc = torch.zeros((4 * kmax, n), dtype=f32, device=dev)
+    fb = torch.zeros((n, 4), dtype=f32, device=dev)  # by local pixel: RGB, sample count
     done = torch.zeros(n, dtype=torch.int32, device=dev)
     issued = torch.zeros((), dtype=torch.int64, device=dev)
     check_every = _check_every(dev)
 
-    def clamp_cur(cur: IValue):
-        return (
-            clamp_radiance(cur.emission, clamp_max[0])
-            + clamp_radiance(cur.direct, clamp_max[1])
-            + clamp_radiance(cur.indirect, clamp_max[2])
-        )
+    def flush(s: PathState, was_alive: torch.Tensor) -> None:
+        # samples that finished since was_alive, each clamped once
+        r = s.result
+        flush_pixels(fb, s.pid, was_alive, s.alive, r.emission, r.direct, r.indirect, clamp_max)
 
     # drain cascade: once issuance ends and fewer than n/4 paths are in
     # flight, compact the survivors into a 4x smaller state and go on there
@@ -245,14 +243,7 @@ def integrate_persistent(
         done = done + regen.to(torch.int32)
         was_alive = s.alive
         s = body(s)
-
-        # flush samples that finished THIS iteration (clamped once) into
-        # the lane's column block for its sample slot
-        finished = was_alive & ~s.alive
-        acc_add = torch.where(finished[:, None], clamp_cur(s.result), 0.0)
-        col = torch.where(finished, torch.clamp(done - 1, 0, kmax - 1), -1).to(torch.int32)
-        flush_columns(acc, col, acc_add[:, 0], acc_add[:, 1], acc_add[:, 2],
-                      finished.to(f32))
+        flush(s, was_alive)
         return s, done, issued + regen.sum()
 
     def cond(s: PathState, done, issued) -> torch.Tensor:
@@ -268,7 +259,6 @@ def integrate_persistent(
         path, done, issued = step(path, done, issued)
         iters += 1
 
-    drain_adds = []  # (pid, rgb, finished) per stage
     width_cur = n
     for si, wd in enumerate(drain_stages):
         live = torch.nonzero(path.alive).squeeze(1)
@@ -293,22 +283,10 @@ def integrate_persistent(
             path = body(path)
             it += 1
         iters += it
-        fin = valid & ~path.alive
-        drain_adds.append((path.pid, torch.where(fin[:, None], clamp_cur(path.result), 0.0), fin))
+        # each drained lane finishes at most its one sample in the stage
+        flush(path, valid)
         width_cur = wd
 
-    # unpermute: pixel p's sample k lives in lane (p - (first_it+k)*S) mod n,
-    # a circular shift per k
-    out = torch.zeros((4, n), dtype=f32, device=dev)
-    for k in range(kmax):
-        off = (((first_iteration + k) * stride) & MASK) % n
-        out += torch.roll(acc[4 * k : 4 * k + 4], off, dims=1)
-    radiance = out[0:3].T.contiguous()
-    counts = out[3].contiguous()
-    for pid_s, rgb_s, fin_s in drain_adds:
-        tgt = pid_s[fin_s]
-        radiance.index_add_(0, tgt, rgb_s[fin_s])
-        counts.index_add_(0, tgt, torch.ones_like(tgt, dtype=f32))
     if scene.meshes is not None and dev.type == "cuda":
         traverse.check_errors(dev)  # the walks' stack-overflow flag
-    return radiance, path.rays, iters, counts
+    return fb[:, 0:3], path.rays, iters, fb[:, 3]
