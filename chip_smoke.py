@@ -9,7 +9,7 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     gitignored zyg_tpu_torch/_build/ and prints the build time, the
     per-kernel register/spill report, each kernel's static SASS
     instruction count (cuobjdump -sass) and the lanes one pass of the
-    persistent shade and traverse grids covers
+    persistent shade, surface, surface_v2 and traverse grids covers
  3. each kernel, called through the wrapper its path calls, against its
     plain torch version on the card, at the main paths' shapes:
     sobol_block bit-exact (also at 0, 1, 31, 129 and one block + 1 lanes,
@@ -21,8 +21,11 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     the mesh path's 921,600 lanes: isect over the scene's own reflection
     and shadow prop tables (pid/blocked exact, t/u/v within rtol 2e-5);
     surface with the shade rules plus the shadow rays and NEE values of
-    the NEE lanes; traverse (and a rotated two-instance scene) with hit
-    ids exact except at exact-t ties, t/u/v within rtol 2e-5 and any-hit
+    the NEE lanes, and surface_v2 on the bench textured scene, each with
+    the shares of its lanes dead on entry, missed, ended on a hit,
+    reaching NEE, with an active NEE sample and with a failed BSDF sample,
+    and a bound from the bytes each lane's lifecycle needs; traverse (and
+    a rotated two-instance scene) with hit ids exact except at exact-t ties, t/u/v within rtol 2e-5 and any-hit
     exact. Times each (median of runs, CUDA events; and its device time
     from the profiler, which leaves out the host's gaps between a short
     kernel's launches) beside its bound and, where one PyTorch call
@@ -119,7 +122,8 @@ CORNELL_FLUSH_SHARE = 0.2005
 OPS_SOBOL_LANE = 127
 OPS_PROP_TEST = 45  # one analytic prop hit test
 OPS_SHADE_LANE = 2500  # fused bounce without its prop tests
-OPS_SURFACE_LANE = 2500  # the mesh bounce between the traversals
+OPS_SURFACE_LANE = 2500  # the mesh bounce between the traversals, a lane that reaches NEE
+OPS_ENDED_LANE = 40  # a hit that ends before NEE: the emission's MIS weight and roulette
 # the general shade core: two substitute lobe evaluations (~420 each: six
 # energy-fit chains of 49 or 7 fused steps), the VNDF and cosine samples,
 # MIS, roulette, merge and the ray offset
@@ -167,22 +171,27 @@ def time_ms(fn, reps: int, runs: int = 5) -> float:
 def device_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device time of the `kernel` launches of `reps` calls of fn, from
     torch.profiler's device timestamps: unlike time_ms it does not count the
-    device's idle gaps while the host issues a short kernel's launches."""
+    device's idle gaps while the host issues a short kernel's launches. A
+    profiled window without the kernel's events is logged, with the count
+    of device events it holds, and profiled again, up to three windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and f"{kernel}_kernel" in e.name]
-    if not us:
-        raise AssertionError(f"{kernel}: the profiler recorded no device time")
-    return sum(us) / len(us) / 1e3
+    for window in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        us = [e.time_range.elapsed_us() for e in events if f"{kernel}_kernel" in e.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+        log(f"device_ms: {kernel}: profiled window {window} holds {len(events)} device events, "
+            f"none of {kernel}_kernel")
+    raise AssertionError(f"{kernel}: the profiler recorded no device time in three windows")
 
 
 def phase_card() -> str:
@@ -227,7 +236,7 @@ def phase_build() -> None:
         log(f"sobol_block: {sass['sobol_block']} static instructions; at one issue a lane each, "
             f"{N_MAIN} lanes take {int_issue_ms(sass['sobol_block'], N_MAIN):.4f} ms of integer "
             f"issue (byte bound {bound(N_MAIN * (8 + 24), 0)['bound_ms']:.4f} ms)")
-    for name in ("shade", "traverse"):
+    for name in ("shade", "surface", "surface_v2", "traverse"):
         log(f"{name}: one pass of the resident grid covers "
             f"{ops.resident_lanes(f'zyg_{name}_resident_lanes')} lanes")
 
@@ -631,6 +640,79 @@ def check_traverse(dev) -> dict:
     }
 
 
+def lane_sets(kernel: str, st: dict, ua, out: dict, max_depth: int, nee_only: bool,
+              tables=None) -> dict:
+    """The lane sets of ops/surface.py's and ops/surface_v2.py's LANE_READS
+    for one launch of kernel 5 ("surface", with its tables) or 6
+    ("surface_v2") on the inputs st, ua and the plain version's outputs."""
+    import torch
+
+    alive = st["alive"]
+    hit = alive & st["finite"]
+    if kernel == "surface":
+        is_sub = tables.mtab[st["mslot"].long(), 0] == 0
+        light_hit = hit & (st["light_id"] >= 0)
+    else:
+        is_sub = st["mat_kind"] == 0
+        light_hit = alive & st["is_light"]
+    light_hit = light_hit & ~st["singular"] & (not nee_only)
+    p_rr = st["throughput"].amax(1) / 0.1
+    goes = hit & (st["depth"] < max_depth) & is_sub
+    draws = goes & (p_rr < 1.0)
+    reach = goes & ~(draws & (ua[:, 0] >= p_rr))
+    sets = {"every": torch.ones_like(alive), "stopped": ~reach, "alive": alive, "hit": hit,
+            "reach": reach, "failed": reach & ~out["alive"], "light_hit": light_hit,
+            "roulette": draws}
+    if kernel == "surface_v2":
+        sets.update(nee_pre=reach & st["nee_pre"], nee_active=out["nee_active"])
+    return sets
+
+
+def lane_classes(sets: dict, out: dict) -> dict:
+    """Lane counts by lifecycle: dead on entry, missed, ended on a hit
+    (depth, roulette or a non-substitute material), reaching NEE, and of
+    those with an active NEE sample and with a failed BSDF sample."""
+    alive, hit, reach = sets["alive"], sets["hit"], sets["reach"]
+    return {"dead": int((~alive).sum()), "missed": int((alive & ~hit).sum()),
+            "ended_on_hit": int((hit & ~reach).sum()), "nee_reached": int(reach.sum()),
+            "nee_active": int(out["nee_active"].sum()), "sample_failed": int(sets["failed"].sum())}
+
+
+def shares(classes: dict) -> str:
+    n = max(sum(classes[k] for k in ("dead", "missed", "ended_on_hit", "nee_reached")), 1)
+    return ", ".join(f"{k} {v / n:.4f}" for k, v in classes.items())
+
+
+def _field_bytes(fields) -> int:
+    import torch
+
+    return sum((1 if dt == torch.bool else 4) * max(w, 1) for _, dt, w in fields)
+
+
+def lane_bound(mod, fields, out_fields, sets: dict, ops_reach: int) -> dict:
+    """bound() of one launch of kernel 5 or 6 from the bytes its lanes need:
+    every output written, and each input (and uniform column) read by the
+    lanes of the sets mod.LANE_READS (mod.UNIFORM_READS) names for it; the
+    operations of the lanes that reach NEE and of the hits that end before."""
+    import functools
+    import operator
+
+    names = {name for name, _, _ in fields}
+    if names != set(mod.LANE_READS):
+        raise AssertionError(f"{mod.__name__}.LANE_READS does not name the kernel's inputs: "
+                             f"{sorted(names ^ set(mod.LANE_READS))}")
+
+    def lanes(set_names):
+        return int(functools.reduce(operator.or_, (sets[k] for k in set_names)).sum())
+
+    n = len(sets["every"])
+    nbytes = n * _field_bytes(out_fields)
+    nbytes += sum(_field_bytes([f]) * lanes(mod.LANE_READS[f[0]]) for f in fields)
+    nbytes += sum(4 * cols * lanes(set_names) for _, cols, set_names in mod.UNIFORM_READS)
+    ended = int((sets["hit"] & ~sets["reach"]).sum())
+    return bound(nbytes, int(sets["reach"].sum()) * ops_reach + ended * OPS_ENDED_LANE)
+
+
 def compare_surface(r1: dict, r2: dict) -> float:
     """compare_bounce's rules at the mesh tolerances, plus the NEE lanes
     exact and their shadow rays within 1e-4 relative and pending values
@@ -652,17 +734,14 @@ def compare_surface(r1: dict, r2: dict) -> float:
     return err
 
 
-def check_surface(dev) -> dict:
+def surface_inputs(scene, tables, s):
+    """Kernel 5's lane fields and uniforms (st, ua, ub) for the path state
+    s: its closest hits and fragments, as ops/surface.py's body makes them."""
     import torch
     from zyg_tpu_torch.core.sobol import SobolSampler
-    from zyg_tpu_torch.ops import shade, surface
     from zyg_tpu_torch.scene import shapes
     from zyg_tpu_torch.scene.types import RAY_MAX_T
 
-    scene = _trefoil(dev)
-    tables = surface.pack_mesh_tables(scene)
-    n = N_MESH
-    s = _surface_lanes(n, dev)
     smp = SobolSampler(s.sobol, dim=5)
     smp.sample_4d()
     ua = smp.arrays.buffer
@@ -678,24 +757,33 @@ def check_surface(dev) -> dict:
         light_id=torch.where(hit.valid(), scene.prop_light[torch.clamp(hit.prop, min=0).long()],
                              -1).to(torch.int32),
     )
+    return st, ua, ub
+
+
+def check_surface(dev) -> dict:
+    import torch
+    from zyg_tpu_torch.ops import shade, surface
+
+    scene = _trefoil(dev)
+    tables = surface.pack_mesh_tables(scene)
+    st, ua, ub = surface_inputs(scene, tables, _surface_lanes(N_MESH, dev))
     args = (4, True, False)  # the trefoil take: PTMIS at depth 4
     r1 = surface.surface(tables, st, ua, ub, *args)
     r2 = surface.surface_plain(tables, st, ua, ub, *args)
     torch.cuda.synchronize()
     err = compare_surface(r1, r2)
-
-    def nbytes(fields):
-        return sum((4 if dt != torch.bool else 1) * max(w, 1) for _, dt, w in fields)
-
-    # the lane's fields in (ua/ub: 7 uniforms), its fields out
-    lane_bytes = nbytes(shade._IN_FIELDS + surface.FRAG_FIELDS) + 7 * 4 + nbytes(surface._OUT_FIELDS)
+    sets = lane_sets("surface", st, ua, r2, args[0], args[2], tables)
+    classes = lane_classes(sets, r2)
+    log(f"surface: the check's lanes: {shares(classes)}")
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: surface.surface(tables, st, ua, ub, *args), 10),
         "device_ms": device_ms(lambda: surface.surface(tables, st, ua, ub, *args), "surface", 10),
         "plain_ms": time_ms(lambda: surface.surface_plain(tables, st, ua, ub, *args), 1, runs=3),
-        **bound(n * lane_bytes, n * OPS_SURFACE_LANE),
+        **lane_bound(surface, shade._IN_FIELDS + surface.FRAG_FIELDS, surface._OUT_FIELDS, sets,
+                     OPS_SURFACE_LANE),
         "library_ms": None,
+        "lanes": classes,
     }
 
 
@@ -708,6 +796,22 @@ def _surface_lanes(n, dev):
     return s
 
 
+def compare_surface_v2(r1: dict, r2: dict) -> float:
+    """compare_bounce's rules at the mesh tolerances, plus the NEE lanes
+    exact, their shadow tmax within rtol 1e-6 and pending values summed
+    within rtol 2e-3."""
+    import torch
+
+    err = compare_bounce(r1, r2, MESH_BOUNCE_TOLS)
+    if not torch.equal(r1["nee_active"], r2["nee_active"]):
+        raise AssertionError("surface_v2: NEE lanes differ")
+    nee = r1["nee_active"]
+    torch.testing.assert_close(r1["shadow_tmax"][nee], r2["shadow_tmax"][nee], rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(r1["nee"].double().sum(0), r2["nee"].double().sum(0), rtol=2e-3,
+                               atol=1e-4)
+    return err
+
+
 def check_surface_v2(dev) -> dict:
     """Kernel 6 on the bench textured scene's own lane inputs: the general
     bounce's glue output for one bounce of 921,600 lanes."""
@@ -717,36 +821,29 @@ def check_surface_v2(dev) -> dict:
 
     _, scene = _textured(dev, ci=False)
     body = surface_v2.make_mesh_fused_body_v2(scene, PtmisSettings(max_depth=4))
-    n = N_MESH
-    st, ua, ub, *_ = body.inputs(_surface_lanes(n, dev))
+    st, ua, ub, *_ = body.inputs(_surface_lanes(N_MESH, dev))
     args = (4, True, False)  # the bench's PTMIS at depth 4
     r1 = surface_v2.surface_v2(body.fit, st, ua, ub, *args)
     r2 = surface_v2.surface_v2_plain(st, ua, ub, *args)
     torch.cuda.synchronize()
-    err = compare_bounce(r1, r2, MESH_BOUNCE_TOLS)
-    if not torch.equal(r1["nee_active"], r2["nee_active"]):
-        raise AssertionError("surface_v2: NEE lanes differ")
+    err = compare_surface_v2(r1, r2)
     nee = r1["nee_active"]
-    torch.testing.assert_close(r1["shadow_tmax"][nee], r2["shadow_tmax"][nee], rtol=1e-6, atol=0.0)
-    torch.testing.assert_close(r1["nee"].double().sum(0), r2["nee"].double().sum(0), rtol=2e-3,
-                               atol=1e-4)
     textured = int((st["finite"] & (st["mat_kind"] == 0)).sum())
     log(f"surface_v2: {int(st['alive'].sum())} live lanes, {textured} on surfaces, "
         f"{int(nee.sum())} NEE lanes, {int(st['is_light'].sum())} on the dome")
-
-    def nbytes(fields):
-        return sum((4 if dt != torch.bool else 1) * max(w, 1) for _, dt, w in fields)
-
-    # the lane's fields in (u_rr and the 3 BSDF uniforms), its fields out
-    lane_bytes = nbytes(surface_v2.IN_FIELDS) + 4 * 4 + nbytes(surface_v2.OUT_FIELDS)
+    sets = lane_sets("surface_v2", st, ua, r2, args[0], args[2])
+    classes = lane_classes(sets, r2)
+    log(f"surface_v2: the check's lanes: {shares(classes)}")
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: surface_v2.surface_v2(body.fit, st, ua, ub, *args), 10),
         "device_ms": device_ms(lambda: surface_v2.surface_v2(body.fit, st, ua, ub, *args), "surface_v2",
                                10),
         "plain_ms": time_ms(lambda: surface_v2.surface_v2_plain(st, ua, ub, *args), 1, runs=3),
-        **bound(n * lane_bytes, n * OPS_SURFACE_V2_LANE),
+        **lane_bound(surface_v2, surface_v2.IN_FIELDS, surface_v2.OUT_FIELDS, sets,
+                     OPS_SURFACE_V2_LANE),
         "library_ms": None,
+        "lanes": classes,
     }
 
 

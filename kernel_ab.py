@@ -5,14 +5,20 @@ measured by the same yardstick on the same machine:
 
     git archive HEAD~1 | tar -x -C _archive/parent    # a gitignored directory
     for t in _archive/parent . . _archive/parent; do
-        python3 kernel_ab.py $t shade traverse surface surface_v2
+        python3 kernel_ab.py $t surface surface_v2 trefoil textured
     done
 
-The name `cornell` instead times the checkout's Cornell main path (1080p,
-16 spp): its own chip_smoke report, then by one yardstick for every
-checkout 5 timed renders, the peak device memory of one render and one
-profiled render's device time and launches by kernel name, printed as
-`RENDER <checkout> <JSON>`.
+The names `cornell`, `trefoil` and `textured` instead time one of the
+checkout's main paths: the Cornell take at 1920x1080 and 16 spp, the
+trefoil take and the bench's textured trefoil under its sky dome at
+1280x720 and 4 spp. Each runs the checkout's own chip_smoke report of that
+path, then by one yardstick for every checkout 10 timed renders (their
+median and best), the peak device memory of one render and one profiled
+render's device time and launches by kernel name, printed as
+`RENDER <checkout> <path> <JSON>`; for the mesh paths one more render
+gives the lifecycle shares of kernel 5's or 6's lanes (dead on entry,
+missed, ended on a hit, reaching NEE, ...), in its first bounce and over
+all its launches: `LANES <checkout> <path> ...`.
 
 A `-DNAME[=VALUE]` argument builds the library with that macro defined
 (a build-time variant of a kernel); the label of each line then carries
@@ -42,22 +48,63 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def render(chip_smoke, dev, label: str) -> None:
+RENDERS = ("cornell", "trefoil", "textured")
+
+
+def lane_shares(here, drv, spp: int, kernel: str) -> str:
+    """The lifecycle shares (this checkout's chip_smoke lane_classes) of
+    kernel 5's or 6's lanes in the first bounce of one render of drv and
+    over all its launches: each launch's inputs are classified on the host
+    around the wrapper, so this render is not timed."""
+    import torch
+    from zyg_tpu_torch.ops import surface, surface_v2
+
+    mod = surface if kernel == "surface" else surface_v2
+    orig = getattr(mod, kernel)
+    calls = []
+
+    def counting(tables_or_fit, st, ua, ub, max_depth, caustics, nee_only):
+        out = orig(tables_or_fit, st, ua, ub, max_depth, caustics, nee_only)
+        sets = here.lane_sets(kernel, st, ua, out, max_depth, nee_only, tables_or_fit)
+        calls.append(here.lane_classes(sets, out))
+        return out
+
+    setattr(mod, kernel, counting)
+    try:
+        drv.start_frame()
+        drv.render_iterations(spp)
+        torch.cuda.synchronize()
+    finally:
+        setattr(mod, kernel, orig)
+    total = {k: sum(c[k] for c in calls) for k in calls[0]}
+    return (f"{kernel} lanes of the first bounce: {here.shares(calls[0])}; of all {len(calls)} "
+            f"launches: {here.shares(total)}")
+
+
+def render(chip_smoke, here, dev, label: str, path: str) -> None:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from zyg_tpu_torch.render.driver import Driver
 
-    take, scene = chip_smoke._take_scene("cornell_ptmis.take", (1920, 1080), 16, "Cornell PTMIS")
-    chip_smoke.phase_main_path(dev, chip_smoke.phase_card(), "Cornell PTMIS", take, scene,
-                               chip_smoke.CORNELL_KERNELS)
+    if path == "cornell":
+        title, kernels = "Cornell PTMIS", chip_smoke.CORNELL_KERNELS
+        take, scene = chip_smoke._take_scene("cornell_ptmis.take", (1920, 1080), 16, title)
+    elif path == "trefoil":
+        title, kernels = "trefoil PTMIS", chip_smoke.MESH_KERNELS
+        take, scene = chip_smoke._take_scene("trefoil.take", chip_smoke.MESH_RES,
+                                             chip_smoke.MESH_SPP, title)
+    else:
+        title, kernels = "textured trefoil PTMIS", chip_smoke.TEXTURED_KERNELS
+        take, scene = chip_smoke._textured(dev, ci=False)
+    chip_smoke.phase_main_path(dev, chip_smoke.phase_card(), title, take, scene, kernels)
     spp = take.num_samples_per_pixel
     drv = Driver(take, scene, device=dev)
     drv.start_frame()
     drv.render_iterations(spp)
     torch.cuda.synchronize()
     times = []
-    for _ in range(5):
+    for _ in range(10):
         drv.start_frame()
         t0 = time.perf_counter()
         drv.render_iterations(spp)
@@ -78,10 +125,14 @@ def render(chip_smoke, dev, label: str) -> None:
             row = by_name.setdefault(e.name, [0.0, 0])
             row[0] += e.time_range.elapsed_us() / 1e6
             row[1] += 1
-    print(f"RENDER {label} " + json.dumps({
-        "render_s": times, "median_s": statistics.median(times), "peak_bytes": peak,
+    print(f"RENDER {label} {path} " + json.dumps({
+        "render_s": times, "median_s": statistics.median(times), "best_s": min(times),
+        "peak_bytes": peak,
         "busy_s": sum(v[0] for v in by_name.values()),
         "launches": sum(v[1] for v in by_name.values()), "by_name": by_name}), flush=True)
+    if path != "cornell":
+        kernel = "surface" if path == "trefoil" else "surface_v2"
+        print(f"LANES {label} {path} {lane_shares(here, drv, spp, kernel)}", flush=True)
 
 
 def main(argv: list[str]) -> int:
@@ -120,8 +171,8 @@ def main(argv: list[str]) -> int:
               f"{here.int_issue_ms(sass['sobol_block'], here.N_MAIN):.4f} ms at {here.N_MAIN} lanes",
               flush=True)
     for name in kernels:
-        if name == "cornell":
-            render(chip_smoke, dev, label)
+        if name in RENDERS:
+            render(chip_smoke, here, dev, label, name)
             continue
         check = getattr(chip_smoke, "check_" + name)
         print(f"AB {label} {name} {json.dumps(check(dev))}", flush=True)

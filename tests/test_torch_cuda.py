@@ -1,8 +1,8 @@
 """Each CUDA kernel of the port against its plain torch version on the card,
 at the main path's shapes (the checks of chip_smoke.py phase 3), the
-persistent kernels (shade, traverse) at the launch shapes their grid-stride
-and ray-fetch loops must get right, sobol_block and the per-pixel flush at
-small widths. Skipped without a card. This file
+persistent kernels (shade, surface, surface_v2, traverse) at the launch
+shapes their grid-stride and ray-fetch loops must get right, sobol_block
+and the per-pixel flush at small widths. Skipped without a card. This file
 imports no jax, so it also runs on a machine without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -166,3 +166,70 @@ def test_traverse_rejects_misaligned_arena(cuda_device, rotated_pair, field):
     o, d, _ = chip_smoke._mesh_rays(64, cuda_device, seed=13)
     with pytest.raises(ValueError, match="16-byte aligned"):
         traverse.intersect_instances(bad, itab, o, d, 0.0, 1e30, "reflection")
+
+
+@pytest.mark.parametrize("case", SHAPES + ["all dead", "all miss"])
+def test_surface_launch_shapes(cuda_device, case):
+    """Kernel 5 on the bench trefoil at its resident grid's launch shapes,
+    all lanes dead, and all rays missing (fired outward from a sphere of
+    radius 12, beyond every prop: every lane ends before NEE), under
+    compare_surface's rules."""
+    import chip_smoke
+    from zyg_tpu_torch.ops import surface
+
+    n = 129 if case in ("all dead", "all miss") else _lanes(case, "zyg_surface_resident_lanes")
+    scene = chip_smoke._trefoil(cuda_device)
+    tables = surface.pack_mesh_tables(scene)
+    s = chip_smoke._surface_lanes(n, cuda_device)
+    if case == "all dead":
+        s.alive = torch.zeros_like(s.alive)
+    if case == "all miss":
+        s.d = s.o / s.o.norm(dim=1, keepdim=True)
+        s.o = 12.0 * s.d
+    st, ua, ub = chip_smoke.surface_inputs(scene, tables, s)
+    r1 = surface.surface(tables, st, ua, ub, 4, True, False)
+    r2 = surface.surface_plain(tables, st, ua, ub, 4, True, False)
+    torch.cuda.synchronize()
+    chip_smoke.compare_surface(r1, r2)
+    if case in ("all dead", "all miss"):
+        assert not bool(r1["alive"].any()) and not bool(r1["nee_active"].any())
+        for name in ("o", "d", "depth", "mis_o", "mis_n"):
+            assert torch.equal(r1[name], st[name]), name
+    if case == "all dead":
+        assert int(r1["rays"]) == 0
+        for name in ("emission", "direct", "indirect"):
+            assert torch.equal(r1[name], st[name]), name
+
+
+@pytest.mark.parametrize("case", SHAPES + ["all dead", "all miss"])
+def test_surface_v2_launch_shapes(cuda_device, case):
+    """Kernel 6 on the CI textured trefoil's glue output at its resident
+    grid's launch shapes, all lanes dead, and all rays missing the finite
+    surfaces (fired outward from a sphere of radius 12, beyond the ground:
+    they reach only the sky dome), under compare_surface_v2's rules."""
+    import chip_smoke
+    from zyg_tpu_torch.ops import surface_v2
+    from zyg_tpu_torch.render.integrator.ptmis import PtmisSettings
+
+    n = 129 if case in ("all dead", "all miss") else _lanes(case, "zyg_surface_v2_resident_lanes")
+    _, scene = chip_smoke._textured(cuda_device, ci=True)
+    body = surface_v2.make_mesh_fused_body_v2(scene, PtmisSettings(max_depth=4))
+    s = chip_smoke._surface_lanes(n, cuda_device)
+    if case == "all dead":
+        s.alive = torch.zeros_like(s.alive)
+    if case == "all miss":
+        s.d = s.o / s.o.norm(dim=1, keepdim=True)
+        s.o = 12.0 * s.d
+    st, ua, ub, *_ = body.inputs(s)
+    r1 = surface_v2.surface_v2(body.fit, st, ua, ub, 4, True, False)
+    r2 = surface_v2.surface_v2_plain(st, ua, ub, 4, True, False)
+    torch.cuda.synchronize()
+    chip_smoke.compare_surface_v2(r1, r2)
+    if case in ("all dead", "all miss"):
+        assert not bool(r1["alive"].any()) and not bool(r1["nee_active"].any())
+        for name in ("o", "d", "depth", "mis_o", "mis_n"):
+            assert torch.equal(r1[name], st[name]), name
+    if case == "all dead":
+        assert int(r1["rays"]) == 0
+        for name in ("emission", "direct", "indirect"):
+            assert torch.equal(r1[name], st[name]), name

@@ -15,3 +15,11 @@ static cudaError_t resident_blocks(const void* kernel, int threads, int* out) {
   *out = sms * per_sm;
   return cudaSuccess;
 }
+
+// the lanes one pass of the resident grid covers, one lane a thread
+static cudaError_t resident_lanes(const void* kernel, int threads, int64_t* out) {
+  int blocks = 0;
+  const cudaError_t err = resident_blocks(kernel, threads, &blocks);
+  *out = (int64_t)blocks * threads;
+  return err;
+}

@@ -10,11 +10,13 @@
 // so nothing else is contracted.
 //
 // The BSDF is split by what its terms depend on: the material alone
-// (MatTerms), wo and the shading normal (WoTerms), and wi (lobes). The
-// fused bounce computes each once (the material terms once per prop and
-// block); substitute_eval / substitute_sample compute all three per call,
-// as kernels 5 and 6 use them. Either way every value is the same
-// operations on the same inputs.
+// (MatTerms), wo and the shading normal (WoTerms), and wi (lobes). Each
+// kernel computes each once: the material terms once per table row and
+// block (the fused and the mesh bounce) or once per lane (the general
+// bounce, whose material is textured per lane), the wo terms once per
+// lane for the evaluation toward the light and for the sample. Either way
+// every value is the same operations on the same inputs as the plain
+// version's.
 #pragma once
 #include "prop_hit.cuh"
 
@@ -58,8 +60,12 @@ __device__ __forceinline__ float pow5(float x) {
 }
 // jnp.sign: -1, 1, or x itself for zeros and NaN
 __device__ __forceinline__ float sgn(float x) { return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x); }
-__device__ __forceinline__ V3 load3(const float* p, int64_t i) {
-  return v3(p[3 * i], p[3 * i + 1], p[3 * i + 2]);
+// lane i of an [N, 3] input, through the read-only path
+__device__ __forceinline__ V3 ld3(const float* p, int64_t i) {
+  return v3(__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2));
+}
+__device__ __forceinline__ V3 rowv(const float* row, int k) {
+  return v3(row[k], row[k + 1], row[k + 2]);
 }
 __device__ __forceinline__ void store3(float* p, int64_t i, V3 a) {
   p[3 * i] = a.x;
@@ -301,15 +307,6 @@ __device__ __forceinline__ void eval_terms(const float* fit, const Mat& mat, con
   pdf = refl_side ? pdf : 0.0f;
 }
 
-// materials._substitute_eval: f*cos and pdf toward wi, zero below the
-// shading hemisphere (the shading normal flipped to wo's geometric side)
-__device__ void substitute_eval(const float* fit, const Mat& mat, V3 wo, V3 wi, V3 n, V3 geo_n,
-                                V3& f, float& pdf) {
-  const V3 ns = shading_normal(wo, n, geo_n);
-  const MatTerms mt = mat_terms(fit, mat);
-  eval_terms(fit, mat, mt, wo_terms(fit, mat.alpha, mt.f0m, wo, ns), wo, wi, ns, f, pdf);
-}
-
 // materials._substitute_sample from the precomputed terms: cosine or VNDF
 // lobe by s0 with (s1, s2) around the shading normal ns; reg_a is the
 // regularization alpha (1 for the diffuse lobe)
@@ -348,16 +345,110 @@ __device__ __forceinline__ void sample_terms(const float* fit, const Mat& mat, c
   weight = ok ? v3(f.x * inv_pdf, f.y * inv_pdf, f.z * inv_pdf) : v3(0.0f, 0.0f, 0.0f);
 }
 
-// materials._substitute_sample: cosine or VNDF lobe by s0 with (s1, s2);
-// reg_a is the regularization alpha (1 for the diffuse lobe)
-__device__ void substitute_sample(const float* fit, const Mat& mat, V3 wo, V3 n, V3 geo_n,
-                                  float s0, float s1, float s2, V3& wi, V3& weight, float& pdf,
-                                  bool& ok, float& reg_a) {
-  const V3 ns = shading_normal(wo, n, geo_n);
-  const MatTerms mt = mat_terms(fit, mat);
-  sample_terms(fit, mat, mt, wo_terms(fit, mat.alpha, mt.f0m, wo, ns), wo, ns, s0, s1, s2, wi,
-               weight, pdf, ok, reg_a);
+// ---- the lane lifecycle of the mesh and the general bounce (surface.cu,
+// surface_v2.cu), on their argument structs, whose path-state fields have
+// the same names
+
+// the MIS weight of BSDF-hit emission; light_pdf, the hit light's pdf
+// from the last real vertex, is read only for a non-singular hit on a
+// light when not NEE only, the one case whose weight needs it (the caller
+// computes it only there)
+__device__ __forceinline__ float emission_mis(bool nee_only, bool caustics, bool singular,
+                                              bool is_light, int depth, float bxdf_pdf,
+                                              float light_pdf) {
+  if (nee_only) return singular ? 1.0f : (is_light ? 0.0f : 1.0f);
+  float mis_w = 1.0f;
+  if (!singular & is_light) mis_w = power_heuristic(bxdf_pdf, light_pdf);
+  if (!caustics) mis_w = (singular & (depth > 0) & is_light) ? 0.0f : mis_w;
+  return mis_w;
 }
 
+// adds the emission em seen through throughput t, at weight mis_w, to the
+// radiance sum of its vertex: emission at the primary hit, direct after a
+// singular bounce or at depth 1, indirect after
+__device__ __forceinline__ void add_emission(V3& res_em, V3& res_di, V3& res_in, V3 t, V3 em,
+                                             float mis_w, int depth, bool singular) {
+  const bool primary = depth == 0;
+  const bool to_dir = singular | (depth < 2);
+  const float add_em = primary ? mis_w : 0.0f;
+  const float add_di = (!primary & to_dir) ? mis_w : 0.0f;
+  const float add_in = (!primary & !to_dir) ? mis_w : 0.0f;
+  res_em = add3(res_em, v3(t.x * add_em * em.x, t.y * add_em * em.y, t.z * add_em * em.z));
+  res_di = add3(res_di, v3(t.x * add_di * em.x, t.y * add_di * em.y, t.z * add_di * em.z));
+  res_in = add3(res_in, v3(t.x * add_in * em.x, t.y * add_in * em.y, t.z * add_in * em.z));
+}
+
+// russian roulette: a lane goes on with probability max(throughput) / 0.1,
+// capped at 1, and its throughput is divided by that probability
+__device__ __forceinline__ bool rr_kill(V3 thr, float u_rr) {
+  const float p_rr = max3(thr) / 0.1f;
+  return (p_rr < 1.0f) & (u_rr >= p_rr);
+}
+__device__ __forceinline__ V3 rr_scaled(V3 thr) {
+  const float p_rr = max3(thr) / 0.1f;
+  return scale3(thr, p_rr < 1.0f ? 1.0f / zmax(p_rr, 1e-12f) : 1.0f);
+}
+
+// the path state a lane that ends before NEE writes through
+struct Pass {
+  V3 o, d, thr, mis_o, mis_n;
+  float bxdf_pdf;
+  int depth;
+};
+
+template <class A>
+__device__ __forceinline__ Pass load_pass(const A& a, int64_t i) {
+  return Pass{ld3(a.o, i), ld3(a.d, i), ld3(a.thr, i), ld3(a.mis_o, i), ld3(a.mis_n, i),
+              __ldg(a.bxdf_pdf + i), __ldg(a.depth + i)};
+}
+
+// the outputs of a lane that leaves the bounce before NEE, but its shadow
+// ray: its path state passes through (throughput and bxdf_pdf are its
+// inputs, read by nothing: surface.cu says why), alive 0, reg_alpha 1, no
+// NEE sample and no NEE value
+template <class A>
+__device__ __forceinline__ void store_ended(const A& a, int64_t i, const Pass& s) {
+  store3(a.o_out, i, s.o);
+  store3(a.d_out, i, s.d);
+  store3(a.thr_out, i, s.thr);
+  a.alive_out[i] = 0;
+  a.bxdf_pdf_out[i] = s.bxdf_pdf;
+  a.depth_out[i] = s.depth;
+  store3(a.mis_o_out, i, s.mis_o);
+  store3(a.mis_n_out, i, s.mis_n);
+  a.reg_alpha_out[i] = 1.0f;
+  a.nee_active_out[i] = 0;
+  a.shadow_tmax_out[i] = 0.0f;
+  store3(a.nee_out, i, v3(0.0f, 0.0f, 0.0f));
+}
+
+// the PathState merge of a lane that took its BSDF sample (ok: wi with
+// weight and pdf) from thr at p_hit; a failed sample keeps the lane's ray,
+// depth and MIS vertex
+template <class A>
+__device__ __forceinline__ void store_merged(const A& a, int64_t i, V3 thr, bool ok, V3 wi,
+                                             V3 weight, float pdf, float reg_a, V3 p_hit,
+                                             V3 geo_n, V3 frag_n, V3 d, int depth) {
+  store3(a.thr_out, i, v3(thr.x * (ok ? weight.x : 0.0f), thr.y * (ok ? weight.y : 0.0f),
+                          thr.z * (ok ? weight.z : 0.0f)));
+  a.bxdf_pdf_out[i] = ok ? pdf : 0.0f;
+  a.alive_out[i] = ok;
+  a.reg_alpha_out[i] = reg_a;
+  if (ok) {
+    const V3 b_n = sel3(dot3(wi, geo_n) >= 0.0f, geo_n, neg3(geo_n));
+    const V3 new_o = offset_ray(p_hit, b_n);
+    store3(a.o_out, i, new_o);
+    store3(a.d_out, i, wi);
+    a.depth_out[i] = depth + 1;
+    store3(a.mis_o_out, i, new_o);
+    store3(a.mis_n_out, i, frag_n);
+  } else {
+    store3(a.o_out, i, ld3(a.o, i));
+    store3(a.d_out, i, d);
+    a.depth_out[i] = depth;
+    store3(a.mis_o_out, i, ld3(a.mis_o, i));
+    store3(a.mis_n_out, i, ld3(a.mis_n, i));
+  }
+}
 
 }  // namespace

@@ -132,7 +132,8 @@ def reset_launch_counts() -> None:
 def resident_lanes(symbol: str) -> int:
     """The lanes one pass of a persistent kernel's resident grid covers on
     the current device (SMs x resident blocks x block size), from the
-    library's `symbol` (zyg_shade_resident_lanes, zyg_traverse_resident_lanes)."""
+    library's `symbol` (zyg_shade_resident_lanes, zyg_surface_resident_lanes,
+    zyg_surface_v2_resident_lanes, zyg_traverse_resident_lanes)."""
     fn = getattr(library(), symbol)
     fn.argtypes = [ctypes.POINTER(ctypes.c_int64)]
     fn.restype = ctypes.c_int

@@ -27,7 +27,9 @@ normal, and a light's radiance counts where it faces the point or is two
 sided.
 
 The plain version is the JAX kernel body in torch with the fused bounce's
-helpers (ops/shade.py); the CUDA kernel is the same code line by line.
+helpers (ops/shade.py); the CUDA kernel computes each lane's outputs by the
+same operations in the same order, and skips work whose result no output
+reads (csrc/surface.cu says which, and what such a lane leaves behind).
 """
 
 from __future__ import annotations
@@ -131,6 +133,31 @@ _OUT_FIELDS = shade._OUT_FIELDS + (
     ("shadow_o", torch.float32, 3), ("shadow_d", torch.float32, 3),
     ("shadow_tmax", torch.float32, 0), ("nee", torch.float32, 3),
 )
+# Which lanes' outputs depend on each input, by the lane's lifecycle: the
+# bytes the function must read, by which the card check bounds the kernel
+# (csrc/surface.cu loads the head's inputs of every lane in one batch, a
+# little more). The outputs are those the checks compare: a lane that
+# leaves the bounce dead has no throughput, bxdf_pdf or reg_alpha that
+# anything reads (csrc/surface.cu), and no shadow ray or NEE value unless
+# its NEE sample is active. The lane sets: "every" lane; "stopped", dead on
+# entry or ended before NEE, whose path state passes through; "alive";
+# "hit", alive on a finite hit; "reach", going on to NEE; "failed",
+# reaching lanes whose BSDF sample fails, which keep their ray and MIS
+# vertex; "light_hit", hits on a light whose emission's MIS weight reads
+# the light's pdf from mis_o and bxdf_pdf (not singular, not NEE only);
+# "roulette", hits short of the depth limit on a substitute material whose
+# throughput makes roulette draw.
+LANE_READS = {
+    "alive": ("every",), "throughput": ("alive",), "depth": ("every",),
+    "emission": ("every",), "direct": ("every",), "indirect": ("every",),
+    "o": ("stopped", "failed"), "mis_n": ("stopped", "failed"),
+    "mis_o": ("stopped", "failed", "light_hit"), "bxdf_pdf": ("light_hit",),
+    "d": ("stopped", "hit"), "finite": ("alive",), "singular": ("hit",), "geo_n": ("hit",),
+    "mslot": ("hit",), "light_id": ("hit",), "p": ("reach",), "n": ("reach",),
+}
+# the uniforms: (array, columns, lane sets): u_rr, then (u_sel, xi_l), then
+# the BSDF sample's three
+UNIFORM_READS = (("ua", 1, ("roulette",)), ("ua", 3, ("reach",)), ("ub", 3, ("reach",)))
 
 
 def surface_plain(tables: MeshTables, st: dict, ua, ub, max_depth: int, caustics: bool,

@@ -25,7 +25,8 @@ the kernel:
 The Sobol' draws follow the JAX body's order (u_rr, u_sel, xi_l, s3), so
 lane lifecycles match lane for lane. The plain version is the JAX kernel
 body in torch with the fused bounce's helpers (ops/shade.py); the CUDA
-kernel is the same code line by line.
+kernel computes each lane's outputs by the same operations in the same
+order, and skips work whose result no output reads (csrc/surface_v2.cu).
 """
 
 from __future__ import annotations
@@ -71,6 +72,28 @@ OUT_FIELDS = shade._OUT_FIELDS + (
     ("reg_alpha", _F32, 0), ("nee_active", _BOOL, 0), ("shadow_tmax", _F32, 0),
     ("nee", _F32, 3),
 )
+# Which lanes' outputs depend on each input, by the lane's lifecycle: the
+# bytes the function must read, by which the card check bounds the kernel
+# (csrc/surface_v2.cu loads the head's inputs of every lane in one batch).
+# The outputs and lane sets are ops/surface.py LANE_READS's, with
+# "light_hit" any alive lane on a light (the dome is hit by a miss) whose
+# emission's MIS weight reads hit_lp and bxdf_pdf, "nee_pre" the reaching
+# lanes with a NEE candidate, and "nee_active" those whose NEE sample is
+# active.
+LANE_READS = {
+    "alive": ("every",), "throughput": ("alive",), "depth": ("every",),
+    "emission": ("every",), "direct": ("every",), "indirect": ("every",),
+    "o": ("stopped", "failed"), "mis_o": ("stopped", "failed"), "mis_n": ("stopped", "failed"),
+    "bxdf_pdf": ("light_hit",), "d": ("stopped", "reach"),
+    "finite": ("alive",), "singular": ("alive",), "is_light": ("alive",), "em": ("alive",),
+    "hit_lp": ("light_hit",), "mat_kind": ("hit",),
+    "p": ("reach",), "geo_n": ("reach",), "n": ("reach",), "albedo": ("reach",),
+    "alpha": ("reach",), "metallic": ("reach",), "f0": ("reach",), "specular": ("reach",),
+    "nee_pre": ("reach",), "nee_wi": ("nee_pre",), "nee_rad": ("nee_active",),
+    "nee_lpdf": ("nee_active",), "nee_pre_tmax": ("nee_active",),
+}
+# the uniforms: (array, columns, lane sets): u_rr, then the BSDF sample's three
+UNIFORM_READS = (("ua", 1, ("roulette",)), ("ub", 3, ("reach",)))
 
 
 def surface_v2_plain(st: dict, ua, ub, max_depth: int, caustics: bool, nee_only: bool) -> dict:

@@ -20,10 +20,12 @@ from . import sensor as sensor_mod
 from .integrator import ptmis as ptmis_mod
 from .sensor import Framebuffer
 
-# samples per dispatch: the JAX driver dispatches shuffled frames in
-# 16-sample chunks (zyg_tpu/render/driver.py), and the lane->pixel shuffle
-# and the final chunk's slack follow the chunk, so the port chunks the same
-# way to keep the sample streams equal
+# samples per dispatch, by the JAX driver's rule for shuffled persistent
+# frames (zyg_tpu/render/driver.py:279-289): 8 for a scene with nested
+# device loops (of what the port loads, meshes), 16 otherwise. The
+# lane->pixel shuffle and the final chunk's slack follow the chunk, so the
+# port chunks the same way to keep the per-pixel sample sets equal.
+_CHUNK_MESH = 8
 _CHUNK = 16
 
 
@@ -53,7 +55,7 @@ class Driver:
         clamp = take.sensor.clamp
         self._clamp_max = (clamp.emission, clamp.direct, clamp.indirect)
         spp = max(take.num_samples_per_pixel, 1)
-        self.chunk_size = min(spp, _CHUNK)
+        self.chunk_size = min(spp, _CHUNK_MESH if scene.meshes is not None else _CHUNK)
         self.start_frame()
 
     def start_frame(self):
@@ -63,17 +65,25 @@ class Driver:
         self.rays_traced = 0
         self.last_iterations = 0  # wavefront loop iterations of the last dispatch
 
+    def chunk_plan(self, num: int) -> list[tuple[int, int]]:
+        """The dispatches of `num` samples per pixel: (samples, oversample
+        slack) each, as zyg_tpu/render/driver.py:505-515 walks them."""
+        plan = []
+        done = 0
+        while done < num:
+            n = min(self.chunk_size, num - done)
+            done += n
+            # final chunk: oversample — fast lanes keep regenerating past
+            # their quota so the wavefront drains at the MEAN path length
+            plan.append((n, max(2, n // 2) if done >= num else 0))
+        return plan
+
     def render_iterations(self, num: int | None = None) -> Framebuffer:
         """Render `num` further samples per pixel (default: take spp)."""
         num = num if num is not None else self.take.num_samples_per_pixel
         cam_arrays = self.camera.arrays(self.device)
         w = self.camera.resolution[0]
-        done = 0
-        while done < num:
-            n = min(self.chunk_size, num - done)
-            # final chunk: oversample — fast lanes keep regenerating past
-            # their quota so the wavefront drains at the MEAN path length
-            slack = max(2, n // 2) if done + n >= num else 0
+        for n, slack in self.chunk_plan(num):
             acc, rays, iters, counts = ptmis_mod.integrate_persistent(
                 self.scene, cam_arrays, self._pixel_ids, self._iteration, n,
                 max(self.take.num_samples_per_pixel, 2), self.settings, self._clamp_max,
@@ -83,7 +93,6 @@ class Driver:
             self.rays_traced += int(rays)
             self.last_iterations = iters
             self._iteration += n
-            done += n
         return self._fb
 
     def render_frame(self) -> np.ndarray:
