@@ -33,8 +33,12 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
  4. a 128x128, 64 spp Cornell render on the card against the port's plain
     CPU render: mean energy within 1.5%, 4x4-downsampled RMSE within 6%
     of the mean (the JAX package's golden-gate statistics)
- 4b. the same gate for the 30,720-triangle trefoil at 96x56, 16 spp, and
-    4c. for the CI textured trefoil under a baked sky dome at 96x56, 16 spp
+ 4b. the same gate for the 30,720-triangle trefoil at 96x56, 16 spp,
+    4c. for the CI textured trefoil under a baked sky dome at 96x56, 16 spp,
+    4d. for examples/takes/sunsky.take (a Sky: baked dome + distant sun)
+    at 96x56, 16 spp, depth 4, and 4e. for two rectangle lamps under a
+    constant dome (analytic props; NEE through the light tree) at 96x96,
+    16 spp
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
@@ -51,6 +55,11 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     sky on a Dome light) through the Driver at 1280x720, 4 spp, depth 4;
     sobol_block, isect, surface_v2, traverse and accum must each have
     launched; the same report and profile
+ 5d. the sunsky main path: the CLI on examples/takes/sunsky.take at its
+    own 960x540, 32 spp, PTMIS depth 8, AgX, then the Driver at the same
+    size; sobol_block, isect, surface_v2, traverse and accum must each
+    have launched; the same report and profile, and the lifecycle shares
+    of kernel 6's lanes in the first bounce and over all its launches
  6. one bounce of the mesh bounce (kernel 5) against one of the general
     bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
     directly, timed in turns (CUDA events, medians)
@@ -104,6 +113,9 @@ CORNELL_KERNELS = ("sobol_block", "shade", "accum")
 SOBOL_SHAPES = (0, 1, 31, 129, 513)
 MESH_KERNELS = ("sobol_block", "isect", "surface", "traverse", "accum")
 TEXTURED_KERNELS = ("sobol_block", "isect", "surface_v2", "traverse", "accum")
+SUNSKY_KERNELS = TEXTURED_KERNELS
+SUNSKY_RES = (960, 540)  # sunsky.take's own size: 32 spp, PTMIS depth 8
+N_SKY = SUNSKY_RES[0] * SUNSKY_RES[1]
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -355,6 +367,7 @@ def check_isect(dev) -> dict:
         err = max(err, float((a - b).abs().max()))
     log(f"isect: {int((p[1] >= 0).sum())} of {n} lanes hit the light, "
         f"{int(pb.sum())} shadow rays blocked by analytic props")
+    check_isect_sunsky(dev)
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: isect.closest_props(refl, o, d, 0.0, tmax, prim), 20),
@@ -365,6 +378,79 @@ def check_isect(dev) -> dict:
         **bound(n * (29 + 16), n * len(refl.kinds) * OPS_PROP_TEST),
         "library_ms": None,
     }
+
+
+def _sky_lanes(scene, n, dev, seed=6):
+    """Lanes of the sunsky path's analytic hit tests: camera rays of
+    sunsky.take on the primary half, rays from above the ground in random
+    directions on the other, every 8th lane aimed into the sun's disc;
+    shadow rays from the ground and the cube's height toward the sun
+    (tmax short of RAY_MAX_T, as NEE gives infinite lights) or to a point
+    within 4 units. 10 % of the lanes are dead (tmax 0)."""
+    import numpy as np
+    import torch
+    from zyg_tpu_torch.ops.surface_v2 import _INF_SHADOW_TMAX
+    from zyg_tpu_torch.scene.types import RAY_MAX_T
+
+    sun = int(scene.lights.prop[1])
+    rot = scene.prop_rot[sun].cpu().numpy().astype(np.float64)
+    radius = float(scene.prop_scale[sun, 0])
+    rng = np.random.default_rng(seed)
+    prim = rng.random(n) < 0.5
+    alive = rng.random(n) < 0.9
+    disc = rng.uniform(-0.55, 0.55, (n, 2)) * radius
+    to_sun = -rot[2] + disc[:, 0:1] * rot[0] + disc[:, 1:2] * rot[1]
+    up = rng.uniform([-4.0, 0.05, -4.0], [4.0, 2.5, 4.0], (n, 3))
+    target = rng.uniform([-3.0, 0.0, -3.0], [3.5, 2.0, 3.0], (n, 3))
+    o = np.where(prim[:, None], np.array([-3.5, 2.0, -5.5]), up)
+    d = np.where(prim[:, None], target - o, rng.normal(size=(n, 3)))
+    d = np.where((np.arange(n) % 8 == 0)[:, None], to_sun, d)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.where(alive, RAY_MAX_T, 0.0)
+    so = rng.uniform([-4.0, 0.0, -4.0], [4.0, 1.0, 4.0], (n, 3))
+    toward = rng.random(n) < 0.5
+    sd = np.where(toward[:, None], to_sun, rng.normal(size=(n, 3)))
+    sd /= np.linalg.norm(sd, axis=-1, keepdims=True)
+    smax = np.where(alive, np.where(toward, _INF_SHADOW_TMAX, rng.uniform(0.1, 4.0, n)), 0.0)
+
+    def t(x):
+        x = np.ascontiguousarray(x)
+        return torch.from_numpy(x if x.dtype == bool else x.astype(np.float32)).to(dev)
+
+    return tuple(t(x) for x in (o, d, tmax, prim, so, sd, smax))
+
+
+def check_isect_sunsky(dev) -> None:
+    """isect over the sunsky scene's own reflection and shadow prop tables
+    (the rules of check_isect) at the path's 518,400 lanes; its Distant,
+    Cube, Dome and Rectangle branches must each be hit."""
+    import torch
+    from zyg_tpu_torch.ops import isect
+    from zyg_tpu_torch.scene.loader import load_scene_file
+    from zyg_tpu_torch.scene.types import ShapeType
+
+    scene = load_scene_file(os.path.join(REPO, "examples/scenes/sunsky.scene"), dev)
+    refl, shadow = isect.prop_table(scene, "reflection"), isect.prop_table(scene, "shadow")
+    o, d, tmax, prim, so, sd, smax = _sky_lanes(scene, N_SKY, dev)
+    k = isect.closest_props(refl, o, d, 0.0, tmax, prim)
+    p = isect.isect_plain(refl.kinds, refl.table, refl.ids, o, d, 0.0, tmax, prim, False)
+    kb = isect.anyhit_props(shadow, so, sd, 0.0, smax)
+    pb = isect.isect_plain(shadow.kinds, shadow.table, shadow.ids, so, sd, 0.0, smax, None, True)
+    torch.cuda.synchronize()
+    if not torch.equal(k[1], p[1]):
+        raise AssertionError(f"isect (sunsky): {int((k[1] != p[1]).sum())} prop ids differ")
+    if not torch.equal(kb, pb):
+        raise AssertionError(f"isect (sunsky): {int((kb != pb).sum())} any-hit results differ")
+    for a, b in ((k[0], p[0]), (k[2], p[2]), (k[3], p[3])):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+    kinds = scene.prop_shape[torch.clamp(p[1], min=0).long()]
+    hits = {st.name: int(((p[1] >= 0) & (kinds == int(st))).sum())
+            for st in (ShapeType.DISTANT, ShapeType.CUBE, ShapeType.DOME, ShapeType.RECTANGLE)}
+    if min(hits.values()) <= 0:
+        raise AssertionError(f"isect (sunsky): a branch was never hit: {hits}")
+    ms = time_ms(lambda: isect.closest_props(refl, o, d, 0.0, tmax, prim), 20)
+    log(f"isect (sunsky tables {refl.kinds} / shadow {shadow.kinds}): exact on {N_SKY} lanes; "
+        f"hits by shape {hits}; {int(pb.sum())} shadow rays blocked; closest {ms:.4f} ms")
 
 
 def _flush_lanes(n, share, dev, seed=11):
@@ -1016,6 +1102,127 @@ def phase_slice_mesh(dev) -> None:
     _golden_gate(card, cpu, "trefoil 96x56x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
+def phase_slice_sunsky(dev) -> None:
+    """sunsky.take at 96x56, 16 spp, depth 4 on the card against the plain
+    CPU path."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    take = _take("sunsky.take", (96, 56), 16)
+    take.integrator.max_depth_surface = 4
+    scene = load_scene_file(take.scene_filename)
+    t0 = time.perf_counter()
+    card = Driver(take, scene, device=dev).render_frame()
+    t_card = time.perf_counter() - t0
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = Driver(take, scene, device="cpu").render_frame()
+    t_cpu = time.perf_counter() - t0
+    _golden_gate(card, cpu, "sunsky 96x56x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+
+
+def _tree_scene(res, spp):
+    """(take, scene): two downward rectangle lamps of different powers under
+    a constant dome, over a floor with a sphere and a metal cube (analytic
+    props; two lights, one finite, so NEE selects through the light tree),
+    PTMIS depth 4, loaded by the port's scene loader."""
+    import numpy as np
+    from zyg_tpu_torch.io.take import IntegratorSettings, Take
+    from zyg_tpu_torch.render.camera import PerspectiveCamera
+    from zyg_tpu_torch.scene.loader import load_scene_dict, read_transformation
+
+    def lamp(name, pos, rot, scale):
+        return {"type": "Light", "shape": {"type": "Rectangle"}, "materials": [name],
+                "transformation": {"position": pos, "rotation": rot, "scale": scale}}
+
+    def mat(name, body):
+        return {"name": name, "rendering": body}
+
+    root = {
+        "materials": [
+            mat("l0", {"Light": {"emittance": {"value": 14.0}}}),
+            mat("l1", {"Light": {"emittance": {"value": 5.0}}}),
+            mat("sky", {"Light": {"emittance": {"value": 0.2}}}),
+            mat("floor", {"Substitute": {"color": [0.5, 0.5, 0.5], "roughness": 0.7}}),
+            mat("ball", {"Substitute": {"color": [0.7, 0.3, 0.2], "roughness": 0.3}}),
+            mat("box", {"Substitute": {"color": [0.9, 0.8, 0.5], "roughness": 0.2,
+                                       "metallic": 1.0}}),
+        ],
+        "entities": [
+            lamp("l0", [-1.5, 3.0, -0.5], [-80, 20, 0], [1.0, 0.6, 1]),
+            lamp("l1", [2.0, 2.4, 1.0], [-100, 200, 0], [0.8, 0.8, 1]),
+            {"type": "Light", "shape": {"type": "Dome"}, "materials": ["sky"]},
+            {"type": "Prop", "shape": {"type": "Rectangle"}, "materials": ["floor"],
+             "transformation": {"rotation": [90, 0, 0], "scale": [12, 12, 1]}},
+            {"type": "Prop", "shape": {"type": "Sphere"}, "materials": ["ball"],
+             "transformation": {"position": [-0.8, 0.7, 0.3], "scale": [1.4, 1.4, 1.4]}},
+            {"type": "Prop", "shape": {"type": "Cube"}, "materials": ["box"],
+             "transformation": {"position": [1.0, 0.5, -0.4], "rotation": [0, 25, 0],
+                                "scale": [1, 1, 1]}},
+        ],
+    }
+    scene = load_scene_dict(root)
+    if scene.light_tree is None or scene.light_tree.num_finite != 2:
+        raise AssertionError("the two-lamp scene has no light tree over its lamps")
+    take = Take()
+    take.num_samples_per_pixel = spp
+    take.integrator = IntegratorSettings(kind="PTMIS", max_depth_surface=4)
+    cam = PerspectiveCamera(resolution=res, fov=np.deg2rad(55))
+    tr = read_transformation({"position": [0, 3.0, -6.5], "look_at": [0, 0.6, 0]})
+    cam.position, cam.rotation = tr.position, tr.rotation
+    take.cameras = [cam]
+    return take, scene
+
+
+def phase_slice_tree(dev) -> None:
+    """The two-lamp tree scene at 96x96, 16 spp on the card against the
+    plain CPU path."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+
+    take, scene = _tree_scene((96, 96), 16)
+    t0 = time.perf_counter()
+    card = Driver(take, scene, device=dev).render_frame()
+    t_card = time.perf_counter() - t0
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = Driver(take, scene, device="cpu").render_frame()
+    t_cpu = time.perf_counter() - t0
+    _golden_gate(card, cpu, "two lamps + dome (light tree) 96x96x16",
+                 f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+
+
+def lane_shares(driver, spp: int, kernel: str) -> str:
+    """The lifecycle shares (lane_classes) of kernel 5's or 6's lanes in
+    the first bounce of one render of driver and over all its launches:
+    each launch's inputs are classified on the host around the wrapper, so
+    this render is not timed."""
+    import torch
+    from zyg_tpu_torch.ops import surface, surface_v2
+
+    mod = surface if kernel == "surface" else surface_v2
+    orig = getattr(mod, kernel)
+    calls = []
+
+    def counting(tables_or_fit, st, ua, ub, max_depth, caustics, nee_only):
+        out = orig(tables_or_fit, st, ua, ub, max_depth, caustics, nee_only)
+        sets = lane_sets(kernel, st, ua, out, max_depth, nee_only, tables_or_fit)
+        calls.append(lane_classes(sets, out))
+        return out
+
+    setattr(mod, kernel, counting)
+    try:
+        driver.start_frame()
+        driver.render_iterations(spp)
+        torch.cuda.synchronize()
+    finally:
+        setattr(mod, kernel, orig)
+    total = {k: sum(c[k] for c in calls) for k in calls[0]}
+    return (f"{kernel} lanes of the first bounce: {shares(calls[0])}; of all {len(calls)} "
+            f"launches: {shares(total)}")
+
+
 def profile_render(driver, spp: int, label: str, kernels) -> int:
     """Device kernel time of one warm render by kernel, from a torch.profiler
     trace, and the device's busy share of the profiled wall time. Returns
@@ -1112,10 +1319,11 @@ def _take_scene(take_name, res, spp, label):
     return take, scene
 
 
-def phase_main_path(dev, card: str, label: str, take, scene, kernels) -> dict:
+def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=None) -> dict:
     """A main path through the Driver at the take's resolution and spp:
-    warm-up, best of 3, one profiled render. Returns the kernel launches
-    of one render."""
+    warm-up, best of 3, one profiled render, and with lanes_of ("surface"
+    or "surface_v2") that kernel's lane shares in one more render. Returns
+    the kernel launches of one render."""
     import numpy as np
     import torch
     from zyg_tpu_torch import ops
@@ -1159,6 +1367,8 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels) -> dict:
     log(f"{label} [{card}]: peak device memory of one render {peak} B ({peak / 2**30:.3f} GiB); "
         f"glue launches per render {glue}; flushes finish {full:.4f} of the lanes of a full-width "
         f"launch, {mean:.4f} over all launches")
+    if lanes_of:
+        log(f"{label} [{card}]: {lane_shares(driver, spp, lanes_of)}")
     return per_render
 
 
@@ -1221,8 +1431,10 @@ def main() -> int:
     phase_slice(dev)
     phase_slice_mesh(dev)
     phase_slice_textured(dev)
-    # launches: the CLI runs of the Cornell and trefoil paths and one render
-    # of the textured path
+    phase_slice_sunsky(dev)
+    phase_slice_tree(dev)
+    # launches: the CLI runs of the Cornell, trefoil and sunsky paths and
+    # one render of the textured path
     launches = {k: 0 for k in SOURCES}
     for take_name, label, res, spp, kernels in (
             ("cornell_ptmis.take", "Cornell PTMIS", (1920, 1080), 16, CORNELL_KERNELS),
@@ -1235,14 +1447,20 @@ def main() -> int:
                                TEXTURED_KERNELS)
     for k in launches:
         launches[k] += textured[k]
+    cli_counts = _cli_run("sunsky.take", SUNSKY_KERNELS)
+    for k in launches:
+        launches[k] += cli_counts[k]
+    phase_main_path(dev, card, "sunsky PTMIS",
+                    *_take_scene("sunsky.take", SUNSKY_RES, 32, "sunsky PTMIS"), SUNSKY_KERNELS,
+                    lanes_of="surface_v2")
     measure_bounces(dev, card)
 
     def entry(name):
         c = checks[name]
         return {"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
-                "launches_of": "cli cornell_ptmis.take + cli trefoil.take + one 1280x720 4 spp "
-                               "textured-trefoil render",
+                "launches_of": "cli cornell_ptmis.take + cli trefoil.take + cli sunsky.take "
+                               "+ one 1280x720 4 spp textured-trefoil render",
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"], "device_ms": c["device_ms"],
                 "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

@@ -8,10 +8,10 @@ measured by the same yardstick on the same machine:
         python3 kernel_ab.py $t surface surface_v2 trefoil textured
     done
 
-The names `cornell`, `trefoil` and `textured` instead time one of the
-checkout's main paths: the Cornell take at 1920x1080 and 16 spp, the
-trefoil take and the bench's textured trefoil under its sky dome at
-1280x720 and 4 spp. Each runs the checkout's own chip_smoke report of that
+The names `cornell`, `trefoil`, `textured` and `sunsky` instead time one
+of the checkout's main paths: the Cornell take at 1920x1080 and 16 spp,
+the trefoil take and the bench's textured trefoil under its sky dome at
+1280x720 and 4 spp, and the sunsky take at its own 960x540, 32 spp. Each runs the checkout's own chip_smoke report of that
 path, then by one yardstick for every checkout 10 timed renders (their
 median and best), the peak device memory of one render and one profiled
 render's device time and launches by kernel name, printed as
@@ -48,37 +48,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-RENDERS = ("cornell", "trefoil", "textured")
-
-
-def lane_shares(here, drv, spp: int, kernel: str) -> str:
-    """The lifecycle shares (this checkout's chip_smoke lane_classes) of
-    kernel 5's or 6's lanes in the first bounce of one render of drv and
-    over all its launches: each launch's inputs are classified on the host
-    around the wrapper, so this render is not timed."""
-    import torch
-    from zyg_tpu_torch.ops import surface, surface_v2
-
-    mod = surface if kernel == "surface" else surface_v2
-    orig = getattr(mod, kernel)
-    calls = []
-
-    def counting(tables_or_fit, st, ua, ub, max_depth, caustics, nee_only):
-        out = orig(tables_or_fit, st, ua, ub, max_depth, caustics, nee_only)
-        sets = here.lane_sets(kernel, st, ua, out, max_depth, nee_only, tables_or_fit)
-        calls.append(here.lane_classes(sets, out))
-        return out
-
-    setattr(mod, kernel, counting)
-    try:
-        drv.start_frame()
-        drv.render_iterations(spp)
-        torch.cuda.synchronize()
-    finally:
-        setattr(mod, kernel, orig)
-    total = {k: sum(c[k] for c in calls) for k in calls[0]}
-    return (f"{kernel} lanes of the first bounce: {here.shares(calls[0])}; of all {len(calls)} "
-            f"launches: {here.shares(total)}")
+RENDERS = ("cornell", "trefoil", "textured", "sunsky")
 
 
 def render(chip_smoke, here, dev, label: str, path: str) -> None:
@@ -94,6 +64,9 @@ def render(chip_smoke, here, dev, label: str, path: str) -> None:
         title, kernels = "trefoil PTMIS", chip_smoke.MESH_KERNELS
         take, scene = chip_smoke._take_scene("trefoil.take", chip_smoke.MESH_RES,
                                              chip_smoke.MESH_SPP, title)
+    elif path == "sunsky":
+        title, kernels = "sunsky PTMIS", chip_smoke.TEXTURED_KERNELS
+        take, scene = chip_smoke._take_scene("sunsky.take", (960, 540), 32, title)
     else:
         title, kernels = "textured trefoil PTMIS", chip_smoke.TEXTURED_KERNELS
         take, scene = chip_smoke._textured(dev, ci=False)
@@ -132,7 +105,7 @@ def render(chip_smoke, here, dev, label: str, path: str) -> None:
         "launches": sum(v[1] for v in by_name.values()), "by_name": by_name}), flush=True)
     if path != "cornell":
         kernel = "surface" if path == "trefoil" else "surface_v2"
-        print(f"LANES {label} {path} {lane_shares(here, drv, spp, kernel)}", flush=True)
+        print(f"LANES {label} {path} {here.lane_shares(drv, spp, kernel)}", flush=True)
 
 
 def main(argv: list[str]) -> int:

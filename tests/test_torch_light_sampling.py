@@ -1,11 +1,13 @@
 """The port's light sampling (scene/light_sampling.py) against the JAX
-package's (zyg_tpu/scene/light_sampling.py) on three scenes, through the
+package's (zyg_tpu/scene/light_sampling.py) on four scenes, through the
 JAX -> port scene hand-off: test_shade_kernel.py's textured_env_scene (a
 Dome light with a baked sky emission map, importance-sampled through the
 env alias table), a Dome of constant emission over a ground (the uniform
-hemisphere sample), and test_shade_kernel.py's mesh_scene (the CI
-trefoil's 3x3 rectangle light at y = 4). 20,000 seeded shading points,
-normals, uniforms and rays:
+hemisphere sample), test_shade_kernel.py's mesh_scene (the CI trefoil's
+3x3 rectangle light at y = 4), and examples/scenes/sunsky.scene (a baked
+sky dome and a Distant sun: two infinite lights under the power CDF;
+sampling goes to the sun). 20,000 seeded shading points, normals,
+uniforms and rays:
 
 - select_light and light_select_pdf exact;
 - sample_light: the validity (pdf > 0), infinite flags and light normals
@@ -16,7 +18,11 @@ normals, uniforms and rays:
   dome's where sin(theta) > 0.2: near the poles torch and XLA round
   cos(theta) apart and 1 - cos^2 amplifies it, 1e-2 down to sin(theta) =
   1e-3, below which the jacobian's 1e-8 clamp rules);
-- light_radiance: the rectangle's and the plain dome's exact, the mapped
+- the sun: its pdf (1 / its cone's solid angle, ~1.5e4), validity and
+  normal exact, its directions within 2e-6 (which puts its points at
+  RAY_MAX_T within 1e3) and its uv, whose u and v are divided by its
+  radius tan(0.00465), within 5e-5;
+- light_radiance: the rectangle's, the sun's and the plain dome's exact, the mapped
   dome's within 5e-3 relative (its lat-long uv goes through atan2 and
   acos, which torch and XLA round apart; 3 of 60,000 values differ by
   more than 5e-4, at 2e-3);
@@ -59,11 +65,19 @@ def _plain_dome_scene():
     return b.build()
 
 
-@pytest.fixture(scope="module", params=["dome", "plain_dome", "rectangle"])
+def _sunsky_scene():
+    from zyg_tpu.scene.loader import load_scene_file
+
+    return load_scene_file("examples/scenes/sunsky.scene")
+
+
+@pytest.fixture(scope="module", params=["dome", "plain_dome", "rectangle", "sun"])
 def scenes(request, jax_scene, mesh_scene):  # noqa: F811
     from zyg_tpu_torch.scene.loader import scene_arrays, scene_from_jax_arrays
 
-    js = {"dome": jax_scene, "rectangle": mesh_scene}.get(request.param) or _plain_dome_scene()
+    js = {"dome": jax_scene, "rectangle": mesh_scene}.get(request.param)
+    if js is None:
+        js = _plain_dome_scene() if request.param == "plain_dome" else _sunsky_scene()
     return request.param, js, scene_from_jax_arrays(scene_arrays(js), "cpu")
 
 
@@ -101,7 +115,7 @@ def test_sample_light_and_radiance_match_jax(scenes):
 
     kind, js, ps = scenes
     p, n, xi, _ = _points(2)
-    li = np.zeros(N, np.int32)
+    li = np.full(N, 1 if kind == "sun" else 0, np.int32)
 
     @jax.jit
     def ref(li, p, n, xi):
@@ -126,6 +140,13 @@ def test_sample_light_and_radiance_match_jax(scenes):
         assert rel_pdf[sin_t > 1e-3].max() < 1e-2
         np.testing.assert_allclose(ts.light_p.numpy(), np.asarray(js_.light_p), rtol=1e-6)
         np.testing.assert_allclose(trad, np.asarray(jrad), rtol=5e-3)
+    elif kind == "sun":
+        np.testing.assert_array_equal(jpdf, ts.pdf.numpy())
+        assert jpdf.max() > 1e4
+        np.testing.assert_array_equal(np.asarray(js_.light_n), ts.light_n.numpy())
+        np.testing.assert_allclose(ts.light_p.numpy(), np.asarray(js_.light_p), rtol=0, atol=1e3)
+        np.testing.assert_allclose(ts.uv.numpy(), np.asarray(js_.uv), rtol=0, atol=5e-5)
+        np.testing.assert_array_equal(trad, np.asarray(jrad))
     elif kind == "plain_dome":
         np.testing.assert_array_equal(jpdf, ts.pdf.numpy())
         # RAY_MAX_T * wi + p: the directions' 2e-6 at 2.1e9

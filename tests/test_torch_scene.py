@@ -90,6 +90,67 @@ def test_loader_refuses_outside_the_subset(scene):
         load_scene_dict(scene)
 
 
+def _light(shape, **extra):
+    return {"materials": [{"name": "l", "rendering": {"Light": {"emittance": {"value": 1}}}}],
+            "entities": [{"type": "Light", "shape": shape, "materials": ["l"], **extra}]}
+
+
+@pytest.mark.parametrize(
+    "scene,reason",
+    [
+        (_light({"type": "Sphere"}), "Sphere lights"),
+        (_light({"type": "Disk"}), "Disk lights"),
+        (_light({"type": "Cube"}), "Cube lights"),
+        (_light({"file": "proc:cube"}), "emissive meshes"),
+        (_light({"type": "Canopy"}), "Canopy"),
+        ({"entities": [{"type": "Portal", "shape": {"type": "Rectangle"}, "light": 0}]},
+         "Portal"),
+        ({"entities": [{"type": "Sky", "parameters": {"sun": {"rotation": [0, 0, 0],
+                                                              "scale": 2}}}]}, "Sky keys"),
+    ],
+    ids=["sphere_light", "disk_light", "cube_light", "mesh_light", "canopy", "portal",
+         "sky_key"],
+)
+def test_loader_names_what_it_refuses(scene, reason):
+    """Each light kind, entity and Sky parameter outside the port's subset
+    raises UnsupportedScene naming it."""
+    from zyg_tpu_torch.scene.loader import UnsupportedScene, load_scene_dict
+
+    with pytest.raises(UnsupportedScene, match=reason):
+        load_scene_dict(scene)
+
+
+def test_two_lights_load_as_in_jax():
+    """A rectangle lamp and a Distant light (a Celestial_disk): the power
+    CDF and the light tree as the JAX loader builds them."""
+    from zyg_tpu.scene.loader import load_scene_dict as jload
+    from zyg_tpu_torch.scene.loader import load_scene_dict, scene_arrays
+
+    d = _light({"type": "Rectangle"}, transformation={"position": [0, 2, 0],
+                                                      "rotation": [-90, 0, 0]})
+    d["materials"].append({"name": "sun", "rendering": {"Light": {"emittance": {"value": 3e3}}}})
+    d["entities"].append({"type": "Light", "shape": {"type": "Celestial_disk"},
+                          "materials": ["sun"],
+                          "transformation": {"rotation": [-60, 30, 0], "scale": [0.01, 1, 1]}})
+    port = load_scene_dict(d)
+    assert port.lights.count == 2 and port.light_tree is not None
+    assert port.light_tree.num_finite == 1 and port.light_tree.depth == 0
+    _assert_same_arrays(scene_arrays(jload(d)), scene_arrays(port))
+
+
+@pytest.mark.parametrize("threshold", [None, 0.0, 0.3, 2.0])
+def test_take_parses_split_threshold_as_jax(threshold):
+    from zyg_tpu.io.take import load_take_dict as jload
+    from zyg_tpu_torch.io.take import load_take_dict as tload
+
+    body = {"depth": {"surface": 4}}
+    if threshold is not None:
+        body["light_sampling"] = {"split_threshold": threshold}
+    root = {"camera": {"Perspective": {}}, "integrator": {"surface": {"PTMIS": body}}}
+    assert tload(root).integrator.light_split_threshold == \
+        jload(root).integrator.light_split_threshold
+
+
 def test_take_parse_matches_jax():
     from zyg_tpu.io.take import load_take_file as jload
     from zyg_tpu_torch.io.take import load_take_file as tload

@@ -16,6 +16,8 @@ a division by one becomes a multiplication by its reciprocal.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .fmath import dot3, fma, sqrt
@@ -86,3 +88,19 @@ def world_to_object_vector(rot, scale, v):
 
 def world_to_object_point(rot, scale, pos, p):
     return world_to_object_vector(rot, scale, p - pos)
+
+
+def sample_disk_concentric(uv):
+    """Concentric map of [0, 1)^2 onto the unit disk (Shirley-Chiu; ref
+    sample_distribution.zig diskConcentric): uv [..., 2] -> [..., 2]."""
+    sx, sy = 2.0 * uv[..., 0] - 1.0, 2.0 * uv[..., 1] - 1.0
+    zero = (sx == 0.0) & (sy == 0.0)
+    use_x = torch.abs(sx) > torch.abs(sy)
+    r = torch.where(use_x, sx, sy)
+    ratio = torch.where(use_x, sy / torch.where(sx == 0.0, 1.0, sx),
+                        sx / torch.where(sy == 0.0, 1.0, sy))
+    quarter = math.pi / 4.0
+    phi = torch.where(use_x, quarter * ratio, math.pi / 2.0 - quarter * ratio)
+    x = torch.where(zero, 0.0, r * torch.cos(phi))
+    y = torch.where(zero, 0.0, r * torch.sin(phi))
+    return torch.stack([x, y], dim=-1)

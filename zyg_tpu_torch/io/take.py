@@ -3,8 +3,9 @@
 
 Supported: a Perspective camera (fov, transformation, resolution), the
 Sobol sampler's samples_per_pixel, a PTMIS or PTDL surface integrator
-(depth, caustics), the sensor clamp, a tonemapper with exposure, and PNG
-export. Anything else raises `UnsupportedTake`.
+(depth, caustics, light_sampling.split_threshold), the sensor clamp, a
+tonemapper with exposure, and PNG export. Anything else raises
+`UnsupportedTake`.
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ class IntegratorSettings:
     kind: str = "PTMIS"  # PTMIS | PTDL
     max_depth_surface: int = 16
     caustics: bool = True
+    # NEE light splitting: split_threshold^4 (ref take.zig:263-271);
+    # render/driver.py refuses a scene that would split
+    light_split_threshold: float = 0.5**4
 
 
 @dataclass
@@ -81,6 +85,10 @@ def _load_integrator(node: dict, take: Take) -> None:
         else:
             s.max_depth_surface = int(depth)
         s.caustics = bool(body.get("caustics", True))
+        ls = body.get("light_sampling", {})
+        _only(ls, {"split_threshold"}, "light_sampling")
+        st = float(np.clip(ls.get("split_threshold", 0.5), 0.0, 1.0))
+        s.light_split_threshold = (st * st) * (st * st)
         break
 
 

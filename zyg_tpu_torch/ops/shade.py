@@ -622,12 +622,15 @@ _SUPPORTED_KINDS = {int(ShapeType.RECTANGLE), int(ShapeType.CUBE), int(ShapeType
 
 
 def structural_ok(scene) -> bool:
-    """Can this scene run the fused bounce? (rectangle lights only, analytic
-    rectangle/cube/sphere/disk props, substitute and light materials)."""
+    """Can this scene run the fused bounce? (rectangle lights selected by
+    the power CDF, no light tree; analytic rectangle/cube/sphere/disk
+    props, substitute and light materials)."""
     if scene.meshes is not None:
         return False  # mesh scenes take the mesh bounce (ops/surface.py)
     if scene.textures is not None or scene.env is not None:
         return False  # textured and env-lit scenes take ops/surface_v2.py
+    if scene.light_tree is not None:
+        return False  # the kernel selects by the power CDF (ops/surface_v2.py)
     if scene.lights.count < 1 or scene.lights.count > MAX_LIGHTS:
         return False
     light_shapes = {int(s) for s in scene.prop_shape[scene.lights.prop.long()].tolist()}

@@ -106,12 +106,14 @@ def pack_mesh_tables(scene) -> MeshTables:
 
 def structural_ok_mesh(scene) -> bool:
     """Can this scene run the mesh bounce? (meshes present, 1..8 rectangle
-    lights, <= 64 materials, substitute and light materials only, no
-    textures or env map)"""
+    lights selected by the power CDF, no light tree, <= 64 materials,
+    substitute and light materials only, no textures or env map)"""
     if scene.meshes is None:
         return False  # analytic-only scenes take the fused bounce
     if scene.textures is not None or scene.env is not None:
         return False  # textured and env-lit scenes take ops/surface_v2.py
+    if scene.light_tree is not None:
+        return False  # the kernel selects by the power CDF (ops/surface_v2.py)
     if scene.lights.count < 1 or scene.lights.count > MAX_LIGHTS:
         return False
     light_shapes = {int(s) for s in scene.prop_shape[scene.lights.prop.long()].tolist()}

@@ -12,8 +12,10 @@ the kernel:
           -> texture jitter -> materials.gather (stochastic color and
           roughness texels, bilinear emission maps) -> eval_radiance ->
           light_hit_pdf * light_select_pdf (rectangle SphQuad, dome,
-          env-map density) -> select_light / sample_light / light_radiance
-          (the NEE candidate: direction, radiance, pdf, shadow tmax)
+          distant cone, env-map density; the light tree's pdf at the
+          previous vertex) -> select_light (the power CDF, or the tree's
+          descent at the hit) / sample_light / light_radiance (the NEE
+          candidate: direction, radiance, pdf, shadow tmax)
   KERNEL  the MIS weight of the BSDF-hit emission, russian roulette, the
           substitute BSDF evaluation of the NEE candidate with the
           predivided power heuristic, the VNDF/cosine BSDF sample and the
@@ -222,15 +224,15 @@ def surface_v2(fit, st: dict, ua, ub, max_depth: int, caustics: bool, nee_only: 
     return _surface_v2_cuda(fit, st, ua, ub, int(max_depth), bool(caustics), bool(nee_only))
 
 
-_V2_LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.DOME)}
+_V2_LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.DOME), int(ShapeType.DISTANT)}
 # the shadow tmax toward an infinite light, float32(RAY_MAX_T) * float32(0.9)
 _INF_SHADOW_TMAX = float(np.float32(RAY_MAX_T) * np.float32(0.9))
 
 
 def structural_ok_mesh_v2(scene) -> bool:
     """Can this scene run the general bounce? (at least one light, all
-    rectangles or domes; substitute and light materials; analytic props
-    the isect kernel tests)"""
+    rectangles, domes or distant lights; substitute and light materials;
+    analytic props the isect kernel tests)"""
     if scene.lights.count < 1:
         return False
     if not ls.light_shapes(scene) <= _V2_LIGHT_SHAPES:
@@ -288,7 +290,7 @@ class GeneralBounce:
         light_id = torch.where(valid, scene.prop_light[torch.clamp(hit.prop, min=0).long()], -1)
         if not self.settings.nee_only:
             hit_lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d)
-                      * ls.light_select_pdf(scene, light_id))
+                      * ls.light_select_pdf(scene, light_id, p=s.mis_o, n=s.mis_n))
         else:
             hit_lp = torch.zeros_like(hit.t)
 
@@ -300,7 +302,7 @@ class GeneralBounce:
         ua = smp.arrays.buffer
 
         # ---- the NEE candidate
-        light_idx, sel_pdf = ls.select_light(scene, u_sel)
+        light_idx, sel_pdf = ls.select_light(scene, u_sel, p=frag.p, n=frag.n)
         lsmp = ls.sample_light(scene, self.present, light_idx, frag.p, frag.geo_n, xi_l)
         radiance = ls.light_radiance(scene, light_idx, lsmp.wi, lsmp.light_n, lsmp.uv)
         side = (vm.dot(lsmp.wi, frag.geo_n) >= 0.0)[:, None]

@@ -15,10 +15,14 @@ import torch
 
 from ..io.png import float_to_srgb8, write_png
 from ..io.take import Take
-from ..scene.types import SceneData
+from ..scene.types import SceneData, UnsupportedScene
 from . import sensor as sensor_mod
 from .integrator import ptmis as ptmis_mod
 from .sensor import Framebuffer
+
+# the light tree's size from which the JAX Driver splits NEE over several
+# picks a vertex (zyg_tpu/render/driver.py:265-270), which the port lacks
+SPLIT_MIN_FINITE_LIGHTS = 16
 
 # samples per dispatch, by the JAX driver's rule for shuffled persistent
 # frames (zyg_tpu/render/driver.py:279-289): 8 for a scene with nested
@@ -41,6 +45,12 @@ class Driver:
     """Progressive frame renderer for one camera."""
 
     def __init__(self, take: Take, scene: SceneData, device: torch.device | str = "cuda"):
+        tree = scene.light_tree
+        if (tree is not None and tree.num_finite >= SPLIT_MIN_FINITE_LIGHTS
+                and take.integrator.light_split_threshold > 0.0):
+            raise UnsupportedScene(
+                f"NEE light splitting ({tree.num_finite} finite lights in the light tree and "
+                "split_threshold > 0): the port samples one light a vertex")
         self.take = take
         self.device = resolve_device(device)
         self.scene = scene.to(self.device)

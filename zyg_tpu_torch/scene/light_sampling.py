@@ -1,16 +1,24 @@
-"""Next-event estimation for rectangle and dome lights: light selection by
-the power CDF, per-shape sampling, emitted radiance and the hit-side pdfs
-for MIS (counterpart of zyg_tpu/scene/light_sampling.py:62-99 without a
-light tree, :248-271 rectangle, :360-369 dome, :472-488 env map, :580-636
-light_radiance, :660-665/:690-692/:731-737 light_hit_pdf). The loader
-refuses every other light shape and two or more lights.
+"""Next-event estimation for rectangle, dome and distant lights: light
+selection, per-shape sampling, emitted radiance and the hit-side pdfs for
+MIS (counterpart of zyg_tpu/scene/light_sampling.py:62-98 selection by
+the power CDF or the light tree, :248-271 rectangle, :336-352 distant,
+:360-369 dome, :472-488 env map, :580-636 light_radiance, :660-665,
+:683-686, :690-692, :731-737 light_hit_pdf).
+
+A scene with a light tree (two or more lights, one of them finite;
+scene/light_tree.py) selects by the tree's descent at the shading point
+and evaluates the matching pdf at the previous vertex; every other scene
+selects by the power CDF. The loader refuses Sphere, Disk, Cube, mesh and
+Canopy lights and portals, and the Driver refuses scenes whose light tree
+would split NEE (the JAX package's select_split / pdf_split, not ported).
 
 Only the light shapes present in the scene are evaluated: `present` is the
 set of their ShapeType codes (`light_shapes`, read once per render, the
 JAX package's static `scene.light_shapes`). Rectangles use the Urena
 spherical-rectangle helpers of ops/shade.py; a dome samples the
 hemisphere around the normal uniformly, or its emission map through the
-scene's env sampler when it has one.
+scene's env sampler when it has one; a distant light (the sun) samples
+its cone by a concentric disk.
 
 Arithmetic follows the JAX package's jitted bounces on the CPU: a multiply
 feeding an add is one fused multiply-add (core/fmath.py, core/vecmath.py).
@@ -24,14 +32,16 @@ from dataclasses import dataclass
 import torch
 
 from ..core import vecmath as vm
-from ..core.fmath import fma
+from ..core.fmath import fma, sqrt
 from ..ops.shade import _onb, _sphquad_init, _sphquad_pdf, _sphquad_sample
 from . import env_sampling
+from . import light_tree as lt
 from .shapes import select_by_shape as _sel
 from .textures import sample_bilinear
 from .types import RAY_MAX_T, ShapeType
 
 _RECT = int(ShapeType.RECTANGLE)
+_DIST = int(ShapeType.DISTANT)
 _DOME = int(ShapeType.DOME)
 
 
@@ -51,17 +61,22 @@ class LightSample:
     uv: torch.Tensor  # [N, 2] texture uv of the sampled point
 
 
-def select_light(scene, u):
-    """u in [0, 1) -> (light index int32[N], selection pdf [N]) by the
-    power CDF."""
+def select_light(scene, u, p=None, n=None):
+    """u in [0, 1) -> (light index int32[N], selection pdf [N]): through
+    the light tree at the shading points p with normals n where the scene
+    has a tree and p is given, else by the power CDF."""
+    if scene.light_tree is not None and p is not None:
+        return lt.select(scene.light_tree, p, n, u)
     cdf = scene.lights.cdf
     idx = torch.clamp(torch.searchsorted(cdf, u.contiguous(), right=True) - 1, 0,
                       scene.lights.count - 1)
     return idx.to(torch.int32), cdf[idx + 1] - cdf[idx]
 
 
-def light_select_pdf(scene, light_idx):
-    """Selection pdf of light_idx under select_light."""
+def light_select_pdf(scene, light_idx, p=None, n=None):
+    """Selection pdf of light_idx under select_light from (p, n)."""
+    if scene.light_tree is not None and p is not None:
+        return lt.pdf(scene.light_tree, p, n, light_idx)
     cdf = scene.lights.cdf
     i = torch.clamp(light_idx, 0, scene.lights.count - 1).long()
     return cdf[i + 1] - cdf[i]
@@ -70,6 +85,13 @@ def light_select_pdf(scene, light_idx):
 def _light_prop(scene, light_idx):
     li = torch.clamp(light_idx, 0, scene.lights.count - 1).long()
     return scene.lights.prop[li].long()
+
+
+def _cone_pdf(radius):
+    """Uniform solid-angle pdf over a distant light's cone of half-angle
+    atan(radius)."""
+    solid_angle = (2.0 * math.pi) * (1.0 - sqrt(1.0 / fma(radius, radius, 1.0)))
+    return 1.0 / torch.clamp(solid_angle, min=1e-20)
 
 
 def _rect_local(p, pos, rot):
@@ -111,6 +133,22 @@ def sample_light(scene, present: set, light_idx, p, n, xi) -> LightSample:
         rv = -ay / (0.5 * sy)
         uv_v[_RECT] = torch.stack([0.5 * (ru + 1.0), 0.5 * (rv + 1.0)], dim=-1)
 
+    if _DIST in present:
+        # the sun's cone: a concentric disk of radius tan(angular radius)
+        # around the light's direction
+        radius = scale[:, 0]
+        xy = vm.sample_disk_concentric(xi)
+        ws = radius[:, None] * fma(xy[:, 0:1], r0, xy[:, 1:2] * r1)
+        wi_d = vm.safe_normalize(ws - r2)
+        wi_v[_DIST] = wi_d
+        pdf_v[_DIST] = _cone_pdf(radius)
+        ln_v[_DIST] = r2
+        valid_v[_DIST] = radius > 0.0
+        # distant_intersect's uv: k = d - n, u = dot(r0, k / radius)
+        k = (wi_d - r2) / torch.clamp(radius, min=1e-20)[:, None]
+        uv_v[_DIST] = torch.stack([0.5 * (vm.dot(r0, k) + 1.0), 0.5 * (vm.dot(r1, k) + 1.0)],
+                                  dim=-1)
+
     if _DOME in present:
         # the hemisphere around n, uniformly (map-less domes)
         t, b = (torch.stack(v, dim=-1) for v in _onb(n.unbind(1)))
@@ -131,10 +169,12 @@ def sample_light(scene, present: set, light_idx, p, n, xi) -> LightSample:
     t_max = _sel(shape, t_v, far_t)
     uv = _sel(shape, uv_v, torch.zeros_like(p[:, :2]))
     infinite = torch.zeros_like(ones_b)
-    if _DOME in present:
-        infinite = shape == _DOME
+    if _DOME in present or _DIST in present:
+        # infinite lights: a point at RAY_MAX_T; the dome's normal faces
+        # the shading point, the sun keeps its axis
+        infinite = (shape == _DOME) | (shape == _DIST)
         light_p = torch.where(infinite[:, None], fma(wi, RAY_MAX_T, p), light_p)
-        light_n = torch.where(infinite[:, None], -wi, light_n)
+        light_n = torch.where((shape == _DOME)[:, None], -wi, light_n)
         t_max = torch.where(infinite, far_t, t_max)
 
     # mapped domes: importance-sample the emission map instead
@@ -193,6 +233,8 @@ def light_hit_pdf(scene, present: set, prop, ray_o, ray_d):
         ol = _rect_local(ray_o, scene.prop_pos[pm], rot)
         q = _sphquad_init(scale[:, 0], scale[:, 1], ol)
         vals[_RECT] = _sphquad_pdf(q, ol, scale[:, 0], scale[:, 1])
+    if _DIST in present:
+        vals[_DIST] = _cone_pdf(scene.prop_scale[pm][:, 0])
     if _DOME in present:
         vals[_DOME] = torch.full(shape.shape, 1.0 / (2.0 * math.pi), dtype=torch.float32,
                                  device=ray_o.device)

@@ -2,16 +2,24 @@
 plain numpy then torch).
 
 Supported: Prop and Light entities with analytic Rectangle/Cube/Sphere/
-Disk/Dome shapes or procedural triangle meshes (shape "file": "proc:..."),
-nested child entities, Euler or look-at transformations, Substitute and
-Light materials with constant parameters, one emitting light (a Rectangle
-or a Dome). Mesh props become instances over one BVH arena
-(scene/trimesh.py). Through `SceneBuilder` a material may also carry linear
-image textures (color, roughness, emission; `add_texture_image`); a dome
-with an emission map gets an env-map sampler (scene/env_sampling.py).
-Everything else raises `UnsupportedScene` (texture nodes in scene files
-too) — the port renders only what its bounces cover, and never silently
-drops a feature.
+Disk/Dome/Distant shapes (Celestial_disk is a Distant) or procedural
+triangle meshes (shape "file": "proc:..."), the Sky entity (a baked
+Preetham dome plus a distant sun, scene/sky.py), nested child entities,
+Euler or look-at transformations, Substitute and Light materials with
+constant parameters, and one or more emitting Rectangle, Dome or Distant
+lights. Two or more lights are selected as the JAX package selects them:
+by the power CDF when every light is infinite, through the SAOH light
+tree (scene/light_tree.py) when one is finite. Mesh props become
+instances over one BVH arena (scene/trimesh.py). Through `SceneBuilder` a
+material may also carry linear image textures (color, roughness,
+emission; `add_texture_image`); a dome with an emission map gets an
+env-map sampler (scene/env_sampling.py).
+
+Everything else raises `UnsupportedScene`: Sphere, Disk, Cube and mesh
+lights, Canopy env lights, Portal entities, texture nodes in scene files
+and every other material kind. (Scenes whose light tree would split NEE
+are refused by render/driver.py.) The port renders only what its bounces
+cover, and never silently drops a feature.
 """
 
 from __future__ import annotations
@@ -24,6 +32,9 @@ import torch
 
 from ..io.mesh import load_mesh_file
 from .env_sampling import EnvSampler, build_env_sampler
+from .light_tree import ARRAY_FIELDS as _TREE_FIELDS
+from .light_tree import LightTree, build_light_tree
+from .sky import SUN_ANGULAR_RADIUS, bake_sky, sun_radiance
 from .textures import TextureArena, TextureBuilder
 from .trimesh import HostMesh, InstanceTable, MeshArena, build_arena, build_instance_table
 from .types import Lights, Materials, MaterialKind, SceneData, ShapeType, UnsupportedScene
@@ -35,12 +46,16 @@ LUMINANCE_WEIGHTS = (0.212671, 0.715160, 0.072169)
 _SHAPE_NAMES = {
     "Cube": ShapeType.CUBE,
     "Disk": ShapeType.DISK,
+    "Distant": ShapeType.DISTANT,
     "Dome": ShapeType.DOME,
     "Rectangle": ShapeType.RECTANGLE,
     "Sphere": ShapeType.SPHERE,
+    # zyg alias: the sun is a Distant light
+    "Celestial_disk": ShapeType.DISTANT,
 }
 _MAX_PROPS = 32  # analytic props (ops/shade.py MAX_PROPS)
-_LIGHT_SHAPES = (ShapeType.RECTANGLE, ShapeType.DOME)
+# the light shapes the port samples (scene/light_sampling.py)
+_LIGHT_SHAPES = (ShapeType.RECTANGLE, ShapeType.DOME, ShapeType.DISTANT)
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +298,8 @@ class SceneBuilder:
             area = float(4.0 * np.pi * (0.5 * s[0]) ** 2)
         elif shape == ShapeType.CUBE:
             area = float(2.0 * (s[0] * s[1] + s[0] * s[2] + s[1] * s[2]))
+        elif shape == ShapeType.DISTANT:
+            area = float(2.0 * np.pi * (1.0 - np.sqrt(1.0 / (s[0] ** 2 + 1.0))))
         elif shape == ShapeType.DOME:
             area = 4.0 * np.pi
         else:
@@ -299,11 +316,12 @@ class SceneBuilder:
         if len(analytic) > _MAX_PROPS:
             raise UnsupportedScene(f"{len(analytic)} analytic props (at most {_MAX_PROPS})")
         light_props = [i for i, p in enumerate(props) if p.is_light and self._light_weight(p) > 0.0]
-        if len(light_props) != 1:
-            # two or more lights select through a light tree in the JAX package
-            raise UnsupportedScene(f"{len(light_props)} emitting lights (exactly one supported)")
-        if props[light_props[0]].shape not in {int(s) for s in _LIGHT_SHAPES}:
-            raise UnsupportedScene("the light must be a Rectangle or a Dome")
+        for i in light_props:
+            if props[i].shape not in {int(s) for s in _LIGHT_SHAPES}:
+                raise UnsupportedScene(f"{ShapeType(props[i].shape).name.capitalize()} lights "
+                                       "(the port samples Rectangle, Dome and Distant lights)")
+        if not light_props:
+            raise UnsupportedScene("a scene without an emitting light")
         for d in self.materials:
             for tid in (d.color_tex, d.roughness_tex, d.emission_tex):
                 if not -1 <= tid < len(self.textures):
@@ -315,6 +333,19 @@ class SceneBuilder:
         prop_light = np.full(len(props), -1, np.int32)
         for li, pi in enumerate(light_props):
             prop_light[pi] = li
+        # the many-light tree over the finite lights (ref light_tree_builder.zig)
+        light_tree = None
+        if len(light_props) >= 2 and float(weights.sum()) > 0.0:
+            bounds = [self._light_bounds(props[pi]) for pi in light_props]
+            light_tree = build_light_tree(
+                np.stack([b[0] for b in bounds]),
+                np.asarray([b[1] for b in bounds], np.float32),
+                np.stack([b[2] for b in bounds]),
+                weights,
+                np.asarray([self.materials[props[i].material].two_sided for i in light_props],
+                           bool),
+                np.asarray([b[3] for b in bounds], bool),
+            )
 
         groups: dict[int, list[int]] = {}
         for i in analytic:
@@ -366,7 +397,23 @@ class SceneBuilder:
             mesh_instances=instances,
             textures=self.textures.build(),
             env=build_env_sampler(env_entries),
+            light_tree=light_tree,
         ).to(device)
+
+    @staticmethod
+    def _light_bounds(p: PropDesc):
+        """(center [3], radius, cone [4], finite) of a light prop: the
+        bounding sphere and normal cone the tree's importance uses (ref
+        light_tree_builder.zig light properties)."""
+        t = p.trafo
+        pos = np.asarray(t.position, np.float32)
+        if p.shape == int(ShapeType.RECTANGLE):
+            s = np.asarray(t.scale, np.float32)
+            rot = np.asarray(t.rotation, np.float32)
+            r = 0.5 * float(np.hypot(s[0], s[1]))
+            return pos, r, np.concatenate([rot[2], [1.0]]).astype(np.float32), True
+        # infinite shapes (distant, dome)
+        return pos, 0.0, np.array([0.0, 0.0, 1.0, -1.0], np.float32), False
 
     def _build_meshes(self):
         """(arena, instance table) over the mesh props, or (None, None)."""
@@ -389,9 +436,50 @@ _ENTITY_KEYS = {"type", "shape", "materials", "transformation", "visibility",
                 "occluding", "entities"}
 
 
+_SKY_KEYS = {"type", "parameters"}
+
+
+def _load_sky(e: dict, builder: SceneBuilder) -> None:
+    """Sky entity -> baked Preetham dome + distant sun (as the JAX
+    package's _load_sky; ref core/sky/sky.zig bakes its Prague sky to an
+    env image the same way)."""
+    extra = set(e) - _SKY_KEYS
+    params = e.get("parameters", {})
+    extra |= set(params) - {"sun", "turbidity"}
+    sun_node = params.get("sun", {})
+    extra |= set(sun_node) - {"rotation"}
+    if extra:
+        raise UnsupportedScene(f"Sky keys {sorted(extra)}")
+    turbidity = float(params.get("turbidity", 2.5))
+    if "rotation" in sun_node:
+        sun_rot = rotation_matrix_from_euler_degrees(_read_vec3(sun_node["rotation"]))
+    else:
+        # default: sun overhead shining straight down (ref sky.zig:41)
+        sun_rot = np.array([[1, 0, 0], [0, 0, 1], [0, -1, 0]], np.float32)
+    sun_dir = sun_rot[2]
+
+    tex = builder.add_texture_image(bake_sky(sun_dir, turbidity))
+    sky_mat = builder.add_material(MaterialDesc(
+        kind=int(MaterialKind.LIGHT), emission=np.ones(3, np.float32), emission_tex=tex))
+    builder.add_prop(PropDesc(shape=int(ShapeType.DOME), trafo=Transformation(), material=sky_mat,
+                              visible_shadow=False, is_light=True))
+    sun_mat = builder.add_material(MaterialDesc(kind=int(MaterialKind.LIGHT),
+                                                emission=sun_radiance(sun_dir, turbidity)))
+    radius = float(np.tan(SUN_ANGULAR_RADIUS))
+    builder.add_prop(PropDesc(
+        shape=int(ShapeType.DISTANT),
+        trafo=Transformation(rotation=sun_rot.astype(np.float32),
+                             scale=np.array([radius, radius, radius], np.float32)),
+        material=sun_mat, visible_shadow=False, is_light=True,
+    ))
+
+
 def _load_entities(entities, parent: Transformation, local_materials, builder: SceneBuilder):
     for e in entities:
         etype = e.get("type")
+        if etype == "Sky":
+            _load_sky(e, builder)
+            continue
         if etype not in ("Prop", "Light"):
             raise UnsupportedScene(f"entity {etype or sorted(e)!r}")
         extra = set(e) - _ENTITY_KEYS
@@ -465,8 +553,9 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     SceneData: keys "prop_*", "materials.<f>", "lights.<f>",
     "prop_groups.<shape>", for mesh scenes "meshes.<f>" (with
     "meshes.max_depth") and "mesh_instances.<f>", for textured scenes
-    "textures.<f>", and for a mapped dome "env.<f>" (with "env.width" and
-    "env.height")."""
+    "textures.<f>", for a mapped dome "env.<f>" (with "env.width" and
+    "env.height"), and for a light tree "light_tree.<f>" (with
+    "light_tree.depth", "light_tree.inf_weight", "light_tree.num_finite")."""
     def arr(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -495,6 +584,12 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
         d.update({f"env.{k}": arr(getattr(scene.env, k)) for k in _ENV})
         d["env.width"] = np.asarray(scene.env.width, np.int64)
         d["env.height"] = np.asarray(scene.env.height, np.int64)
+    tree = scene.light_tree
+    if tree is not None:
+        d.update({f"light_tree.{k}": arr(getattr(tree, k)) for k in _TREE_FIELDS})
+        d["light_tree.depth"] = np.asarray(tree.depth, np.int64)
+        d["light_tree.inf_weight"] = np.asarray(tree.inf_weight, np.float64)
+        d["light_tree.num_finite"] = np.asarray(tree.num_finite, np.int64)
     return d
 
 
@@ -516,6 +611,12 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
     if "env.table" in d:
         env = EnvSampler(**{k: t(f"env.{k}") for k in _ENV}, width=int(d["env.width"]),
                          height=int(d["env.height"]))
+    light_tree = None
+    if "light_tree.center" in d:
+        light_tree = LightTree(**{k: t(f"light_tree.{k}") for k in _TREE_FIELDS},
+                               depth=int(d["light_tree.depth"]),
+                               inf_weight=float(d["light_tree.inf_weight"]),
+                               num_finite=int(d["light_tree.num_finite"]))
     return SceneData(
         **{k: t(k) for k in _PLAIN},
         materials=Materials(**{k: t(f"materials.{k}") for k in _MATERIAL}),
@@ -525,4 +626,5 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
         mesh_instances=instances,
         textures=textures,
         env=env,
+        light_tree=light_tree,
     )

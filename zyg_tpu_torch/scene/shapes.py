@@ -95,7 +95,8 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None) -> Fragme
     """Hit point, geometric and shading normals, material and (where
     need_uv, by default for textured scenes) uv of the closest hit, over
     the shape branches present in the scene. Lanes on an infinite shape
-    (the dome) get the point RAY_MAX_T * d and the normal -d."""
+    get the point RAY_MAX_T * d; the dome's normal is -d, the sun's (a
+    Distant prop) its axis."""
     if need_uv is None:
         need_uv = scene.textures is not None
     present = {int(k) for k in scene.prop_groups}
@@ -104,7 +105,7 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None) -> Fragme
     rot = scene.prop_rot[prop]
     pos = scene.prop_pos[prop]
     scale = scene.prop_scale[prop]
-    p = o + hit.t[:, None] * d
+    p = fma(hit.t[:, None], d, o)
     r0, r1, r2 = rot[:, 0], rot[:, 1], rot[:, 2]
 
     # value per present shape type, selected by the lane's shape in the
@@ -131,20 +132,25 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None) -> Fragme
         face_n = torch.where(use_x[:, None], r0, torch.where(use_y[:, None], r1, r2))
         comp = torch.where(use_x, lp[:, 0], torch.where(use_y, lp[:, 1], lp[:, 2]))
         n_vals[int(ShapeType.CUBE)] = torch.sign(comp)[:, None] * face_n
-    is_dome = None
+    # infinite shapes: the dome's normal faces the ray, the sun's is its
+    # axis; uv in the JAX package's key order (the sun's before the dome's)
     if int(ShapeType.DOME) in present:
-        is_dome = shape == int(ShapeType.DOME)
         n_vals[int(ShapeType.DOME)] = -d
-        if need_uv:
-            from .env_sampling import dome_uv
+    if int(ShapeType.DISTANT) in present:
+        n_vals[int(ShapeType.DISTANT)] = r2
+        uv_vals[int(ShapeType.DISTANT)] = torch.stack([(hit.u + 1.0) * 0.5, (hit.v + 1.0) * 0.5],
+                                                      dim=-1)
+    if need_uv and int(ShapeType.DOME) in present:
+        from .env_sampling import dome_uv
 
-            uv_vals[int(ShapeType.DOME)] = dome_uv(
-                vm.safe_normalize(vm.world_to_object_normal(rot, d)))
+        uv_vals[int(ShapeType.DOME)] = dome_uv(
+            vm.safe_normalize(vm.world_to_object_normal(rot, d)))
 
     n = select_by_shape(shape, n_vals, -d)
     uv = select_by_shape(shape, uv_vals, torch.zeros_like(p[:, :2])) if need_uv else None
-    if is_dome is not None:
-        p = torch.where(is_dome[:, None], RAY_MAX_T * d, p)
+    if int(ShapeType.DOME) in present or int(ShapeType.DISTANT) in present:
+        is_inf = (shape == int(ShapeType.DOME)) | (shape == int(ShapeType.DISTANT))
+        p = torch.where(is_inf[:, None], RAY_MAX_T * d, p)
     geo_n = n
 
     if scene.meshes is not None:

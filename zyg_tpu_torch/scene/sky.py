@@ -1,15 +1,20 @@
-"""The Preetham sun/sky baked to a lat-long image (host numpy; a copy of
-zyg_tpu/scene/sky.py:18-111, whose arrays it reproduces exactly).
+"""The Preetham sky baked to a lat-long image and the sun's radiance (host
+numpy; a copy of zyg_tpu/scene/sky.py:15-133, whose arrays it reproduces
+exactly).
 
 The reference bakes the Prague sky model from a dataset; the JAX package
 bakes the Preetham, Shirley & Smits 1999 analytic model instead (published
 closed-form fits, no dataset) into a lat-long emission texture for a Dome
-light, and the port keeps that.
+light, plus a Distant sun of atmosphere-attenuated radiance, and the port
+keeps that (scene/loader.py's Sky entity).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+SUN_ANGULAR_RADIUS = 0.00465  # rad, ~0.266 deg (ref sky/sun constants)
+
 
 def _perez(theta, gamma, coeff):
     a, b, c, d, e = coeff
@@ -105,3 +110,22 @@ def bake_sky(sun_dir, turbidity: float = 2.5, width: int = 512, height: int = 25
     horizon_mean = rgb[np.clip((height // 2) - 1, 0, height - 1)].mean(axis=0)
     rgb[below] = 0.3 * horizon_mean
     return rgb
+
+
+def sun_radiance(sun_dir, turbidity: float = 2.5, exposure_scale: float = 0.025) -> np.ndarray:
+    """Mean radiance of the solar disc after atmospheric extinction,
+    consistent in scale with bake_sky (float64 on the host, then float32)."""
+    to_sun = -np.asarray(sun_dir, np.float64)
+    to_sun /= np.linalg.norm(to_sun)
+    cos_zen = np.clip(to_sun[1], 0.02, 1.0)
+    m = 1.0 / (cos_zen + 0.15 * (93.885 - np.degrees(np.arccos(cos_zen))) ** -1.253)
+    beta = 0.04608 * turbidity - 0.04586
+    # wavelength-ish extinction for RGB bands (550/610/465nm-ish)
+    lam = np.array([0.61, 0.55, 0.465])
+    tau_r = np.exp(-m * 0.008735 * lam**-4.08)
+    tau_a = np.exp(-m * beta * lam**-1.3)
+    # solar disc luminance ~1.6e6 kcd/m^2 outside the atmosphere; with the
+    # disc solid angle (~6.8e-5 sr) this yields the ~10:1 sun:sky irradiance
+    # ratio of a clear day
+    base = 1.6e6 * exposure_scale
+    return (base * tau_r * tau_a).astype(np.float32)

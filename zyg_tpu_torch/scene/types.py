@@ -4,8 +4,10 @@ Holds only the fields the port's paths read: per-prop transforms, shape
 and material ids, visibility, the material table (with its image-texture
 ids), the light records with their power CDF, the analytic props grouped by
 shape type, for mesh scenes the triangle arena and the mesh instance table
-(scene/trimesh.py), and for textured scenes the texture arena
-(scene/textures.py) and the env-map sampler (scene/env_sampling.py).
+(scene/trimesh.py), for textured scenes the texture arena
+(scene/textures.py) and the env-map sampler (scene/env_sampling.py), and
+for two or more lights of which one is finite the light tree
+(scene/light_tree.py).
 """
 
 from __future__ import annotations
@@ -111,6 +113,7 @@ class SceneData:
     mesh_instances: object = None  # trimesh.InstanceTable, or None
     textures: object = None  # textures.TextureArena, or None without images
     env: object = None  # env_sampling.EnvSampler of a mapped dome, or None
+    light_tree: object = None  # light_tree.LightTree, or None (power-CDF selection)
 
     def to(self, device) -> "SceneData":
         out = {}
