@@ -19,7 +19,9 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     mis_n/throughput within 1e-4/1e-5/1e-5/1e-5/5e-3 relative, and
     radiance column sums within rtol 2e-3; then on the bench trefoil at
     the mesh path's 921,600 lanes: isect over the scene's own reflection
-    and shadow prop tables (pid/blocked exact, t/u/v within rtol 2e-5);
+    and shadow prop tables (pid/blocked exact, t/u/v within rtol 2e-5),
+    and again on the sunsky and material_test tables (the latter at the
+    material path's 786,432 lanes, its Sphere hits counted);
     surface with the shade rules plus the shadow rays and NEE values of
     the NEE lanes, and surface_v2 on the bench textured scene, each with
     the shares of its lanes dead on entry, missed, ended on a hit,
@@ -36,9 +38,10 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
  4b. the same gate for the 30,720-triangle trefoil at 96x56, 16 spp,
     4c. for the CI textured trefoil under a baked sky dome at 96x56, 16 spp,
     4d. for examples/takes/sunsky.take (a Sky: baked dome + distant sun)
-    at 96x56, 16 spp, depth 4, and 4e. for two rectangle lamps under a
+    at 96x56, 16 spp, depth 4, 4e. for two rectangle lamps under a
     constant dome (analytic props; NEE through the light tree) at 96x96,
-    16 spp
+    16 spp, and 4f. for examples/takes/material_test.take (glass through
+    the general body, BSDF splitting) at 96x72, 16 spp, depth 6
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
@@ -60,6 +63,13 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     size; sobol_block, isect, surface_v2, traverse and accum must each
     have launched; the same report and profile, and the lifecycle shares
     of kernel 6's lanes in the first bounce and over all its launches
+ 5e. the material main path: the CLI on examples/takes/material_test.take
+    at its own 1024x768, 32 spp, then the Driver at 1024x768, 16 spp
+    (bench.py::bench_material's work), depth 10, through the general body
+    (torch) around sobol_block, isect and accum, which must each have
+    launched; the same report and profile, the iterations over all chunks
+    (isect closest launches) and the share of lanes that resume a parked
+    split branch
  6. one bounce of the mesh bounce (kernel 5) against one of the general
     bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
     directly, timed in turns (CUDA events, medians)
@@ -116,6 +126,14 @@ TEXTURED_KERNELS = ("sobol_block", "isect", "surface_v2", "traverse", "accum")
 SUNSKY_KERNELS = TEXTURED_KERNELS
 SUNSKY_RES = (960, 540)  # sunsky.take's own size: 32 spp, PTMIS depth 8
 N_SKY = SUNSKY_RES[0] * SUNSKY_RES[1]
+# the material path: the general body (torch) around isect, sobol_block
+# and accum, at material_test.take's own 1024x768 with bench_material's 16
+# spp and depth 10
+MATERIAL_KERNELS = ("sobol_block", "isect", "accum")
+MATERIAL_RES = (1024, 768)
+MATERIAL_SPP = 16
+MATERIAL_DEPTH = 10
+N_MATERIAL = MATERIAL_RES[0] * MATERIAL_RES[1]
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -212,6 +230,9 @@ def phase_card() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     log(out)
+    import torch
+
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, Python {sys.version.split()[0]}")
     return out
 
 
@@ -368,6 +389,7 @@ def check_isect(dev) -> dict:
     log(f"isect: {int((p[1] >= 0).sum())} of {n} lanes hit the light, "
         f"{int(pb.sum())} shadow rays blocked by analytic props")
     check_isect_sunsky(dev)
+    check_isect_material(dev)
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: isect.closest_props(refl, o, d, 0.0, tmax, prim), 20),
@@ -451,6 +473,188 @@ def check_isect_sunsky(dev) -> None:
     ms = time_ms(lambda: isect.closest_props(refl, o, d, 0.0, tmax, prim), 20)
     log(f"isect (sunsky tables {refl.kinds} / shadow {shadow.kinds}): exact on {N_SKY} lanes; "
         f"hits by shape {hits}; {int(pb.sum())} shadow rays blocked; closest {ms:.4f} ms")
+
+
+def _material(dev):
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    return load_scene_file(os.path.join(REPO, "examples/scenes/material_test.scene"), dev)
+
+
+def _material_lanes(scene, n, dev, seed=8):
+    """Lanes of the material path's analytic hit tests: camera rays of
+    material_test.take on the primary half, rays from above the floor in
+    random directions on the other, every 4th lane aimed at one of the
+    five spheres; shadow rays from the floor and the spheres' height to a
+    point on the lamp or, on half the lanes, toward the dome (tmax short
+    of RAY_MAX_T, as NEE gives infinite lights). 10 % of the lanes are
+    dead (tmax 0)."""
+    import numpy as np
+    import torch
+    from zyg_tpu_torch.ops.surface_v2 import _INF_SHADOW_TMAX
+    from zyg_tpu_torch.scene.types import RAY_MAX_T
+
+    centers = np.array([[-3.0, 0.75, 0], [-1.5, 0.75, 1.8], [0, 0.75, 0], [1.5, 0.75, 1.8],
+                        [3.0, 0.75, 0]])
+    lamp = int(scene.lights.prop[0])
+    rot = scene.prop_rot[lamp].cpu().numpy().astype(np.float64)
+    pos = scene.prop_pos[lamp].cpu().numpy().astype(np.float64)
+    scale = scene.prop_scale[lamp].cpu().numpy().astype(np.float64)
+    rng = np.random.default_rng(seed)
+    prim = rng.random(n) < 0.5
+    alive = rng.random(n) < 0.9
+    up = rng.uniform([-5.0, 0.05, -3.0], [5.0, 2.5, 4.0], (n, 3))
+    target = rng.uniform([-4.5, 0.0, -2.0], [4.5, 2.0, 3.5], (n, 3))
+    o = np.where(prim[:, None], np.array([0.0, 2.2, -7.5]), up)
+    sphere = centers[rng.integers(0, 5, n)] + rng.normal(size=(n, 3)) * 0.4
+    d = np.where(prim[:, None], target - o, rng.normal(size=(n, 3)))
+    d = np.where((np.arange(n) % 4 == 0)[:, None], sphere - o, d)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.where(alive, RAY_MAX_T, 0.0)
+    so = rng.uniform([-5.0, 0.0, -3.0], [5.0, 1.5, 4.0], (n, 3))
+    uv = rng.uniform(-0.5, 0.5, (n, 2)) * scale[:2]
+    on_lamp = pos + uv[:, 0:1] * rot[0] + uv[:, 1:2] * rot[1]
+    toward = rng.random(n) < 0.5
+    sd = np.where(toward[:, None], on_lamp - so, rng.normal(size=(n, 3)) + np.array([0, 1.0, 0]))
+    slen = np.linalg.norm(sd, axis=-1)
+    sd /= slen[:, None]
+    smax = np.where(alive, np.where(toward, slen, _INF_SHADOW_TMAX), 0.0)
+
+    def t(x):
+        x = np.ascontiguousarray(x)
+        return torch.from_numpy(x if x.dtype == bool else x.astype(np.float32)).to(dev)
+
+    return tuple(t(x) for x in (o, d, tmax, prim, so, sd, smax))
+
+
+def check_isect_material(dev) -> None:
+    """isect over the material_test scene's own reflection and shadow prop
+    tables (the rules of check_isect) at the material path's 786,432
+    lanes; its Sphere, Rectangle and Dome branches must each be hit, and
+    the Sphere hits are counted (no earlier check's tables hold a sphere)."""
+    import torch
+    from zyg_tpu_torch.ops import isect
+    from zyg_tpu_torch.scene.types import ShapeType
+
+    scene = _material(dev)
+    refl, shadow = isect.prop_table(scene, "reflection"), isect.prop_table(scene, "shadow")
+    o, d, tmax, prim, so, sd, smax = _material_lanes(scene, N_MATERIAL, dev)
+    k = isect.closest_props(refl, o, d, 0.0, tmax, prim)
+    p = isect.isect_plain(refl.kinds, refl.table, refl.ids, o, d, 0.0, tmax, prim, False)
+    kb = isect.anyhit_props(shadow, so, sd, 0.0, smax)
+    pb = isect.isect_plain(shadow.kinds, shadow.table, shadow.ids, so, sd, 0.0, smax, None, True)
+    torch.cuda.synchronize()
+    if not torch.equal(k[1], p[1]):
+        raise AssertionError(f"isect (material): {int((k[1] != p[1]).sum())} prop ids differ")
+    if not torch.equal(kb, pb):
+        raise AssertionError(f"isect (material): {int((kb != pb).sum())} any-hit results differ")
+    for a, b in ((k[0], p[0]), (k[2], p[2]), (k[3], p[3])):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+    bitwise = all(torch.equal(a, b) for a, b in ((k[0], p[0]), (k[2], p[2]), (k[3], p[3])))
+    kinds = scene.prop_shape[torch.clamp(p[1], min=0).long()]
+    hits = {st.name: int(((p[1] >= 0) & (kinds == int(st))).sum())
+            for st in (ShapeType.SPHERE, ShapeType.RECTANGLE, ShapeType.DOME)}
+    if min(hits.values()) <= 0:
+        raise AssertionError(f"isect (material): a branch was never hit: {hits}")
+    ms = time_ms(lambda: isect.closest_props(refl, o, d, 0.0, tmax, prim), 20)
+    log(f"isect (material tables {refl.kinds} / shadow {shadow.kinds}): prop ids and any-hit "
+        f"exact on {N_MATERIAL} lanes, t/u/v {'bit-exact' if bitwise else 'within rtol 2e-5'}; "
+        f"hits by shape {hits}; {int(pb.sum())} shadow rays blocked; closest {ms:.4f} ms")
+
+
+def to_device(s, dev):
+    """A PathState's tensors (and its split slot's) on dev."""
+    import dataclasses
+
+    import torch
+    from zyg_tpu_torch.core.sobol import SobolArrays
+
+    out = {}
+    for f in dataclasses.fields(s):
+        v = getattr(s, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.to(dev)
+        elif isinstance(v, SobolArrays):
+            v = SobolArrays(*(x.to(dev) for x in (v.sample, v.start_seed, v.run_seed, v.buffer)))
+        elif isinstance(v, dict):
+            v = {k: x.to(dev) for k, x in v.items()}
+        elif f.name == "result":
+            v = type(v)(*(x.to(dev) for x in (v.emission, v.direct, v.indirect)))
+        out[f.name] = v
+    return type(s)(**out)
+
+
+def material_state(n, bounces=4, seed=9, max_depth=MATERIAL_DEPTH):
+    """A general-body PathState of n lanes on the CPU: rays from around
+    material_test.take's camera toward the spheres (a third at the glass
+    sphere), after `bounces` bounces of the body on the CPU (so that lanes
+    sit inside the glass and hold parked split branches)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from zyg_tpu_torch.core.rng import hash_u32, to_i32
+    from zyg_tpu_torch.core.sobol import SobolSampler
+    from zyg_tpu_torch.render.integrator import ptmis, volume
+
+    rng = np.random.default_rng(seed)
+    o = np.array([0, 2.2, -7.5]) + rng.uniform(-0.3, 0.3, (n, 3))
+    tgt = rng.uniform([-4, 0, -1], [4, 2, 3], (n, 3))
+    glass = rng.normal(size=(n, 3)) * 0.5 + np.array([1.5, 0.75, 1.8])
+    tgt = np.where((np.arange(n) % 3 == 0)[:, None], glass, tgt)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d.astype(np.float32))
+    ids = torch.arange(n, dtype=torch.int64)
+    f32 = torch.float32
+    s = ptmis.PathState(
+        o=o, d=d, throughput=torch.ones((n, 3)), result=ptmis.IValue.zeros(n, "cpu"),
+        alive=torch.ones(n, dtype=torch.bool), bxdf_pdf=torch.zeros(n),
+        singular=torch.ones(n, dtype=torch.bool), depth=torch.zeros(n, dtype=torch.int32),
+        rays=torch.zeros((), dtype=torch.int64),
+        sobol=SobolSampler.start_pixel(ids, torch.zeros_like(ids)).arrays,
+        vol_key=to_i32(hash_u32(ids)), mis_o=o, mis_n=d, pid=ids,
+        medium=volume.stack_empty(n, "cpu"), vol_depth=torch.zeros(n, dtype=torch.int32),
+        from_volume=torch.zeros(n, dtype=torch.bool), primary_chain=torch.ones(n, dtype=torch.bool),
+        nee_thr=torch.zeros(n, dtype=f32), reg_alpha=torch.zeros(n, dtype=f32),
+        split=ptmis._split_init(n, "cpu"),
+    )
+    body = ptmis._make_body(_material("cpu"), ptmis.PtmisSettings(max_depth=max_depth,
+                                                                   bsdf_split=True))
+    for _ in range(bounces):
+        s = body(ptmis.resume_split(s))
+    return dataclasses.replace(s, rays=torch.zeros((), dtype=torch.int64))
+
+
+def compare_general(r1, r2) -> float:
+    """The general body on the card (r1) against the same body on the CPU
+    (r2): lifecycles, the stack and the split slot's integer fields exact,
+    live-lane floats within the CPU test's tolerances against JAX (o 1e-5,
+    d 2e-4, throughput 5e-3, mis_n 2e-4; bxdf_pdf 2e-2 off the mirror's
+    near-delta lobe). Returns the largest absolute error of o, d."""
+    import torch
+
+    r2 = to_device(r2, r1.o.device)
+    for name in ("alive", "depth", "vol_depth", "medium", "singular", "primary_chain", "vol_key",
+                 "rays"):
+        if not torch.equal(getattr(r1, name), getattr(r2, name)):
+            raise AssertionError(f"general body: {name} differs between card and CPU")
+    for k in ("pending", "depth", "medium", "vol_key", "run_seed"):
+        if not torch.equal(r1.split[k], r2.split[k]):
+            raise AssertionError(f"general body: split.{k} differs between card and CPU")
+    if not torch.equal(r1.sobol.run_seed, r2.sobol.run_seed):
+        raise AssertionError("general body: the Sobol' run seed differs between card and CPU")
+    live = r1.alive
+    near_delta = live & (r1.reg_alpha > 0.0) & (r1.reg_alpha < 1e-3)
+    for name, tol, mask in (("o", 1e-5, live), ("d", 2e-4, live), ("throughput", 5e-3, live),
+                            ("mis_n", 2e-4, live), ("bxdf_pdf", 2e-2, live & ~near_delta)):
+        a, b = getattr(r2, name)[mask].double(), getattr(r1, name)[mask].double()
+        rel = float(((a - b).abs() / (a.abs() + 1e-3)).max()) if a.numel() else 0.0
+        if rel >= tol:
+            raise AssertionError(f"general body: {name} off by {rel:.3g} (tolerance {tol})")
+    if not r1.o.numel():
+        return 0.0
+    return max(float((r1.o - r2.o).abs().max()), float((r1.d - r2.d).abs().max()))
 
 
 def _flush_lanes(n, share, dev, seed=11):
@@ -1193,6 +1397,62 @@ def phase_slice_tree(dev) -> None:
                  f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
+def phase_slice_material(dev) -> None:
+    """material_test.take at 96x72, 16 spp, depth 6 on the card against the
+    plain CPU path (the general body, glass and BSDF splitting)."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    take = _take("material_test.take", (96, 72), 16)
+    take.integrator.max_depth_surface = 6
+    scene = load_scene_file(take.scene_filename)
+    t0 = time.perf_counter()
+    card = Driver(take, scene, device=dev).render_frame()
+    t_card = time.perf_counter() - t0
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = Driver(take, scene, device="cpu").render_frame()
+    t_cpu = time.perf_counter() - t0
+    _golden_gate(card, cpu, "material_test 96x72x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+
+
+def general_profile(driver, spp: int) -> str:
+    """The general body's loop over one render, counted on the host around
+    the calls (so the render is not timed): its iterations over all chunks
+    (isect closest launches: one a bounce), and the share of lane-bounces
+    and of samples that resume a parked split branch."""
+    import torch
+    from zyg_tpu_torch.ops import isect
+    from zyg_tpu_torch.render.integrator import ptmis
+
+    closest, resume = isect.closest_props, ptmis.resume_split
+    calls = {"closest": 0, "resumed": 0, "lanes": 0}
+
+    def counting_closest(*args, **kw):
+        calls["closest"] += 1
+        return closest(*args, **kw)
+
+    def counting_resume(s):
+        if s.split:
+            calls["resumed"] += int(((~s.alive) & s.split["pending"]).sum())
+            calls["lanes"] += s.alive.shape[0]
+        return resume(s)
+
+    isect.closest_props, ptmis.resume_split = counting_closest, counting_resume
+    try:
+        driver.start_frame()
+        driver.render_iterations(spp)
+        torch.cuda.synchronize()
+    finally:
+        isect.closest_props, ptmis.resume_split = closest, resume
+    w, h = driver.camera.resolution
+    return (f"general body: {calls['closest']} iterations over all chunks (isect closest "
+            f"launches); {calls['resumed']} split branches resumed, "
+            f"{calls['resumed'] / max(calls['lanes'], 1):.4f} of the lanes stepped and "
+            f"{calls['resumed'] / (w * h * spp):.4f} per sample")
+
+
 def lane_shares(driver, spp: int, kernel: str) -> str:
     """The lifecycle shares (lane_classes) of kernel 5's or 6's lanes in
     the first bounce of one render of driver and over all its launches:
@@ -1223,12 +1483,26 @@ def lane_shares(driver, spp: int, kernel: str) -> str:
             f"launches: {shares(total)}")
 
 
+def device_events(prof) -> list:
+    """(name, seconds) of each device event of a trace, read from the raw
+    kineto events: prof.events() also builds a Python tree of every host
+    event, which takes minutes for a render of ~400,000 launches."""
+    from torch.autograd import DeviceType
+
+    try:
+        raw = prof.profiler.kineto_results.events()
+        return [(e.name(), e.duration_ns() / 1e9) for e in raw
+                if e.device_type() == DeviceType.CUDA]
+    except AttributeError:  # a torch without the raw event accessors
+        return [(e.name, e.time_range.elapsed_us() / 1e6) for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+
+
 def profile_render(driver, spp: int, label: str, kernels) -> int:
     """Device kernel time of one warm render by kernel, from a torch.profiler
     trace, and the device's busy share of the profiled wall time. Returns
     the launches of kernels that are not the port's (the torch glue)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1237,13 +1511,14 @@ def profile_render(driver, spp: int, label: str, kernels) -> int:
         driver.render_iterations(spp)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
     by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        row = by_name.setdefault(e.name, [0.0, 0])
-        row[0] += e.time_range.elapsed_us() / 1e6
+    for name, sec in device_events(prof):
+        row = by_name.setdefault(name, [0.0, 0])
+        row[0] += sec
         row[1] += 1
+    log(f"profile {label}: {sum(v[1] for v in by_name.values())} device events read in "
+        f"{time.perf_counter() - t0:.1f} s")
     busy = sum(v[0] for v in by_name.values())
     groups = {k: [0.0, 0] for k in kernels}
     groups["other"] = [0.0, 0]
@@ -1322,7 +1597,8 @@ def _take_scene(take_name, res, spp, label):
 def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=None) -> dict:
     """A main path through the Driver at the take's resolution and spp:
     warm-up, best of 3, one profiled render, and with lanes_of ("surface"
-    or "surface_v2") that kernel's lane shares in one more render. Returns
+    or "surface_v2") that kernel's lane shares in one more render, or
+    ("general") the general body's iterations and split resumes. Returns
     the kernel launches of one render."""
     import numpy as np
     import torch
@@ -1367,7 +1643,9 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
     log(f"{label} [{card}]: peak device memory of one render {peak} B ({peak / 2**30:.3f} GiB); "
         f"glue launches per render {glue}; flushes finish {full:.4f} of the lanes of a full-width "
         f"launch, {mean:.4f} over all launches")
-    if lanes_of:
+    if lanes_of == "general":
+        log(f"{label} [{card}]: {general_profile(driver, spp)}")
+    elif lanes_of:
         log(f"{label} [{card}]: {lane_shares(driver, spp, lanes_of)}")
     return per_render
 
@@ -1433,8 +1711,9 @@ def main() -> int:
     phase_slice_textured(dev)
     phase_slice_sunsky(dev)
     phase_slice_tree(dev)
-    # launches: the CLI runs of the Cornell, trefoil and sunsky paths and
-    # one render of the textured path
+    phase_slice_material(dev)
+    # launches: the CLI runs of the Cornell, trefoil, sunsky and material
+    # paths and one render of the textured path
     launches = {k: 0 for k in SOURCES}
     for take_name, label, res, spp, kernels in (
             ("cornell_ptmis.take", "Cornell PTMIS", (1920, 1080), 16, CORNELL_KERNELS),
@@ -1453,6 +1732,13 @@ def main() -> int:
     phase_main_path(dev, card, "sunsky PTMIS",
                     *_take_scene("sunsky.take", SUNSKY_RES, 32, "sunsky PTMIS"), SUNSKY_KERNELS,
                     lanes_of="surface_v2")
+    material_cli = _cli_run("material_test.take", MATERIAL_KERNELS)
+    for k in launches:
+        launches[k] += material_cli[k]
+    take, scene = _take_scene("material_test.take", MATERIAL_RES, MATERIAL_SPP, "material PTMIS")
+    take.integrator.max_depth_surface = MATERIAL_DEPTH
+    phase_main_path(dev, card, "material PTMIS", take, scene, MATERIAL_KERNELS,
+                    lanes_of="general")
     measure_bounces(dev, card)
 
     def entry(name):
@@ -1460,7 +1746,9 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "launches_of": "cli cornell_ptmis.take + cli trefoil.take + cli sunsky.take "
-                               "+ one 1280x720 4 spp textured-trefoil render",
+                               "+ cli material_test.take + one 1280x720 4 spp textured-trefoil "
+                               "render",
+                "launches_material": material_cli[name],
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"], "device_ms": c["device_ms"],
                 "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

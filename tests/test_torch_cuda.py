@@ -2,7 +2,9 @@
 at the main path's shapes (the checks of chip_smoke.py phase 3), the
 persistent kernels (shade, surface, surface_v2, traverse) at the launch
 shapes their grid-stride and ray-fetch loops must get right, sobol_block
-and the per-pixel flush at small widths. Skipped without a card. This file
+and the per-pixel flush at small widths, isect on material_test's tables,
+and the general body (torch around isect and sobol_block) on the card
+against the CPU at 0, 1, 31 and 129 lanes. Skipped without a card. This file
 imports no jax, so it also runs on a machine without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -233,3 +235,53 @@ def test_surface_v2_launch_shapes(cuda_device, case):
         assert int(r1["rays"]) == 0
         for name in ("emission", "direct", "indirect"):
             assert torch.equal(r1[name], st[name]), name
+
+
+def test_isect_on_material_tables(cuda_device):
+    """isect over material_test's own prop tables (spheres, a rectangle
+    floor and lamp, a dome) at the material path's 786,432 lanes against
+    its plain version: prop ids and any-hit exact."""
+    import chip_smoke
+
+    chip_smoke.check_isect_material(cuda_device)
+
+
+@pytest.fixture(scope="module")
+def material_lanes():
+    """129 general-body lanes after four plain bounces (on the CPU)."""
+    import chip_smoke
+
+    return chip_smoke.material_state(129)
+
+
+@pytest.mark.parametrize("case", [0, 1, 31, 129, "all dead"])
+def test_general_body_launch_shapes(cuda_device, material_lanes, case):
+    """The general body (torch around isect and sobol_block) on the card
+    against the same body on the CPU at 0, 1, 31 and 129 lanes and with
+    every lane dead: shapes right, lifecycles exact (compare_general), and
+    dead lanes keep their path and stack."""
+    import dataclasses
+
+    import chip_smoke
+    from zyg_tpu_torch.render.integrator import ptmis
+
+    s = material_lanes
+    n = 129 if case == "all dead" else case
+    s = s.index(torch.arange(n))
+    if case == "all dead":
+        s = dataclasses.replace(s, alive=torch.zeros_like(s.alive),
+                                split={**s.split, "pending": torch.zeros_like(s.alive)})
+    settings = ptmis.PtmisSettings(max_depth=chip_smoke.MATERIAL_DEPTH, bsdf_split=True)
+    cpu_body = ptmis._make_body(chip_smoke._material("cpu"), settings)
+    card_body = ptmis._make_body(chip_smoke._material(cuda_device), settings)
+    sc = chip_smoke.to_device(s, cuda_device)
+    r1 = card_body(ptmis.resume_split(sc))
+    r2 = cpu_body(ptmis.resume_split(s))
+    torch.cuda.synchronize()
+    assert r1.o.shape == (n, 3) and r1.medium.shape == (n, 4) and r1.split["o"].shape == (n, 3)
+    chip_smoke.compare_general(r1, r2)
+    dead = ~sc.alive & ~sc.split["pending"]
+    for name in ("o", "d", "depth", "medium", "mis_o", "mis_n"):
+        assert torch.equal(getattr(r1, name)[dead], getattr(sc, name)[dead]), name
+    if case == "all dead":
+        assert int(r1.rays) == 0 and not bool(r1.alive.any())

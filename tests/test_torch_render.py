@@ -4,8 +4,10 @@ against the JAX Driver (CPU) on examples/takes/cornell_ptmis.take at
 (tests/test_goldens.py): mean energy within 1.5%, 4x4-downsampled RMSE
 within 6% of the mean. Both follow the same seeding law and Sobol'
 streams, so the two images are far closer than that (paths part only
-where float rounding flips a decision). Also: the drain cascade, the CLI,
-and that the port never imports jax."""
+where float rounding flips a decision). The same gate holds the PTDL take
+(cornell_ptdl.take, 64x64, 16 spp). Also: the drain cascade, the CLI, and
+that the port never imports jax (rendering Cornell, a mesh and
+material_test through the general body)."""
 
 import json
 import os
@@ -96,6 +98,37 @@ def test_drain_cascade_matches_full_width(monkeypatch, port_render):
     assert float(np.sqrt(np.mean(d4 * d4))) / scale < 0.06
 
 
+def test_ptdl_render_matches_jax_at_golden_gate():
+    """examples/takes/cornell_ptdl.take (PTDL: NEE only, no MIS weight on
+    BSDF light hits) at 64x64 and its own 16 spp through both Drivers, by
+    the same gate, rays and loop length."""
+    from zyg_tpu.io.take import load_take_file as jload_take
+    from zyg_tpu.render.driver import Driver as JDriver
+    from zyg_tpu.scene.loader import load_scene_file as jload_scene
+    from zyg_tpu.tools.it import op_downsample
+    from zyg_tpu_torch.io.take import load_take_file
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    path = "examples/takes/cornell_ptdl.take"
+    jt = jload_take(path)
+    jt.cameras[0].resolution = RES
+    jd = JDriver(take=jt, scene=jload_scene(jt.scene_filename))
+    ref = jd.render_frame()
+    take = load_take_file(path)
+    take.cameras[0].resolution = RES
+    d = Driver(take, load_scene_file(take.scene_filename), device="cpu")
+    assert d.settings.nee_only
+    img = d.render_frame()
+    assert img.shape == ref.shape == (RES[1], RES[0], 3) and np.isfinite(img).all()
+    scale = max(float(ref.mean()), 1e-6)
+    assert abs(img.mean() / scale - 1.0) < 0.015
+    d4 = op_downsample(ref, 4) - op_downsample(img, 4)
+    assert float(np.sqrt(np.mean(d4 * d4))) / scale < 0.06
+    assert abs(d.rays_traced - jd.rays_traced) <= 1e-3 * jd.rays_traced
+    assert abs(d.last_iterations - jd.last_iterations) <= 2
+
+
 def test_cli_writes_png(tmp_path):
     from zyg_tpu.io.png import read_png
     from zyg_tpu_torch import cli
@@ -131,6 +164,7 @@ def test_port_imports_no_jax():
         "from zyg_tpu_torch.io.take import load_take_file\n"
         "from zyg_tpu_torch.scene.loader import load_scene_file\n"
         "from zyg_tpu_torch.render.driver import Driver\n"
+        "from zyg_tpu_torch.render.integrator import ptmis\n"
         "import zyg_tpu_torch.cli, chip_smoke\n"
         f"take = load_take_file({os.path.join(REPO, TAKE)!r})\n"
         "take.cameras[0].resolution = (8, 8)\n"
@@ -145,6 +179,14 @@ def test_port_imports_no_jax():
         f"root = json.load(open({os.path.join(REPO, 'examples/scenes/trefoil.scene')!r}))\n"
         "root['entities'][0]['shape']['file'] = 'proc:trefoil-16x8'\n"
         "img = Driver(take, load_scene_dict(root), device='cpu').render_frame()\n"
+        "assert img.shape == (8, 8, 3) and img.mean() > 0\n"
+        f"take = load_take_file({os.path.join(REPO, 'examples/takes/material_test.take')!r})\n"
+        "take.cameras[0].resolution = (8, 8)\n"
+        "take.num_samples_per_pixel = 2\n"
+        "d = Driver(take, load_scene_file(take.scene_filename), device='cpu')\n"
+        "from zyg_tpu_torch.render.integrator import ptmis_general, volume\n"
+        "assert isinstance(ptmis._make_body(d.scene, d.settings), ptmis_general.GeneralBody)\n"
+        "img = d.render_frame()\n"
         "assert img.shape == (8, 8, 3) and img.mean() > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'zyg_tpu')]\n"
         "assert not bad, bad\n"

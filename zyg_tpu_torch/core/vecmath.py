@@ -1,5 +1,5 @@
-"""Batched 3-vector, quaternion and transform math (the part of
-zyg_tpu/core/vecmath.py that the mesh path uses).
+"""Batched 3-vector, frame, quaternion and transform math (the part of
+zyg_tpu/core/vecmath.py that the mesh paths and the general bounce use).
 
 Arrays carry the vector on the last axis and broadcast over leading batch
 axes. A transform is (rotation rows, position, scale), rot[i] being the
@@ -49,6 +49,36 @@ def length(v):
 
 def safe_normalize(v):
     return v * (1.0 / torch.clamp(length(v), min=1e-20))[..., None]
+
+
+def orthonormal_basis(n):
+    """Duff et al. branch-free frame (t, b) around unit normal n, t x b = n
+    (ref vector4.zig Frame.init)."""
+    nx, ny, nz = _c(n)
+    sign = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + nz)
+    b = nx * ny * a
+    t = torch.stack([fma(sign * nx * nx, a, 1.0), sign * b, -sign * nx], dim=-1)
+    bt = torch.stack([b, fma(ny * ny, a, sign), -ny], dim=-1)
+    return t, bt
+
+
+def frame_to_world(t, b, n, v):
+    """Local vector v -> world, given the frame rows t, b, n."""
+    return fma(v[..., 2:3], n, fma(v[..., 0:1], t, v[..., 1:2] * b))
+
+
+def world_to_frame(t, b, n, v):
+    return torch.stack([dot(v, t), dot(v, b), dot(v, n)], dim=-1)
+
+
+def sample_hemisphere_cosine(uv):
+    """Cosine-weighted direction about +z: uv [..., 2] -> [..., 3]."""
+    u, v = uv[..., 0], uv[..., 1]
+    r = sqrt(u)
+    phi = (2.0 * math.pi) * v
+    z = sqrt(torch.clamp(1.0 - u, min=0.0))
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 def quat_to_mat3(q):

@@ -3,7 +3,9 @@
 
 Supported: a Perspective camera (fov, transformation, resolution), the
 Sobol sampler's samples_per_pixel, a PTMIS or PTDL surface integrator
-(depth, caustics, light_sampling.split_threshold), the sensor clamp, a
+(depth.surface and depth.volume, caustics, bsdf_split,
+light_sampling.split_threshold; regularize_roughness only at 0), the
+sensor clamp, a
 tonemapper with exposure, and PNG export. Anything else raises
 `UnsupportedTake`.
 """
@@ -29,7 +31,11 @@ class UnsupportedTake(ValueError):
 class IntegratorSettings:
     kind: str = "PTMIS"  # PTMIS | PTDL
     max_depth_surface: int = 16
+    # null-interface crossings and volume scatters (ref probe.zig Depth)
+    max_depth_volume: int = 256
     caustics: bool = True
+    # BSDF path splitting at glass vertices (zyg_tpu/io/take.py:35)
+    bsdf_split: bool = True
     # NEE light splitting: split_threshold^4 (ref take.zig:263-271);
     # render/driver.py refuses a scene that would split
     light_split_threshold: float = 0.5**4
@@ -76,15 +82,21 @@ def _load_integrator(node: dict, take: Take) -> None:
         if kind not in surface:
             continue
         body = surface[kind] or {}
-        _only(body, {"depth", "caustics", "light_sampling"}, kind)
+        _only(body, {"depth", "caustics", "light_sampling", "bsdf_split",
+                     "regularize_roughness"}, kind)
+        if float(body.get("regularize_roughness", 0.0)) > 0.0:
+            raise UnsupportedTake("regularize_roughness > 0 (path-space regularization)")
         s = take.integrator
         s.kind = kind
         depth = body.get("depth", {})
         if isinstance(depth, dict):
+            _only(depth, {"surface", "volume"}, "depth")
             s.max_depth_surface = int(depth.get("surface", 16))
+            s.max_depth_volume = int(depth.get("volume", 256))
         else:
             s.max_depth_surface = int(depth)
         s.caustics = bool(body.get("caustics", True))
+        s.bsdf_split = bool(body.get("bsdf_split", True))
         ls = body.get("light_sampling", {})
         _only(ls, {"split_threshold"}, "light_sampling")
         st = float(np.clip(ls.get("split_threshold", 0.5), 0.0, 1.0))

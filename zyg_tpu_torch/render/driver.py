@@ -51,17 +51,19 @@ class Driver:
             raise UnsupportedScene(
                 f"NEE light splitting ({tree.num_finite} finite lights in the light tree and "
                 "split_threshold > 0): the port samples one light a vertex")
+        integ = take.integrator
+        self.settings = ptmis_mod.PtmisSettings(
+            max_depth=integ.max_depth_surface, max_depth_volume=integ.max_depth_volume,
+            caustics=integ.caustics, nee_only=integ.kind == "PTDL", bsdf_split=integ.bsdf_split,
+        )
+        # the dispatch's refusals surface here, not mid-render
+        ptmis_mod.check_scene(scene, self.settings)
         self.take = take
         self.device = resolve_device(device)
         self.scene = scene.to(self.device)
         self.camera = take.cameras[0]
         w, h = self.camera.resolution
         self._pixel_ids = torch.arange(w * h, dtype=torch.int64, device=self.device)
-        integ = take.integrator
-        self.settings = ptmis_mod.PtmisSettings(
-            max_depth=integ.max_depth_surface, caustics=integ.caustics,
-            nee_only=integ.kind == "PTDL",
-        )
         clamp = take.sensor.clamp
         self._clamp_max = (clamp.emission, clamp.direct, clamp.indirect)
         spp = max(take.num_samples_per_pixel, 1)

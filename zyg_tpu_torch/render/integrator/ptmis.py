@@ -1,7 +1,9 @@
 """Wavefront PTMIS on the persistent wavefront (counterpart of
-zyg_tpu/render/integrator/ptmis.py:31-123, :326-346 and :1049-1540, box
-filter, shuffled lanes; the fused Cornell-class bounce, the mesh bounce or
-the general bounce for textured and env-lit scenes).
+zyg_tpu/render/integrator/ptmis.py:31-280, :326-352 and :1049-1540, box
+filter, shuffled lanes; the fused Cornell-class bounce, the mesh bounce,
+kernel 6's bounce for textured and env-lit scenes, or the general body
+for glass (render/integrator/ptmis_general.py), with its medium stack and
+BSDF-split resume slot).
 
 ref: src/core/rendering/integrator/surface/pathtracer_mis.zig. Radiance is
 tracked as the reference's IValue triple {emission, direct, indirect} so
@@ -12,8 +14,9 @@ unpermute becomes one per-pixel flush a step (ops/accum.py).
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -25,13 +28,19 @@ from ...ops.shade import make_fused_body, structural_ok
 from ...ops.surface import make_mesh_fused_body, structural_ok_mesh
 from ...ops.surface_v2 import make_mesh_fused_body_v2, structural_ok_mesh_v2
 from ..camera import generate_rays, sample_shutter_time
+from . import volume as vol_mod
 
 
 @dataclass(frozen=True)
 class PtmisSettings:
     max_depth: int = 16
+    max_depth_volume: int = 256  # null-interface crossings + volume scatters
     caustics: bool = True
     nee_only: bool = False  # PTDL mode: no MIS weight on BSDF light hits
+    # BSDF path splitting (ref vertex.zig Pool + glass_sample.zig split): a
+    # glass vertex traces both fresnel branches, the untaken one parked in
+    # a one-deep resume slot that the lane continues when its path ends
+    bsdf_split: bool = False
 
 
 @dataclass
@@ -48,8 +57,9 @@ class IValue:
 
 @dataclass
 class PathState:
-    """Per-lane path state of the slice (the JAX PathState without media,
-    split, AOV and motion fields)."""
+    """Per-lane path state (the JAX PathState without the AOV, motion and
+    spectral fields). The fields from `medium` on are the general body's:
+    None, and the split slot empty, on the kernel bounces' states."""
 
     o: torch.Tensor  # [N, 3]
     d: torch.Tensor  # [N, 3]
@@ -66,6 +76,15 @@ class PathState:
     mis_o: torch.Tensor  # [N, 3] origin of the last real scatter vertex
     mis_n: torch.Tensor  # [N, 3] shading normal at the last real vertex
     pid: torch.Tensor  # int64[N] local pixel index of the lane's current sample
+    # the general body's fields (None elsewhere)
+    medium: torch.Tensor = None  # int32[N, 4] stack of enclosing medium prop ids, -1 empty
+    vol_depth: torch.Tensor = None  # int32[N] null-interface crossings (ref probe.zig Depth)
+    from_volume: torch.Tensor = None  # bool[N] last real vertex was a volume scatter
+    primary_chain: torch.Tensor = None  # bool[N] every bounce so far was singular
+    nee_thr: torch.Tensor = None  # float32[N] NEE split threshold of the last real vertex
+    reg_alpha: torch.Tensor = None  # float32[N] alpha of the previously sampled lobe
+    # the BSDF-split resume slot (_split_init's keys; {} = splitting off)
+    split: dict = field(default_factory=dict)
 
     def fields(self) -> dict:
         """The lane fields the fused bounce reads."""
@@ -78,18 +97,21 @@ class PathState:
 
     def merged(self, r: dict, sobol: SobolArrays) -> "PathState":
         """The state after a fused bounce returned `r`."""
-        return PathState(
-            o=r["o"], d=r["d"], throughput=r["throughput"],
+        return dataclasses.replace(
+            self, o=r["o"], d=r["d"], throughput=r["throughput"],
             result=IValue(r["emission"], r["direct"], r["indirect"]),
             alive=r["alive"], bxdf_pdf=r["bxdf_pdf"],
             singular=torch.zeros_like(self.singular),  # substitute samples are never delta
             depth=r["depth"], rays=self.rays + r["rays"], sobol=sobol,
             vol_key=to_i32(hash_u32(u32(self.vol_key) ^ 0x27D4EB2F)),
-            mis_o=r["mis_o"], mis_n=r["mis_n"], pid=self.pid,
+            mis_o=r["mis_o"], mis_n=r["mis_n"],
         )
 
     def index(self, idx: torch.Tensor) -> "PathState":
         """The lanes `idx` of this state (drain compaction)."""
+        def g(x):
+            return None if x is None else x[idx]
+
         return PathState(
             o=self.o[idx], d=self.d[idx], throughput=self.throughput[idx],
             result=IValue(self.result.emission[idx], self.result.direct[idx],
@@ -97,20 +119,126 @@ class PathState:
             alive=self.alive[idx], bxdf_pdf=self.bxdf_pdf[idx], singular=self.singular[idx],
             depth=self.depth[idx], rays=self.rays, sobol=self.sobol.index(idx),
             vol_key=self.vol_key[idx], mis_o=self.mis_o[idx], mis_n=self.mis_n[idx], pid=self.pid[idx],
+            medium=g(self.medium), vol_depth=g(self.vol_depth), from_volume=g(self.from_volume),
+            primary_chain=g(self.primary_chain), nee_thr=g(self.nee_thr),
+            reg_alpha=g(self.reg_alpha), split={k: v[idx] for k, v in self.split.items()},
         )
 
 
+def _split_init(n: int, device) -> dict:
+    """An empty one-deep BSDF-split resume slot (ref vertex.zig Pool)."""
+    f32 = torch.float32
+    z3 = torch.zeros((n, 3), dtype=f32, device=device)
+    z1 = torch.zeros((n,), dtype=f32, device=device)
+    z_up = z3.clone()
+    z_up[:, 2] = 1.0
+    zi = torch.zeros((n,), dtype=torch.int32, device=device)
+    zb = torch.zeros((n,), dtype=torch.bool, device=device)
+    return {
+        "pending": zb,
+        # the lane's current split weight (ref vertex.zig split_weight): it
+        # scales contributions, never throughput, so roulette never sees it
+        "w": torch.ones((n,), dtype=f32, device=device),
+        "w1": torch.ones((n,), dtype=f32, device=device),  # the parked branch's
+        "o": z3, "d": z_up, "thr": z3.clone(), "pdf": z1, "singular": zb.clone(),
+        "medium": vol_mod.stack_empty(n, device), "depth": zi, "vol_depth": zi.clone(),
+        "mis_n": z_up.clone(), "primary": zb.clone(), "nee_thr": z1.clone(),
+        "reg_alpha": z1.clone(),
+        "vol_key": zi.clone(),  # u32 bits as int32, as PathState.vol_key
+        "run_seed": zi.clone(),  # the parked branch's Sobol' run seed (int32 bits)
+    }
+
+
+def split_enabled(scene, settings: PtmisSettings) -> bool:
+    """BSDF splitting runs only for scenes with glass (ptmis.py:208)."""
+    return bool(settings.bsdf_split) and "glass" in scene.mat_features
+
+
+def split_pending(s: PathState) -> torch.Tensor:
+    """bool[N]: lanes holding an untraced BSDF-split branch."""
+    return s.split["pending"] if s.split else torch.zeros_like(s.alive)
+
+
+def resume_split(s: PathState) -> PathState:
+    """Revive dead lanes whose resume slot holds the untaken fresnel branch:
+    restore its restart state, keep the sample's result and pid (the branch
+    belongs to the same sample) and swap in the branch's Sobol' run seed."""
+    sp = s.split
+    if not sp:
+        return s
+    res = (~s.alive) & sp["pending"]
+    rm = res[:, None]
+    a = s.sobol
+    return dataclasses.replace(
+        s,
+        o=torch.where(rm, sp["o"], s.o),
+        d=torch.where(rm, sp["d"], s.d),
+        throughput=torch.where(rm, sp["thr"], s.throughput),
+        alive=s.alive | res,
+        bxdf_pdf=torch.where(res, sp["pdf"], s.bxdf_pdf),
+        singular=torch.where(res, sp["singular"], s.singular),
+        medium=torch.where(rm, sp["medium"], s.medium),
+        depth=torch.where(res, sp["depth"], s.depth),
+        vol_depth=torch.where(res, sp["vol_depth"], s.vol_depth),
+        sobol=SobolArrays(a.sample, a.start_seed, torch.where(res, sp["run_seed"], a.run_seed),
+                          a.buffer),
+        vol_key=torch.where(res, sp["vol_key"], s.vol_key),
+        mis_o=torch.where(rm, sp["o"], s.mis_o),
+        mis_n=torch.where(rm, sp["mis_n"], s.mis_n),
+        from_volume=s.from_volume & ~res,
+        primary_chain=torch.where(res, sp["primary"], s.primary_chain),
+        nee_thr=torch.where(res, sp["nee_thr"], s.nee_thr),
+        reg_alpha=torch.where(res, sp["reg_alpha"], s.reg_alpha),
+        split={**sp, "pending": sp["pending"] & ~res, "w": torch.where(res, sp["w1"], sp["w"])},
+    )
+
+
+def unfinished(s: PathState) -> torch.Tensor:
+    """bool[N]: lanes whose sample goes on, alive or holding a parked split
+    branch (a lane whose path ended with a branch parked is not finished)."""
+    return s.alive | split_pending(s) if s.split else s.alive
+
+
+# the flush's mask of unfinished lanes (a test swaps it for one that
+# ignores the split slot, to show the pixel counts then go wrong)
+_flush_unfinished = unfinished
+
+
+def power_heuristic(f_pdf, g_pdf):
+    f2 = f_pdf * f_pdf
+    return f2 / torch.clamp(g_pdf * g_pdf + f2, min=1e-20)
+
+
+def predivided_power_heuristic(f_pdf, g_pdf):
+    f2 = f_pdf * f_pdf
+    return f_pdf / torch.clamp(g_pdf * g_pdf + f2, min=1e-20)
+
+
 def _make_body(scene, settings: PtmisSettings):
-    """One wavefront bounce (ptmis.py:326-346): the fused bounce for
+    """One wavefront bounce (ptmis.py:326-352): the fused bounce for
     Cornell-class analytic scenes, the mesh bounce for untextured mesh
-    scenes under rectangle lights, the general bounce for the rest."""
+    scenes under rectangle lights, kernel 6's bounce for textured and
+    env-lit scenes, and the general body for the rest (glass); a scene
+    outside all four raises UnsupportedScene naming what it lacks."""
     if structural_ok(scene):
         return make_fused_body(scene, settings)
     if structural_ok_mesh(scene):
         return make_mesh_fused_body(scene, settings)
     if structural_ok_mesh_v2(scene):
         return make_mesh_fused_body_v2(scene, settings)
-    raise ValueError("scene is outside the fused, mesh and general bounces")
+    from .ptmis_general import GeneralBody
+
+    return GeneralBody(scene, settings)
+
+
+def check_scene(scene, settings: PtmisSettings) -> None:
+    """Raise UnsupportedScene where no bounce renders the scene: the
+    dispatch's refusals, before a render starts."""
+    if structural_ok(scene) or structural_ok_mesh(scene) or structural_ok_mesh_v2(scene):
+        return
+    from .ptmis_general import check_general
+
+    check_general(scene, settings)
 
 
 # smallest wavefront-drain stage width (tests lower it to exercise the
@@ -166,6 +294,7 @@ def integrate_persistent(
     dev = pixel_ids.device
     n = pixel_ids.shape[0]
     body = _make_body(scene, settings)
+    general = getattr(body, "general", False)  # carries the medium stack and split slot
     stride = _coprime_stride(n)
     base = int(pixel_ids[0])
     lanes = torch.arange(n, dtype=torch.int64, device=dev)
@@ -184,6 +313,16 @@ def integrate_persistent(
         vol_key=to_i32(hash_u32(pixel_ids ^ 0x2545F491)),
         mis_o=zero3, mis_n=z_up, pid=lanes,
     )
+    if general:
+        zb = torch.zeros(n, dtype=torch.bool, device=dev)
+        path = dataclasses.replace(
+            path, medium=vol_mod.stack_empty(n, dev),
+            vol_depth=torch.zeros(n, dtype=torch.int32, device=dev), from_volume=zb,
+            primary_chain=torch.ones(n, dtype=torch.bool, device=dev),
+            nee_thr=torch.zeros(n, dtype=f32, device=dev),
+            reg_alpha=torch.zeros(n, dtype=f32, device=dev),
+            split=_split_init(n, dev) if body.split_on else {},
+        )
     kmax = num_samples + oversample_slack
     target = n * num_samples
     fb = torch.zeros((n, 4), dtype=f32, device=dev)  # by local pixel: RGB, sample count
@@ -191,10 +330,13 @@ def integrate_persistent(
     issued = torch.zeros((), dtype=torch.int64, device=dev)
     check_every = _check_every(dev)
 
+    inflight = unfinished
+
     def flush(s: PathState, was_alive: torch.Tensor) -> None:
         # samples that finished since was_alive, each clamped once
         r = s.result
-        flush_pixels(fb, s.pid, was_alive, s.alive, r.emission, r.direct, r.indirect, clamp_max)
+        flush_pixels(fb, s.pid, was_alive, _flush_unfinished(s), r.emission, r.direct,
+                     r.indirect, clamp_max)
 
     # drain cascade: once issuance ends and fewer than n/4 paths are in
     # flight, compact the survivors into a 4x smaller state and go on there
@@ -205,6 +347,9 @@ def integrate_persistent(
         drain_stages.append(wd)
 
     def step(s: PathState, done, issued):
+        # dead lanes with a parked split branch resume it first (the same
+        # sample: no flush between its branches)
+        s = resume_split(s)
         # regenerate finished lanes with the NEXT sample, shuffled onto
         # pixel (lane + iteration*stride) mod n
         regen = (~s.alive) & (done < kmax) & (issued < target)
@@ -223,7 +368,8 @@ def integrate_persistent(
         o_cam, d_cam = generate_rays(cam_arrays, xy_new, s4[:, 0:2])
 
         rm = regen[:, None]
-        s = PathState(
+        s = dataclasses.replace(
+            s,
             o=torch.where(rm, o_cam, s.o),
             d=torch.where(rm, d_cam, s.d),
             throughput=torch.where(rm, 1.0, s.throughput),
@@ -233,13 +379,23 @@ def integrate_persistent(
             bxdf_pdf=torch.where(regen, 0.0, s.bxdf_pdf),
             singular=s.singular | regen,
             depth=torch.where(regen, 0, s.depth),
-            rays=s.rays,
             sobol=smp.arrays,
             vol_key=torch.where(regen, to_i32(hash_u32(sample_index ^ 0x2545F491)), s.vol_key),
             mis_o=torch.where(rm, o_cam, s.mis_o),
             mis_n=torch.where(rm, d_cam, s.mis_n),
             pid=torch.where(regen, pid_new, s.pid),
         )
+        if general:
+            # resume slots are empty on regenerating lanes; the lane's split
+            # weight restarts at 1
+            s = dataclasses.replace(
+                s, medium=torch.where(rm, -1, s.medium),
+                vol_depth=torch.where(regen, 0, s.vol_depth),
+                from_volume=s.from_volume & ~regen, primary_chain=s.primary_chain | regen,
+                nee_thr=torch.where(regen, 0.0, s.nee_thr),
+                reg_alpha=torch.where(regen, 0.0, s.reg_alpha),
+                split={**s.split, "w": torch.where(regen, 1.0, s.split["w"])} if s.split else {},
+            )
         done = done + regen.to(torch.int32)
         was_alive = s.alive
         s = body(s)
@@ -249,8 +405,8 @@ def integrate_persistent(
     def cond(s: PathState, done, issued) -> torch.Tensor:
         can_start = (issued < target) & torch.any(done < kmax)
         if drain_stages:
-            return can_start | (s.alive.sum() > drain_stages[0])
-        return torch.any(s.alive) | can_start
+            return can_start | (inflight(s).sum() > drain_stages[0])
+        return torch.any(inflight(s)) | can_start
 
     iters = 0
     while True:
@@ -261,18 +417,21 @@ def integrate_persistent(
 
     width_cur = n
     for si, wd in enumerate(drain_stages):
-        live = torch.nonzero(path.alive).squeeze(1)
+        live = torch.nonzero(inflight(path)).squeeze(1)
         m = live.shape[0]
         idx = torch.full((wd,), width_cur - 1, dtype=torch.int64, device=dev)
         idx[:m] = live[:wd]
         valid = torch.arange(wd, device=dev) < m
         path = path.index(idx)
         path.alive = path.alive & valid
+        if path.split:
+            path.split["pending"] = path.split["pending"] & valid
         nxt = drain_stages[si + 1] if si + 1 < len(drain_stages) else 0
         it = 0
         while it < 65536:
-            if it % check_every == 0 and not bool(path.alive.sum() > nxt):
+            if it % check_every == 0 and not bool(inflight(path).sum() > nxt):
                 break
+            path = resume_split(path)
             # replay the full-width step's camera block exactly: it advances
             # every lane's run seed even when nothing regenerates
             smp = SobolSampler(path.sobol, dim=5)

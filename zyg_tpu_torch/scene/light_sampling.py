@@ -223,7 +223,10 @@ def light_radiance(scene, light_idx, wi, light_n, uv):
 
 def light_hit_pdf(scene, present: set, prop, ray_o, ray_d):
     """Solid-angle pdf with which NEE from ray_o would have sampled the hit
-    on prop along ray_d: the light side of the BSDF-hit MIS weight."""
+    on prop along ray_d: the light side of the BSDF-hit MIS weight. (The
+    JAX package's further arguments, the hit's distance, point and normal
+    and the normal at ray_o, zyg_tpu/scene/light_sampling.py:639, are read
+    only for Disk and mesh lights, which the port refuses.)"""
     pm = torch.clamp(prop, min=0).long()
     shape = scene.prop_shape[pm]
     rot = scene.prop_rot[pm]

@@ -5,10 +5,12 @@ Supported: Prop and Light entities with analytic Rectangle/Cube/Sphere/
 Disk/Dome/Distant shapes (Celestial_disk is a Distant) or procedural
 triangle meshes (shape "file": "proc:..."), the Sky entity (a baked
 Preetham dome plus a distant sun, scene/sky.py), nested child entities,
-Euler or look-at transformations, Substitute and Light materials with
-constant parameters, and one or more emitting Rectangle, Dome or Distant
-lights. Two or more lights are selected as the JAX package selects them:
-by the power CDF when every light is infinite, through the SAOH light
+Euler or look-at transformations, Substitute, Light and Glass materials
+with constant parameters (Glass: color or attenuation_color, ior,
+roughness, attenuation_distance, priority), and one or more emitting
+Rectangle, Dome or Distant lights. Two or more lights are selected as
+the JAX package selects them: by the power CDF when every light is
+infinite, through the SAOH light
 tree (scene/light_tree.py) when one is finite. Mesh props become
 instances over one BVH arena (scene/trimesh.py). Through `SceneBuilder` a
 material may also carry linear image textures (color, roughness,
@@ -16,10 +18,12 @@ emission; `add_texture_image`); a dome with an emission map gets an
 env-map sampler (scene/env_sampling.py).
 
 Everything else raises `UnsupportedScene`: Sphere, Disk, Cube and mesh
-lights, Canopy env lights, Portal entities, texture nodes in scene files
-and every other material kind. (Scenes whose light tree would split NEE
-are refused by render/driver.py.) The port renders only what its bounces
-cover, and never silently drops a feature.
+lights, Canopy env lights, Portal entities, texture nodes in scene files,
+dispersive glass (abbe), coatings, flakes, masks, normal maps and every
+other material kind (Volumetric media, Hair, Debug, Sky). (Scenes whose
+light tree would split NEE, and glass under textures, env maps or
+Distant lights, are refused by render/driver.py.) The port renders only
+what its bounces cover, and never silently drops a feature.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from ..io.mesh import load_mesh_file
+from ..render.materials import MIN_ROUGHNESS
 from .env_sampling import EnvSampler, build_env_sampler
 from .light_tree import ARRAY_FIELDS as _TREE_FIELDS
 from .light_tree import LightTree, build_light_tree
@@ -150,6 +155,9 @@ class MaterialDesc:
     color_tex: int = -1
     roughness_tex: int = -1
     emission_tex: int = -1
+    # glass: Beer absorption distance (0 = none) and nested-dielectric priority
+    attenuation_distance: float = 0.0
+    priority: int = 0
 
 
 def _read_color(v) -> np.ndarray:
@@ -165,12 +173,14 @@ def _read_color(v) -> np.ndarray:
 _SUBSTITUTE_KEYS = {"color", "roughness", "metallic", "ior", "specular", "two_sided",
                     "emittance"}
 _LIGHT_KEYS = {"emittance", "two_sided"}
-_OTHER_KINDS = {"Glass", "Debug", "Volumetric", "Hair", "Sky"}
+_GLASS_KEYS = {"color", "attenuation_color", "ior", "roughness", "attenuation_distance",
+               "priority"}
+_OTHER_KINDS = {"Debug", "Volumetric", "Hair", "Sky"}
 
 
 def parse_material(value: dict) -> MaterialDesc:
     """One material JSON node (ref material_provider.zig loadMaterial),
-    Substitute and Light kinds with constant parameters only."""
+    Substitute, Light and Glass kinds with constant parameters only."""
     rendering = value.get("rendering", value)
     desc = MaterialDesc()
     for kind_name, body in rendering.items():
@@ -182,16 +192,29 @@ def parse_material(value: dict) -> MaterialDesc:
         elif kind_name == "Light":
             desc.kind = int(MaterialKind.LIGHT)
             allowed = _LIGHT_KEYS
+        elif kind_name == "Glass":
+            # the JAX loader's Glass defaults (zyg_tpu/scene/loader.py:281-285)
+            desc.kind = int(MaterialKind.GLASS)
+            desc.roughness = 0.0
+            desc.color = np.ones(3, np.float32)
+            desc.ior = 1.46
+            allowed = _GLASS_KEYS
         else:
             continue
         if not isinstance(body, dict):
             break
+        if kind_name == "Glass" and "abbe" in body:
+            raise UnsupportedScene("dispersive glass (abbe)")
         extra = set(body) - allowed
         if extra:
             raise UnsupportedScene(f"{kind_name} material keys {sorted(extra)}")
         for key, v in body.items():
-            if key == "color":
+            if key in ("color", "attenuation_color"):
                 desc.color = _read_color(v)
+            elif key == "attenuation_distance":
+                desc.attenuation_distance = float(v)
+            elif key == "priority":
+                desc.priority = int(v)
             elif key == "roughness":
                 if not isinstance(v, (int, float)):
                     raise UnsupportedScene("roughness texture")
@@ -212,6 +235,20 @@ def parse_material(value: dict) -> MaterialDesc:
                 desc.emission = np.float32(v.get("value", 1.0)) * spectrum
         break
     return desc
+
+
+def material_features(kinds, roughness) -> set:
+    """The material features present, by the JAX loader's rules
+    (zyg_tpu/scene/loader.py:1232-1315) over every material of the table:
+    "media" and "glass" with any Glass material, "rough_glass" with any
+    Glass rougher than MIN_ROUGHNESS * 1.001."""
+    feats = set()
+    glass = [float(r) for k, r in zip(kinds, roughness) if int(k) == int(MaterialKind.GLASS)]
+    if glass:
+        feats |= {"media", "glass"}
+    if any(r > MIN_ROUGHNESS * 1.001 for r in glass):
+        feats.add("rough_glass")
+    return feats
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +423,12 @@ class SceneBuilder:
                 color_tex=t([d.color_tex for d in mats], i32),
                 roughness_tex=t([d.roughness_tex for d in mats], i32),
                 emission_tex=t([d.emission_tex for d in mats], i32),
+                attenuation_distance=t([d.attenuation_distance for d in mats], f32),
+                priority=t([d.priority for d in mats], i32),
+                # the scattering parameters of Volumetric media, which the
+                # port refuses: the JAX defaults
+                subsurface_color=t(np.zeros((len(mats), 3)), f32),
+                volumetric_anisotropy=t(np.zeros(len(mats)), f32),
             ),
             lights=Lights(
                 prop=t(light_props, i32),
@@ -398,6 +441,7 @@ class SceneBuilder:
             textures=self.textures.build(),
             env=build_env_sampler(env_entries),
             light_tree=light_tree,
+            mat_features=material_features([d.kind for d in mats], [d.roughness for d in mats]),
         ).to(device)
 
     @staticmethod
@@ -540,7 +584,11 @@ _PLAIN = ("prop_shape", "prop_rot", "prop_pos", "prop_scale", "prop_material",
           "prop_visible_camera", "prop_visible_reflection", "prop_visible_shadow",
           "prop_light")
 _MATERIAL = ("kind", "color", "roughness", "metallic", "ior", "specular", "emission",
-             "two_sided", "color_tex", "roughness_tex", "emission_tex")
+             "two_sided", "color_tex", "roughness_tex", "emission_tex", "attenuation_distance",
+             "priority", "subsurface_color", "volumetric_anisotropy")
+# the material features the port renders (the general bounce's; the JAX
+# package names more, each of which the port refuses)
+_FEATURES = {"glass", "rough_glass", "media"}
 _LIGHT = ("prop", "two_sided", "cdf")
 _ARENA = ("node_rows", "tri_rows", "attr_rows", "mesh_root")
 _INSTANCES = ("wmin", "wmax", "trafo", "vis")
@@ -555,12 +603,28 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     "meshes.max_depth") and "mesh_instances.<f>", for textured scenes
     "textures.<f>", for a mapped dome "env.<f>" (with "env.width" and
     "env.height"), and for a light tree "light_tree.<f>" (with
-    "light_tree.depth", "light_tree.inf_weight", "light_tree.num_finite")."""
+    "light_tree.depth", "light_tree.inf_weight", "light_tree.num_finite"),
+    and "mat_features", the sorted feature names as a string array. A JAX
+    scene with a feature outside the port's, or with volume props, raises
+    UnsupportedScene naming it."""
     def arr(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
     d = {k: arr(getattr(scene, k)) for k in _PLAIN}
-    d.update({f"materials.{k}": arr(getattr(scene.materials, k)) for k in _MATERIAL})
+    mats = scene.materials
+    for k in _MATERIAL:
+        v = getattr(mats, k)
+        # a hand-built JAX table may leave the priorities unset (all 0)
+        d[f"materials.{k}"] = np.zeros(arr(mats.kind).shape, np.int32) if v is None else arr(v)
+    feats = scene.mat_features
+    if feats is None:  # the JAX "all features" default: derive them
+        feats = material_features(d["materials.kind"], d["materials.roughness"])
+    extra = set(feats) - _FEATURES
+    if extra:
+        raise UnsupportedScene(f"material features {sorted(extra)}")
+    if scene.volume_props:
+        raise UnsupportedScene("volume props (shadow transmittance through media)")
+    d["mat_features"] = np.array(sorted(feats), dtype=np.str_)
     d.update({f"lights.{k}": arr(getattr(scene.lights, k)) for k in _LIGHT})
     d.update({f"prop_groups.{int(k)}": arr(v) for k, v in (scene.prop_groups or {}).items()})
     if scene.meshes is not None:
@@ -627,4 +691,5 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
         textures=textures,
         env=env,
         light_tree=light_tree,
+        mat_features={str(f) for f in d["mat_features"]},
     )

@@ -5,15 +5,17 @@ and material ids, visibility, the material table (with its image-texture
 ids), the light records with their power CDF, the analytic props grouped by
 shape type, for mesh scenes the triangle arena and the mesh instance table
 (scene/trimesh.py), for textured scenes the texture arena
-(scene/textures.py) and the env-map sampler (scene/env_sampling.py), and
-for two or more lights of which one is finite the light tree
-(scene/light_tree.py).
+(scene/textures.py) and the env-map sampler (scene/env_sampling.py), for
+two or more lights of which one is finite the light tree
+(scene/light_tree.py), and the material features and volume props by
+which the general bounce decides, once per render, what it computes
+(the JAX package's static `mat_features` and `volume_props`).
 """
 
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
@@ -74,6 +76,13 @@ class Materials:
     color_tex: torch.Tensor  # int32[M]
     roughness_tex: torch.Tensor  # int32[M]
     emission_tex: torch.Tensor  # int32[M]
+    # glass and media (the general bounce): Beer absorption distance (0 =
+    # none), nested-dielectric priority, and the two scattering parameters
+    # of the JAX table (zero on every material the port loads)
+    attenuation_distance: torch.Tensor  # float32[M]
+    priority: torch.Tensor  # int32[M]
+    subsurface_color: torch.Tensor  # float32[M, 3]
+    volumetric_anisotropy: torch.Tensor  # float32[M]
 
     def to(self, device) -> "Materials":
         return to_device(self, device)
@@ -114,12 +123,21 @@ class SceneData:
     textures: object = None  # textures.TextureArena, or None without images
     env: object = None  # env_sampling.EnvSampler of a mapped dome, or None
     light_tree: object = None  # light_tree.LightTree, or None (power-CDF selection)
+    # names of the material features present ("glass", "rough_glass",
+    # "media"; scene/loader.py material_features), a Python set
+    mat_features: set = field(default_factory=set)
+    # props filled with a participating medium that attenuates shadow rays
+    # (the JAX package's volume_props); always empty: the port refuses
+    # Volumetric materials
+    volume_props: dict = field(default_factory=dict)
 
     def to(self, device) -> "SceneData":
         out = {}
         for f in fields(self):
             v = getattr(self, f.name)
-            if f.name == "prop_groups":
+            if f.name in ("mat_features", "volume_props"):
+                out[f.name] = v
+            elif f.name == "prop_groups":
                 out[f.name] = {k: g.to(device) for k, g in v.items()}
             else:
                 out[f.name] = v if v is None else v.to(device)
