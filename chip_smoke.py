@@ -28,7 +28,10 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     reaching NEE, with an active NEE sample and with a failed BSDF sample,
     and a bound from the bytes each lane's lifecycle needs; traverse (and
     a rotated two-instance scene) with hit ids exact except at exact-t ties, t/u/v within rtol 2e-5 and any-hit
-    exact. Times each (median of runs, CUDA events; and its device time
+    exact; and both tracking walks (track_interaction, track_transmittance)
+    on the smoke path's own glue inputs at its 518,400 lanes, scatter and
+    absorb decisions exact and t/w/trv/tau within rtol 1e-5, with the
+    lane-steps and collisions the lanes take. Times each (median of runs, CUDA events; and its device time
     from the profiler, which leaves out the host's gaps between a short
     kernel's launches) beside its bound and, where one PyTorch call
     computes the same function, that call's time
@@ -41,14 +44,17 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     at 96x56, 16 spp, depth 4, 4e. for two rectangle lamps under a
     constant dome (analytic props; NEE through the light tree) at 96x96,
     16 spp, and 4f. for examples/takes/material_test.take (glass through
-    the general body, BSDF splitting) at 96x72, 16 spp, depth 6
+    the general body, BSDF splitting) at 96x72, 16 spp, depth 6, 4g. for
+    examples/takes/smoke.take (a density-grid medium through the tracking
+    kernel) and examples/takes/volumes.take (a homogeneous medium beside
+    glass) at 96x56, 8 spp
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
     must be finite with a positive mean; one more 1080p render under
     torch.profiler gives the device time by kernel, the glue's launches and
-    the device's busy share; one more gives the peak device memory, and one
-    more the share of launched lanes each flush finishes
+    the device's busy share; one more gives the peak device memory and the
+    share of launched lanes each flush finishes
  5b. the mesh main path: the CLI on examples/takes/trefoil.take (640x360,
     8 spp), then the Driver at 1280x720 and 4 spp over the 491,520-triangle
     trefoil; sobol_block, isect, surface, traverse and accum must each have
@@ -70,6 +76,13 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     launched; the same report and profile, the iterations over all chunks
     (isect closest launches) and the share of lanes that resume a parked
     split branch
+ 5f. the smoke main path: the CLI on examples/takes/smoke.take at its own
+    960x540, 64 spp, PTMIS depth 24 / volume 128, then the Driver at the
+    same size with 8 spp after a warm-up chunk (bench.py::bench_volume's
+    work: two tiles of 262,144 and 256,256 pixels, one 8-sample chunk),
+    through the general body around sobol_block, isect, track_interaction,
+    track_transmittance and accum, which must each have launched; the
+    same report and profile, with the iterations over all chunks and tiles
  6. one bounce of the mesh bounce (kernel 5) against one of the general
     bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
     directly, timed in turns (CUDA events, medians)
@@ -107,6 +120,9 @@ REPLACES = {
     "surface_v2": "zyg_tpu/ops/shade.py:1362",
     # not a TPU kernel: the JAX package walks the BVH in XLA
     "traverse": "zyg_tpu/scene/trimesh.py:1053",
+    # not TPU kernels: the JAX package's tracking walks are XLA while loops
+    "track_interaction": "zyg_tpu/render/integrator/volume.py:273",
+    "track_transmittance": "zyg_tpu/render/integrator/volume.py:631",
 }
 SOURCES = {
     "sobol_block": "zyg_tpu_torch/csrc/sobol_block.cu",
@@ -116,6 +132,8 @@ SOURCES = {
     "surface": "zyg_tpu_torch/csrc/surface.cu",
     "surface_v2": "zyg_tpu_torch/csrc/surface_v2.cu",
     "traverse": "zyg_tpu_torch/csrc/traverse.cu",
+    "track_interaction": "zyg_tpu_torch/csrc/track.cu",
+    "track_transmittance": "zyg_tpu_torch/csrc/track.cu",
 }
 CORNELL_KERNELS = ("sobol_block", "shade", "accum")
 # sobol_block's launch shapes besides the checks' width: 513 is one
@@ -134,6 +152,15 @@ MATERIAL_RES = (1024, 768)
 MATERIAL_SPP = 16
 MATERIAL_DEPTH = 10
 N_MATERIAL = MATERIAL_RES[0] * MATERIAL_RES[1]
+# the smoke path: the general body around sobol_block, isect, track and
+# accum, at smoke.take's own 960x540, PTMIS depth 24 / volume 128, timed as
+# bench.py::bench_volume times it (8 spp after a warm-up chunk)
+SMOKE_KERNELS = ("sobol_block", "isect", "track_interaction", "track_transmittance", "accum")
+SMOKE_RES = (960, 540)
+SMOKE_SPP = 8
+SMOKE_DEPTH = 24
+SMOKE_DEPTH_VOLUME = 128
+N_SMOKE = SMOKE_RES[0] * SMOKE_RES[1]
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -161,6 +188,12 @@ OPS_SURFACE_V2_LANE = 1200
 OPS_NODE = 8 * 30  # one wide node: 8 slab tests, keys, nearest child, push
 OPS_LEAF = 12 * 55  # one leaf: 12 Moller-Trumbore tests and the min
 OPS_INSTANCE = 60  # one instance: AABB entry, pick, ray to object space
+# track: a step's two or one counter hashes (~20 integer operations each),
+# the key's re-hash, the row index and the three cell walls, the free
+# flight's log and division; a tentative collision adds the jitter hash,
+# the transform and the voxel index
+OPS_TRACK_STEP = 150
+OPS_TRACK_COLLISION = 80
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -481,6 +514,12 @@ def _material(dev):
     return load_scene_file(os.path.join(REPO, "examples/scenes/material_test.scene"), dev)
 
 
+def _smoke(dev):
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    return load_scene_file(os.path.join(REPO, "examples/scenes/smoke.scene"), dev)
+
+
 def _material_lanes(scene, n, dev, seed=8):
     """Lanes of the material path's analytic hit tests: camera rays of
     material_test.take on the primary half, rays from above the floor in
@@ -562,6 +601,169 @@ def check_isect_material(dev) -> None:
         f"hits by shape {hits}; {int(pb.sum())} shadow rays blocked; closest {ms:.4f} ms")
 
 
+def _smoke_walk_inputs(dev, seed=13):
+    """The inputs the smoke path's glue hands each walk, at the smoke
+    path's 518,400 lanes, captured from render/integrator/volume.py: the
+    camera rays of smoke.take (960x540) started where they enter the smoke
+    cube (sample_interaction's lanes; the rays that miss it do not walk),
+    and shadow rays from points in the cube and on the floor to points on
+    the lamp (transmittance's). Returns ((arena, props, lanes, coef,
+    grey), (arena, props, prop, grid, consts, lanes, grey))."""
+    import numpy as np
+    import torch
+    from zyg_tpu_torch.ops import track
+    from zyg_tpu_torch.render.camera import generate_rays
+    from zyg_tpu_torch.render.integrator import volume as vol
+    from zyg_tpu_torch.scene.types import ShapeType
+
+    scene = _smoke(dev)
+    take = _take("smoke.take", SMOKE_RES, 1)
+    n = N_SMOKE
+    rng = np.random.default_rng(seed)
+    ids = np.arange(n)
+    xy = torch.from_numpy(np.stack([ids % SMOKE_RES[0], ids // SMOKE_RES[0]], -1)).to(dev)
+    uv = torch.from_numpy(rng.random((n, 2)).astype(np.float32)).to(dev)
+    o, d = generate_rays(take.cameras[0].arrays(dev), xy, uv)
+    cube = int(scene.volume_props[0][0])
+    far = torch.full((n,), 1e4, device=dev)
+    t0, t1 = vol._prop_interval(scene, cube, int(ShapeType.CUBE), o, d, far)
+    enters = t1 > t0
+    o_in = torch.where(enters[:, None], o + (t0 + 1e-4)[:, None] * d, o)
+    mp = torch.where(enters, cube, -1).to(torch.int32)
+
+    def t(x, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dtype=dtype, device=dev)
+
+    key = t(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32),
+            torch.int32)
+    u = t(rng.random(n).astype(np.float32))
+    lamp = int(scene.lights.prop[0])
+    rot, pos, scl = (x.cpu().numpy().astype(np.float64) for x in
+                     (scene.prop_rot[lamp], scene.prop_pos[lamp], scene.prop_scale[lamp]))
+    crot, cpos, cscl = (x.cpu().numpy().astype(np.float64) for x in
+                        (scene.prop_rot[cube], scene.prop_pos[cube], scene.prop_scale[cube]))
+    in_cube = cpos + (rng.uniform(-0.5, 0.5, (n, 3)) * cscl) @ crot
+    on_floor = np.stack([rng.uniform(-5, 5, n), np.full(n, 1e-3), rng.uniform(-4, 5, n)], -1)
+    so = np.where((rng.random(n) < 0.5)[:, None], in_cube, on_floor)
+    lp = pos + (rng.uniform(-0.5, 0.5, (n, 2)) * scl[:2]) @ rot[:2]
+    sd = lp - so
+    slen = np.linalg.norm(sd, axis=-1)
+    sd /= slen[:, None]
+    captured = {}
+    inner_i, inner_t = track.track_interaction, track.track_transmittance
+
+    def cap_i(*args):
+        captured["i"] = args
+        return inner_i(*args)
+
+    def cap_t(*args):
+        captured["t"] = args
+        return inner_t(*args)
+
+    track.track_interaction, track.track_transmittance = cap_i, cap_t
+    try:
+        vol.sample_interaction(scene, mp, o_in, d, far, u, key,
+                               vol_depth=torch.zeros(n, dtype=torch.int32, device=dev))
+        vol.transmittance(scene, t(so), t(sd), t(slen), key)
+    finally:
+        track.track_interaction, track.track_transmittance = inner_i, inner_t
+    return captured["i"], captured["t"]
+
+
+def _track_bytes(inputs: list, flag, outputs) -> float:
+    """Bytes a walk must move: each lane's walk flag (the tensor `flag`:
+    grid >= 0 or a bool), on the lanes that walk every other per-lane
+    input once, and every output once."""
+    import torch
+
+    walking = flag if flag.dtype == torch.bool else flag >= 0
+    per_lane = sum(x[0].numel() * x.element_size() for x in inputs) - flag.element_size()
+    return (flag.element_size() * flag.numel() + per_lane * int(walking.sum())
+            + sum(x.numel() * x.element_size() for x in outputs))
+
+
+def check_track(dev) -> dict:
+    """Both tracking walks through the kernel (ops/track.py) against their
+    plain versions on the smoke path's own glue inputs (_smoke_walk_inputs,
+    518,400 lanes): scatter and absorb decisions exact, t, w, trv and tau
+    within rtol 1e-5 (the CPU tests' tolerance against JAX; on the card
+    the kernel and torch share logf, so they agree to a few ulp). Times
+    each (events and profiler) beside the plain version and a bound from
+    the bytes of its lanes and the operations of the steps and collisions
+    that this run's lanes take (counted by the plain walk). Returns
+    {"track_interaction": ..., "track_transmittance": ...}."""
+    import torch
+    from zyg_tpu_torch.ops import track
+
+    ia, ta = _smoke_walk_inputs(dev)
+    arena = ia[0]
+    arena_bytes = arena.data.numel() * 4 + arena.sdata.numel() * 4
+    out = {}
+    for name, args, kfn, pfn in (("track_interaction", ia, track.track_interaction,
+                                  track.track_interaction_plain),
+                                 ("track_transmittance", ta, track.track_transmittance,
+                                  track.track_transmittance_plain)):
+        k = kfn(*args)
+        stats = {}
+        t0 = time.perf_counter()
+        p = pfn(*args, stats=stats)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        lanes = args[2] if name == "track_interaction" else args[5]
+        if name == "track_interaction":
+            walking = lanes["grid"] >= 0
+            for a, b, what in ((k[2], p[2], "scatter"), (k[3], p[3], "absorb")):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name}: {int((a != b).sum())} {what} decisions differ")
+            floats = ((k[0], p[0]), (k[1], p[1]))
+            events = (f"{int(p[2].sum())} scatter, {int(p[3].sum())} absorbed of "
+                      f"{int(walking.sum())} walking lanes")
+        else:
+            walking = lanes["inside"]
+            floats = ((k[0], p[0]), (k[1], p[1]))
+            events = f"{int(walking.sum())} lanes cross the smoke, mean trv {float(p[0].mean()):.4f}"
+        for a, b in floats:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+        err = max(float((a - b).abs().max()) for a, b in floats)
+        exact = all(torch.equal(a, b) for a, b in floats)
+        per_lane = list(lanes.values()) + (list(args[3].values()) if name == "track_interaction"
+                                           else [])
+        flag = lanes["grid"] if name == "track_interaction" else lanes["inside"]
+        nbytes = arena_bytes + _track_bytes(per_lane, flag, k)
+        ops = stats["steps"] * OPS_TRACK_STEP + stats["collisions"] * OPS_TRACK_COLLISION
+        res = {"max_abs_err": err, "ms": time_ms(lambda: kfn(*args), 10),
+               "device_ms": device_ms(lambda: kfn(*args), name), "plain_ms": plain_ms,
+               "library_ms": None, **bound(nbytes, ops)}
+        log(f"{name}: decisions exact, floats {'bit-exact' if exact else 'within rtol 1e-5'} "
+            f"on {walking.numel()} lanes ({events}); {stats['steps']} lane-steps, "
+            f"{stats['collisions']} tentative collisions ({stats['steps'] / max(int(walking.sum()), 1):.1f} "
+            f"steps a walking lane); {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations")
+        out[name] = res
+    return out
+
+
+def phase_slice_smoke(dev) -> None:
+    """smoke.take and volumes.take at 96x56, 8 spp on the
+    card against the plain CPU path (the general body with the tracking
+    kernel; volumes: the homogeneous closed form beside glass)."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    for name, res in (("smoke.take", (96, 56)), ("volumes.take", (96, 56))):
+        take = _take(name, res, 8)
+        scene = load_scene_file(take.scene_filename)
+        t0 = time.perf_counter()
+        card = Driver(take, scene, device=dev).render_frame()
+        t_card = time.perf_counter() - t0
+        torch.set_num_threads(os.cpu_count() or 1)
+        t0 = time.perf_counter()
+        cpu = Driver(take, scene, device="cpu").render_frame()
+        t_cpu = time.perf_counter() - t0
+        _golden_gate(card, cpu, f"{name[:-5]} {res[0]}x{res[1]}x8",
+                     f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+
+
 def to_device(s, dev):
     """A PathState's tensors (and its split slot's) on dev."""
     import dataclasses
@@ -589,6 +791,36 @@ def material_state(n, bounces=4, seed=9, max_depth=MATERIAL_DEPTH):
     material_test.take's camera toward the spheres (a third at the glass
     sphere), after `bounces` bounces of the body on the CPU (so that lanes
     sit inside the glass and hold parked split branches)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    o = np.array([0, 2.2, -7.5]) + rng.uniform(-0.3, 0.3, (n, 3))
+    tgt = rng.uniform([-4, 0, -1], [4, 2, 3], (n, 3))
+    glass = rng.normal(size=(n, 3)) * 0.5 + np.array([1.5, 0.75, 1.8])
+    tgt = np.where((np.arange(n) % 3 == 0)[:, None], glass, tgt)
+    return general_state(_material("cpu"), o, tgt, bounces, max_depth, split=True)
+
+
+def smoke_state(n, bounces=3, seed=12, max_depth=SMOKE_DEPTH):
+    """A general-body PathState of n lanes on the CPU over smoke.scene:
+    rays from around smoke.take's camera, two thirds at the smoke cube
+    (density grid), the rest anywhere in view, after `bounces` bounces of
+    the body (so that lanes sit inside the smoke, with scatters behind
+    them and a volume depth)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    o = np.array([0, 1.9, -5.5]) + rng.uniform(-0.3, 0.3, (n, 3))
+    tgt = rng.uniform([-5, 0, -2], [5, 3.5, 4], (n, 3))
+    cube = rng.uniform(-1.1, 1.1, (n, 3)) + np.array([0, 1.3, 0])
+    tgt = np.where((np.arange(n) % 3 != 0)[:, None], cube, tgt)
+    return general_state(_smoke("cpu"), o, tgt, bounces, max_depth, split=False,
+                         max_depth_volume=SMOKE_DEPTH_VOLUME)
+
+
+def general_state(scene, o, tgt, bounces, max_depth, split, max_depth_volume=256):
+    """A general-body PathState on the CPU with rays from o toward tgt
+    (numpy [N, 3]) after `bounces` bounces of the port's body."""
     import dataclasses
 
     import numpy as np
@@ -597,11 +829,7 @@ def material_state(n, bounces=4, seed=9, max_depth=MATERIAL_DEPTH):
     from zyg_tpu_torch.core.sobol import SobolSampler
     from zyg_tpu_torch.render.integrator import ptmis, volume
 
-    rng = np.random.default_rng(seed)
-    o = np.array([0, 2.2, -7.5]) + rng.uniform(-0.3, 0.3, (n, 3))
-    tgt = rng.uniform([-4, 0, -1], [4, 2, 3], (n, 3))
-    glass = rng.normal(size=(n, 3)) * 0.5 + np.array([1.5, 0.75, 1.8])
-    tgt = np.where((np.arange(n) % 3 == 0)[:, None], glass, tgt)
+    n = o.shape[0]
     d = tgt - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o, d = torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d.astype(np.float32))
@@ -617,10 +845,11 @@ def material_state(n, bounces=4, seed=9, max_depth=MATERIAL_DEPTH):
         medium=volume.stack_empty(n, "cpu"), vol_depth=torch.zeros(n, dtype=torch.int32),
         from_volume=torch.zeros(n, dtype=torch.bool), primary_chain=torch.ones(n, dtype=torch.bool),
         nee_thr=torch.zeros(n, dtype=f32), reg_alpha=torch.zeros(n, dtype=f32),
-        split=ptmis._split_init(n, "cpu"),
+        split=ptmis._split_init(n, "cpu") if split else {},
     )
-    body = ptmis._make_body(_material("cpu"), ptmis.PtmisSettings(max_depth=max_depth,
-                                                                   bsdf_split=True))
+    body = ptmis._make_body(scene, ptmis.PtmisSettings(max_depth=max_depth,
+                                                       max_depth_volume=max_depth_volume,
+                                                       bsdf_split=split))
     for _ in range(bounces):
         s = body(ptmis.resume_split(s))
     return dataclasses.replace(s, rays=torch.zeros((), dtype=torch.int64))
@@ -1596,7 +1825,8 @@ def _take_scene(take_name, res, spp, label):
 
 def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=None) -> dict:
     """A main path through the Driver at the take's resolution and spp:
-    warm-up, best of 3, one profiled render, and with lanes_of ("surface"
+    warm-up, best of 3, one profiled render, one render for the peak
+    memory and the flush shares, and with lanes_of ("surface"
     or "surface_v2") that kernel's lane shares in one more render, or
     ("general") the general body's iterations and split resumes. Returns
     the kernel launches of one render."""
@@ -1620,7 +1850,8 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
         dt = time.perf_counter() - t0
         if best is None or dt < best["seconds"]:
             best = {"seconds": dt, "rays": driver.rays_traced,
-                    "iterations": driver.last_iterations}
+                    "iterations": driver.last_iterations, "all_iterations": driver.iterations,
+                    "dispatches": len(driver.chunk_plan(spp)) * len(driver.tile_plan())}
     counts = ops.launch_counts()
     for name in kernels:
         if counts[name] <= 0:
@@ -1630,16 +1861,16 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
         raise AssertionError(f"{label} image is not finite with a positive mean")
     per_render = {k: v // 3 for k, v in counts.items()}
     log(f"{label} {res[0]}x{res[1]} {spp}spp [{card}]: {best['seconds']:.4f} s, {best['rays']} rays, "
-        f"{best['iterations']} wavefront iterations, "
+        f"{best['iterations']} wavefront iterations in the last dispatch, "
+        f"{best['all_iterations']} in all {best['dispatches']} dispatches (chunks x tiles), "
         f"{best['rays'] / best['seconds'] / 1e6:.2f} Mrays/s, image mean {float(img.mean()):.6f}, "
         f"launches per render {({k: v for k, v in per_render.items() if v})}")
     glue = profile_render(driver, spp, f"{label} {res[0]}x{res[1]} [{card}]", kernels)
+    # one more render gives both the peak memory and the flush shares (the
+    # host's counting adds a bool per lane and flush to the device's tensors)
     torch.cuda.reset_peak_memory_stats(dev)
-    driver.start_frame()
-    driver.render_iterations(spp)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(dev)
     full, mean = flush_share(driver, spp)
+    peak = torch.cuda.max_memory_allocated(dev)
     log(f"{label} [{card}]: peak device memory of one render {peak} B ({peak / 2**30:.3f} GiB); "
         f"glue launches per render {glue}; flushes finish {full:.4f} of the lanes of a full-width "
         f"launch, {mean:.4f} over all launches")
@@ -1692,8 +1923,11 @@ def main() -> int:
     for name, fn in (("sobol_block", check_sobol), ("isect", check_isect),
                      ("accum", check_accum), ("shade", check_shade),
                      ("surface", check_surface), ("surface_v2", check_surface_v2),
-                     ("traverse", check_traverse)):
-        checks[name] = fn(dev)
+                     ("traverse", check_traverse), ("track", check_track)):
+        res = fn(dev)
+        checks.update(res if name == "track" else {name: res})
+        torch.cuda.empty_cache()
+    for name in SOURCES:
         c = checks[name]
         lib = f", library {c['library_ms']:.4f} ms" if c["library_ms"] is not None else ""
         anyhit = f" (any-hit {c['anyhit_ms']:.4f} ms)" if "anyhit_ms" in c else ""
@@ -1705,15 +1939,15 @@ def main() -> int:
             f"(device {c['device_ms']:.4f} ms){anyhit}, "
             f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}){lib} "
             f"[{card}]")
-        torch.cuda.empty_cache()
     phase_slice(dev)
     phase_slice_mesh(dev)
     phase_slice_textured(dev)
     phase_slice_sunsky(dev)
     phase_slice_tree(dev)
     phase_slice_material(dev)
-    # launches: the CLI runs of the Cornell, trefoil, sunsky and material
-    # paths and one render of the textured path
+    phase_slice_smoke(dev)
+    # launches: the CLI runs of the Cornell, trefoil, sunsky, material and
+    # smoke paths and one render of the textured path
     launches = {k: 0 for k in SOURCES}
     for take_name, label, res, spp, kernels in (
             ("cornell_ptmis.take", "Cornell PTMIS", (1920, 1080), 16, CORNELL_KERNELS),
@@ -1739,6 +1973,11 @@ def main() -> int:
     take.integrator.max_depth_surface = MATERIAL_DEPTH
     phase_main_path(dev, card, "material PTMIS", take, scene, MATERIAL_KERNELS,
                     lanes_of="general")
+    smoke_cli = _cli_run("smoke.take", SMOKE_KERNELS)
+    for k in launches:
+        launches[k] += smoke_cli[k]
+    take, scene = _take_scene("smoke.take", SMOKE_RES, SMOKE_SPP, "smoke PTMIS")
+    smoke = phase_main_path(dev, card, "smoke PTMIS", take, scene, SMOKE_KERNELS)
     measure_bounces(dev, card)
 
     def entry(name):
@@ -1746,9 +1985,10 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "launches_of": "cli cornell_ptmis.take + cli trefoil.take + cli sunsky.take "
-                               "+ cli material_test.take + one 1280x720 4 spp textured-trefoil "
-                               "render",
+                               "+ cli material_test.take + cli smoke.take + one 1280x720 4 spp "
+                               "textured-trefoil render",
                 "launches_material": material_cli[name],
+                "launches_smoke_render": smoke[name],
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"], "device_ms": c["device_ms"],
                 "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

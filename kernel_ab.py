@@ -160,9 +160,10 @@ def main(argv: list[str]) -> int:
                 check(dev)
         finally:
             chip_smoke.device_ms = own
-        kernel = {"sobol": "sobol_block"}.get(name, name)
+        # `track` checks both tracking walks: the median is over both kernels
+        kernel = {"sobol": "sobol_block_kernel", "track": "track_"}.get(name, f"{name}_kernel")
         us = sorted(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and f"{kernel}_kernel" in e.name)
+                    if e.device_type == DeviceType.CUDA and kernel in e.name)
         print(f"DEVICE {label} {name} median {us[len(us) // 2] / 1e3:.5f} ms over {len(us)} launches",
               flush=True)
         torch.cuda.empty_cache()

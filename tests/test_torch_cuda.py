@@ -285,3 +285,108 @@ def test_general_body_launch_shapes(cuda_device, material_lanes, case):
         assert torch.equal(getattr(r1, name)[dead], getattr(sc, name)[dead]), name
     if case == "all dead":
         assert int(r1.rays) == 0 and not bool(r1.alive.any())
+
+
+def test_track_matches_plain_on_card(cuda_device):
+    """Both tracking walks on the smoke path's own glue inputs at its
+    518,400 lanes (chip_smoke.check_track): decisions exact, t/w/trv/tau
+    within rtol 1e-5."""
+    import chip_smoke
+
+    result = chip_smoke.check_track(cuda_device)  # raises on any disagreement
+    assert set(result) == {"track_interaction", "track_transmittance"}
+    assert all(r["ms"] > 0.0 for r in result.values())
+
+
+@pytest.fixture(scope="module")
+def walk_inputs(cuda_device):
+    import chip_smoke
+
+    return chip_smoke._smoke_walk_inputs(cuda_device)
+
+
+def _walk_case(args, lanes_at: int, n: int, case):
+    """args with their lane tensors cut to n lanes; "all done": no lane
+    walks; "nan": lane 5's direction is NaN."""
+    lanes = dict(args[lanes_at])
+    cut = {k: v[:n].clone() for k, v in lanes.items()}
+    if case == "all done":
+        if "grid" in cut:
+            cut["grid"].fill_(-1)
+        else:
+            cut["inside"].fill_(False)
+    if case == "nan":
+        for k in ("d", "ld", "inv"):
+            cut[k][5] = float("nan")
+        if "grid" in cut:  # a walking lane, in the medium's prop
+            cut["grid"][5] = int(lanes["grid"].max())
+            cut["mp"][5] = int(lanes["mp"].max())
+        else:
+            cut["inside"][5] = True
+    out = list(args)
+    out[lanes_at] = cut
+    if lanes_at == 2:  # the interaction's per-lane coefficients
+        out[3] = {k: v[:n].contiguous() for k, v in args[3].items()}
+    return tuple(out)
+
+
+@pytest.mark.parametrize("walk", ["interaction", "transmittance"])
+@pytest.mark.parametrize("case", [0, 1, 31, 129, 4096, "all done", "nan"])
+def test_track_launch_shapes(cuda_device, walk_inputs, walk, case):
+    """Each walk against its plain version at 0, 1, 31, 129 and 4,096
+    lanes, and at 129 lanes with no lane walking; and a lane whose
+    direction is NaN, which never leaves its segment and must stop at the
+    step cap (16,384 steps) with the plain version's outputs (the plain
+    walk of that one lane runs on the CPU: 16,384 steps of small launches
+    on the card take minutes)."""
+    from zyg_tpu_torch.ops import track
+
+    ia, ta = walk_inputs
+    if walk == "interaction":
+        args, at = ia, 2
+        kfn, pfn = track.track_interaction, track.track_interaction_plain
+    else:
+        args, at = ta, 5
+        kfn, pfn = track.track_transmittance, track.track_transmittance_plain
+    n = 129 if case in ("all done", "nan") else case
+    args = _walk_case(args, at, n, case)
+    plain_args = args
+    if case == "nan":  # the NaN lane alone
+        args = list(args)
+        args[at] = {k: v[5:6].contiguous() for k, v in args[at].items()}
+        if at == 2:
+            args[3] = {k: v[5:6].contiguous() for k, v in args[3].items()}
+        args = tuple(args)
+        plain_args = tuple(_to_cpu(x) for x in args)
+    k = kfn(*args)
+    stats = {}
+    p = pfn(*plain_args, stats=stats)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        b = b.to(a.device)
+        assert a.shape == b.shape
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7, equal_nan=True)
+    if case == "all done":
+        assert stats.get("steps", 0) == 0
+        assert torch.equal(k[0], torch.zeros_like(k[0]) if walk == "interaction"
+                           else torch.ones_like(k[0]))
+    if case == "nan":
+        assert stats["iterations"] == track.MAX_STEPS
+
+
+def _to_cpu(x):
+    """A walk argument (tensor, dict of tensors, arena, tuple) on the CPU."""
+    from zyg_tpu_torch.scene.grids import GridArena
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: v.cpu() for k, v in x.items()}
+    if isinstance(x, GridArena):
+        return x.to("cpu")
+    if isinstance(x, tuple):
+        return tuple(_to_cpu(v) for v in x)
+    return x

@@ -25,12 +25,20 @@ from .sensor import Framebuffer
 SPLIT_MIN_FINITE_LIGHTS = 16
 
 # samples per dispatch, by the JAX driver's rule for shuffled persistent
-# frames (zyg_tpu/render/driver.py:279-289): 8 for a scene with nested
-# device loops (of what the port loads, meshes), 16 otherwise. The
-# lane->pixel shuffle and the final chunk's slack follow the chunk, so the
-# port chunks the same way to keep the per-pixel sample sets equal.
-_CHUNK_MESH = 8
+# frames (zyg_tpu/render/driver.py:276-289): 8 for a scene with nested
+# device loops (of what the port loads, meshes and density grids), 16
+# otherwise. The lane->pixel shuffle and the final chunk's slack follow
+# the chunk, so the port chunks the same way to keep the per-pixel sample
+# sets equal.
+_CHUNK_HEAVY = 8
 _CHUNK = 16
+# pixels per dispatch of a scene with nested device loops, by the JAX
+# driver's tile rule (zyg_tpu/render/driver.py:185-190, :481-540): mesh-only
+# scenes in tiles of 2^21 pixels, scenes with density grids in tiles of
+# _HEAVY_TILE; each tile is its own shuffled persistent run with its own
+# final-chunk slack, so the port tiles the same way
+_HEAVY_TILE = 1 << 18
+_MESH_TILE = 1 << 21
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -67,7 +75,8 @@ class Driver:
         clamp = take.sensor.clamp
         self._clamp_max = (clamp.emission, clamp.direct, clamp.indirect)
         spp = max(take.num_samples_per_pixel, 1)
-        self.chunk_size = min(spp, _CHUNK_MESH if scene.meshes is not None else _CHUNK)
+        self._heavy_loops = scene.meshes is not None or scene.grids is not None
+        self.chunk_size = min(spp, _CHUNK_HEAVY if self._heavy_loops else _CHUNK)
         self.start_frame()
 
     def start_frame(self):
@@ -76,6 +85,7 @@ class Driver:
         self._iteration = 0
         self.rays_traced = 0
         self.last_iterations = 0  # wavefront loop iterations of the last dispatch
+        self.iterations = 0  # wavefront loop iterations of every dispatch since start_frame
 
     def chunk_plan(self, num: int) -> list[tuple[int, int]]:
         """The dispatches of `num` samples per pixel: (samples, oversample
@@ -90,20 +100,39 @@ class Driver:
             plan.append((n, max(2, n // 2) if done >= num else 0))
         return plan
 
+    def tile_plan(self) -> list[tuple[int, int]]:
+        """The pixel ranges [t0, t1) of each dispatch of a chunk, as
+        zyg_tpu/render/driver.py:497-519 cuts the frame: tiles of
+        _MESH_TILE pixels for a scene whose only nested loops are mesh
+        walks, of _HEAVY_TILE with density grids, the whole frame
+        otherwise."""
+        n = self._pixel_ids.shape[0]
+        tile = n
+        if self._heavy_loops:
+            tile = min(n, _MESH_TILE if self.scene.grids is None else _HEAVY_TILE)
+        return [(t0, min(t0 + tile, n)) for t0 in range(0, n, tile)]
+
     def render_iterations(self, num: int | None = None) -> Framebuffer:
-        """Render `num` further samples per pixel (default: take spp)."""
+        """Render `num` further samples per pixel (default: take spp): each
+        chunk of chunk_plan over each tile of tile_plan."""
         num = num if num is not None else self.take.num_samples_per_pixel
         cam_arrays = self.camera.arrays(self.device)
         w = self.camera.resolution[0]
+        tiles = self.tile_plan()
         for n, slack in self.chunk_plan(num):
-            acc, rays, iters, counts = ptmis_mod.integrate_persistent(
-                self.scene, cam_arrays, self._pixel_ids, self._iteration, n,
-                max(self.take.num_samples_per_pixel, 2), self.settings, self._clamp_max,
-                frame_width=w, oversample_slack=slack,
-            )
-            self._fb = Framebuffer(self._fb.value + acc, self._fb.weight + counts)
-            self.rays_traced += int(rays)
-            self.last_iterations = iters
+            value, weight = self._fb.value.clone(), self._fb.weight.clone()
+            for t0, t1 in tiles:
+                acc, rays, iters, counts = ptmis_mod.integrate_persistent(
+                    self.scene, cam_arrays, self._pixel_ids[t0:t1], self._iteration, n,
+                    max(self.take.num_samples_per_pixel, 2), self.settings, self._clamp_max,
+                    frame_width=w, oversample_slack=slack,
+                )
+                value[t0:t1] += acc
+                weight[t0:t1] += counts
+                self.rays_traced += int(rays)
+                self.last_iterations = iters
+                self.iterations += iters
+            self._fb = Framebuffer(value, weight)
             self._iteration += n
         return self._fb
 

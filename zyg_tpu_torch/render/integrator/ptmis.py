@@ -2,8 +2,8 @@
 zyg_tpu/render/integrator/ptmis.py:31-280, :326-352 and :1049-1540, box
 filter, shuffled lanes; the fused Cornell-class bounce, the mesh bounce,
 kernel 6's bounce for textured and env-lit scenes, or the general body
-for glass (render/integrator/ptmis_general.py), with its medium stack and
-BSDF-split resume slot).
+for glass and media (render/integrator/ptmis_general.py), with its medium
+stack and BSDF-split resume slot).
 
 ref: src/core/rendering/integrator/surface/pathtracer_mis.zig. Radiance is
 tracked as the reference's IValue triple {emission, direct, indirect} so
@@ -218,7 +218,7 @@ def _make_body(scene, settings: PtmisSettings):
     """One wavefront bounce (ptmis.py:326-352): the fused bounce for
     Cornell-class analytic scenes, the mesh bounce for untextured mesh
     scenes under rectangle lights, kernel 6's bounce for textured and
-    env-lit scenes, and the general body for the rest (glass); a scene
+    env-lit scenes, and the general body for the rest (glass, media); a scene
     outside all four raises UnsupportedScene naming what it lacks."""
     if structural_ok(scene):
         return make_fused_body(scene, settings)

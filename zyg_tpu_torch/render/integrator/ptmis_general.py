@@ -1,36 +1,43 @@
-"""The general PTMIS body in torch, for scenes with glass (counterpart of
-the XLA body of zyg_tpu/render/integrator/ptmis.py:353-1058, restricted
-to what the port loads).
+"""The general PTMIS body in torch, for scenes with glass or participating
+media (counterpart of the XLA body of
+zyg_tpu/render/integrator/ptmis.py:353-1058, restricted to what the port
+loads).
 
 One masked wavefront bounce over the per-lane PathState, as the JAX
 package's general body computes it:
 
   closest hit (isect, then the BVH walk on mesh scenes) -> fragment ->
   the medium stack: the effective enclosing medium and the ior outside
-  the hit prop -> material gather -> Beer absorption along the segment
-  inside a glass prop -> false interfaces (a lower-priority dielectric
-  inside a higher one) -> the BSDF-hit emission with its MIS weight ->
-  russian roulette -> which glass vertices split -> NEE (light tree or
-  power CDF, rectangle and dome lights, the BSDF evaluated with the
-  split's pdf convention, shadow any-hit) -> the BSDF sample (substitute,
-  smooth or rough glass; the reflect branch forced on splitting lanes)
-  -> the stack update where a ray crosses a glass boundary -> the
-  refract branch parked in the lane's resume slot.
+  the hit prop -> material gather -> the volume event along the segment
+  inside the enclosing medium (Beer absorption in glass; a scatter, an
+  absorption or a pass through a Volumetric medium, by the homogeneous
+  closed form or the tracking kernel, render/integrator/volume.py) ->
+  false interfaces (a lower-priority dielectric inside a higher one) ->
+  the BSDF-hit emission with its MIS weight -> russian roulette -> which
+  glass vertices split -> NEE at the surface or the scatter point (light
+  tree or power CDF, rectangle and dome lights, over the whole sphere at
+  a scatter vertex; the BSDF, or the Henyey-Greenstein phase at a
+  scatter, evaluated with the split's pdf convention; shadow any-hit and
+  the transmittance through the volume props) -> the BSDF or phase
+  sample (substitute, smooth or rough glass, the Volumetric boundary's
+  pass-through; the reflect branch forced on splitting lanes) -> the
+  stack update where a ray crosses a medium boundary -> the refract
+  branch parked in the lane's resume slot.
 
 The Sobol' draws keep the JAX body's order: u_dist (scenes with media),
 the roulette's r, u_sel and xi_l (scenes with lights), then the 3-D BSDF
-sample, then padding. The JAX body decides features at trace time
-(`has_media`, `split_on`, ...); this one decides the same things once per
-render in `__init__` and computes nothing for refused features, which
-`check_general` names: image textures, env-mapped domes and Distant
-lights on this body, volume props, and material features other than
-glass, rough glass and media. The port's media never scatter or emit
-(Volumetric materials are refused at load), so the scatter, phase and
-volume-emission branches of the JAX body are absent here, and a shadow
-ray's transmittance is 1 (glass blocks shadow rays).
+(or phase) sample, then padding. The JAX body decides features at trace
+time (`has_media`, `split_on`, ...); this one decides the same things
+once per render in `__init__` and computes nothing for refused features,
+which `check_general` names: image textures, env-mapped domes and
+Distant lights on this body, emissive media, and material features other
+than glass, rough glass, media, volumetric and spectral media. Emissive
+media are refused at load, so the volume-emission branches of the JAX
+body are absent here.
 
 Kernels on this path: isect (closest and any hit), traverse (mesh
-scenes), sobol_block (every draw) and accum (the flush, in ptmis.py).
+scenes), sobol_block (every draw), track (the grid media's walks,
+ops/track.py) and accum (the flush, in ptmis.py).
 """
 
 from __future__ import annotations
@@ -55,18 +62,19 @@ from .ptmis import IValue, PathState, power_heuristic, predivided_power_heuristi
 _GLASS = int(MaterialKind.GLASS)
 _MEDIUM_KINDS = (int(MaterialKind.GLASS), int(MaterialKind.VOLUMETRIC))
 # the material features this body renders
-_FEATURES = {"glass", "rough_glass", "media"}
+_FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media"}
 _LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.DOME)}
 
 
 def check_general(scene, settings) -> None:
     """Raise UnsupportedScene naming the first feature of the scene that the
     general body does not render."""
+    if "vol_emission" in scene.mat_features:
+        raise UnsupportedScene("emissive media (vol_emission: volume lights and absorption "
+                               "emission)")
     extra = set(scene.mat_features) - _FEATURES
     if extra:
         raise UnsupportedScene(f"material features {sorted(extra)}")
-    if scene.volume_props:
-        raise UnsupportedScene("volume props (shadow transmittance through media)")
     if scene.env is not None:
         raise UnsupportedScene("env-mapped Dome lights on the general body (glass under a sky)")
     if scene.textures is not None:
@@ -113,6 +121,9 @@ class GeneralBody:
         feats = set(scene.mat_features)
         self.features = feats
         self.has_media = "media" in feats
+        # Volumetric media scatter: the scatter, phase and NEE-at-a-scatter
+        # branches exist only then (glass interiors only absorb)
+        self.scatters = "volumetric" in feats
         self.has_lights = scene.lights.count > 0
         self.split_on = split_enabled(scene, settings)
         self.present = ls.light_shapes(scene) if self.has_lights else set()
@@ -150,26 +161,45 @@ class GeneralBody:
         wo = -s.d
         finite_hit = valid & (hit.t < RAY_MAX_T)
 
+        scatter = absorbed = zeros_b
         if self.has_media:
-            smp.sample_1d()  # u_dist: drawn, unused where no medium scatters
-            weight = vol_mod.absorption_weight(scene, eff_prop, torch.clamp(hit.t, max=3.0e37))
-            throughput0 = s.throughput * weight
+            u_dist = smp.sample_1d()
+            seg = torch.clamp(hit.t, max=3.0e37)
+            if self.scatters:
+                # distance sampling: the phase g and the sampler use the
+                # same depth-scaled coefficients (similarity relation)
+                _, _, g_med = M.medium_coefficients(
+                    scene.materials, vol_mod.medium_material(scene, eff_prop),
+                    vol_depth=s.vol_depth)
+                ev = vol_mod.sample_interaction(scene, eff_prop, s.o, s.d, seg, u_dist,
+                                                s.vol_key, vol_depth=s.vol_depth)
+                scatter = s.alive & ev.scatter & valid
+                absorbed = s.alive & ev.absorb
+                throughput0 = s.throughput * ev.weight
+                p_scatter = ev.p
+            else:
+                throughput0 = s.throughput * vol_mod.absorption_weight(scene, eff_prop, seg)
             # false interface: the hit dielectric loses to an enclosing one
             # and the ray passes straight through (ref medium.zig priorities)
             is_medium_b = self.mat_medium[mat_c]
-            false_if = finite_hit & is_medium_b & (self.mat_prio[mat_c] < max_prio_excl)
+            false_if = (finite_hit & is_medium_b & (self.mat_prio[mat_c] < max_prio_excl)
+                        & ~scatter)
         else:
             throughput0 = s.throughput
             false_if = zeros_b
 
         # ---- connectLight: the BSDF-hit emission with its MIS weight,
         # pdfs measured from the last real vertex (mis_o, mis_n)
-        emission = torch.where(valid[:, None], M.eval_radiance(params, wo, frag.geo_n), 0.0)
+        emission = torch.where((valid & ~scatter)[:, None],
+                               M.eval_radiance(params, wo, frag.geo_n), 0.0)
         light_id = torch.where(valid, scene.prop_light[prop_c.long()], -1)
         is_light = light_id >= 0
         if self.has_lights and not cfg.nee_only:
-            lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d)
-                  * ls.light_select_pdf(scene, light_id, p=s.mis_o, n=s.mis_n))
+            # the previous real vertex's NEE sampled the sphere if it was a scatter
+            ts = s.from_volume if self.scatters else None
+            lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d, total_sphere=ts)
+                  * ls.light_select_pdf(scene, light_id, p=s.mis_o, n=s.mis_n,
+                                        total_sphere=ts))
             mis_w = torch.where(s.singular | ~is_light, 1.0, power_heuristic(s.bxdf_pdf, lp))
             if not cfg.caustics:
                 mis_w = torch.where(s.singular & (s.depth > 0) & is_light, 0.0, mis_w)
@@ -180,7 +210,7 @@ class GeneralBody:
         contrib = torch.where(s.alive[:, None], sw * throughput0 * mis_w[:, None] * emission, 0.0)
         result = _add(s.result, contrib, s.depth, 2, primary, s.singular)
 
-        cont = (s.alive & finite_hit & (s.depth < cfg.max_depth)
+        cont = (s.alive & (finite_hit | scatter) & ~absorbed & (s.depth < cfg.max_depth)
                 & (s.vol_depth < cfg.max_depth_volume))
 
         # ---- russian roulette
@@ -199,6 +229,7 @@ class GeneralBody:
                 cont & (params["kind"] == _GLASS) & ~s.split["pending"]
                 & (s.primary_chain | (s.depth < 3))
                 & (torch.abs(eta_i - eta_t) >= 1e-6)  # index-matched: a null event
+                & ~scatter
                 & ~false_if
                 & (same_side | ~rough)  # rough refraction splits only from outside
             )
@@ -209,13 +240,23 @@ class GeneralBody:
         if self.has_lights:
             u_sel = smp.sample_1d()
             xi_l = smp.sample_2d()
-            can_nee = cont & M.can_evaluate(params) & ~false_if
-            light_idx, sel_pdf = ls.select_light(scene, u_sel, p=frag.p, n=frag.n)
-            lsmp = ls.sample_light(scene, self.present, light_idx, frag.p, frag.geo_n, xi_l)
+            ts = scatter if self.scatters else None
+            nee_p = torch.where(scatter[:, None], p_scatter, frag.p) if self.scatters else frag.p
+            can_nee = cont & (scatter | M.can_evaluate(params)) & ~false_if
+            light_idx, sel_pdf = ls.select_light(scene, u_sel, p=nee_p, n=frag.n, total_sphere=ts)
+            lsmp = ls.sample_light(scene, self.present, light_idx, nee_p, frag.geo_n, xi_l,
+                                   total_sphere=ts)
             radiance = ls.light_radiance(scene, light_idx, lsmp.wi, lsmp.light_n, lsmp.uv)
             f, bpdf = M.eval_bsdf(params, wo, lsmp.wi, frag.n, frag.geo_n, glass_split=will_split)
+            if self.scatters:
+                # a scatter vertex evaluates the phase function instead
+                ph = M.hg_phase(vm.dot(s.d, lsmp.wi), g_med)
+                f = torch.where(scatter[:, None], ph[:, None], f)
+                bpdf = torch.where(scatter, ph, bpdf)
             w = predivided_power_heuristic(lsmp.pdf * sel_pdf, bpdf)
             shadow_o = _offset_rows(frag.p, _side(lsmp.wi, frag.geo_n))
+            if self.scatters:
+                shadow_o = torch.where(scatter[:, None], p_scatter, shadow_o)
             inf = lsmp.infinite
             axis = torch.where(inf[:, None], lsmp.wi,
                                _offset_rows(lsmp.light_p, lsmp.light_n) - shadow_o)
@@ -226,6 +267,11 @@ class GeneralBody:
             shadow_tmax = torch.where(nee_active, torch.where(inf, _INF_SHADOW_TMAX, slen), 0.0)
             blocked = shapes.occluded(scene, self.shadow, shadow_o, sdir, 0.0, shadow_tmax)
             base = sw * throughput * radiance * f * w[:, None]
+            if scene.volume_props:
+                # media attenuate shadow rays instead of blocking them
+                base = base * vol_mod.transmittance(
+                    scene, shadow_o, sdir, shadow_tmax,
+                    to_i32(hash_u32(u32(s.vol_key) ^ 0x1B873593)))
             nee = torch.where((nee_active & ~blocked)[:, None], base, 0.0)
             rays = rays + nee_active.sum(dtype=torch.int64)
             result = _add(result, nee, s.depth, 1, zeros_b, zeros_b)
@@ -241,30 +287,51 @@ class GeneralBody:
             branch = torch.where(will_split, 0, -1).to(torch.int32)
         bs = M.sample_bsdf(params, wo, frag.n, frag.geo_n, s3, glass_branch=branch)
         # false interfaces override the BSDF by a straight-through null event
-        passthrough = false_if
+        # (a Volumetric boundary is one already: bs.passthrough)
         wi = torch.where(false_if[:, None], -wo, bs.wi)
         bsdf_weight = torch.where(false_if[:, None], 1.0, bs.weight)
         transmission = bs.transmission | false_if
-        cont = cont & (bs.valid | false_if)
-        new_bxdf_pdf = torch.where(passthrough, s.bxdf_pdf, bs.pdf)
-        new_singular = torch.where(passthrough, s.singular, bs.singular)
+        passthrough = bs.passthrough | false_if
+        valid_bs = bs.valid | false_if
+        if self.scatters:
+            # a scatter vertex samples the phase function instead
+            wi_hg = M.hg_sample(wo, g_med, s3[:, 1:3])
+            ph_s = M.hg_phase(vm.dot(s.d, wi_hg), g_med)
+            wi = torch.where(scatter[:, None], wi_hg, wi)
+            bsdf_weight = torch.where(scatter[:, None], 1.0, bsdf_weight)
+            passthrough = passthrough & ~scatter
+            new_bxdf_pdf = torch.where(scatter, ph_s,
+                                       torch.where(passthrough, s.bxdf_pdf, bs.pdf))
+            new_singular = ~scatter & torch.where(passthrough, s.singular, bs.singular)
+            new_from_volume = scatter | (passthrough & s.from_volume)
+            new_reg_alpha = torch.where(scatter, 1.0,
+                                        torch.where(passthrough, s.reg_alpha, bs.reg_alpha))
+        else:
+            new_bxdf_pdf = torch.where(passthrough, s.bxdf_pdf, bs.pdf)
+            new_singular = torch.where(passthrough, s.singular, bs.singular)
+            new_from_volume = s.from_volume & passthrough
+            new_reg_alpha = torch.where(passthrough, s.reg_alpha, bs.reg_alpha)
+        cont = cont & (valid_bs | scatter)
         thr_vertex = throughput  # both split children restart here
         throughput = throughput * bsdf_weight
-        new_reg_alpha = torch.where(passthrough, s.reg_alpha, bs.reg_alpha)
         new_o = _offset_rows(frag.p, _side(wi, frag.geo_n))
         smp.increment_padding()
 
         if self.has_media:
             # entering pushes the prop onto the stack, exiting pops it;
-            # only glass boundaries enclose a medium
-            crossing = transmission & cont & is_medium_b
+            # only glass and Volumetric boundaries enclose a medium
+            crossing = transmission & cont & ~scatter & is_medium_b
             new_medium = vol_mod.stack_update(s.medium, hit.prop, same_side, crossing)
         else:
             new_medium = s.medium
         new_mis_o = torch.where(passthrough[:, None], s.mis_o, new_o)
         new_mis_n = torch.where(passthrough[:, None], s.mis_n, frag.n)
-        new_depth = torch.where(cont & ~passthrough, s.depth + 1, s.depth)
-        new_vol_depth = torch.where(cont & passthrough, s.vol_depth + 1, s.vol_depth)
+        if self.scatters:
+            new_o = torch.where(scatter[:, None], p_scatter, new_o)
+            new_mis_o = torch.where(scatter[:, None], p_scatter, new_mis_o)
+            new_mis_n = torch.where(scatter[:, None], s.d, new_mis_n)
+        new_depth = torch.where(cont & ~scatter & ~passthrough, s.depth + 1, s.depth)
+        new_vol_depth = torch.where(cont & (scatter | passthrough), s.vol_depth + 1, s.vol_depth)
 
         # ---- park the refract branch in the resume slot (ref vertex.zig Pool.new)
         split = s.split
@@ -289,8 +356,8 @@ class GeneralBody:
             vol_key=to_i32(hash_u32(u32(s.vol_key) ^ 0x27D4EB2F)),
             mis_o=torch.where(cont[:, None], new_mis_o, s.mis_o),
             mis_n=torch.where(cont[:, None], new_mis_n, s.mis_n),
-            from_volume=s.from_volume & passthrough,
-            primary_chain=s.primary_chain & (new_singular | passthrough),
+            from_volume=new_from_volume,
+            primary_chain=s.primary_chain & (new_singular | passthrough) & ~scatter,
             nee_thr=torch.where(passthrough, s.nee_thr, new_nee_thr),
             reg_alpha=new_reg_alpha,
             split=split,

@@ -9,10 +9,11 @@ forcing, :1134 `can_evaluate`, :1148-1247 the medium coefficients, the
 Henyey-Greenstein phase and russian roulette).
 
 The general bounce's functions take the scene's material features (a
-set: "glass", "rough_glass", "media") in params["features"] and compute
-only what those features need, as the JAX package compiles the rest
-away; the port refuses every other feature (coatings, translucency,
-flakes, anisotropy, hair, dispersion, volumetric media). Fused kernels
+set: "glass", "rough_glass", "media", "volumetric", "spectral_media") in
+params["features"] and compute only what those features need, as the
+JAX package compiles the rest away; the port refuses every other feature
+(coatings, translucency, flakes, anisotropy, hair, dispersion, emissive
+media). Fused kernels
 keep their own component-form copies of the substitute BSDF
 (ops/shade.py), held against the JAX kernel bodies.
 
@@ -203,6 +204,9 @@ class BsdfSample:
     transmission: torch.Tensor  # bool[N] crossed the surface
     reg_alpha: torch.Tensor  # [N] alpha of the sampled lobe (diffuse 1, specular 0)
     fresnel: torch.Tensor = None  # [N] dielectric F of glass lanes (the split weights)
+    # bool[N] a null interface (a Volumetric boundary): the ray goes on
+    # along its line and the medium inside does the work
+    passthrough: torch.Tensor = None
 
 
 def _clamp(x, lo=1e-5):
@@ -520,10 +524,21 @@ def sample_bsdf(params, wo, n, geo_n, s3, glass_branch=None) -> BsdfSample:
         transmission = is_glass & g.transmission
         reg_a = torch.where(is_glass, g.reg_alpha, reg_a)
         fresnel = g.fresnel
+    passthrough = torch.zeros_like(valid)
+    if "volumetric" in params["features"]:
+        # Volumetric boundaries pass straight through (ref volumetric_material.zig)
+        is_vol = kind == _VOLUMETRIC
+        wi = torch.where(is_vol[:, None], -wo, wi)
+        weight = torch.where(is_vol[:, None], 1.0, weight)
+        pdf = torch.where(is_vol, 1.0, pdf)
+        valid = valid | is_vol
+        singular = singular | is_vol
+        transmission = transmission | is_vol
+        passthrough = is_vol
     return BsdfSample(
         wi=wi, weight=torch.where(valid[:, None], weight, 0.0), pdf=torch.where(valid, pdf, 0.0),
         valid=valid, singular=singular, transmission=transmission, reg_alpha=reg_a,
-        fresnel=fresnel,
+        fresnel=fresnel, passthrough=passthrough,
     )
 
 
@@ -556,8 +571,8 @@ def can_evaluate(params):
 def medium_coefficients(materials, medium_mat, vol_depth=None):
     """(mu_t, mu_s [N, 3], g [N]) of the enclosing medium; zeros in vacuum
     (ref collision_coefficients.zig; the dense-SSS similarity relation
-    with vol_depth). Only Volumetric media scatter, and the port loads
-    none, so mu_s is zero on every lane it renders."""
+    with vol_depth). Only Volumetric media scatter: a glass interior's
+    mu_s is zero."""
     inside = medium_mat >= 0
     m = torch.clamp(medium_mat, min=0).long()
     att_color = torch.clamp(materials.color[m], 0.01, 0.991102)

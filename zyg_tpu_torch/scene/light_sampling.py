@@ -61,22 +61,24 @@ class LightSample:
     uv: torch.Tensor  # [N, 2] texture uv of the sampled point
 
 
-def select_light(scene, u, p=None, n=None):
+def select_light(scene, u, p=None, n=None, total_sphere=None):
     """u in [0, 1) -> (light index int32[N], selection pdf [N]): through
     the light tree at the shading points p with normals n where the scene
-    has a tree and p is given, else by the power CDF."""
+    has a tree and p is given, else by the power CDF. total_sphere
+    (bool[N] or None): lanes at a volume scatter vertex, which weigh the
+    tree's clusters over the whole sphere."""
     if scene.light_tree is not None and p is not None:
-        return lt.select(scene.light_tree, p, n, u)
+        return lt.select(scene.light_tree, p, n, u, total_sphere)
     cdf = scene.lights.cdf
     idx = torch.clamp(torch.searchsorted(cdf, u.contiguous(), right=True) - 1, 0,
                       scene.lights.count - 1)
     return idx.to(torch.int32), cdf[idx + 1] - cdf[idx]
 
 
-def light_select_pdf(scene, light_idx, p=None, n=None):
+def light_select_pdf(scene, light_idx, p=None, n=None, total_sphere=None):
     """Selection pdf of light_idx under select_light from (p, n)."""
     if scene.light_tree is not None and p is not None:
-        return lt.pdf(scene.light_tree, p, n, light_idx)
+        return lt.pdf(scene.light_tree, p, n, light_idx, total_sphere)
     cdf = scene.lights.cdf
     i = torch.clamp(light_idx, 0, scene.lights.count - 1).long()
     return cdf[i + 1] - cdf[i]
@@ -99,9 +101,11 @@ def _rect_local(p, pos, rot):
     return (vm.dot(dp, rot[:, 0]), vm.dot(dp, rot[:, 1]), vm.dot(dp, rot[:, 2]))
 
 
-def sample_light(scene, present: set, light_idx, p, n, xi) -> LightSample:
+def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None) -> LightSample:
     """Sample a direction toward light light_idx from the shading points p
-    with geometric normals n; xi [N, 2] uniforms."""
+    with geometric normals n; xi [N, 2] uniforms. total_sphere (bool[N] or
+    None): lanes at a volume scatter vertex, where a dome samples the
+    whole sphere and no light is below a horizon."""
     prop = _light_prop(scene, light_idx)
     shape = scene.prop_shape[prop]
     rot = scene.prop_rot[prop]
@@ -159,6 +163,13 @@ def sample_light(scene, present: set, light_idx, p, n, xi) -> LightSample:
         wi_v[_DOME] = vm.object_to_world_normal(torch.stack([t, b, n], dim=1), local)
         pdf_v[_DOME] = torch.full((nlanes,), 1.0 / (2.0 * math.pi), dtype=torch.float32,
                                   device=p.device)
+        if total_sphere is not None:
+            # the whole sphere, uniformly
+            zs = 1.0 - 2.0 * xi[:, 0]
+            rs = torch.sqrt(torch.clamp(1.0 - zs * zs, min=0.0))
+            full = torch.stack([rs * torch.cos(phi), rs * torch.sin(phi), zs], dim=-1)
+            wi_v[_DOME] = torch.where(total_sphere[:, None], full, wi_v[_DOME])
+            pdf_v[_DOME] = torch.where(total_sphere, 1.0 / (4.0 * math.pi), pdf_v[_DOME])
         valid_v[_DOME] = ones_b
 
     wi = _sel(shape, wi_v, torch.zeros_like(p))
@@ -197,6 +208,8 @@ def sample_light(scene, present: set, light_idx, p, n, xi) -> LightSample:
     # and rely on f = 0 below the horizon (the NEE density then equals the
     # pdf the BSDF-hit MIS weight uses)
     front = vm.dot(wi, n) > 0.0
+    if total_sphere is not None:
+        front = front | total_sphere
     valid = valid & (front | is_env) & (pdf > 0.0)
     return LightSample(wi, torch.where(valid, pdf, 0.0), light_p, light_n, t_max, infinite, uv)
 
@@ -221,9 +234,11 @@ def light_radiance(scene, light_idx, wi, light_n, uv):
     return torch.where((facing | two_sided)[:, None], emission, 0.0)
 
 
-def light_hit_pdf(scene, present: set, prop, ray_o, ray_d):
+def light_hit_pdf(scene, present: set, prop, ray_o, ray_d, total_sphere=None):
     """Solid-angle pdf with which NEE from ray_o would have sampled the hit
-    on prop along ray_d: the light side of the BSDF-hit MIS weight. (The
+    on prop along ray_d: the light side of the BSDF-hit MIS weight;
+    total_sphere (bool[N] or None): the ray left a volume scatter vertex,
+    whose NEE samples a dome over the whole sphere. (The
     JAX package's further arguments, the hit's distance, point and normal
     and the normal at ray_o, zyg_tpu/scene/light_sampling.py:639, are read
     only for Disk and mesh lights, which the port refuses.)"""
@@ -241,6 +256,8 @@ def light_hit_pdf(scene, present: set, prop, ray_o, ray_d):
     if _DOME in present:
         vals[_DOME] = torch.full(shape.shape, 1.0 / (2.0 * math.pi), dtype=torch.float32,
                                  device=ray_o.device)
+        if total_sphere is not None:
+            vals[_DOME] = torch.where(total_sphere, 1.0 / (4.0 * math.pi), vals[_DOME])
     out = _sel(shape, vals, torch.zeros(shape.shape, dtype=torch.float32, device=ray_o.device))
     if scene.env is not None:
         # mapped domes: NEE samples the map, so MIS needs the map's density

@@ -424,10 +424,12 @@ def _sin_sub(ca, cb, sa, sb):
     return torch.where(ca > cb, 0.0, fma(sa, cb, -(sb * ca)))
 
 
-def _node_importance(tree: LightTree, node, p, n):
+def _node_importance(tree: LightTree, node, p, n, total_sphere=None):
     """ref light_tree.zig importance(): power / d^2 x the cluster's cone
     visibility x the receiver's cosine bound, with the angle-sum clamping
-    of Conty and Kulla. node int64[N]; p, n [N, 3]."""
+    of Conty and Kulla. node int64[N]; p, n [N, 3]; total_sphere bool[N]
+    (or None): lanes at a volume scatter vertex, which receive over the
+    whole sphere and drop the cosine bound."""
     center = tree.center[node]
     radius = tree.radius[node]
     cone = tree.cone[node]
@@ -454,20 +456,21 @@ def _node_importance(tree: LightTree, node, p, n):
     tc = _cos_sub(ta, cos_cu, tb, sin_cu)
     tn = _cos_sub(cos_n, cos_cu, sin_n, sin_cu)
 
+    ra = tn if total_sphere is None else torch.where(total_sphere, 1.0, tn)
     rb = torch.clamp(tc, min=0.0)
     clamped = torch.maximum(length, 0.5 * radius)
-    return torch.clamp(tn * rb * power / (clamped * clamped), min=0.0)
+    return torch.clamp(ra * rb * power / (clamped * clamped), min=0.0)
 
 
-def _descend(tree: LightTree, node, pdf_, r, p, n):
+def _descend(tree: LightTree, node, pdf_, r, p, n, total_sphere=None):
     """The stochastic descent: `tree.depth` levels, each choosing a child
     by relative importance and rescaling r into the chosen interval."""
     for _ in range(tree.depth):
         c0 = tree.child0[node].long()
         leaf = c0 < 0
         c0c = torch.clamp(c0, min=0)
-        w0 = _node_importance(tree, c0c, p, n)
-        w1 = _node_importance(tree, c0c + 1, p, n)
+        w0 = _node_importance(tree, c0c, p, n, total_sphere)
+        w1 = _node_importance(tree, c0c + 1, p, n, total_sphere)
         wt = w0 + w1
         p0 = torch.where(wt > 0.0, w0 / torch.clamp(wt, min=1e-20), 0.5)
         go0 = r < p0
@@ -480,9 +483,9 @@ def _descend(tree: LightTree, node, pdf_, r, p, n):
     return node, pdf_, r
 
 
-def select(tree: LightTree, p, n, u):
+def select(tree: LightTree, p, n, u, total_sphere=None):
     """u in [0, 1) at shading points p with normals n -> (light index
-    int32[N], selection pdf [N])."""
+    int32[N], selection pdf [N]); total_sphere as _node_importance."""
     w = tree.inf_weight
     use_inf = u < _f32(w)
     # infinite branch: the CDF pick
@@ -496,14 +499,14 @@ def select(tree: LightTree, p, n, u):
     node = torch.zeros(u.shape, dtype=torch.int64, device=u.device)
     pdf_ = torch.full(u.shape, _f32(1.0 - w), dtype=torch.float32, device=u.device)
     r = torch.clamp((u - _f32(w)) * _recip(max(1.0 - w, 1e-12)), 0.0, 1.0)
-    node, pdf_, _ = _descend(tree, node, pdf_, r, p, n)
+    node, pdf_, _ = _descend(tree, node, pdf_, r, p, n, total_sphere)
     fin_light = tree.light[node]
     return torch.where(use_inf, inf_light, fin_light), torch.where(use_inf, inf_pdf, pdf_)
 
 
-def pdf(tree: LightTree, p, n, light_idx):
+def pdf(tree: LightTree, p, n, light_idx, total_sphere=None):
     """Selection pdf of light_idx (int32[N]) from (p, n): the upward
-    parent walk, `tree.depth` levels."""
+    parent walk, `tree.depth` levels; total_sphere as _node_importance."""
     li = torch.clamp(light_idx, 0, tree.light_leaf.shape[0] - 1).long()
     leaf = tree.light_leaf[li].long()
     is_inf = leaf < 0
@@ -519,8 +522,8 @@ def pdf(tree: LightTree, p, n, light_idx):
     for _ in range(tree.depth):
         at_root = node == 0
         sib = tree.sibling[node].long()
-        w_self = _node_importance(tree, node, p, n)
-        w_sib = _node_importance(tree, torch.clamp(sib, min=0), p, n)
+        w_self = _node_importance(tree, node, p, n, total_sphere)
+        w_sib = _node_importance(tree, torch.clamp(sib, min=0), p, n, total_sphere)
         wt = w_self + w_sib
         psel = torch.where(wt > 0.0, w_self / torch.clamp(wt, min=1e-20), 0.5)
         acc = torch.where(at_root, acc, acc * psel)

@@ -7,7 +7,10 @@ triangle meshes (shape "file": "proc:..."), the Sky entity (a baked
 Preetham dome plus a distant sun, scene/sky.py), nested child entities,
 Euler or look-at transformations, Substitute, Light and Glass materials
 with constant parameters (Glass: color or attenuation_color, ior,
-roughness, attenuation_distance, priority), and one or more emitting
+roughness, attenuation_distance, priority), Volumetric media
+(attenuation_color, subsurface_color, attenuation_distance, anisotropy,
+and a procedural `fbm` or `constant` density map built into the density
+grid arena of scene/grids.py) on analytic props, and one or more emitting
 Rectangle, Dome or Distant lights. Two or more lights are selected as
 the JAX package selects them: by the power CDF when every light is
 infinite, through the SAOH light
@@ -19,8 +22,9 @@ env-map sampler (scene/env_sampling.py).
 
 Everything else raises `UnsupportedScene`: Sphere, Disk, Cube and mesh
 lights, Canopy env lights, Portal entities, texture nodes in scene files,
-dispersive glass (abbe), coatings, flakes, masks, normal maps and every
-other material kind (Volumetric media, Hair, Debug, Sky). (Scenes whose
+dispersive glass (abbe), coatings, flakes, masks, normal maps, emissive
+Volumetric media (vol_emission), density files, Volumetric materials on
+mesh props and every other material kind (Hair, Debug, Sky). (Scenes whose
 light tree would split NEE, and glass under textures, env maps or
 Distant lights, are refused by render/driver.py.) The port renders only
 what its bounces cover, and never silently drops a feature.
@@ -37,6 +41,8 @@ import torch
 from ..io.mesh import load_mesh_file
 from ..render.materials import MIN_ROUGHNESS
 from .env_sampling import EnvSampler, build_env_sampler
+from .grids import ARRAY_FIELDS as _GRID_FIELDS
+from .grids import GridArena, build_grid_arena, make_fbm_grid
 from .light_tree import ARRAY_FIELDS as _TREE_FIELDS
 from .light_tree import LightTree, build_light_tree
 from .sky import SUN_ANGULAR_RADIUS, bake_sky, sun_radiance
@@ -155,9 +161,15 @@ class MaterialDesc:
     color_tex: int = -1
     roughness_tex: int = -1
     emission_tex: int = -1
-    # glass: Beer absorption distance (0 = none) and nested-dielectric priority
+    # glass and media: Beer absorption distance (0 = none) and
+    # nested-dielectric priority
     attenuation_distance: float = 0.0
     priority: int = 0
+    # Volumetric media: the scattering colour, the Henyey-Greenstein g and
+    # the density grid id (SceneBuilder.add_density_grid, -1 homogeneous)
+    subsurface_color: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
+    volumetric_anisotropy: float = 0.0
+    density_grid: int = -1
 
 
 def _read_color(v) -> np.ndarray:
@@ -175,12 +187,42 @@ _SUBSTITUTE_KEYS = {"color", "roughness", "metallic", "ior", "specular", "two_si
 _LIGHT_KEYS = {"emittance", "two_sided"}
 _GLASS_KEYS = {"color", "attenuation_color", "ior", "roughness", "attenuation_distance",
                "priority"}
-_OTHER_KINDS = {"Debug", "Volumetric", "Hair", "Sky"}
+_VOLUMETRIC_KEYS = {"color", "attenuation_color", "subsurface_color", "attenuation_distance",
+                    "anisotropy", "density", "density_map", "priority", "emittance"}
+_OTHER_KINDS = {"Debug", "Hair", "Sky"}
 
 
-def parse_material(value: dict) -> MaterialDesc:
+def _load_density_grid(v) -> np.ndarray | None:
+    """A density node -> host float32[nz, ny, nx] grid, or None (a
+    homogeneous medium): {"procedural": {"type": "fbm", "resolution",
+    "octaves", "seed", "sharpness", "scale"}} or {"procedural": {"type":
+    "constant", "resolution", "value"}}, by the JAX loader's defaults
+    (zyg_tpu/scene/loader.py:412-430). Density files are refused."""
+    if not isinstance(v, dict):
+        return None
+    if "procedural" in v:
+        p = v["procedural"]
+        kind = p.get("type", "fbm")
+        if kind == "constant":
+            n = int(p.get("resolution", 4))
+            return np.full((n, n, n), float(p.get("value", 1.0)), np.float32)
+        if kind != "fbm":
+            raise UnsupportedScene(f"procedural density {kind!r}")
+        return make_fbm_grid(
+            n=int(p.get("resolution", 64)),
+            octaves=int(p.get("octaves", 4)),
+            seed=int(p.get("seed", 7)),
+            sharpness=float(p.get("sharpness", 2.0)),
+        ) * float(p.get("scale", 1.0))
+    if "file" in v:
+        raise UnsupportedScene(f"density file {v['file']!r} (.npy/.sub density maps)")
+    return None
+
+
+def parse_material(value: dict, builder: "SceneBuilder | None" = None) -> MaterialDesc:
     """One material JSON node (ref material_provider.zig loadMaterial),
-    Substitute, Light and Glass kinds with constant parameters only."""
+    Substitute, Light, Glass and Volumetric kinds with constant parameters
+    only; a Volumetric density map goes into builder's grid list."""
     rendering = value.get("rendering", value)
     desc = MaterialDesc()
     for kind_name, body in rendering.items():
@@ -199,6 +241,9 @@ def parse_material(value: dict) -> MaterialDesc:
             desc.color = np.ones(3, np.float32)
             desc.ior = 1.46
             allowed = _GLASS_KEYS
+        elif kind_name == "Volumetric":
+            desc.kind = int(MaterialKind.VOLUMETRIC)
+            allowed = _VOLUMETRIC_KEYS
         else:
             continue
         if not isinstance(body, dict):
@@ -227,6 +272,14 @@ def parse_material(value: dict) -> MaterialDesc:
                 desc.specular = float(v)
             elif key == "two_sided":
                 desc.two_sided = bool(v)
+            elif key == "subsurface_color":
+                desc.subsurface_color = _read_color(v)
+            elif key == "anisotropy":  # a Volumetric medium's HG g
+                desc.volumetric_anisotropy = float(v)
+            elif key in ("density", "density_map"):
+                grid = _load_density_grid(v)
+                if grid is not None and builder is not None:
+                    desc.density_grid = builder.add_density_grid(grid)
             elif key == "emittance":
                 extra = set(v) - {"spectrum", "value"}
                 if extra:
@@ -234,20 +287,35 @@ def parse_material(value: dict) -> MaterialDesc:
                 spectrum = _read_color(v.get("spectrum", [1.0, 1.0, 1.0]))
                 desc.emission = np.float32(v.get("value", 1.0)) * spectrum
         break
+    if desc.kind == int(MaterialKind.VOLUMETRIC) and float(np.max(desc.emission)) > 0.0:
+        raise UnsupportedScene("emissive Volumetric media (vol_emission: volume lights and "
+                               "absorption emission)")
     return desc
 
 
-def material_features(kinds, roughness) -> set:
+def material_features(kinds, roughness, color, subsurface) -> set:
     """The material features present, by the JAX loader's rules
     (zyg_tpu/scene/loader.py:1232-1315) over every material of the table:
-    "media" and "glass" with any Glass material, "rough_glass" with any
-    Glass rougher than MIN_ROUGHNESS * 1.001."""
+    "media" with any Glass or Volumetric material, "glass" with any Glass,
+    "rough_glass" with any Glass rougher than MIN_ROUGHNESS * 1.001,
+    "volumetric" with any Volumetric material and "spectral_media" where a
+    Volumetric material's attenuation or subsurface colour is not grey.
+    (Emissive media, "vol_emission", are refused at parse time.)"""
+    kinds = [int(k) for k in kinds]
+    glass = [float(r) for k, r in zip(kinds, roughness) if k == int(MaterialKind.GLASS)]
+    vols = [i for i, k in enumerate(kinds) if k == int(MaterialKind.VOLUMETRIC)]
     feats = set()
-    glass = [float(r) for k, r in zip(kinds, roughness) if int(k) == int(MaterialKind.GLASS)]
+    if glass or vols:
+        feats.add("media")
     if glass:
-        feats |= {"media", "glass"}
+        feats.add("glass")
     if any(r > MIN_ROUGHNESS * 1.001 for r in glass):
         feats.add("rough_glass")
+    if vols:
+        feats.add("volumetric")
+    if any(float(np.ptp(np.asarray(color[i]))) > 0.0
+           or float(np.ptp(np.asarray(subsurface[i]))) > 0.0 for i in vols):
+        feats.add("spectral_media")
     return feats
 
 
@@ -273,6 +341,7 @@ class SceneBuilder:
         self.props: list[PropDesc] = []
         self.materials: list[MaterialDesc] = []
         self.meshes: list[HostMesh] = []
+        self.density_grids: list[np.ndarray] = []
         self.textures = TextureBuilder()
         self._mat_by_name: dict[str, int] = {}
         self._mesh_by_name: dict[str, int] = {}
@@ -286,6 +355,12 @@ class SceneBuilder:
             raise UnsupportedScene("sRGB-encoded textures")
         return self.textures.add(image)
 
+    def add_density_grid(self, grid: np.ndarray) -> int:
+        """A host density grid (float32[nz, ny, nx]) -> its grid id for
+        MaterialDesc.density_grid."""
+        self.density_grids.append(np.asarray(grid, np.float32))
+        return len(self.density_grids) - 1
+
     def add_material(self, desc: MaterialDesc, name: str | None = None) -> int:
         self.materials.append(desc)
         if name:
@@ -296,7 +371,7 @@ class SceneBuilder:
         if name in self._mat_by_name:
             return self._mat_by_name[name]
         if name in local_materials:
-            return self.add_material(parse_material(local_materials[name]), name)
+            return self.add_material(parse_material(local_materials[name], self), name)
         return self._fallback
 
     def add_prop(self, desc: PropDesc) -> int:
@@ -363,6 +438,20 @@ class SceneBuilder:
             for tid in (d.color_tex, d.roughness_tex, d.emission_tex):
                 if not -1 <= tid < len(self.textures):
                     raise UnsupportedScene(f"texture id {tid} out of range")
+            if not -1 <= d.density_grid < len(self.density_grids):
+                raise UnsupportedScene(f"density grid id {d.density_grid} out of range")
+        # participating media: a Volumetric prop never blocks a shadow ray,
+        # NEE multiplies by its transmittance instead (ref scene.zig
+        # visibility -> propTransmittance; zyg_tpu/scene/loader.py:1199-1205)
+        volume_props = []
+        for i, p in enumerate(props):
+            m = self.materials[p.material]
+            if m.kind == int(MaterialKind.VOLUMETRIC):
+                if p.mesh_id >= 0:
+                    raise UnsupportedScene("a Volumetric material on a mesh prop (the chord "
+                                           "through a mesh interior)")
+                volume_props.append((i, p.material, m.density_grid, p.shape))
+                p.visible_shadow = False
         weights = np.array([self._light_weight(props[i]) for i in light_props], np.float32)
         total = weights.sum()
         cdf = np.concatenate([[0.0], np.cumsum(weights) / (total if total > 0 else 1.0)]).astype(np.float32)
@@ -425,10 +514,9 @@ class SceneBuilder:
                 emission_tex=t([d.emission_tex for d in mats], i32),
                 attenuation_distance=t([d.attenuation_distance for d in mats], f32),
                 priority=t([d.priority for d in mats], i32),
-                # the scattering parameters of Volumetric media, which the
-                # port refuses: the JAX defaults
-                subsurface_color=t(np.zeros((len(mats), 3)), f32),
-                volumetric_anisotropy=t(np.zeros(len(mats)), f32),
+                subsurface_color=t(np.stack([d.subsurface_color for d in mats]), f32),
+                volumetric_anisotropy=t([d.volumetric_anisotropy for d in mats], f32),
+                density_grid=t([d.density_grid for d in mats], i32),
             ),
             lights=Lights(
                 prop=t(light_props, i32),
@@ -441,7 +529,11 @@ class SceneBuilder:
             textures=self.textures.build(),
             env=build_env_sampler(env_entries),
             light_tree=light_tree,
-            mat_features=material_features([d.kind for d in mats], [d.roughness for d in mats]),
+            grids=build_grid_arena(self.density_grids) if self.density_grids else None,
+            mat_features=material_features([d.kind for d in mats], [d.roughness for d in mats],
+                                           [d.color for d in mats],
+                                           [d.subsurface_color for d in mats]),
+            volume_props=tuple(volume_props),
         ).to(device)
 
     @staticmethod
@@ -585,10 +677,10 @@ _PLAIN = ("prop_shape", "prop_rot", "prop_pos", "prop_scale", "prop_material",
           "prop_light")
 _MATERIAL = ("kind", "color", "roughness", "metallic", "ior", "specular", "emission",
              "two_sided", "color_tex", "roughness_tex", "emission_tex", "attenuation_distance",
-             "priority", "subsurface_color", "volumetric_anisotropy")
+             "priority", "subsurface_color", "volumetric_anisotropy", "density_grid")
 # the material features the port renders (the general bounce's; the JAX
 # package names more, each of which the port refuses)
-_FEATURES = {"glass", "rough_glass", "media"}
+_FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media"}
 _LIGHT = ("prop", "two_sided", "cdf")
 _ARENA = ("node_rows", "tri_rows", "attr_rows", "mesh_root")
 _INSTANCES = ("wmin", "wmax", "trafo", "vis")
@@ -604,8 +696,9 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     "textures.<f>", for a mapped dome "env.<f>" (with "env.width" and
     "env.height"), and for a light tree "light_tree.<f>" (with
     "light_tree.depth", "light_tree.inf_weight", "light_tree.num_finite"),
-    and "mat_features", the sorted feature names as a string array. A JAX
-    scene with a feature outside the port's, or with volume props, raises
+    for density grids "grids.<f>" (with "grids.sparse"), "volume_props"
+    (int64 [K, 4] rows), and "mat_features", the sorted feature names as a
+    string array. A JAX scene with a feature outside the port's raises
     UnsupportedScene naming it."""
     def arr(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -614,17 +707,26 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     mats = scene.materials
     for k in _MATERIAL:
         v = getattr(mats, k)
-        # a hand-built JAX table may leave the priorities unset (all 0)
-        d[f"materials.{k}"] = np.zeros(arr(mats.kind).shape, np.int32) if v is None else arr(v)
+        # a hand-built JAX table may leave the priorities (all 0) and the
+        # density grids (all -1) unset
+        if v is None:
+            v = np.full(arr(mats.kind).shape, -1 if k == "density_grid" else 0, np.int32)
+        d[f"materials.{k}"] = arr(v)
     feats = scene.mat_features
     if feats is None:  # the JAX "all features" default: derive them
-        feats = material_features(d["materials.kind"], d["materials.roughness"])
+        feats = material_features(d["materials.kind"], d["materials.roughness"],
+                                  d["materials.color"], d["materials.subsurface_color"])
+    if "vol_emission" in feats:
+        raise UnsupportedScene("emissive volumetric media (vol_emission)")
     extra = set(feats) - _FEATURES
     if extra:
         raise UnsupportedScene(f"material features {sorted(extra)}")
-    if scene.volume_props:
-        raise UnsupportedScene("volume props (shadow transmittance through media)")
     d["mat_features"] = np.array(sorted(feats), dtype=np.str_)
+    d["volume_props"] = np.asarray(sorted(tuple(int(x) for x in r) for r in scene.volume_props),
+                                   np.int64).reshape(-1, 4)
+    if scene.grids is not None:
+        d.update({f"grids.{k}": arr(getattr(scene.grids, k)) for k in _GRID_FIELDS})
+        d["grids.sparse"] = np.asarray(bool(scene.grids.sparse))
     d.update({f"lights.{k}": arr(getattr(scene.lights, k)) for k in _LIGHT})
     d.update({f"prop_groups.{int(k)}": arr(v) for k, v in (scene.prop_groups or {}).items()})
     if scene.meshes is not None:
@@ -675,6 +777,10 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
     if "env.table" in d:
         env = EnvSampler(**{k: t(f"env.{k}") for k in _ENV}, width=int(d["env.width"]),
                          height=int(d["env.height"]))
+    grids = None
+    if "grids.data" in d:
+        grids = GridArena(**{k: t(f"grids.{k}") for k in _GRID_FIELDS},
+                          sparse=bool(d["grids.sparse"]))
     light_tree = None
     if "light_tree.center" in d:
         light_tree = LightTree(**{k: t(f"light_tree.{k}") for k in _TREE_FIELDS},
@@ -691,5 +797,7 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
         textures=textures,
         env=env,
         light_tree=light_tree,
+        grids=grids,
         mat_features={str(f) for f in d["mat_features"]},
+        volume_props=tuple(tuple(int(x) for x in r) for r in d["volume_props"]),
     )

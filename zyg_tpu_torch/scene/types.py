@@ -83,6 +83,9 @@ class Materials:
     priority: torch.Tensor  # int32[M]
     subsurface_color: torch.Tensor  # float32[M, 3]
     volumetric_anisotropy: torch.Tensor  # float32[M]
+    # heterogeneous media: density grid id into SceneData.grids, -1 for a
+    # homogeneous medium (or a material that is not a medium)
+    density_grid: torch.Tensor  # int32[M]
 
     def to(self, device) -> "Materials":
         return to_device(self, device)
@@ -123,13 +126,15 @@ class SceneData:
     textures: object = None  # textures.TextureArena, or None without images
     env: object = None  # env_sampling.EnvSampler of a mapped dome, or None
     light_tree: object = None  # light_tree.LightTree, or None (power-CDF selection)
+    grids: object = None  # grids.GridArena of the density grids, or None
     # names of the material features present ("glass", "rough_glass",
-    # "media"; scene/loader.py material_features), a Python set
+    # "media", "volumetric", "spectral_media"; scene/loader.py
+    # material_features), a Python set
     mat_features: set = field(default_factory=set)
-    # props filled with a participating medium that attenuates shadow rays
-    # (the JAX package's volume_props); always empty: the port refuses
-    # Volumetric materials
-    volume_props: dict = field(default_factory=dict)
+    # props filled with a Volumetric medium, which attenuates shadow rays
+    # instead of blocking them: sorted (prop, material, density grid or -1,
+    # ShapeType code) rows (the keys of the JAX package's volume_props)
+    volume_props: tuple = ()
 
     def to(self, device) -> "SceneData":
         out = {}
