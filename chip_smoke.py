@@ -5,8 +5,9 @@
 
 Phases (each raises on failure; the exit code is non-zero on any failure):
  1. the card: CUDA must be available; prints nvidia-smi's name and power limit
- 2. build: compiles zyg_tpu_torch/csrc/*.cu with nvcc (sm_90a) into the
-    gitignored zyg_tpu_torch/_build/ and prints the build time, the
+ 2. build: compiles zyg_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
+    a source, all started together, and links them into one library in the
+    gitignored zyg_tpu_torch/_build/; prints the build time, the
     per-kernel register/spill report, each kernel's static SASS
     instruction count (cuobjdump -sass) and the lanes one pass of the
     persistent shade, surface, surface_v2 and traverse grids covers
@@ -31,7 +32,10 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     exact; and both tracking walks (track_interaction, track_transmittance)
     on the smoke path's own glue inputs at its 518,400 lanes, scatter and
     absorb decisions exact and t/w/trv/tau within rtol 1e-5, with the
-    lane-steps and collisions the lanes take. Times each (median of runs, CUDA events; and its device time
+    lane-steps and collisions the lanes take, and track_interaction's
+    emissive variant on the fire path's own glue inputs (518,400 lanes,
+    fire.scene's grey medium and a spectral copy), t, w, decisions and
+    emission bit-exact. Times each (median of runs, CUDA events; and its device time
     from the profiler, which leaves out the host's gaps between a short
     kernel's launches) beside its bound and, where one PyTorch call
     computes the same function, that call's time
@@ -47,7 +51,10 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     the general body, BSDF splitting) at 96x72, 16 spp, depth 6, 4g. for
     examples/takes/smoke.take (a density-grid medium through the tracking
     kernel) and examples/takes/volumes.take (a homogeneous medium beside
-    glass) at 96x56, 8 spp
+    glass) at 96x56, 8 spp, 4h. for examples/takes/fire.take (an emissive
+    medium, its own volume light) at 96x56, 8 spp and fire.scene with a
+    Rectangle lamp beside the fire (the light tree over a surface and a
+    volume light) at 64x48, 8 spp
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
@@ -83,6 +90,12 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     through the general body around sobol_block, isect, track_interaction,
     track_transmittance and accum, which must each have launched; the
     same report and profile, with the iterations over all chunks and tiles
+ 5g. the fire main path: the CLI on a copy of examples/takes/fire.take at
+    8 spp (its own 960x540, PTMIS depth 16 / volume 128; the take's 64 spp
+    would take ~70-120 s), then the Driver at the same size with 8 spp
+    after a warm-up chunk, through the general body around sobol_block,
+    isect, the emissive track_interaction, track_transmittance and accum,
+    which must each have launched; the same report and profile
  6. one bounce of the mesh bounce (kernel 5) against one of the general
     bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
     directly, timed in turns (CUDA events, medians)
@@ -161,6 +174,14 @@ SMOKE_SPP = 8
 SMOKE_DEPTH = 24
 SMOKE_DEPTH_VOLUME = 128
 N_SMOKE = SMOKE_RES[0] * SMOKE_RES[1]
+# the fire path: smoke's kernels with the walk's emissive variant and volume
+# lights in NEE, at fire.take's own 960x540, PTMIS depth 16 / volume 128,
+# timed as smoke is (8 spp after a warm-up chunk)
+FIRE_KERNELS = SMOKE_KERNELS
+FIRE_RES = (960, 540)
+FIRE_SPP = 8
+FIRE_DEPTH = 16
+N_FIRE = FIRE_RES[0] * FIRE_RES[1]
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -520,6 +541,32 @@ def _smoke(dev):
     return load_scene_file(os.path.join(REPO, "examples/scenes/smoke.scene"), dev)
 
 
+def fire_root(variant: str = "fire") -> dict:
+    """examples/scenes/fire.scene as a dict: "fire" as it is (a grey
+    emissive Volumetric Cube over a floor, the only light); "spectral" with
+    a non-grey attenuation colour (the walk's spectral estimator);
+    "lamp" with a Rectangle lamp above the floor beside it (two finite
+    lights: the light tree selects between the lamp and the volume)."""
+    with open(os.path.join(REPO, "examples/scenes/fire.scene")) as f:
+        root = json.load(f)
+    if variant == "spectral":
+        root["materials"][1]["rendering"]["Volumetric"]["attenuation_color"] = [0.5, 0.6, 0.7]
+    elif variant == "lamp":
+        root["materials"].append({"name": "lamp", "rendering": {"Light": {
+            "emittance": {"value": 6.0}}}})
+        root["entities"].append({
+            "type": "Light", "shape": {"type": "Rectangle"}, "materials": ["lamp"],
+            "transformation": {"position": [-2.5, 3.5, 0.5], "rotation": [-90, 0, 0],
+                               "scale": [1.2, 1.2, 1]}})
+    return root
+
+
+def _fire(dev, variant: str = "fire"):
+    from zyg_tpu_torch.scene.loader import load_scene_dict
+
+    return load_scene_dict(fire_root(variant), dev)
+
+
 def _material_lanes(scene, n, dev, seed=8):
     """Lanes of the material path's analytic hit tests: camera rays of
     material_test.take on the primary half, rays from above the floor in
@@ -601,6 +648,30 @@ def check_isect_material(dev) -> None:
         f"hits by shape {hits}; {int(pb.sum())} shadow rays blocked; closest {ms:.4f} ms")
 
 
+def _rays_into_cube(scene, take_name, res, rng, dev):
+    """The take's camera rays (one a pixel at res, jittered by rng) started
+    where they enter the scene's first volume prop, a Cube: (o, d, medium
+    prop (-1 for the rays that miss it), a far segment end)."""
+    import numpy as np
+    import torch
+    from zyg_tpu_torch.render.camera import generate_rays
+    from zyg_tpu_torch.render.integrator import volume as vol
+    from zyg_tpu_torch.scene.types import ShapeType
+
+    take = _take(take_name, res, 1)
+    n = res[0] * res[1]
+    ids = np.arange(n)
+    xy = torch.from_numpy(np.stack([ids % res[0], ids // res[0]], -1)).to(dev)
+    uv = torch.from_numpy(rng.random((n, 2)).astype(np.float32)).to(dev)
+    o, d = generate_rays(take.cameras[0].arrays(dev), xy, uv)
+    cube = int(scene.volume_props[0][0])
+    far = torch.full((n,), 1e4, device=dev)
+    t0, t1 = vol._prop_interval(scene, cube, int(ShapeType.CUBE), o, d, far)
+    enters = t1 > t0
+    o_in = torch.where(enters[:, None], o + (t0 + 1e-4)[:, None] * d, o)
+    return o_in, d, torch.where(enters, cube, -1).to(torch.int32), far
+
+
 def _smoke_walk_inputs(dev, seed=13):
     """The inputs the smoke path's glue hands each walk, at the smoke
     path's 518,400 lanes, captured from render/integrator/volume.py: the
@@ -612,24 +683,13 @@ def _smoke_walk_inputs(dev, seed=13):
     import numpy as np
     import torch
     from zyg_tpu_torch.ops import track
-    from zyg_tpu_torch.render.camera import generate_rays
     from zyg_tpu_torch.render.integrator import volume as vol
-    from zyg_tpu_torch.scene.types import ShapeType
 
     scene = _smoke(dev)
-    take = _take("smoke.take", SMOKE_RES, 1)
     n = N_SMOKE
     rng = np.random.default_rng(seed)
-    ids = np.arange(n)
-    xy = torch.from_numpy(np.stack([ids % SMOKE_RES[0], ids // SMOKE_RES[0]], -1)).to(dev)
-    uv = torch.from_numpy(rng.random((n, 2)).astype(np.float32)).to(dev)
-    o, d = generate_rays(take.cameras[0].arrays(dev), xy, uv)
+    o_in, d, mp, far = _rays_into_cube(scene, "smoke.take", SMOKE_RES, rng, dev)
     cube = int(scene.volume_props[0][0])
-    far = torch.full((n,), 1e4, device=dev)
-    t0, t1 = vol._prop_interval(scene, cube, int(ShapeType.CUBE), o, d, far)
-    enters = t1 > t0
-    o_in = torch.where(enters[:, None], o + (t0 + 1e-4)[:, None] * d, o)
-    mp = torch.where(enters, cube, -1).to(torch.int32)
 
     def t(x, dtype=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dtype=dtype, device=dev)
@@ -652,9 +712,9 @@ def _smoke_walk_inputs(dev, seed=13):
     captured = {}
     inner_i, inner_t = track.track_interaction, track.track_transmittance
 
-    def cap_i(*args):
+    def cap_i(*args, **kw):  # smoke's medium does not emit: no e_med
         captured["i"] = args
-        return inner_i(*args)
+        return inner_i(*args, **kw)
 
     def cap_t(*args):
         captured["t"] = args
@@ -668,6 +728,97 @@ def _smoke_walk_inputs(dev, seed=13):
     finally:
         track.track_interaction, track.track_transmittance = inner_i, inner_t
     return captured["i"], captured["t"]
+
+
+def _fire_walk_inputs(dev, variant: str, seed=16):
+    """The inputs the fire path's glue hands the emissive walk at its
+    518,400 lanes, captured from render/integrator/volume.py: fire.take's
+    camera rays (960x540) started where they enter the emissive cube, over
+    fire.scene ("fire", grey) or its non-grey copy ("spectral"). Returns
+    (arena, props, lanes, coef, grey, e_med)."""
+    import numpy as np
+    import torch
+    from zyg_tpu_torch.ops import track
+    from zyg_tpu_torch.render.integrator import volume as vol
+
+    scene = _fire(dev, variant)
+    n = N_FIRE
+    rng = np.random.default_rng(seed)
+    o_in, d, mp, far = _rays_into_cube(scene, "fire.take", FIRE_RES, rng, dev)
+    key = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+                           .view(np.int32)).to(dev)
+    u = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+    captured = {}
+    inner = track.track_interaction
+
+    def cap(*args, e_med=None):
+        captured["i"] = (*args, e_med)
+        return inner(*args, e_med=e_med)
+
+    track.track_interaction = cap
+    try:
+        vol.sample_interaction(scene, mp, o_in, d, far, u, key,
+                               vol_depth=torch.zeros(n, dtype=torch.int32, device=dev))
+    finally:
+        track.track_interaction = inner
+    if captured["i"][5] is None:
+        raise AssertionError(f"fire ({variant}): the walk was not handed the medium's emission")
+    return captured["i"]
+
+
+def check_track_emission(dev) -> dict:
+    """The emissive variant of track_interaction (the kEmit template flag)
+    against its plain version on the fire path's own glue inputs
+    (_fire_walk_inputs, 518,400 lanes), grey (fire.scene) and spectral (a
+    non-grey copy): t, w, scatter, absorb and the emission bit-exact. Times
+    each (events and profiler) beside the plain version and a bound from
+    the bytes of its lanes (the 24 bytes a lane of e and emission
+    included) and the operations of its steps and collisions. Returns
+    {"fire grey": ..., "fire spectral": ...}."""
+    import torch
+    from zyg_tpu_torch.ops import track
+
+    out = {}
+    for variant in ("fire", "spectral"):
+        arena, props, lanes, coef, grey, e_med = _fire_walk_inputs(dev, variant)
+        if grey != (variant == "fire"):
+            raise AssertionError(f"fire ({variant}): grey is {grey}")
+        args = (arena, props, lanes, coef, grey)
+        k = track.track_interaction(*args, e_med=e_med)
+        stats = {}
+        t0 = time.perf_counter()
+        p = track.track_interaction_plain(*args, stats=stats, e_med=e_med)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for a, b, what in zip(k, p, ("t", "w", "scatter", "absorb", "emission")):
+            if not torch.equal(a, b):
+                diff = int((a != b).sum())
+                raise AssertionError(f"track_interaction (fire {variant}): {what} differs on "
+                                     f"{diff} values (max {float((a.float() - b.float()).abs().max()):.3g})")
+        walking = lanes["grid"] >= 0
+        absorbed = int(p[3].sum())
+        if not absorbed or not bool((p[4][p[3]] > 0).any()):
+            raise AssertionError(f"track_interaction (fire {variant}): no emission collected")
+        arena_bytes = arena.data.numel() * 4 + arena.sdata.numel() * 4
+        nbytes = arena_bytes + _track_bytes(list(lanes.values()) + list(coef.values()) + [e_med],
+                                            lanes["grid"], k)
+        ops = stats["steps"] * OPS_TRACK_STEP + stats["collisions"] * OPS_TRACK_COLLISION
+        name = f"fire {'grey' if variant == 'fire' else 'spectral'}"
+        res = {"max_abs_err": 0.0,
+               "ms": time_ms(lambda: track.track_interaction(*args, e_med=e_med), 10),
+               "device_ms": device_ms(lambda: track.track_interaction(*args, e_med=e_med),
+                                      "track_interaction"),
+               "plain_ms": plain_ms, "library_ms": None, **bound(nbytes, ops)}
+        log(f"track_interaction ({name}, emissive): t, w, decisions and emission bit-exact on "
+            f"{walking.numel()} lanes ({int(p[2].sum())} scatter, {absorbed} absorbed of "
+            f"{int(walking.sum())} walking lanes, emission sum {float(p[4].sum()):.6g}); "
+            f"{stats['steps']} lane-steps, {stats['collisions']} tentative collisions; "
+            f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations; kernel {res['ms']:.4f} ms "
+            f"(device {res['device_ms']:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+        out[name] = res
+        torch.cuda.empty_cache()
+    return out
 
 
 def _track_bytes(inputs: list, flag, outputs) -> float:
@@ -739,6 +890,7 @@ def check_track(dev) -> dict:
             f"{stats['collisions']} tentative collisions ({stats['steps'] / max(int(walking.sum()), 1):.1f} "
             f"steps a walking lane); {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations")
         out[name] = res
+    out["track_interaction"]["emissive"] = check_track_emission(dev)
     return out
 
 
@@ -761,6 +913,31 @@ def phase_slice_smoke(dev) -> None:
         cpu = Driver(take, scene, device="cpu").render_frame()
         t_cpu = time.perf_counter() - t0
         _golden_gate(card, cpu, f"{name[:-5]} {res[0]}x{res[1]}x8",
+                     f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+
+
+def phase_slice_fire(dev) -> None:
+    """fire.take at 96x56, 8 spp, and fire.scene with a Rectangle lamp
+    beside the emissive cube (the light tree selects between a surface
+    and a volume light) at 64x48, 8 spp, on the card against the plain
+    CPU path (the emissive walk, volume lights in NEE)."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_dict
+
+    for variant, res in (("fire", (96, 56)), ("lamp", (64, 48))):
+        take = _take("fire.take", res, 8)
+        scene = load_scene_dict(fire_root(variant))
+        if (scene.light_tree is not None) != (variant == "lamp"):
+            raise AssertionError(f"fire ({variant}): light tree {scene.light_tree is not None}")
+        t0 = time.perf_counter()
+        card = Driver(take, scene, device=dev).render_frame()
+        t_card = time.perf_counter() - t0
+        torch.set_num_threads(os.cpu_count() or 1)
+        t0 = time.perf_counter()
+        cpu = Driver(take, scene, device="cpu").render_frame()
+        t_cpu = time.perf_counter() - t0
+        _golden_gate(card, cpu, f"{variant} {res[0]}x{res[1]}x8",
                      f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
@@ -801,21 +978,33 @@ def material_state(n, bounces=4, seed=9, max_depth=MATERIAL_DEPTH):
     return general_state(_material("cpu"), o, tgt, bounces, max_depth, split=True)
 
 
-def smoke_state(n, bounces=3, seed=12, max_depth=SMOKE_DEPTH):
-    """A general-body PathState of n lanes on the CPU over smoke.scene:
-    rays from around smoke.take's camera, two thirds at the smoke cube
-    (density grid), the rest anywhere in view, after `bounces` bounces of
-    the body (so that lanes sit inside the smoke, with scatters behind
-    them and a volume depth)."""
+def _medium_state(scene, cube_y, n, bounces, seed, max_depth):
+    """A general-body PathState of n lanes on the CPU over a scene with a
+    medium cube at (0, cube_y, 0): rays from around the camera of
+    smoke.take and fire.take, two thirds at the cube, the rest anywhere in
+    view, after `bounces` bounces of the body."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     o = np.array([0, 1.9, -5.5]) + rng.uniform(-0.3, 0.3, (n, 3))
     tgt = rng.uniform([-5, 0, -2], [5, 3.5, 4], (n, 3))
-    cube = rng.uniform(-1.1, 1.1, (n, 3)) + np.array([0, 1.3, 0])
+    cube = rng.uniform(-1.1, 1.1, (n, 3)) + np.array([0, cube_y, 0])
     tgt = np.where((np.arange(n) % 3 != 0)[:, None], cube, tgt)
-    return general_state(_smoke("cpu"), o, tgt, bounces, max_depth, split=False,
+    return general_state(scene, o, tgt, bounces, max_depth, split=False,
                          max_depth_volume=SMOKE_DEPTH_VOLUME)
+
+
+def fire_state(n, bounces=3, seed=14, max_depth=FIRE_DEPTH, scene=None):
+    """_medium_state over fire.scene (or `scene`): lanes inside the fire,
+    absorbed, scattered and on the floor."""
+    return _medium_state(scene if scene is not None else _fire("cpu"), 1.5, n, bounces, seed,
+                         max_depth)
+
+
+def smoke_state(n, bounces=3, seed=12, max_depth=SMOKE_DEPTH):
+    """_medium_state over smoke.scene: lanes inside the smoke, with
+    scatters behind them and a volume depth."""
+    return _medium_state(_smoke("cpu"), 1.3, n, bounces, seed, max_depth)
 
 
 def general_state(scene, o, tgt, bounces, max_depth, split, max_depth_volume=256):
@@ -857,7 +1046,8 @@ def general_state(scene, o, tgt, bounces, max_depth, split, max_depth_volume=256
 
 def compare_general(r1, r2) -> float:
     """The general body on the card (r1) against the same body on the CPU
-    (r2): lifecycles, the stack and the split slot's integer fields exact,
+    (r2): lifecycles, the stack and the split slot's integer fields (where
+    the scene splits) exact,
     live-lane floats within the CPU test's tolerances against JAX (o 1e-5,
     d 2e-4, throughput 5e-3, mis_n 2e-4; bxdf_pdf 2e-2 off the mirror's
     near-delta lobe). Returns the largest absolute error of o, d."""
@@ -868,7 +1058,7 @@ def compare_general(r1, r2) -> float:
                  "rays"):
         if not torch.equal(getattr(r1, name), getattr(r2, name)):
             raise AssertionError(f"general body: {name} differs between card and CPU")
-    for k in ("pending", "depth", "medium", "vol_key", "run_seed"):
+    for k in ("pending", "depth", "medium", "vol_key", "run_seed") if r1.split else ():
         if not torch.equal(r1.split[k], r2.split[k]):
             raise AssertionError(f"general body: split.{k} differs between card and CPU")
     if not torch.equal(r1.sobol.run_seed, r2.sobol.run_seed):
@@ -1792,21 +1982,32 @@ def flush_share(driver, spp: int) -> tuple[float, float]:
     return sum(full) / (len(full) * width), sum(f for f, _ in calls) / sum(w for _, w in calls)
 
 
-def _cli_run(take_name: str, kernels) -> dict:
-    """The user's entry point at the take's own size; returns its kernel
-    launch counts."""
+def _cli_run(take_name: str, kernels, spp: int | None = None) -> dict:
+    """The user's entry point at the take's own size (with spp: on a copy
+    of the take with that many samples a pixel, written to a temporary
+    directory); returns its kernel launch counts."""
     import torch
     from zyg_tpu_torch import cli, ops
 
     ops.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "out.png")
-        rc = cli.main(["-i", os.path.join(REPO, "examples/takes", take_name), "-o", png, "-s"])
+        take_path = os.path.join(REPO, "examples/takes", take_name)
+        if spp is not None:
+            with open(take_path) as f:
+                body = json.load(f)
+            body["scene"] = os.path.normpath(os.path.join(os.path.dirname(take_path),
+                                                          body["scene"]))
+            body["sampler"]["Sobol"]["samples_per_pixel"] = spp
+            take_path = os.path.join(tmp, take_name)
+            with open(take_path, "w") as f:
+                json.dump(body, f)
+        rc = cli.main(["-i", take_path, "-o", png, "-s"])
         torch.cuda.synchronize()
         if rc != 0 or os.path.getsize(png) < 1000:
             raise AssertionError(f"cli {take_name}: no image written")
     launches = ops.launch_counts()
-    log(f"main path (cli {take_name}) launches: {launches}")
+    log(f"main path (cli {take_name}{f' at {spp} spp' if spp else ''}) launches: {launches}")
     for name in kernels:
         if launches[name] <= 0:
             raise AssertionError(f"main path {take_name} never launched the {name} kernel")
@@ -1872,8 +2073,9 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
     full, mean = flush_share(driver, spp)
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"{label} [{card}]: peak device memory of one render {peak} B ({peak / 2**30:.3f} GiB); "
-        f"glue launches per render {glue}; flushes finish {full:.4f} of the lanes of a full-width "
-        f"launch, {mean:.4f} over all launches")
+        f"glue launches per render {glue} ({glue / max(best['all_iterations'], 1):.0f} an "
+        f"iteration); flushes finish {full:.4f} of the lanes of a full-width launch, {mean:.4f} "
+        f"over all launches")
     if lanes_of == "general":
         log(f"{label} [{card}]: {general_profile(driver, spp)}")
     elif lanes_of:
@@ -1946,8 +2148,9 @@ def main() -> int:
     phase_slice_tree(dev)
     phase_slice_material(dev)
     phase_slice_smoke(dev)
-    # launches: the CLI runs of the Cornell, trefoil, sunsky, material and
-    # smoke paths and one render of the textured path
+    phase_slice_fire(dev)
+    # launches: the CLI runs of the Cornell, trefoil, sunsky, material,
+    # smoke and fire paths and one render of the textured path
     launches = {k: 0 for k in SOURCES}
     for take_name, label, res, spp, kernels in (
             ("cornell_ptmis.take", "Cornell PTMIS", (1920, 1080), 16, CORNELL_KERNELS),
@@ -1978,6 +2181,13 @@ def main() -> int:
         launches[k] += smoke_cli[k]
     take, scene = _take_scene("smoke.take", SMOKE_RES, SMOKE_SPP, "smoke PTMIS")
     smoke = phase_main_path(dev, card, "smoke PTMIS", take, scene, SMOKE_KERNELS)
+    # fire.take's own 64 spp through the CLI would take ~70-120 s, as smoke's
+    # does: the CLI renders a copy of the take at 8 spp
+    fire_cli = _cli_run("fire.take", FIRE_KERNELS, spp=FIRE_SPP)
+    for k in launches:
+        launches[k] += fire_cli[k]
+    take, scene = _take_scene("fire.take", FIRE_RES, FIRE_SPP, "fire PTMIS")
+    fire = phase_main_path(dev, card, "fire PTMIS", take, scene, FIRE_KERNELS)
     measure_bounces(dev, card)
 
     def entry(name):
@@ -1985,14 +2195,17 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "launches_of": "cli cornell_ptmis.take + cli trefoil.take + cli sunsky.take "
-                               "+ cli material_test.take + cli smoke.take + one 1280x720 4 spp "
-                               "textured-trefoil render",
+                               "+ cli material_test.take + cli smoke.take + cli fire.take "
+                               "(a copy at 8 spp) + one 1280x720 4 spp textured-trefoil render",
                 "launches_material": material_cli[name],
                 "launches_smoke_render": smoke[name],
+                "launches_fire_render": fire[name],
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"], "device_ms": c["device_ms"],
                 "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                "library_ms": c["library_ms"]}
+                "library_ms": c["library_ms"],
+                # the emissive variant of the walk (fire grey and spectral)
+                **({"emissive": c["emissive"]} if "emissive" in c else {})}
 
     print(json.dumps({"kernels": [entry(k) for k in SOURCES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,9 @@ persistent kernels (shade, surface, surface_v2, traverse) at the launch
 shapes their grid-stride and ray-fetch loops must get right, sobol_block
 and the per-pixel flush at small widths, isect on material_test's tables,
 and the general body (torch around isect and sobol_block) on the card
-against the CPU at 0, 1, 31 and 129 lanes. Skipped without a card. This file
+against the CPU at 0, 1, 31 and 129 lanes; the tracking walks, with the
+interaction walk's emissive variant on the fire path's lanes, and the
+general body over fire.scene. Skipped without a card. This file
 imports no jax, so it also runs on a machine without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -390,3 +392,96 @@ def _to_cpu(x):
     if isinstance(x, tuple):
         return tuple(_to_cpu(v) for v in x)
     return x
+
+
+@pytest.fixture(scope="module")
+def fire_walk_inputs(cuda_device):
+    """The emissive walk's glue inputs at the fire path's 518,400 lanes,
+    grey (fire.scene) and spectral (its non-grey copy)."""
+    import chip_smoke
+
+    return {v: chip_smoke._fire_walk_inputs(cuda_device, v) for v in ("fire", "spectral")}
+
+
+def _emissive_case(inputs, case):
+    """(kernel args, plain args) of the emissive walk cut to a case: n
+    lanes from the image's middle row on; "all absorbed": 4,096 lanes that
+    the plain walk absorbs;
+    "nan": one walking lane whose direction is NaN (its plain walk on the
+    CPU)."""
+    arena, props, lanes, coef, grey, e_med = inputs
+    n = lanes["grid"].shape[0]
+    if case == "all absorbed":
+        from zyg_tpu_torch.ops import track
+
+        absorbed = track.track_interaction_plain(arena, props, lanes, coef, grey, e_med=e_med)[3]
+        idx = torch.nonzero(absorbed).squeeze(1)[:4096]
+    elif case == "nan":
+        idx = torch.nonzero(lanes["grid"] >= 0).squeeze(1)[:1]
+    else:  # from the middle row of the image down, through the fire
+        start = n // 2
+        idx = torch.arange(start, start + min(case, n - start), device=e_med.device)
+    cut = {k: v[idx].contiguous() for k, v in lanes.items()}
+    if case == "nan":
+        for k in ("d", "ld", "inv"):
+            cut[k][0] = float("nan")
+    args = (arena, props, cut, {k: v[idx].contiguous() for k, v in coef.items()}, grey,
+            e_med[idx].contiguous())
+    if case != "nan":
+        return args, args
+    return args, tuple(_to_cpu(x) for x in args)
+
+
+@pytest.mark.parametrize("variant", ["fire", "spectral"])
+@pytest.mark.parametrize("case", [0, 1, 4096, "all absorbed", "nan"])
+def test_emissive_track_launch_shapes(cuda_device, fire_walk_inputs, variant, case):
+    """track_interaction's emissive variant against its plain version at
+    0, 1 and 4,096 of the fire path's lanes, on 4,096 lanes that all end
+    in an absorption (each collects emission), and on a lane whose
+    direction is NaN, which must stop at the step cap with no emission:
+    t, w, decisions and emission bit-exact."""
+    from zyg_tpu_torch.ops import track
+
+    args, plain_args = _emissive_case(fire_walk_inputs[variant], case)
+    k = track.track_interaction(*args[:5], e_med=args[5])
+    stats = {}
+    p = track.track_interaction_plain(*plain_args[:5], stats=stats, e_med=plain_args[5])
+    torch.cuda.synchronize()
+    assert len(k) == len(p) == 5
+    for a, b in zip(k, p):
+        b = b.to(a.device)
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b) or (a.dtype != torch.bool
+                                     and torch.equal(a.isnan(), b.isnan())
+                                     and torch.equal(a[~a.isnan()], b[~b.isnan()]))
+    if case == 4096:
+        assert int((args[2]["grid"] >= 0).sum()) > 1000 and bool(k[2].any())
+    if case == "all absorbed":
+        assert bool(k[3].all()) and bool((k[4].amax(-1) > 0).all())
+    if case == "nan":
+        assert stats["iterations"] == track.MAX_STEPS and not bool(k[4].any())
+
+
+def test_fire_body_on_card_matches_cpu(cuda_device):
+    """The general body over fire.scene (the emissive walk, volume lights in
+    NEE, the xi3 draw) on the card against the CPU on 1,024 lanes after
+    two bounces: lifecycles exact, floats within compare_general's
+    tolerances, the emitted and indirect radiance within 1e-3 and the
+    direct within 1e-2 (relative, |a - b| / (|b| + 1e-3): NEE through the
+    fire multiplies a shadow walk's ratio estimate, which moves where the
+    card's and the CPU's log round apart; the CPU test's tolerance)."""
+    import chip_smoke
+    from zyg_tpu_torch.render.integrator import ptmis
+
+    s = chip_smoke.fire_state(1024, 2, seed=15)
+    settings = ptmis.PtmisSettings(max_depth=chip_smoke.FIRE_DEPTH,
+                                   max_depth_volume=chip_smoke.SMOKE_DEPTH_VOLUME)
+    r1 = ptmis._make_body(chip_smoke._fire(cuda_device), settings)(
+        chip_smoke.to_device(s, cuda_device))
+    r2 = ptmis._make_body(chip_smoke._fire("cpu"), settings)(s)
+    torch.cuda.synchronize()
+    chip_smoke.compare_general(r1, r2)
+    for c, tol in (("emission", 1e-3), ("indirect", 1e-3), ("direct", 1e-2)):
+        a, b = getattr(r1.result, c).cpu().double(), getattr(r2.result, c).double()
+        assert float(((a - b).abs() / (b.abs() + 1e-3)).max()) < tol, c
+    assert float(r2.result.direct.sum()) > 0.0

@@ -133,8 +133,9 @@ def _glass_root(glass=None, extra_entities=(), extra_materials=()):
 @pytest.mark.parametrize("root, match", [
     (_glass_root({"ior": 1.5, "abbe": 40.0}), "dispersive glass"),
     (_glass_root(extra_materials=[{"name": "v", "rendering": {"Volumetric": {
-        "emittance": {"value": 2.0}}}}],
-                 extra_entities=[{"type": "Prop", "shape": {"type": "Cube"}, "materials": ["v"]}]),
+        "attenuation_distance": 1.0}}}],
+                 extra_entities=[{"type": "Prop", "shape": {"file": "proc:sphere"},
+                                  "materials": ["v"]}]),
      "Volumetric"),
     (_glass_root(extra_materials=[{"name": "h", "rendering": {"Hair": {}}}],
                  extra_entities=[{"type": "Prop", "shape": {"type": "Cube"}, "materials": ["h"]}]),
@@ -215,11 +216,10 @@ def test_hand_off_refuses_jax_features():
     from zyg_tpu_torch.scene.loader import scene_arrays
     from zyg_tpu_torch.scene.types import UnsupportedScene
 
-    vol = jload(_glass_root(extra_materials=[{"name": "v", "rendering": {"Volumetric": {
-        "attenuation_distance": 1.0, "emittance": {"value": 2.0}}}}], extra_entities=[
-            {"type": "Prop", "shape": {"type": "Cube"}, "materials": ["v"]}]))
-    with pytest.raises(UnsupportedScene, match="volumetric"):
-        scene_arrays(vol)
+    dispersive = jload(_glass_root({"ior": 1.5, "abbe": 40.0}))
+    assert "dispersion" in dispersive.mat_features
+    with pytest.raises(UnsupportedScene, match="dispersion"):
+        scene_arrays(dispersive)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,8 @@ against the JAX package.
 
 - Loader: both scenes' arrays equal the JAX loader's, with the density
   grid arena, the volume_props rows and the mat_features gates; each
-  refused feature raises UnsupportedScene naming it (an emissive medium,
-  a density file, a Volumetric material on a mesh prop).
+  refused feature raises UnsupportedScene naming it (an emissive medium
+  on a mesh prop, a density file, a Volumetric material on a mesh prop).
 - total_sphere on smoke.scene's lights (a tree of one finite light and
   the dome), 4,096 seeded lanes, half of them scatter vertices: the
   selection, its pdf and the dome's sample and hit pdfs exact, the
@@ -116,7 +116,8 @@ def _volumetric_root(vol, shape=None):
 
 
 @pytest.mark.parametrize("root, match", [
-    (_volumetric_root({"attenuation_distance": 0.5, "emittance": {"value": 3.0}}),
+    (_volumetric_root({"attenuation_distance": 0.5, "emittance": {"value": 3.0}},
+                      shape={"file": "proc:sphere"}),
      "vol_emission"),
     (_volumetric_root({"attenuation_distance": 0.5, "density_map": {"file": "smoke.npy"}}),
      "density file"),

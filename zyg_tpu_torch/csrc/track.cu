@@ -1,11 +1,13 @@
 // Tracking walks through density grids: decomposition (delta) tracking for
-// distance sampling and residual-ratio tracking for shadow transmittance.
+// distance sampling (with the emission an emissive medium gives off at an
+// analog absorption) and residual-ratio tracking for shadow transmittance.
 //
 // Replaces two XLA while loops of the JAX package (not TPU kernels):
 // zyg_tpu/render/integrator/volume.py:273-382 (sample_interaction's
 // track_stage) and :631-701 (_prop_transmittance's track_stage), with the
 // grid lookups of zyg_tpu/scene/grids.py (_cell_flat, _voxel_fetch,
-// sample_density_stochastic). The plain torch versions, with the same
+// sample_density_stochastic), and the emission collected at an absorption
+// (volume.py:345-370). The plain torch versions, with the same
 // arithmetic, are zyg_tpu_torch/ops/track.py.
 //
 // What bounds it on an H100: a lane reads ~60-100 bytes of inputs and
@@ -20,7 +22,10 @@
 // lanes finish and a long walk holds only its own warp. The voxel is read
 // only at a tentative collision (the plain version reads it on every
 // lane and masks it). Dense arenas compute the page (brick_base + cell);
-// sparse arenas read it from the row's page column.
+// sparse arenas read it from the row's page column. The emission is a
+// template flag (kEmit): a medium that does not emit runs the walk without
+// it, and an emissive one reads its lane's e (12 bytes) only at the
+// absorption that ends the walk and writes 12 bytes of emission a lane.
 //
 // Numerics: built with -fmad=false; fmaf exactly where the plain version
 // (and XLA) fuse: lo + t * ld, o + t * d, the transform's dot products,
@@ -165,17 +170,20 @@ struct InteractionArgs {
   const float *mu_t, *mu_s;  // [N] grey, [N, 3] spectral
   float *t_out, *w_out;
   uint8_t *scat_out, *abs_out;
+  const float* e_med;  // [N, 3] the lane's medium emission (kEmit only)
+  float* emis_out;  // [N, 3] the emission collected at an absorption (kEmit only)
   int64_t n;
   int sparse;
 };
 
-template <bool kGrey>
+template <bool kGrey, bool kEmit>
 __global__ void __launch_bounds__(TRACK_THREADS) track_interaction_kernel(InteractionArgs q) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= q.n) return;
   const int g = q.grid[i];
   float t = 0.0f;
   float w[3] = {1.0f, 1.0f, 1.0f};
+  float em[3] = {0.0f, 0.0f, 0.0f};
   bool scat = false, absb = false;
   if (g >= 0) {
     const TrackArena& a = q.a;
@@ -224,6 +232,7 @@ __global__ void __launch_bounds__(TRACK_THREADS) track_interaction_kernel(Intera
           const float pa = dens * (mt[0] - ms[0]) / mu_s;
           scat_now = u2 < ps;
           abs_now = !scat_now && (u2 < ps + pa);
+          if (kEmit && abs_now) load3(q.e_med, i, em);
         } else {
           float mtx[3], msx[3], max_[3];
           for (int j = 0; j < 3; ++j) {
@@ -236,6 +245,13 @@ __global__ void __launch_bounds__(TRACK_THREADS) track_interaction_kernel(Intera
           const float pn = nmax(1.0f - ps - pa, 1e-7f);
           scat_now = u2 < ps;
           abs_now = !scat_now && (u2 < ps + pa);
+          if (kEmit && abs_now) {
+            // w * mu_a(x) / (mu_maj * pa) * e, with the weight before the kill
+            float e[3];
+            load3(q.e_med, i, e);
+            const float apdf = nmax(mu_s * pa, 1e-20f);
+            for (int j = 0; j < 3; ++j) em[j] = (w[j] * (max_[j] / apdf)) * e[j];
+          }
           for (int j = 0; j < 3; ++j) {
             if (scat_now)
               w[j] = w[j] * (msx[j] / nmax(mu_s * ps, 1e-20f));
@@ -261,6 +277,9 @@ __global__ void __launch_bounds__(TRACK_THREADS) track_interaction_kernel(Intera
   }
   q.scat_out[i] = scat;
   q.abs_out[i] = absb;
+  if (kEmit) {
+    for (int j = 0; j < 3; ++j) q.emis_out[3 * i + j] = em[j];
+  }
 }
 
 struct TransmittanceArgs {
@@ -349,8 +368,10 @@ static TrackArena arena_of(void** p) {
 }
 
 // ptrs: the arena and prop tables (9), then lo, ld, inv, seg, mu_t_max,
-// grid, eps, o, d, mp, key, mu_t, mu_s, then t, w, scatter, absorb
-extern "C" int zyg_track_interaction(void** ptrs, int grey, int sparse, int64_t n, void* stream) {
+// grid, eps, o, d, mp, key, mu_t, mu_s, then t, w, scatter, absorb, then
+// e_med and the emission (null unless emit)
+extern "C" int zyg_track_interaction(void** ptrs, int grey, int sparse, int emit, int64_t n,
+                                     void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   InteractionArgs q;
   q.a = arena_of(ptrs);
@@ -372,13 +393,21 @@ extern "C" int zyg_track_interaction(void** ptrs, int grey, int sparse, int64_t 
   q.w_out = (float*)l[14];
   q.scat_out = (uint8_t*)l[15];
   q.abs_out = (uint8_t*)l[16];
+  q.e_med = (const float*)l[17];
+  q.emis_out = (float*)l[18];
   q.n = n;
   q.sparse = sparse;
+  if (emit && (q.e_med == nullptr || q.emis_out == nullptr)) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + TRACK_THREADS - 1) / TRACK_THREADS);
-  if (grey)
-    track_interaction_kernel<true><<<blocks, TRACK_THREADS, 0, (cudaStream_t)stream>>>(q);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (grey && emit)
+    track_interaction_kernel<true, true><<<blocks, TRACK_THREADS, 0, st>>>(q);
+  else if (grey)
+    track_interaction_kernel<true, false><<<blocks, TRACK_THREADS, 0, st>>>(q);
+  else if (emit)
+    track_interaction_kernel<false, true><<<blocks, TRACK_THREADS, 0, st>>>(q);
   else
-    track_interaction_kernel<false><<<blocks, TRACK_THREADS, 0, (cudaStream_t)stream>>>(q);
+    track_interaction_kernel<false, false><<<blocks, TRACK_THREADS, 0, st>>>(q);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for the renderer's hot ops, and their loader.
 
 Every kernel lives in `zyg_tpu_torch/csrc/*.cu` with a plain C entry point.
-At first use all sources are compiled by `nvcc` into ONE shared library
-under `zyg_tpu_torch/_build/` (keyed by a hash of the sources and flags, so
-a rebuilt checkout never loads a stale library) and bound with `ctypes`.
+At first use each source is compiled by its own `nvcc` process, all of
+them at once, and the objects are linked into ONE shared library under
+`zyg_tpu_torch/_build/` (keyed by a hash of the sources and flags, so a
+rebuilt checkout never loads a stale library), bound with `ctypes`.
 
 Each op module keeps a plain PyTorch version beside its kernel. The op's
 wrapper takes the plain version only for tensors on the CPU; for a CUDA
@@ -31,7 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-prec-sqrt=true", "-Xptxas", "-v"]
 
 _lib = None
@@ -71,11 +72,24 @@ def library() -> ctypes.CDLL:
     log = BUILD_DIR / (so.stem + ".ptxas.txt")
     if not so.exists():
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        log.write_text(res.stdout + res.stderr)
+        objs = [BUILD_DIR / f"{so.stem}.{src.stem}.{os.getpid()}.o" for src in _sources()]
+        # one compiler a source, all running together
+        procs = [subprocess.Popen([_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(_sources(), objs)]
+        outs = [(src, p.communicate()[0], p.returncode) for src, p in zip(_sources(), procs)]
+        failed = [f"{src.name} ({rc}):\n{out}" for src, out, rc in outs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n"
+                               f"{link.stderr}")
+        for obj in objs:
+            obj.unlink()
+        log.write_text("".join(out for _, out, _ in outs))
         os.replace(tmp, so)
     _lib = ctypes.CDLL(str(so))
     build_info.update(

@@ -11,7 +11,11 @@ empty cells around it when its majorant is zero) or reads the density at
 the tentative collision by one jittered voxel read. `track_interaction`
 then classifies the collision as a scatter, an absorption or a null
 event (grey media: analog, weight 1; spectral media: max-blended
-probabilities with the null and scatter weights); `track_transmittance`
+probabilities with the null and scatter weights). In an emissive medium
+it also returns the emission collected at an analog absorption (ref
+tracking.zig trackingEmission; zyg_tpu/render/integrator/volume.py:345-370):
+the medium's emission e on grey media, w * mu_a(x) / (mu_maj * pa) * e
+with the weight from before the kill on spectral ones. `track_transmittance`
 multiplies the ratio of the residual density over the residual majorant
 and integrates the cell minorant in closed form (tau). The key is
 re-hashed after every step. A walk stops when it leaves its segment,
@@ -45,7 +49,7 @@ MAX_STEPS = 16384  # the walks' step cap
 _INTERACTION = register(
     "track_interaction",
     "zyg_track_interaction",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
 )
 _TRANSMITTANCE = register(
     "track_transmittance",
@@ -98,8 +102,11 @@ def _cell_exit(t, skip_r, lo, ld, inv, sdims, eps):
 
 
 def _mean3(x):
-    """jnp.mean over a last axis of 3: the sum in order, then / 3."""
-    return (x[:, 0] + x[:, 1] + x[:, 2]) / 3.0
+    """jnp.mean over a last axis of 3: the sum in order, then / 3. The 3 is
+    a tensor on x's device: torch divides a CUDA tensor by a Python scalar
+    as a multiplication by its reciprocal, the kernel (and the CPU)
+    divide."""
+    return (x[:, 0] + x[:, 1] + x[:, 2]) / torch.tensor(3.0, device=x.device)
 
 
 def _flight(t, u1, mu):
@@ -115,12 +122,14 @@ def _count(stats, live, collide):
 
 
 def track_interaction_plain(arena: GridArena, props, lanes: dict, coef: dict, grey: bool,
-                            stats: dict | None = None):
+                            stats: dict | None = None, e_med=None):
     """Plain torch version of the decomposition-tracking walk: each step
     runs on the lanes that are not done. props: (prop_rot, prop_pos,
     prop_scale) of the scene; lanes: INTERACTION_LANES (grid < 0: a lane
     that does not walk); coef: mu_t1, mu_s1 [N] (grey) or mu_t, mu_s
-    [N, 3]. Returns (t, w ([N] grey, [N, 3] spectral), scatter, absorb).
+    [N, 3]. Returns (t, w ([N] grey, [N, 3] spectral), scatter, absorb),
+    and with e_med ([N, 3], the emission of each lane's medium) a fifth
+    result, the emission [N, 3] collected at an absorption (0 elsewhere).
     stats (a dict, optional) gains the lane-steps walked ("steps"), the
     tentative collisions among them ("collisions") and the steps of the
     longest walk ("iterations")."""
@@ -132,6 +141,7 @@ def track_interaction_plain(arena: GridArena, props, lanes: dict, coef: dict, gr
     w = torch.ones((n,) if grey else (n, 3), dtype=torch.float32, device=dev)
     scat = torch.zeros(n, dtype=torch.bool, device=dev)
     absb = torch.zeros(n, dtype=torch.bool, device=dev)
+    emis = None if e_med is None else torch.zeros((n, 3), dtype=torch.float32, device=dev)
     key = u32(lanes["key"])
     live = torch.nonzero(grid >= 0).squeeze(1)
     it = 0
@@ -166,6 +176,8 @@ def track_interaction_plain(arena: GridArena, props, lanes: dict, coef: dict, gr
             pa = dens * (mt1 - ms1) / mu_s
             scat_now = collide & (u2 < ps)
             abs_now = collide & ~scat_now & (u2 < ps + pa)
+            if emis is not None:
+                emis[live] = torch.where(abs_now[:, None], e_med[live], emis[live])
         else:
             mt, ms = coef["mu_t"][live], coef["mu_s"][live]
             mu_t_x = dens[:, None] * mt
@@ -179,6 +191,10 @@ def track_interaction_plain(arena: GridArena, props, lanes: dict, coef: dict, gr
             w_scat = mu_s_x / torch.clamp(mu_s * ps, min=1e-20)[:, None]
             w_null = (mu_s[:, None] - mu_t_x) / (mu_s * pn)[:, None]
             wl = w[live]
+            if emis is not None:
+                # the weight from before the kill
+                w_abs = mu_a_x / torch.clamp(mu_s * pa, min=1e-20)[:, None]
+                emis[live] = torch.where(abs_now[:, None], wl * w_abs * e_med[live], emis[live])
             wl = torch.where(scat_now[:, None], wl * w_scat,
                              torch.where(abs_now[:, None], 0.0,
                                          torch.where(collide[:, None], wl * w_null, wl)))
@@ -189,7 +205,7 @@ def track_interaction_plain(arena: GridArena, props, lanes: dict, coef: dict, gr
         key[live] = hash_u32(kl ^ 0x9E3779B9)
         live = live[~(exited | scat_now | abs_now)]
         it += 1
-    return t, w, scat, absb
+    return (t, w, scat, absb) if emis is None else (t, w, scat, absb, emis)
 
 
 def track_transmittance_plain(arena: GridArena, props, prop: int, grid: int, consts,
@@ -295,13 +311,13 @@ def _arena_ptrs(arena: GridArena, props, dev, kind: str) -> list:
             rot_t.data_ptr(), pos_t.data_ptr(), scale_t.data_ptr()]
 
 
-def track_interaction(arena: GridArena, props, lanes: dict, coef: dict, grey: bool):
+def track_interaction(arena: GridArena, props, lanes: dict, coef: dict, grey: bool, e_med=None):
     """The decomposition-tracking walk (see track_interaction_plain for
     the arguments and results): the plain version for CPU tensors, the
-    kernel for CUDA tensors."""
+    kernel for CUDA tensors (its emissive variant where e_med is given)."""
     grid = lanes["grid"]
     if grid.device.type == "cpu":
-        return track_interaction_plain(arena, props, lanes, coef, grey)
+        return track_interaction_plain(arena, props, lanes, coef, grey, e_med=e_med)
     dev = grid.device
     n = grid.shape[0]
     ptrs = _arena_ptrs(arena, props, dev, "track_interaction")
@@ -315,10 +331,18 @@ def track_interaction(arena: GridArena, props, lanes: dict, coef: dict, grey: bo
     scat = torch.empty(n, dtype=torch.bool, device=dev)
     absb = torch.empty(n, dtype=torch.bool, device=dev)
     ptrs += [t.data_ptr(), w.data_ptr(), scat.data_ptr(), absb.data_ptr()]
+    emis = None
+    if e_med is not None:
+        check_cuda("track_interaction.e_med", e_med, torch.float32, dev, (n, 3))
+        emis = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        ptrs += [e_med.data_ptr(), emis.data_ptr()]
+    else:
+        ptrs += [None, None]
     if n > 0:
         arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        _INTERACTION(arr, int(grey), int(arena.sparse), n, stream_handle(dev))
-    return t, w, scat, absb
+        _INTERACTION(arr, int(grey), int(arena.sparse), int(emis is not None), n,
+                     stream_handle(dev))
+    return (t, w, scat, absb) if emis is None else (t, w, scat, absb, emis)
 
 
 def track_transmittance(arena: GridArena, props, prop: int, grid: int, consts, lanes: dict,

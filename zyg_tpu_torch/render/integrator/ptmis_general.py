@@ -11,29 +11,30 @@ package's general body computes it:
   the hit prop -> material gather -> the volume event along the segment
   inside the enclosing medium (Beer absorption in glass; a scatter, an
   absorption or a pass through a Volumetric medium, by the homogeneous
-  closed form or the tracking kernel, render/integrator/volume.py) ->
-  false interfaces (a lower-priority dielectric inside a higher one) ->
-  the BSDF-hit emission with its MIS weight -> russian roulette -> which
-  glass vertices split -> NEE at the surface or the scatter point (light
-  tree or power CDF, rectangle and dome lights, over the whole sphere at
-  a scatter vertex; the BSDF, or the Henyey-Greenstein phase at a
-  scatter, evaluated with the split's pdf convention; shadow any-hit and
-  the transmittance through the volume props) -> the BSDF or phase
-  sample (substitute, smooth or rough glass, the Volumetric boundary's
-  pass-through; the reflect branch forced on splitting lanes) -> the
-  stack update where a ray crosses a medium boundary -> the refract
-  branch parked in the lane's resume slot.
+  closed form or the tracking kernel, render/integrator/volume.py, with
+  the emission an emissive medium gives off along it) -> false
+  interfaces (a lower-priority dielectric inside a higher one) -> the
+  BSDF-hit emission with its MIS weight, and the segment's volume
+  emission unweighted -> russian roulette -> which glass vertices split
+  -> NEE at the surface or the scatter point (light tree or power CDF,
+  rectangle, dome and volume lights, over the whole sphere at a scatter
+  vertex; the BSDF, or the Henyey-Greenstein phase at a scatter,
+  evaluated with the split's pdf convention; shadow any-hit and the
+  transmittance through the volume props, the emitting one included) ->
+  the BSDF or phase sample (substitute, smooth or rough glass, the
+  Volumetric boundary's pass-through; the reflect branch forced on
+  splitting lanes) -> the stack update where a ray crosses a medium
+  boundary -> the refract branch parked in the lane's resume slot.
 
 The Sobol' draws keep the JAX body's order: u_dist (scenes with media),
-the roulette's r, u_sel and xi_l (scenes with lights), then the 3-D BSDF
+the roulette's r, u_sel and xi_l (scenes with lights), xi3_l (scenes with
+volume lights: the interior point's third dimension), then the 3-D BSDF
 (or phase) sample, then padding. The JAX body decides features at trace
 time (`has_media`, `split_on`, ...); this one decides the same things
 once per render in `__init__` and computes nothing for refused features,
 which `check_general` names: image textures, env-mapped domes and
-Distant lights on this body, emissive media, and material features other
-than glass, rough glass, media, volumetric and spectral media. Emissive
-media are refused at load, so the volume-emission branches of the JAX
-body are absent here.
+Distant lights on this body, and material features other than glass,
+rough glass, media, volumetric, spectral media and emissive media.
 
 Kernels on this path: isect (closest and any hit), traverse (mesh
 scenes), sobol_block (every draw), track (the grid media's walks,
@@ -62,16 +63,13 @@ from .ptmis import IValue, PathState, power_heuristic, predivided_power_heuristi
 _GLASS = int(MaterialKind.GLASS)
 _MEDIUM_KINDS = (int(MaterialKind.GLASS), int(MaterialKind.VOLUMETRIC))
 # the material features this body renders
-_FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media"}
-_LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.DOME)}
+_FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media", "vol_emission"}
+_LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.DOME), ls.VOLUME}
 
 
 def check_general(scene, settings) -> None:
     """Raise UnsupportedScene naming the first feature of the scene that the
     general body does not render."""
-    if "vol_emission" in scene.mat_features:
-        raise UnsupportedScene("emissive media (vol_emission: volume lights and absorption "
-                               "emission)")
     extra = set(scene.mat_features) - _FEATURES
     if extra:
         raise UnsupportedScene(f"material features {sorted(extra)}")
@@ -127,6 +125,8 @@ class GeneralBody:
         self.has_lights = scene.lights.count > 0
         self.split_on = split_enabled(scene, settings)
         self.present = ls.light_shapes(scene) if self.has_lights else set()
+        # volume lights draw a third NEE dimension (xi3_l)
+        self.vol_lights = ls.VOLUME in self.present
         self.refl, self.shadow = prop_table(scene, "reflection"), prop_table(scene, "shadow")
         kinds = scene.materials.kind
         self.mat_medium = (kinds == _MEDIUM_KINDS[0]) | (kinds == _MEDIUM_KINDS[1])
@@ -209,6 +209,11 @@ class GeneralBody:
             mis_w = torch.ones_like(hit.t)
         contrib = torch.where(s.alive[:, None], sw * throughput0 * mis_w[:, None] * emission, 0.0)
         result = _add(s.result, contrib, s.depth, 2, primary, s.singular)
+        if self.scatters and ev.emission is not None:
+            # the volume emission gathered along this segment, unweighted
+            # (ref pathtracer_mis: the Absorb event's li)
+            vol_c = torch.where(s.alive[:, None], sw * s.throughput * ev.emission, 0.0)
+            result = _add(result, vol_c, s.depth, 2, primary, s.singular)
 
         cont = (s.alive & (finite_hit | scatter) & ~absorbed & (s.depth < cfg.max_depth)
                 & (s.vol_depth < cfg.max_depth_volume))
@@ -240,13 +245,17 @@ class GeneralBody:
         if self.has_lights:
             u_sel = smp.sample_1d()
             xi_l = smp.sample_2d()
+            xi3_l = smp.sample_1d() if self.vol_lights else None
             ts = scatter if self.scatters else None
             nee_p = torch.where(scatter[:, None], p_scatter, frag.p) if self.scatters else frag.p
             can_nee = cont & (scatter | M.can_evaluate(params)) & ~false_if
             light_idx, sel_pdf = ls.select_light(scene, u_sel, p=nee_p, n=frag.n, total_sphere=ts)
             lsmp = ls.sample_light(scene, self.present, light_idx, nee_p, frag.geo_n, xi_l,
-                                   total_sphere=ts)
-            radiance = ls.light_radiance(scene, light_idx, lsmp.wi, lsmp.light_n, lsmp.uv)
+                                   total_sphere=ts, xi3=xi3_l)
+            # a volume light's lanes radiate from their interior point (its
+            # light_n is 0: the shadow ray's end takes no offset)
+            radiance = ls.light_radiance(scene, light_idx, lsmp.wi, lsmp.light_n, lsmp.uv,
+                                         vol=(lsmp.vol_mask, lsmp.vol_radiance))
             f, bpdf = M.eval_bsdf(params, wo, lsmp.wi, frag.n, frag.geo_n, glass_split=will_split)
             if self.scatters:
                 # a scatter vertex evaluates the phase function instead

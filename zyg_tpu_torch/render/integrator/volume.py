@@ -15,13 +15,16 @@ homogeneous closed form driven by a Sobol' uniform (scatter or pass,
 with its weight; a glass interior only absorbs), and for a medium with a
 density grid the decomposition-tracking walk of ops/track.py against the
 supergrid's local majorants, whose stream is the lane's counter-hash key.
+Where a Volumetric material emits (the "vol_emission" feature) it also
+returns the emission gathered along the segment: the closed form
+e mu_a (1 - exp(-mu_t seg)) / mu_t in a homogeneous medium, the walk's
+estimate at an analog absorption in a grid medium.
 `transmittance` multiplies, for every volume prop a shadow ray crosses,
 the Beer term of a homogeneous prop or the residual-ratio estimate of a
 grid prop (ops/track.py, one launch a prop, the key salted by the prop).
 A grid lives in the unit cube of its prop's object space (uvw = local +
 0.5); the chord through a Cube or a Sphere prop is exact, and a
-Volumetric material on a mesh prop is refused at load. Emissive media
-(the JAX package's vol_emission) are refused at load too.
+Volumetric material on a mesh prop is refused at load.
 
 Rounding follows XLA on the CPU as the rest of the port does: a multiply
 feeding an add is one fused multiply-add, and a division by a prop's
@@ -129,6 +132,9 @@ class VolumeEvent:
     absorb: torch.Tensor  # bool[N] analog absorption (kills the lane; grid media only)
     p: torch.Tensor  # [N, 3] the scatter position
     weight: torch.Tensor  # [N, 3] throughput multiplier (scatter or pass)
+    # [N, 3] emission gathered along the segment (ref tracking.zig
+    # trackingEmission); None unless a Volumetric material emits
+    emission: torch.Tensor = None
 
 
 def grey_media(scene) -> bool:
@@ -160,7 +166,7 @@ def _props(scene):
 
 def sample_interaction(scene, medium_prop, o, d, seg_t, u_dist, vol_key, vol_depth=None):
     """Distance sampling through the enclosing medium prop over [0, seg_t]
-    (zyg_tpu/render/integrator/volume.py:161-461 without emission).
+    (zyg_tpu/render/integrator/volume.py:161-461).
 
     u_dist: the Sobol' uniform of the homogeneous closed form; vol_key:
     int32[N] u32 bits, the grid walk's key; vol_depth: the lanes' volume
@@ -173,6 +179,12 @@ def sample_interaction(scene, medium_prop, o, d, seg_t, u_dist, vol_key, vol_dep
     med_mat = medium_material(scene, medium_prop)
     mu_t, mu_s, _ = mat.medium_coefficients(scene.materials, med_mat, vol_depth=vol_depth)
     seg = torch.clamp(seg_t, max=3.0e37)
+    # emissive media: e is the enclosing Volumetric material's emission
+    emissive = "vol_emission" in scene.mat_features
+    if emissive:
+        e_med = scene.materials.emission[torch.clamp(med_mat, min=0).long()]
+        e_med = torch.where((med_mat >= 0)[:, None], e_med, 0.0)
+        mu_a = torch.clamp(mu_t - mu_s, min=0.0)
 
     # ---- homogeneous analog decomposition (closed form, QMC-driven)
     mu_t_bar = track._mean3(mu_t)
@@ -184,8 +196,15 @@ def sample_interaction(scene, medium_prop, o, d, seg_t, u_dist, vol_key, vol_dep
     pdf_pass = torch.where(scattering, torch.exp(-mu_t_bar * seg), 1.0)
     w_pass = torch.exp(-mu_t * seg[:, None]) / torch.clamp(pdf_pass, min=1e-20)[:, None]
     h_w = torch.where(h_scatter[:, None], w_scatter, w_pass)
+    h_emis = None
+    if emissive:
+        # the emission source term over the segment in closed form,
+        # int_0^seg e mu_a exp(-mu_t s) ds (the scatter sampling estimates
+        # only the in-scattering): JAX's operation order, exp and not expm1
+        h_emis = (e_med * mu_a * (1.0 - torch.exp(-mu_t * seg[:, None]))
+                  / torch.clamp(mu_t, min=1e-12))
     if scene.grids is None:
-        return VolumeEvent(h_scatter, zeros_b, fma(t_free[:, None], d, o), h_w)
+        return VolumeEvent(h_scatter, zeros_b, fma(t_free[:, None], d, o), h_w, h_emis)
 
     # ---- heterogeneous: decomposition tracking against the local majorants
     grid = _medium_grid(scene, medium_prop)
@@ -213,8 +232,9 @@ def sample_interaction(scene, medium_prop, o, d, seg_t, u_dist, vol_key, vol_dep
         coef = {"mu_t1": mu_t[:, 0].contiguous(), "mu_s1": mu_s[:, 0].contiguous()}
     else:
         coef = {"mu_t": mu_t, "mu_s": mu_s}
-    t_h, w_h, scat_h, abs_h = track.track_interaction(scene.grids, _props(scene), lanes, coef,
-                                                      grey)
+    walk = track.track_interaction(scene.grids, _props(scene), lanes, coef, grey,
+                                   e_med=e_med.contiguous() if emissive else None)
+    t_h, w_h, scat_h, abs_h = walk[:4]
     if grey:
         # analog grey weights are 1 everywhere but the absorption kill
         w_h = torch.where(abs_h, 0.0, 1.0)[:, None]
@@ -224,6 +244,7 @@ def sample_interaction(scene, medium_prop, o, d, seg_t, u_dist, vol_key, vol_dep
         absorb=hetero & abs_h,
         p=fma(t_ev[:, None], d, o),
         weight=torch.where(hetero[:, None], w_h, h_w),
+        emission=torch.where(hetero[:, None], walk[4], h_emis) if emissive else None,
     )
 
 

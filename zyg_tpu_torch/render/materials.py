@@ -9,11 +9,12 @@ forcing, :1134 `can_evaluate`, :1148-1247 the medium coefficients, the
 Henyey-Greenstein phase and russian roulette).
 
 The general bounce's functions take the scene's material features (a
-set: "glass", "rough_glass", "media", "volumetric", "spectral_media") in
-params["features"] and compute only what those features need, as the
-JAX package compiles the rest away; the port refuses every other feature
-(coatings, translucency, flakes, anisotropy, hair, dispersion, emissive
-media). Fused kernels
+set: "glass", "rough_glass", "media", "volumetric", "spectral_media",
+"vol_emission") in params["features"] and compute only what those
+features need, as the JAX package compiles the rest away (a Volumetric
+material emits inside its medium, never at its boundary: eval_radiance);
+the port refuses every other feature (coatings, translucency, flakes,
+anisotropy, hair, dispersion). Fused kernels
 keep their own component-form copies of the substitute BSDF
 (ops/shade.py), held against the JAX kernel bodies.
 

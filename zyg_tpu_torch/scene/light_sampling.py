@@ -1,9 +1,10 @@
-"""Next-event estimation for rectangle, dome and distant lights: light
-selection, per-shape sampling, emitted radiance and the hit-side pdfs for
-MIS (counterpart of zyg_tpu/scene/light_sampling.py:62-98 selection by
-the power CDF or the light tree, :248-271 rectangle, :336-352 distant,
-:360-369 dome, :472-488 env map, :580-636 light_radiance, :660-665,
-:683-686, :690-692, :731-737 light_hit_pdf).
+"""Next-event estimation for rectangle, dome, distant and volume lights:
+light selection, per-shape sampling, emitted radiance and the hit-side
+pdfs for MIS (counterpart of zyg_tpu/scene/light_sampling.py:62-98
+selection by the power CDF or the light tree, :248-271 rectangle,
+:336-352 distant, :360-369 dome, :472-488 env map, :490-541 volume,
+:580-636 light_radiance, :660-665, :683-686, :690-692, :731-752
+light_hit_pdf).
 
 A scene with a light tree (two or more lights, one of them finite;
 scene/light_tree.py) selects by the tree's descent at the shading point
@@ -13,12 +14,15 @@ Canopy lights and portals, and the Driver refuses scenes whose light tree
 would split NEE (the JAX package's select_split / pdf_split, not ported).
 
 Only the light shapes present in the scene are evaluated: `present` is the
-set of their ShapeType codes (`light_shapes`, read once per render, the
-JAX package's static `scene.light_shapes`). Rectangles use the Urena
-spherical-rectangle helpers of ops/shade.py; a dome samples the
-hemisphere around the normal uniformly, or its emission map through the
-scene's env sampler when it has one; a distant light (the sun) samples
-its cone by a concentric disk.
+set of their ShapeType codes, with "volume" for the volume lights
+(`light_shapes`, read once per render, the JAX package's static
+`scene.light_shapes`). Rectangles use the Urena spherical-rectangle
+helpers of ops/shade.py; a dome samples the hemisphere around the normal
+uniformly, or its emission map through the scene's env sampler when it
+has one; a distant light (the sun) samples its cone by a concentric disk;
+a volume light (an emissive Volumetric Cube) samples a point inside it,
+by its density grid's Distribution3D where it has one (a third uniform,
+xi3), and radiates mu_a * e * density there toward every direction.
 
 Arithmetic follows the JAX package's jitted bounces on the CPU: a multiply
 feeding an add is one fused multiply-add (core/fmath.py, core/vecmath.py).
@@ -34,8 +38,10 @@ import torch
 from ..core import vecmath as vm
 from ..core.fmath import fma, sqrt
 from ..ops.shade import _onb, _sphquad_init, _sphquad_pdf, _sphquad_sample
+from ..render.materials import medium_coefficients
 from . import env_sampling
 from . import light_tree as lt
+from .grids import sample_density_trilinear
 from .shapes import select_by_shape as _sel
 from .textures import sample_bilinear
 from .types import RAY_MAX_T, ShapeType
@@ -45,9 +51,15 @@ _DIST = int(ShapeType.DISTANT)
 _DOME = int(ShapeType.DOME)
 
 
-def light_shapes(scene) -> set[int]:
-    """ShapeType codes of the scene's lights."""
-    return {int(s) for s in scene.prop_shape[scene.lights.prop.long()].tolist()}
+VOLUME = "volume"  # light_shapes' key of the volume lights
+
+
+def light_shapes(scene) -> set:
+    """ShapeType codes of the scene's surface lights, and VOLUME when it has
+    volume lights (keyed apart from their Cube shape)."""
+    vol = scene.lights.volume.tolist()
+    shapes = scene.prop_shape[scene.lights.prop.long()].tolist()
+    return {int(s) for s, v in zip(shapes, vol) if not v} | ({VOLUME} if any(vol) else set())
 
 
 @dataclass
@@ -59,6 +71,11 @@ class LightSample:
     t_max: torch.Tensor  # [N] distance to the light (RAY_MAX_T if infinite)
     infinite: torch.Tensor  # bool[N]
     uv: torch.Tensor  # [N, 2] texture uv of the sampled point
+    # volume lights: the lanes whose light is one, and the radiance
+    # mu_a * e * density at the sampled interior point (light_radiance's
+    # `vol`); None without volume lights
+    vol_mask: torch.Tensor = None  # bool[N]
+    vol_radiance: torch.Tensor = None  # [N, 3]
 
 
 def select_light(scene, u, p=None, n=None, total_sphere=None):
@@ -101,11 +118,42 @@ def _rect_local(p, pos, rot):
     return (vm.dot(dp, rot[:, 0]), vm.dot(dp, rot[:, 1]), vm.dot(dp, rot[:, 2]))
 
 
-def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None) -> LightSample:
+def _volume_sample(scene, light_idx, prop, rot, pos, scale, p, xi, xi3):
+    """A volume light's interior point seen from p: (wi, pdf, point,
+    distance, radiance mu_a * e * density at the point); the point by the
+    light's Distribution3D where it has one, else uniform in the cube,
+    pdf = dist^2 / volume x the distribution's density."""
+    uvw = torch.stack([xi[:, 0], xi[:, 1], xi3], dim=-1)
+    xyz, p3 = uvw, torch.ones_like(xi3)
+    for li, dist in sorted((scene.vol_light_dist or {}).items()):
+        x2, pd = dist.sample_continuous(uvw)
+        m_l = light_idx == li
+        xyz = torch.where(m_l[:, None], x2, xyz)
+        p3 = torch.where(m_l, pd, p3)
+    vs = (xyz - 0.5) * scale
+    wp = fma(vs[:, 2:3], rot[:, 2], fma(vs[:, 0:1], rot[:, 0], vs[:, 1:2] * rot[:, 1])) + pos
+    axis = wp - p
+    sl = torch.clamp(vm.dot(axis, axis), min=1e-12)
+    dist_t = sqrt(sl)
+    vol = torch.clamp(scale[:, 0] * scale[:, 1] * scale[:, 2], min=1e-20)
+    m = scene.prop_material[prop]
+    mu_t, mu_s, _ = medium_coefficients(scene.materials, m)
+    e = scene.materials.emission[m.long()]
+    dens = torch.ones_like(xi3)
+    if scene.grids is not None:
+        g = scene.materials.density_grid[m.long()]
+        dens = torch.where(g >= 0, sample_density_trilinear(scene.grids, g, xyz), 1.0)
+    radiance = torch.clamp(mu_t - mu_s, min=0.0) * e * dens[:, None]
+    return axis / dist_t[:, None], sl / vol * p3, wp, dist_t, radiance
+
+
+def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None,
+                 xi3=None) -> LightSample:
     """Sample a direction toward light light_idx from the shading points p
-    with geometric normals n; xi [N, 2] uniforms. total_sphere (bool[N] or
-    None): lanes at a volume scatter vertex, where a dome samples the
-    whole sphere and no light is below a horizon."""
+    with geometric normals n; xi [N, 2] uniforms, and xi3 [N] a third one
+    where the scene has volume lights. total_sphere (bool[N] or None):
+    lanes at a volume scatter vertex, where a dome samples the whole
+    sphere and no light is below a horizon."""
     prop = _light_prop(scene, light_idx)
     shape = scene.prop_shape[prop]
     rot = scene.prop_rot[prop]
@@ -204,6 +252,21 @@ def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None) ->
         t_max = torch.where(is_env, far_t, t_max)
         infinite = infinite | is_env
 
+    # volume lights: an interior point, which has no normal (light_n 0)
+    vol_mask = vol_radiance = None
+    if VOLUME in present and xi3 is not None:
+        vol_mask = scene.lights.volume[torch.clamp(light_idx, 0, scene.lights.count - 1).long()]
+        v_wi, v_pdf, v_p, v_t, vol_radiance = _volume_sample(scene, light_idx, prop, rot, pos,
+                                                             scale, p, xi, xi3)
+        v3 = vol_mask[:, None]
+        wi = torch.where(v3, v_wi, wi)
+        pdf = torch.where(vol_mask, v_pdf, pdf)
+        light_p = torch.where(v3, v_p, light_p)
+        light_n = torch.where(v3, 0.0, light_n)
+        t_max = torch.where(vol_mask, v_t, t_max)
+        infinite = infinite & ~vol_mask
+        valid = torch.where(vol_mask, v_pdf > 0.0, valid)
+
     # facing the shading hemisphere; env-sampled lanes sample the whole map
     # and rely on f = 0 below the horizon (the NEE density then equals the
     # pdf the BSDF-hit MIS weight uses)
@@ -211,14 +274,17 @@ def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None) ->
     if total_sphere is not None:
         front = front | total_sphere
     valid = valid & (front | is_env) & (pdf > 0.0)
-    return LightSample(wi, torch.where(valid, pdf, 0.0), light_p, light_n, t_max, infinite, uv)
+    return LightSample(wi, torch.where(valid, pdf, 0.0), light_p, light_n, t_max, infinite, uv,
+                       vol_mask, vol_radiance)
 
 
-def light_radiance(scene, light_idx, wi, light_n, uv):
+def light_radiance(scene, light_idx, wi, light_n, uv, vol=None):
     """Radiance light_idx emits toward the shading point along -wi: its
     emission where it faces the point or is two-sided, scaled by its
     emission map at the sampled uv (a dome's at the direction's lat-long
-    uv) exactly as eval_radiance scales it on the BSDF-hit side."""
+    uv) exactly as eval_radiance scales it on the BSDF-hit side. vol: the
+    sample's (vol_mask, vol_radiance), which a volume light's lanes take
+    instead (an interior point faces every way)."""
     prop = _light_prop(scene, light_idx)
     m = scene.prop_material[prop].long()
     emission = scene.materials.emission[m]
@@ -231,7 +297,10 @@ def light_radiance(scene, light_idx, wi, light_n, uv):
         tex = sample_bilinear(scene.textures, et, tex_uv)[:, :3]
         emission = torch.where((et >= 0)[:, None], emission * tex, emission)
     facing = vm.dot(-wi, light_n) > 0.0
-    return torch.where((facing | two_sided)[:, None], emission, 0.0)
+    out = torch.where((facing | two_sided)[:, None], emission, 0.0)
+    if vol is not None and vol[0] is not None:
+        out = torch.where(vol[0][:, None], vol[1], out)
+    return out
 
 
 def light_hit_pdf(scene, present: set, prop, ray_o, ray_d, total_sphere=None):
@@ -264,5 +333,6 @@ def light_hit_pdf(scene, present: set, prop, ray_o, ray_d, total_sphere=None):
         li = scene.prop_light[pm]
         entry = env_sampling.entry_of_light(scene.env, li)
         out = torch.where(entry >= 0, env_sampling.pdf(scene.env, li, rot, ray_d), out)
-    # shapes NEE cannot sample (cube emitters) have pdf 0: MIS weight 1
+    # a Cube's surface is never sampled (a volume light samples its
+    # interior, which a BSDF ray does not hit): pdf 0, MIS weight 1
     return torch.where(shape == int(ShapeType.CUBE), 0.0, out)

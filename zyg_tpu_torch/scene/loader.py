@@ -10,8 +10,12 @@ with constant parameters (Glass: color or attenuation_color, ior,
 roughness, attenuation_distance, priority), Volumetric media
 (attenuation_color, subsurface_color, attenuation_distance, anisotropy,
 and a procedural `fbm` or `constant` density map built into the density
-grid arena of scene/grids.py) on analytic props, and one or more emitting
-Rectangle, Dome or Distant lights. Two or more lights are selected as
+grid arena of scene/grids.py) on analytic props, with emission (an
+emissive Volumetric Cube is a volume light, whose interior NEE samples
+through a Distribution3D over its density grid, core/distribution.py;
+any emissive medium gives off light along the walks), and one or more
+emitting Rectangle, Dome or Distant lights or volume lights. Two or more
+lights are selected as
 the JAX package selects them: by the power CDF when every light is
 infinite, through the SAOH light
 tree (scene/light_tree.py) when one is finite. Mesh props become
@@ -22,9 +26,9 @@ env-map sampler (scene/env_sampling.py).
 
 Everything else raises `UnsupportedScene`: Sphere, Disk, Cube and mesh
 lights, Canopy env lights, Portal entities, texture nodes in scene files,
-dispersive glass (abbe), coatings, flakes, masks, normal maps, emissive
-Volumetric media (vol_emission), density files, Volumetric materials on
-mesh props and every other material kind (Hair, Debug, Sky). (Scenes whose
+dispersive glass (abbe), coatings, flakes, masks, normal maps, density
+files, Volumetric materials on mesh props and every other material kind
+(Hair, Debug, Sky). (Scenes whose
 light tree would split NEE, and glass under textures, env maps or
 Distant lights, are refused by render/driver.py.) The port renders only
 what its bounces cover, and never silently drops a feature.
@@ -38,6 +42,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core.distribution import Distribution3D
 from ..io.mesh import load_mesh_file
 from ..render.materials import MIN_ROUGHNESS
 from .env_sampling import EnvSampler, build_env_sampler
@@ -287,20 +292,21 @@ def parse_material(value: dict, builder: "SceneBuilder | None" = None) -> Materi
                 spectrum = _read_color(v.get("spectrum", [1.0, 1.0, 1.0]))
                 desc.emission = np.float32(v.get("value", 1.0)) * spectrum
         break
-    if desc.kind == int(MaterialKind.VOLUMETRIC) and float(np.max(desc.emission)) > 0.0:
-        raise UnsupportedScene("emissive Volumetric media (vol_emission: volume lights and "
-                               "absorption emission)")
     return desc
 
 
-def material_features(kinds, roughness, color, subsurface) -> set:
+def _emissive_volumetric(m: MaterialDesc) -> bool:
+    return m.kind == int(MaterialKind.VOLUMETRIC) and float(np.max(m.emission)) > 0.0
+
+
+def material_features(kinds, roughness, color, subsurface, emission) -> set:
     """The material features present, by the JAX loader's rules
     (zyg_tpu/scene/loader.py:1232-1315) over every material of the table:
     "media" with any Glass or Volumetric material, "glass" with any Glass,
     "rough_glass" with any Glass rougher than MIN_ROUGHNESS * 1.001,
-    "volumetric" with any Volumetric material and "spectral_media" where a
-    Volumetric material's attenuation or subsurface colour is not grey.
-    (Emissive media, "vol_emission", are refused at parse time.)"""
+    "volumetric" with any Volumetric material, "vol_emission" with an
+    emissive one and "spectral_media" where a Volumetric material's
+    attenuation or subsurface colour is not grey."""
     kinds = [int(k) for k in kinds]
     glass = [float(r) for k, r in zip(kinds, roughness) if k == int(MaterialKind.GLASS)]
     vols = [i for i, k in enumerate(kinds) if k == int(MaterialKind.VOLUMETRIC)]
@@ -313,6 +319,8 @@ def material_features(kinds, roughness, color, subsurface) -> set:
         feats.add("rough_glass")
     if vols:
         feats.add("volumetric")
+    if any(float(np.max(np.asarray(emission[i]))) > 0.0 for i in vols):
+        feats.add("vol_emission")
     if any(float(np.ptp(np.asarray(color[i]))) > 0.0
            or float(np.ptp(np.asarray(subsurface[i]))) > 0.0 for i in vols):
         feats.add("spectral_media")
@@ -392,9 +400,20 @@ class SceneBuilder:
 
     def _light_weight(self, p: PropDesc) -> float:
         """Luminance-weighted emission times emitting area (4 pi for a dome;
-        an emission map scales by its mean luminance)."""
+        an emission map scales by its mean luminance); for a volume light
+        times its world volume and its grid's mean density (a Volumetric
+        material on another shape weighs 0)."""
         m = self.materials[p.material]
         lum = float(np.dot(np.asarray(LUMINANCE_WEIGHTS, np.float64), m.emission))
+        if m.kind == int(MaterialKind.VOLUMETRIC):
+            if lum <= 0.0 or p.shape != int(ShapeType.CUBE):
+                return 0.0
+            s = p.trafo.scale
+            dens = 1.0
+            if m.density_grid >= 0:
+                # np.mean over the float32 grid, as the JAX loader computes it
+                dens = float(np.mean(self.density_grids[m.density_grid]))
+            return lum * float(s[0] * s[1] * s[2]) * max(dens, 1e-6)
         if m.emission_tex >= 0:
             img = np.asarray(self.textures.image(m.emission_tex), np.float64)
             lum *= float((img[..., :3] @ np.asarray(LUMINANCE_WEIGHTS, np.float64)).mean())
@@ -427,11 +446,20 @@ class SceneBuilder:
         analytic = [i for i, p in enumerate(props) if p.mesh_id < 0]
         if len(analytic) > _MAX_PROPS:
             raise UnsupportedScene(f"{len(analytic)} analytic props (at most {_MAX_PROPS})")
+        # an emissive Volumetric Cube is a volume light (ref scene.zig
+        # createLight; zyg_tpu/scene/loader.py:1063-1074); on another shape
+        # it only glows along the walks
+        for p in props:
+            if _emissive_volumetric(self.materials[p.material]) and p.shape == int(ShapeType.CUBE):
+                p.is_light = True
         light_props = [i for i, p in enumerate(props) if p.is_light and self._light_weight(p) > 0.0]
-        for i in light_props:
-            if props[i].shape not in {int(s) for s in _LIGHT_SHAPES}:
+        vol_light = [self.materials[props[i].material].kind == int(MaterialKind.VOLUMETRIC)
+                     for i in light_props]
+        for i, v in zip(light_props, vol_light):
+            if not v and props[i].shape not in {int(s) for s in _LIGHT_SHAPES}:
                 raise UnsupportedScene(f"{ShapeType(props[i].shape).name.capitalize()} lights "
-                                       "(the port samples Rectangle, Dome and Distant lights)")
+                                       "(the port samples Rectangle, Dome, Distant and volume "
+                                       "lights)")
         if not light_props:
             raise UnsupportedScene("a scene without an emitting light")
         for d in self.materials:
@@ -448,8 +476,10 @@ class SceneBuilder:
             m = self.materials[p.material]
             if m.kind == int(MaterialKind.VOLUMETRIC):
                 if p.mesh_id >= 0:
-                    raise UnsupportedScene("a Volumetric material on a mesh prop (the chord "
-                                           "through a mesh interior)")
+                    what = ("an emissive Volumetric material (vol_emission)"
+                            if _emissive_volumetric(m) else "a Volumetric material")
+                    raise UnsupportedScene(f"{what} on a mesh prop (the chord through a mesh "
+                                           "interior)")
                 volume_props.append((i, p.material, m.density_grid, p.shape))
                 p.visible_shadow = False
         weights = np.array([self._light_weight(props[i]) for i in light_props], np.float32)
@@ -477,6 +507,13 @@ class SceneBuilder:
         for i in analytic:
             groups.setdefault(props[i].shape, []).append(i)
         meshes, instances = self._build_meshes()
+        # volume lights over a density grid sample their interior by density
+        vol_light_dist = {
+            li: Distribution3D.build(self.density_grids[self.materials[props[pi].material]
+                                                        .density_grid])
+            for li, pi in enumerate(light_props)
+            if vol_light[li] and self.materials[props[pi].material].density_grid >= 0
+        }
         # env-map importance sampling of a dome with an emission map
         env_entries = [
             (self.textures.image(self.materials[props[pi].material].emission_tex), False, li)
@@ -522,6 +559,7 @@ class SceneBuilder:
                 prop=t(light_props, i32),
                 two_sided=t([mats[props[i].material].two_sided for i in light_props], torch.bool),
                 cdf=t(cdf, f32),
+                volume=t(vol_light, torch.bool),
             ),
             prop_groups={k: t(v, i32) for k, v in sorted(groups.items())},
             meshes=meshes,
@@ -532,8 +570,10 @@ class SceneBuilder:
             grids=build_grid_arena(self.density_grids) if self.density_grids else None,
             mat_features=material_features([d.kind for d in mats], [d.roughness for d in mats],
                                            [d.color for d in mats],
-                                           [d.subsurface_color for d in mats]),
+                                           [d.subsurface_color for d in mats],
+                                           [d.emission for d in mats]),
             volume_props=tuple(volume_props),
+            vol_light_dist=vol_light_dist or None,
         ).to(device)
 
     @staticmethod
@@ -548,6 +588,9 @@ class SceneBuilder:
             rot = np.asarray(t.rotation, np.float32)
             r = 0.5 * float(np.hypot(s[0], s[1]))
             return pos, r, np.concatenate([rot[2], [1.0]]).astype(np.float32), True
+        if p.shape == int(ShapeType.CUBE):  # a volume light: its bounding sphere, all directions
+            r = 0.5 * float(np.linalg.norm(np.asarray(t.scale, np.float32)))
+            return pos, r, np.array([0.0, 0.0, 1.0, -1.0], np.float32), True
         # infinite shapes (distant, dome)
         return pos, 0.0, np.array([0.0, 0.0, 1.0, -1.0], np.float32), False
 
@@ -680,8 +723,9 @@ _MATERIAL = ("kind", "color", "roughness", "metallic", "ior", "specular", "emiss
              "priority", "subsurface_color", "volumetric_anisotropy", "density_grid")
 # the material features the port renders (the general bounce's; the JAX
 # package names more, each of which the port refuses)
-_FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media"}
-_LIGHT = ("prop", "two_sided", "cdf")
+_FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media", "vol_emission"}
+_LIGHT = ("prop", "two_sided", "cdf", "volume")
+_DIST3 = ("slice_cdf", "row_cdf", "col_cdf", "pdf_grid")
 _ARENA = ("node_rows", "tri_rows", "attr_rows", "mesh_root")
 _INSTANCES = ("wmin", "wmax", "trafo", "vis")
 _TEXTURES = ("data", "offset", "width", "height", "address")
@@ -697,8 +741,9 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     "env.height"), and for a light tree "light_tree.<f>" (with
     "light_tree.depth", "light_tree.inf_weight", "light_tree.num_finite"),
     for density grids "grids.<f>" (with "grids.sparse"), "volume_props"
-    (int64 [K, 4] rows), and "mat_features", the sorted feature names as a
-    string array. A JAX scene with a feature outside the port's raises
+    (int64 [K, 4] rows), for volume lights over a grid
+    "vol_light_dist.<light>.<f>", and "mat_features", the sorted feature
+    names as a string array. A JAX scene with a feature outside the port's raises
     UnsupportedScene naming it."""
     def arr(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -715,9 +760,8 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     feats = scene.mat_features
     if feats is None:  # the JAX "all features" default: derive them
         feats = material_features(d["materials.kind"], d["materials.roughness"],
-                                  d["materials.color"], d["materials.subsurface_color"])
-    if "vol_emission" in feats:
-        raise UnsupportedScene("emissive volumetric media (vol_emission)")
+                                  d["materials.color"], d["materials.subsurface_color"],
+                                  d["materials.emission"])
     extra = set(feats) - _FEATURES
     if extra:
         raise UnsupportedScene(f"material features {sorted(extra)}")
@@ -727,7 +771,13 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     if scene.grids is not None:
         d.update({f"grids.{k}": arr(getattr(scene.grids, k)) for k in _GRID_FIELDS})
         d["grids.sparse"] = np.asarray(bool(scene.grids.sparse))
-    d.update({f"lights.{k}": arr(getattr(scene.lights, k)) for k in _LIGHT})
+    for k in _LIGHT:
+        v = getattr(scene.lights, k)
+        # a hand-built JAX scene may leave the volume flags (all False) unset
+        d[f"lights.{k}"] = (arr(v) if v is not None
+                            else np.zeros(arr(scene.lights.prop).shape, bool))
+    for li, dist in sorted((scene.vol_light_dist or {}).items()):
+        d.update({f"vol_light_dist.{int(li)}.{k}": arr(getattr(dist, k)) for k in _DIST3})
     d.update({f"prop_groups.{int(k)}": arr(v) for k, v in (scene.prop_groups or {}).items()})
     if scene.meshes is not None:
         m = scene.meshes
@@ -777,6 +827,10 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
     if "env.table" in d:
         env = EnvSampler(**{k: t(f"env.{k}") for k in _ENV}, width=int(d["env.width"]),
                          height=int(d["env.height"]))
+    vol_light_dist = {
+        int(li): Distribution3D(**{f: t(f"vol_light_dist.{li}.{f}") for f in _DIST3})
+        for li in sorted({k.split(".")[1] for k in d if k.startswith("vol_light_dist.")}, key=int)
+    }
     grids = None
     if "grids.data" in d:
         grids = GridArena(**{k: t(f"grids.{k}") for k in _GRID_FIELDS},
@@ -800,4 +854,5 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
         grids=grids,
         mat_features={str(f) for f in d["mat_features"]},
         volume_props=tuple(tuple(int(x) for x in r) for r in d["volume_props"]),
+        vol_light_dist=vol_light_dist or None,
     )

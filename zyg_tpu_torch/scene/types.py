@@ -7,7 +7,8 @@ shape type, for mesh scenes the triangle arena and the mesh instance table
 (scene/trimesh.py), for textured scenes the texture arena
 (scene/textures.py) and the env-map sampler (scene/env_sampling.py), for
 two or more lights of which one is finite the light tree
-(scene/light_tree.py), and the material features and volume props by
+(scene/light_tree.py), for volume lights over a density grid their
+interior-point distributions (core/distribution.py), and the material features and volume props by
 which the general bounce decides, once per render, what it computes
 (the JAX package's static `mat_features` and `volume_props`).
 """
@@ -96,6 +97,9 @@ class Lights:
     prop: torch.Tensor  # int32[L] prop index
     two_sided: torch.Tensor  # bool[L]
     cdf: torch.Tensor  # float32[L + 1] power CDF, cdf[0] = 0 .. cdf[L] = 1
+    # volume lights (emissive Volumetric Cubes): NEE samples a point
+    # inside the prop instead of on its surface
+    volume: torch.Tensor  # bool[L]
 
     @property
     def count(self) -> int:
@@ -128,13 +132,16 @@ class SceneData:
     light_tree: object = None  # light_tree.LightTree, or None (power-CDF selection)
     grids: object = None  # grids.GridArena of the density grids, or None
     # names of the material features present ("glass", "rough_glass",
-    # "media", "volumetric", "spectral_media"; scene/loader.py
+    # "media", "volumetric", "spectral_media", "vol_emission"; scene/loader.py
     # material_features), a Python set
     mat_features: set = field(default_factory=set)
     # props filled with a Volumetric medium, which attenuates shadow rays
     # instead of blocking them: sorted (prop, material, density grid or -1,
     # ShapeType code) rows (the keys of the JAX package's volume_props)
     volume_props: tuple = ()
+    # {light index: Distribution3D over its density grid} of the volume
+    # lights with a grid (interior points by density), or None
+    vol_light_dist: dict = None
 
     def to(self, device) -> "SceneData":
         out = {}
@@ -142,7 +149,7 @@ class SceneData:
             v = getattr(self, f.name)
             if f.name in ("mat_features", "volume_props"):
                 out[f.name] = v
-            elif f.name == "prop_groups":
+            elif f.name in ("prop_groups", "vol_light_dist") and v is not None:
                 out[f.name] = {k: g.to(device) for k, g in v.items()}
             else:
                 out[f.name] = v if v is None else v.to(device)
