@@ -24,7 +24,9 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     and again on the sunsky and material_test tables (the latter at the
     material path's 786,432 lanes, its Sphere hits counted);
     surface with the shade rules plus the shadow rays and NEE values of
-    the NEE lanes, and surface_v2 on the bench textured scene, each with
+    the NEE lanes, and surface_v2 on the bench textured scene and again
+    on the first bounce of a 1280x720 hero.take render (its analytic
+    checker albedo and baked roughness per lane), each with
     the shares of its lanes dead on entry, missed, ended on a hit,
     reaching NEE, with an active NEE sample and with a failed BSDF sample,
     and a bound from the bytes each lane's lifecycle needs; traverse (and
@@ -54,7 +56,10 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     glass) at 96x56, 8 spp, 4h. for examples/takes/fire.take (an emissive
     medium, its own volume light) at 96x56, 8 spp and fire.scene with a
     Rectangle lamp beside the fire (the light tree over a surface and a
-    volume light) at 64x48, 8 spp
+    volume light) at 64x48, 8 spp, 4i. for examples/takes/hero.take
+    (texture nodes: an analytic Checker albedo and a baked Mix/Noise
+    roughness on the 491,520-triangle trefoil under a Sky) at 96x56, 16
+    spp, depth 5
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
@@ -83,9 +88,10 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     launched; the same report and profile, the iterations over all chunks
     (isect closest launches) and the share of lanes that resume a parked
     split branch
- 5f. the smoke main path: the CLI on examples/takes/smoke.take at its own
-    960x540, 64 spp, PTMIS depth 24 / volume 128, then the Driver at the
-    same size with 8 spp after a warm-up chunk (bench.py::bench_volume's
+ 5f. the smoke main path: the CLI on a copy of examples/takes/smoke.take
+    at 8 spp (its own 960x540, PTMIS depth 24 / volume 128; the take's 64
+    spp took 73-87 s), then the Driver at the same size with 8 spp after
+    a warm-up chunk (bench.py::bench_volume's
     work: two tiles of 262,144 and 256,256 pixels, one 8-sample chunk),
     through the general body around sobol_block, isect, track_interaction,
     track_transmittance and accum, which must each have launched; the
@@ -96,6 +102,10 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     after a warm-up chunk, through the general body around sobol_block,
     isect, the emissive track_interaction, track_transmittance and accum,
     which must each have launched; the same report and profile
+ 5h. the hero main path: the CLI on examples/takes/hero.take at its own
+    1280x720, 16 spp, PTMIS depth 5, ACES, then the Driver at the same
+    size; sobol_block, isect, surface_v2, traverse and accum must each
+    have launched; the same report and profile, and kernel 6's lane shares
  6. one bounce of the mesh bounce (kernel 5) against one of the general
     bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
     directly, timed in turns (CUDA events, medians)
@@ -182,6 +192,11 @@ FIRE_RES = (960, 540)
 FIRE_SPP = 8
 FIRE_DEPTH = 16
 N_FIRE = FIRE_RES[0] * FIRE_RES[1]
+# the hero path: texture nodes through kernel 6's glue, at hero.take's own
+# 1280x720, 16 spp, PTMIS depth 5
+HERO_KERNELS = TEXTURED_KERNELS
+HERO_RES = (1280, 720)
+HERO_SPP = 16
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -1521,32 +1536,23 @@ def compare_surface_v2(r1: dict, r2: dict) -> float:
     return err
 
 
-def check_surface_v2(dev) -> dict:
-    """Kernel 6 on the bench textured scene's own lane inputs: the general
-    bounce's glue output for one bounce of 921,600 lanes."""
+def _check_surface_v2_on(label: str, fit, st: dict, ua, ub, args) -> dict:
+    """Kernel 6 against its plain version on one launch's arguments, with
+    the lanes' shares, times and bound."""
     import torch
     from zyg_tpu_torch.ops import surface_v2
-    from zyg_tpu_torch.render.integrator.ptmis import PtmisSettings
 
-    _, scene = _textured(dev, ci=False)
-    body = surface_v2.make_mesh_fused_body_v2(scene, PtmisSettings(max_depth=4))
-    st, ua, ub, *_ = body.inputs(_surface_lanes(N_MESH, dev))
-    args = (4, True, False)  # the bench's PTMIS at depth 4
-    r1 = surface_v2.surface_v2(body.fit, st, ua, ub, *args)
+    r1 = surface_v2.surface_v2(fit, st, ua, ub, *args)
     r2 = surface_v2.surface_v2_plain(st, ua, ub, *args)
     torch.cuda.synchronize()
     err = compare_surface_v2(r1, r2)
-    nee = r1["nee_active"]
-    textured = int((st["finite"] & (st["mat_kind"] == 0)).sum())
-    log(f"surface_v2: {int(st['alive'].sum())} live lanes, {textured} on surfaces, "
-        f"{int(nee.sum())} NEE lanes, {int(st['is_light'].sum())} on the dome")
     sets = lane_sets("surface_v2", st, ua, r2, args[0], args[2])
     classes = lane_classes(sets, r2)
-    log(f"surface_v2: the check's lanes: {shares(classes)}")
+    log(f"{label}: the check's lanes: {shares(classes)}")
     return {
         "max_abs_err": err,
-        "ms": time_ms(lambda: surface_v2.surface_v2(body.fit, st, ua, ub, *args), 10),
-        "device_ms": device_ms(lambda: surface_v2.surface_v2(body.fit, st, ua, ub, *args), "surface_v2",
+        "ms": time_ms(lambda: surface_v2.surface_v2(fit, st, ua, ub, *args), 10),
+        "device_ms": device_ms(lambda: surface_v2.surface_v2(fit, st, ua, ub, *args), "surface_v2",
                                10),
         "plain_ms": time_ms(lambda: surface_v2.surface_v2_plain(st, ua, ub, *args), 1, runs=3),
         **lane_bound(surface_v2, surface_v2.IN_FIELDS, surface_v2.OUT_FIELDS, sets,
@@ -1554,6 +1560,67 @@ def check_surface_v2(dev) -> dict:
         "library_ms": None,
         "lanes": classes,
     }
+
+
+def check_surface_v2(dev) -> dict:
+    """Kernel 6 on the bench textured scene's own lane inputs: the general
+    bounce's glue output for one bounce of 921,600 lanes."""
+    from zyg_tpu_torch.ops import surface_v2
+    from zyg_tpu_torch.render.integrator.ptmis import PtmisSettings
+
+    _, scene = _textured(dev, ci=False)
+    body = surface_v2.make_mesh_fused_body_v2(scene, PtmisSettings(max_depth=4))
+    st, ua, ub, *_ = body.inputs(_surface_lanes(N_MESH, dev))
+    textured = int((st["finite"] & (st["mat_kind"] == 0)).sum())
+    log(f"surface_v2: {int(st['alive'].sum())} live lanes, {textured} on surfaces, "
+        f"{int(st['is_light'].sum())} on the dome")
+    # the bench's PTMIS at depth 4
+    return _check_surface_v2_on("surface_v2", body.fit, st, ua, ub, (4, True, False))
+
+
+def hero_lanes(dev):
+    """Kernel 6's arguments in the first bounce of one hero.take render at
+    its own 1280x720 (one sample a pixel), caught at the wrapper: (fit,
+    lane fields, ua, ub, (max_depth, caustics, nee_only))."""
+    import torch
+    from zyg_tpu_torch.ops import surface_v2
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    take = _take("hero.take", HERO_RES, 1)
+    driver = Driver(take, load_scene_file(take.scene_filename), device=dev)
+    orig = surface_v2.surface_v2
+    caught = []
+
+    def catch(fit, st, ua, ub, *args):
+        if not caught:
+            caught.append((fit, {k: v.clone() for k, v in st.items()}, ua.clone(), ub.clone(),
+                           args))
+        return orig(fit, st, ua, ub, *args)
+
+    surface_v2.surface_v2 = catch
+    try:
+        driver.start_frame()
+        driver.render_iterations(1)
+        torch.cuda.synchronize()
+    finally:
+        surface_v2.surface_v2 = orig
+    return caught[0]
+
+
+def check_surface_v2_hero(dev) -> dict:
+    """Kernel 6 on hero.take's own lanes: the first bounce of a 1280x720
+    render, whose knot lanes carry the analytic checker's albedo and a
+    roughness that varies per lane (the baked Mix/Noise graph)."""
+    import torch
+
+    fit, st, ua, ub, args = hero_lanes(dev)
+    on = st["alive"] & st["finite"] & (st["mat_kind"] == 0)
+    alpha = st["alpha"][on]
+    log(f"surface_v2 on hero: {int(st['alive'].sum())} live lanes, {int(on.sum())} on surfaces, "
+        f"their alpha in [{float(alpha.min()):.6f}, {float(alpha.max()):.6f}] with "
+        f"{int(torch.unique(alpha).numel())} values")
+    return _check_surface_v2_on("surface_v2 on hero", fit, st, ua, ub, args)
 
 
 def _take(name, res, spp):
@@ -1743,6 +1810,25 @@ def phase_slice_sunsky(dev) -> None:
     cpu = Driver(take, scene, device="cpu").render_frame()
     t_cpu = time.perf_counter() - t0
     _golden_gate(card, cpu, "sunsky 96x56x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+
+
+def phase_slice_hero(dev) -> None:
+    """hero.take at 96x56, 16 spp, depth 5 on the card against the plain
+    CPU path."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    take = _take("hero.take", (96, 56), 16)
+    scene = load_scene_file(take.scene_filename)
+    t0 = time.perf_counter()
+    card = Driver(take, scene, device=dev).render_frame()
+    t_card = time.perf_counter() - t0
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = Driver(take, scene, device="cpu").render_frame()
+    t_cpu = time.perf_counter() - t0
+    _golden_gate(card, cpu, "hero 96x56x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
 def _tree_scene(res, spp):
@@ -2129,6 +2215,8 @@ def main() -> int:
         res = fn(dev)
         checks.update(res if name == "track" else {name: res})
         torch.cuda.empty_cache()
+    checks["surface_v2"]["hero"] = check_surface_v2_hero(dev)
+    torch.cuda.empty_cache()
     for name in SOURCES:
         c = checks[name]
         lib = f", library {c['library_ms']:.4f} ms" if c["library_ms"] is not None else ""
@@ -2141,16 +2229,21 @@ def main() -> int:
             f"(device {c['device_ms']:.4f} ms){anyhit}, "
             f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}){lib} "
             f"[{card}]")
+    h = checks["surface_v2"]["hero"]
+    log(f"surface_v2 on hero's lanes: ok, max_abs_err {h['max_abs_err']:.3g}, kernel "
+        f"{h['ms']:.4f} ms (device {h['device_ms']:.4f} ms), plain {h['plain_ms']:.4f} ms, "
+        f"bound {h['bound_ms']:.4f} ms ({h['bound_by']}) [{card}]")
     phase_slice(dev)
     phase_slice_mesh(dev)
     phase_slice_textured(dev)
     phase_slice_sunsky(dev)
+    phase_slice_hero(dev)
     phase_slice_tree(dev)
     phase_slice_material(dev)
     phase_slice_smoke(dev)
     phase_slice_fire(dev)
-    # launches: the CLI runs of the Cornell, trefoil, sunsky, material,
-    # smoke and fire paths and one render of the textured path
+    # launches: the CLI runs of the Cornell, trefoil, sunsky, hero,
+    # material, smoke and fire paths and one render of the textured path
     launches = {k: 0 for k in SOURCES}
     for take_name, label, res, spp, kernels in (
             ("cornell_ptmis.take", "Cornell PTMIS", (1920, 1080), 16, CORNELL_KERNELS),
@@ -2169,6 +2262,12 @@ def main() -> int:
     phase_main_path(dev, card, "sunsky PTMIS",
                     *_take_scene("sunsky.take", SUNSKY_RES, 32, "sunsky PTMIS"), SUNSKY_KERNELS,
                     lanes_of="surface_v2")
+    hero_cli = _cli_run("hero.take", HERO_KERNELS)
+    for k in launches:
+        launches[k] += hero_cli[k]
+    hero = phase_main_path(dev, card, "hero PTMIS",
+                           *_take_scene("hero.take", HERO_RES, HERO_SPP, "hero PTMIS"),
+                           HERO_KERNELS, lanes_of="surface_v2")
     material_cli = _cli_run("material_test.take", MATERIAL_KERNELS)
     for k in launches:
         launches[k] += material_cli[k]
@@ -2176,13 +2275,15 @@ def main() -> int:
     take.integrator.max_depth_surface = MATERIAL_DEPTH
     phase_main_path(dev, card, "material PTMIS", take, scene, MATERIAL_KERNELS,
                     lanes_of="general")
-    smoke_cli = _cli_run("smoke.take", SMOKE_KERNELS)
+    # smoke.take's own 64 spp through the CLI took 73-87 s: the CLI renders
+    # a copy of the take at 8 spp, as fire's does
+    smoke_cli = _cli_run("smoke.take", SMOKE_KERNELS, spp=SMOKE_SPP)
     for k in launches:
         launches[k] += smoke_cli[k]
     take, scene = _take_scene("smoke.take", SMOKE_RES, SMOKE_SPP, "smoke PTMIS")
     smoke = phase_main_path(dev, card, "smoke PTMIS", take, scene, SMOKE_KERNELS)
-    # fire.take's own 64 spp through the CLI would take ~70-120 s, as smoke's
-    # does: the CLI renders a copy of the take at 8 spp
+    # fire.take's own 64 spp through the CLI would take ~70-120 s, as
+    # smoke's did: the CLI renders a copy of the take at 8 spp
     fire_cli = _cli_run("fire.take", FIRE_KERNELS, spp=FIRE_SPP)
     for k in launches:
         launches[k] += fire_cli[k]
@@ -2195,8 +2296,11 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "launches_of": "cli cornell_ptmis.take + cli trefoil.take + cli sunsky.take "
-                               "+ cli material_test.take + cli smoke.take + cli fire.take "
-                               "(a copy at 8 spp) + one 1280x720 4 spp textured-trefoil render",
+                               "+ cli hero.take + cli material_test.take + cli smoke.take "
+                               "and cli fire.take (copies at 8 spp) + one 1280x720 4 spp "
+                               "textured-trefoil render",
+                "launches_hero_cli": hero_cli[name],
+                "launches_hero_render": hero[name],
                 "launches_material": material_cli[name],
                 "launches_smoke_render": smoke[name],
                 "launches_fire_render": fire[name],
@@ -2205,7 +2309,11 @@ def main() -> int:
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"],
                 # the emissive variant of the walk (fire grey and spectral)
-                **({"emissive": c["emissive"]} if "emissive" in c else {})}
+                **({"emissive": c["emissive"]} if "emissive" in c else {}),
+                # kernel 6 again on hero.take's own first-bounce lanes
+                **({"hero": {k: c["hero"][k] for k in ("max_abs_err", "ms", "device_ms",
+                                                       "plain_ms", "bound_ms", "bound_by")}}
+                   if "hero" in c else {})}
 
     print(json.dumps({"kernels": [entry(k) for k in SOURCES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

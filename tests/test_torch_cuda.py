@@ -5,9 +5,10 @@ shapes their grid-stride and ray-fetch loops must get right, sobol_block
 and the per-pixel flush at small widths, isect on material_test's tables,
 and the general body (torch around isect and sobol_block) on the card
 against the CPU at 0, 1, 31 and 129 lanes; the tracking walks, with the
-interaction walk's emissive variant on the fire path's lanes, and the
-general body over fire.scene. Skipped without a card. This file
-imports no jax, so it also runs on a machine without the JAX package:
+interaction walk's emissive variant on the fire path's lanes, the
+general body over fire.scene, and kernel 6 on hero.take's first bounce.
+Skipped without a card. This file imports no jax, so it also runs on a
+machine without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -30,14 +31,17 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("kernel", ["sobol_block", "isect", "accum", "shade", "surface", "traverse",
-                                    "surface_v2"])
+                                    "surface_v2", "surface_v2_hero"])
 def test_kernel_matches_plain_on_card(cuda_device, kernel):
+    """surface_v2_hero: kernel 6 on the first bounce of a 1280x720
+    hero.take render, whose roughness varies per lane across the knot."""
     import chip_smoke
 
     check = {"sobol_block": chip_smoke.check_sobol, "isect": chip_smoke.check_isect,
              "accum": chip_smoke.check_accum, "shade": chip_smoke.check_shade,
              "surface": chip_smoke.check_surface, "traverse": chip_smoke.check_traverse,
-             "surface_v2": chip_smoke.check_surface_v2}[kernel]
+             "surface_v2": chip_smoke.check_surface_v2,
+             "surface_v2_hero": chip_smoke.check_surface_v2_hero}[kernel]
     result = check(cuda_device)  # raises on any disagreement
     assert result["ms"] > 0.0
 

@@ -195,7 +195,7 @@ def test_surface_v2_plain_matches_jax_kernel(settings):
     assert int(r["rays"]) == int((rows[9] > 0.5).sum() + nee.sum())
 
 
-def _compare_bounce(r1, r2):
+def _compare_bounce(r1, r2, tols=V2_TOLS):
     np.testing.assert_array_equal(np.asarray(r1.alive), r2.alive.numpy())
     np.testing.assert_array_equal(np.asarray(r1.depth), r2.depth.numpy())
     np.testing.assert_array_equal(np.asarray(r1.singular), r2.singular.numpy())
@@ -204,7 +204,7 @@ def _compare_bounce(r1, r2):
                                   r2.sobol.run_seed.numpy().view(np.uint32))
     np.testing.assert_array_equal(np.asarray(r1.vol_key), r2.vol_key.numpy().view(np.uint32))
     live = np.asarray(r1.alive)
-    for name, tol in V2_TOLS:
+    for name, tol in tols:
         _livecmp(getattr(r1, name), getattr(r2, name).numpy(), live, tol)
     for f1, f2 in ((r1.result.emission, r2.result.emission), (r1.result.direct, r2.result.direct),
                    (r1.result.indirect, r2.result.indirect)):

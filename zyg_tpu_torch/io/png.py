@@ -1,5 +1,5 @@
-"""Minimal dependency-free PNG writer (counterpart of zyg_tpu/io/png.py):
-pure numpy and zlib."""
+"""Minimal dependency-free PNG writer and reader (counterpart of
+zyg_tpu/io/png.py): pure numpy, zlib and struct."""
 
 from __future__ import annotations
 
@@ -32,6 +32,74 @@ def write_png(path: str, image: np.ndarray) -> None:
     )
     with open(path, "wb") as f:
         f.write(data)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Minimal PNG reader: 8/16-bit greyscale, grey-alpha, RGB, RGBA and
+    8-bit palette images, not interlaced. Returns uint8/uint16 [H, W, C]
+    (a palette image as its RGB entries)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"not a PNG: {path}")
+    pos = 8
+    idat = b""
+    w = h = bitdepth = color_type = None
+    palette = None
+    while pos < len(data):
+        (length,) = struct.unpack_from(">I", data, pos)
+        tag = data[pos + 4 : pos + 8]
+        chunk = data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            w, h, bitdepth, color_type, _, _, interlace = struct.unpack(">IIBBBBB", chunk)
+            if interlace != 0:
+                raise ValueError(f"interlaced PNG: {path}")
+        elif tag == b"PLTE":
+            palette = np.frombuffer(chunk, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat += chunk
+        elif tag == b"IEND":
+            break
+    raw = zlib.decompress(idat)
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color_type]
+    bpp_bytes = max(bitdepth // 8, 1) * channels
+    stride = (w * channels * bitdepth + 7) // 8
+    img = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    rpos = 0
+    for y in range(h):
+        ft = raw[rpos]
+        line = np.frombuffer(raw[rpos + 1 : rpos + 1 + stride], np.uint8).astype(np.int32)
+        rpos += 1 + stride
+        cur = line.copy()
+        if ft == 1:  # sub
+            for x in range(bpp_bytes, stride):
+                cur[x] = (cur[x] + cur[x - bpp_bytes]) & 0xFF
+        elif ft == 2:  # up
+            cur = (cur + prev) & 0xFF
+        elif ft == 3:  # average
+            for x in range(stride):
+                a = cur[x - bpp_bytes] if x >= bpp_bytes else 0
+                cur[x] = (line[x] + ((a + prev[x]) >> 1)) & 0xFF
+        elif ft == 4:  # Paeth
+            for x in range(stride):
+                a = cur[x - bpp_bytes] if x >= bpp_bytes else 0
+                b = prev[x]
+                c = prev[x - bpp_bytes] if x >= bpp_bytes else 0
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+                cur[x] = (line[x] + pred) & 0xFF
+        img[y] = cur.astype(np.uint8)
+        prev = cur
+    if bitdepth == 16:
+        out = img.view(">u2").astype(np.uint16).reshape(h, w, channels)
+    else:
+        out = img.reshape(h, w, channels)
+    if color_type == 3:
+        out = palette[out[..., 0]]
+    return out
 
 
 def linear_to_srgb_np(c: np.ndarray) -> np.ndarray:

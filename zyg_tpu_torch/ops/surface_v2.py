@@ -9,8 +9,11 @@ a large table in torch glue and only the register-resident shade core in
 the kernel:
 
   glue    intersect_scene (isect, then traverse) + build_fragment with uv
-          -> texture jitter -> materials.gather (stochastic color and
-          roughness texels, bilinear emission maps) -> eval_radiance ->
+          (and the tangent frame where a material has a normal map) ->
+          texture jitter -> the triplanar uv where a texture reads it ->
+          the normal map -> materials.gather (stochastic color and
+          roughness texels, bilinear emission maps, the analytic Checker
+          and Noise nodes point-sampled) -> eval_radiance ->
           light_hit_pdf * light_select_pdf (rectangle SphQuad, dome,
           distant cone, env-map density; the light tree's pdf at the
           previous vertex) -> select_light (the power CDF, or the tree's
@@ -264,6 +267,11 @@ class GeneralBounce:
         self.present = ls.light_shapes(scene)
         self.refl, self.shadow = prop_table(scene, "reflection"), prop_table(scene, "shadow")
         self.fit = M.fit_table(scene.prop_rot.device)
+        # the JAX glue builds the tangent frame and applies the normal map
+        # on every textured scene; both change nothing without a normal
+        # map, so the port does them only where a material has one
+        self.normal_mapped = (scene.textures is not None
+                              and bool((scene.materials.normal_tex >= 0).any()))
 
     def inputs(self, s):
         """The kernel's lane fields, uniforms and the shadow rays of state
@@ -275,14 +283,21 @@ class GeneralBounce:
         smp = SobolSampler(s.sobol, dim=5)
         tmax = torch.where(s.alive, RAY_MAX_T, 0.0)
         hit = shapes.intersect_scene(scene, self.refl, s.o, s.d, 0.0, tmax, primary=s.depth == 0)
-        frag = shapes.build_fragment(scene, hit, s.o, s.d)
-        tex_xi = None
+        frag = shapes.build_fragment(scene, hit, s.o, s.d, need_tangents=self.normal_mapped)
+        tex_xi = uv_alt = None
         if scene.textures is not None:
             # the texture jitter: a non-Sobol' stream per lane and bounce
             kx = hash2_u32(u32(s.vol_key) ^ 0xA511E9B3, u32(s.depth))
             ky = hash_u32(kx ^ 0x85EBCA6B)
             tex_xi = torch.stack([u32_to_float(kx), u32_to_float(ky)], dim=-1)
-        params = M.gather(scene.materials, frag.material, scene.textures, frag.uv, tex_xi)
+            if "triplanar" in scene.mat_features:
+                uv_alt = M.triplanar_uv(scene, frag)
+            if self.normal_mapped:
+                frag.n = M.apply_normal_map(scene.materials, scene.textures, frag.material, frag.uv,
+                                            frag.n, frag.t, frag.b, tex_xi=tex_xi, uv_alt=uv_alt)
+        # no footprint: the JAX TPU dispatch point-samples the procedurals
+        params = M.gather(scene.materials, frag.material, scene.textures, frag.uv, tex_xi,
+                          uv_alt=uv_alt)
         valid = hit.valid()
 
         # ---- the BSDF-hit emission and its light pdf

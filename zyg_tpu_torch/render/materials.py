@@ -1,7 +1,8 @@
 """Per-lane material parameters with image textures, emitted radiance,
 the GGX energy fits of the substitute BSDF, and the BSDFs of the general
 bounce (counterpart of zyg_tpu/render/materials.py:116 `ior_to_f0`,
-:121-246 `gather` for substitute, light and glass materials, :440-451
+:121-246 `gather` for substitute, light and glass materials, :247-264
+`triplanar_uv`, :403-420 `apply_normal_map`, :440-451
 `eval_radiance`, the energy functions, :458-760 the GGX pieces and the
 substitute BSDF as the XLA general body calls it, :786-976 the rough and
 smooth dielectric, :977-1132 `sample_bsdf`/`eval_bsdf` with BSDF-split
@@ -56,14 +57,17 @@ def ior_to_f0(ior, ior_outside):
 
 
 def gather(materials, mat_id, textures=None, uv=None, tex_xi=None, medium_ior=None,
-           features=None) -> dict:
+           features=None, uv_alt=None, footprint=None) -> dict:
     """Per-lane parameters of material mat_id (int32[N], < 0 reads 0).
 
     With a texture arena and uv, mapped color and roughness multiply their
     constant values, read by one stochastic texel (the reference's default
-    LinearStochastic filter) driven by tex_xi [N, 2]; emission maps stay
-    BILINEAR: a jittered single-texel read of an HDR map turns a bright
-    texel into rare large spikes on the MIS'd BSDF-hit estimator. Returns
+    LinearStochastic filter) driven by tex_xi [N, 2] (bilinearly without
+    it); emission maps stay BILINEAR: a jittered single-texel read of an
+    HDR map turns a bright texel into rare large spikes on the MIS'd
+    BSDF-hit estimator. uv_alt [N, 2] is the alternate (triplanar) uv of
+    textures that ask for it, footprint [N] the analytic procedurals'
+    filter width (scene/textures.py). Returns
     kind (int32), albedo, f0 and emission [N, 3], alpha, metallic and
     specular [N], two_sided (bool).
 
@@ -79,15 +83,17 @@ def gather(materials, mat_id, textures=None, uv=None, tex_xi=None, medium_ior=No
     emission = materials.emission[m]
     if textures is not None and uv is not None:
         def samp(tid):
-            return sample_stochastic(textures, tid, uv, tex_xi)
+            if tex_xi is None:
+                return sample_bilinear(textures, tid, uv, uv_alt, footprint)
+            return sample_stochastic(textures, tid, uv, tex_xi, uv_alt, footprint)
 
         ct = materials.color_tex[m]
         color = torch.where((ct >= 0)[:, None], color * samp(ct)[:, :3], color)
         rt = materials.roughness_tex[m]
         roughness = torch.where(rt >= 0, roughness * samp(rt)[:, 0], roughness)
         et = materials.emission_tex[m]
-        emission = emission * torch.where((et >= 0)[:, None],
-                                          sample_bilinear(textures, et, uv)[:, :3], 1.0)
+        emission = emission * torch.where(
+            (et >= 0)[:, None], sample_bilinear(textures, et, uv, uv_alt, footprint)[:, :3], 1.0)
     roughness = torch.clamp(roughness, min=MIN_ROUGHNESS)
     if medium_ior is None:
         t = (ior - 1.0) / (ior + 1.0)
@@ -109,6 +115,42 @@ def gather(materials, mat_id, textures=None, uv=None, tex_xi=None, medium_ior=No
                    attenuation_distance=materials.attenuation_distance[m],
                    features=set(features or ()))
     return out
+
+
+def triplanar_uv(scene, frag):
+    """Object-space triplanar uv of a fragment (the reference's
+    triplanarMapping): the planar projection along the dominant axis of
+    the object-space shading normal, sign-fixed. Feeds the textures whose
+    texcoord is Triplanar or ObjectPos."""
+    pr = torch.clamp(frag.prop, min=0).long()
+    rot = scene.prop_rot[pr]
+    op = vm.world_to_object_normal(rot, frag.p - scene.prop_pos[pr])
+    on = vm.world_to_object_normal(rot, frag.n)
+    an = torch.abs(on)
+    ax = (an[:, 0] > an[:, 1]) & (an[:, 0] > an[:, 2])
+    ay = (an[:, 1] > an[:, 0]) & (an[:, 1] > an[:, 2]) & ~ax
+    sgn = torch.sign(torch.where(ax, on[:, 0], torch.where(ay, on[:, 1], on[:, 2])))
+    u = torch.where(ax, sgn * op[:, 2], torch.where(ay, sgn * op[:, 0], -sgn * op[:, 0])) + 0.5
+    v = torch.where(ax, -op[:, 1], torch.where(ay, -op[:, 2], -op[:, 1])) + 0.5
+    return torch.stack([u, v], dim=-1)
+
+
+def apply_normal_map(materials, textures, mat_id, uv, n, t, b, tex_xi=None, uv_alt=None):
+    """The shading normal n perturbed by the material's tangent-space
+    normal map through the frame (t, b, n); unchanged on lanes whose
+    material has none."""
+    if textures is None:
+        return n
+    nt = materials.normal_tex[torch.clamp(mat_id, min=0).long()]
+    tid = torch.clamp(nt, min=0)
+    if tex_xi is not None:
+        texel = sample_stochastic(textures, tid, uv, tex_xi, uv_alt)
+    else:
+        texel = sample_bilinear(textures, tid, uv, uv_alt)
+    nm = texel[:, :3] * 2.0 - 1.0
+    n_pert = vm.safe_normalize(vm.frame_to_world(
+        t, b, n, torch.cat([nm[:, :2], torch.clamp(nm[:, 2:3], min=0.1)], dim=1)))
+    return torch.where((nt >= 0)[:, None], n_pert, n)
 
 
 def eval_radiance(params: dict, wo, geo_n):

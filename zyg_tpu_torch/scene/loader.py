@@ -19,24 +19,33 @@ lights are selected as
 the JAX package selects them: by the power CDF when every light is
 infinite, through the SAOH light
 tree (scene/light_tree.py) when one is finite. Mesh props become
-instances over one BVH arena (scene/trimesh.py). Through `SceneBuilder` a
-material may also carry linear image textures (color, roughness,
-emission; `add_texture_image`); a dome with an emission map gets an
+instances over one BVH arena (scene/trimesh.py). A material's color (or
+attenuation_color), roughness, normal map and emission map may be texture
+nodes, by the JAX loader's `tex()` rule: a lone Checker or Noise node is
+evaluated analytically per lane (with a 128^2 fallback bake), any other
+procedural graph is baked at scene build (scene/procedural.py), and a
+{"file": ...} node loads a PNG or Radiance HDR image, resolved against
+the scene file's directory (colours decoded from sRGB), with its
+sampler's address modes and texcoord (UV0, Triplanar, ObjectPos); through
+`SceneBuilder`, `add_texture_image`. A dome with an emission map gets an
 env-map sampler (scene/env_sampling.py).
 
 Everything else raises `UnsupportedScene`: Sphere, Disk, Cube and mesh
-lights, Canopy env lights, Portal entities, texture nodes in scene files,
-dispersive glass (abbe), coatings, flakes, masks, normal maps, density
-files, Volumetric materials on mesh props and every other material kind
-(Hair, Debug, Sky). (Scenes whose
-light tree would split NEE, and glass under textures, env maps or
-Distant lights, are refused by render/driver.py.) The port renders only
+lights, Canopy env lights, Portal entities, C-API image references
+({"id": N}), EXR and other image formats, dispersive glass (abbe),
+coatings, flakes, masks, density files, emission maps on media,
+Volumetric materials on mesh props and every other material kind (Hair,
+Debug, Sky). (Scenes whose light tree would split NEE, glass under
+textures, env maps or Distant lights, and triplanar textures off the
+textured bounce are refused by render/driver.py.) The port renders only
 what its bounces cover, and never silently drops a feature.
 """
 
 from __future__ import annotations
 
+import ast
 import json
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -44,12 +53,15 @@ import torch
 
 from ..core.distribution import Distribution3D
 from ..io.mesh import load_mesh_file
+from ..io.png import read_png
+from ..io.rgbe import read_hdr
 from ..render.materials import MIN_ROUGHNESS
 from .env_sampling import EnvSampler, build_env_sampler
 from .grids import ARRAY_FIELDS as _GRID_FIELDS
 from .grids import GridArena, build_grid_arena, make_fbm_grid
 from .light_tree import ARRAY_FIELDS as _TREE_FIELDS
 from .light_tree import LightTree, build_light_tree
+from . import procedural
 from .sky import SUN_ANGULAR_RADIUS, bake_sky, sun_radiance
 from .textures import TextureArena, TextureBuilder
 from .trimesh import HostMesh, InstanceTable, MeshArena, build_arena, build_instance_table
@@ -162,10 +174,11 @@ class MaterialDesc:
     specular: float = 1.0
     emission: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
     two_sided: bool = False
-    # image texture ids (SceneBuilder.add_texture_image), -1 for none
+    # texture ids (SceneBuilder.add_texture_image / load_texture), -1 for none
     color_tex: int = -1
     roughness_tex: int = -1
     emission_tex: int = -1
+    normal_tex: int = -1
     # glass and media: Beer absorption distance (0 = none) and
     # nested-dielectric priority
     attenuation_distance: float = 0.0
@@ -183,12 +196,12 @@ def _read_color(v) -> np.ndarray:
     if isinstance(v, dict):
         if set(v) == {"value"}:
             return _read_color(v["value"])
-        raise UnsupportedScene(f"color node {sorted(v)} (textures, temperature)")
+        raise UnsupportedScene(f"color node {sorted(v)} (temperature)")
     return np.array([float(x) for x in v[:3]], np.float32)
 
 
 _SUBSTITUTE_KEYS = {"color", "roughness", "metallic", "ior", "specular", "two_sided",
-                    "emittance"}
+                    "emittance", "normal"}
 _LIGHT_KEYS = {"emittance", "two_sided"}
 _GLASS_KEYS = {"color", "attenuation_color", "ior", "roughness", "attenuation_distance",
                "priority"}
@@ -224,12 +237,77 @@ def _load_density_grid(v) -> np.ndarray | None:
     return None
 
 
-def parse_material(value: dict, builder: "SceneBuilder | None" = None) -> MaterialDesc:
+def _read_texcoord(sampler) -> int:
+    """A texture node's sampler "texcoord": UV0 (default) 0, Triplanar 1,
+    ObjectPos 2 (zyg_tpu/scene/loader.py:197)."""
+    if not isinstance(sampler, dict):
+        return 0
+    return {"UV0": 0, "Triplanar": 1, "ObjectPos": 2}.get(sampler.get("texcoord", "UV0"), 0)
+
+
+def _read_address(sampler) -> tuple[bool, bool]:
+    """A texture node's sampler "address": "Clamp"/"Repeat" or [u, v] of
+    them -> (clamp u, clamp v) (zyg_tpu/scene/loader.py:207)."""
+    if not isinstance(sampler, dict):
+        return False, False
+    adr = sampler.get("address")
+    if isinstance(adr, (list, tuple)):
+        return str(adr[0]) == "Clamp", str(adr[1 if len(adr) > 1 else 0]) == "Clamp"
+    if isinstance(adr, str):
+        return adr == "Clamp", adr == "Clamp"
+    return False, False
+
+
+def load_image(path: str) -> np.ndarray:
+    """An image file by its extension: PNG (uint8/uint16 [H, W, C]) or
+    Radiance HDR (float [H, W, 3]). Other formats raise UnsupportedScene."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        return read_png(path)
+    if ext == ".hdr":
+        return read_hdr(path)
+    raise UnsupportedScene(f"image format {ext or path!r} (the port reads PNG and HDR)")
+
+
+def _texture(v, srgb: bool, builder: "SceneBuilder | None", base_dir: str) -> int:
+    """A texture node -> texture id, or -1 for a constant value, by the
+    JAX loader's tex() rule (zyg_tpu/scene/loader.py:237-267): a lone
+    Checker or Noise node gets a 128^2 fallback bake marked for analytic
+    evaluation, any other procedural graph a BAKE_RES bake, a {"file": ...}
+    node its image."""
+    if builder is None or not isinstance(v, dict):
+        return -1
+    if procedural.is_procedural(v):
+        def load(name):
+            return load_image(os.path.join(base_dir, name))
+
+        spec = procedural.analytic_spec(v)
+        if spec is not None:
+            tid = builder.add_texture_image(procedural.bake(v, load_image=load, res=128))
+            builder.textures.add_procedural_meta(tid, spec)
+            return tid
+        return builder.add_texture_image(procedural.bake(v, load_image=load))
+    if "file" in v:
+        clamp_u, clamp_v = _read_address(v.get("sampler"))
+        return builder.load_texture(os.path.join(base_dir, v["file"]), srgb=srgb,
+                                    clamp_u=clamp_u, clamp_v=clamp_v,
+                                    texcoord=_read_texcoord(v.get("sampler")))
+    if "id" in v:
+        raise UnsupportedScene("C-API image references ({'id': N})")
+    return -1
+
+
+def parse_material(value: dict, builder: "SceneBuilder | None" = None,
+                   base_dir: str = "") -> MaterialDesc:
     """One material JSON node (ref material_provider.zig loadMaterial),
-    Substitute, Light, Glass and Volumetric kinds with constant parameters
-    only; a Volumetric density map goes into builder's grid list."""
+    Substitute, Light, Glass and Volumetric kinds; texture nodes (image
+    files resolved against base_dir) and a Volumetric density map go into
+    builder's texture arena and grid list."""
     rendering = value.get("rendering", value)
     desc = MaterialDesc()
+
+    def tex(v, srgb):
+        return _texture(v, srgb, builder, base_dir)
     for kind_name, body in rendering.items():
         if kind_name in _OTHER_KINDS:
             raise UnsupportedScene(f"material kind {kind_name!r}")
@@ -260,15 +338,27 @@ def parse_material(value: dict, builder: "SceneBuilder | None" = None) -> Materi
             raise UnsupportedScene(f"{kind_name} material keys {sorted(extra)}")
         for key, v in body.items():
             if key in ("color", "attenuation_color"):
-                desc.color = _read_color(v)
+                t = tex(v, srgb=True)
+                if t >= 0:
+                    desc.color_tex = t
+                    desc.color = np.ones(3, np.float32)
+                else:
+                    desc.color = _read_color(v)
             elif key == "attenuation_distance":
                 desc.attenuation_distance = float(v)
             elif key == "priority":
                 desc.priority = int(v)
             elif key == "roughness":
-                if not isinstance(v, (int, float)):
-                    raise UnsupportedScene("roughness texture")
-                desc.roughness = float(v)
+                t = tex(v, srgb=False)
+                if t >= 0:
+                    desc.roughness_tex = t
+                    desc.roughness = 1.0
+                elif isinstance(v, (int, float)):
+                    desc.roughness = float(v)
+                else:
+                    raise UnsupportedScene(f"roughness {v!r}")
+            elif key == "normal":
+                desc.normal_tex = tex(v, srgb=False)
             elif key == "metallic":
                 desc.metallic = float(v)
             elif key == "ior":
@@ -286,11 +376,15 @@ def parse_material(value: dict, builder: "SceneBuilder | None" = None) -> Materi
                 if grid is not None and builder is not None:
                     desc.density_grid = builder.add_density_grid(grid)
             elif key == "emittance":
-                extra = set(v) - {"spectrum", "value"}
+                extra = set(v) - {"spectrum", "value", "emission_map"}
                 if extra:
                     raise UnsupportedScene(f"emittance keys {sorted(extra)}")
                 spectrum = _read_color(v.get("spectrum", [1.0, 1.0, 1.0]))
                 desc.emission = np.float32(v.get("value", 1.0)) * spectrum
+                if "emission_map" in v:
+                    if kind_name == "Volumetric":
+                        raise UnsupportedScene("an emission map on a Volumetric material")
+                    desc.emission_tex = tex(v["emission_map"], srgb=False)
         break
     return desc
 
@@ -299,14 +393,15 @@ def _emissive_volumetric(m: MaterialDesc) -> bool:
     return m.kind == int(MaterialKind.VOLUMETRIC) and float(np.max(m.emission)) > 0.0
 
 
-def material_features(kinds, roughness, color, subsurface, emission) -> set:
+def material_features(kinds, roughness, color, subsurface, emission, texcoord=()) -> set:
     """The material features present, by the JAX loader's rules
     (zyg_tpu/scene/loader.py:1232-1315) over every material of the table:
     "media" with any Glass or Volumetric material, "glass" with any Glass,
     "rough_glass" with any Glass rougher than MIN_ROUGHNESS * 1.001,
     "volumetric" with any Volumetric material, "vol_emission" with an
     emissive one and "spectral_media" where a Volumetric material's
-    attenuation or subsurface colour is not grey."""
+    attenuation or subsurface colour is not grey; and "triplanar" where a
+    texture's coordinate set (texcoord, one a texture) is not UV0."""
     kinds = [int(k) for k in kinds]
     glass = [float(r) for k, r in zip(kinds, roughness) if k == int(MaterialKind.GLASS)]
     vols = [i for i, k in enumerate(kinds) if k == int(MaterialKind.VOLUMETRIC)]
@@ -324,6 +419,8 @@ def material_features(kinds, roughness, color, subsurface, emission) -> set:
     if any(float(np.ptp(np.asarray(color[i]))) > 0.0
            or float(np.ptp(np.asarray(subsurface[i]))) > 0.0 for i in vols):
         feats.add("spectral_media")
+    if any(int(tc) > 0 for tc in texcoord):
+        feats.add("triplanar")
     return feats
 
 
@@ -345,7 +442,8 @@ class PropDesc:
 
 
 class SceneBuilder:
-    def __init__(self):
+    def __init__(self, base_dir: str = ""):
+        self.base_dir = base_dir  # image files resolve against it
         self.props: list[PropDesc] = []
         self.materials: list[MaterialDesc] = []
         self.meshes: list[HostMesh] = []
@@ -353,15 +451,25 @@ class SceneBuilder:
         self.textures = TextureBuilder()
         self._mat_by_name: dict[str, int] = {}
         self._mesh_by_name: dict[str, int] = {}
+        self._tex_by_key: dict[tuple, int] = {}
         # fallback material id 0 (ref createFallbackMaterial)
         self._fallback = self.add_material(MaterialDesc(color=np.array([1.0, 0.0, 0.6], np.float32)))
 
     def add_texture_image(self, image: np.ndarray, srgb: bool = False) -> int:
-        """A linear image ([H, W, C] or [H, W]; uint8, uint16 or float32)
-        -> texture id for MaterialDesc's *_tex fields."""
-        if srgb:
-            raise UnsupportedScene("sRGB-encoded textures")
-        return self.textures.add(image)
+        """An image ([H, W, C] or [H, W]; uint8, uint16 or float32; srgb:
+        its colour channels are sRGB-encoded) -> texture id for
+        MaterialDesc's *_tex fields."""
+        return self.textures.add(image, srgb=srgb)
+
+    def load_texture(self, path: str, srgb: bool = False, clamp_u: bool = False,
+                     clamp_v: bool = False, texcoord: int = 0) -> int:
+        """An image file -> texture id, one texture for each (path, srgb,
+        address, texcoord), as the JAX builder dedupes them."""
+        key = (path, srgb, clamp_u, clamp_v, texcoord)
+        if key not in self._tex_by_key:
+            self._tex_by_key[key] = self.textures.add(
+                load_image(path), srgb=srgb, clamp_u=clamp_u, clamp_v=clamp_v, texcoord=texcoord)
+        return self._tex_by_key[key]
 
     def add_density_grid(self, grid: np.ndarray) -> int:
         """A host density grid (float32[nz, ny, nx]) -> its grid id for
@@ -379,7 +487,8 @@ class SceneBuilder:
         if name in self._mat_by_name:
             return self._mat_by_name[name]
         if name in local_materials:
-            return self.add_material(parse_material(local_materials[name], self), name)
+            return self.add_material(parse_material(local_materials[name], self, self.base_dir),
+                                     name)
         return self._fallback
 
     def add_prop(self, desc: PropDesc) -> int:
@@ -463,7 +572,7 @@ class SceneBuilder:
         if not light_props:
             raise UnsupportedScene("a scene without an emitting light")
         for d in self.materials:
-            for tid in (d.color_tex, d.roughness_tex, d.emission_tex):
+            for tid in (d.color_tex, d.roughness_tex, d.emission_tex, d.normal_tex):
                 if not -1 <= tid < len(self.textures):
                     raise UnsupportedScene(f"texture id {tid} out of range")
             if not -1 <= d.density_grid < len(self.density_grids):
@@ -549,6 +658,7 @@ class SceneBuilder:
                 color_tex=t([d.color_tex for d in mats], i32),
                 roughness_tex=t([d.roughness_tex for d in mats], i32),
                 emission_tex=t([d.emission_tex for d in mats], i32),
+                normal_tex=t([d.normal_tex for d in mats], i32),
                 attenuation_distance=t([d.attenuation_distance for d in mats], f32),
                 priority=t([d.priority for d in mats], i32),
                 subsurface_color=t(np.stack([d.subsurface_color for d in mats]), f32),
@@ -571,7 +681,7 @@ class SceneBuilder:
             mat_features=material_features([d.kind for d in mats], [d.roughness for d in mats],
                                            [d.color for d in mats],
                                            [d.subsurface_color for d in mats],
-                                           [d.emission for d in mats]),
+                                           [d.emission for d in mats], self.textures.texcoords),
             volume_props=tuple(volume_props),
             vol_light_dist=vol_light_dist or None,
         ).to(device)
@@ -698,8 +808,9 @@ def _load_entities(entities, parent: Transformation, local_materials, builder: S
             _load_entities(e["entities"], trafo, local_materials, builder)
 
 
-def load_scene_dict(root: dict, device: torch.device | str = "cpu") -> SceneData:
-    builder = SceneBuilder()
+def load_scene_dict(root: dict, device: torch.device | str = "cpu", base_dir: str = "") -> SceneData:
+    """A scene JSON dict -> SceneData; image files resolve against base_dir."""
+    builder = SceneBuilder(base_dir)
     local_materials = {m["name"]: m for m in root.get("materials", []) if "name" in m}
     _load_entities(root.get("entities", []), Transformation(), local_materials, builder)
     return builder.build(device)
@@ -708,7 +819,7 @@ def load_scene_dict(root: dict, device: torch.device | str = "cpu") -> SceneData
 def load_scene_file(path: str, device: torch.device | str = "cpu") -> SceneData:
     with open(path, encoding="utf-8") as f:
         root = json.load(f)
-    return load_scene_dict(root, device)
+    return load_scene_dict(root, device, base_dir=os.path.dirname(os.path.abspath(path)))
 
 
 # ---------------------------------------------------------------------------
@@ -719,16 +830,19 @@ _PLAIN = ("prop_shape", "prop_rot", "prop_pos", "prop_scale", "prop_material",
           "prop_visible_camera", "prop_visible_reflection", "prop_visible_shadow",
           "prop_light")
 _MATERIAL = ("kind", "color", "roughness", "metallic", "ior", "specular", "emission",
-             "two_sided", "color_tex", "roughness_tex", "emission_tex", "attenuation_distance",
-             "priority", "subsurface_color", "volumetric_anisotropy", "density_grid")
-# the material features the port renders (the general bounce's; the JAX
-# package names more, each of which the port refuses)
-_FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media", "vol_emission"}
+             "two_sided", "color_tex", "roughness_tex", "emission_tex", "normal_tex",
+             "attenuation_distance", "priority", "subsurface_color", "volumetric_anisotropy",
+             "density_grid")
+# the material features the port renders (the general bounce's, and
+# "triplanar", which only the textured bounce renders; the JAX package
+# names more, each of which the port refuses)
+_FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media", "vol_emission",
+             "triplanar"}
 _LIGHT = ("prop", "two_sided", "cdf", "volume")
 _DIST3 = ("slice_cdf", "row_cdf", "col_cdf", "pdf_grid")
 _ARENA = ("node_rows", "tri_rows", "attr_rows", "mesh_root")
 _INSTANCES = ("wmin", "wmax", "trafo", "vis")
-_TEXTURES = ("data", "offset", "width", "height", "address")
+_TEXTURES = ("data", "offset", "width", "height", "address", "texcoord")
 _ENV = ("table", "light")
 
 
@@ -737,7 +851,9 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     SceneData: keys "prop_*", "materials.<f>", "lights.<f>",
     "prop_groups.<shape>", for mesh scenes "meshes.<f>" (with
     "meshes.max_depth") and "mesh_instances.<f>", for textured scenes
-    "textures.<f>", for a mapped dome "env.<f>" (with "env.width" and
+    "textures.<f>" (with "textures.procedurals", the repr of each
+    (texture id, kind, params) as a string array), for a mapped dome
+    "env.<f>" (with "env.width" and
     "env.height"), and for a light tree "light_tree.<f>" (with
     "light_tree.depth", "light_tree.inf_weight", "light_tree.num_finite"),
     for density grids "grids.<f>" (with "grids.sparse"), "volume_props"
@@ -752,16 +868,23 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     mats = scene.materials
     for k in _MATERIAL:
         v = getattr(mats, k)
-        # a hand-built JAX table may leave the priorities (all 0) and the
-        # density grids (all -1) unset
+        # a hand-built JAX table may leave the priorities (all 0), the
+        # density grids and normal maps (all -1) unset
         if v is None:
-            v = np.full(arr(mats.kind).shape, -1 if k == "density_grid" else 0, np.int32)
+            v = np.full(arr(mats.kind).shape, -1 if k in ("density_grid", "normal_tex") else 0,
+                        np.int32)
         d[f"materials.{k}"] = arr(v)
     feats = scene.mat_features
+    tex = scene.textures
+    texcoord = None
+    if tex is not None:
+        # a hand-built JAX arena may leave the coordinate sets (all UV0) unset
+        texcoord = (arr(tex.texcoord) if getattr(tex, "texcoord", None) is not None
+                    else np.zeros(arr(tex.offset).shape, np.int32))
     if feats is None:  # the JAX "all features" default: derive them
         feats = material_features(d["materials.kind"], d["materials.roughness"],
                                   d["materials.color"], d["materials.subsurface_color"],
-                                  d["materials.emission"])
+                                  d["materials.emission"], () if texcoord is None else texcoord)
     extra = set(feats) - _FEATURES
     if extra:
         raise UnsupportedScene(f"material features {sorted(extra)}")
@@ -787,13 +910,12 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
         d["meshes.max_depth"] = np.asarray(depth, np.int64)
         d.update({f"mesh_instances.{k}": arr(getattr(scene.mesh_instances, k))
                   for k in _INSTANCES})
-    tex = scene.textures
     if tex is not None:
-        # the JAX arena's coordinate sets and procedurals are out of the port's subset
-        if getattr(tex, "procedurals", None) or (
-                getattr(tex, "texcoord", None) is not None and arr(tex.texcoord).any()):
-            raise UnsupportedScene("procedural or triplanar textures")
-        d.update({f"textures.{k}": arr(getattr(tex, k)) for k in _TEXTURES})
+        d.update({f"textures.{k}": arr(getattr(tex, k)) for k in _TEXTURES if k != "texcoord"})
+        d["textures.texcoord"] = texcoord
+        # the JAX arena keys its procedurals (tid, kind, params) in a dict
+        d["textures.procedurals"] = np.array([repr(tuple(p)) for p in (tex.procedurals or ())],
+                                             dtype=np.str_)
     if scene.env is not None:
         if any(getattr(scene.env, "canopy", ())):
             raise UnsupportedScene("canopy env lights")
@@ -823,7 +945,9 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
         instances = InstanceTable(**{k: t(f"mesh_instances.{k}") for k in _INSTANCES})
     textures = env = None
     if "textures.data" in d:
-        textures = TextureArena(**{k: t(f"textures.{k}") for k in _TEXTURES})
+        textures = TextureArena(
+            **{k: t(f"textures.{k}") for k in _TEXTURES},
+            procedurals=tuple(ast.literal_eval(str(p)) for p in d["textures.procedurals"]))
     if "env.table" in d:
         env = EnvSampler(**{k: t(f"env.{k}") for k in _ENV}, width=int(d["env.width"]),
                          height=int(d["env.height"]))

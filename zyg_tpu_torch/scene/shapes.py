@@ -1,6 +1,7 @@
 """Scene intersection, shadow visibility and the shading fragment for the
 mesh paths (counterpart of zyg_tpu/scene/shapes.py:232 intersect_scene,
-:504 occluded, :616 build_fragment; static props, no tangents). The ray
+:504 occluded, :616 build_fragment; static props, tangent frames on
+request). The ray
 offsets of the bounces are in ops/surface.py's and ops/surface_v2.py's
 kernels and plain versions.
 
@@ -43,6 +44,9 @@ class Fragment:
     n: torch.Tensor  # [N, 3] shading normal
     material: torch.Tensor  # int32[N] material id of the hit prop
     uv: torch.Tensor = None  # [N, 2] texture coordinates (need_uv), else None
+    t: torch.Tensor = None  # [N, 3] tangent (need_tangents), else None
+    b: torch.Tensor = None  # [N, 3] bitangent (need_tangents), else None
+    prop: torch.Tensor = None  # int32[N] the hit prop, -1 on a miss
 
 
 def select_by_shape(shape, vals: dict, default):
@@ -91,12 +95,17 @@ def occluded(scene, table: isect.PropTable, o, d, tmin: float, tmax) -> torch.Te
     return blocked
 
 
-def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None) -> Fragment:
+def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
+                   need_tangents: bool = False) -> Fragment:
     """Hit point, geometric and shading normals, material and (where
     need_uv, by default for textured scenes) uv of the closest hit, over
     the shape branches present in the scene. Lanes on an infinite shape
     get the point RAY_MAX_T * d; the dome's normal is -d, the sun's (a
-    Distant prop) its axis."""
+    Distant prop) its axis. With need_tangents, the shading frame's
+    tangent and bitangent too: a rectangle's or disk's -x and -y axes, a
+    sphere's direction of increasing u, the infinite shapes' x and y axes,
+    and the orthonormal basis about the normal on cubes and meshes (and on
+    every lane when no present shape has a frame of its own)."""
     if need_uv is None:
         need_uv = scene.textures is not None
     present = {int(k) for k in scene.prop_groups}
@@ -110,20 +119,28 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None) -> Fragme
 
     # value per present shape type, selected by the lane's shape in the
     # JAX package's key order (the first present type is the default)
-    n_vals, uv_vals = {}, {}
+    n_vals, uv_vals, t_vals, b_vals = {}, {}, {}, {}
     for st in (ShapeType.RECTANGLE, ShapeType.DISK):
         if int(st) in present:
             n_vals[int(st)] = r2
+            t_vals[int(st)], b_vals[int(st)] = -r0, -r1
             uv_vals[int(st)] = torch.stack([0.5 * (hit.u + 1.0), 0.5 * (hit.v + 1.0)], dim=-1)
     if int(ShapeType.SPHERE) in present:
         sph_n = vm.safe_normalize(p - pos)
         n_vals[int(ShapeType.SPHERE)] = sph_n
-        if need_uv:
+        if need_uv or need_tangents:
             xyz = vm.safe_normalize(vm.world_to_object_normal(rot, sph_n))
             phi = -torch.atan2(xyz[:, 0], xyz[:, 2]) + math.pi
             theta = torch.acos(torch.clamp(xyz[:, 1], -1.0, 1.0))
             uv_vals[int(ShapeType.SPHERE)] = torch.stack(
                 [phi * (0.5 / math.pi), theta * (1.0 / math.pi)], dim=-1)
+        if need_tangents:
+            sin_theta = torch.clamp(torch.sin(theta), min=1e-5)
+            t_l = torch.stack([sin_theta * torch.cos(phi), torch.zeros_like(phi),
+                               sin_theta * torch.sin(phi)], dim=-1)
+            sph_t = vm.safe_normalize(vm.object_to_world_normal(rot, t_l))
+            t_vals[int(ShapeType.SPHERE)] = sph_t
+            b_vals[int(ShapeType.SPHERE)] = -vm.cross(sph_t, sph_n)
     if int(ShapeType.CUBE) in present:
         lp = vm.world_to_object_point(rot, scale, pos, p)
         ax, ay, az = (0.5 - torch.abs(lp[:, k]) for k in range(3))
@@ -131,13 +148,18 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None) -> Fragme
         use_y = (~use_x) & (ay <= az)
         face_n = torch.where(use_x[:, None], r0, torch.where(use_y[:, None], r1, r2))
         comp = torch.where(use_x, lp[:, 0], torch.where(use_y, lp[:, 1], lp[:, 2]))
-        n_vals[int(ShapeType.CUBE)] = torch.sign(comp)[:, None] * face_n
+        cube_n = torch.sign(comp)[:, None] * face_n
+        n_vals[int(ShapeType.CUBE)] = cube_n
+        if need_tangents:
+            t_vals[int(ShapeType.CUBE)], b_vals[int(ShapeType.CUBE)] = vm.orthonormal_basis(cube_n)
     # infinite shapes: the dome's normal faces the ray, the sun's is its
     # axis; uv in the JAX package's key order (the sun's before the dome's)
     if int(ShapeType.DOME) in present:
         n_vals[int(ShapeType.DOME)] = -d
+        t_vals[int(ShapeType.DOME)], b_vals[int(ShapeType.DOME)] = r0, r1
     if int(ShapeType.DISTANT) in present:
         n_vals[int(ShapeType.DISTANT)] = r2
+        t_vals[int(ShapeType.DISTANT)], b_vals[int(ShapeType.DISTANT)] = r0, r1
         uv_vals[int(ShapeType.DISTANT)] = torch.stack([(hit.u + 1.0) * 0.5, (hit.v + 1.0) * 0.5],
                                                       dim=-1)
     if need_uv and int(ShapeType.DOME) in present:
@@ -148,6 +170,13 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None) -> Fragme
 
     n = select_by_shape(shape, n_vals, -d)
     uv = select_by_shape(shape, uv_vals, torch.zeros_like(p[:, :2])) if need_uv else None
+    tangent = bitangent = None
+    if need_tangents:
+        if t_vals:
+            tangent = select_by_shape(shape, t_vals, None)
+            bitangent = select_by_shape(shape, b_vals, None)
+        else:
+            tangent, bitangent = vm.orthonormal_basis(n)
     if int(ShapeType.DOME) in present or int(ShapeType.DISTANT) in present:
         is_inf = (shape == int(ShapeType.DOME)) | (shape == int(ShapeType.DISTANT))
         p = torch.where(is_inf[:, None], RAY_MAX_T * d, p)
@@ -164,8 +193,14 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None) -> Fragme
         # normals turn by the rotation only (the reference's uniform-scale
         # assumption, composed_transformation.zig objectToWorldNormal)
         geo_n = torch.where(is_mesh, vm.safe_normalize(vm.object_to_world_normal(rot, gn_l)), geo_n)
-        n = torch.where(is_mesh, vm.safe_normalize(vm.object_to_world_normal(rot, ns_l)), n)
+        ns_w = vm.safe_normalize(vm.object_to_world_normal(rot, ns_l))
+        n = torch.where(is_mesh, ns_w, n)
         if need_uv:
             uv_m = fma(v, row[:, 16:18], fma(w0, row[:, 12:14], u * row[:, 14:16]))
             uv = torch.where(is_mesh, uv_m, uv)
-    return Fragment(p=p, geo_n=geo_n, n=n, material=scene.prop_material[prop], uv=uv)
+        if need_tangents:
+            mt, mb = vm.orthonormal_basis(ns_w)
+            tangent = torch.where(is_mesh, mt, tangent)
+            bitangent = torch.where(is_mesh, mb, bitangent)
+    return Fragment(p=p, geo_n=geo_n, n=n, material=scene.prop_material[prop], uv=uv,
+                    t=tangent, b=bitangent, prop=hit.prop)

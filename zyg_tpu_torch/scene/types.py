@@ -1,7 +1,7 @@
 """Scene container on torch tensors (counterpart of zyg_tpu/scene/types.py).
 
 Holds only the fields the port's paths read: per-prop transforms, shape
-and material ids, visibility, the material table (with its image-texture
+and material ids, visibility, the material table (with its texture
 ids), the light records with their power CDF, the analytic props grouped by
 shape type, for mesh scenes the triangle arena and the mesh instance table
 (scene/trimesh.py), for textured scenes the texture arena
@@ -72,11 +72,13 @@ class Materials:
     specular: torch.Tensor  # float32[M]
     emission: torch.Tensor  # float32[M, 3]
     two_sided: torch.Tensor  # bool[M]
-    # image textures (ids into SceneData.textures, -1 for none): color and
-    # roughness multiply their constant values, emission scales emission
+    # textures (ids into SceneData.textures, -1 for none): color and
+    # roughness multiply their constant values, emission scales emission,
+    # a normal map perturbs the shading normal in the tangent frame
     color_tex: torch.Tensor  # int32[M]
     roughness_tex: torch.Tensor  # int32[M]
     emission_tex: torch.Tensor  # int32[M]
+    normal_tex: torch.Tensor  # int32[M]
     # glass and media (the general bounce): Beer absorption distance (0 =
     # none), nested-dielectric priority, and the two scattering parameters
     # of the JAX table (zero on every material the port loads)
@@ -127,13 +129,13 @@ class SceneData:
     prop_groups: dict
     meshes: object = None  # trimesh.MeshArena, or None without meshes
     mesh_instances: object = None  # trimesh.InstanceTable, or None
-    textures: object = None  # textures.TextureArena, or None without images
+    textures: object = None  # textures.TextureArena, or None without textures
     env: object = None  # env_sampling.EnvSampler of a mapped dome, or None
     light_tree: object = None  # light_tree.LightTree, or None (power-CDF selection)
     grids: object = None  # grids.GridArena of the density grids, or None
     # names of the material features present ("glass", "rough_glass",
-    # "media", "volumetric", "spectral_media", "vol_emission"; scene/loader.py
-    # material_features), a Python set
+    # "media", "volumetric", "spectral_media", "vol_emission", "triplanar";
+    # scene/loader.py material_features), a Python set
     mat_features: set = field(default_factory=set)
     # props filled with a Volumetric medium, which attenuates shadow rays
     # instead of blocking them: sorted (prop, material, density grid or -1,
