@@ -22,11 +22,17 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     the mesh path's 921,600 lanes: isect over the scene's own reflection
     and shadow prop tables (pid/blocked exact, t/u/v within rtol 2e-5),
     and again on the sunsky and material_test tables (the latter at the
-    material path's 786,432 lanes, its Sphere hits counted);
+    material path's 786,432 lanes, its Sphere hits counted) and on
+    portal.scene's at the portal path's 196,608 lanes (closest hits on
+    the window and none on the hidden dome; shadow rays out through the
+    shadow-invisible window to the sky unblocked, those toward the sun,
+    which stands behind the room, blocked);
     surface with the shade rules plus the shadow rays and NEE values of
     the NEE lanes, and surface_v2 on the bench textured scene and again
     on the first bounce of a 1280x720 hero.take render (its analytic
-    checker albedo and baked roughness per lane), each with
+    checker albedo and baked roughness per lane) and of a 512x384
+    portal.take render (NEE candidates with the portal's windowed pdfs),
+    each with
     the shares of its lanes dead on entry, missed, ended on a hit,
     reaching NEE, with an active NEE sample and with a failed BSDF sample,
     and a bound from the bytes each lane's lifecycle needs; traverse (and
@@ -59,7 +65,10 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     volume light) at 64x48, 8 spp, 4i. for examples/takes/hero.take
     (texture nodes: an analytic Checker albedo and a baked Mix/Noise
     roughness on the 491,520-triangle trefoil under a Sky) at 96x56, 16
-    spp, depth 5
+    spp, depth 5, 4j. for examples/takes/portal.take (a Sky through a
+    portal into a closed room) at 96x72, 16 spp, depth 8, and a canopy +
+    IES scene the script writes (a Canopy with a PNG emission map beside
+    a Rectangle lamp with an LM-63 profile) at 96x72, 16 spp, depth 6
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
@@ -106,6 +115,12 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     1280x720, 16 spp, PTMIS depth 5, ACES, then the Driver at the same
     size; sobol_block, isect, surface_v2, traverse and accum must each
     have launched; the same report and profile, and kernel 6's lane shares
+ 5i. the portal main path: the CLI on examples/takes/portal.take at its
+    own 512x384, 32 spp, PTMIS depth 8, then the Driver at the same size;
+    sobol_block, isect, surface_v2 and accum must each have launched; the
+    same report and profile, kernel 6's lane shares, and the portal
+    sampler's calls a render with its device time and launches a call by
+    kernel name
  6. one bounce of the mesh bounce (kernel 5) against one of the general
     bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
     directly, timed in turns (CUDA events, medians)
@@ -197,6 +212,13 @@ N_FIRE = FIRE_RES[0] * FIRE_RES[1]
 HERO_KERNELS = TEXTURED_KERNELS
 HERO_RES = (1280, 720)
 HERO_SPP = 16
+# the portal path: a Sky seen through a portal from a closed room of
+# analytic props, through kernel 6's glue (no mesh: no traversal), at
+# portal.take's own 512x384, 32 spp, PTMIS depth 8
+PORTAL_KERNELS = ("sobol_block", "isect", "surface_v2", "accum")
+PORTAL_RES = (512, 384)
+PORTAL_SPP = 32
+N_PORTAL = PORTAL_RES[0] * PORTAL_RES[1]
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -459,6 +481,7 @@ def check_isect(dev) -> dict:
         f"{int(pb.sum())} shadow rays blocked by analytic props")
     check_isect_sunsky(dev)
     check_isect_material(dev)
+    check_isect_portal(dev)
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: isect.closest_props(refl, o, d, 0.0, tmax, prim), 20),
@@ -542,6 +565,99 @@ def check_isect_sunsky(dev) -> None:
     ms = time_ms(lambda: isect.closest_props(refl, o, d, 0.0, tmax, prim), 20)
     log(f"isect (sunsky tables {refl.kinds} / shadow {shadow.kinds}): exact on {N_SKY} lanes; "
         f"hits by shape {hits}; {int(pb.sum())} shadow rays blocked; closest {ms:.4f} ms")
+
+
+def _portal(dev):
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    return load_scene_file(os.path.join(REPO, "examples/scenes/portal.scene"), dev)
+
+
+def _portal_lanes(scene, n, dev, seed=17):
+    """Lanes of the portal path's analytic hit tests: camera rays of
+    portal.take on the primary half; on the other, rays from points in
+    the room, every third toward a point of the window, every third along
+    the sun's direction, the rest random; shadow rays from room points, a
+    third toward the sun (behind the room: the walls block them), a third
+    out through the window toward the sky (both with tmax short of
+    RAY_MAX_T, as NEE gives infinite lights), a third in random
+    directions up to 4 units. 10 % of the lanes are dead (tmax 0)."""
+    import numpy as np
+    import torch
+    from zyg_tpu_torch.ops.surface_v2 import _INF_SHADOW_TMAX
+    from zyg_tpu_torch.scene.types import RAY_MAX_T
+
+    to_sun = -scene.prop_rot[int(scene.lights.prop[0])][2].cpu().numpy().astype(np.float64)
+    rng = np.random.default_rng(seed)
+    prim = rng.random(n) < 0.5
+    alive = rng.random(n) < 0.9
+    room = rng.uniform([-1.8, 0.1, -1.8], [1.8, 2.9, 1.8], (n, 3))
+    window = np.array([0.0, 1.5, 2.0]) + rng.uniform([-0.65, -0.65, 0.0], [0.65, 0.65, 0.0], (n, 3))
+    cam = np.array([-0.6, 1.4, -1.6])
+    o = np.where(prim[:, None], cam, room)
+    d = rng.normal(size=(n, 3)) + np.where(prim[:, None], [0.3, 0.0, 1.0], 0.0)
+    third = np.arange(n) % 3
+    d = np.where(((third == 0) & ~prim)[:, None], window - room, d)
+    d = np.where(((third == 1) & ~prim)[:, None], to_sun, d)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.where(alive, RAY_MAX_T, 0.0)
+    so = rng.uniform([-1.8, 0.1, -1.8], [1.8, 2.9, 1.8], (n, 3))
+    kind = rng.integers(0, 3, n)
+    window = np.array([0.0, 1.5, 2.0]) + rng.uniform([-0.65, -0.65, 0.0], [0.65, 0.65, 0.0], (n, 3))
+    sd = np.where((kind == 0)[:, None], to_sun,
+                  np.where((kind == 1)[:, None], window - so, rng.normal(size=(n, 3))))
+    sd /= np.linalg.norm(sd, axis=-1, keepdims=True)
+    smax = np.where(alive, np.where(kind < 2, _INF_SHADOW_TMAX, rng.uniform(0.1, 4.0, n)), 0.0)
+
+    def t(x):
+        x = np.ascontiguousarray(x)
+        return torch.from_numpy(x if x.dtype == bool else x.astype(np.float32)).to(dev)
+
+    return tuple(t(x) for x in (o, d, tmax, prim, so, sd, smax))
+
+
+def check_isect_portal(dev) -> dict:
+    """isect over portal.scene's own reflection and shadow prop tables (the
+    rules of check_isect) at the portal path's 196,608 lanes: closest hits
+    land on the portal's window and never on the hidden dome, and shadow
+    rays pass the shadow-invisible window (and the hidden dome) toward the
+    sky through the window while the walls block the rest (the sun stands
+    behind the room); prop ids and any-hits exact."""
+    import torch
+    from zyg_tpu_torch.ops import isect
+
+    scene = _portal(dev)
+    ((_, pp),) = scene.portals.keys()
+    refl, shadow = isect.prop_table(scene, "reflection"), isect.prop_table(scene, "shadow")
+    o, d, tmax, prim, so, sd, smax = _portal_lanes(scene, N_PORTAL, dev)
+    k = isect.closest_props(refl, o, d, 0.0, tmax, prim)
+    p = isect.isect_plain(refl.kinds, refl.table, refl.ids, o, d, 0.0, tmax, prim, False)
+    kb = isect.anyhit_props(shadow, so, sd, 0.0, smax)
+    pb = isect.isect_plain(shadow.kinds, shadow.table, shadow.ids, so, sd, 0.0, smax, None, True)
+    torch.cuda.synchronize()
+    if not torch.equal(k[1], p[1]):
+        raise AssertionError(f"isect (portal): {int((k[1] != p[1]).sum())} prop ids differ")
+    if not torch.equal(kb, pb):
+        raise AssertionError(f"isect (portal): {int((kb != pb).sum())} any-hit results differ")
+    err = 0.0
+    for a, b in ((k[0], p[0]), (k[2], p[2]), (k[3], p[3])):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+        err = max(err, float((a - b).abs().max()))
+    on_portal = int((p[1] == pp).sum())
+    on_dome = int((p[1] == 0).sum())
+    passed = int(((smax > 0.0) & ~pb).sum())
+    to_sky = int(((smax > 1e9) & ~pb).sum())  # infinite rays out through the window
+    if on_portal <= 0 or on_dome != 0 or to_sky <= 0 or int(pb.sum()) <= 0:
+        raise AssertionError(f"isect (portal): {on_portal} hits on the window, {on_dome} on the "
+                             f"hidden dome, {to_sky} shadow rays to the sky through the window, "
+                             f"{int(pb.sum())} blocked")
+    ms = time_ms(lambda: isect.closest_props(refl, o, d, 0.0, tmax, prim), 20)
+    anyhit = time_ms(lambda: isect.anyhit_props(shadow, so, sd, 0.0, smax), 20)
+    log(f"isect (portal tables {refl.kinds} / shadow {shadow.kinds}): exact on {N_PORTAL} lanes; "
+        f"{on_portal} closest hits on the window (prop {pp}), none on the hidden dome; "
+        f"{passed} shadow rays unblocked ({to_sky} out through the window to the sky), "
+        f"{int(pb.sum())} blocked; closest {ms:.4f} ms, any-hit {anyhit:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "anyhit_ms": anyhit}
 
 
 def _material(dev):
@@ -1578,16 +1694,16 @@ def check_surface_v2(dev) -> dict:
     return _check_surface_v2_on("surface_v2", body.fit, st, ua, ub, (4, True, False))
 
 
-def hero_lanes(dev):
-    """Kernel 6's arguments in the first bounce of one hero.take render at
-    its own 1280x720 (one sample a pixel), caught at the wrapper: (fit,
-    lane fields, ua, ub, (max_depth, caustics, nee_only))."""
+def first_bounce_lanes(dev, take_name, res):
+    """Kernel 6's arguments in the first bounce of one render of a take at
+    res (one sample a pixel), caught at the wrapper: (fit, lane fields, ua, ub, (max_depth, caustics,
+    nee_only))."""
     import torch
     from zyg_tpu_torch.ops import surface_v2
     from zyg_tpu_torch.render.driver import Driver
     from zyg_tpu_torch.scene.loader import load_scene_file
 
-    take = _take("hero.take", HERO_RES, 1)
+    take = _take(take_name, res, 1)
     driver = Driver(take, load_scene_file(take.scene_filename), device=dev)
     orig = surface_v2.surface_v2
     caught = []
@@ -1614,13 +1730,25 @@ def check_surface_v2_hero(dev) -> dict:
     roughness that varies per lane (the baked Mix/Noise graph)."""
     import torch
 
-    fit, st, ua, ub, args = hero_lanes(dev)
+    fit, st, ua, ub, args = first_bounce_lanes(dev, "hero.take", HERO_RES)
     on = st["alive"] & st["finite"] & (st["mat_kind"] == 0)
     alpha = st["alpha"][on]
     log(f"surface_v2 on hero: {int(st['alive'].sum())} live lanes, {int(on.sum())} on surfaces, "
         f"their alpha in [{float(alpha.min()):.6f}, {float(alpha.max()):.6f}] with "
         f"{int(torch.unique(alpha).numel())} values")
     return _check_surface_v2_on("surface_v2 on hero", fit, st, ua, ub, args)
+
+
+def check_surface_v2_portal(dev) -> dict:
+    """Kernel 6 on portal.take's own lanes: the first bounce of a 512x384
+    render, whose NEE candidates toward the portal carry the windowed
+    distribution's pdfs and whose camera rays through the window end on
+    the portal's emission."""
+    fit, st, ua, ub, args = first_bounce_lanes(dev, "portal.take", PORTAL_RES)
+    log(f"surface_v2 on portal: {int(st['alive'].sum())} live lanes, "
+        f"{int((st['alive'] & st['is_light']).sum())} on the window's emission, "
+        f"{int(st['nee_pre'].sum())} with a NEE candidate")
+    return _check_surface_v2_on("surface_v2 on portal", fit, st, ua, ub, args)
 
 
 def _take(name, res, spp):
@@ -1829,6 +1957,167 @@ def phase_slice_hero(dev) -> None:
     cpu = Driver(take, scene, device="cpu").render_frame()
     t_cpu = time.perf_counter() - t0
     _golden_gate(card, cpu, "hero 96x56x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+
+
+def phase_slice_portal(dev) -> None:
+    """portal.take at 96x72, 16 spp, depth 8, and a canopy + IES scene the
+    script writes at 96x72, 16 spp, on the card against the plain CPU
+    path."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    take = _take("portal.take", (96, 72), 16)
+    scene = load_scene_file(take.scene_filename)
+    t0 = time.perf_counter()
+    card = Driver(take, scene, device=dev).render_frame()
+    t_card = time.perf_counter() - t0
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = Driver(take, scene, device="cpu").render_frame()
+    t_cpu = time.perf_counter() - t0
+    _golden_gate(card, cpu, "portal 96x72x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        take, scene = _canopy_ies_scene(tmp, (96, 72), 16)
+        t0 = time.perf_counter()
+        card = Driver(take, scene, device=dev).render_frame()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = Driver(take, scene, device="cpu").render_frame()
+        t_cpu = time.perf_counter() - t0
+    _golden_gate(card, cpu, "canopy + IES 96x72x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+
+
+# an LM-63 profile with its beam down the lamp's normal
+IES_TEXT = """IESNA:LM-63-2002
+TILT=NONE
+1 1000.0 1 5 1 1 1 0.1 0.1 0.1
+1.0 1.0 0.0
+0 22.5 45 90 180
+0
+1000 800 50 0 0
+"""
+
+
+def _canopy_ies_scene(tmp, res, spp):
+    """(take, scene) of a scene written to tmp: a Canopy with a seeded PNG
+    emission map (its env sampler's disk mapping) beside a downward
+    Rectangle lamp with an IES profile, over a floor with a sphere and a
+    metal cube, PTMIS depth 6, loaded from its files by the port's
+    loader."""
+    import numpy as np
+    from zyg_tpu_torch.io.png import write_png
+    from zyg_tpu_torch.io.take import IntegratorSettings, Take
+    from zyg_tpu_torch.render.camera import PerspectiveCamera
+    from zyg_tpu_torch.scene.loader import load_scene_file, read_transformation
+
+    rng = np.random.default_rng(23)
+    sky = rng.integers(60, 200, (64, 64, 3)).astype(np.uint8)
+    sky[8:20, 36:52] = 255  # a bright patch off the disk's center
+    write_png(os.path.join(tmp, "canopy.png"), sky)
+    with open(os.path.join(tmp, "spot.ies"), "w", encoding="utf-8") as f:
+        f.write(IES_TEXT)
+    root = {
+        "materials": [
+            {"name": "sky", "rendering": {"Light": {"emittance": {
+                "value": 1.5, "emission_map": {"file": "canopy.png"}}}}},
+            {"name": "lamp", "rendering": {"Light": {"emittance": {
+                "value": 8.0, "spectrum": [1.0, 0.9, 0.7], "profile": {"file": "spot.ies"}}}}},
+            {"name": "floor", "rendering": {"Substitute": {"color": [0.5, 0.5, 0.5],
+                                                           "roughness": 0.7}}},
+            {"name": "ball", "rendering": {"Substitute": {"color": [0.7, 0.3, 0.2],
+                                                          "roughness": 0.3}}},
+            {"name": "box", "rendering": {"Substitute": {"color": [0.9, 0.8, 0.5],
+                                                         "roughness": 0.2, "metallic": 1.0}}},
+        ],
+        "entities": [
+            {"type": "Light", "shape": {"type": "Canopy"}, "materials": ["sky"],
+             "transformation": {"rotation": [80, 25, 0]}},
+            {"type": "Light", "shape": {"type": "Rectangle"}, "materials": ["lamp"],
+             "transformation": {"position": [0.3, 2.4, 0.2], "rotation": [-90, 0, 0],
+                                "scale": [0.8, 0.8, 1]}},
+            {"type": "Prop", "shape": {"type": "Rectangle"}, "materials": ["floor"],
+             "transformation": {"rotation": [90, 0, 0], "scale": [12, 12, 1]}},
+            {"type": "Prop", "shape": {"type": "Sphere"}, "materials": ["ball"],
+             "transformation": {"position": [-0.8, 0.7, 0.3], "scale": [1.4, 1.4, 1.4]}},
+            {"type": "Prop", "shape": {"type": "Cube"}, "materials": ["box"],
+             "transformation": {"position": [1.0, 0.5, -0.4], "rotation": [0, 25, 0]}},
+        ],
+    }
+    path = os.path.join(tmp, "canopy_ies.scene")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(root, f)
+    scene = load_scene_file(path)
+    if scene.env is None or scene.env.canopy != (True,) or "ies" not in scene.mat_features:
+        raise AssertionError("the canopy + IES scene lacks its canopy env entry or its profile")
+    take = Take()
+    take.num_samples_per_pixel = spp
+    take.integrator = IntegratorSettings(kind="PTMIS", max_depth_surface=6)
+    cam = PerspectiveCamera(resolution=res, fov=np.deg2rad(60))
+    tr = read_transformation({"position": [0, 2.2, -5.5], "look_at": [0, 0.8, 0]})
+    cam.position, cam.rotation = tr.position, tr.rotation
+    take.cameras = [cam]
+    return take, scene
+
+
+def portal_sampler_profile(dev, scene, spp: int) -> str:
+    """The portal sampler's share of one render: its calls counted on the
+    host around one render (sample_to in NEE, pdf_to in the BSDF-hit MIS,
+    each at the full lane width), and one call of each at the path's
+    196,608 lanes profiled by device kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene import portal as portal_mod
+
+    calls = {"sample_to": 0, "pdf_to": 0}
+    orig = {k: getattr(portal_mod, k) for k in calls}
+
+    def counting(name):
+        def fn(*args):
+            calls[name] += 1
+            return orig[name](*args)
+        return fn
+
+    driver = Driver(_take("portal.take", PORTAL_RES, spp), scene, device=dev)
+    for k in calls:
+        setattr(portal_mod, k, counting(k))
+    try:
+        driver.start_frame()
+        driver.render_iterations(spp)
+        torch.cuda.synchronize()
+    finally:
+        for k, fn in orig.items():
+            setattr(portal_mod, k, fn)
+    scene = driver.scene  # on the card
+    ((_, pp), pd), = scene.portals.items()
+    geo = (scene.prop_rot[pp], scene.prop_pos[pp], scene.prop_scale[pp])
+    g = torch.Generator(device="cpu").manual_seed(5)
+    p = (torch.rand((N_PORTAL, 3), generator=g) * torch.tensor([3.6, 2.8, 3.6])
+         - torch.tensor([1.8, -0.1, 1.8])).to(dev)
+    xi = torch.rand((N_PORTAL, 2), generator=g).to(dev)
+    res = portal_mod.sample_to(pd, *geo, p, xi)
+    portal_mod.pdf_to(pd, *geo, p, res["wi"])
+    torch.cuda.synchronize()
+    lines = []
+    for name, fn in (("sample_to", lambda: portal_mod.sample_to(pd, *geo, p, xi)),
+                     ("pdf_to", lambda: portal_mod.pdf_to(pd, *geo, p, res["wi"]))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, list] = {}
+        for ev, sec in device_events(prof):
+            row = by_name.setdefault(ev, [0.0, 0])
+            row[0] += sec
+            row[1] += 1
+        launches = sum(v[1] for v in by_name.values())
+        dev_s = sum(v[0] for v in by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+        lines.append(f"{name}: {calls[name]} calls a render, {launches} launches and "
+                     f"{dev_s * 1e3:.4f} ms of device time a call at {N_PORTAL} lanes "
+                     f"({calls[name] * dev_s:.4f} s a render); led by " + "; ".join(
+                         f"{ev[:60]} {sec * 1e3:.4f} ms x{c}" for ev, (sec, c) in top))
+    return "portal sampler: " + " | ".join(lines)
 
 
 def _tree_scene(res, spp):
@@ -2217,6 +2506,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     checks["surface_v2"]["hero"] = check_surface_v2_hero(dev)
     torch.cuda.empty_cache()
+    checks["surface_v2"]["portal"] = check_surface_v2_portal(dev)
+    torch.cuda.empty_cache()
     for name in SOURCES:
         c = checks[name]
         lib = f", library {c['library_ms']:.4f} ms" if c["library_ms"] is not None else ""
@@ -2229,15 +2520,17 @@ def main() -> int:
             f"(device {c['device_ms']:.4f} ms){anyhit}, "
             f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}){lib} "
             f"[{card}]")
-    h = checks["surface_v2"]["hero"]
-    log(f"surface_v2 on hero's lanes: ok, max_abs_err {h['max_abs_err']:.3g}, kernel "
-        f"{h['ms']:.4f} ms (device {h['device_ms']:.4f} ms), plain {h['plain_ms']:.4f} ms, "
-        f"bound {h['bound_ms']:.4f} ms ({h['bound_by']}) [{card}]")
+    for lanes in ("hero", "portal"):
+        h = checks["surface_v2"][lanes]
+        log(f"surface_v2 on {lanes}'s lanes: ok, max_abs_err {h['max_abs_err']:.3g}, kernel "
+            f"{h['ms']:.4f} ms (device {h['device_ms']:.4f} ms), plain {h['plain_ms']:.4f} ms, "
+            f"bound {h['bound_ms']:.4f} ms ({h['bound_by']}) [{card}]")
     phase_slice(dev)
     phase_slice_mesh(dev)
     phase_slice_textured(dev)
     phase_slice_sunsky(dev)
     phase_slice_hero(dev)
+    phase_slice_portal(dev)
     phase_slice_tree(dev)
     phase_slice_material(dev)
     phase_slice_smoke(dev)
@@ -2268,6 +2561,13 @@ def main() -> int:
     hero = phase_main_path(dev, card, "hero PTMIS",
                            *_take_scene("hero.take", HERO_RES, HERO_SPP, "hero PTMIS"),
                            HERO_KERNELS, lanes_of="surface_v2")
+    portal_cli = _cli_run("portal.take", PORTAL_KERNELS)
+    for k in launches:
+        launches[k] += portal_cli[k]
+    take, scene = _take_scene("portal.take", PORTAL_RES, PORTAL_SPP, "portal PTMIS")
+    portal = phase_main_path(dev, card, "portal PTMIS", take, scene, PORTAL_KERNELS,
+                             lanes_of="surface_v2")
+    log(f"portal PTMIS [{card}]: {portal_sampler_profile(dev, scene, PORTAL_SPP)}")
     material_cli = _cli_run("material_test.take", MATERIAL_KERNELS)
     for k in launches:
         launches[k] += material_cli[k]
@@ -2296,11 +2596,13 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "launches_of": "cli cornell_ptmis.take + cli trefoil.take + cli sunsky.take "
-                               "+ cli hero.take + cli material_test.take + cli smoke.take "
-                               "and cli fire.take (copies at 8 spp) + one 1280x720 4 spp "
-                               "textured-trefoil render",
+                               "+ cli hero.take + cli portal.take + cli material_test.take "
+                               "+ cli smoke.take and cli fire.take (copies at 8 spp) + one "
+                               "1280x720 4 spp textured-trefoil render",
                 "launches_hero_cli": hero_cli[name],
                 "launches_hero_render": hero[name],
+                "launches_portal_cli": portal_cli[name],
+                "launches_portal_render": portal[name],
                 "launches_material": material_cli[name],
                 "launches_smoke_render": smoke[name],
                 "launches_fire_render": fire[name],
@@ -2310,10 +2612,11 @@ def main() -> int:
                 "library_ms": c["library_ms"],
                 # the emissive variant of the walk (fire grey and spectral)
                 **({"emissive": c["emissive"]} if "emissive" in c else {}),
-                # kernel 6 again on hero.take's own first-bounce lanes
-                **({"hero": {k: c["hero"][k] for k in ("max_abs_err", "ms", "device_ms",
-                                                       "plain_ms", "bound_ms", "bound_by")}}
-                   if "hero" in c else {})}
+                # kernel 6 again on hero.take's and portal.take's own
+                # first-bounce lanes
+                **{lanes: {k: c[lanes][k] for k in ("max_abs_err", "ms", "device_ms",
+                                                    "plain_ms", "bound_ms", "bound_by")}
+                   for lanes in ("hero", "portal") if lanes in c}}
 
     print(json.dumps({"kernels": [entry(k) for k in SOURCES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,8 @@ and the per-pixel flush at small widths, isect on material_test's tables,
 and the general body (torch around isect and sobol_block) on the card
 against the CPU at 0, 1, 31 and 129 lanes; the tracking walks, with the
 interaction walk's emissive variant on the fire path's lanes, the
-general body over fire.scene, and kernel 6 on hero.take's first bounce.
+general body over fire.scene, kernel 6 on hero.take's and portal.take's
+first bounce, and isect on portal.scene's tables.
 Skipped without a card. This file imports no jax, so it also runs on a
 machine without the JAX package:
 
@@ -31,17 +32,24 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("kernel", ["sobol_block", "isect", "accum", "shade", "surface", "traverse",
-                                    "surface_v2", "surface_v2_hero"])
+                                    "surface_v2", "surface_v2_hero", "isect_portal",
+                                    "surface_v2_portal"])
 def test_kernel_matches_plain_on_card(cuda_device, kernel):
     """surface_v2_hero: kernel 6 on the first bounce of a 1280x720
-    hero.take render, whose roughness varies per lane across the knot."""
+    hero.take render, whose roughness varies per lane across the knot;
+    isect_portal: closest and any-hit over portal.scene's tables, shadow
+    rays passing the shadow-invisible window and the hidden dome;
+    surface_v2_portal: kernel 6 on the first bounce of a 512x384
+    portal.take render (NEE candidates with the portal's windowed pdfs)."""
     import chip_smoke
 
     check = {"sobol_block": chip_smoke.check_sobol, "isect": chip_smoke.check_isect,
              "accum": chip_smoke.check_accum, "shade": chip_smoke.check_shade,
              "surface": chip_smoke.check_surface, "traverse": chip_smoke.check_traverse,
              "surface_v2": chip_smoke.check_surface_v2,
-             "surface_v2_hero": chip_smoke.check_surface_v2_hero}[kernel]
+             "surface_v2_hero": chip_smoke.check_surface_v2_hero,
+             "isect_portal": chip_smoke.check_isect_portal,
+             "surface_v2_portal": chip_smoke.check_surface_v2_portal}[kernel]
     result = check(cuda_device)  # raises on any disagreement
     assert result["ms"] > 0.0
 

@@ -2,6 +2,8 @@
 examples/scenes/cornell.scene (exact arrays), the JAX -> port scene
 hand-off, the take parse, and camera ray generation (rtol 1e-6)."""
 
+import json
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -102,13 +104,12 @@ def _light(shape, **extra):
         (_light({"type": "Disk"}), "Disk lights"),
         (_light({"type": "Cube"}), "Cube lights"),
         (_light({"file": "proc:cube"}), "emissive meshes"),
-        (_light({"type": "Canopy"}), "Canopy"),
-        ({"entities": [{"type": "Portal", "shape": {"type": "Rectangle"}, "light": 0}]},
-         "Portal"),
+        ({"entities": [{"type": "Instancer", "prototypes": []}]}, "entity 'Instancer'"),
+        ({"entities": [{"type": "Prop", "shape": {"file": "curly.hair"}}]}, r"curly\.hair"),
         ({"entities": [{"type": "Sky", "parameters": {"sun": {"rotation": [0, 0, 0],
                                                               "scale": 2}}}]}, "Sky keys"),
     ],
-    ids=["sphere_light", "disk_light", "cube_light", "mesh_light", "canopy", "portal",
+    ids=["sphere_light", "disk_light", "cube_light", "mesh_light", "instancer", "hair_file",
          "sky_key"],
 )
 def test_loader_names_what_it_refuses(scene, reason):
@@ -118,6 +119,56 @@ def test_loader_names_what_it_refuses(scene, reason):
 
     with pytest.raises(UnsupportedScene, match=reason):
         load_scene_dict(scene)
+
+
+# a one-lamp LM-63 profile (tests/test_ies.py's narrow beam)
+IES_TEXT = """IESNA:LM-63-2002
+TILT=NONE
+1 1000.0 1 5 1 1 1 0.1 0.1 0.1
+1.0 1.0 0.0
+0 22.5 45 90 180
+0
+1000 800 50 0 0
+"""
+
+
+def _under_glass(entities, materials):
+    """entities and materials beside a Glass sphere: a scene for the
+    general body."""
+    return {"materials": materials + [{"name": "g", "rendering": {"Glass": {"ior": 1.5}}}],
+            "entities": entities + [{"type": "Prop", "shape": {"type": "Sphere"},
+                                     "materials": ["g"]}]}
+
+
+@pytest.mark.parametrize("kind,reason", [
+    ("ies", r"material features \['ies'\]"),
+    ("portal", "portal lights on the general body"),
+    ("canopy", "Canopy lights on the general body"),
+])
+def test_general_body_names_what_it_refuses(kind, reason, tmp_path):
+    """An IES profile, a portal or a Canopy light beside glass would take
+    the general body, which refuses each by name when the render is set
+    up (Driver -> check_scene), as it refuses triplanar textures."""
+    from zyg_tpu_torch.render.integrator.ptmis import PtmisSettings, check_scene
+    from zyg_tpu_torch.scene.loader import UnsupportedScene, load_scene_file
+
+    lamp = {"Light": {"emittance": {"value": 5.0}}}
+    if kind == "ies":
+        (tmp_path / "spot.ies").write_text(IES_TEXT)
+        lamp["Light"]["emittance"]["profile"] = {"file": "spot.ies"}
+        ents = [{"type": "Light", "shape": {"type": "Rectangle"}, "materials": ["l"],
+                 "transformation": {"position": [0, 2, 0], "rotation": [90, 0, 0]}}]
+    elif kind == "portal":
+        ents = [{"type": "Sky", "parameters": {}},
+                {"type": "Portal", "shape": {"type": "Rectangle"}, "light": 0}]
+    else:
+        ents = [{"type": "Light", "shape": {"type": "Canopy"}, "materials": ["l"]}]
+    (tmp_path / "s.scene").write_text(json.dumps(_under_glass(ents, [{"name": "l",
+                                                                       "rendering": lamp}])))
+    scene = load_scene_file(str(tmp_path / "s.scene"))
+    assert "glass" in scene.mat_features
+    with pytest.raises(UnsupportedScene, match=reason):
+        check_scene(scene, PtmisSettings())
 
 
 def test_two_lights_load_as_in_jax():

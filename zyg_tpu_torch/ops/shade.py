@@ -631,6 +631,8 @@ def structural_ok(scene) -> bool:
         return False  # textured and env-lit scenes take ops/surface_v2.py
     if scene.light_tree is not None:
         return False  # the kernel selects by the power CDF (ops/surface_v2.py)
+    if scene.mat_features or scene.portals:
+        return False  # IES profiles and portals take ops/surface_v2.py
     if scene.lights.count < 1 or scene.lights.count > MAX_LIGHTS:
         return False
     light_shapes = {int(s) for s in scene.prop_shape[scene.lights.prop.long()].tolist()}

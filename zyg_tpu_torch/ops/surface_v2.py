@@ -13,12 +13,13 @@ the kernel:
           texture jitter -> the triplanar uv where a texture reads it ->
           the normal map -> materials.gather (stochastic color and
           roughness texels, bilinear emission maps, the analytic Checker
-          and Noise nodes point-sampled) -> eval_radiance ->
-          light_hit_pdf * light_select_pdf (rectangle SphQuad, dome,
-          distant cone, env-map density; the light tree's pdf at the
-          previous vertex) -> select_light (the power CDF, or the tree's
-          descent at the hit) / sample_light / light_radiance (the NEE
-          candidate: direction, radiance, pdf, shadow tmax)
+          and Noise nodes point-sampled, IES profiles) -> eval_radiance ->
+          light_hit_pdf * light_select_pdf (rectangle SphQuad, canopy,
+          dome, distant cone, env-map density, the portal's windowed
+          density; the light tree's pdf at the previous vertex) ->
+          select_light (the power CDF, or the tree's descent at the hit) /
+          sample_light / light_radiance (the NEE candidate: direction,
+          radiance, pdf, shadow tmax)
   KERNEL  the MIS weight of the BSDF-hit emission, russian roulette, the
           substitute BSDF evaluation of the NEE candidate with the
           predivided power heuristic, the VNDF/cosine BSDF sample and the
@@ -227,18 +228,25 @@ def surface_v2(fit, st: dict, ua, ub, max_depth: int, caustics: bool, nee_only: 
     return _surface_v2_cuda(fit, st, ua, ub, int(max_depth), bool(caustics), bool(nee_only))
 
 
-_V2_LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.DOME), int(ShapeType.DISTANT)}
+_V2_LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.CANOPY), int(ShapeType.DOME),
+                    int(ShapeType.DISTANT), ls.PORTAL}
+# the material features whose machinery runs in the glue (the JAX
+# package's _V2_XLA_SIDE_FEATURES)
+_V2_FEATURES = {"ies", "triplanar"}
 # the shadow tmax toward an infinite light, float32(RAY_MAX_T) * float32(0.9)
 _INF_SHADOW_TMAX = float(np.float32(RAY_MAX_T) * np.float32(0.9))
 
 
 def structural_ok_mesh_v2(scene) -> bool:
     """Can this scene run the general bounce? (at least one light, all
-    rectangles, domes or distant lights; substitute and light materials;
-    analytic props the isect kernel tests)"""
+    rectangles, canopies, domes, distant lights or portals; substitute and
+    light materials with no feature but IES profiles and triplanar
+    textures; analytic props the isect kernel tests)"""
     if scene.lights.count < 1:
         return False
     if not ls.light_shapes(scene) <= _V2_LIGHT_SHAPES:
+        return False
+    if set(scene.mat_features) - _V2_FEATURES:
         return False
     try:
         static_layout(scene)
@@ -297,7 +305,7 @@ class GeneralBounce:
                                             frag.n, frag.t, frag.b, tex_xi=tex_xi, uv_alt=uv_alt)
         # no footprint: the JAX TPU dispatch point-samples the procedurals
         params = M.gather(scene.materials, frag.material, scene.textures, frag.uv, tex_xi,
-                          uv_alt=uv_alt)
+                          features=scene.mat_features, uv_alt=uv_alt)
         valid = hit.valid()
 
         # ---- the BSDF-hit emission and its light pdf

@@ -32,9 +32,10 @@ volume lights: the interior point's third dimension), then the 3-D BSDF
 (or phase) sample, then padding. The JAX body decides features at trace
 time (`has_media`, `split_on`, ...); this one decides the same things
 once per render in `__init__` and computes nothing for refused features,
-which `check_general` names: image textures, env-mapped domes and
-Distant lights on this body, and material features other than glass,
-rough glass, media, volumetric, spectral media and emissive media.
+which `check_general` names: portal lights, Canopy lights, image
+textures, env-mapped domes and Distant lights on this body, and material
+features other than glass, rough glass, media, volumetric, spectral media
+and emissive media (so IES profiles and triplanar textures).
 
 Kernels on this path: isect (closest and any hit), traverse (mesh
 scenes), sobol_block (every draw), track (the grid media's walks,
@@ -73,6 +74,10 @@ def check_general(scene, settings) -> None:
     extra = set(scene.mat_features) - _FEATURES
     if extra:
         raise UnsupportedScene(f"material features {sorted(extra)}")
+    if scene.portals:
+        raise UnsupportedScene("portal lights on the general body (glass under a portal)")
+    if scene.lights.count and int(ShapeType.CANOPY) in ls.light_shapes(scene):
+        raise UnsupportedScene("Canopy lights on the general body (glass under a canopy)")
     if scene.env is not None:
         raise UnsupportedScene("env-mapped Dome lights on the general body (glass under a sky)")
     if scene.textures is not None:

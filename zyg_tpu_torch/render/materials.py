@@ -69,7 +69,8 @@ def gather(materials, mat_id, textures=None, uv=None, tex_xi=None, medium_ior=No
     textures that ask for it, footprint [N] the analytic procedurals'
     filter width (scene/textures.py). Returns
     kind (int32), albedo, f0 and emission [N, 3], alpha, metallic and
-    specular [N], two_sided (bool).
+    specular [N], two_sided (bool), and where features (the scene's
+    material feature set) holds "ies", the IES profile [N, 32].
 
     With medium_ior ([N], the ior of the medium the ray travels in) the
     general bounce's fields come too: f0 against that medium, color, ior,
@@ -110,6 +111,8 @@ def gather(materials, mat_id, textures=None, uv=None, tex_xi=None, medium_ior=No
         "emission": emission,
         "two_sided": materials.two_sided[m],
     }
+    if features and "ies" in features:
+        out["ies"] = materials.ies[m]
     if medium_ior is not None:
         out.update(color=color, ior=ior, ior_outside=medium_ior,
                    attenuation_distance=materials.attenuation_distance[m],
@@ -153,12 +156,28 @@ def apply_normal_map(materials, textures, mat_id, uv, n, t, b, tex_xi=None, uv_a
     return torch.where((nt >= 0)[:, None], n_pert, n)
 
 
+def eval_ies(profile, cos_theta):
+    """The [N, 32] angular profiles linearly interpolated at theta =
+    acos(cos_theta) [N] (zyg_tpu/render/materials.py:423)."""
+    nb = profile.shape[-1]
+    x = torch.acos(torch.clamp(cos_theta, -1.0, 1.0)) * ((nb - 1) / _PI)
+    i0 = torch.clamp(torch.floor(x).to(torch.int64), 0, nb - 2)
+    frac = x - i0.to(torch.float32)
+    v0 = torch.gather(profile, 1, i0[:, None])[:, 0]
+    v1 = torch.gather(profile, 1, (i0 + 1)[:, None])[:, 0]
+    return _fma(frac, v1 - v0, v0)
+
+
 def eval_radiance(params: dict, wo, geo_n):
     """Radiance the surface emits toward wo: its emission where it faces
-    wo or is two-sided (volumetric materials emit inside, not here)."""
+    wo or is two-sided (volumetric materials emit inside, not here), times
+    its IES profile at the angle from geo_n where params carry one."""
     facing = dot(wo, geo_n) > 0.0
     visible = (facing | params["two_sided"]) & (params["kind"] != _VOLUMETRIC)
-    return torch.where(visible[:, None], params["emission"], 0.0)
+    emission = params["emission"]
+    if "ies" in params:
+        emission = emission * eval_ies(params["ies"], dot(wo, geo_n))[:, None]
+    return torch.where(visible[:, None], emission, 0.0)
 
 # [7, 7] coefficients over alpha^i * sqrt(mu)^j
 _CM = (

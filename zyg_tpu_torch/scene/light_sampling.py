@@ -1,28 +1,33 @@
-"""Next-event estimation for rectangle, dome, distant and volume lights:
-light selection, per-shape sampling, emitted radiance and the hit-side
-pdfs for MIS (counterpart of zyg_tpu/scene/light_sampling.py:62-98
-selection by the power CDF or the light tree, :248-271 rectangle,
-:336-352 distant, :360-369 dome, :472-488 env map, :490-541 volume,
-:580-636 light_radiance, :660-665, :683-686, :690-692, :731-752
-light_hit_pdf).
+"""Next-event estimation for rectangle, canopy, dome, distant, volume and
+portal lights: light selection, per-shape sampling, emitted radiance and
+the hit-side pdfs for MIS (counterpart of zyg_tpu/scene/light_sampling.py:
+62-98 selection by the power CDF or the light tree, :248-271 rectangle,
+:336-352 distant, :353-358 canopy, :360-369 dome, :472-488 env map,
+:490-541 volume, :543-566 portal, :580-636 light_radiance with the IES
+profile, :660-665, :683-692, :731-752 light_hit_pdf).
 
 A scene with a light tree (two or more lights, one of them finite;
 scene/light_tree.py) selects by the tree's descent at the shading point
 and evaluates the matching pdf at the previous vertex; every other scene
-selects by the power CDF. The loader refuses Sphere, Disk, Cube, mesh and
-Canopy lights and portals, and the Driver refuses scenes whose light tree
-would split NEE (the JAX package's select_split / pdf_split, not ported).
+selects by the power CDF. The loader refuses Sphere, Disk, Cube and mesh
+lights, and the Driver refuses scenes whose light tree would split NEE
+(the JAX package's select_split / pdf_split, not ported).
 
 Only the light shapes present in the scene are evaluated: `present` is the
-set of their ShapeType codes, with "volume" for the volume lights
+set of their ShapeType codes, with "volume" for the volume lights and
+"portal" for the portal lights, whose Rectangle is keyed apart
 (`light_shapes`, read once per render, the JAX package's static
 `scene.light_shapes`). Rectangles use the Urena spherical-rectangle
 helpers of ops/shade.py; a dome samples the hemisphere around the normal
-uniformly, or its emission map through the scene's env sampler when it
-has one; a distant light (the sun) samples its cone by a concentric disk;
-a volume light (an emissive Volumetric Cube) samples a point inside it,
-by its density grid's Distribution3D where it has one (a third uniform,
-xi3), and radiates mu_a * e * density there toward every direction.
+uniformly and a canopy the hemisphere around its axis, or either its
+emission map through the scene's env sampler when it has one; a distant
+light (the sun) samples its cone by a concentric disk; a volume light (an
+emissive Volumetric Cube) samples a point inside it, by its density grid's
+Distribution3D where it has one (a third uniform, xi3), and radiates
+mu_a * e * density there toward every direction; a portal samples the
+dome seen through its rectangle by its windowed distribution
+(scene/portal.py). A material with an IES profile scales its emission by
+the profile at the angle from the light's normal, on both sides of MIS.
 
 Arithmetic follows the JAX package's jitted bounces on the CPU: a multiply
 feeding an add is one fused multiply-add (core/fmath.py, core/vecmath.py).
@@ -38,9 +43,10 @@ import torch
 from ..core import vecmath as vm
 from ..core.fmath import fma, sqrt
 from ..ops.shade import _onb, _sphquad_init, _sphquad_pdf, _sphquad_sample
-from ..render.materials import medium_coefficients
+from ..render.materials import eval_ies, medium_coefficients
 from . import env_sampling
 from . import light_tree as lt
+from . import portal as portal_mod
 from .grids import sample_density_trilinear
 from .shapes import select_by_shape as _sel
 from .textures import sample_bilinear
@@ -49,17 +55,36 @@ from .types import RAY_MAX_T, ShapeType
 _RECT = int(ShapeType.RECTANGLE)
 _DIST = int(ShapeType.DISTANT)
 _DOME = int(ShapeType.DOME)
+_CANOPY = int(ShapeType.CANOPY)
 
 
 VOLUME = "volume"  # light_shapes' key of the volume lights
+PORTAL = "portal"  # light_shapes' key of the portal lights
 
 
 def light_shapes(scene) -> set:
-    """ShapeType codes of the scene's surface lights, and VOLUME when it has
-    volume lights (keyed apart from their Cube shape)."""
+    """ShapeType codes of the scene's surface lights, VOLUME when it has
+    volume lights and PORTAL when it has portal lights (each keyed apart
+    from its Cube or Rectangle shape)."""
     vol = scene.lights.volume.tolist()
     shapes = scene.prop_shape[scene.lights.prop.long()].tolist()
-    return {int(s) for s, v in zip(shapes, vol) if not v} | ({VOLUME} if any(vol) else set())
+    portal_lis = {li for li, _ in (scene.portals or {})}
+    out = {int(s) for li, (s, v) in enumerate(zip(shapes, vol)) if not v and li not in portal_lis}
+    return out | ({VOLUME} if any(vol) else set()) | ({PORTAL} if portal_lis else set())
+
+
+def _portals(scene, present: set):
+    """((light index, portal prop), PortalDist) of the portal lights in key
+    order, where present names them."""
+    return sorted((scene.portals or {}).items()) if PORTAL in present else []
+
+
+def _hemisphere(xi):
+    """Uniform directions [N, 3] on the hemisphere about +z."""
+    z = 1.0 - xi[:, 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = (2.0 * math.pi) * xi[:, 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 @dataclass
@@ -201,18 +226,22 @@ def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None,
         uv_v[_DIST] = torch.stack([0.5 * (vm.dot(r0, k) + 1.0), 0.5 * (vm.dot(r1, k) + 1.0)],
                                   dim=-1)
 
+    if _CANOPY in present:
+        # the hemisphere around the canopy's axis, uniformly (map-less canopies)
+        wi_v[_CANOPY] = vm.frame_to_world(r0, r1, r2, _hemisphere(xi))
+        pdf_v[_CANOPY] = torch.full((nlanes,), 1.0 / (2.0 * math.pi), dtype=torch.float32,
+                                    device=p.device)
+        valid_v[_CANOPY] = ones_b
+
     if _DOME in present:
         # the hemisphere around n, uniformly (map-less domes)
         t, b = (torch.stack(v, dim=-1) for v in _onb(n.unbind(1)))
-        z = 1.0 - xi[:, 0]
-        r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
-        phi = (2.0 * math.pi) * xi[:, 1]
-        local = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
-        wi_v[_DOME] = vm.object_to_world_normal(torch.stack([t, b, n], dim=1), local)
+        wi_v[_DOME] = vm.object_to_world_normal(torch.stack([t, b, n], dim=1), _hemisphere(xi))
         pdf_v[_DOME] = torch.full((nlanes,), 1.0 / (2.0 * math.pi), dtype=torch.float32,
                                   device=p.device)
         if total_sphere is not None:
             # the whole sphere, uniformly
+            phi = (2.0 * math.pi) * xi[:, 1]
             zs = 1.0 - 2.0 * xi[:, 0]
             rs = torch.sqrt(torch.clamp(1.0 - zs * zs, min=0.0))
             full = torch.stack([rs * torch.cos(phi), rs * torch.sin(phi), zs], dim=-1)
@@ -228,12 +257,12 @@ def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None,
     t_max = _sel(shape, t_v, far_t)
     uv = _sel(shape, uv_v, torch.zeros_like(p[:, :2]))
     infinite = torch.zeros_like(ones_b)
-    if _DOME in present or _DIST in present:
-        # infinite lights: a point at RAY_MAX_T; the dome's normal faces
-        # the shading point, the sun keeps its axis
-        infinite = (shape == _DOME) | (shape == _DIST)
+    if present & {_CANOPY, _DOME, _DIST}:
+        # infinite lights: a point at RAY_MAX_T; a canopy's or dome's
+        # normal faces the shading point, the sun keeps its axis
+        infinite = (shape == _CANOPY) | (shape == _DOME) | (shape == _DIST)
         light_p = torch.where(infinite[:, None], fma(wi, RAY_MAX_T, p), light_p)
-        light_n = torch.where((shape == _DOME)[:, None], -wi, light_n)
+        light_n = torch.where(((shape == _CANOPY) | (shape == _DOME))[:, None], -wi, light_n)
         t_max = torch.where(infinite, far_t, t_max)
 
     # mapped domes: importance-sample the emission map instead
@@ -267,6 +296,23 @@ def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None,
         infinite = infinite & ~vol_mask
         valid = torch.where(vol_mask, v_pdf > 0.0, valid)
 
+    # portal lights: the windowed sample of the dome seen through the
+    # rectangle; its radiance is the dome's map at the direction's uv
+    for (li, pp), pd in _portals(scene, present):
+        res = portal_mod.sample_to(pd, scene.prop_rot[pp], scene.prop_pos[pp],
+                                   scene.prop_scale[pp], p, xi)
+        m_l = light_idx == li
+        ok = m_l & res["ok"]
+        ok3 = ok[:, None]
+        wi = torch.where(ok3, res["wi"], wi)
+        pdf = torch.where(m_l, torch.where(res["ok"], res["pdf"], 0.0), pdf)
+        light_p = torch.where(ok3, fma(res["t"][:, None], res["wi"], p), light_p)
+        light_n = torch.where(ok3, scene.prop_rot[pp][2].expand_as(p), light_n)
+        t_max = torch.where(ok, res["t"], t_max)
+        uv = torch.where(ok3, res["uv"], uv)
+        valid = torch.where(m_l, res["ok"] & (res["pdf"] > 0.0), valid)
+        infinite = infinite & ~m_l
+
     # facing the shading hemisphere; env-sampled lanes sample the whole map
     # and rely on f = 0 below the horizon (the NEE density then equals the
     # pdf the BSDF-hit MIS weight uses)
@@ -280,20 +326,26 @@ def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None,
 
 def light_radiance(scene, light_idx, wi, light_n, uv, vol=None):
     """Radiance light_idx emits toward the shading point along -wi: its
-    emission where it faces the point or is two-sided, scaled by its
-    emission map at the sampled uv (a dome's at the direction's lat-long
-    uv) exactly as eval_radiance scales it on the BSDF-hit side. vol: the
-    sample's (vol_mask, vol_radiance), which a volume light's lanes take
-    instead (an interior point faces every way)."""
+    emission where it faces the point or is two-sided, scaled by its IES
+    profile at the angle from light_n and by its emission map at the
+    sampled uv (a dome's at the direction's lat-long uv, a canopy's at its
+    equidistant-disk uv) exactly as eval_radiance scales it on the BSDF-hit
+    side. vol: the sample's (vol_mask, vol_radiance), which a volume
+    light's lanes take instead (an interior point faces every way)."""
     prop = _light_prop(scene, light_idx)
     m = scene.prop_material[prop].long()
     emission = scene.materials.emission[m]
     two_sided = scene.materials.two_sided[m]
+    if "ies" in scene.mat_features:
+        emission = emission * eval_ies(scene.materials.ies[m], vm.dot(-wi, light_n))[:, None]
     if scene.textures is not None:
         et = scene.materials.emission_tex[m]
-        is_dome = scene.prop_shape[prop] == _DOME
+        shape = scene.prop_shape[prop]
         ldir = vm.safe_normalize(vm.world_to_object_normal(scene.prop_rot[prop], wi))
-        tex_uv = torch.where(is_dome[:, None], env_sampling.dome_uv(ldir), uv)
+        env_uv = env_sampling.dome_uv(ldir)
+        if _CANOPY in scene.prop_groups:
+            env_uv = torch.where((shape == _CANOPY)[:, None], env_sampling.canopy_uv(ldir), env_uv)
+        tex_uv = torch.where(((shape == _DOME) | (shape == _CANOPY))[:, None], env_uv, uv)
         tex = sample_bilinear(scene.textures, et, tex_uv)[:, :3]
         emission = torch.where((et >= 0)[:, None], emission * tex, emission)
     facing = vm.dot(-wi, light_n) > 0.0
@@ -322,6 +374,9 @@ def light_hit_pdf(scene, present: set, prop, ray_o, ray_d, total_sphere=None):
         vals[_RECT] = _sphquad_pdf(q, ol, scale[:, 0], scale[:, 1])
     if _DIST in present:
         vals[_DIST] = _cone_pdf(scene.prop_scale[pm][:, 0])
+    if _CANOPY in present:
+        vals[_CANOPY] = torch.full(shape.shape, 1.0 / (2.0 * math.pi), dtype=torch.float32,
+                                   device=ray_o.device)
     if _DOME in present:
         vals[_DOME] = torch.full(shape.shape, 1.0 / (2.0 * math.pi), dtype=torch.float32,
                                  device=ray_o.device)
@@ -333,6 +388,12 @@ def light_hit_pdf(scene, present: set, prop, ray_o, ray_d, total_sphere=None):
         li = scene.prop_light[pm]
         entry = env_sampling.entry_of_light(scene.env, li)
         out = torch.where(entry >= 0, env_sampling.pdf(scene.env, li, rot, ray_d), out)
+    # portal lights: NEE samples the windowed distribution, so MIS needs
+    # its density (ref light.zig propPortalPdf)
+    for (_, pp), pd in _portals(scene, present):
+        p_port = portal_mod.pdf_to(pd, scene.prop_rot[pp], scene.prop_pos[pp],
+                                   scene.prop_scale[pp], ray_o, ray_d)
+        out = torch.where(prop == pp, p_port, out)
     # a Cube's surface is never sampled (a volume light samples its
     # interior, which a BSDF ray does not hit): pdf 0, MIS weight 1
     return torch.where(shape == int(ShapeType.CUBE), 0.0, out)

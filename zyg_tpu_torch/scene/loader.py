@@ -2,9 +2,11 @@
 plain numpy then torch).
 
 Supported: Prop and Light entities with analytic Rectangle/Cube/Sphere/
-Disk/Dome/Distant shapes (Celestial_disk is a Distant) or procedural
+Disk/Canopy/Dome/Distant shapes (Celestial_disk is a Distant) or procedural
 triangle meshes (shape "file": "proc:..."), the Sky entity (a baked
-Preetham dome plus a distant sun, scene/sky.py), nested child entities,
+Preetham dome plus a distant sun, scene/sky.py), Portal entities (a
+Rectangle through which an image-mapped dome, such as the Sky's, is
+sampled; scene/portal.py), nested child entities,
 Euler or look-at transformations, Substitute, Light and Glass materials
 with constant parameters (Glass: color or attenuation_color, ior,
 roughness, attenuation_distance, priority), Volumetric media
@@ -13,8 +15,10 @@ and a procedural `fbm` or `constant` density map built into the density
 grid arena of scene/grids.py) on analytic props, with emission (an
 emissive Volumetric Cube is a volume light, whose interior NEE samples
 through a Distribution3D over its density grid, core/distribution.py;
-any emissive medium gives off light along the walks), and one or more
-emitting Rectangle, Dome or Distant lights or volume lights. Two or more
+any emissive medium gives off light along the walks), an emittance's IES
+profile ({"profile": {"file": "*.ies"}}, io/ies.py), and one or more
+emitting Rectangle, Canopy, Dome or Distant lights, volume lights or
+portals. Two or more
 lights are selected as
 the JAX package selects them: by the power CDF when every light is
 infinite, through the SAOH light
@@ -27,18 +31,20 @@ procedural graph is baked at scene build (scene/procedural.py), and a
 {"file": ...} node loads a PNG or Radiance HDR image, resolved against
 the scene file's directory (colours decoded from sRGB), with its
 sampler's address modes and texcoord (UV0, Triplanar, ObjectPos); through
-`SceneBuilder`, `add_texture_image`. A dome with an emission map gets an
-env-map sampler (scene/env_sampling.py).
+`SceneBuilder`, `add_texture_image`. A dome or canopy with an emission map
+gets an env-map sampler (scene/env_sampling.py). As the JAX loader does,
+a Portal whose link is not an image-mapped dome, a Portal of another
+shape and an unreadable IES file are dropped with a warning.
 
 Everything else raises `UnsupportedScene`: Sphere, Disk, Cube and mesh
-lights, Canopy env lights, Portal entities, C-API image references
-({"id": N}), EXR and other image formats, dispersive glass (abbe),
-coatings, flakes, masks, density files, emission maps on media,
-Volumetric materials on mesh props and every other material kind (Hair,
-Debug, Sky). (Scenes whose light tree would split NEE, glass under
-textures, env maps or Distant lights, and triplanar textures off the
-textured bounce are refused by render/driver.py.) The port renders only
-what its bounces cover, and never silently drops a feature.
+lights, Instancer and other entities, C-API image references ({"id": N}),
+EXR and other image formats, dispersive glass (abbe), coatings, flakes,
+masks, density files, emission maps on media, Volumetric materials on
+mesh props and every other material kind (Hair, Debug, Sky). (Scenes
+whose light tree would split NEE, glass under textures, env maps, Distant
+lights, Canopy lights or portals, and IES profiles or triplanar textures
+off the textured bounce are refused by render/driver.py.) The port
+renders only what its bounces cover, and never silently drops a feature.
 """
 
 from __future__ import annotations
@@ -46,12 +52,14 @@ from __future__ import annotations
 import ast
 import json
 import os
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..core.distribution import Distribution3D
+from ..io.ies import PROFILE_BINS, ies_profile_bins
 from ..io.mesh import load_mesh_file
 from ..io.png import read_png
 from ..io.rgbe import read_hdr
@@ -62,6 +70,8 @@ from .grids import GridArena, build_grid_arena, make_fbm_grid
 from .light_tree import ARRAY_FIELDS as _TREE_FIELDS
 from .light_tree import LightTree, build_light_tree
 from . import procedural
+from .portal import ARRAY_FIELDS as _PORTAL_FIELDS
+from .portal import PortalDist, build_portal_dist, make_portal_dist
 from .sky import SUN_ANGULAR_RADIUS, bake_sky, sun_radiance
 from .textures import TextureArena, TextureBuilder
 from .trimesh import HostMesh, InstanceTable, MeshArena, build_arena, build_instance_table
@@ -72,6 +82,7 @@ LUMINANCE_WEIGHTS = (0.212671, 0.715160, 0.072169)
 
 # analytic shapes the bounces intersect (ops/isect.py)
 _SHAPE_NAMES = {
+    "Canopy": ShapeType.CANOPY,
     "Cube": ShapeType.CUBE,
     "Disk": ShapeType.DISK,
     "Distant": ShapeType.DISTANT,
@@ -83,7 +94,7 @@ _SHAPE_NAMES = {
 }
 _MAX_PROPS = 32  # analytic props (ops/shade.py MAX_PROPS)
 # the light shapes the port samples (scene/light_sampling.py)
-_LIGHT_SHAPES = (ShapeType.RECTANGLE, ShapeType.DOME, ShapeType.DISTANT)
+_LIGHT_SHAPES = (ShapeType.RECTANGLE, ShapeType.CANOPY, ShapeType.DOME, ShapeType.DISTANT)
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +199,8 @@ class MaterialDesc:
     subsurface_color: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
     volumetric_anisotropy: float = 0.0
     density_grid: int = -1
+    # an emittance's IES profile (io/ies.py): float32[PROFILE_BINS], or None
+    ies: np.ndarray | None = None
 
 
 def _read_color(v) -> np.ndarray:
@@ -376,7 +389,7 @@ def parse_material(value: dict, builder: "SceneBuilder | None" = None,
                 if grid is not None and builder is not None:
                     desc.density_grid = builder.add_density_grid(grid)
             elif key == "emittance":
-                extra = set(v) - {"spectrum", "value", "emission_map"}
+                extra = set(v) - {"spectrum", "value", "emission_map", "profile"}
                 if extra:
                     raise UnsupportedScene(f"emittance keys {sorted(extra)}")
                 spectrum = _read_color(v.get("spectrum", [1.0, 1.0, 1.0]))
@@ -385,17 +398,40 @@ def parse_material(value: dict, builder: "SceneBuilder | None" = None,
                     if kind_name == "Volumetric":
                         raise UnsupportedScene("an emission map on a Volumetric material")
                     desc.emission_tex = tex(v["emission_map"], srgb=False)
+                if "profile" in v:
+                    desc.ies = _load_profile(v["profile"], base_dir)
         break
     return desc
+
+
+def _load_profile(v, base_dir: str) -> np.ndarray | None:
+    """An emittance's {"file": "*.ies"} profile -> its bins, or None (with
+    a warning) where the file cannot be read or parsed, as the JAX loader
+    ignores it (zyg_tpu/scene/loader.py:391-401)."""
+    if not isinstance(v, dict) or "file" not in v:
+        raise UnsupportedScene(f"emittance profile {v!r} (an IES file is read)")
+    path = os.path.join(base_dir, v["file"])
+    try:
+        with open(path, encoding="utf-8") as f:
+            bins = ies_profile_bins(f.read())
+    except OSError as e:
+        warnings.warn(f"IES profile {path!r} not read ({e}); the emission is unprofiled",
+                      stacklevel=2)
+        return None
+    if bins is None:
+        warnings.warn(f"IES profile {path!r} not parsed; the emission is unprofiled", stacklevel=2)
+    return bins
 
 
 def _emissive_volumetric(m: MaterialDesc) -> bool:
     return m.kind == int(MaterialKind.VOLUMETRIC) and float(np.max(m.emission)) > 0.0
 
 
-def material_features(kinds, roughness, color, subsurface, emission, texcoord=()) -> set:
+def material_features(kinds, roughness, color, subsurface, emission, texcoord=(),
+                      ies=False) -> set:
     """The material features present, by the JAX loader's rules
     (zyg_tpu/scene/loader.py:1232-1315) over every material of the table:
+    "ies" where a material has an IES profile (ies),
     "media" with any Glass or Volumetric material, "glass" with any Glass,
     "rough_glass" with any Glass rougher than MIN_ROUGHNESS * 1.001,
     "volumetric" with any Volumetric material, "vol_emission" with an
@@ -405,7 +441,7 @@ def material_features(kinds, roughness, color, subsurface, emission, texcoord=()
     kinds = [int(k) for k in kinds]
     glass = [float(r) for k, r in zip(kinds, roughness) if k == int(MaterialKind.GLASS)]
     vols = [i for i, k in enumerate(kinds) if k == int(MaterialKind.VOLUMETRIC)]
-    feats = set()
+    feats = {"ies"} if ies else set()
     if glass or vols:
         feats.add("media")
     if glass:
@@ -452,6 +488,9 @@ class SceneBuilder:
         self._mat_by_name: dict[str, int] = {}
         self._mesh_by_name: dict[str, int] = {}
         self._tex_by_key: dict[tuple, int] = {}
+        # Portal entities: {"trafo", "light" (index over the lights declared
+        # so far), "prop" (the portal's prop once built, -1 when dropped)}
+        self.portals: list[dict] = []
         # fallback material id 0 (ref createFallbackMaterial)
         self._fallback = self.add_material(MaterialDesc(color=np.array([1.0, 0.0, 0.6], np.float32)))
 
@@ -540,7 +579,7 @@ class SceneBuilder:
             area = float(2.0 * (s[0] * s[1] + s[0] * s[2] + s[1] * s[2]))
         elif shape == ShapeType.DISTANT:
             area = float(2.0 * np.pi * (1.0 - np.sqrt(1.0 / (s[0] ** 2 + 1.0))))
-        elif shape == ShapeType.DOME:
+        elif shape in (ShapeType.CANOPY, ShapeType.DOME):
             area = 4.0 * np.pi
         else:
             raise UnsupportedScene("emissive meshes")
@@ -552,15 +591,16 @@ class SceneBuilder:
         props = self.props
         if not props:
             raise UnsupportedScene("scene without props")
-        analytic = [i for i, p in enumerate(props) if p.mesh_id < 0]
-        if len(analytic) > _MAX_PROPS:
-            raise UnsupportedScene(f"{len(analytic)} analytic props (at most {_MAX_PROPS})")
         # an emissive Volumetric Cube is a volume light (ref scene.zig
         # createLight; zyg_tpu/scene/loader.py:1063-1074); on another shape
         # it only glows along the walks
         for p in props:
             if _emissive_volumetric(self.materials[p.material]) and p.shape == int(ShapeType.CUBE):
                 p.is_light = True
+        portal_pending = self._link_portals()
+        analytic = [i for i, p in enumerate(props) if p.mesh_id < 0]
+        if len(analytic) > _MAX_PROPS:
+            raise UnsupportedScene(f"{len(analytic)} analytic props (at most {_MAX_PROPS})")
         light_props = [i for i, p in enumerate(props) if p.is_light and self._light_weight(p) > 0.0]
         vol_light = [self.materials[props[i].material].kind == int(MaterialKind.VOLUMETRIC)
                      for i in light_props]
@@ -598,6 +638,15 @@ class SceneBuilder:
         prop_light = np.full(len(props), -1, np.int32)
         for li, pi in enumerate(light_props):
             prop_light[pi] = li
+        # the portal image's windowed distributions (ref light_material.zig
+        # PortalLuminanceContext), keyed by (light index, portal prop)
+        portals = {}
+        for pe in portal_pending:
+            pp = props[pe["prop"]]
+            dome_rot = np.asarray(props[pe["dome_prop"]].trafo.rotation, np.float64)
+            lum, _ = build_portal_dist(self.textures.image(self.materials[pp.material].emission_tex),
+                                       dome_rot, np.asarray(pp.trafo.rotation, np.float64))
+            portals[(light_props.index(pe["prop"]), pe["prop"])] = make_portal_dist(lum, dome_rot)
         # the many-light tree over the finite lights (ref light_tree_builder.zig)
         light_tree = None
         if len(light_props) >= 2 and float(weights.sum()) > 0.0:
@@ -623,11 +672,12 @@ class SceneBuilder:
             for li, pi in enumerate(light_props)
             if vol_light[li] and self.materials[props[pi].material].density_grid >= 0
         }
-        # env-map importance sampling of a dome with an emission map
+        # env-map importance sampling of a dome or canopy with an emission map
         env_entries = [
-            (self.textures.image(self.materials[props[pi].material].emission_tex), False, li)
+            (self.textures.image(self.materials[props[pi].material].emission_tex),
+             props[pi].shape == int(ShapeType.CANOPY), li)
             for li, pi in enumerate(light_props)
-            if props[pi].shape == int(ShapeType.DOME)
+            if props[pi].shape in (int(ShapeType.CANOPY), int(ShapeType.DOME))
             and self.materials[props[pi].material].emission_tex >= 0
         ]
 
@@ -664,6 +714,8 @@ class SceneBuilder:
                 subsurface_color=t(np.stack([d.subsurface_color for d in mats]), f32),
                 volumetric_anisotropy=t([d.volumetric_anisotropy for d in mats], f32),
                 density_grid=t([d.density_grid for d in mats], i32),
+                ies=t(np.stack([d.ies if d.ies is not None else np.ones(PROFILE_BINS, np.float32)
+                                for d in mats]), f32),
             ),
             lights=Lights(
                 prop=t(light_props, i32),
@@ -681,10 +733,44 @@ class SceneBuilder:
             mat_features=material_features([d.kind for d in mats], [d.roughness for d in mats],
                                            [d.color for d in mats],
                                            [d.subsurface_color for d in mats],
-                                           [d.emission for d in mats], self.textures.texcoords),
+                                           [d.emission for d in mats], self.textures.texcoords,
+                                           any(d.ies is not None for d in mats)),
             volume_props=tuple(volume_props),
             vol_light_dist=vol_light_dist or None,
+            portals=portals or None,
         ).to(device)
+
+    def _link_portals(self) -> list[dict]:
+        """Link each Portal entity to the light its "light" index names
+        among the lights declared so far (ref scene_loader.zig loadPortal;
+        zyg_tpu/scene/loader.py:1075-1118): that light, an image-mapped
+        dome, becomes an invisible prop that is no light, and a Rectangle
+        light with its material, invisible to shadow rays, is appended in
+        its place. A link to anything else is dropped with a warning, as
+        the JAX loader drops it. Returns the linked entries."""
+        props = self.props
+        declared = [i for i, p in enumerate(props) if p.is_light and self._light_weight(p) > 0.0]
+        for pe in self.portals:
+            if pe["prop"] is not None:
+                continue
+            li = pe["light"]
+            if li >= len(declared):
+                warnings.warn(f"Portal links undefined light {li}; the portal is dropped",
+                              stacklevel=3)
+                pe["prop"] = -1
+                continue
+            linked = declared[li]
+            lp = props[linked]
+            if lp.shape != int(ShapeType.DOME) or self.materials[lp.material].emission_tex < 0:
+                warnings.warn("Portal link must be an image-mapped dome light; the portal is "
+                              "dropped", stacklevel=3)
+                pe["prop"] = -1
+                continue
+            lp.is_light = lp.visible_camera = lp.visible_reflection = lp.visible_shadow = False
+            props.append(PropDesc(shape=int(ShapeType.RECTANGLE), trafo=pe["trafo"],
+                                  material=lp.material, is_light=True, visible_shadow=False))
+            pe["prop"], pe["dome_prop"] = len(props) - 1, linked
+        return [pe for pe in self.portals if pe["prop"] >= 0]
 
     @staticmethod
     def _light_bounds(p: PropDesc):
@@ -726,6 +812,7 @@ _ENTITY_KEYS = {"type", "shape", "materials", "transformation", "visibility",
 
 
 _SKY_KEYS = {"type", "parameters"}
+_PORTAL_KEYS = {"type", "shape", "light", "transformation"}
 
 
 def _load_sky(e: dict, builder: SceneBuilder) -> None:
@@ -763,11 +850,30 @@ def _load_sky(e: dict, builder: SceneBuilder) -> None:
     ))
 
 
+def _load_portal(e: dict, parent: Transformation, builder: SceneBuilder) -> None:
+    """A Portal entity: a Rectangle linked to the light its "light" index
+    names (zyg_tpu/scene/loader.py:1602-1614); SceneBuilder.build links
+    it. Another shape is dropped with a warning, as the JAX loader does."""
+    extra = set(e) - _PORTAL_KEYS
+    if extra:
+        raise UnsupportedScene(f"Portal keys {sorted(extra)}")
+    stype = e.get("shape", {}).get("type")
+    if stype not in (None, "Rectangle"):
+        warnings.warn(f"Portal shape {stype!r} unsupported (Rectangle only); the portal is "
+                      "dropped", stacklevel=3)
+        return
+    builder.portals.append({"trafo": parent.compose(read_transformation(e.get("transformation"))),
+                            "light": int(e.get("light", 0)), "prop": None})
+
+
 def _load_entities(entities, parent: Transformation, local_materials, builder: SceneBuilder):
     for e in entities:
         etype = e.get("type")
         if etype == "Sky":
             _load_sky(e, builder)
+            continue
+        if etype == "Portal":
+            _load_portal(e, parent, builder)
             continue
         if etype not in ("Prop", "Light"):
             raise UnsupportedScene(f"entity {etype or sorted(e)!r}")
@@ -832,12 +938,12 @@ _PLAIN = ("prop_shape", "prop_rot", "prop_pos", "prop_scale", "prop_material",
 _MATERIAL = ("kind", "color", "roughness", "metallic", "ior", "specular", "emission",
              "two_sided", "color_tex", "roughness_tex", "emission_tex", "normal_tex",
              "attenuation_distance", "priority", "subsurface_color", "volumetric_anisotropy",
-             "density_grid")
+             "density_grid", "ies")
 # the material features the port renders (the general bounce's, and
 # "triplanar", which only the textured bounce renders; the JAX package
 # names more, each of which the port refuses)
 _FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media", "vol_emission",
-             "triplanar"}
+             "triplanar", "ies"}
 _LIGHT = ("prop", "two_sided", "cdf", "volume")
 _DIST3 = ("slice_cdf", "row_cdf", "col_cdf", "pdf_grid")
 _ARENA = ("node_rows", "tri_rows", "attr_rows", "mesh_root")
@@ -858,7 +964,9 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     "light_tree.depth", "light_tree.inf_weight", "light_tree.num_finite"),
     for density grids "grids.<f>" (with "grids.sparse"), "volume_props"
     (int64 [K, 4] rows), for volume lights over a grid
-    "vol_light_dist.<light>.<f>", and "mat_features", the sorted feature
+    "vol_light_dist.<light>.<f>", for portal lights
+    "portals.<light>.<prop>.<f>", with a mapped dome or canopy
+    "env.canopy" (a bool an entry), and "mat_features", the sorted feature
     names as a string array. A JAX scene with a feature outside the port's raises
     UnsupportedScene naming it."""
     def arr(x):
@@ -869,8 +977,10 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     for k in _MATERIAL:
         v = getattr(mats, k)
         # a hand-built JAX table may leave the priorities (all 0), the
-        # density grids and normal maps (all -1) unset
-        if v is None:
+        # density grids and normal maps (all -1) and the profiles (all 1) unset
+        if v is None and k == "ies":
+            v = np.ones(arr(mats.kind).shape + (PROFILE_BINS,), np.float32)
+        elif v is None:
             v = np.full(arr(mats.kind).shape, -1 if k in ("density_grid", "normal_tex") else 0,
                         np.int32)
         d[f"materials.{k}"] = arr(v)
@@ -884,7 +994,8 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     if feats is None:  # the JAX "all features" default: derive them
         feats = material_features(d["materials.kind"], d["materials.roughness"],
                                   d["materials.color"], d["materials.subsurface_color"],
-                                  d["materials.emission"], () if texcoord is None else texcoord)
+                                  d["materials.emission"], () if texcoord is None else texcoord,
+                                  bool((d["materials.ies"] != 1.0).any()))
     extra = set(feats) - _FEATURES
     if extra:
         raise UnsupportedScene(f"material features {sorted(extra)}")
@@ -917,11 +1028,13 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
         d["textures.procedurals"] = np.array([repr(tuple(p)) for p in (tex.procedurals or ())],
                                              dtype=np.str_)
     if scene.env is not None:
-        if any(getattr(scene.env, "canopy", ())):
-            raise UnsupportedScene("canopy env lights")
         d.update({f"env.{k}": arr(getattr(scene.env, k)) for k in _ENV})
         d["env.width"] = np.asarray(scene.env.width, np.int64)
         d["env.height"] = np.asarray(scene.env.height, np.int64)
+        d["env.canopy"] = np.asarray(tuple(scene.env.canopy), bool)
+    for (li, pp), pd in sorted((scene.portals or {}).items()):
+        d.update({f"portals.{int(li)}.{int(pp)}.{k}": arr(getattr(pd, k))
+                  for k in _PORTAL_FIELDS})
     tree = scene.light_tree
     if tree is not None:
         d.update({f"light_tree.{k}": arr(getattr(tree, k)) for k in _TREE_FIELDS})
@@ -950,7 +1063,12 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
             procedurals=tuple(ast.literal_eval(str(p)) for p in d["textures.procedurals"]))
     if "env.table" in d:
         env = EnvSampler(**{k: t(f"env.{k}") for k in _ENV}, width=int(d["env.width"]),
-                         height=int(d["env.height"]))
+                         height=int(d["env.height"]),
+                         canopy=tuple(bool(c) for c in d["env.canopy"]))
+    portal_keys = sorted({tuple(int(x) for x in k.split(".")[1:3]) for k in d
+                          if k.startswith("portals.")})
+    portals = {(li, pp): PortalDist(**{f: t(f"portals.{li}.{pp}.{f}") for f in _PORTAL_FIELDS})
+               for li, pp in portal_keys}
     vol_light_dist = {
         int(li): Distribution3D(**{f: t(f"vol_light_dist.{li}.{f}") for f in _DIST3})
         for li in sorted({k.split(".")[1] for k in d if k.startswith("vol_light_dist.")}, key=int)
@@ -979,4 +1097,5 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
         mat_features={str(f) for f in d["mat_features"]},
         volume_props=tuple(tuple(int(x) for x in r) for r in d["volume_props"]),
         vol_light_dist=vol_light_dist or None,
+        portals=portals or None,
     )

@@ -13,6 +13,7 @@ nothing blocked it yet.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -22,6 +23,7 @@ from ..core import vecmath as vm
 from ..core.encoding import oct_normal_unpack
 from ..core.fmath import fma
 from ..ops import isect, traverse
+from . import env_sampling, portal
 from .types import RAY_MAX_T, ShapeType
 
 
@@ -100,8 +102,9 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
     """Hit point, geometric and shading normals, material and (where
     need_uv, by default for textured scenes) uv of the closest hit, over
     the shape branches present in the scene. Lanes on an infinite shape
-    get the point RAY_MAX_T * d; the dome's normal is -d, the sun's (a
-    Distant prop) its axis. With need_tangents, the shading frame's
+    get the point RAY_MAX_T * d; a canopy's and the dome's normal is -d,
+    the sun's (a Distant prop) its axis; a portal's rectangle gets the
+    linked dome's uv of d. With need_tangents, the shading frame's
     tangent and bitangent too: a rectangle's or disk's -x and -y axes, a
     sphere's direction of increasing u, the infinite shapes' x and y axes,
     and the orthonormal basis about the normal on cubes and meshes (and on
@@ -152,8 +155,12 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
         n_vals[int(ShapeType.CUBE)] = cube_n
         if need_tangents:
             t_vals[int(ShapeType.CUBE)], b_vals[int(ShapeType.CUBE)] = vm.orthonormal_basis(cube_n)
-    # infinite shapes: the dome's normal faces the ray, the sun's is its
-    # axis; uv in the JAX package's key order (the sun's before the dome's)
+    # infinite shapes: a canopy's and the dome's normal faces the ray, the
+    # sun's is its axis; uv in the JAX package's key order (the sun's
+    # before the canopy's and the dome's)
+    if int(ShapeType.CANOPY) in present:
+        n_vals[int(ShapeType.CANOPY)] = -d
+        t_vals[int(ShapeType.CANOPY)], b_vals[int(ShapeType.CANOPY)] = r0, r1
     if int(ShapeType.DOME) in present:
         n_vals[int(ShapeType.DOME)] = -d
         t_vals[int(ShapeType.DOME)], b_vals[int(ShapeType.DOME)] = r0, r1
@@ -162,11 +169,12 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
         t_vals[int(ShapeType.DISTANT)], b_vals[int(ShapeType.DISTANT)] = r0, r1
         uv_vals[int(ShapeType.DISTANT)] = torch.stack([(hit.u + 1.0) * 0.5, (hit.v + 1.0) * 0.5],
                                                       dim=-1)
-    if need_uv and int(ShapeType.DOME) in present:
-        from .env_sampling import dome_uv
-
-        uv_vals[int(ShapeType.DOME)] = dome_uv(
-            vm.safe_normalize(vm.world_to_object_normal(rot, d)))
+    if need_uv and present & {int(ShapeType.CANOPY), int(ShapeType.DOME)}:
+        ldir = vm.safe_normalize(vm.world_to_object_normal(rot, d))
+        if int(ShapeType.CANOPY) in present:
+            uv_vals[int(ShapeType.CANOPY)] = env_sampling.canopy_uv(ldir)
+        if int(ShapeType.DOME) in present:
+            uv_vals[int(ShapeType.DOME)] = env_sampling.dome_uv(ldir)
 
     n = select_by_shape(shape, n_vals, -d)
     uv = select_by_shape(shape, uv_vals, torch.zeros_like(p[:, :2])) if need_uv else None
@@ -177,8 +185,9 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
             bitangent = select_by_shape(shape, b_vals, None)
         else:
             tangent, bitangent = vm.orthonormal_basis(n)
-    if int(ShapeType.DOME) in present or int(ShapeType.DISTANT) in present:
-        is_inf = (shape == int(ShapeType.DOME)) | (shape == int(ShapeType.DISTANT))
+    inf_types = present & {int(ShapeType.CANOPY), int(ShapeType.DOME), int(ShapeType.DISTANT)}
+    if inf_types:
+        is_inf = functools.reduce(torch.logical_or, [shape == st for st in sorted(inf_types)])
         p = torch.where(is_inf[:, None], RAY_MAX_T * d, p)
     geo_n = n
 
@@ -202,5 +211,10 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
             mt, mb = vm.orthonormal_basis(ns_w)
             tangent = torch.where(is_mesh, mt, tangent)
             bitangent = torch.where(is_mesh, mb, bitangent)
+    # a portal's rectangle emits the linked dome's map, read at the ray
+    # direction's dome uv (ref scene.zig lightPortalUvw)
+    if uv is not None:
+        for (_, pp), pd in sorted((scene.portals or {}).items()):
+            uv = torch.where((hit.prop == pp)[:, None], portal.dome_uv_of_dir(pd.dome_rot, d), uv)
     return Fragment(p=p, geo_n=geo_n, n=n, material=scene.prop_material[prop], uv=uv,
                     t=tangent, b=bitangent, prop=hit.prop)

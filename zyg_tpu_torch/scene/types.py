@@ -8,7 +8,9 @@ shape type, for mesh scenes the triangle arena and the mesh instance table
 (scene/textures.py) and the env-map sampler (scene/env_sampling.py), for
 two or more lights of which one is finite the light tree
 (scene/light_tree.py), for volume lights over a density grid their
-interior-point distributions (core/distribution.py), and the material features and volume props by
+interior-point distributions (core/distribution.py), for portal lights
+their windowed portal-image distributions (scene/portal.py), and the
+material features and volume props by
 which the general bounce decides, once per render, what it computes
 (the JAX package's static `mat_features` and `volume_props`).
 """
@@ -89,6 +91,9 @@ class Materials:
     # heterogeneous media: density grid id into SceneData.grids, -1 for a
     # homogeneous medium (or a material that is not a medium)
     density_grid: torch.Tensor  # int32[M]
+    # IES profiles (io/ies.py): the emission's intensity over the polar
+    # angle from the emitting surface's normal, 32 bins; all ones unprofiled
+    ies: torch.Tensor  # float32[M, 32]
 
     def to(self, device) -> "Materials":
         return to_device(self, device)
@@ -144,6 +149,9 @@ class SceneData:
     # {light index: Distribution3D over its density grid} of the volume
     # lights with a grid (interior points by density), or None
     vol_light_dist: dict = None
+    # {(light index, portal prop): portal.PortalDist} of the portal lights
+    # (scene/portal.py), or None
+    portals: dict = None
 
     def to(self, device) -> "SceneData":
         out = {}
@@ -151,7 +159,7 @@ class SceneData:
             v = getattr(self, f.name)
             if f.name in ("mat_features", "volume_props"):
                 out[f.name] = v
-            elif f.name in ("prop_groups", "vol_light_dist") and v is not None:
+            elif f.name in ("prop_groups", "vol_light_dist", "portals") and v is not None:
                 out[f.name] = {k: g.to(device) for k, g in v.items()}
             else:
                 out[f.name] = v if v is None else v.to(device)
