@@ -43,11 +43,16 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     lane-steps and collisions the lanes take, and track_interaction's
     emissive variant on the fire path's own glue inputs (518,400 lanes,
     fire.scene's grey medium and a spectral copy), t, w, decisions and
-    emission bit-exact. Times each (median of runs, CUDA events; and its device time
+    emission bit-exact; the filtered flush (accum_filtered) on the Cornell
+    path's 2,073,600 lanes at its finish share, Mitchell r2 and Blackman
+    r1 shuffled and Mitchell r2 unshuffled, and in the scan path's
+    clamp-to-edge mode on every lane, weights and RGB within rtol 1e-5 and
+    1e-5 of the plane's largest magnitude, with its float4 atomics
+    counted. Times each (median of runs, CUDA events; and its device time
     from the profiler, which leaves out the host's gaps between a short
     kernel's launches) beside its bound and, where one PyTorch call
     computes the same function, that call's time
- 4. a 128x128, 64 spp Cornell render on the card against the port's plain
+ 4. a 128x128, 16 spp Cornell render on the card against the port's plain
     CPU render: mean energy within 1.5%, 4x4-downsampled RMSE within 6%
     of the mean (the JAX package's golden-gate statistics)
  4b. the same gate for the 30,720-triangle trefoil at 96x56, 16 spp,
@@ -68,7 +73,11 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     spp, depth 5, 4j. for examples/takes/portal.take (a Sky through a
     portal into a closed room) at 96x72, 16 spp, depth 8, and a canopy +
     IES scene the script writes (a Canopy with a PNG emission map beside
-    a Rectangle lamp with an LM-63 profile) at 96x72, 16 spp, depth 6
+    a Rectangle lamp with an LM-63 profile) at 96x72, 16 spp, depth 6,
+    4k. for cornell.take, cornell_filtered.take, cornell_ao.take,
+    cornell_aov_normals.take and cornell_aovs.take at 96x96 (8 spp; AO
+    16, aov_normals 1), with cornell_aovs' Albedo, Depth and
+    ShadingNormal planes on 99 % of the pixels within 1e-4, 1e-5, 1e-4
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
@@ -121,12 +130,25 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     same report and profile, kernel 6's lane shares, and the portal
     sampler's calls a render with its device time and launches a call by
     kernel name
+ 5j. the integrator and sensor variants on Cornell, each take at its own
+    size: the CLI (cornell_filtered.take to .hdr, cornell_aov_normals.take
+    and cornell_aovs.take to .exr, whose output and AOV companion files
+    are read back with the port's read_exr), then the Driver and the
+    same report: cornell.take (PT, 512x512, 16 spp: the per-sample scan
+    path around sobol_block and isect), cornell_filtered.take (Mitchell,
+    512x512, 16 spp: the persistent path through shade and the filtered
+    flush, accum_filtered), cornell_ao.take and cornell_aov_normals.take
+    (the AOV integrator, 512x512 at 16 and 1 spp), cornell_aovs.take
+    (256x256, 8 spp: an unshuffled dispatch with sensor AOVs through the
+    general body and the box flush); then cornell_filtered at 1920x1080
+    and 16 spp beside phase 5's box Cornell figure
  6. one bounce of the mesh bounce (kernel 5) against one of the general
     bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
     directly, timed in turns (CUDA events, medians)
 Each main path is driven with the launch counts set to 0 just before it
-and read just after. The line before the last is the JSON kernel report;
-the last line is {"ok": true, "device": {...}}.
+and read just after. `[clock]` lines give the seconds each phase took.
+The line before the last is the JSON kernel report; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -161,6 +183,10 @@ REPLACES = {
     # not TPU kernels: the JAX package's tracking walks are XLA while loops
     "track_interaction": "zyg_tpu/render/integrator/volume.py:273",
     "track_transmittance": "zyg_tpu/render/integrator/volume.py:631",
+    # the filtered form of kernel 4: the column flush with the filtered
+    # unpermute and drain splats (zyg_tpu/render/integrator/ptmis.py:
+    # 1465-1528) and the unshuffled rolled splat (:1359-1378)
+    "accum_filtered": "zyg_tpu/ops/accum.py:31",
 }
 SOURCES = {
     "sobol_block": "zyg_tpu_torch/csrc/sobol_block.cu",
@@ -172,6 +198,7 @@ SOURCES = {
     "traverse": "zyg_tpu_torch/csrc/traverse.cu",
     "track_interaction": "zyg_tpu_torch/csrc/track.cu",
     "track_transmittance": "zyg_tpu_torch/csrc/track.cu",
+    "accum_filtered": "zyg_tpu_torch/csrc/accum.cu",
 }
 CORNELL_KERNELS = ("sobol_block", "shade", "accum")
 # sobol_block's launch shapes besides the checks' width: 513 is one
@@ -219,6 +246,19 @@ PORTAL_KERNELS = ("sobol_block", "isect", "surface_v2", "accum")
 PORTAL_RES = (512, 384)
 PORTAL_SPP = 32
 N_PORTAL = PORTAL_RES[0] * PORTAL_RES[1]
+# the integrator and sensor variants on Cornell, each at its take's own
+# size: (resolution, spp, the kernels its main path launches). PT and AOV
+# run the per-sample scan path (no flush kernel: box samples add in
+# torch); cornell_filtered the persistent path through the filtered flush;
+# cornell_aovs an unshuffled persistent dispatch through the general body
+SLICE_TAKES = {
+    "cornell.take": ((512, 512), 16, ("sobol_block", "isect")),
+    "cornell_filtered.take": ((512, 512), 16, ("sobol_block", "shade", "accum_filtered")),
+    "cornell_ao.take": ((512, 512), 16, ("sobol_block", "isect")),
+    "cornell_aov_normals.take": ((512, 512), 1, ("sobol_block", "isect")),
+    "cornell_aovs.take": ((256, 256), 8, ("sobol_block", "isect", "accum")),
+}
+FILTERED_KERNELS = SLICE_TAKES["cornell_filtered.take"][2]
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -226,6 +266,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # integer issue: 64 INT32 lanes a clock on each of 132 SMs at 1.98 GHz
 INT32_OPS_PER_S = 16.7e12
+# a main path's render time above which it is timed best of 2, not 3
+SLOW_RENDER_S = 2.0
 # share of a full-width flush launch's lanes whose sample finishes there
 # on the Cornell 1080p 16 spp path: 0.2005, measured by phase 5's
 # flush_share (NVIDIA H100 80GB HBM3; PERF.md)
@@ -252,6 +294,11 @@ OPS_INSTANCE = 60  # one instance: AABB entry, pick, ray to object space
 # the transform and the voxel index
 OPS_TRACK_STEP = 150
 OPS_TRACK_COLLISION = 80
+# the filtered flush: one filter weight (Blackman's two cosines and its
+# sum, or Mitchell's cubic), and one tap (its pixel, the bounds, the
+# weights' product, three multiplies and the float4 add)
+OPS_FILTER_EVAL = 20
+OPS_FILTER_TAP = 12
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -268,6 +315,17 @@ def int_issue_ms(instructions: int, lanes: int) -> float:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_CLOCK = [time.perf_counter()] * 2  # the script's start, the last mark
+
+
+def mark(label: str) -> None:
+    """Log the seconds since the last mark and since the script started:
+    where the script's time limit goes."""
+    now = time.perf_counter()
+    log(f"[clock] {label}: {now - _CLOCK[1]:.1f} s (script {now - _CLOCK[0]:.1f} s)")
+    _CLOCK[1] = now
 
 
 def time_ms(fn, reps: int, runs: int = 5) -> float:
@@ -1264,6 +1322,95 @@ def check_accum(dev) -> dict:
     return out
 
 
+def _filtered_case(mode: str, n: int, dev):
+    """The filtered flush's inputs at Cornell 1080p's width: (pid, was_alive,
+    alive, planes, clamps, sub_uv, clamp_edge). shuffled: _flush_lanes at
+    the path's finish share, cornell_filtered's indirect clamp of 8;
+    unshuffled: lane i on pixel i at the same share; clamp_edge: the scan
+    path's splat, every lane finished, one plane."""
+    import torch
+
+    inf = float("inf")
+    pid, was_alive, alive, e, d, x = _flush_lanes(n, CORNELL_FLUSH_SHARE, dev, seed=15)
+    uv = torch.rand((n, 2), generator=torch.Generator(device="cpu").manual_seed(16)).to(dev)
+    lanes = torch.arange(n, device=dev)
+    if mode == "clamp_edge":
+        return lanes, None, None, (e,), (inf,), uv, True
+    if mode == "unshuffled":
+        pid = lanes
+    return pid, was_alive, alive, (e, d, x), (inf, inf, 8.0), uv, False
+
+
+def check_accum_filtered(dev) -> dict:
+    """The filtered flush against its plain version on Cornell 1080p's
+    lanes: Mitchell r2 shuffled at the path's finish share (the
+    cornell_filtered path), Blackman r1 shuffled, Mitchell r2 unshuffled,
+    and the scan path's clamp-to-edge mode on every lane. Weights and RGB
+    within rtol 1e-5 and an absolute 1e-5 of the plane's largest magnitude
+    (float adds in atomic order; Mitchell's negative lobes cancel). Times
+    each beside its bound (bytes, and the operations per finishing lane)
+    and the one PyTorch call that adds the same tap rows (index_add_)."""
+    import torch
+    from zyg_tpu_torch.ops.accum import (_radiance, filtered_taps, flush_filtered,
+                                         flush_filtered_plain)
+
+    w, h = 1920, 1080
+    n = w * h
+    fb0 = torch.rand((n, 4), generator=torch.Generator(device="cpu").manual_seed(12)).to(dev)
+    out = {}
+    for tag, mode, name, r in (("", "shuffled", "Mitchell", 2),
+                               ("blackman_r1_", "shuffled", "Blackman", 1),
+                               ("unshuffled_", "unshuffled", "Mitchell", 2),
+                               ("clamp_edge_", "clamp_edge", "Mitchell", 2)):
+        pid, was_alive, alive, planes, clamps, uv, edge = _filtered_case(mode, n, dev)
+        args = (pid, was_alive, alive, planes, clamps, uv, w, h, name, r)
+        a1 = flush_filtered(fb0.clone(), *args, clamp_edge=edge)
+        a2 = flush_filtered_plain(fb0.clone(), *args, clamp_edge=edge)
+        torch.cuda.synchronize()
+        for cols, what in ((slice(3, 4), "weights"), (slice(0, 3), "RGB")):
+            ref = a2[:, cols] - fb0[:, cols]
+            scale = float(ref.abs().max())
+            torch.testing.assert_close(a1[:, cols] - fb0[:, cols], ref, rtol=1e-5,
+                                       atol=1e-5 * scale,
+                                       msg=lambda m: f"accum_filtered {tag or 'mitchell_r2_'}{what}: {m}")
+        fin = (torch.ones_like(pid, dtype=torch.bool) if was_alive is None
+               else was_alive & ~alive)
+        idx = torch.nonzero(fin).squeeze(1)
+        m = idx.shape[0]
+        tgt, wts, ok = filtered_taps(pid[idx], uv[idx], w, h, name, r, edge, n)
+        rgb = _radiance([p[idx] for p in planes], clamps)
+        rows = torch.cat([rgb[None] * wts[:, :, None], wts[:, :, None]], dim=2)[ok]
+        tgt_ok = tgt[ok]
+        a3 = fb0.clone()
+        taps = (2 * r + 1) ** 2
+        out.update({
+            f"{tag}max_abs_err": float((a1 - a2).abs().max()),
+            f"{tag}ms": time_ms(lambda: flush_filtered(a1, *args, clamp_edge=edge), 20),
+            f"{tag}device_ms": device_ms(lambda: flush_filtered(a1, *args, clamp_edge=edge),
+                                         "accum_filtered"),
+            f"{tag}plain_ms": time_ms(lambda: flush_filtered_plain(a2, *args, clamp_edge=edge),
+                                      2, runs=3),
+            # the one PyTorch call that adds the same tap rows by pixel
+            f"{tag}library_ms": time_ms(lambda: a3.index_add_(0, tgt_ok, rows), 20),
+            f"{tag}atomics": int(ok.sum()),
+        })
+        # pid of every lane and the two masks where given; the radiance rows
+        # and the offset of each finishing lane; the [N, 4] framebuffer stays
+        # in L2 (33 MB), as for the box flush
+        nbytes = n * (8 + (2 if was_alive is not None else 0)) + m * (12 * len(planes) + 8)
+        ops = m * (2 * (2 * r + 1) * OPS_FILTER_EVAL + taps * OPS_FILTER_TAP)
+        b = bound(nbytes, ops)
+        out.update({f"{tag}{k}": v for k, v in b.items()})
+        log(f"accum_filtered {mode} {name} r{r}: {m} of {n} lanes finish, {int(ok.sum())} float4 "
+            f"atomics ({taps} taps a lane), max_abs_err {out[f'{tag}max_abs_err']:.3g}, kernel "
+            f"{out[f'{tag}ms']:.4f} ms (device {out[f'{tag}device_ms']:.4f} ms), plain "
+            f"{out[f'{tag}plain_ms']:.4f} ms, library {out[f'{tag}library_ms']:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {int(ok.sum()) / out[f'{tag}device_ms'] / 1e6:.1f} "
+            f"G atomics/s")
+        del a1, a2, a3, rows, tgt, wts, ok, tgt_ok, rgb
+    return out
+
+
 def _shade_state(n, dev, seed=7):
     """The lane state of tests/test_torch_shade.py (Cornell, camera-ish rays)."""
     import numpy as np
@@ -1778,13 +1925,14 @@ def _golden_gate(card_img, cpu_img, label: str, times: str) -> None:
 
 
 def phase_slice(dev) -> None:
-    """128x128, 64 spp on the card (kernels) against the plain CPU path."""
+    """128x128, 16 spp on the card (kernels) against the plain CPU path
+    (the CPU render is the costly half)."""
     import torch
     from zyg_tpu_torch.render.driver import Driver
     from zyg_tpu_torch.scene.loader import load_scene_file
 
     torch.set_num_threads(os.cpu_count() or 1)
-    take = _take("cornell_ptmis.take", (128, 128), 64)
+    take = _take("cornell_ptmis.take", (128, 128), 16)
     scene = load_scene_file(take.scene_filename)
     t0 = time.perf_counter()
     card = Driver(take, scene, device=dev).render_frame()
@@ -1792,7 +1940,7 @@ def phase_slice(dev) -> None:
     t0 = time.perf_counter()
     cpu = Driver(take, scene, device="cpu").render_frame()
     t_cpu = time.perf_counter() - t0
-    _golden_gate(card, cpu, "slice 128x128x64", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    _golden_gate(card, cpu, "slice 128x128x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
 def _ci_trefoil(res, spp):
@@ -2211,6 +2359,45 @@ def phase_slice_material(dev) -> None:
     _golden_gate(card, cpu, "material_test 96x72x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
+def phase_slice_cornell_variants(dev) -> None:
+    """The five integrator and sensor takes on Cornell at 96x96 (8 spp; AO
+    16, aov_normals its own 1) on the card against the plain CPU path:
+    cornell.take (PT, the scan path), cornell_filtered.take (Mitchell
+    through the filtered flush), cornell_ao.take and
+    cornell_aov_normals.take (the AOV integrator), cornell_aovs.take (an
+    unshuffled dispatch through the general body), and its Albedo, Depth
+    and ShadingNormal planes: on 99 % of the pixels within 1e-4, 1e-5 and
+    1e-4."""
+    import numpy as np
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    for name, spp in (("cornell.take", 8), ("cornell_filtered.take", 8), ("cornell_ao.take", 16),
+                      ("cornell_aov_normals.take", 1), ("cornell_aovs.take", 8)):
+        take = _take(name, (96, 96), spp)
+        scene = load_scene_file(take.scene_filename)
+        t0 = time.perf_counter()
+        card_d = Driver(take, scene, device=dev)
+        card = card_d.render_frame()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_d = Driver(take, scene, device="cpu")
+        cpu = cpu_d.render_frame()
+        t_cpu = time.perf_counter() - t0
+        _golden_gate(card, cpu, f"{name[:-5]} 96x96x{spp}", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+        for plane, atol in (("albedo", 1e-4), ("depth", 1e-5), ("shading_normal", 1e-4)):
+            if plane not in card_d.aov_names:
+                continue
+            a, b = card_d.resolve_aov(plane), cpu_d.resolve_aov(plane)
+            close = float(np.isclose(a, b, rtol=0, atol=atol).all(axis=-1).mean())
+            log(f"{name[:-5]} 96x96x{spp} {plane} plane: {close:.4f} of the pixels within {atol}, "
+                f"max difference {float(np.abs(a - b).max()):.3g}")
+            if not np.isfinite(a).all() or close < 0.99:
+                raise AssertionError(f"{name}: the card's {plane} plane disagrees with the CPU's")
+
+
 def general_profile(driver, spp: int) -> str:
     """The general body's loop over one render, counted on the host around
     the calls (so the render is not timed): its iterations over all chunks
@@ -2338,35 +2525,46 @@ def flush_share(driver, spp: int) -> tuple[float, float]:
     import torch
     from zyg_tpu_torch.render.integrator import ptmis
 
-    calls = []  # (finished, lanes) per flush
-    orig = ptmis.flush_pixels
+    calls = []  # (finished, lanes) per flush, box or filtered
+    origs = {name: getattr(ptmis, name) for name in ("flush_pixels", "flush_filtered")}
 
-    def counting(fb, pid, was_alive, alive, *rest):
-        calls.append((int((was_alive & ~alive).sum()), pid.shape[0]))
-        return orig(fb, pid, was_alive, alive, *rest)
+    def counting(orig):
+        def flush(fb, pid, was_alive, alive, *rest, **kw):
+            calls.append((int((was_alive & ~alive).sum()), pid.shape[0]))
+            return orig(fb, pid, was_alive, alive, *rest, **kw)
+        return flush
 
-    ptmis.flush_pixels = counting
+    for name, orig in origs.items():
+        setattr(ptmis, name, counting(orig))
     try:
         driver.start_frame()
         driver.render_iterations(spp)
         torch.cuda.synchronize()
     finally:
-        ptmis.flush_pixels = orig
+        for name, orig in origs.items():
+            setattr(ptmis, name, orig)
+    if not calls:  # the scan path flushes nothing
+        return float("nan"), float("nan")
     width = max(w for _, w in calls)
     full = [f for f, w in calls if w == width]
     return sum(full) / (len(full) * width), sum(f for f, _ in calls) / sum(w for _, w in calls)
 
 
-def _cli_run(take_name: str, kernels, spp: int | None = None) -> dict:
+def _cli_run(take_name: str, kernels, spp: int | None = None, out_name: str = "out.png",
+             companions: tuple = ()) -> dict:
     """The user's entry point at the take's own size (with spp: on a copy
     of the take with that many samples a pixel, written to a temporary
-    directory); returns its kernel launch counts."""
+    directory), writing out_name (.png, .exr or .hdr) and the AOV
+    companion files out_<name>.exr, which are read back (EXR with the
+    port's read_exr); returns its kernel launch counts."""
+    import numpy as np
     import torch
     from zyg_tpu_torch import cli, ops
+    from zyg_tpu_torch.io.exr import read_exr
 
     ops.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
-        png = os.path.join(tmp, "out.png")
+        png = os.path.join(tmp, out_name)
         take_path = os.path.join(REPO, "examples/takes", take_name)
         if spp is not None:
             with open(take_path) as f:
@@ -2381,6 +2579,13 @@ def _cli_run(take_name: str, kernels, spp: int | None = None) -> dict:
         torch.cuda.synchronize()
         if rc != 0 or os.path.getsize(png) < 1000:
             raise AssertionError(f"cli {take_name}: no image written")
+        for f in [out_name] * out_name.endswith(".exr") + [f"out_{c}.exr" for c in companions]:
+            ch = read_exr(os.path.join(tmp, f))
+            planes = np.stack([ch[k] for k in sorted(ch)], axis=-1)
+            if not np.isfinite(planes).all() or not np.abs(planes).max() > 0.0:
+                raise AssertionError(f"cli {take_name}: {f} is not finite and non-zero")
+            log(f"cli {take_name}: {f} read back, channels {sorted(ch)}, shape "
+                f"{planes.shape}, mean {float(planes.mean()):.6f}")
     launches = ops.launch_counts()
     log(f"main path (cli {take_name}{f' at {spp} spp' if spp else ''}) launches: {launches}")
     for name in kernels:
@@ -2401,11 +2606,15 @@ def _take_scene(take_name, res, spp, label):
 
 def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=None) -> dict:
     """A main path through the Driver at the take's resolution and spp:
-    warm-up, best of 3, one profiled render, one render for the peak
-    memory and the flush shares, and with lanes_of ("surface"
-    or "surface_v2") that kernel's lane shares in one more render, or
-    ("general") the general body's iterations and split resumes. Returns
-    the kernel launches of one render."""
+    warm-up (one chunk; one sample on the per-sample scan path, whose
+    chunk is most of a render), best of 3 (of 2 when a render takes over
+    SLOW_RENDER_S: host drift exceeds a third run's worth there), one
+    profiled render, one render for the peak memory and the flush shares
+    (on the scan path, which flushes nothing, the peak is read over the
+    timed renders), and with lanes_of ("surface" or "surface_v2") that
+    kernel's lane shares in one more render, or ("general") the general
+    body's iterations and split resumes. Returns the kernel launches of
+    one render."""
     import numpy as np
     import torch
     from zyg_tpu_torch import ops
@@ -2414,20 +2623,24 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
     res, spp = take.cameras[0].resolution, take.num_samples_per_pixel
     driver = Driver(take, scene, device=dev)
     driver.start_frame()
-    driver.render_iterations(driver.chunk_size)  # warm-up
+    driver.render_iterations(driver.chunk_size if driver.persistent else 1)  # warm-up
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
     best = None
-    for _ in range(3):
+    runs = 0
+    while runs < 3 and not (runs == 2 and best["seconds"] > SLOW_RENDER_S):
         driver.start_frame()
         t0 = time.perf_counter()
         driver.render_iterations(spp)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        runs += 1
         if best is None or dt < best["seconds"]:
             best = {"seconds": dt, "rays": driver.rays_traced,
                     "iterations": driver.last_iterations, "all_iterations": driver.iterations,
                     "dispatches": len(driver.chunk_plan(spp)) * len(driver.tile_plan())}
+    peak = torch.cuda.max_memory_allocated(dev)
     counts = ops.launch_counts()
     for name in kernels:
         if counts[name] <= 0:
@@ -2435,22 +2648,27 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
     img = driver.resolve()
     if not np.isfinite(img).all() or not img.mean() > 0.0:
         raise AssertionError(f"{label} image is not finite with a positive mean")
-    per_render = {k: v // 3 for k, v in counts.items()}
-    log(f"{label} {res[0]}x{res[1]} {spp}spp [{card}]: {best['seconds']:.4f} s, {best['rays']} rays, "
+    per_render = {k: v // runs for k, v in counts.items()}
+    log(f"{label} {res[0]}x{res[1]} {spp}spp [{card}]: {best['seconds']:.4f} s (best of {runs}), "
+        f"{best['rays']} rays, "
         f"{best['iterations']} wavefront iterations in the last dispatch, "
         f"{best['all_iterations']} in all {best['dispatches']} dispatches (chunks x tiles), "
         f"{best['rays'] / best['seconds'] / 1e6:.2f} Mrays/s, image mean {float(img.mean()):.6f}, "
         f"launches per render {({k: v for k, v in per_render.items() if v})}")
     glue = profile_render(driver, spp, f"{label} {res[0]}x{res[1]} [{card}]", kernels)
-    # one more render gives both the peak memory and the flush shares (the
-    # host's counting adds a bool per lane and flush to the device's tensors)
-    torch.cuda.reset_peak_memory_stats(dev)
-    full, mean = flush_share(driver, spp)
-    peak = torch.cuda.max_memory_allocated(dev)
+    shares = ""
+    if driver.persistent:
+        # one more render gives both the peak memory and the flush shares
+        # (the host's counting adds a bool per lane and flush to the
+        # device's tensors)
+        torch.cuda.reset_peak_memory_stats(dev)
+        full, mean = flush_share(driver, spp)
+        peak = torch.cuda.max_memory_allocated(dev)
+        shares = (f"; flushes finish {full:.4f} of the lanes of a full-width launch, {mean:.4f} "
+                  f"over all launches")
     log(f"{label} [{card}]: peak device memory of one render {peak} B ({peak / 2**30:.3f} GiB); "
         f"glue launches per render {glue} ({glue / max(best['all_iterations'], 1):.0f} an "
-        f"iteration); flushes finish {full:.4f} of the lanes of a full-width launch, {mean:.4f} "
-        f"over all launches")
+        f"iteration){shares}")
     if lanes_of == "general":
         log(f"{label} [{card}]: {general_profile(driver, spp)}")
     elif lanes_of:
@@ -2495,12 +2713,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_card()
     phase_build()
+    mark("card and build")
 
     checks = {}
     for name, fn in (("sobol_block", check_sobol), ("isect", check_isect),
                      ("accum", check_accum), ("shade", check_shade),
                      ("surface", check_surface), ("surface_v2", check_surface_v2),
-                     ("traverse", check_traverse), ("track", check_track)):
+                     ("traverse", check_traverse), ("track", check_track),
+                     ("accum_filtered", check_accum_filtered)):
         res = fn(dev)
         checks.update(res if name == "track" else {name: res})
         torch.cuda.empty_cache()
@@ -2525,16 +2745,12 @@ def main() -> int:
         log(f"surface_v2 on {lanes}'s lanes: ok, max_abs_err {h['max_abs_err']:.3g}, kernel "
             f"{h['ms']:.4f} ms (device {h['device_ms']:.4f} ms), plain {h['plain_ms']:.4f} ms, "
             f"bound {h['bound_ms']:.4f} ms ({h['bound_by']}) [{card}]")
-    phase_slice(dev)
-    phase_slice_mesh(dev)
-    phase_slice_textured(dev)
-    phase_slice_sunsky(dev)
-    phase_slice_hero(dev)
-    phase_slice_portal(dev)
-    phase_slice_tree(dev)
-    phase_slice_material(dev)
-    phase_slice_smoke(dev)
-    phase_slice_fire(dev)
+    mark("kernel checks")
+    for phase in (phase_slice, phase_slice_mesh, phase_slice_textured, phase_slice_sunsky,
+                  phase_slice_hero, phase_slice_portal, phase_slice_tree, phase_slice_material,
+                  phase_slice_smoke, phase_slice_fire, phase_slice_cornell_variants):
+        phase(dev)
+        mark(phase.__name__)
     # launches: the CLI runs of the Cornell, trefoil, sunsky, hero,
     # material, smoke and fire paths and one render of the textured path
     launches = {k: 0 for k in SOURCES}
@@ -2545,22 +2761,26 @@ def main() -> int:
         for k in launches:
             launches[k] += cli_counts[k]
         phase_main_path(dev, card, label, *_take_scene(take_name, res, spp, label), kernels)
+        mark(f"main path {label}")
     textured = phase_main_path(dev, card, "textured trefoil PTMIS", *_textured(dev, ci=False),
                                TEXTURED_KERNELS)
     for k in launches:
         launches[k] += textured[k]
+    mark("main path textured trefoil")
     cli_counts = _cli_run("sunsky.take", SUNSKY_KERNELS)
     for k in launches:
         launches[k] += cli_counts[k]
     phase_main_path(dev, card, "sunsky PTMIS",
                     *_take_scene("sunsky.take", SUNSKY_RES, 32, "sunsky PTMIS"), SUNSKY_KERNELS,
                     lanes_of="surface_v2")
+    mark("main path sunsky")
     hero_cli = _cli_run("hero.take", HERO_KERNELS)
     for k in launches:
         launches[k] += hero_cli[k]
     hero = phase_main_path(dev, card, "hero PTMIS",
                            *_take_scene("hero.take", HERO_RES, HERO_SPP, "hero PTMIS"),
                            HERO_KERNELS, lanes_of="surface_v2")
+    mark("main path hero")
     portal_cli = _cli_run("portal.take", PORTAL_KERNELS)
     for k in launches:
         launches[k] += portal_cli[k]
@@ -2568,6 +2788,7 @@ def main() -> int:
     portal = phase_main_path(dev, card, "portal PTMIS", take, scene, PORTAL_KERNELS,
                              lanes_of="surface_v2")
     log(f"portal PTMIS [{card}]: {portal_sampler_profile(dev, scene, PORTAL_SPP)}")
+    mark("main path portal")
     material_cli = _cli_run("material_test.take", MATERIAL_KERNELS)
     for k in launches:
         launches[k] += material_cli[k]
@@ -2575,6 +2796,7 @@ def main() -> int:
     take.integrator.max_depth_surface = MATERIAL_DEPTH
     phase_main_path(dev, card, "material PTMIS", take, scene, MATERIAL_KERNELS,
                     lanes_of="general")
+    mark("main path material")
     # smoke.take's own 64 spp through the CLI took 73-87 s: the CLI renders
     # a copy of the take at 8 spp, as fire's does
     smoke_cli = _cli_run("smoke.take", SMOKE_KERNELS, spp=SMOKE_SPP)
@@ -2582,6 +2804,7 @@ def main() -> int:
         launches[k] += smoke_cli[k]
     take, scene = _take_scene("smoke.take", SMOKE_RES, SMOKE_SPP, "smoke PTMIS")
     smoke = phase_main_path(dev, card, "smoke PTMIS", take, scene, SMOKE_KERNELS)
+    mark("main path smoke")
     # fire.take's own 64 spp through the CLI would take ~70-120 s, as
     # smoke's did: the CLI renders a copy of the take at 8 spp
     fire_cli = _cli_run("fire.take", FIRE_KERNELS, spp=FIRE_SPP)
@@ -2589,7 +2812,30 @@ def main() -> int:
         launches[k] += fire_cli[k]
     take, scene = _take_scene("fire.take", FIRE_RES, FIRE_SPP, "fire PTMIS")
     fire = phase_main_path(dev, card, "fire PTMIS", take, scene, FIRE_KERNELS)
+    mark("main path fire")
+    # the integrator and sensor variants on Cornell: the CLI on each take at
+    # its own size (EXR outputs and AOV companion files read back), the
+    # Driver at the same size, then cornell_filtered at 1080p and 16 spp
+    # beside the box Cornell figure of the first main path
+    slice_cli = {}
+    for take_name, (res, spp, kernels) in SLICE_TAKES.items():
+        out_name = {"cornell_filtered.take": "out.hdr", "cornell_aov_normals.take": "out.exr",
+                    "cornell_aovs.take": "out.exr"}.get(take_name, "out.png")
+        companions = ("albedo", "depth", "shading_normal") if take_name == "cornell_aovs.take" else ()
+        slice_cli[take_name] = _cli_run(take_name, kernels, out_name=out_name,
+                                        companions=companions)
+        for k in launches:
+            launches[k] += slice_cli[take_name][k]
+        label = take_name[:-5]
+        phase_main_path(dev, card, label, *_take_scene(take_name, res, spp, label), kernels)
+        mark(f"main path {label}")
+    filtered = phase_main_path(
+        dev, card, "cornell_filtered 1080p",
+        *_take_scene("cornell_filtered.take", (1920, 1080), 16, "cornell_filtered 1080p"),
+        FILTERED_KERNELS)
+    mark("main path cornell_filtered 1080p")
     measure_bounces(dev, card)
+    mark("bounces")
 
     def entry(name):
         c = checks[name]
@@ -2598,7 +2844,11 @@ def main() -> int:
                 "launches_of": "cli cornell_ptmis.take + cli trefoil.take + cli sunsky.take "
                                "+ cli hero.take + cli portal.take + cli material_test.take "
                                "+ cli smoke.take and cli fire.take (copies at 8 spp) + one "
-                               "1280x720 4 spp textured-trefoil render",
+                               "1280x720 4 spp textured-trefoil render + cli cornell.take, "
+                               "cornell_filtered.take, cornell_ao.take, "
+                               "cornell_aov_normals.take and cornell_aovs.take",
+                "launches_cornell_variants_cli": sum(c[name] for c in slice_cli.values()),
+                "launches_cornell_filtered_1080p_render": filtered[name],
                 "launches_hero_cli": hero_cli[name],
                 "launches_hero_render": hero[name],
                 "launches_portal_cli": portal_cli[name],

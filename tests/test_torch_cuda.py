@@ -7,8 +7,9 @@ and the general body (torch around isect and sobol_block) on the card
 against the CPU at 0, 1, 31 and 129 lanes; the tracking walks, with the
 interaction walk's emissive variant on the fire path's lanes, the
 general body over fire.scene, kernel 6 on hero.take's and portal.take's
-first bounce, and isect on portal.scene's tables.
-Skipped without a card. This file imports no jax, so it also runs on a
+first bounce, isect on portal.scene's tables, and the filtered flush at
+the Cornell path's width and at small widths in its three footprint
+rules. Skipped without a card. This file imports no jax, so it also runs on a
 machine without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -33,14 +34,16 @@ def cuda_device():
 
 @pytest.mark.parametrize("kernel", ["sobol_block", "isect", "accum", "shade", "surface", "traverse",
                                     "surface_v2", "surface_v2_hero", "isect_portal",
-                                    "surface_v2_portal"])
+                                    "surface_v2_portal", "accum_filtered"])
 def test_kernel_matches_plain_on_card(cuda_device, kernel):
     """surface_v2_hero: kernel 6 on the first bounce of a 1280x720
     hero.take render, whose roughness varies per lane across the knot;
     isect_portal: closest and any-hit over portal.scene's tables, shadow
     rays passing the shadow-invisible window and the hidden dome;
     surface_v2_portal: kernel 6 on the first bounce of a 512x384
-    portal.take render (NEE candidates with the portal's windowed pdfs)."""
+    portal.take render (NEE candidates with the portal's windowed pdfs);
+    accum_filtered: the filtered flush on Cornell 1080p's lanes, Mitchell
+    r2 and Blackman r1 shuffled, unshuffled and clamped to the edge."""
     import chip_smoke
 
     check = {"sobol_block": chip_smoke.check_sobol, "isect": chip_smoke.check_isect,
@@ -49,7 +52,8 @@ def test_kernel_matches_plain_on_card(cuda_device, kernel):
              "surface_v2": chip_smoke.check_surface_v2,
              "surface_v2_hero": chip_smoke.check_surface_v2_hero,
              "isect_portal": chip_smoke.check_isect_portal,
-             "surface_v2_portal": chip_smoke.check_surface_v2_portal}[kernel]
+             "surface_v2_portal": chip_smoke.check_surface_v2_portal,
+             "accum_filtered": chip_smoke.check_accum_filtered}[kernel]
     result = check(cuda_device)  # raises on any disagreement
     assert result["ms"] > 0.0
 
@@ -87,6 +91,31 @@ def test_accum_small_widths(cuda_device, n):
     torch.cuda.synchronize()
     assert torch.equal(a1[:, 3], a2[:, 3])
     torch.testing.assert_close(a1, a2, rtol=4e-6, atol=4e-6 * float(a2[:, 0:3].abs().max()))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 129])
+@pytest.mark.parametrize("mode", ["drop", "clamp_edge", "tile"])
+@pytest.mark.parametrize("name,r", [("Mitchell", 2), ("Blackman", 1)])
+def test_accum_filtered_small_widths(cuda_device, n, mode, name, r):
+    """A few lanes splatting into a 16x4 frame, several on one pixel and
+    every footprint crossing the edge: taps dropped, clamped onto the edge,
+    or dropped outside a dispatch of rows [16, 48) (tile)."""
+    import chip_smoke
+    from zyg_tpu_torch.ops.accum import flush_filtered, flush_filtered_plain
+
+    pid, was_alive, alive, *planes = chip_smoke._flush_lanes(max(n, 1), 0.5, cuda_device)
+    rows, base = (32, 16) if mode == "tile" else (64, 0)
+    uv = torch.rand((max(n, 1), 2), generator=torch.Generator(device="cpu").manual_seed(2))
+    args = [pid[:n] % rows, was_alive[:n], alive[:n], [p[:n] for p in planes],
+            (float("inf"), 2.0, 1.0), uv[:n].to(cuda_device), 16, 4, name, r]
+    if mode == "clamp_edge":
+        args[1:5] = [None, None, args[3][:1], (float("inf"),)]
+    fb0 = torch.rand((rows, 4), generator=torch.Generator(device="cpu").manual_seed(1)).to(cuda_device)
+    kw = dict(clamp_edge=mode == "clamp_edge", base=base)
+    a1 = flush_filtered(fb0.clone(), *args, **kw)
+    a2 = flush_filtered_plain(fb0.clone(), *args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(a1, a2, rtol=1e-5, atol=1e-5 * float(a2.abs().max()))
 
 
 @pytest.mark.parametrize("case", SHAPES + ["all dead"])

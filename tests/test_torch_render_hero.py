@@ -420,7 +420,7 @@ def _substitute_root(body: dict, kind="Substitute") -> dict:
 
 
 @pytest.mark.parametrize("body, kind, match", [
-    ({"color": {"file": "albedo.exr"}}, "Substitute", "image format '.exr'"),
+    ({"color": {"file": "albedo.jpg"}}, "Substitute", "image format '.jpg'"),
     ({"roughness": {"file": "r.tga"}}, "Substitute", "image format '.tga'"),
     ({"color": {"id": 3}}, "Substitute", "C-API image references"),
     ({"mask": {"file": "m.png"}}, "Substitute", r"keys \['mask'\]"),
@@ -428,7 +428,7 @@ def _substitute_root(body: dict, kind="Substitute") -> dict:
     ({"roughness": [0.2, 0.3]}, "Substitute", "roughness"),
     ({"attenuation_distance": 1.0, "emittance": {"value": 1.0, "emission_map": {
         "Checker": {}}}}, "Volumetric", "emission map on a Volumetric"),
-], ids=["exr", "tga", "capi_id", "mask", "temperature", "roughness_vec", "volumetric_map"])
+], ids=["jpg", "tga", "capi_id", "mask", "temperature", "roughness_vec", "volumetric_map"])
 def test_loader_refuses_by_name(body, kind, match):
     from zyg_tpu_torch.scene.loader import load_scene_dict
     from zyg_tpu_torch.scene.types import UnsupportedScene

@@ -410,7 +410,7 @@ def _drain_run(scene, monkeypatch, drain_min):
     cam = take.cameras[0]
     w, h = cam.resolution
     st = ptmis.PtmisSettings(max_depth=12, bsdf_split=True)
-    acc, rays, _, counts = ptmis.integrate_persistent(
+    acc, rays, _, counts, _ = ptmis.integrate_persistent(
         scene, cam.arrays("cpu"), torch.arange(w * h, dtype=torch.int64), 0, 8, 8, st,
         frame_width=w, oversample_slack=4)
     return acc.numpy().copy(), int(rays), counts.numpy().copy()

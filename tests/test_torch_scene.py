@@ -227,14 +227,22 @@ def test_take_parse_matches_jax():
 
 
 def test_take_refuses_filters_and_other_integrators():
+    """Blackman and Mitchell filters and the PT and AOV integrators load
+    (tests/test_torch_export.py holds their settings against the JAX
+    take's); other filters and integrators are refused by name."""
     from zyg_tpu_torch.io.take import UnsupportedTake, load_take_dict
 
-    with pytest.raises(UnsupportedTake):
+    with pytest.raises(UnsupportedTake, match="Gaussian"):
         load_take_dict({"camera": {"Perspective": {}},
-                        "sensor": {"filter": {"Blackman": {"radius": 2}}}})
-    with pytest.raises(UnsupportedTake):
+                        "sensor": {"filter": {"Gaussian": {"radius": 2}}}})
+    with pytest.raises(UnsupportedTake, match="Whitted"):
         load_take_dict({"camera": {"Perspective": {}},
+                        "integrator": {"surface": {"Whitted": {}}}})
+    t = load_take_dict({"camera": {"Perspective": {}},
+                        "sensor": {"filter": {"Blackman": {"radius": 2}}},
                         "integrator": {"surface": {"PT": {}}}})
+    assert (t.sensor.filter_name, t.sensor.filter_radius, t.integrator.kind) == \
+        ("Blackman", 2.0, "PT")
 
 
 def test_generate_rays_matches_jax():

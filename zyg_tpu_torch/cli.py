@@ -1,6 +1,8 @@
 """Command-line interface, flag-compatible with the JAX package's CLI for
-what the port renders: -i/--input take, -o/--output PNG, -s/--stats, plus
---device (default cuda; no CPU fallback).
+what the port renders: -i/--input take, -o/--output image (.png, .exr or
+.hdr, by its extension; default <take>.png), -s/--stats, plus --device
+(default cuda; no CPU fallback). Sensor AOV planes go beside the image as
+<stem>_<name>.exr.
 
 Usage: python -m zyg_tpu_torch -i examples/takes/cornell_ptmis.take -o out.png -s
 """
@@ -16,7 +18,8 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="zyg_tpu_torch", description="zyg renderer on PyTorch/CUDA")
     p.add_argument("-i", "--input", required=True, help="take file")
-    p.add_argument("-o", "--output", default="", help="output image path (PNG)")
+    p.add_argument("-o", "--output", default="",
+                   help="output image path: .png, .exr or .hdr (default <take>.png)")
     p.add_argument("-s", "--stats", action="store_true")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
@@ -24,6 +27,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.output and os.path.splitext(args.output)[1].lower() not in (".png", ".exr", ".hdr"):
+        raise SystemExit(f"zyg_tpu_torch: -o {args.output!r}: the port writes .png, .exr and .hdr")
 
     import torch
 

@@ -2,12 +2,14 @@
 (counterpart of zyg_tpu/io/take.py; source-compatible with zyg take JSON).
 
 Supported: a Perspective camera (fov, transformation, resolution), the
-Sobol sampler's samples_per_pixel, a PTMIS or PTDL surface integrator
-(depth.surface and depth.volume, caustics, bsdf_split,
-light_sampling.split_threshold; regularize_roughness only at 0), the
-sensor clamp, a
-tonemapper with exposure, and PNG export. Anything else raises
-`UnsupportedTake`.
+Sobol sampler's samples_per_pixel, a PTMIS, PTDL, PT or AOV surface
+integrator (depth.surface and depth.volume, caustics, bsdf_split,
+light_sampling.split_threshold; regularize_roughness only at 0; the AOV
+integrator's value, num_samples and radius), the sensor's clamp,
+Blackman or Mitchell filter (always at radius 2) and alpha_transparency,
+the root `aov` classes, a tonemapper with exposure, and PNG, EXR or RGBE
+image export. Anything else raises `UnsupportedTake`, and so does the
+AOV integrator's Photon value (the photon map is not ported).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..render.camera import PerspectiveCamera
+from ..render.integrator.aov import VALUES as AOV_VALUES
 from ..render.sensor import Clamp, SensorSettings
 from ..scene.loader import read_transformation
 
@@ -29,7 +32,7 @@ class UnsupportedTake(ValueError):
 
 @dataclass
 class IntegratorSettings:
-    kind: str = "PTMIS"  # PTMIS | PTDL
+    kind: str = "PTMIS"  # AOV | PT | PTDL | PTMIS
     max_depth_surface: int = 16
     # null-interface crossings and volume scatters (ref probe.zig Depth)
     max_depth_volume: int = 256
@@ -39,6 +42,38 @@ class IntegratorSettings:
     # NEE light splitting: split_threshold^4 (ref take.zig:263-271);
     # render/driver.py refuses a scene that would split
     light_split_threshold: float = 0.5**4
+    # the AOV integrator (render/integrator/aov.py)
+    aov_value: str = "AO"
+    aov_num_samples: int = 1
+    aov_radius: float = 1.0
+
+
+@dataclass
+class Exporter:
+    kind: str = "Image"
+    format: str = "PNG"  # PNG | EXR | RGBE
+    error_diffusion: bool = True
+
+
+# reference AOV JSON keys -> the sensor AOV classes
+# (render/integrator/ptmis.py AOV_SPECS; ref aov_value.zig Class)
+AOV_NAME_MAP = {
+    "Albedo": "albedo",
+    "Depth": "depth",
+    "MaterialId": "material_id",
+    "GeometricNormal": "geometric_normal",
+    "ShadingNormal": "shading_normal",
+    "Roughness": "roughness",
+    "Emission": "emission",
+    "Direct": "direct",
+    "Indirect": "indirect",
+}
+
+def parse_aovs(node: dict) -> tuple:
+    """{"Albedo": true, ...} -> the enabled AOV class names, in the node's
+    order; a key outside AOV_NAME_MAP raises."""
+    _only(node, set(AOV_NAME_MAP), "aov")
+    return tuple(AOV_NAME_MAP[k] for k, enabled in node.items() if bool(enabled))
 
 
 @dataclass
@@ -48,7 +83,9 @@ class Take:
     num_samples_per_pixel: int = 1
     integrator: IntegratorSettings = field(default_factory=IntegratorSettings)
     sensor: SensorSettings = field(default_factory=lambda: SensorSettings(clamp=Clamp()))
-    export_format: str = "PNG"
+    exporters: list[Exporter] = field(default_factory=list)
+    # enabled sensor AOV classes (keys of ptmis.AOV_SPECS)
+    aovs: tuple = ()
 
 
 def _only(node: dict, allowed: set, what: str) -> None:
@@ -77,13 +114,14 @@ def _load_camera(node: dict) -> PerspectiveCamera:
 def _load_integrator(node: dict, take: Take) -> None:
     _only(node, {"surface"}, "integrator")
     surface = node["surface"]
-    _only(surface, {"PTMIS", "PTDL"}, "surface integrator")
-    for kind in ("PTDL", "PTMIS"):
+    _only(surface, {"AOV", "PT", "PTMIS", "PTDL"}, "surface integrator")
+    for kind in ("AOV", "PT", "PTDL", "PTMIS"):
         if kind not in surface:
             continue
         body = surface[kind] or {}
+        aov_keys = {"value", "num_samples", "radius"} if kind == "AOV" else set()
         _only(body, {"depth", "caustics", "light_sampling", "bsdf_split",
-                     "regularize_roughness"}, kind)
+                     "regularize_roughness"} | aov_keys, kind)
         if float(body.get("regularize_roughness", 0.0)) > 0.0:
             raise UnsupportedTake("regularize_roughness > 0 (path-space regularization)")
         s = take.integrator
@@ -101,22 +139,43 @@ def _load_integrator(node: dict, take: Take) -> None:
         _only(ls, {"split_threshold"}, "light_sampling")
         st = float(np.clip(ls.get("split_threshold", 0.5), 0.0, 1.0))
         s.light_split_threshold = (st * st) * (st * st)
+        if kind == "AOV":
+            s.aov_value = str(body.get("value", "AO"))
+            if s.aov_value == "Photon":
+                raise UnsupportedTake("AOV value 'Photon' (the photon map is not ported)")
+            if s.aov_value not in AOV_VALUES:  # the AOV integrator's values
+                raise UnsupportedTake(f"AOV value {s.aov_value!r}")
+            s.aov_num_samples = int(body.get("num_samples", 1))
+            s.aov_radius = float(body.get("radius", 1.0))
         break
 
 
 def _load_sensor(node: dict) -> SensorSettings:
-    _only(node, {"clamp"}, "sensor (filters, alpha and AOVs are not ported)")
+    _only(node, {"clamp", "filter", "alpha_transparency"},
+          "sensor (AOVs go under the take's root 'aov' key)")
     clamp = Clamp()
     cl = node.get("clamp")
     if isinstance(cl, dict):
         clamp.emission = float(cl.get("emission", np.inf))
         clamp.direct = float(cl.get("direct", np.inf))
         clamp.indirect = float(cl.get("indirect", np.inf))
-    return SensorSettings(clamp=clamp)
+    settings = SensorSettings(clamp=clamp)
+    settings.alpha_transparency = bool(node.get("alpha_transparency", False))
+    filt = node.get("filter")
+    if isinstance(filt, dict):
+        _only(filt, {"Blackman", "Mitchell"}, "filter")
+        for name in ("Blackman", "Mitchell"):
+            if name in filt:
+                # the reference's radius key is not read: always 2
+                settings.filter_name = name
+                settings.filter_radius = 2.0
+                break
+    return settings
 
 
 def load_take_dict(root: dict, base_dir: str = "") -> Take:
-    _only(root, {"scene", "camera", "sampler", "integrator", "sensor", "post", "export"}, "take")
+    _only(root, {"scene", "camera", "sampler", "integrator", "sensor", "aov", "post", "export"},
+          "take")
     take = Take()
     take.scene_filename = root.get("scene", "")
     if take.scene_filename and base_dir:
@@ -131,6 +190,8 @@ def load_take_dict(root: dict, base_dir: str = "") -> Take:
         _load_integrator(root["integrator"], take)
     if "sensor" in root:
         take.sensor = _load_sensor(root["sensor"])
+    if isinstance(root.get("aov"), dict):
+        take.aovs = parse_aovs(root["aov"])
     for pp in root.get("post", []):
         _only(pp, {"tonemapper"}, "post")
         for tname, tbody in pp["tonemapper"].items():
@@ -143,10 +204,12 @@ def load_take_dict(root: dict, base_dir: str = "") -> Take:
     exp = root.get("export")
     if isinstance(exp, dict):
         _only(exp, {"Image"}, "export")
-        fmt = exp["Image"].get("format", "PNG").upper()
-        if fmt != "PNG":
+        img = exp["Image"]
+        _only(img, {"format", "error_diffusion"}, "export Image")
+        fmt = img.get("format", "PNG").upper()
+        if fmt not in ("PNG", "EXR", "RGBE"):
             raise UnsupportedTake(f"export format {fmt!r}")
-        take.export_format = fmt
+        take.exporters.append(Exporter("Image", fmt, bool(img.get("error_diffusion", True))))
     if not take.cameras:
         raise UnsupportedTake("take without a camera")
     return take

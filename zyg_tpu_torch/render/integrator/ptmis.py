@@ -1,15 +1,17 @@
 """Wavefront PTMIS on the persistent wavefront (counterpart of
-zyg_tpu/render/integrator/ptmis.py:31-280, :326-352 and :1049-1540, box
-filter, shuffled lanes; the fused Cornell-class bounce, the mesh bounce,
-kernel 6's bounce for textured and env-lit scenes, or the general body
-for glass and media (render/integrator/ptmis_general.py), with its medium
-stack and BSDF-split resume slot).
+zyg_tpu/render/integrator/ptmis.py:31-280, :326-352 and :1049-1540: box
+or Blackman/Mitchell filter, shuffled lanes, or unshuffled with sensor
+AOVs; the fused Cornell-class bounce, the mesh bounce, kernel 6's bounce
+for textured and env-lit scenes, or the general body for glass, media and
+AOVs (render/integrator/ptmis_general.py), with its medium stack and
+BSDF-split resume slot).
 
 ref: src/core/rendering/integrator/surface/pathtracer_mis.zig. Radiance is
 tracked as the reference's IValue triple {emission, direct, indirect} so
 the sensor can clamp each class separately. The JAX `lax.while_loop`
 becomes a host loop of launches, and the JAX column buffer with its
-unpermute becomes one per-pixel flush a step (ops/accum.py).
+unpermute (and, filtered, its rolled footprint taps) becomes one
+per-pixel flush a step (ops/accum.py: flush_pixels, flush_filtered).
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ import torch
 from ...core.rng import MASK, hash_u32, mul_u32, to_i32, u32
 from ...core.sobol import SobolArrays, SobolSampler
 from ...ops import traverse
-from ...ops.accum import flush_pixels
+from ...ops.accum import flush_filtered, flush_pixels
 from ...ops.shade import make_fused_body, structural_ok
 from ...ops.surface import make_mesh_fused_body, structural_ok_mesh
 from ...ops.surface_v2 import make_mesh_fused_body_v2, structural_ok_mesh_v2
+from ...scene.types import RAY_MAX_T, UnsupportedScene
 from ..camera import generate_rays, sample_shutter_time
 from . import volume as vol_mod
 
@@ -41,6 +44,37 @@ class PtmisSettings:
     # glass vertex traces both fresnel branches, the untaken one parked in
     # a one-deep resume slot that the lane continues when its path ends
     bsdf_split: bool = False
+    # sensor AOV classes (keys of AOV_SPECS) collected at the primary hit
+    # by the general body; () collects none
+    collect_aovs: tuple = ()
+
+
+# sensor AOV classes (ref aov_value.zig Class): name -> (channels,
+# accumulation mode). "sum" resolves to the mean over samples, "min"/"max"
+# keep extrema (depth and ids must not be averaged). The first seven are
+# captured at the primary hit, the IValue classes at the sample's flush.
+AOV_SPECS = {
+    "albedo": (3, "sum"),
+    "depth": (1, "min"),
+    "material_id": (1, "max"),
+    "geometric_normal": (3, "sum"),
+    "shading_normal": (3, "sum"),
+    "roughness": (1, "sum"),
+    "alpha": (1, "sum"),  # coverage for the Transparent sensor buffer
+    "emission": (3, "sum"),
+    "direct": (3, "sum"),
+    "indirect": (3, "sum"),
+}
+
+
+def aov_init(names, n: int, device) -> dict:
+    """Fresh pixel-indexed accumulators [n, channels] of the AOV classes."""
+    out = {}
+    for name in names:
+        c, mode = AOV_SPECS[name]
+        fill = {"sum": 0.0, "min": float(RAY_MAX_T), "max": -1.0}[mode]
+        out[name] = torch.full((n, c), fill, dtype=torch.float32, device=device)
+    return out
 
 
 @dataclass
@@ -85,6 +119,11 @@ class PathState:
     reg_alpha: torch.Tensor = None  # float32[N] alpha of the previously sampled lobe
     # the BSDF-split resume slot (_split_init's keys; {} = splitting off)
     split: dict = field(default_factory=dict)
+    # sensor AOV accumulators by PIXEL (aov_init; {} = none), added to in
+    # place; only unshuffled dispatches carry them, where pixel = lane
+    aov: dict = field(default_factory=dict)
+    # float32[N, 2] the current sample's subpixel offset (filtered dispatches)
+    sub_uv: torch.Tensor = None
 
     def fields(self) -> dict:
         """The lane fields the fused bounce reads."""
@@ -122,6 +161,7 @@ class PathState:
             medium=g(self.medium), vol_depth=g(self.vol_depth), from_volume=g(self.from_volume),
             primary_chain=g(self.primary_chain), nee_thr=g(self.nee_thr),
             reg_alpha=g(self.reg_alpha), split={k: v[idx] for k, v in self.split.items()},
+            aov=self.aov, sub_uv=g(self.sub_uv),
         )
 
 
@@ -218,8 +258,15 @@ def _make_body(scene, settings: PtmisSettings):
     """One wavefront bounce (ptmis.py:326-352): the fused bounce for
     Cornell-class analytic scenes, the mesh bounce for untextured mesh
     scenes under rectangle lights, kernel 6's bounce for textured and
-    env-lit scenes, and the general body for the rest (glass, media); a scene
-    outside all four raises UnsupportedScene naming what it lacks."""
+    env-lit scenes, and the general body for the rest (glass, media) and
+    for every dispatch that collects sensor AOVs (the JAX gates refuse AOVs
+    for kernels 3, 5 and 6: zyg_tpu/ops/shade.py:692, :1142, :1521); a
+    scene outside all four raises UnsupportedScene naming what it lacks."""
+    if settings.collect_aovs:
+        from .ptmis_general import GeneralBody
+
+        check_scene(scene, settings)
+        return GeneralBody(scene, settings)
     if structural_ok(scene):
         return make_fused_body(scene, settings)
     if structural_ok_mesh(scene):
@@ -233,11 +280,19 @@ def _make_body(scene, settings: PtmisSettings):
 
 def check_scene(scene, settings: PtmisSettings) -> None:
     """Raise UnsupportedScene where no bounce renders the scene: the
-    dispatch's refusals, before a render starts."""
-    if structural_ok(scene) or structural_ok_mesh(scene) or structural_ok_mesh_v2(scene):
-        return
+    dispatch's refusals, before a render starts. Sensor AOVs ride the
+    general body only."""
     from .ptmis_general import check_general
 
+    if settings.collect_aovs:
+        try:
+            check_general(scene, settings)
+        except UnsupportedScene as e:
+            raise UnsupportedScene(f"sensor AOVs {list(settings.collect_aovs)} ride the general "
+                                   f"body, which refuses {e}") from None
+        return
+    if structural_ok(scene) or structural_ok_mesh(scene) or structural_ok_mesh_v2(scene):
+        return
     check_general(scene, settings)
 
 
@@ -276,26 +331,48 @@ def integrate_persistent(
     clamp_max=(math.inf, math.inf, math.inf),
     frame_width: int = 0,
     oversample_slack: int = 0,
+    filter_name: str = "Blackman",
+    filter_radius: int = 0,
+    resolution: tuple = (0, 0),
 ):
-    """Render `num_samples` samples/pixel with lane regeneration AND
-    per-sample lane->pixel shuffling (see the JAX docstring for the design:
-    work balancing by the coprime-stride shuffle, work stealing by the
-    oversample slack and the drain cascade). Finished samples go straight
-    to their pixels' rows of one [N, 4] framebuffer (RGB + sample count).
+    """Render `num_samples` samples/pixel with lane regeneration and, with
+    frame_width > 0, per-sample lane->pixel shuffling (see the JAX
+    docstring for the design: work balancing by the coprime-stride
+    shuffle, work stealing by the oversample slack and the drain cascade).
+    Finished samples go straight to their pixels' rows of one [N, 4]
+    framebuffer (RGB + sample count, or + filter weight with a filter of
+    radius 1 or 2: each finished sample then splats its (2r+1)^2 footprint
+    at the subpixel offset the lane carries, taps outside the frame or the
+    dispatch dropped with their weights).
+
+    frame_width == 0 is the unshuffled dispatch (sensor AOVs ride it):
+    lane i renders pixel pixel_ids[0] + i, every pixel exactly num_samples
+    samples, with no slack and no drain stages; the AOV classes of
+    settings.collect_aovs accumulate by pixel.
 
     CONTRACT: pixel_ids (int64[N]) is a contiguous ascending range; the
     pixel of lane i's sample k is pixel_ids[0] + (i + k*stride) mod N, and
-    frame_width recovers its x/y.
+    the frame width (frame_width, or resolution[0] when unshuffled)
+    recovers its x/y.
 
     Returns (radiance[N, 3] summed over samples by pixel, rays (int64
-    scalar tensor), loop iterations, per-pixel sample counts[N])."""
-    if frame_width <= 0:
-        raise ValueError("integrate_persistent: the port renders shuffled dispatches only")
+    scalar tensor), loop iterations, per-pixel sample counts (filter
+    weights when filtered) [N], the AOV accumulators {name: [N, c]})."""
+    shuffled = frame_width > 0
+    width = frame_width if shuffled else int(resolution[0])
+    if width <= 0:
+        raise ValueError("integrate_persistent: an unshuffled dispatch needs the resolution")
+    filtering = filter_radius > 0
+    if filtering and (resolution[0] <= 0 or resolution[1] <= 0):
+        raise ValueError("integrate_persistent: a filtered dispatch needs the resolution")
+    if settings.collect_aovs and shuffled:
+        raise ValueError("integrate_persistent: sensor AOVs accumulate by lane; they ride "
+                         "unshuffled dispatches (frame_width 0)")
     dev = pixel_ids.device
     n = pixel_ids.shape[0]
     body = _make_body(scene, settings)
     general = getattr(body, "general", False)  # carries the medium stack and split slot
-    stride = _coprime_stride(n)
+    stride = _coprime_stride(n) if shuffled else 0
     base = int(pixel_ids[0])
     lanes = torch.arange(n, dtype=torch.int64, device=dev)
     f32 = torch.float32
@@ -312,6 +389,8 @@ def integrate_persistent(
         sobol=SobolSampler.start_pixel(pixel_ids, torch.zeros_like(pixel_ids)).arrays,
         vol_key=to_i32(hash_u32(pixel_ids ^ 0x2545F491)),
         mis_o=zero3, mis_n=z_up, pid=lanes,
+        aov=aov_init(settings.collect_aovs, n, dev),
+        sub_uv=torch.zeros((n, 2), dtype=f32, device=dev) if filtering else None,
     )
     if general:
         zb = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -323,26 +402,39 @@ def integrate_persistent(
             reg_alpha=torch.zeros(n, dtype=f32, device=dev),
             split=_split_init(n, dev) if body.split_on else {},
         )
-    kmax = num_samples + oversample_slack
+    kmax = num_samples + (oversample_slack if shuffled else 0)
     target = n * num_samples
     fb = torch.zeros((n, 4), dtype=f32, device=dev)  # by local pixel: RGB, sample count
     done = torch.zeros(n, dtype=torch.int32, device=dev)
     issued = torch.zeros((), dtype=torch.int64, device=dev)
     check_every = _check_every(dev)
+    # the IValue classes a finished sample adds to the AOV planes, unclamped
+    ivalue_aovs = [k for k in ("emission", "direct", "indirect") if k in path.aov]
 
     inflight = unfinished
 
     def flush(s: PathState, was_alive: torch.Tensor) -> None:
         # samples that finished since was_alive, each clamped once
         r = s.result
-        flush_pixels(fb, s.pid, was_alive, _flush_unfinished(s), r.emission, r.direct,
-                     r.indirect, clamp_max)
+        alive = _flush_unfinished(s)
+        if filtering:
+            flush_filtered(fb, s.pid, was_alive, alive, (r.emission, r.direct, r.indirect),
+                           clamp_max, s.sub_uv, int(resolution[0]), int(resolution[1]),
+                           filter_name, filter_radius, base=base)
+        else:
+            flush_pixels(fb, s.pid, was_alive, alive, r.emission, r.direct, r.indirect,
+                         clamp_max)
+        if ivalue_aovs:
+            fin = (was_alive & ~alive)[:, None]
+            for k in ivalue_aovs:
+                s.aov[k] += torch.where(fin, getattr(r, k), 0.0)
 
     # drain cascade: once issuance ends and fewer than n/4 paths are in
     # flight, compact the survivors into a 4x smaller state and go on there
+    # (shuffled dispatches only: AOV accumulators are indexed by lane)
     drain_stages = []
     wd = n
-    while wd // 4 >= _DRAIN_MIN:
+    while shuffled and wd // 4 >= _DRAIN_MIN:
         wd //= 4
         drain_stages.append(wd)
 
@@ -356,7 +448,7 @@ def integrate_persistent(
         iteration = (first_iteration + done).to(torch.int64) & MASK
         pid_new = ((lanes + mul_u32(iteration, stride)) & MASK) % n
         gpid = base + pid_new
-        xy_new = torch.stack([gpid % frame_width, gpid // frame_width], dim=-1)
+        xy_new = torch.stack([gpid % width, gpid // width], dim=-1)
         sample_index = (mul_u32(gpid, num_expected_samples) + iteration) & MASK
         seed = iteration // num_expected_samples
         fresh = SobolSampler.start_pixel(sample_index, seed).arrays
@@ -384,6 +476,7 @@ def integrate_persistent(
             mis_o=torch.where(rm, o_cam, s.mis_o),
             mis_n=torch.where(rm, d_cam, s.mis_n),
             pid=torch.where(regen, pid_new, s.pid),
+            sub_uv=torch.where(rm, s4[:, 0:2], s.sub_uv) if filtering else None,
         )
         if general:
             # resume slots are empty on regenerating lanes; the lane's split
@@ -448,4 +541,4 @@ def integrate_persistent(
 
     if scene.meshes is not None and dev.type == "cuda":
         traverse.check_errors(dev)  # the walks' stack-overflow flag
-    return fb[:, 0:3], path.rays, iters, fb[:, 3]
+    return fb[:, 0:3], path.rays, iters, fb[:, 3], path.aov

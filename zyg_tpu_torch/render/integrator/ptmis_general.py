@@ -37,9 +37,15 @@ textures, env-mapped domes and Distant lights on this body, and material
 features other than glass, rough glass, media, volumetric, spectral media
 and emissive media (so IES profiles and triplanar textures).
 
+With settings.collect_aovs (every dispatch with sensor AOVs rides this
+body) the primary hit also adds its albedo, depth, material id, normals,
+roughness and coverage to the dispatch's pixel planes (_capture_aovs).
+The shadow-catcher alpha of the JAX body (ptmis.py:810-840) has no
+counterpart: the scene loader refuses the `shadow_catcher` entity key.
+
 Kernels on this path: isect (closest and any hit), traverse (mesh
 scenes), sobol_block (every draw), track (the grid media's walks,
-ops/track.py) and accum (the flush, in ptmis.py).
+ops/track.py) and accum (the flushes, in ptmis.py).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import dataclasses
 
 import torch
 
+from ...core import fmath
 from ...core import vecmath as vm
 from ...core.rng import hash_u32, to_i32, u32
 from ...core.sobol import SobolSampler
@@ -192,6 +199,9 @@ class GeneralBody:
         else:
             throughput0 = s.throughput
             false_if = zeros_b
+
+        if cfg.collect_aovs:
+            self._capture_aovs(s, hit, frag, params, finite_hit, scatter)
 
         # ---- connectLight: the BSDF-hit emission with its MIS weight,
         # pdfs measured from the last real vertex (mis_o, mis_n)
@@ -376,6 +386,35 @@ class GeneralBody:
             reg_alpha=new_reg_alpha,
             split=split,
         )
+
+    @staticmethod
+    def _capture_aovs(s, hit, frag, params, finite_hit, scatter) -> None:
+        """Add the primary hit's sensor AOV values to the pixel planes in
+        s.aov (zyg_tpu/render/integrator/ptmis.py:507-555): every sample
+        passes depth 0 and volume depth 0 exactly once. The dispatch is
+        unshuffled (pid is the lane), so the JAX package's indexed
+        add/min/max by pid is an elementwise one here."""
+        aov = s.aov
+        m = (s.alive & (s.depth == 0) & (s.vol_depth == 0) & ~scatter & finite_hit)[:, None]
+        if "albedo" in aov:
+            aov["albedo"] += torch.where(m, params["color"], 0.0)
+        if "depth" in aov:
+            torch.minimum(aov["depth"], torch.where(m, hit.t[:, None], RAY_MAX_T),
+                          out=aov["depth"])
+        if "material_id" in aov:
+            torch.maximum(aov["material_id"],
+                          torch.where(m, frag.material.to(torch.float32)[:, None], -1.0),
+                          out=aov["material_id"])
+        if "geometric_normal" in aov:
+            aov["geometric_normal"] += torch.where(m, frag.geo_n, 0.0)
+        if "shading_normal" in aov:
+            aov["shading_normal"] += torch.where(m, frag.n, 0.0)
+        if "roughness" in aov:
+            rough = fmath.sqrt(torch.clamp(params["alpha"], min=0.0))
+            aov["roughness"] += torch.where(m, rough[:, None], 0.0)
+        if "alpha" in aov:
+            # coverage: 1 where the primary ray lands on geometry
+            aov["alpha"] += m.to(torch.float32)
 
     def _park(self, s, params, wo, frag, hit, s3, bs, will_split, cont, thr_vertex, same_side,
               sw, smp, new_nee_thr) -> dict:

@@ -687,6 +687,19 @@ def hg_sample(wo, g, xi):
         [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], -1))
 
 
+def medium_absorption(materials, medium_mat, distance):
+    """Beer-Lambert transmittance through the medium of material
+    medium_mat (-1: none) over `distance` (zyg_tpu/render/materials.py:1230):
+    mu_t = -ln(color) / attenuation_distance, a scattering-free interior."""
+    inside = medium_mat >= 0
+    m = torch.clamp(medium_mat, min=0).long()
+    color = torch.clamp(materials.color[m], 1e-4, 1.0)
+    att_dist = materials.attenuation_distance[m]
+    mu_t = -torch.log(color) / torch.clamp(att_dist, min=1e-6)[:, None]
+    tr = torch.exp(-mu_t * torch.clamp(distance, max=1e12)[:, None])
+    return torch.where((inside & (att_dist > 0.0))[:, None], tr, 1.0)
+
+
 def russian_roulette(throughput, r):
     """ref integrator/helper.zig russianRoulette: p = maxcomp / 0.1, the
     division by the constant as XLA emits it, a multiply by its float32

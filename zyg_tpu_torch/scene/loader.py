@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ..core.distribution import Distribution3D
+from ..io.exr import read_exr
 from ..io.ies import PROFILE_BINS, ies_profile_bins
 from ..io.mesh import load_mesh_file
 from ..io.png import read_png
@@ -272,14 +273,21 @@ def _read_address(sampler) -> tuple[bool, bool]:
 
 
 def load_image(path: str) -> np.ndarray:
-    """An image file by its extension: PNG (uint8/uint16 [H, W, C]) or
-    Radiance HDR (float [H, W, 3]). Other formats raise UnsupportedScene."""
+    """An image file by its extension: PNG (uint8/uint16 [H, W, C]),
+    Radiance HDR (float [H, W, 3]) or OpenEXR (float [H, W, C]: R, G, B
+    where present, else every channel in name order, as
+    zyg_tpu/scene/loader.py:647-650 stacks them). Other formats raise
+    UnsupportedScene."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".png":
         return read_png(path)
     if ext == ".hdr":
         return read_hdr(path)
-    raise UnsupportedScene(f"image format {ext or path!r} (the port reads PNG and HDR)")
+    if ext == ".exr":
+        chans = read_exr(path)
+        keys = [k for k in ("R", "G", "B") if k in chans] or sorted(chans)
+        return np.stack([chans[k] for k in keys], axis=-1)
+    raise UnsupportedScene(f"image format {ext or path!r} (the port reads PNG, HDR and EXR)")
 
 
 def _texture(v, srgb: bool, builder: "SceneBuilder | None", base_dir: str) -> int:
