@@ -48,8 +48,14 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     r1 shuffled and Mitchell r2 unshuffled, and in the scan path's
     clamp-to-edge mode on every lane, weights and RGB within rtol 1e-5 and
     1e-5 of the plane's largest magnitude, with its float4 atomics
-    counted. Times each (median of runs, CUDA events; and its device time
-    from the profiler, which leaves out the host's gaps between a short
+    counted; traverse again on forest.take's 640x360 first-bounce lanes
+    over its 144 static proc:sphere instances, hit records bit-exact, with
+    the instance picks counted, and its motion-blur variant
+    (traverse_anim, kAnim) on a moving copy of the forest the script
+    writes (each instance a two-keyframe animation) at seeded shutter
+    times: hit records against the plain walk, the share equal bit for
+    bit and t's largest difference, any-hit exact. Times each (median of
+    runs, CUDA events; and its device time from the profiler, which leaves out the host's gaps between a short
     kernel's launches) beside its bound and, where one PyTorch call
     computes the same function, that call's time
  4. a 128x128, 16 spp Cornell render on the card against the port's plain
@@ -77,7 +83,13 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     4k. for cornell.take, cornell_filtered.take, cornell_ao.take,
     cornell_aov_normals.take and cornell_aovs.take at 96x96 (8 spp; AO
     16, aov_normals 1), with cornell_aovs' Albedo, Depth and
-    ShadingNormal planes on 99 % of the pixels within 1e-4, 1e-5, 1e-4
+    ShadingNormal planes on 99 % of the pixels within 1e-4, 1e-5, 1e-4,
+    4l. for examples/takes/forest.take (an Instancer of 144 proc:sphere
+    instances under a Sky) at 96x56, 8 spp, and examples/takes/motion.take
+    (a moving Sphere and a turning Cube) at 96x56, 16 spp, with and
+    without motion: the card and the CPU agree that the Sphere is smeared
+    (a strip across its path at least 2 % darker than without motion on
+    both, the card's strip within 1 % of the CPU's)
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
@@ -142,6 +154,14 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     (256x256, 8 spp: an unshuffled dispatch with sensor AOVs through the
     general body and the box flush); then cornell_filtered at 1920x1080
     and 16 spp beside phase 5's box Cornell figure
+ 5k. the instancer and motion main paths at their takes' own sizes: the
+    CLI on examples/takes/forest.take (640x360, 16 spp, PTMIS depth 8)
+    and examples/takes/motion.take (640x360, 32 spp, depth 6, ACES), then
+    the Driver at the same sizes; forest through sobol_block, isect,
+    surface_v2, traverse and accum, motion through sobol_block, isect,
+    surface_v2 and accum, which must each have launched; the same report
+    and profile and kernel 6's lane shares; then the CLI on motion.take
+    with -f 0 -n 2: both frames written and different
  6. one bounce of the mesh bounce (kernel 5) against one of the general
     bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
     directly, timed in turns (CUDA events, medians)
@@ -187,6 +207,9 @@ REPLACES = {
     # unpermute and drain splats (zyg_tpu/render/integrator/ptmis.py:
     # 1465-1528) and the unshuffled rolled splat (:1359-1378)
     "accum_filtered": "zyg_tpu/ops/accum.py:31",
+    # the traversal's motion-blur variant: the JAX walk's per-lane slerp of
+    # a moving instance's transform (zyg_tpu/scene/trimesh.py:1145-1155)
+    "traverse_anim": "zyg_tpu/scene/trimesh.py:1053",
 }
 SOURCES = {
     "sobol_block": "zyg_tpu_torch/csrc/sobol_block.cu",
@@ -199,6 +222,7 @@ SOURCES = {
     "track_interaction": "zyg_tpu_torch/csrc/track.cu",
     "track_transmittance": "zyg_tpu_torch/csrc/track.cu",
     "accum_filtered": "zyg_tpu_torch/csrc/accum.cu",
+    "traverse_anim": "zyg_tpu_torch/csrc/traverse.cu",
 }
 CORNELL_KERNELS = ("sobol_block", "shade", "accum")
 # sobol_block's launch shapes besides the checks' width: 513 is one
@@ -259,6 +283,17 @@ SLICE_TAKES = {
     "cornell_aovs.take": ((256, 256), 8, ("sobol_block", "isect", "accum")),
 }
 FILTERED_KERNELS = SLICE_TAKES["cornell_filtered.take"][2]
+# the instancer and motion paths, at their takes' own sizes: forest (144
+# proc:sphere instances under a Sky; the traversal walks every instance
+# box a round) and motion (a moving Sphere and Cube over a floor under a
+# Dome; the moving props take the torch pass, so no traversal)
+FOREST_KERNELS = ("sobol_block", "isect", "surface_v2", "traverse", "accum")
+FOREST_RES = (640, 360)
+FOREST_SPP = 16
+N_FOREST = FOREST_RES[0] * FOREST_RES[1]
+MOTION_KERNELS = ("sobol_block", "isect", "surface_v2", "accum")
+MOTION_RES = (640, 360)
+MOTION_SPP = 32
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -288,6 +323,10 @@ OPS_SURFACE_V2_LANE = 1200
 OPS_NODE = 8 * 30  # one wide node: 8 slab tests, keys, nearest child, push
 OPS_LEAF = 12 * 55  # one leaf: 12 Moller-Trumbore tests and the min
 OPS_INSTANCE = 60  # one instance: AABB entry, pick, ray to object space
+OPS_BOX = 20  # one instance box of a pick: six slab products, min/max, the order test
+# a moving instance's transform: the quaternion dot and flip, acos, three
+# sines, two divisions, eight fused steps, the norm, the lerps
+OPS_SLERP = 60
 # track: a step's two or one counter hashes (~20 integer operations each),
 # the key's re-hash, the row index and the three cell walls, the free
 # flight's log and division; a tentative collision adds the jitter hash,
@@ -418,7 +457,7 @@ def phase_build() -> None:
         log(f"sobol_block: {sass['sobol_block']} static instructions; at one issue a lane each, "
             f"{N_MAIN} lanes take {int_issue_ms(sass['sobol_block'], N_MAIN):.4f} ms of integer "
             f"issue (byte bound {bound(N_MAIN * (8 + 24), 0)['bound_ms']:.4f} ms)")
-    for name in ("shade", "surface", "surface_v2", "traverse"):
+    for name in ("shade", "surface", "surface_v2", "traverse", "traverse_anim"):
         log(f"{name}: one pass of the resident grid covers "
             f"{ops.resident_lanes(f'zyg_{name}_resident_lanes')} lanes")
 
@@ -1627,6 +1666,171 @@ def check_traverse(dev) -> dict:
     }
 
 
+def _forest_scene(dev, moving: bool):
+    """forest.scene at its take's frame-0 shutter; moving: a copy the script
+    writes with each of the 144 instances a Prop with a two-keyframe
+    animation over the shutter (a step of 0.3 along x and a 40 degree turn
+    about y), so every instance row holds a shutter-end transform."""
+    from zyg_tpu_torch.io.take import load_take_file
+    from zyg_tpu_torch.scene.loader import load_scene_dict
+
+    with open(os.path.join(REPO, "examples/scenes/forest.scene")) as f:
+        root = json.load(f)
+    interval = load_take_file(os.path.join(REPO, "examples/takes/forest.take")) \
+        .cameras[0].frame_interval(0)
+    if moving:
+        ents = []
+        for e in root["entities"]:
+            if e["type"] != "Instancer":
+                ents.append(e)
+                continue
+            for inst in e["instances"]:
+                end = {"position": [inst["position"][0] + 0.3] + inst["position"][1:],
+                       "rotation": [inst["rotation"][0], inst["rotation"][1] + 40.0,
+                                    inst["rotation"][2]]}
+                ents.append({"type": "Prop", "shape": e["prototype"]["shape"],
+                             "materials": e["prototype"]["materials"], "transformation": inst,
+                             "animation": {"keyframes": [
+                                 {"time": interval[0], "transformation": {}},
+                                 {"time": interval[1], "transformation": end}]}})
+        root["entities"] = ents
+    t0 = time.perf_counter()
+    scene = load_scene_dict(root, dev, base_dir=os.path.join(REPO, "examples/scenes"),
+                            time0=interval[0], time1=interval[1])
+    itab = scene.mesh_instances
+    log(f"forest{' (moving)' if moving else ''}: {itab.trafo.shape[0]} instances, moving "
+        f"{itab.has_anim}, load + arena build {time.perf_counter() - t0:.2f} s")
+    return scene
+
+
+def _forest_camera_lanes(dev, seed=23):
+    """forest.take's camera rays at its own 640x360, one a pixel at a seeded
+    subpixel offset, with seeded shutter times: (o, d, time)."""
+    import torch
+    from zyg_tpu_torch.render.camera import generate_rays
+
+    cam = _take("forest.take", FOREST_RES, 1).cameras[0]
+    w, h = FOREST_RES
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pids = torch.arange(w * h)
+    xy = torch.stack([pids % w, pids // w], dim=-1).to(dev)
+    uv = torch.rand((w * h, 2), generator=g).to(dev)
+    o, d = generate_rays(cam.arrays(dev), xy, uv)
+    return o.contiguous(), d.contiguous(), torch.rand(w * h, generator=g).to(dev)
+
+
+def _walk_bound(n, itab, arena, counts, anim: bool) -> dict:
+    """The least time of a walk over n rays: each input once (the rays, tmax
+    and primary, the times where moving, the instance table and the arena)
+    and the outputs once, beside the work the plain walk counted: the
+    instance picks (every box a pick), the instances entered (their
+    transform, a slerp where moving), the node and leaf rows."""
+    ninst = itab.trafo.shape[0]
+    table = ninst * (24 * 4 + 2 * 3 * 4 + 3)
+    arena_bytes = (arena.node_rows.numel() + arena.tri_rows.numel()) * 4
+    ops = (counts["picks"] * ninst * OPS_BOX
+           + counts["entries"] * (OPS_INSTANCE + (OPS_SLERP if anim else 0))
+           + counts["nodes"] * OPS_NODE + counts["leaves"] * OPS_LEAF)
+    return bound(n * (29 + (4 if anim else 0) + 20) + table + arena_bytes, ops)
+
+
+def _check_forest_walk(dev, moving: bool) -> dict:
+    """The walk over the forest's 144 instances at forest.take's 640x360
+    first-bounce lanes against the plain walk, closest (camera rays) and
+    any-hit (shadow rays toward the sun): static, every hit record
+    bit-exact; moving (the kAnim variant, traverse_anim, at seeded shutter
+    times), ids exact except at exact-t ties and t/u/v within rtol 2e-5,
+    with the share of lanes equal bit for bit, and the hits at the
+    shutter's start compared. Times it beside its bound and the plain
+    walk."""
+    import torch
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.ops import traverse
+    from zyg_tpu_torch.scene.types import RAY_MAX_T
+
+    name = "traverse_anim" if moving else "traverse"
+    scene = _forest_scene(dev, moving)
+    arena, itab = scene.meshes, scene.mesh_instances
+    if itab.has_anim != moving:
+        raise AssertionError(f"{name}: the forest's table moves: {itab.has_anim}")
+    o, d, tl = _forest_camera_lanes(dev)
+    tl = tl if moving else None
+    n = o.shape[0]
+    tmax = torch.full((n,), RAY_MAX_T, device=dev)
+    prim = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def run(time=tl):
+        return traverse.intersect_instances(arena, itab, o, d, 0.0, tmax, "camera", prim,
+                                            time=time)
+
+    before = ops.launch_counts()[name]
+    k = run()
+    if ops.launch_counts()[name] != before + 1:
+        raise AssertionError(f"{name}: the forest's walk did not launch {name}")
+    counts = {"nodes": 0, "leaves": 0}
+    p = traverse.traverse_plain(arena, itab, o, d, 0.0, tmax, 0, prim, False, counts, time=tl)
+    # shadow rays from the hit points toward the sun (the Distant light)
+    sun = scene.prop_rot[int(scene.prop_groups[3][0])][2]
+    hit = p[1] >= 0
+    so = torch.where(hit[:, None], o + (p[0] - 1e-3)[:, None] * d, o).contiguous()
+    sd = (-sun).expand(n, 3).contiguous()
+    kb = traverse.intersect_instances(arena, itab, so, sd, 0.0, tmax, "shadow", any_hit=True,
+                                      time=tl)
+    pb = traverse.traverse_plain(arena, itab, so, sd, 0.0, tmax, 2, None, True, time=tl)
+    torch.cuda.synchronize()
+    traverse.check_errors(dev)
+    exact = torch.ones(n, dtype=torch.bool, device=dev)
+    for a, b in zip(k, p):
+        exact &= a == b
+    if not torch.equal(kb, pb):
+        raise AssertionError(f"{name} on forest: {int((kb != pb).sum())} any-hit results differ")
+    if moving:
+        err = _compare_walks(k, p, name)
+        # the same rays at the shutter's start hit elsewhere: the motion shows
+        still = run(torch.zeros_like(tl))
+        note = (f"{float(((still[1] != k[1]) | (still[4] != k[4])).float().mean()):.4f} of the "
+                "lanes hit elsewhere at the shutter's start")
+    else:
+        err = 0.0
+        if not bool(exact.all()):
+            raise AssertionError(f"{name} on forest: hit records differ from the plain walk on "
+                                 f"{int((~exact).sum())} lanes")
+        note = "bit-exact"
+    log(f"{name} on the {'moving ' if moving else ''}forest's {n} first-bounce lanes: "
+        f"{int(hit.sum())} hit an instance, {int(pb.sum())} shadow rays blocked (any-hit exact); "
+        f"{float(exact.float().mean()):.6f} of the lanes equal bit for bit, t's largest "
+        f"difference {err:.3g}; {note}; the closest walks made {counts['picks']} instance "
+        f"picks ({counts['picks'] / n:.2f} a lane, each over {itab.trafo.shape[0]} boxes), "
+        f"entered {counts['entries']} instances, visited {counts['nodes']} node rows and "
+        f"{counts['leaves']} leaf rows")
+    out = {
+        "max_abs_err": err,
+        "ms": time_ms(run, 5),
+        "device_ms": device_ms(run, name, 5),
+        "plain_ms": time_ms(lambda: traverse.traverse_plain(arena, itab, o, d, 0.0, tmax, 0, prim,
+                                                            False, time=tl), 1, runs=1),
+        **_walk_bound(n, itab, arena, counts, anim=moving),
+        "library_ms": None,
+    }
+    if moving:
+        out["exact_share"] = float(exact.float().mean())
+    else:
+        out["anyhit_ms"] = time_ms(lambda: traverse.intersect_instances(
+            arena, itab, so, sd, 0.0, tmax, "shadow", any_hit=True), 5)
+    return out
+
+
+def check_traverse_forest(dev) -> dict:
+    """traverse on forest.take's 144 static instances (_check_forest_walk)."""
+    return _check_forest_walk(dev, moving=False)
+
+
+def check_traverse_anim(dev) -> dict:
+    """The traversal's motion-blur variant on the moving forest the script
+    writes (_check_forest_walk)."""
+    return _check_forest_walk(dev, moving=True)
+
+
 def lane_sets(kernel: str, st: dict, ua, out: dict, max_depth: int, nee_only: bool,
               tables=None) -> dict:
     """The lane sets of ops/surface.py's and ops/surface_v2.py's LANE_READS
@@ -2398,6 +2602,66 @@ def phase_slice_cornell_variants(dev) -> None:
                 raise AssertionError(f"{name}: the card's {plane} plane disagrees with the CPU's")
 
 
+def _strip_of_path(cam, start, end, radius):
+    """Rows and columns (slices) of the pixels a sphere of `radius` crosses
+    between world points start and end beyond its start (the strip its
+    smear covers and its shutter-start image does not)."""
+    import numpy as np
+
+    w, h = cam.resolution
+    ratio, z = h / w, 1.0 / np.tan(0.5 * cam.fov)
+
+    def px(p):
+        lp = np.asarray(cam.rotation, np.float64) @ (np.asarray(p, np.float64) - cam.position)
+        return (lp[0] / lp[2] * z + 1.0) / 2.0 * w, (ratio - lp[1] / lp[2] * z) / (2 * ratio) * h
+
+    (x0, y0), (x1, _) = px(start), px(end)
+    r = px(np.asarray(start) + [radius, 0.0, 0.0])[0] - x0
+    return (slice(int(round(y0 - r / 2)), int(round(y0 + r / 2))),
+            slice(int(round(x0 + r)), int(round(min(x0 + 3 * r, x1)))))
+
+
+def phase_slice_motion(dev) -> None:
+    """forest.take at 96x56, 8 spp and motion.take at 96x56, 16 spp on the
+    card against the plain CPU path, and motion.take's Sphere smeared on
+    both: the mean of a strip across its path beyond its shutter-start
+    place, at the take's shutter, against a render of the scene without
+    motion (shutter [0, 0]): at least 2 % darker (the sky behind the
+    strip is brighter than the moving red sphere) on both devices, and the
+    card's strip within 1 % of the CPU's."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    for name, spp in (("forest.take", 8), ("motion.take", 16)):
+        take = _take(name, (96, 56), spp)
+        cam = take.cameras[0]
+        t0_, t1_ = cam.frame_interval(0)
+        strips = {}
+        for label, t1 in (("", t1_), (" still", t0_)) if name == "motion.take" else (("", t1_),):
+            scene = load_scene_file(take.scene_filename, time0=t0_, time1=t1)
+            t0 = time.perf_counter()
+            card = Driver(take, scene, device=dev).render_frame()
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = Driver(take, scene, device="cpu").render_frame()
+            t_cpu = time.perf_counter() - t0
+            _golden_gate(card, cpu, f"{name[:-5]}{label} 96x56x{spp}",
+                         f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+            if name == "motion.take":
+                rows, cols = _strip_of_path(cam, (-1.4, 0.0, 0.6), (0.0, 0.15, 0.6), 0.35)
+                strips[label] = (float(card[rows, cols].mean()), float(cpu[rows, cols].mean()))
+        if name == "motion.take":
+            (mc, mp), (sc, sp) = strips[""], strips[" still"]
+            log(f"motion 96x56x{spp}: the Sphere's strip (rows {rows.start}-{rows.stop}, columns "
+                f"{cols.start}-{cols.stop}) mean card {mc:.6f} / cpu {mp:.6f} at the shutter, "
+                f"card {sc:.6f} / cpu {sp:.6f} without motion")
+            if not (mc < 0.98 * sc and mp < 0.98 * sp and abs(mc / mp - 1.0) < 0.01):
+                raise AssertionError("motion: the card and the CPU do not agree that the Sphere "
+                                     "is smeared across its path")
+
+
 def general_profile(driver, spp: int) -> str:
     """The general body's loop over one render, counted on the host around
     the calls (so the render is not timed): its iterations over all chunks
@@ -2594,12 +2858,44 @@ def _cli_run(take_name: str, kernels, spp: int | None = None, out_name: str = "o
     return launches
 
 
+def _cli_frames(take_name: str, kernels) -> dict:
+    """The CLI on the take at its own size for frames 0 and 1 (-f 0 -n 2):
+    both images written, finite, and different (frame 1's shutter moves
+    the animated props on); returns its kernel launch counts."""
+    import numpy as np
+    import torch
+    from zyg_tpu_torch import cli, ops
+    from zyg_tpu_torch.io.png import read_png
+
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out.png")
+        rc = cli.main(["-i", os.path.join(REPO, "examples/takes", take_name), "-o", out,
+                       "-f", "0", "-n", "2", "-s"])
+        torch.cuda.synchronize()
+        frames = [read_png(os.path.join(tmp, f"out_{f:06d}.png")) for f in (0, 1)]
+    if rc != 0 or os.path.exists(out):
+        raise AssertionError(f"cli {take_name} -f 0 -n 2: rc {rc}, or the unnumbered name written")
+    diff = float(np.abs(frames[0].astype(np.float64) - frames[1]).mean())
+    log(f"cli {take_name} -f 0 -n 2: out_000000.png and out_000001.png written, "
+        f"{frames[0].shape}, means {float(frames[0].mean()):.3f} / {float(frames[1].mean()):.3f}, "
+        f"mean absolute difference {diff:.3f} (of 255)")
+    if not diff > 0.0 or min(float(f.mean()) for f in frames) < 10:
+        raise AssertionError(f"cli {take_name} -f 0 -n 2: the frames are blank or equal")
+    launches = ops.launch_counts()
+    for name in kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"cli {take_name} -f 0 -n 2 never launched the {name} kernel")
+    return launches
+
+
 def _take_scene(take_name, res, spp, label):
+    """The take at res and spp, and its scene over frame 0's shutter."""
     from zyg_tpu_torch.scene.loader import load_scene_file
 
     take = _take(take_name, res, spp)
     t0 = time.perf_counter()
-    scene = load_scene_file(take.scene_filename)
+    scene = load_scene_file(take.scene_filename, "cpu", *take.cameras[0].frame_interval(0))
     log(f"{label}: scene load (with any mesh arena build) {time.perf_counter() - t0:.2f} s")
     return take, scene
 
@@ -2720,10 +3016,13 @@ def main() -> int:
                      ("accum", check_accum), ("shade", check_shade),
                      ("surface", check_surface), ("surface_v2", check_surface_v2),
                      ("traverse", check_traverse), ("track", check_track),
-                     ("accum_filtered", check_accum_filtered)):
+                     ("accum_filtered", check_accum_filtered),
+                     ("traverse_anim", check_traverse_anim)):
         res = fn(dev)
         checks.update(res if name == "track" else {name: res})
         torch.cuda.empty_cache()
+    checks["traverse"]["forest"] = check_traverse_forest(dev)
+    torch.cuda.empty_cache()
     checks["surface_v2"]["hero"] = check_surface_v2_hero(dev)
     torch.cuda.empty_cache()
     checks["surface_v2"]["portal"] = check_surface_v2_portal(dev)
@@ -2740,15 +3039,16 @@ def main() -> int:
             f"(device {c['device_ms']:.4f} ms){anyhit}, "
             f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}){lib} "
             f"[{card}]")
-    for lanes in ("hero", "portal"):
-        h = checks["surface_v2"][lanes]
-        log(f"surface_v2 on {lanes}'s lanes: ok, max_abs_err {h['max_abs_err']:.3g}, kernel "
+    for name, lanes in (("surface_v2", "hero"), ("surface_v2", "portal"), ("traverse", "forest")):
+        h = checks[name][lanes]
+        log(f"{name} on {lanes}'s lanes: ok, max_abs_err {h['max_abs_err']:.3g}, kernel "
             f"{h['ms']:.4f} ms (device {h['device_ms']:.4f} ms), plain {h['plain_ms']:.4f} ms, "
             f"bound {h['bound_ms']:.4f} ms ({h['bound_by']}) [{card}]")
     mark("kernel checks")
     for phase in (phase_slice, phase_slice_mesh, phase_slice_textured, phase_slice_sunsky,
                   phase_slice_hero, phase_slice_portal, phase_slice_tree, phase_slice_material,
-                  phase_slice_smoke, phase_slice_fire, phase_slice_cornell_variants):
+                  phase_slice_smoke, phase_slice_fire, phase_slice_cornell_variants,
+                  phase_slice_motion):
         phase(dev)
         mark(phase.__name__)
     # launches: the CLI runs of the Cornell, trefoil, sunsky, hero,
@@ -2834,6 +3134,21 @@ def main() -> int:
         *_take_scene("cornell_filtered.take", (1920, 1080), 16, "cornell_filtered 1080p"),
         FILTERED_KERNELS)
     mark("main path cornell_filtered 1080p")
+    # the instancer and motion paths at their takes' own sizes: the CLI,
+    # then the Driver (kernel 6's lane shares), then motion's frame pair
+    paths = {}
+    for take_name, res, spp, kernels in (("forest.take", FOREST_RES, FOREST_SPP, FOREST_KERNELS),
+                                         ("motion.take", MOTION_RES, MOTION_SPP, MOTION_KERNELS)):
+        label = f"{take_name[:-5]} PTMIS"
+        cli_counts = _cli_run(take_name, kernels)
+        for k in launches:
+            launches[k] += cli_counts[k]
+        paths[take_name] = (cli_counts, phase_main_path(
+            dev, card, label, *_take_scene(take_name, res, spp, label), kernels,
+            lanes_of="surface_v2"))
+        mark(f"main path {label}")
+    frames = _cli_frames("motion.take", MOTION_KERNELS)
+    mark("motion frames 0-1")
     measure_bounces(dev, card)
     mark("bounces")
 
@@ -2846,7 +3161,13 @@ def main() -> int:
                                "+ cli smoke.take and cli fire.take (copies at 8 spp) + one "
                                "1280x720 4 spp textured-trefoil render + cli cornell.take, "
                                "cornell_filtered.take, cornell_ao.take, "
-                               "cornell_aov_normals.take and cornell_aovs.take",
+                               "cornell_aov_normals.take and cornell_aovs.take + cli "
+                               "forest.take + cli motion.take",
+                "launches_forest_cli": paths["forest.take"][0][name],
+                "launches_forest_render": paths["forest.take"][1][name],
+                "launches_motion_cli": paths["motion.take"][0][name],
+                "launches_motion_render": paths["motion.take"][1][name],
+                "launches_motion_frames_0_1": frames[name],
                 "launches_cornell_variants_cli": sum(c[name] for c in slice_cli.values()),
                 "launches_cornell_filtered_1080p_render": filtered[name],
                 "launches_hero_cli": hero_cli[name],
@@ -2863,10 +3184,12 @@ def main() -> int:
                 # the emissive variant of the walk (fire grey and spectral)
                 **({"emissive": c["emissive"]} if "emissive" in c else {}),
                 # kernel 6 again on hero.take's and portal.take's own
-                # first-bounce lanes
+                # first-bounce lanes, the traversal on forest.take's
                 **{lanes: {k: c[lanes][k] for k in ("max_abs_err", "ms", "device_ms",
                                                     "plain_ms", "bound_ms", "bound_by")}
-                   for lanes in ("hero", "portal") if lanes in c}}
+                   for lanes in ("hero", "portal", "forest") if lanes in c},
+                # the motion-blur variant's share of lanes equal bit for bit
+                **({"exact_share": c["exact_share"]} if "exact_share" in c else {})}
 
     print(json.dumps({"kernels": [entry(k) for k in SOURCES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

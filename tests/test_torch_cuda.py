@@ -7,9 +7,10 @@ and the general body (torch around isect and sobol_block) on the card
 against the CPU at 0, 1, 31 and 129 lanes; the tracking walks, with the
 interaction walk's emissive variant on the fire path's lanes, the
 general body over fire.scene, kernel 6 on hero.take's and portal.take's
-first bounce, isect on portal.scene's tables, and the filtered flush at
+first bounce, isect on portal.scene's tables, the filtered flush at
 the Cornell path's width and at small widths in its three footprint
-rules. Skipped without a card. This file imports no jax, so it also runs on a
+rules, and the traversal over forest.take's 144 instances and its
+motion-blur variant (kAnim) at seeded shutter times. Skipped without a card. This file imports no jax, so it also runs on a
 machine without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -34,7 +35,8 @@ def cuda_device():
 
 @pytest.mark.parametrize("kernel", ["sobol_block", "isect", "accum", "shade", "surface", "traverse",
                                     "surface_v2", "surface_v2_hero", "isect_portal",
-                                    "surface_v2_portal", "accum_filtered"])
+                                    "surface_v2_portal", "accum_filtered", "traverse_forest",
+                                    "traverse_anim"])
 def test_kernel_matches_plain_on_card(cuda_device, kernel):
     """surface_v2_hero: kernel 6 on the first bounce of a 1280x720
     hero.take render, whose roughness varies per lane across the knot;
@@ -43,7 +45,10 @@ def test_kernel_matches_plain_on_card(cuda_device, kernel):
     surface_v2_portal: kernel 6 on the first bounce of a 512x384
     portal.take render (NEE candidates with the portal's windowed pdfs);
     accum_filtered: the filtered flush on Cornell 1080p's lanes, Mitchell
-    r2 and Blackman r1 shuffled, unshuffled and clamped to the edge."""
+    r2 and Blackman r1 shuffled, unshuffled and clamped to the edge;
+    traverse_forest: the walk over forest.take's 144 instances on its
+    640x360 first-bounce lanes, bit-exact; traverse_anim: the motion-blur
+    variant on a moving copy of the forest at seeded shutter times."""
     import chip_smoke
 
     check = {"sobol_block": chip_smoke.check_sobol, "isect": chip_smoke.check_isect,
@@ -53,7 +58,9 @@ def test_kernel_matches_plain_on_card(cuda_device, kernel):
              "surface_v2_hero": chip_smoke.check_surface_v2_hero,
              "isect_portal": chip_smoke.check_isect_portal,
              "surface_v2_portal": chip_smoke.check_surface_v2_portal,
-             "accum_filtered": chip_smoke.check_accum_filtered}[kernel]
+             "accum_filtered": chip_smoke.check_accum_filtered,
+             "traverse_forest": chip_smoke.check_traverse_forest,
+             "traverse_anim": chip_smoke.check_traverse_anim}[kernel]
     result = check(cuda_device)  # raises on any disagreement
     assert result["ms"] > 0.0
 
@@ -189,6 +196,66 @@ def test_traverse_launch_shapes(cuda_device, rotated_pair, case):
     torch.cuda.synchronize()
     traverse.check_errors(cuda_device)
     chip_smoke._compare_walks(k, p, f"traverse ({case})")
+    assert torch.equal(kb, pb)
+    if case in ("all dead", "all miss"):
+        assert not bool((k[1] >= 0).any()) and not bool(kb.any())
+
+
+@pytest.fixture(scope="module")
+def moving_pair(cuda_device):
+    """rotated_pair with its first instance moving over the shutter: a
+    step, a turn and a change of scale (the kAnim variant's table)."""
+    import numpy as np
+    from zyg_tpu_torch.scene import trimesh
+    from zyg_tpu_torch.scene.loader import rotation_matrix_from_euler_degrees as rot
+
+    arena, host = trimesh.build_arena([trimesh.make_trefoil_mesh(48, 32)])
+    itab = trimesh.build_instance_table(host, [
+        dict(prop=1, mesh=0, rot=rot([30, -50, 70]), pos=np.float32([0.3, -0.2, 0.5]),
+             scale=np.float32([0.35, 0.5, 0.3]), rot1=rot([10, 40, 75]),
+             pos1=np.float32([0.9, 0.3, 0.2]), scale1=np.float32([0.45, 0.4, 0.3])),
+        dict(prop=2, mesh=0, rot=np.eye(3, dtype=np.float32), pos=np.float32([-0.5, 0.4, 0.1]),
+             scale=np.full(3, 0.3, np.float32), vis=(False, True, False)),
+    ])
+    assert itab.has_anim
+    return arena.to(cuda_device), itab.to(cuda_device)
+
+
+@pytest.mark.parametrize("case", SHAPES + ["all dead", "all miss"])
+def test_traverse_anim_launch_shapes(cuda_device, moving_pair, case):
+    """The kAnim variant at the persistent grid's launch shapes, with
+    seeded shutter times: hit records against the plain walk (ids exact
+    except at exact-t ties, t/u/v within rtol 2e-5), any-hit exact; a
+    moving table without times raises before any launch."""
+    import chip_smoke
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.ops import traverse
+    from zyg_tpu_torch.scene.types import RAY_MAX_T
+
+    arena, itab = moving_pair
+    n = 129 if case in ("all dead", "all miss") else _lanes(case, "zyg_traverse_anim_resident_lanes")
+    o, d, tgt = chip_smoke._mesh_rays(n, cuda_device, seed=19)
+    if case == "all miss":
+        d = o / o.norm(dim=1, keepdim=True)
+        o = 6.0 * d
+    g = torch.Generator(device="cpu").manual_seed(7)
+    alive = (torch.rand(n, generator=g) < 0.9).to(cuda_device) & (case != "all dead")
+    prim = (torch.rand(n, generator=g) < 0.5).to(cuda_device)
+    time = torch.rand(n, generator=g).to(cuda_device)
+    tmax = torch.where(alive, RAY_MAX_T, 0.0)
+    smax = torch.where(alive, (tgt - o).norm(dim=1), 0.0)
+    with pytest.raises(ValueError, match="shutter times"):
+        traverse.intersect_instances(arena, itab, o, d, 0.0, tmax, "reflection", prim)
+    before = ops.launch_counts()["traverse_anim"]
+    k = traverse.intersect_instances(arena, itab, o, d, 0.0, tmax, "reflection", prim, time=time)
+    p = traverse.traverse_plain(arena, itab, o, d, 0.0, tmax, 1, prim, False, time=time)
+    kb = traverse.intersect_instances(arena, itab, o, d, 0.0, smax, "shadow", any_hit=True,
+                                      time=time)
+    pb = traverse.traverse_plain(arena, itab, o, d, 0.0, smax, 2, None, True, time=time)
+    torch.cuda.synchronize()
+    traverse.check_errors(cuda_device)
+    assert ops.launch_counts()["traverse_anim"] == before + (2 if n > 0 else 0)
+    chip_smoke._compare_walks(k, p, f"traverse_anim ({case})")
     assert torch.equal(kb, pb)
     if case in ("all dead", "all miss"):
         assert not bool((k[1] >= 0).any()) and not bool(kb.any())

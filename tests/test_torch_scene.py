@@ -104,13 +104,14 @@ def _light(shape, **extra):
         (_light({"type": "Disk"}), "Disk lights"),
         (_light({"type": "Cube"}), "Cube lights"),
         (_light({"file": "proc:cube"}), "emissive meshes"),
-        ({"entities": [{"type": "Instancer", "prototypes": []}]}, "entity 'Instancer'"),
+        ({"entities": [{"type": "Instancer", "prototypes": []}]}, r"Instancer keys \['prototypes'\]"),
         ({"entities": [{"type": "Prop", "shape": {"file": "curly.hair"}}]}, r"curly\.hair"),
         ({"entities": [{"type": "Sky", "parameters": {"sun": {"rotation": [0, 0, 0],
                                                               "scale": 2}}}]}, "Sky keys"),
+        ({"entities": [{"type": "Camera"}]}, "entity 'Camera'"),
     ],
     ids=["sphere_light", "disk_light", "cube_light", "mesh_light", "instancer", "hair_file",
-         "sky_key"],
+         "sky_key", "other_entity"],
 )
 def test_loader_names_what_it_refuses(scene, reason):
     """Each light kind, entity and Sky parameter outside the port's subset

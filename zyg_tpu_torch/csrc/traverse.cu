@@ -46,6 +46,17 @@
 // Dead lanes (tmax <= 0) are written at once; any-hit ends a ray at its
 // first hit. A stack overflow or a runaway walk sets a flag that the
 // wrapper turns into an exception; it never truncates a walk silently.
+//
+// Motion blur (traverse_anim_kernel, the kAnim variant): an instance row
+// also holds the shutter-end transform (columns 10-19), and the ray's
+// shutter time t in [0, 1] (one more float a ray) picks the transform:
+// the quaternion slerped, position and scale lerped, as zyg_tpu/scene/
+// trimesh.py:1145-1155 does per lane and core/vecmath.py's quat_slerp and
+// lerp write it (acosf, sinf, IEEE divisions, fmaf exactly where the
+// plain version fuses). The instance boxes are already the union over
+// the shutter, so the pick is unchanged. It runs once an instance visit:
+// ~60 operations beside the ~300 of a wide node; the static variant is
+// compiled without it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -77,6 +88,7 @@ struct TravArgs {
   const float* d;  // [N, 3]
   const float* tmax;  // [N]
   const uint8_t* primary;  // [N] or null
+  const float* time;  // [N] shutter times (the kAnim variant), else null
   int* err;  // [1] bit 0: stack overflow, bit 1: runaway walk
   unsigned long long* next;  // [1] the next ray id to hand out
   float* t_out;
@@ -165,9 +177,49 @@ __device__ __forceinline__ bool start(const TravArgs& a, int64_t id, Ray& r) {
   return true;
 }
 
+// the instance's transform at shutter time t: core/vecmath.py's
+// quat_slerp of q0 -> q1 (the cos < 0 flip, the lerp above 0.9995, the
+// sine weights over max(sin, 1e-12), the normalize) and lerps of the
+// position and scale (fmaf(b - a, t, a))
+__device__ __forceinline__ void transform_at(const float* tf, float t, float* q, float* pos,
+                                             float* scale) {
+  float qa[4], qb[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    qa[k] = __ldg(tf + k);
+    qb[k] = __ldg(tf + 10 + k);
+  }
+  float cosom = fmaf(qa[3], qb[3], fmaf(qa[2], qb[2], fmaf(qa[1], qb[1], qa[0] * qb[0])));
+  if (cosom < 0.0f) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) qb[k] = -qb[k];
+  }
+  cosom = fabsf(cosom);
+  const float om = acosf(zmin(zmax(cosom, -1.0f), 1.0f));
+  const float sinom = zmax(sinf(om), 1e-12f);
+  const bool close = cosom > 0.9995f;
+  const float one_t = 1.0f - t;
+  const float wa = close ? one_t : sinf(one_t * om) / sinom;
+  const float wb = close ? t : sinf(t * om) / sinom;
+  float out[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[k] = fmaf(wa, qa[k], wb * qb[k]);
+  const float norm =
+      sqrtf(fmaf(out[3], out[3], fmaf(out[2], out[2], fmaf(out[1], out[1], out[0] * out[0]))));
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k] = out[k] / norm;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float p0 = __ldg(tf + 4 + k), s0 = __ldg(tf + 7 + k);
+    pos[k] = fmaf(__ldg(tf + 14 + k) - p0, t, p0);
+    scale[k] = fmaf(__ldg(tf + 17 + k) - s0, t, s0);
+  }
+}
+
 // the nearest eligible instance strictly after (last_t, last_i); returns
 // false (the ray is done) if there is none, or the rounds are spent, or an
 // any-hit ray has its hit. Otherwise sets up the object-space walk.
+template <bool kAnim>
 __device__ __forceinline__ bool pick_instance(const TravArgs& a, Ray& r) {
   if (r.round >= a.ninst || (a.any_hit && r.best.prim >= 0)) return false;
   const int64_t id = r.id;
@@ -197,15 +249,27 @@ __device__ __forceinline__ bool pick_instance(const TravArgs& a, Ray& r) {
   if (bi < 0) return false;
   // the ray in the instance's object space (t stays in world units)
   const float* tf = a.trafo + 24 * bi;
-  const float x = __ldg(tf), y = __ldg(tf + 1), z = __ldg(tf + 2), w = __ldg(tf + 3);
+  float q[4], pos[3], scale[3];
+  if constexpr (kAnim) {
+    transform_at(tf, __ldg(a.time + id), q, pos, scale);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q[k] = __ldg(tf + k);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      pos[k] = __ldg(tf + 4 + k);
+      scale[k] = __ldg(tf + 7 + k);
+    }
+  }
+  const float x = q[0], y = q[1], z = q[2], w = q[3];
   const float xx = 2.0f * x * x, yy = 2.0f * y * y, zz = 2.0f * z * z;
   const float xy = 2.0f * x * y, xz = 2.0f * x * z, yz = 2.0f * y * z;
   const float wx = 2.0f * w * x, wy = 2.0f * w * y, wz = 2.0f * w * z;
   const F3 r0{1.0f - (yy + zz), xy - wz, xz + wy};
   const F3 r1{xy + wz, 1.0f - (xx + zz), yz - wx};
   const F3 r2{xz - wy, yz + wx, 1.0f - (xx + yy)};
-  const F3 rs{1.0f / __ldg(tf + 7), 1.0f / __ldg(tf + 8), 1.0f / __ldg(tf + 9)};
-  const F3 op{o.x - __ldg(tf + 4), o.y - __ldg(tf + 5), o.z - __ldg(tf + 6)};
+  const F3 rs{1.0f / scale[0], 1.0f / scale[1], 1.0f / scale[2]};
+  const F3 op{o.x - pos[0], o.y - pos[1], o.z - pos[2]};
   r.ol = F3{dot(op, r0) * rs.x, dot(op, r1) * rs.y, dot(op, r2) * rs.z};
   r.dl = F3{dot(d, r0) * rs.x, dot(d, r1) * rs.y, dot(d, r2) * rs.z};
   r.invl = inv3(r.dl);
@@ -342,9 +406,8 @@ __device__ __forceinline__ int walk_step(const TravArgs& a, Ray& r, int* stack) 
   return -2;
 }
 
-__global__ void __launch_bounds__(TRAV_THREADS) traverse_kernel(TravArgs a) {
-  __shared__ int stack_s[TRAV_MAX_STACK * TRAV_THREADS];
-  int* const stack = stack_s + threadIdx.x;
+template <bool kAnim>
+__device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack) {
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
   // the warp's pool of ray ids [pool, pool_end): the same in every lane
@@ -377,7 +440,7 @@ __global__ void __launch_bounds__(TRAV_THREADS) traverse_kernel(TravArgs a) {
     if (__ballot_sync(kFull, r.id >= 0) == 0) break;
     // ---- one step of this lane's ray
     if (r.id < 0) continue;
-    if (!r.walking && !pick_instance(a, r)) {
+    if (!r.walking && !pick_instance<kAnim>(a, r)) {
       finish(a, r);
       r.id = -1;
       continue;
@@ -397,13 +460,23 @@ __global__ void __launch_bounds__(TRAV_THREADS) traverse_kernel(TravArgs a) {
   }
 }
 
+__global__ void __launch_bounds__(TRAV_THREADS) traverse_kernel(TravArgs a) {
+  __shared__ int stack_s[TRAV_MAX_STACK * TRAV_THREADS];
+  traverse_run<false>(a, stack_s + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(TRAV_THREADS) traverse_anim_kernel(TravArgs a) {
+  __shared__ int stack_s[TRAV_MAX_STACK * TRAV_THREADS];
+  traverse_run<true>(a, stack_s + threadIdx.x);
+}
+
 }  // namespace
 
 // ptrs: node_rows, tri_rows, wmin, wmax, trafo, vis, o, d, tmax, primary
 // (or null), err, the ray counter, then t, prim, u, v, prop (closest) or
-// blocked (any-hit)
-extern "C" int zyg_traverse(void** ptrs, int ninst, int vis_col, int any_hit, int stack_d,
-                            float tmin, int64_t n, void* stream) {
+// blocked (any-hit), then the rays' shutter times (anim; else unread)
+static int launch_traverse(bool anim, void** ptrs, int ninst, int vis_col, int any_hit,
+                           int stack_d, float tmin, int64_t n, void* stream) {
   if (stack_d < 1 || stack_d > TRAV_MAX_STACK || ninst < 0 || n < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -418,6 +491,7 @@ extern "C" int zyg_traverse(void** ptrs, int ninst, int vis_col, int any_hit, in
   a.d = (const float*)ptrs[7];
   a.tmax = (const float*)ptrs[8];
   a.primary = (const uint8_t*)ptrs[9];
+  a.time = anim ? (const float*)ptrs[any_hit ? 13 : 17] : nullptr;
   a.err = (int*)ptrs[10];
   a.next = (unsigned long long*)ptrs[11];
   a.t_out = any_hit ? nullptr : (float*)ptrs[12];
@@ -433,20 +507,38 @@ extern "C" int zyg_traverse(void** ptrs, int ninst, int vis_col, int any_hit, in
   a.tmin = tmin;
   a.n = n;
   if (((uintptr_t)a.node_rows | (uintptr_t)a.tri_rows) & 15) return (int)cudaErrorMisalignedAddress;
+  if (anim && a.time == nullptr) return (int)cudaErrorInvalidValue;
+  const void* kernel = anim ? (const void*)traverse_anim_kernel : (const void*)traverse_kernel;
   int resident = 0;
-  cudaError_t err = resident_blocks((const void*)traverse_kernel, TRAV_THREADS, &resident);
+  cudaError_t err = resident_blocks(kernel, TRAV_THREADS, &resident);
   if (err == cudaSuccess) err = cudaMemsetAsync(a.next, 0, sizeof(unsigned long long), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const int64_t want = (n + TRAV_THREADS - 1) / TRAV_THREADS;
   const unsigned blocks = (unsigned)(want < resident ? want : resident);
-  traverse_kernel<<<blocks, TRAV_THREADS, 0, (cudaStream_t)stream>>>(a);
+  if (anim) {
+    traverse_anim_kernel<<<blocks, TRAV_THREADS, 0, (cudaStream_t)stream>>>(a);
+  } else {
+    traverse_kernel<<<blocks, TRAV_THREADS, 0, (cudaStream_t)stream>>>(a);
+  }
   return (int)cudaGetLastError();
+}
+
+extern "C" int zyg_traverse(void** ptrs, int ninst, int vis_col, int any_hit, int stack_d,
+                            float tmin, int64_t n, void* stream) {
+  return launch_traverse(false, ptrs, ninst, vis_col, any_hit, stack_d, tmin, n, stream);
+}
+
+// the motion-blur variant: ptrs as zyg_traverse's, then the shutter times
+extern "C" int zyg_traverse_anim(void** ptrs, int ninst, int vis_col, int any_hit, int stack_d,
+                                 float tmin, int64_t n, void* stream) {
+  return launch_traverse(true, ptrs, ninst, vis_col, any_hit, stack_d, tmin, n, stream);
 }
 
 // the lanes one pass of the resident grid covers on the current device
 extern "C" int zyg_traverse_resident_lanes(int64_t* out) {
-  int blocks = 0;
-  const cudaError_t err = resident_blocks((const void*)traverse_kernel, TRAV_THREADS, &blocks);
-  *out = (int64_t)blocks * TRAV_THREADS;
-  return (int)err;
+  return (int)resident_lanes((const void*)traverse_kernel, TRAV_THREADS, out);
+}
+
+extern "C" int zyg_traverse_anim_resident_lanes(int64_t* out) {
+  return (int)resident_lanes((const void*)traverse_anim_kernel, TRAV_THREADS, out);
 }

@@ -1,7 +1,9 @@
 """Take (render description) loader, the keys the port renders
 (counterpart of zyg_tpu/io/take.py; source-compatible with zyg take JSON).
 
-Supported: a Perspective camera (fov, transformation, resolution), the
+Supported: a Perspective camera (fov, its shutter's frame_step or
+frames_per_second, open, close, motion_blur and up to 8 slope handles,
+under parameters or beside them, transformation, resolution), the
 Sobol sampler's samples_per_pixel, a PTMIS, PTDL, PT or AOV surface
 integrator (depth.surface and depth.volume, caustics, bsdf_split,
 light_sampling.split_threshold; regularize_roughness only at 0; the AOV
@@ -97,12 +99,26 @@ def _only(node: dict, allowed: set, what: str) -> None:
 def _load_camera(node: dict) -> PerspectiveCamera:
     _only(node, {"Perspective"}, "camera")
     body = node["Perspective"]
-    _only(body, {"parameters", "transformation", "resolution"}, "Perspective camera")
+    _only(body, {"parameters", "transformation", "resolution", "shutter"}, "Perspective camera")
     params = body.get("parameters", {})
-    _only(params, {"fov"}, "camera parameters")
+    _only(params, {"fov", "shutter"}, "camera parameters")
     cam = PerspectiveCamera()
     if "fov" in params:
         cam.fov = float(np.deg2rad(params["fov"]))
+    if "shutter" in params or "shutter" in body:
+        # frame timing and the shutter's response (zyg_tpu/io/take.py:141-152)
+        sh = params.get("shutter", body.get("shutter", {}))
+        _only(sh, {"frame_step", "frames_per_second", "open", "close", "motion_blur", "slope"},
+              "shutter")
+        if "frame_step" in sh:
+            cam.frame_step = float(sh["frame_step"])
+        elif "frames_per_second" in sh:
+            fps = float(sh["frames_per_second"])
+            cam.frame_step = 1.0 / fps if fps > 0 else 0.0
+        cam.shutter_open = float(sh.get("open", 0.0))
+        cam.shutter_close = float(sh.get("close", 1.0))
+        cam.motion_blur = bool(sh.get("motion_blur", True))
+        cam.shutter_slope = tuple(float(x) for x in sh.get("slope", ()))[:8]
     trafo = read_transformation(body.get("transformation"))
     cam.rotation = trafo.rotation
     cam.position = trafo.position

@@ -29,7 +29,7 @@ _KERNEL = register(
      ctypes.c_void_p],
 )
 
-_SUPPORTED = {int(s) for s in (ShapeType.CANOPY, ShapeType.CUBE, ShapeType.DISK,
+SUPPORTED = {int(s) for s in (ShapeType.CANOPY, ShapeType.CUBE, ShapeType.DISK,
                                ShapeType.DISTANT, ShapeType.DOME, ShapeType.RECTANGLE,
                                ShapeType.SPHERE)}
 
@@ -123,7 +123,7 @@ def static_layout(scene):
     ascending shape order — the row order of every prop table."""
     kinds, idx = [], []
     for st, ids in sorted(scene.prop_groups.items()):
-        if int(st) not in _SUPPORTED:
+        if int(st) not in SUPPORTED:
             raise ValueError(f"shape type {int(st)} has no analytic hit test")
         kinds.extend([int(st)] * int(ids.shape[0]))
         idx.append(ids.to(torch.int64))

@@ -623,8 +623,8 @@ _SUPPORTED_KINDS = {int(ShapeType.RECTANGLE), int(ShapeType.CUBE), int(ShapeType
 
 def structural_ok(scene) -> bool:
     """Can this scene run the fused bounce? (rectangle lights selected by
-    the power CDF, no light tree; analytic rectangle/cube/sphere/disk
-    props, substitute and light materials)."""
+    the power CDF, no light tree; static analytic rectangle/cube/sphere/
+    disk props, substitute and light materials)."""
     if scene.meshes is not None:
         return False  # mesh scenes take the mesh bounce (ops/surface.py)
     if scene.textures is not None or scene.env is not None:
@@ -633,6 +633,8 @@ def structural_ok(scene) -> bool:
         return False  # the kernel selects by the power CDF (ops/surface_v2.py)
     if scene.mat_features or scene.portals:
         return False  # IES profiles and portals take ops/surface_v2.py
+    if scene.animated_props:
+        return False  # the kernel's props are static (zyg_tpu/ops/shade.py:704)
     if scene.lights.count < 1 or scene.lights.count > MAX_LIGHTS:
         return False
     light_shapes = {int(s) for s in scene.prop_shape[scene.lights.prop.long()].tolist()}

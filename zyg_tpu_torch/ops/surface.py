@@ -107,7 +107,8 @@ def pack_mesh_tables(scene) -> MeshTables:
 def structural_ok_mesh(scene) -> bool:
     """Can this scene run the mesh bounce? (meshes present, 1..8 rectangle
     lights selected by the power CDF, no light tree, <= 64 materials,
-    substitute and light materials only, no textures or env map)"""
+    substitute and light materials only, no textures, env map or moving
+    props)"""
     if scene.meshes is None:
         return False  # analytic-only scenes take the fused bounce
     if scene.textures is not None or scene.env is not None:
@@ -116,6 +117,8 @@ def structural_ok_mesh(scene) -> bool:
         return False  # the kernel selects by the power CDF (ops/surface_v2.py)
     if scene.mat_features or scene.portals:
         return False  # IES profiles and portals take ops/surface_v2.py
+    if scene.animated_props:
+        return False  # moving props take ops/surface_v2.py (zyg_tpu/ops/shade.py:1154)
     if scene.lights.count < 1 or scene.lights.count > MAX_LIGHTS:
         return False
     light_shapes = {int(s) for s in scene.prop_shape[scene.lights.prop.long()].tolist()}

@@ -8,7 +8,8 @@ it at untextured rectangle lights. This bounce keeps everything that reads
 a large table in torch glue and only the register-resident shade core in
 the kernel:
 
-  glue    intersect_scene (isect, then traverse) + build_fragment with uv
+  glue    intersect_scene (isect, the moving props at the lane's shutter
+          time, then traverse) + build_fragment with uv
           (and the tangent frame where a material has a normal map) ->
           texture jitter -> the triplanar uv where a texture reads it ->
           the normal map -> materials.gather (stochastic color and
@@ -290,8 +291,10 @@ class GeneralBounce:
         scene = self.scene
         smp = SobolSampler(s.sobol, dim=5)
         tmax = torch.where(s.alive, RAY_MAX_T, 0.0)
-        hit = shapes.intersect_scene(scene, self.refl, s.o, s.d, 0.0, tmax, primary=s.depth == 0)
-        frag = shapes.build_fragment(scene, hit, s.o, s.d, need_tangents=self.normal_mapped)
+        hit = shapes.intersect_scene(scene, self.refl, s.o, s.d, 0.0, tmax, primary=s.depth == 0,
+                                     time=s.time)
+        frag = shapes.build_fragment(scene, hit, s.o, s.d, need_tangents=self.normal_mapped,
+                                     time=s.time)
         tex_xi = uv_alt = None
         if scene.textures is not None:
             # the texture jitter: a non-Sobol' stream per lane and bounce
@@ -312,7 +315,7 @@ class GeneralBounce:
         emission = torch.where(valid[:, None], M.eval_radiance(params, -s.d, frag.geo_n), 0.0)
         light_id = torch.where(valid, scene.prop_light[torch.clamp(hit.prop, min=0).long()], -1)
         if not self.settings.nee_only:
-            hit_lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d)
+            hit_lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d, time=s.time)
                       * ls.light_select_pdf(scene, light_id, p=s.mis_o, n=s.mis_n))
         else:
             hit_lp = torch.zeros_like(hit.t)
@@ -326,7 +329,8 @@ class GeneralBounce:
 
         # ---- the NEE candidate
         light_idx, sel_pdf = ls.select_light(scene, u_sel, p=frag.p, n=frag.n)
-        lsmp = ls.sample_light(scene, self.present, light_idx, frag.p, frag.geo_n, xi_l)
+        lsmp = ls.sample_light(scene, self.present, light_idx, frag.p, frag.geo_n, xi_l,
+                               time=s.time)
         radiance = ls.light_radiance(scene, light_idx, lsmp.wi, lsmp.light_n, lsmp.uv)
         side = (vm.dot(lsmp.wi, frag.geo_n) >= 0.0)[:, None]
         shadow_o = _offset_rows(frag.p, torch.where(side, frag.geo_n, -frag.geo_n))
@@ -358,7 +362,8 @@ class GeneralBounce:
         st, ua, ub, smp, shadow_o, sdir = self.inputs(s)
         cfg = self.settings
         r = surface_v2(self.fit, st, ua, ub, cfg.max_depth, cfg.caustics, cfg.nee_only)
-        blocked = shapes.occluded(self.scene, self.shadow, shadow_o, sdir, 0.0, r["shadow_tmax"])
+        blocked = shapes.occluded(self.scene, self.shadow, shadow_o, sdir, 0.0, r["shadow_tmax"],
+                                  time=s.time)
         nee = torch.where((r["nee_active"] & ~blocked)[:, None], r["nee"], 0.0)
         nee_dir = (s.depth < 1)[:, None]
         r["direct"] = r["direct"] + torch.where(nee_dir, nee, 0.0)

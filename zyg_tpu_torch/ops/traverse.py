@@ -32,6 +32,13 @@ plain multiplies.
 The plain version below walks all rays together in torch, keeping only
 the rays still walking (no compaction cascade: that exists for XLA's
 while loop).
+
+Motion blur: a table with a moving instance (InstanceTable.has_anim)
+takes each ray's shutter time, and the ray enters an instance by its
+transform at that time, the start and end rows slerped and lerped
+(core/vecmath.py quat_slerp, lerp; zyg_tpu/scene/trimesh.py:1145-1155).
+On the card that is the kernel's kAnim variant (traverse_anim). A moving
+table without times raises.
 """
 
 from __future__ import annotations
@@ -44,12 +51,10 @@ from . import check_cuda, register, stream_handle
 from ..core import vecmath as vm
 from ..scene.trimesh import BRANCH, LEAF_SIZE
 
-_KERNEL = register(
-    "traverse",
-    "zyg_traverse",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_int64, ctypes.c_void_p],
-)
+_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+         ctypes.c_int64, ctypes.c_void_p]
+_KERNEL = register("traverse", "zyg_traverse", _ARGS)
+_KERNEL_ANIM = register("traverse_anim", "zyg_traverse_anim", _ARGS)
 
 MAX_STACK = 32  # csrc/traverse.cu TRAV_MAX_STACK: arenas up to depth 31
 _MISS_KEY = 0x7F800000  # +inf bits: sorts after every hit key
@@ -201,12 +206,14 @@ def _blas_plain(arena, root, o, d, tmin, tmax, any_hit: bool, counts: dict | Non
 
 
 def traverse_plain(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, any_hit: bool,
-                   counts: dict | None = None):
+                   counts: dict | None = None, time=None):
     """Plain torch version: the instance walk over per-round BLAS walks.
     Returns (t, prim, u, v, prop) for closest hit, blocked bool[N] for
     any-hit. counts ({"nodes": 0, "leaves": 0}), if given, accumulates the
-    node and leaf rows the walks visited: the work a bound on the kernel's
-    time counts."""
+    node and leaf rows the walks visited, and under "picks" the instance
+    picks (each tests every instance box) and under "entries" the
+    instances entered: the work a bound on the kernel's time counts.
+    time: float32[N] shutter times, read where the table moves."""
     dev = o.device
     n = o.shape[0]
     ninst = itab.trafo.shape[0]
@@ -240,11 +247,20 @@ def traverse_plain(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, 
         if any_hit:
             active = active & (prim < 0)
         a = torch.nonzero(active).squeeze(1)
+        if counts is not None:
+            counts["picks"] = counts.get("picks", 0) + int(cont.sum())
+            counts["entries"] = counts.get("entries", 0) + a.numel()
         if a.numel():
             row = itab.trafo[bi[a]]
-            rot = vm.quat_to_mat3(row[:, 0:4])
-            o_l = vm.world_to_object_point(rot, row[:, 7:10], row[:, 4:7], o[a])
-            d_l = vm.world_to_object_vector(rot, row[:, 7:10], d[a])
+            q, pos, scale = row[:, 0:4], row[:, 4:7], row[:, 7:10]
+            if itab.has_anim:
+                ta = time[a][:, None]
+                q = vm.quat_slerp(q, row[:, 10:14], ta)
+                pos = vm.lerp(pos, row[:, 14:17], ta)
+                scale = vm.lerp(scale, row[:, 17:20], ta)
+            rot = vm.quat_to_mat3(q)
+            o_l = vm.world_to_object_point(rot, scale, pos, o[a])
+            d_l = vm.world_to_object_vector(rot, scale, d[a])
             mt, mp, mu, mv = _blas_plain(arena, row[:, 20].to(torch.int64), o_l, d_l, tmin,
                                          t[a], any_hit, counts)
             closer = mp >= 0
@@ -259,7 +275,8 @@ def traverse_plain(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, 
     return t, prim.to(torch.int32), u, v, prop.to(torch.int32)
 
 
-def _traverse_cuda(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, any_hit: bool):
+def _traverse_cuda(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, any_hit: bool,
+                   time=None):
     dev = o.device
     n = o.shape[0]
     ninst = itab.trafo.shape[0]
@@ -277,6 +294,8 @@ def _traverse_cuda(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, 
     check_cuda("traverse.tmax", tmax, torch.float32, dev, (n,))
     if primary is not None:
         check_cuda("traverse.primary", primary, torch.bool, dev, (n,))
+    if itab.has_anim:
+        check_cuda("traverse.time", time, torch.float32, dev, (n,))
     for name, rows in (("node_rows", arena.node_rows), ("tri_rows", arena.tri_rows)):
         if rows.data_ptr() % 16:
             raise ValueError(f"traverse.{name}: the kernel reads rows as 16-byte loads and needs "
@@ -299,9 +318,12 @@ def _traverse_cuda(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, 
             d.data_ptr(), tmax.data_ptr(), primary.data_ptr() if primary is not None else None,
             _errors[dev].data_ptr(), next_ray.data_ptr()]
     ptrs += [x.data_ptr() for x in outs]
+    if itab.has_anim:
+        ptrs.append(time.data_ptr())
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     if n > 0:
-        _KERNEL(arr, ninst, vis_col, int(any_hit), stack_d, float(tmin), n, stream_handle(dev))
+        kernel = _KERNEL_ANIM if itab.has_anim else _KERNEL
+        kernel(arr, ninst, vis_col, int(any_hit), stack_d, float(tmin), n, stream_handle(dev))
     return outs[0] if any_hit else tuple(outs)
 
 
@@ -318,13 +340,19 @@ def check_errors(device) -> None:
 
 
 def intersect_instances(arena, itab, o, d, tmin: float, tmax, ray_class: str = "reflection",
-                        primary=None, any_hit: bool = False):
+                        primary=None, any_hit: bool = False, time=None):
     """Closest hit (t, prim, u, v, prop; prim and prop -1 on a miss, t =
-    tmax) or any-hit blocked bool[N] over the mesh instances. The plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors; a kernel
-    walk that stopped early is reported by check_errors(), which the
-    caller runs where it synchronizes anyway."""
+    tmax) or any-hit blocked bool[N] over the mesh instances; time
+    (float32[N]): the rays' shutter times, which a table with a moving
+    instance needs. The plain version for CPU tensors, the CUDA kernel
+    for CUDA tensors; a kernel walk that stopped early is reported by
+    check_errors(), which the caller runs where it synchronizes anyway."""
     n = o.shape[0]
+    if itab.has_anim and time is None:
+        raise ValueError("traverse: a table with moving instances needs the rays' shutter times")
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=o.device).expand(n).contiguous()
-    fn = traverse_plain if o.device.type == "cpu" else _traverse_cuda
-    return fn(arena, itab, o, d, float(tmin), tmax, _VIS[ray_class], primary, any_hit)
+    if o.device.type == "cpu":
+        return traverse_plain(arena, itab, o, d, float(tmin), tmax, _VIS[ray_class], primary,
+                              any_hit, time=time)
+    return _traverse_cuda(arena, itab, o, d, float(tmin), tmax, _VIS[ray_class], primary,
+                          any_hit, time=time)

@@ -1,8 +1,15 @@
 """Perspective camera (counterpart of zyg_tpu/render/camera.py, the
-pinhole subset): NDC x in [-1,1], y in [ratio,-ratio] (ratio=h/w),
-z = 1/tan(fov/2), fov horizontal; rays = left_top + d_x*(px+ux) +
-d_y*(py+uy), rotated to world by the camera transform (rows-as-axes).
-ref camera_perspective.zig."""
+pinhole subset with its shutter): NDC x in [-1,1], y in [ratio,-ratio]
+(ratio=h/w), z = 1/tan(fov/2), fov horizontal; rays = left_top +
+d_x*(px+ux) + d_y*(py+uy), rotated to world by the camera transform
+(rows-as-axes). ref camera_perspective.zig.
+
+The shutter (ref camera_base.zig): frame f spans [f*frame_step +
+open*dur, f*frame_step + close*dur] seconds, dur = frame_step with
+motion blur, else 0 (`frame_interval`); a lane's shutter time in [0, 1]
+is a uniform draw mapped through the inverse CDF of the shutter's
+response, baked on the host (`_shutter_icdf`; None, the identity, for
+the uniform shutter)."""
 
 from __future__ import annotations
 
@@ -10,6 +17,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from ..core.fmath import fma
 
 
 @dataclass
@@ -22,6 +31,9 @@ class CameraArrays:
     d_base: torch.Tensor  # [3]
     d_dx: torch.Tensor  # [3]
     d_dy: torch.Tensor  # [3]
+    # the shutter response's inverse CDF at K+1 control points, or None
+    # for the uniform shutter (sample_shutter_time)
+    shutter_icdf: torch.Tensor | None = None  # [K + 1]
 
 
 @dataclass
@@ -30,6 +42,67 @@ class PerspectiveCamera:
     fov: float = float(np.deg2rad(60.0))  # horizontal, radians
     rotation: np.ndarray = field(default_factory=lambda: np.eye(3, dtype=np.float32))
     position: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
+    # frame timing and the shutter (ref camera_base.zig frame_step,
+    # take_loader.zig loadShutter); the slope's bezier handles: 4 shape the
+    # opening ramp, 8 the closing one too
+    frame_step: float = 1.0 / 60.0
+    shutter_open: float = 0.0
+    shutter_close: float = 1.0
+    motion_blur: bool = True
+    shutter_slope: tuple = ()
+
+    def frame_interval(self, frame: int) -> tuple[float, float]:
+        """The shutter interval of `frame` in seconds."""
+        t0 = frame * self.frame_step
+        dur = self.frame_step if self.motion_blur else 0.0
+        return (t0 + self.shutter_open * dur, t0 + self.shutter_close * dur)
+
+    def _shutter_icdf(self, k: int = 32) -> np.ndarray | None:
+        """Inverse CDF control points [k + 1] of the shutter response (ref
+        camera_base.zig setShutter: trapezoid open/close ramps, optional
+        cubic bezier slope handles), as zyg_tpu/render/camera.py:163-226
+        bakes it. None for the uniform shutter."""
+        if self.shutter_open <= 0.0 and self.shutter_close >= 1.0 and len(self.shutter_slope) < 4:
+            return None
+        m = 512
+        t = (np.arange(m) + 0.5) / m
+        f = np.ones(m, np.float64)
+        op, cl = float(self.shutter_open), float(self.shutter_close)
+        sl = [float(x) for x in self.shutter_slope]
+
+        def bezier_y_at_x(cp, xs):
+            # 16-step bisection a sample (ref camera_base searchBezier)
+            u = np.full(len(xs), 0.5)
+            step = 0.25
+            for _ in range(16):
+                omu = 1.0 - u
+                cx = (omu**3 * cp[0][0] + 3 * omu**2 * u * cp[1][0]
+                      + 3 * omu * u**2 * cp[2][0] + u**3 * cp[3][0])
+                u = np.where(xs < cx, u - step, np.where(xs > cx, u + step, u))
+                step *= 0.5
+            omu = 1.0 - u
+            return (omu**3 * cp[0][1] + 3 * omu**2 * u * cp[1][1]
+                    + 3 * omu * u**2 * cp[2][1] + u**3 * cp[3][1])
+
+        ramp_in = t < op
+        if op > 0.0:
+            if len(sl) >= 4:
+                f[ramp_in] = bezier_y_at_x([(0.0, 0.0), (sl[0], sl[1]), (sl[2], sl[3]), (op, 1.0)],
+                                           t[ramp_in])
+            else:
+                f[ramp_in] = t[ramp_in] / op
+        ramp_out = t > cl
+        if cl < 1.0:
+            if len(sl) >= 8:
+                f[ramp_out] = bezier_y_at_x([(cl, 1.0), (sl[4], sl[5]), (sl[6], sl[7]), (1.0, 0.0)],
+                                            t[ramp_out])
+            else:
+                f[ramp_out] = (1.0 - t[ramp_out]) / (1.0 - cl)
+        cdf = np.concatenate([[0.0], np.cumsum(np.maximum(f, 0.0))])
+        cdf /= max(cdf[-1], 1e-20)
+        xs = np.linspace(0.0, 1.0, m + 1)
+        u = np.linspace(0.0, 1.0, k + 1)
+        return np.interp(u, cdf, xs).astype(np.float32)
 
     def arrays(self, device: torch.device | str = "cpu") -> CameraArrays:
         w, h = self.resolution
@@ -44,15 +117,27 @@ class PerspectiveCamera:
         def t(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
+        icdf = self._shutter_icdf()
         return CameraArrays(
-            rot=t(self.rotation), pos=t(self.position), d_base=t(d_base), d_dx=t(d_dx), d_dy=t(d_dy)
+            rot=t(self.rotation), pos=t(self.position), d_base=t(d_base), d_dx=t(d_dx), d_dy=t(d_dy),
+            shutter_icdf=None if icdf is None else t(icdf),
         )
 
 
 def sample_shutter_time(cam: CameraArrays, u: torch.Tensor) -> torch.Tensor:
-    """Shutter-relative time: the identity for the uniform shutter, the
-    only one the port's takes carry."""
-    return u
+    """A uniform draw -> shutter-relative time in [0, 1], through the baked
+    inverse CDF (ref camera_base.zig sampleShutterTime; the lerp of
+    zyg_tpu/render/camera.py:342-355, fused as XLA fuses it); the identity
+    for the uniform shutter."""
+    if cam.shutter_icdf is None:
+        return u
+    k = cam.shutter_icdf.shape[0] - 1
+    x = torch.clamp(u, 0.0, 1.0 - 1e-7) * k
+    i = x.to(torch.int64)
+    f = x - i.to(torch.float32)
+    a = cam.shutter_icdf[i]
+    b = cam.shutter_icdf[torch.clamp(i + 1, max=k)]
+    return fma(f, b - a, a)
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:

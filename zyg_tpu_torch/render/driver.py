@@ -233,6 +233,10 @@ class Driver:
             seed = torch.full_like(pids, iteration // nes)
             smp = SobolSampler.start_pixel(sample_index, seed)
             s4 = smp.sample_4d()
+            # the shutter dimension is drawn, and PT and AOV trace at the
+            # shutter's start: the JAX driver hands the draw only to its
+            # scan-path PTMIS (zyg_tpu/render/driver.py:116-162), which the
+            # port's PTMIS never takes
             sample_shutter_time(cam_arrays, smp.sample_1d())
             smp.increment_padding()
             o, d = generate_rays(cam_arrays, xy, s4[:, 0:2])

@@ -91,9 +91,10 @@ class IValue:
 
 @dataclass
 class PathState:
-    """Per-lane path state (the JAX PathState without the AOV, motion and
-    spectral fields). The fields from `medium` on are the general body's:
-    None, and the split slot empty, on the kernel bounces' states."""
+    """Per-lane path state (the JAX PathState without the spectral
+    fields; sensor AOVs ride `aov`). The fields from `medium` on are the
+    general body's: None, and the split slot empty, on the kernel
+    bounces' states."""
 
     o: torch.Tensor  # [N, 3]
     d: torch.Tensor  # [N, 3]
@@ -110,6 +111,11 @@ class PathState:
     mis_o: torch.Tensor  # [N, 3] origin of the last real scatter vertex
     mis_n: torch.Tensor  # [N, 3] shading normal at the last real vertex
     pid: torch.Tensor  # int64[N] local pixel index of the lane's current sample
+    # float32[N] the current sample's shutter time in [0, 1] (ref probe.zig
+    # time): every intersection, fragment and light sample of its path is
+    # taken at it; a resumed split branch keeps it (the same sample). None:
+    # the shutter's start on every lane
+    time: torch.Tensor = None
     # the general body's fields (None elsewhere)
     medium: torch.Tensor = None  # int32[N, 4] stack of enclosing medium prop ids, -1 empty
     vol_depth: torch.Tensor = None  # int32[N] null-interface crossings (ref probe.zig Depth)
@@ -158,6 +164,7 @@ class PathState:
             alive=self.alive[idx], bxdf_pdf=self.bxdf_pdf[idx], singular=self.singular[idx],
             depth=self.depth[idx], rays=self.rays, sobol=self.sobol.index(idx),
             vol_key=self.vol_key[idx], mis_o=self.mis_o[idx], mis_n=self.mis_n[idx], pid=self.pid[idx],
+            time=g(self.time),
             medium=g(self.medium), vol_depth=g(self.vol_depth), from_volume=g(self.from_volume),
             primary_chain=g(self.primary_chain), nee_thr=g(self.nee_thr),
             reg_alpha=g(self.reg_alpha), split={k: v[idx] for k, v in self.split.items()},
@@ -388,7 +395,7 @@ def integrate_persistent(
         rays=torch.zeros((), dtype=torch.int64, device=dev),
         sobol=SobolSampler.start_pixel(pixel_ids, torch.zeros_like(pixel_ids)).arrays,
         vol_key=to_i32(hash_u32(pixel_ids ^ 0x2545F491)),
-        mis_o=zero3, mis_n=z_up, pid=lanes,
+        mis_o=zero3, mis_n=z_up, pid=lanes, time=torch.zeros(n, dtype=f32, device=dev),
         aov=aov_init(settings.collect_aovs, n, dev),
         sub_uv=torch.zeros((n, 2), dtype=f32, device=dev) if filtering else None,
     )
@@ -455,7 +462,7 @@ def integrate_persistent(
         # camera block: consumed uniformly by every lane every iteration
         smp = SobolSampler(fresh.where(regen, s.sobol), dim=5)
         s4 = smp.sample_4d()
-        sample_shutter_time(cam_arrays, smp.sample_1d())
+        time_new = sample_shutter_time(cam_arrays, smp.sample_1d())
         smp.increment_padding()
         o_cam, d_cam = generate_rays(cam_arrays, xy_new, s4[:, 0:2])
 
@@ -476,6 +483,7 @@ def integrate_persistent(
             mis_o=torch.where(rm, o_cam, s.mis_o),
             mis_n=torch.where(rm, d_cam, s.mis_n),
             pid=torch.where(regen, pid_new, s.pid),
+            time=torch.where(regen, time_new, s.time),
             sub_uv=torch.where(rm, s4[:, 0:2], s.sub_uv) if filtering else None,
         )
         if general:

@@ -155,8 +155,9 @@ class GeneralBody:
 
         # dead lanes get tmax 0: they fall out of the walks at once
         ray_tmax = torch.where(s.alive, RAY_MAX_T, 0.0)
-        hit = shapes.intersect_scene(scene, self.refl, s.o, s.d, 0.0, ray_tmax, primary=primary)
-        frag = shapes.build_fragment(scene, hit, s.o, s.d)
+        hit = shapes.intersect_scene(scene, self.refl, s.o, s.d, 0.0, ray_tmax, primary=primary,
+                                     time=s.time)
+        frag = shapes.build_fragment(scene, hit, s.o, s.d, time=s.time)
         valid = hit.valid()
         prop_c = torch.clamp(hit.prop, min=0)
         mat_c = torch.clamp(frag.material, min=0).long()
@@ -212,7 +213,8 @@ class GeneralBody:
         if self.has_lights and not cfg.nee_only:
             # the previous real vertex's NEE sampled the sphere if it was a scatter
             ts = s.from_volume if self.scatters else None
-            lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d, total_sphere=ts)
+            lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d, total_sphere=ts,
+                                   time=s.time)
                   * ls.light_select_pdf(scene, light_id, p=s.mis_o, n=s.mis_n,
                                         total_sphere=ts))
             mis_w = torch.where(s.singular | ~is_light, 1.0, power_heuristic(s.bxdf_pdf, lp))
@@ -266,7 +268,7 @@ class GeneralBody:
             can_nee = cont & (scatter | M.can_evaluate(params)) & ~false_if
             light_idx, sel_pdf = ls.select_light(scene, u_sel, p=nee_p, n=frag.n, total_sphere=ts)
             lsmp = ls.sample_light(scene, self.present, light_idx, nee_p, frag.geo_n, xi_l,
-                                   total_sphere=ts, xi3=xi3_l)
+                                   total_sphere=ts, xi3=xi3_l, time=s.time)
             # a volume light's lanes radiate from their interior point (its
             # light_n is 0: the shadow ray's end takes no offset)
             radiance = ls.light_radiance(scene, light_idx, lsmp.wi, lsmp.light_n, lsmp.uv,
@@ -289,7 +291,8 @@ class GeneralBody:
             nee_active = (can_nee & (light_idx >= 0) & (sel_pdf > 0.0) & (lsmp.pdf > 0.0)
                           & (f.amax(dim=-1) > 0.0))
             shadow_tmax = torch.where(nee_active, torch.where(inf, _INF_SHADOW_TMAX, slen), 0.0)
-            blocked = shapes.occluded(scene, self.shadow, shadow_o, sdir, 0.0, shadow_tmax)
+            blocked = shapes.occluded(scene, self.shadow, shadow_o, sdir, 0.0, shadow_tmax,
+                                      time=s.time)
             base = sw * throughput * radiance * f * w[:, None]
             if scene.volume_props:
                 # media attenuate shadow rays instead of blocking them

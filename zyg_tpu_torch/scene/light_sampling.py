@@ -48,6 +48,7 @@ from . import env_sampling
 from . import light_tree as lt
 from . import portal as portal_mod
 from .grids import sample_density_trilinear
+from .shapes import prop_transform_at
 from .shapes import select_by_shape as _sel
 from .textures import sample_bilinear
 from .types import RAY_MAX_T, ShapeType
@@ -138,6 +139,22 @@ def _cone_pdf(radius):
     return 1.0 / torch.clamp(solid_angle, min=1e-20)
 
 
+def _animated_transforms(scene, prop, rot, pos, scale, time):
+    """(rot, pos, scale) with the lanes whose prop is a moving analytic
+    light at its transform at their shutter time
+    (zyg_tpu/scene/light_sampling.py:200-214); unchanged without moving
+    lights or without time."""
+    if not scene.animated_lights or time is None:
+        return rot, pos, scale
+    for pk in scene.animated_lights:
+        rk, pp, ss = prop_transform_at(scene, pk, time)
+        m = (prop == pk)[:, None]
+        rot = torch.where(m[:, :, None], rk, rot)
+        pos = torch.where(m, pp, pos)
+        scale = torch.where(m, ss, scale)
+    return rot, pos, scale
+
+
 def _rect_local(p, pos, rot):
     dp = p - pos
     return (vm.dot(dp, rot[:, 0]), vm.dot(dp, rot[:, 1]), vm.dot(dp, rot[:, 2]))
@@ -173,17 +190,17 @@ def _volume_sample(scene, light_idx, prop, rot, pos, scale, p, xi, xi3):
 
 
 def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None,
-                 xi3=None) -> LightSample:
+                 xi3=None, time=None) -> LightSample:
     """Sample a direction toward light light_idx from the shading points p
     with geometric normals n; xi [N, 2] uniforms, and xi3 [N] a third one
     where the scene has volume lights. total_sphere (bool[N] or None):
     lanes at a volume scatter vertex, where a dome samples the whole
-    sphere and no light is below a horizon."""
+    sphere and no light is below a horizon. time (float32[N] or None):
+    the lanes' shutter times, at which a moving light is sampled."""
     prop = _light_prop(scene, light_idx)
     shape = scene.prop_shape[prop]
-    rot = scene.prop_rot[prop]
-    pos = scene.prop_pos[prop]
-    scale = scene.prop_scale[prop]
+    rot, pos, scale = _animated_transforms(scene, prop, scene.prop_rot[prop],
+                                           scene.prop_pos[prop], scene.prop_scale[prop], time)
     r0, r1, r2 = rot[:, 0], rot[:, 1], rot[:, 2]
     nlanes = p.shape[0]
     far_t = torch.full((nlanes,), RAY_MAX_T, dtype=torch.float32, device=p.device)
@@ -355,25 +372,26 @@ def light_radiance(scene, light_idx, wi, light_n, uv, vol=None):
     return out
 
 
-def light_hit_pdf(scene, present: set, prop, ray_o, ray_d, total_sphere=None):
+def light_hit_pdf(scene, present: set, prop, ray_o, ray_d, total_sphere=None, time=None):
     """Solid-angle pdf with which NEE from ray_o would have sampled the hit
     on prop along ray_d: the light side of the BSDF-hit MIS weight;
     total_sphere (bool[N] or None): the ray left a volume scatter vertex,
     whose NEE samples a dome over the whole sphere. (The
     JAX package's further arguments, the hit's distance, point and normal
     and the normal at ray_o, zyg_tpu/scene/light_sampling.py:639, are read
-    only for Disk and mesh lights, which the port refuses.)"""
+    only for Disk and mesh lights, which the port refuses.) time: the
+    lanes' shutter times, at which a moving light's pdf is evaluated."""
     pm = torch.clamp(prop, min=0).long()
     shape = scene.prop_shape[pm]
-    rot = scene.prop_rot[pm]
+    rot, pos, scale = _animated_transforms(scene, pm, scene.prop_rot[pm], scene.prop_pos[pm],
+                                           scene.prop_scale[pm], time)
     vals = {}
     if _RECT in present:
-        scale = scene.prop_scale[pm]
-        ol = _rect_local(ray_o, scene.prop_pos[pm], rot)
+        ol = _rect_local(ray_o, pos, rot)
         q = _sphquad_init(scale[:, 0], scale[:, 1], ol)
         vals[_RECT] = _sphquad_pdf(q, ol, scale[:, 0], scale[:, 1])
     if _DIST in present:
-        vals[_DIST] = _cone_pdf(scene.prop_scale[pm][:, 0])
+        vals[_DIST] = _cone_pdf(scale[:, 0])
     if _CANOPY in present:
         vals[_CANOPY] = torch.full(shape.shape, 1.0 / (2.0 * math.pi), dtype=torch.float32,
                                    device=ray_o.device)

@@ -6,9 +6,11 @@ Disk/Canopy/Dome/Distant shapes (Celestial_disk is a Distant) or procedural
 triangle meshes (shape "file": "proc:..."), the Sky entity (a baked
 Preetham dome plus a distant sun, scene/sky.py), Portal entities (a
 Rectangle through which an image-mapped dome, such as the Sky's, is
-sampled; scene/portal.py), nested child entities,
-Euler or look-at transformations, Substitute, Light and Glass materials
-with constant parameters (Glass: color or attenuation_color, ior,
+sampled; scene/portal.py), Instancer entities (one prototype shape
+under many transforms, from the entity or its "source" file), nested
+child entities, Euler or look-at transformations, an entity's animation
+keyframes (resolved over the frame's shutter interval by `build`),
+Substitute, Light and Glass materials with constant parameters (Glass: color or attenuation_color, ior,
 roughness, attenuation_distance, priority), Volumetric media
 (attenuation_color, subsurface_color, attenuation_distance, anisotropy,
 and a procedural `fbm` or `constant` density map built into the density
@@ -34,10 +36,13 @@ sampler's address modes and texcoord (UV0, Triplanar, ObjectPos); through
 `SceneBuilder`, `add_texture_image`. A dome or canopy with an emission map
 gets an env-map sampler (scene/env_sampling.py). As the JAX loader does,
 a Portal whose link is not an image-mapped dome, a Portal of another
-shape and an unreadable IES file are dropped with a warning.
+shape and an unreadable IES file are dropped with a warning, and so are
+an unreadable Instancer source and the motion of an infinite light
+(rendered at shutter start).
 
 Everything else raises `UnsupportedScene`: Sphere, Disk, Cube and mesh
-lights, Instancer and other entities, C-API image references ({"id": N}),
+lights, entities other than these, C-API image references ({"id": N}),
+texture file sequences ('#' in a file name), deforming meshes,
 EXR and other image formats, dispersive glass (abbe), coatings, flakes,
 masks, density files, emission maps on media, Volumetric materials on
 mesh props and every other material kind (Hair, Debug, Sky). (Scenes
@@ -75,7 +80,8 @@ from .portal import ARRAY_FIELDS as _PORTAL_FIELDS
 from .portal import PortalDist, build_portal_dist, make_portal_dist
 from .sky import SUN_ANGULAR_RADIUS, bake_sky, sun_radiance
 from .textures import TextureArena, TextureBuilder
-from .trimesh import HostMesh, InstanceTable, MeshArena, build_arena, build_instance_table
+from .trimesh import (HostMesh, InstanceTable, MeshArena, _np_quat, build_arena,
+                      build_instance_table)
 from .types import Lights, Materials, MaterialKind, SceneData, ShapeType, UnsupportedScene
 
 # CIE 1931 Y weights for linear sRGB primaries (ref srgb.zig luminance)
@@ -146,8 +152,11 @@ class Transformation:
         return Transformation(pos.astype(np.float32), rot.astype(np.float32), scale.astype(np.float32))
 
 
-def read_transformation(value: dict | None) -> Transformation:
-    t = Transformation()
+def read_transformation(value: dict | None, base: Transformation | None = None) -> Transformation:
+    """A transformation node over `base` (the keys it lacks keep base's
+    values: an animation keyframe over its entity's transformation)."""
+    t = Transformation() if base is None else Transformation(base.position, base.rotation,
+                                                             base.scale)
     if value is None:
         return t
     up = np.array([0.0, 1.0, 0.0], np.float32)
@@ -169,6 +178,104 @@ def read_transformation(value: dict | None) -> Transformation:
         right = -np.cross(direction, up)
         t.rotation = np.stack([right, up, direction], axis=0).astype(np.float32)
     return t
+
+
+# ---------------------------------------------------------------------------
+# Animation keyframes (zyg_tpu/scene/loader.py:543-630; ref util/
+# animation_loader.zig, scene/space.zig)
+# ---------------------------------------------------------------------------
+
+
+def _np_mat3_to_quat(m: np.ndarray) -> np.ndarray:
+    """Rotation rows -> quaternion [x, y, z, w] (the host keyframe pair's
+    convention, conjugate to the device's trimesh._np_quat)."""
+    t = np.trace(m)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        return np.array([(m[1, 2] - m[2, 1]) / s, (m[2, 0] - m[0, 2]) / s,
+                         (m[0, 1] - m[1, 0]) / s, 0.25 * s], np.float64)
+    i = int(np.argmax(np.diag(m)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(max(1.0 + m[i, i] - m[j, j] - m[k, k], 1e-12)) * 2
+    q = np.empty(4, np.float64)
+    q[i] = 0.25 * s
+    q[j] = (m[i, j] + m[j, i]) / s
+    q[k] = (m[i, k] + m[k, i]) / s
+    q[3] = (m[j, k] - m[k, j]) / s
+    return q
+
+
+def _np_quat_to_mat3(q: np.ndarray) -> np.ndarray:
+    x, y, z, w = q / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y + z * w), 2 * (x * z - y * w)],
+        [2 * (x * y - z * w), 1 - 2 * (x * x + z * z), 2 * (y * z + x * w)],
+        [2 * (x * z + y * w), 2 * (y * z - x * w), 1 - 2 * (x * x + y * y)],
+    ], np.float64)
+
+
+def _np_slerp(qa: np.ndarray, qb: np.ndarray, t: float) -> np.ndarray:
+    d = float(np.dot(qa, qb))
+    if d < 0.0:
+        qb = -qb
+        d = -d
+    if d > 0.9995:
+        q = qa + t * (qb - qa)
+        return q / np.linalg.norm(q)
+    th = np.arccos(np.clip(d, -1, 1))
+    return (np.sin((1 - t) * th) * qa + np.sin(t * th) * qb) / np.sin(th)
+
+
+def eval_animation(anim: list, t: float) -> Transformation:
+    """A keyframe track [(seconds, Transformation)] at time t: the
+    enclosing keys' position and scale lerped, their rotations slerped;
+    clamped at the ends (ref scene/space.zig transformationAtMaybeStatic)."""
+    times = [k[0] for k in anim]
+    if t <= times[0]:
+        return anim[0][1]
+    if t >= times[-1]:
+        return anim[-1][1]
+    i = 0
+    while i + 1 < len(times) and times[i + 1] <= t:
+        i += 1
+    span = max(times[i + 1] - times[i], 1e-12)
+    f = (t - times[i]) / span
+    a, b = anim[i][1], anim[i + 1][1]
+    q = _np_slerp(_np_mat3_to_quat(np.asarray(a.rotation, np.float64)),
+                  _np_mat3_to_quat(np.asarray(b.rotation, np.float64)), f)
+    return Transformation(
+        position=((1 - f) * a.position + f * b.position).astype(np.float32),
+        rotation=_np_quat_to_mat3(q).astype(np.float32),
+        scale=((1 - f) * a.scale + f * b.scale).astype(np.float32),
+    )
+
+
+def parse_animation(value, parent: Transformation, default: Transformation):
+    """An entity's "animation" node -> [(seconds, Transformation)], or None:
+    "keyframes" of {time, transformation}, or "transformations" with
+    "times"; a key without a time comes one frame (1 / frames_per_second,
+    default 1/60 s) after the previous one. Each keyframe's transformation
+    is read over `default` (the entity's own) and composed onto parent."""
+    if not isinstance(value, dict):
+        return None
+    fps = float(value.get("frames_per_second", 0.0))
+    step = (1.0 / fps) if fps > 0.0 else (1.0 / 60.0)
+    frames = []
+    if "keyframes" in value:
+        t = 0.0
+        for kf in value["keyframes"]:
+            kt = float(kf.get("time", t))
+            frames.append((kt, parent.compose(read_transformation(kf.get("transformation"),
+                                                                  base=default))))
+            t = kt + step
+    elif "transformations" in value:
+        times = value.get("times", [])
+        t = 0.0
+        for i, tr in enumerate(value["transformations"]):
+            kt = float(times[i]) if i < len(times) else t
+            frames.append((kt, parent.compose(read_transformation(tr, base=default))))
+            t = kt + step
+    return frames or None
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +416,8 @@ def _texture(v, srgb: bool, builder: "SceneBuilder | None", base_dir: str) -> in
             return tid
         return builder.add_texture_image(procedural.bake(v, load_image=load))
     if "file" in v:
+        if "#" in v["file"]:
+            raise UnsupportedScene(f"texture file sequences ('#' in {v['file']!r})")
         clamp_u, clamp_v = _read_address(v.get("sampler"))
         return builder.load_texture(os.path.join(base_dir, v["file"]), srgb=srgb,
                                     clamp_u=clamp_u, clamp_v=clamp_v,
@@ -483,6 +592,8 @@ class PropDesc:
     visible_shadow: bool = True
     is_light: bool = False
     mesh_id: int = -1  # index into SceneBuilder.meshes for mesh props
+    # keyframes [(seconds, Transformation)] (parse_animation), or None
+    animation: list | None = None
 
 
 class SceneBuilder:
@@ -595,10 +706,75 @@ class SceneBuilder:
             area *= 2.0
         return lum * area
 
-    def build(self, device: torch.device | str = "cpu") -> SceneData:
+    def _resolve_motion(self, time0: float, time1: float):
+        """Each animated prop's transforms over the shutter [time0, time1]
+        seconds, as zyg_tpu/scene/loader.py:986-1063 resolves them: K + 1
+        uniform samples, K = 8 where a keyframe lies strictly inside the
+        shutter, else K = 1 (the endpoint slerp). An animated prop's trafo
+        becomes its shutter-start transform; one that moves joins
+        animated_props ((prop, shape) keys) with its shutter-end transform,
+        and analytic lights among them animated_lights. Motion of an
+        infinite light stays at shutter start, with the JAX package's
+        warning. Returns (K, animated_props, animated_lights, end
+        transforms {prop: Transformation}, key transforms {prop: [K+1]})."""
+        props = self.props
+        K = 1
+        if time1 > time0 and any(p.animation and any(time0 < kt < time1 for kt, _ in p.animation)
+                                 for p in props):
+            K = 8
+        infinite = {int(ShapeType.DOME), int(ShapeType.CANOPY), int(ShapeType.DISTANT)}
+        animated_props, animated_lights, end_trafo, key_trafos = {}, {}, {}, {}
+        for i, p in enumerate(props):
+            if not p.animation:
+                continue
+            samples = [eval_animation(p.animation, time0 + (time1 - time0) * (j / K))
+                       for j in range(K + 1)]
+            p.trafo = samples[0]
+            moving = time1 > time0 and any(
+                not (np.allclose(samples[0].position, tj.position)
+                     and np.allclose(samples[0].rotation, tj.rotation)
+                     and np.allclose(samples[0].scale, tj.scale))
+                for tj in samples[1:])
+            if not moving:
+                continue
+            if (p.is_light and p.mesh_id >= 0) or p.shape in infinite:
+                warnings.warn("motion blur on emissive-mesh/infinite-light props is not "
+                              f"supported yet; prop {i} rendered at shutter start", stacklevel=3)
+                continue
+            animated_props[(i, p.shape)] = True
+            if p.is_light:
+                animated_lights[i] = True
+            end_trafo[i] = samples[-1]
+            key_trafos[i] = samples
+        return K, animated_props, animated_lights, end_trafo, key_trafos
+
+    def _prop_keys(self, K: int, key_trafos: dict) -> np.ndarray:
+        """[P, K+1, 10] shutter keyframe rows (quaternion | position |
+        scale), in the device's quaternion convention (trimesh._np_quat;
+        the keyframe pair's is conjugate to it), consecutive quaternions
+        sign-aligned so the slerp takes the shortest arc."""
+        keys = np.zeros((len(self.props), K + 1, 10), np.float32)
+        for i, p in enumerate(self.props):
+            qprev = None
+            for j, tj in enumerate(key_trafos.get(i) or [p.trafo] * (K + 1)):
+                q = _np_quat(np.asarray(tj.rotation, np.float64))
+                if qprev is not None and np.dot(qprev, q) < 0.0:
+                    q = -q
+                qprev = q
+                keys[i, j, 0:4] = q
+                keys[i, j, 4:7] = tj.position
+                keys[i, j, 7:10] = tj.scale
+        return keys
+
+    def build(self, device: torch.device | str = "cpu", time0: float = 0.0,
+              time1: float | None = None) -> SceneData:
+        """The scene's arrays on `device`; [time0, time1] is the frame's
+        shutter interval in seconds (time1 None: time0, no motion)."""
         props = self.props
         if not props:
             raise UnsupportedScene("scene without props")
+        K, animated_props, animated_lights, end_trafo, key_trafos = self._resolve_motion(
+            time0, time0 if time1 is None else time1)
         # an emissive Volumetric Cube is a volume light (ref scene.zig
         # createLight; zyg_tpu/scene/loader.py:1063-1074); on another shape
         # it only glows along the walks
@@ -669,10 +845,14 @@ class SceneBuilder:
                 np.asarray([b[3] for b in bounds], bool),
             )
 
+        # moving analytic props leave the static groups: the scene's
+        # functions test them at each lane's shutter time
+        animated_ids = {i for i, _ in animated_props}
         groups: dict[int, list[int]] = {}
         for i in analytic:
-            groups.setdefault(props[i].shape, []).append(i)
-        meshes, instances = self._build_meshes()
+            if i not in animated_ids:
+                groups.setdefault(props[i].shape, []).append(i)
+        meshes, instances = self._build_meshes(end_trafo)
         # volume lights over a density grid sample their interior by density
         vol_light_dist = {
             li: Distribution3D.build(self.density_grids[self.materials[props[pi].material]
@@ -746,6 +926,9 @@ class SceneBuilder:
             volume_props=tuple(volume_props),
             vol_light_dist=vol_light_dist or None,
             portals=portals or None,
+            animated_props=animated_props or None,
+            animated_lights=animated_lights or None,
+            prop_keys=t(self._prop_keys(K, key_trafos), f32) if animated_props else None,
         ).to(device)
 
     def _link_portals(self) -> list[dict]:
@@ -798,8 +981,10 @@ class SceneBuilder:
         # infinite shapes (distant, dome)
         return pos, 0.0, np.array([0.0, 0.0, 1.0, -1.0], np.float32), False
 
-    def _build_meshes(self):
-        """(arena, instance table) over the mesh props, or (None, None)."""
+    def _build_meshes(self, end_trafo: dict):
+        """(arena, instance table) over the mesh props, or (None, None); a
+        moving mesh prop's row also holds its shutter-end transform
+        (end_trafo: interior keyframes resample to the chord there)."""
         mesh_props = [i for i, p in enumerate(self.props) if p.mesh_id >= 0]
         if not mesh_props:
             return None, None
@@ -807,16 +992,23 @@ class SceneBuilder:
         instances = []
         for i in mesh_props:
             p = self.props[i]
-            instances.append({
+            ins = {
                 "prop": i, "mesh": p.mesh_id, "rot": p.trafo.rotation,
                 "pos": p.trafo.position, "scale": p.trafo.scale,
                 "vis": (p.visible_camera, p.visible_reflection, p.visible_shadow),
-            })
+            }
+            if i in end_trafo:
+                te = end_trafo[i]
+                ins.update(rot1=te.rotation, pos1=te.position, scale1=te.scale)
+            instances.append(ins)
         return arena, build_instance_table(host, instances)
 
 
 _ENTITY_KEYS = {"type", "shape", "materials", "transformation", "visibility",
-                "occluding", "entities"}
+                "occluding", "entities", "animation"}
+_INSTANCER_KEYS = {"type", "source", "prototype", "instances", "materials", "transformation",
+                   "entities"}
+_INSTANCE_KEYS = {"position", "rotation_matrix", "rotation", "scale"}
 
 
 _SKY_KEYS = {"type", "parameters"}
@@ -874,6 +1066,72 @@ def _load_portal(e: dict, parent: Transformation, builder: SceneBuilder) -> None
                             "light": int(e.get("light", 0)), "prop": None})
 
 
+def _shape_of(shape_node: dict, builder: SceneBuilder) -> tuple[int, int]:
+    """A shape node -> (ShapeType code, mesh id or -1): an analytic shape
+    by its type, or a mesh file (one mesh a file name)."""
+    stype = shape_node.get("type")
+    if stype in _SHAPE_NAMES:
+        return int(_SHAPE_NAMES[stype]), -1
+    if "file" in shape_node:
+        fname = shape_node["file"]
+        mesh_id = builder._mesh_by_name.get(fname, -1)
+        if mesh_id < 0:
+            mesh_id = builder.add_mesh(load_mesh_file(fname), fname)
+        return int(ShapeType.TRIANGLE_MESH), mesh_id
+    raise UnsupportedScene(f"shape {shape_node!r}")
+
+
+def _load_instancer(e: dict, parent: Transformation, local_materials,
+                    builder: SceneBuilder) -> None:
+    """An Instancer entity: one prototype shape under many transforms, each
+    a prop (a mesh prototype's instances share its BVH in the arena), as
+    zyg_tpu/scene/loader.py:1716-1775 loads it (ref scene_loader.zig
+    loadInstancer). The prototype and its instances come from the entity
+    or from its "source" file (sow's .instancer JSON, resolved against the
+    scene file's directory; an unreadable one is dropped with a warning,
+    as the JAX loader drops it). The prototype's materials, else the
+    entity's; each instance's position, rotation_matrix (rows) or Euler
+    rotation, and scale, composed onto the entity's transform."""
+    extra = set(e) - _INSTANCER_KEYS
+    if extra:
+        raise UnsupportedScene(f"Instancer keys {sorted(extra)}")
+    node = e
+    if "source" in e:
+        path = os.path.join(builder.base_dir, e["source"])
+        try:
+            with open(path, encoding="utf-8") as f:
+                node = json.load(f)
+        except OSError as err:
+            warnings.warn(f"instancer load failed {path}: {err}; the Instancer is dropped",
+                          stacklevel=3)
+            return
+    proto = node.get("prototype")
+    instances = node.get("instances", [])
+    if proto is None or not instances:
+        return
+    extra = set(proto) - {"shape", "materials"}
+    if extra:
+        raise UnsupportedScene(f"Instancer prototype keys {sorted(extra)}")
+    shape, mesh_id = _shape_of(proto.get("shape", {}), builder)
+    mat_names = proto.get("materials", e.get("materials", []))
+    mat = builder.material_id(mat_names[0], local_materials) if mat_names else builder._fallback
+    for inst in instances:
+        extra = set(inst) - _INSTANCE_KEYS
+        if extra:
+            raise UnsupportedScene(f"Instancer instance keys {sorted(extra)}")
+        t = Transformation()
+        if "position" in inst:
+            t.position = _read_vec3(inst["position"])
+        if "rotation_matrix" in inst:
+            t.rotation = np.asarray(inst["rotation_matrix"], np.float32).reshape(3, 3)
+        elif "rotation" in inst:
+            t.rotation = rotation_matrix_from_euler_degrees(_read_vec3(inst["rotation"]))
+        if "scale" in inst:
+            t.scale = _read_vec3(inst["scale"], default=(1.0, 1.0, 1.0))
+        builder.add_prop(PropDesc(shape=shape, trafo=parent.compose(t), material=mat,
+                                  mesh_id=mesh_id))
+
+
 def _load_entities(entities, parent: Transformation, local_materials, builder: SceneBuilder):
     for e in entities:
         etype = e.get("type")
@@ -883,25 +1141,20 @@ def _load_entities(entities, parent: Transformation, local_materials, builder: S
         if etype == "Portal":
             _load_portal(e, parent, builder)
             continue
+        if etype == "Instancer":
+            trafo = parent.compose(read_transformation(e.get("transformation")))
+            _load_instancer(e, trafo, local_materials, builder)
+            if "entities" in e:
+                _load_entities(e["entities"], trafo, local_materials, builder)
+            continue
         if etype not in ("Prop", "Light"):
             raise UnsupportedScene(f"entity {etype or sorted(e)!r}")
         extra = set(e) - _ENTITY_KEYS
         if extra:
             raise UnsupportedScene(f"entity keys {sorted(extra)}")
-        trafo = parent.compose(read_transformation(e.get("transformation")))
-        shape_node = e.get("shape", {})
-        stype = shape_node.get("type")
-        mesh_id = -1
-        if stype in _SHAPE_NAMES:
-            shape = int(_SHAPE_NAMES[stype])
-        elif "file" in shape_node:
-            fname = shape_node["file"]
-            mesh_id = builder._mesh_by_name.get(fname, -1)
-            if mesh_id < 0:
-                mesh_id = builder.add_mesh(load_mesh_file(fname), fname)
-            shape = int(ShapeType.TRIANGLE_MESH)
-        else:
-            raise UnsupportedScene(f"shape {shape_node!r}")
+        local = read_transformation(e.get("transformation"))
+        trafo = parent.compose(local)
+        shape, mesh_id = _shape_of(e.get("shape", {}), builder)
         mat_names = e.get("materials", [])
         mat = builder.material_id(mat_names[0], local_materials) if mat_names else builder._fallback
         is_light = etype == "Light"
@@ -917,23 +1170,29 @@ def _load_entities(entities, parent: Transformation, local_materials, builder: S
             visible_shadow=occluding and bool(vis.get("in_shadow", True)),
             is_light=is_light,
             mesh_id=mesh_id,
+            animation=parse_animation(e.get("animation"), parent, local),
         ))
         if "entities" in e:
             _load_entities(e["entities"], trafo, local_materials, builder)
 
 
-def load_scene_dict(root: dict, device: torch.device | str = "cpu", base_dir: str = "") -> SceneData:
-    """A scene JSON dict -> SceneData; image files resolve against base_dir."""
+def load_scene_dict(root: dict, device: torch.device | str = "cpu", base_dir: str = "",
+                    time0: float = 0.0, time1: float | None = None) -> SceneData:
+    """A scene JSON dict -> SceneData with its animations resolved over the
+    shutter [time0, time1] seconds (a camera's frame_interval); image and
+    instancer files resolve against base_dir."""
     builder = SceneBuilder(base_dir)
     local_materials = {m["name"]: m for m in root.get("materials", []) if "name" in m}
     _load_entities(root.get("entities", []), Transformation(), local_materials, builder)
-    return builder.build(device)
+    return builder.build(device, time0, time1)
 
 
-def load_scene_file(path: str, device: torch.device | str = "cpu") -> SceneData:
+def load_scene_file(path: str, device: torch.device | str = "cpu", time0: float = 0.0,
+                    time1: float | None = None) -> SceneData:
     with open(path, encoding="utf-8") as f:
         root = json.load(f)
-    return load_scene_dict(root, device, base_dir=os.path.dirname(os.path.abspath(path)))
+    return load_scene_dict(root, device, base_dir=os.path.dirname(os.path.abspath(path)),
+                           time0=time0, time1=time1)
 
 
 # ---------------------------------------------------------------------------
@@ -974,8 +1233,10 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     (int64 [K, 4] rows), for volume lights over a grid
     "vol_light_dist.<light>.<f>", for portal lights
     "portals.<light>.<prop>.<f>", with a mapped dome or canopy
-    "env.canopy" (a bool an entry), and "mat_features", the sorted feature
-    names as a string array. A JAX scene with a feature outside the port's raises
+    "env.canopy" (a bool an entry), for moving props "animated_props"
+    (int64 [A, 2] (prop, shape) rows in key order), "animated_lights" and
+    "prop_keys", with meshes "mesh_instances.has_anim", and
+    "mat_features", the sorted feature names as a string array. A JAX scene with a feature outside the port's raises
     UnsupportedScene naming it."""
     def arr(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -1027,8 +1288,11 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
         # the JAX arena carries its depth as the static key of `meta`
         depth = m.max_depth if hasattr(m, "max_depth") else next(iter(m.meta))[0]
         d["meshes.max_depth"] = np.asarray(depth, np.int64)
-        d.update({f"mesh_instances.{k}": arr(getattr(scene.mesh_instances, k))
-                  for k in _INSTANCES})
+        itab = scene.mesh_instances
+        d.update({f"mesh_instances.{k}": arr(getattr(itab, k)) for k in _INSTANCES})
+        # the JAX table carries has_anim as the static key of `meta`
+        d["mesh_instances.has_anim"] = np.asarray(
+            itab.has_anim if hasattr(itab, "has_anim") else next(iter(itab.meta))[0], bool)
     if tex is not None:
         d.update({f"textures.{k}": arr(getattr(tex, k)) for k in _TEXTURES if k != "texcoord"})
         d["textures.texcoord"] = texcoord
@@ -1043,6 +1307,11 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     for (li, pp), pd in sorted((scene.portals or {}).items()):
         d.update({f"portals.{int(li)}.{int(pp)}.{k}": arr(getattr(pd, k))
                   for k in _PORTAL_FIELDS})
+    if scene.animated_props:
+        d["animated_props"] = np.asarray([(int(i), int(st)) for i, st in scene.animated_props],
+                                         np.int64).reshape(-1, 2)
+        d["animated_lights"] = np.asarray([int(i) for i in scene.animated_lights or ()], np.int64)
+        d["prop_keys"] = arr(scene.prop_keys)
     tree = scene.light_tree
     if tree is not None:
         d.update({f"light_tree.{k}": arr(getattr(tree, k)) for k in _TREE_FIELDS})
@@ -1063,7 +1332,8 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
     if "meshes.node_rows" in d:
         meshes = MeshArena(**{k: t(f"meshes.{k}") for k in _ARENA},
                            max_depth=int(d["meshes.max_depth"]))
-        instances = InstanceTable(**{k: t(f"mesh_instances.{k}") for k in _INSTANCES})
+        instances = InstanceTable(**{k: t(f"mesh_instances.{k}") for k in _INSTANCES},
+                                  has_anim=bool(d["mesh_instances.has_anim"]))
     textures = env = None
     if "textures.data" in d:
         textures = TextureArena(
@@ -1106,4 +1376,9 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
         volume_props=tuple(tuple(int(x) for x in r) for r in d["volume_props"]),
         vol_light_dist=vol_light_dist or None,
         portals=portals or None,
+        animated_props={(int(i), int(st)): True for i, st in d["animated_props"]} or None
+        if "animated_props" in d else None,
+        animated_lights={int(i): True for i in d["animated_lights"]} or None
+        if "animated_lights" in d else None,
+        prop_keys=t("prop_keys") if "prop_keys" in d else None,
     )

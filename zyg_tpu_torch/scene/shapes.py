@@ -1,7 +1,7 @@
 """Scene intersection, shadow visibility and the shading fragment for the
-mesh paths (counterpart of zyg_tpu/scene/shapes.py:232 intersect_scene,
-:504 occluded, :616 build_fragment; static props, tangent frames on
-request). The ray
+mesh paths (counterpart of zyg_tpu/scene/shapes.py:197 prop_transform_at,
+:232 intersect_scene, :504 occluded, :616 build_fragment; moving props
+at each lane's shutter time, tangent frames on request). The ray
 offsets of the bounces are in ops/surface.py's and ops/surface_v2.py's
 kernels and plain versions.
 
@@ -63,16 +63,81 @@ def select_by_shape(shape, vals: dict, default):
     return out
 
 
-def intersect_scene(scene, table: isect.PropTable, o, d, tmin: float, tmax, primary=None) -> Hit:
+def prop_transform_at(scene, k, time):
+    """(rot [N, 3, 3], pos [N, 3], scale [N, 3]) of animated prop k (an int,
+    or int[N] a lane) at the lanes' shutter times in [0, 1]: the slerp and
+    lerps between the two of scene.prop_keys' K+1 uniform keyframes that
+    enclose the time (zyg_tpu/scene/shapes.py:197-229)."""
+    keys = scene.prop_keys[k] if isinstance(k, int) else scene.prop_keys[k.long()]
+    K = keys.shape[-2] - 1
+    if K == 1:
+        row0, row1 = keys[..., 0, :], keys[..., 1, :]
+        f = time[:, None]
+    else:
+        u = torch.clamp(time, 0.0, 1.0) * K
+        i = torch.clamp(u.to(torch.int64), 0, K - 1)
+        f = (u - i.to(torch.float32))[:, None]
+        if isinstance(k, int):
+            row0, row1 = keys[i], keys[i + 1]
+        else:
+            lanes = torch.arange(time.shape[0], device=time.device)
+            row0, row1 = keys[lanes, i], keys[lanes, i + 1]
+    q = vm.quat_slerp(row0[..., 0:4], row1[..., 0:4], f)
+    return (vm.quat_to_mat3(q), vm.lerp(row0[..., 4:7], row1[..., 4:7], f),
+            vm.lerp(row0[..., 7:10], row1[..., 7:10], f))
+
+
+def _walk_time(scene, o, time):
+    """The shutter times the mesh walk takes: time, or the shutter's start
+    where a moving instance needs one and none is given (the JAX walk's
+    default)."""
+    if time is None and scene.mesh_instances.has_anim:
+        return torch.zeros(o.shape[0], dtype=torch.float32, device=o.device)
+    return time
+
+
+def _animated_hits(scene, o, d, tmin: float, tmax, time):
+    """(prop, (t, u, v, hit)) of each moving analytic prop in key order,
+    tested at the lanes' shutter times (time None: 0)."""
+    tl = torch.zeros(o.shape[0], device=o.device) if time is None else time
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=o.device).expand(o.shape[0])
+    ox, oy, oz = o.unbind(1)
+    dx, dy, dz = d.unbind(1)
+    for pk, st in scene.animated_props or {}:
+        if int(st) not in isect.SUPPORTED:
+            continue  # moving meshes are walked by the traversal
+        rot, pos, scale = prop_transform_at(scene, pk, tl)
+        # the lanes' transforms as the 15 [N] rows of an isect table row
+        r = torch.cat([rot.reshape(-1, 9), pos, scale], dim=1).T
+        yield pk, isect.prop_hit(int(st), r, ox, oy, oz, dx, dy, dz, tmin, tmax)
+
+
+def intersect_scene(scene, table: isect.PropTable, o, d, tmin: float, tmax, primary=None,
+                    time=None) -> Hit:
     """Closest hit over all props for the ray class of table (the scene's
-    isect.prop_table); `primary` lanes use camera visibility."""
+    isect.prop_table); `primary` lanes use camera visibility. Moving props
+    are tested at the lanes' shutter times `time` (float32[N]; None: the
+    shutter's start), one torch pass each after the isect kernel's static
+    props, as the JAX package tests them in XLA after its Pallas pass."""
     t_b, p_b, u_b, v_b = isect.closest_props(table, o, d, tmin, tmax, primary)
+    if scene.animated_props:
+        vis = {"camera": scene.prop_visible_camera, "reflection": scene.prop_visible_reflection,
+               "shadow": scene.prop_visible_shadow}[table.ray_class]
+        for pk, (t, u, v, hit) in _animated_hits(scene, o, d, tmin, tmax, time):
+            lane_vis = vis[pk]
+            if primary is not None:
+                lane_vis = torch.where(primary, scene.prop_visible_camera[pk], lane_vis)
+            closer = hit & lane_vis & (t < t_b)
+            t_b = torch.where(closer, t, t_b)
+            p_b = torch.where(closer, pk, p_b)
+            u_b = torch.where(closer, u, u_b)
+            v_b = torch.where(closer, v, v_b)
     prim = torch.full_like(p_b, -1)
     if scene.meshes is not None:
         tmax_t = torch.as_tensor(tmax, dtype=torch.float32, device=o.device)
         th, tp, tu, tv, tprop = traverse.intersect_instances(
             scene.meshes, scene.mesh_instances, o, d, tmin, torch.minimum(tmax_t, t_b),
-            table.ray_class, primary=primary,
+            table.ray_class, primary=primary, time=_walk_time(scene, o, time),
         )
         closer = tp >= 0  # the walk was bounded by the analytic hit
         t_b = torch.where(closer, th, t_b)
@@ -83,22 +148,25 @@ def intersect_scene(scene, table: isect.PropTable, o, d, tmin: float, tmax, prim
     return Hit(t_b, p_b, u_b, v_b, prim)
 
 
-def occluded(scene, table: isect.PropTable, o, d, tmin: float, tmax) -> torch.Tensor:
+def occluded(scene, table: isect.PropTable, o, d, tmin: float, tmax, time=None) -> torch.Tensor:
     """Any-hit visibility of shadow rays: True = blocked. table: the
-    scene's isect.prop_table("shadow")."""
+    scene's isect.prop_table("shadow"); moving props at the lanes' shutter
+    times `time` (None: the shutter's start)."""
     blocked = isect.anyhit_props(table, o, d, tmin, tmax)
+    for pk, (_, _, _, hit) in _animated_hits(scene, o, d, tmin, tmax, time):
+        blocked = blocked | (hit & scene.prop_visible_shadow[pk])
     if scene.meshes is not None:
         tmax_t = torch.as_tensor(tmax, dtype=torch.float32, device=o.device)
         blocked = blocked | traverse.intersect_instances(
             scene.meshes, scene.mesh_instances, o, d, tmin,
             torch.where(blocked, tmin, tmax_t),  # already blocked: skip the walk
-            "shadow", any_hit=True,
+            "shadow", any_hit=True, time=_walk_time(scene, o, time),
         )
     return blocked
 
 
 def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
-                   need_tangents: bool = False) -> Fragment:
+                   need_tangents: bool = False, time=None) -> Fragment:
     """Hit point, geometric and shading normals, material and (where
     need_uv, by default for textured scenes) uv of the closest hit, over
     the shape branches present in the scene. Lanes on an infinite shape
@@ -108,7 +176,12 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
     tangent and bitangent too: a rectangle's or disk's -x and -y axes, a
     sphere's direction of increasing u, the infinite shapes' x and y axes,
     and the orthonormal basis about the normal on cubes and meshes (and on
-    every lane when no present shape has a frame of its own)."""
+    every lane when no present shape has a frame of its own). Lanes on a
+    moving prop take its transform at their shutter time `time` (None:
+    the shutter's start). As in the JAX package, the present shape types
+    are the static groups' (a moving prop leaves them): a moving prop whose
+    shape no static prop shares takes the first present type's normal
+    rule (zyg_tpu/scene/shapes.py:626-654)."""
     if need_uv is None:
         need_uv = scene.textures is not None
     present = {int(k) for k in scene.prop_groups}
@@ -117,6 +190,14 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
     rot = scene.prop_rot[prop]
     pos = scene.prop_pos[prop]
     scale = scene.prop_scale[prop]
+    if scene.animated_props:
+        tl = torch.zeros_like(hit.t) if time is None else time
+        for pk in sorted({pk for pk, _ in scene.animated_props}):
+            rk, pk_pos, pk_scale = prop_transform_at(scene, pk, tl)
+            m1 = (prop == pk)[:, None]
+            rot = torch.where(m1[:, :, None], rk, rot)
+            pos = torch.where(m1, pk_pos, pos)
+            scale = torch.where(m1, pk_scale, scale)
     p = fma(hit.t[:, None], d, o)
     r0, r1, r2 = rot[:, 0], rot[:, 1], rot[:, 2]
 

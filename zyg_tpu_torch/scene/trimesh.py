@@ -22,7 +22,9 @@ Mesh props are instances over the arena (InstanceTable): world AABB,
 quaternion, position, scale, root node, prop id and visibility. The
 traversal over both is ops/traverse.py.
 
-Motion meshes (shutter-end positions) and animated instances are refused.
+An animated mesh prop is an instance with a shutter-end transform: the
+walk slerps and lerps the two per ray at the ray's shutter time. Motion
+meshes (shutter-end positions) are refused.
 """
 
 from __future__ import annotations
@@ -64,13 +66,16 @@ class InstanceTable:
     """Mesh instances (ref prop_tree.zig): one row per mesh prop.
 
     trafo[I, 24]: q(4) pos(3) scale(3), the same again for the shutter end
-    (a static scene repeats the start), root node, prop id, pad(2).
+    (a static instance repeats the start), root node, prop id, pad(2).
+    has_anim: some instance moves (the JAX table's static `meta`), so the
+    walk interpolates the two ends at each ray's shutter time.
     """
 
-    wmin: torch.Tensor  # float32[I, 3] world AABB
+    wmin: torch.Tensor  # float32[I, 3] world AABB (the shutter's union when moving)
     wmax: torch.Tensor  # float32[I, 3]
     trafo: torch.Tensor  # float32[I, 24]
     vis: torch.Tensor  # bool[I, 3] camera / reflection / shadow
+    has_anim: bool = False
 
     def to(self, device) -> "InstanceTable":
         return to_device(self, device)
@@ -335,10 +340,26 @@ def _np_quat(rot) -> np.ndarray:
     return q.astype(np.float32)
 
 
+def _np_quat_to_mat(q) -> np.ndarray:
+    """Quaternion (x, y, z, w) -> rotation rows, float64 (the inverse of
+    _np_quat)."""
+    x, y, z, w = q
+    d = 2.0
+    return np.array([
+        [1 - d * (y * y + z * z), d * (x * y - w * z), d * (x * z + w * y)],
+        [d * (x * y + w * z), 1 - d * (x * x + z * z), d * (y * z - w * x)],
+        [d * (x * z - w * y), d * (y * z + w * x), 1 - d * (x * x + y * y)],
+    ], np.float64)
+
+
 def build_instance_table(host: dict, instances: list[dict]) -> InstanceTable:
     """Instance table on the host. host: build_arena's numpy copies;
     instances: per mesh prop {"prop", "mesh", "rot" [3, 3], "pos" [3],
-    "scale" [3], "vis" (3 bools)}."""
+    "scale" [3], "vis" (3 bools)}, and "rot1", "pos1", "scale1" for the
+    shutter end of a moving prop. A moving instance's world box is the
+    union over its transforms at t = 0, 0.25, 0.5, 0.75 and 1 (the
+    quaternions' normalized lerp), grown by 5 % about its centre for the
+    slerp's bulge (zyg_tpu/scene/trimesh.py:995-1024)."""
     node_rows = host["node_rows"]
     mesh_root = host["mesh_root"]
     ninst = len(instances)
@@ -348,8 +369,6 @@ def build_instance_table(host: dict, instances: list[dict]) -> InstanceTable:
     vis = np.zeros((ninst, 3), bool)
     B = BRANCH
     for i, ins in enumerate(instances):
-        if "rot1" in ins:
-            raise UnsupportedScene("animated mesh instances")
         root = int(mesh_root[ins["mesh"]])
         # root box = union of the root row's child slots
         row = node_rows[root]
@@ -358,19 +377,46 @@ def build_instance_table(host: dict, instances: list[dict]) -> InstanceTable:
         bmax = np.array([row[k * B : (k + 1) * B][filled].max() for k in range(3, 6)])
         corners = np.array([[bmin[k] if (j >> k) & 1 == 0 else bmax[k] for k in range(3)]
                             for j in range(8)], np.float64)
-        rot = np.asarray(ins["rot"], np.float64)
-        w = (corners * np.asarray(ins["scale"], np.float64)) @ rot + np.asarray(ins["pos"], np.float64)
-        wmin[i] = w.min(axis=0)
-        wmax[i] = w.max(axis=0)
+        moving = "rot1" in ins
+        keys = [(ins["rot"], ins["pos"], ins["scale"])]
+        if moving:
+            q0, q1 = _np_quat(ins["rot"]), _np_quat(ins["rot1"])
+            if np.dot(q0, q1) < 0.0:
+                q1 = -q1
+            for t in (0.25, 0.5, 0.75, 1.0):
+                q = q0 * (1 - t) + q1 * t
+                q /= np.linalg.norm(q)
+                keys.append((_np_quat_to_mat(q),
+                             np.asarray(ins["pos"]) * (1 - t) + np.asarray(ins["pos1"]) * t,
+                             np.asarray(ins["scale"]) * (1 - t) + np.asarray(ins["scale1"]) * t))
+        lo = np.full(3, np.inf)
+        hi = np.full(3, -np.inf)
+        for rot, pos, scale in keys:
+            w = ((corners * np.asarray(scale, np.float64)) @ np.asarray(rot, np.float64)
+                 + np.asarray(pos, np.float64))
+            lo = np.minimum(lo, w.min(axis=0))
+            hi = np.maximum(hi, w.max(axis=0))
+        if moving:
+            c = 0.5 * (lo + hi)
+            lo = c + (lo - c) * 1.05
+            hi = c + (hi - c) * 1.05
+        wmin[i] = lo
+        wmax[i] = hi
         trafo[i, 0:4] = _np_quat(ins["rot"])
         trafo[i, 4:7] = ins["pos"]
         trafo[i, 7:10] = ins["scale"]
-        trafo[i, 10:20] = trafo[i, 0:10]
+        if moving:
+            trafo[i, 10:14] = _np_quat(ins["rot1"])
+            trafo[i, 14:17] = ins["pos1"]
+            trafo[i, 17:20] = ins["scale1"]
+        else:
+            trafo[i, 10:20] = trafo[i, 0:10]
         trafo[i, 20] = float(root)
         trafo[i, 21] = float(ins["prop"])
         vis[i] = ins.get("vis", (True, True, True))
     return InstanceTable(wmin=torch.from_numpy(wmin), wmax=torch.from_numpy(wmax),
-                         trafo=torch.from_numpy(trafo), vis=torch.from_numpy(vis))
+                         trafo=torch.from_numpy(trafo), vis=torch.from_numpy(vis),
+                         has_anim=any("rot1" in ins for ins in instances))
 
 
 # ---------------------------------------------------------------------------

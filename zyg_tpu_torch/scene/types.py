@@ -9,7 +9,8 @@ shape type, for mesh scenes the triangle arena and the mesh instance table
 two or more lights of which one is finite the light tree
 (scene/light_tree.py), for volume lights over a density grid their
 interior-point distributions (core/distribution.py), for portal lights
-their windowed portal-image distributions (scene/portal.py), and the
+their windowed portal-image distributions (scene/portal.py), for motion
+blur the moving props and their shutter keyframes, and the
 material features and volume props by
 which the general bounce decides, once per render, what it computes
 (the JAX package's static `mat_features` and `volume_props`).
@@ -152,12 +153,22 @@ class SceneData:
     # {(light index, portal prop): portal.PortalDist} of the portal lights
     # (scene/portal.py), or None
     portals: dict = None
+    # motion blur (SceneBuilder.build over a shutter interval): the props
+    # that move, {(prop, ShapeType code): True} in prop order, analytic
+    # ones (which leave prop_groups) and mesh ones (whose instance rows
+    # carry the shutter-end transform); the analytic lights among them,
+    # {prop: True}; and every prop's K+1 shutter keyframes, float32
+    # [P, K+1, 10] rows of quaternion | position | scale (None, like the
+    # dicts, when nothing moves)
+    animated_props: dict = None
+    animated_lights: dict = None
+    prop_keys: torch.Tensor = None
 
     def to(self, device) -> "SceneData":
         out = {}
         for f in fields(self):
             v = getattr(self, f.name)
-            if f.name in ("mat_features", "volume_props"):
+            if f.name in ("mat_features", "volume_props", "animated_props", "animated_lights"):
                 out[f.name] = v
             elif f.name in ("prop_groups", "vol_light_dist", "portals") and v is not None:
                 out[f.name] = {k: g.to(device) for k, g in v.items()}
