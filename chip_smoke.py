@@ -54,10 +54,16 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     (traverse_anim, kAnim) on a moving copy of the forest the script
     writes (each instance a two-keyframe animation) at seeded shutter
     times: hit records against the plain walk, the share equal bit for
-    bit and t's largest difference, any-hit exact. Times each (median of
-    runs, CUDA events; and its device time from the profiler, which leaves out the host's gaps between a short
-    kernel's launches) beside its bound and, where one PyTorch call
-    computes the same function, that call's time
+    bit and t's largest difference, any-hit exact; the photon gather
+    (photon_gather) on caustics_photons.take's first-bounce lanes at its
+    own 480x270 over the map baked on the card from its 200,000 paths, and
+    on a seeded dense map whose buckets exceed the 64-photon cap (at caps
+    64 and 4), each lane within 2e-3 of its largest channel plus 1e-6 of
+    the batch's largest value, with the photon visits counted. Times each
+    (median of runs, CUDA events; and its device time from the profiler,
+    which leaves out the host's gaps between a short kernel's launches)
+    beside its bound and, where one PyTorch call computes the same
+    function, that call's time
  4. a 128x128, 16 spp Cornell render on the card against the port's plain
     CPU render: mean energy within 1.5%, 4x4-downsampled RMSE within 6%
     of the mean (the JAX package's golden-gate statistics)
@@ -89,7 +95,11 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     (a moving Sphere and a turning Cube) at 96x56, 16 spp, with and
     without motion: the card and the CPU agree that the Sphere is smeared
     (a strip across its path at least 2 % darker than without motion on
-    both, the card's strip within 1 % of the CPU's)
+    both, the card's strip within 1 % of the CPU's), 4m. for
+    examples/takes/caustics_photons.take (a glass sphere under a Sphere
+    lamp, a photon map) at 96x56, 8 spp with 100,000 photon paths, bake
+    and gather on each device, and a Sphere and a Disk lamp over a floor
+    and a ball (kernel 6) at 96x64, 8 spp
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
@@ -162,6 +172,12 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     surface_v2 and accum, which must each have launched; the same report
     and profile and kernel 6's lane shares; then the CLI on motion.take
     with -f 0 -n 2: both frames written and different
+ 5l. the photon-map main path: the CLI on
+    examples/takes/caustics_photons.take at its own 480x270, 32 spp,
+    PTMIS depth 16 with its 200,000 photon paths, then the Driver at the
+    same size with the bake timed on its own, through the general body
+    around sobol_block, isect, photon_gather and accum, which must each
+    have launched; the same report and profile
  6. one bounce of the mesh bounce (kernel 5) against one of the general
     bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
     directly, timed in turns (CUDA events, medians)
@@ -210,6 +226,8 @@ REPLACES = {
     # the traversal's motion-blur variant: the JAX walk's per-lane slerp of
     # a moving instance's transform (zyg_tpu/scene/trimesh.py:1145-1155)
     "traverse_anim": "zyg_tpu/scene/trimesh.py:1053",
+    # not a TPU kernel: the JAX package's photon gather is an XLA fori_loop
+    "photon_gather": "zyg_tpu/render/integrator/photon.py:219",
 }
 SOURCES = {
     "sobol_block": "zyg_tpu_torch/csrc/sobol_block.cu",
@@ -223,6 +241,7 @@ SOURCES = {
     "track_transmittance": "zyg_tpu_torch/csrc/track.cu",
     "accum_filtered": "zyg_tpu_torch/csrc/accum.cu",
     "traverse_anim": "zyg_tpu_torch/csrc/traverse.cu",
+    "photon_gather": "zyg_tpu_torch/csrc/photon.cu",
 }
 CORNELL_KERNELS = ("sobol_block", "shade", "accum")
 # sobol_block's launch shapes besides the checks' width: 513 is one
@@ -294,6 +313,14 @@ N_FOREST = FOREST_RES[0] * FOREST_RES[1]
 MOTION_KERNELS = ("sobol_block", "isect", "surface_v2", "accum")
 MOTION_RES = (640, 360)
 MOTION_SPP = 32
+# the photon-map path: caustics_photons.take's own 480x270, 32 spp, PTMIS
+# depth 16, 200,000 photon paths of up to 4 bounces, search radius 0.05;
+# the glass sphere and the map send it to the general body (torch) around
+# sobol_block, isect, the photon gather and accum
+CAUSTICS_KERNELS = ("sobol_block", "isect", "photon_gather", "accum")
+CAUSTICS_RES = (480, 270)
+CAUSTICS_SPP = 32
+N_CAUSTICS = CAUSTICS_RES[0] * CAUSTICS_RES[1]
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -301,8 +328,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # integer issue: 64 INT32 lanes a clock on each of 132 SMs at 1.98 GHz
 INT32_OPS_PER_S = 16.7e12
-# a main path's render time above which it is timed best of 2, not 3
+# a main path's render time above which it is timed best of 2, not 3, and
+# profiled over its first chunk of at most SLOW_PROFILE_SPP samples
 SLOW_RENDER_S = 2.0
+SLOW_PROFILE_SPP = 8
+# the script's clock past which a main path is timed once, with no
+# profile and no further render: a host that runs ~1.3x slower than most
+# then still finishes well inside the 1200 s limit
+SCRIPT_BUDGET_S = 800.0
 # share of a full-width flush launch's lanes whose sample finishes there
 # on the Cornell 1080p 16 spp path: 0.2005, measured by phase 5's
 # flush_share (NVIDIA H100 80GB HBM3; PERF.md)
@@ -338,6 +371,18 @@ OPS_TRACK_COLLISION = 80
 # weights' product, three multiplies and the float4 add)
 OPS_FILTER_EVAL = 20
 OPS_FILTER_TAP = 12
+# the photon gather: an active lane's 8 cells' bounds, repeats and hashes
+# (6 floors of 3, 8 cells of 3 selects, 6 hash operations, 2 bounds and the
+# cap); a lane with a photon in range, its material and wo terms (three
+# 49-step and two 7-step energy-fit chains, the lobe weights); a visit's
+# distance and cosine tests (two dot products, the difference, two
+# compares); a visit in range adds the cone weight, the substitute lobes
+# toward the photon (two 49-step chains, the half vector, GGX, Schlick,
+# the sums), the division by the cosine and the sum
+OPS_PHOTON_CELLS = 110
+OPS_PHOTON_TERMS = 150
+OPS_PHOTON_VISIT = 16
+OPS_PHOTON_EVAL = 230
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -1831,6 +1876,193 @@ def check_traverse_anim(dev) -> dict:
     return _check_forest_walk(dev, moving=True)
 
 
+def _caustics_driver(dev, res=CAUSTICS_RES, spp=CAUSTICS_SPP, paths=None):
+    """A Driver on caustics_photons.take at res and spp (paths: photon
+    paths, the take's 200,000 by default), its map baked; logs the bake's
+    seconds, the valid photons, the fullest bucket and the scan bound."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+
+    take, scene = _take_scene("caustics_photons.take", res, spp, "caustics")
+    if paths is not None:
+        take.photon.num_photons = paths
+    driver = Driver(take, scene, device=dev)
+    t0 = time.perf_counter()
+    driver.bake_photons()
+    torch.cuda.synchronize()
+    pm = driver._photon_map
+    log(f"caustics {res[0]}x{res[1]}: bake of {take.photon.num_photons} paths "
+        f"{time.perf_counter() - t0:.4f} s (first bake of the process: with its isect "
+        f"and sobol_block loads), {int(pm.cell_start[-1])} valid photons of "
+        f"{pm.p.shape[0]} slots in {int((torch.diff(pm.cell_start) > 0).sum())} buckets, "
+        f"fullest bucket {int(torch.diff(pm.cell_start).max())}, max_per_cell {pm.max_per_cell}")
+    return driver
+
+
+def _caustics_gather_inputs(driver) -> dict:
+    """The arguments of the general body's first photon gather of one
+    render (the first bounce: every lane a camera ray), captured at the
+    call."""
+    import torch
+    from zyg_tpu_torch.render.integrator import photon as photon_mod
+
+    orig = photon_mod.gather
+    seen = []
+
+    def capture(pmap, params, pos, wo, ns, geo_n, active):
+        if not seen:
+            seen.append({"params": {k: v.clone() if isinstance(v, torch.Tensor) else v
+                                    for k, v in params.items()},
+                         "pos": pos.clone(), "wo": wo.clone(), "n": ns.clone(),
+                         "geo_n": geo_n.clone(), "active": active.clone(),
+                         "max_per_cell": pmap.max_per_cell})
+        return orig(pmap, params, pos, wo, ns, geo_n, active)
+
+    photon_mod.gather = capture
+    try:
+        driver.start_frame()
+        driver.render_iterations(1)
+        torch.cuda.synchronize()
+    finally:
+        photon_mod.gather = orig
+    return seen[0]
+
+
+def _compare_gather(got, want) -> tuple:
+    """(max abs difference, its largest share of the tolerance): each lane
+    within 2e-3 of its largest channel plus 1e-6 of the batch's largest
+    value (the BSDF's rounding, shade_core.cuh's against
+    render/materials.py's)."""
+    import torch
+
+    if want.numel() == 0:
+        return 0.0, 0.0
+    err = (got.double() - want.double()).abs().amax(dim=1)
+    tol = 2e-3 * want.abs().amax(dim=1).double() + 1e-6 * float(want.abs().max())
+    if not torch.isfinite(got).all() or ((got.amax(dim=1) > 0) != (want.amax(dim=1) > 0)).any():
+        raise AssertionError("photon_gather: non-finite values, or lanes lit on one side only")
+    worst = float((err / torch.clamp(tol, min=1e-30)).max())
+    if worst > 1.0:
+        raise AssertionError(f"photon_gather disagrees with its plain version ({worst:.3g} of "
+                             "the tolerance)")
+    return float(err.max()), worst
+
+
+def gather_visits(ph_p, ph_wi, cell_start, pos, n, active, radius: float,
+                  max_per_cell: int) -> dict:
+    """What a photon gather's data asks of it: "visits", the bucket
+    entries its active lanes scan (the kernel loop's trips), from
+    "visiting" lanes; "in_range", those within r on the front, which
+    evaluate the BSDF, on "lit" lanes; "rows" and "rows_in_range", the
+    distinct photon rows of each; "buckets", the distinct buckets its
+    active lanes look up."""
+    import torch
+    from zyg_tpu_torch.ops import photon as op
+
+    _, _, _, _, lane, j, _ = op._pairs(cell_start, pos, active, radius, max_per_cell)
+    rad, inv_cell, r2 = op.scalars(radius, 1)[:3]
+    ok = op._in_range(ph_p, ph_wi, pos, n, lane, j, r2)[2]
+    looked = torch.cat([torch.where(active & ~dup, h, -1)
+                        for dup, h in op._cells(pos, rad, inv_cell)])
+    return {"visits": int(j.shape[0]), "visiting": int(torch.unique(lane).shape[0]),
+            "in_range": int(ok.sum()), "lit": int(torch.unique(lane[ok]).shape[0]),
+            "rows": int(torch.unique(j).shape[0]),
+            "rows_in_range": int(torch.unique(j[ok]).shape[0]),
+            "buckets": int((torch.unique(looked) >= 0).sum())}
+
+
+def check_photon_gather(dev) -> dict:
+    """The photon gather on caustics_photons.take's first-bounce lanes at
+    its own 480x270 over the map baked on the card from the take's 200,000
+    paths, against its plain version on the card; then on a seeded dense
+    map whose buckets hold ~900 photons (the 64-photon cap binds) at 64 and
+    at 4."""
+    import torch
+    from zyg_tpu_torch.ops import photon as op
+    from zyg_tpu_torch.render.integrator import photon as photon_mod
+
+    driver = _caustics_driver(dev)
+    pm = driver._photon_map
+    a = _caustics_gather_inputs(driver)
+    params = a["params"]
+    cap = a["max_per_cell"]
+    args = (pm.p, pm.wi, pm.alpha, pm.cell_start, params, a["pos"], a["wo"], a["n"],
+            a["geo_n"], a["active"], pm.radius, pm.num_paths, cap)
+    n = a["pos"].shape[0]
+
+    def kern():
+        return op.photon_gather(*args)
+
+    def plain():
+        return op.photon_gather_plain(*args)
+
+    got, want = kern(), plain()
+    err, worst = _compare_gather(got, want)
+    v = gather_visits(pm.p, pm.wi, pm.cell_start, a["pos"], a["n"], a["active"], pm.radius,
+                      cap)
+    active = int(a["active"].sum())
+    lit = int((want.amax(dim=1) > 0).sum())
+    # the bytes this run's data needs, each read once: every lane's active
+    # flag and output; an active lane's point; a visiting lane's normal; a
+    # lit lane's wo, geometric normal and material; each bucket looked up
+    # (its two bounds); a visited photon's point and direction, an in-range
+    # one's power; the fit table. The map's other rows are never read
+    mat_bytes = sum(params[k].element_size() * params[k][0].numel()
+                    for k in ("albedo", "f0", "alpha", "metallic", "specular"))
+    nbytes = (n * 13 + active * 12 + v["visiting"] * 12 + v["lit"] * (24 + mat_bytes)
+              + v["buckets"] * 8 + v["rows"] * 24 + v["rows_in_range"] * 12 + 112 * 4)
+    lane_bytes = 4 * 12 + 1 + mat_bytes
+    whole = n * (lane_bytes + 12) + 3 * pm.p.numel() * 4 + pm.cell_start.numel() * 4 + 112 * 4
+    b = bound(nbytes, active * OPS_PHOTON_CELLS + v["lit"] * OPS_PHOTON_TERMS
+              + v["visits"] * OPS_PHOTON_VISIT + v["in_range"] * OPS_PHOTON_EVAL)
+    res = {"max_abs_err": err, "ms": time_ms(kern, 20),
+           "device_ms": device_ms(kern, "photon_gather"),
+           "plain_ms": time_ms(plain, 2, runs=3), "library_ms": None, **b}
+    log(f"photon_gather on caustics' first bounce, {n} lanes: {active} gather "
+        f"({active / n:.4f}), {lit} lit; {v['visits']} photon visits "
+        f"({v['visits'] / max(active, 1):.3f} a gathering lane) from {v['visiting']} lanes, "
+        f"{v['in_range']} in range on {v['lit']} lanes, {v['rows']} photon rows "
+        f"({v['rows_in_range']} in range) and {v['buckets']} buckets touched; max_per_cell "
+        f"{cap}; max_abs_err {err:.3g} ({worst:.3f} of the tolerance); bytes needed {nbytes} "
+        f"(every lane's inputs and the whole map read once: {whole} B, "
+        f"{bound(whole, 0)['bound_ms']:.4f} ms)")
+
+    # a seeded dense map: 200,000 photons in a 0.6 m cube of 0.1 m cells
+    g = torch.Generator(device=dev).manual_seed(31)
+    m, nd = 200_000, 16_384
+    p = (torch.rand((m, 3), device=dev, generator=g) - 0.5) * 0.6
+    wi = torch.nn.functional.normalize(torch.randn((m, 3), device=dev, generator=g), dim=1)
+    power = torch.rand((m, 3), device=dev, generator=g)
+    dmap = photon_mod.build_map(p, wi, power, torch.ones(m, dtype=torch.bool, device=dev), 0.05,
+                                m)
+    pos = (torch.rand((nd, 3), device=dev, generator=g) - 0.5) * 0.6
+    nrm = torch.nn.functional.normalize(torch.randn((nd, 3), device=dev, generator=g), dim=1)
+    wo = torch.nn.functional.normalize(torch.randn((nd, 3), device=dev, generator=g), dim=1)
+    wo = torch.where(((wo * nrm).sum(1) < 0)[:, None], -wo, wo).contiguous()
+    # the materials of the take's gathering lanes (Substitutes: the kernel
+    # evaluates no other BSDF, and the body gathers on no other lane)
+    gathering = torch.nonzero(a["active"]).squeeze(1)
+    rows = gathering[torch.randint(0, gathering.shape[0], (nd,), device=dev, generator=g)]
+    drows = {k: v[rows].contiguous() if isinstance(v, torch.Tensor) else v
+             for k, v in params.items()}
+    active_d = torch.rand(nd, device=dev, generator=g) < 0.9
+    fullest = int(torch.diff(dmap.cell_start).max())
+    dense = {"fullest_bucket": fullest}
+    for dcap in (64, 4):
+        dargs = (dmap.p, dmap.wi, dmap.alpha, dmap.cell_start, drows, pos, wo, nrm, nrm,
+                 active_d, 0.05, m, dcap)
+        derr, dworst = _compare_gather(op.photon_gather(*dargs), op.photon_gather_plain(*dargs))
+        dense[f"cap{dcap}"] = {"max_abs_err": derr, "share_of_tolerance": dworst,
+                               "ms": time_ms(lambda: op.photon_gather(*dargs), 5)}
+    log(f"photon_gather on a dense map ({m} photons, fullest bucket {fullest}), {nd} lanes: "
+        f"{dense}")
+    if fullest <= 64:
+        raise AssertionError("the dense map does not exercise the 64-photon cap")
+    res["dense"] = dense
+    del driver
+    return res
+
+
 def lane_sets(kernel: str, st: dict, ua, out: dict, max_depth: int, nee_only: bool,
               tables=None) -> dict:
     """The lane sets of ops/surface.py's and ops/surface_v2.py's LANE_READS
@@ -2662,6 +2894,77 @@ def phase_slice_motion(dev) -> None:
                                      "is smeared across its path")
 
 
+def lamp_root() -> dict:
+    """A Substitute floor and ball under a Sphere lamp and a two-sided Disk
+    lamp: kernel 6's bounce with both new light shapes (the light tree
+    over two finite lights)."""
+    return {
+        "materials": [
+            {"name": "floor", "rendering": {"Substitute": {"color": [0.5, 0.48, 0.45],
+                                                           "roughness": 0.7}}},
+            {"name": "ball", "rendering": {"Substitute": {"color": [0.7, 0.25, 0.2],
+                                                          "roughness": 0.35}}},
+            {"name": "warm", "rendering": {"Light": {"emittance": {
+                "spectrum": [1.0, 0.85, 0.6], "value": 40.0}}}},
+            {"name": "cool", "rendering": {"Light": {"emittance": {
+                "spectrum": [0.6, 0.8, 1.0], "value": 12.0}, "two_sided": True}}},
+        ],
+        "entities": [
+            {"type": "Prop", "shape": {"type": "Rectangle"}, "materials": ["floor"],
+             "transformation": {"rotation": [90, 0, 0], "scale": [8, 8, 1]}},
+            {"type": "Prop", "shape": {"type": "Sphere"}, "materials": ["ball"],
+             "transformation": {"position": [0.2, 0.6, 0.3], "scale": [1.2, 1.2, 1.2]}},
+            {"type": "Light", "shape": {"type": "Sphere"}, "materials": ["warm"],
+             "transformation": {"position": [1.4, 2.2, -0.4], "scale": [0.3, 0.3, 0.3]}},
+            {"type": "Light", "shape": {"type": "Disk"}, "materials": ["cool"],
+             "transformation": {"position": [-1.2, 2.6, 0.8], "rotation": [-80, 20, 0],
+                                "scale": [0.9, 0.9, 1]}},
+        ],
+    }
+
+
+def phase_slice_caustics(dev) -> None:
+    """caustics_photons.take at 96x56, 8 spp with 100,000 photon paths (the
+    bake and the gather on each device) and the Sphere/Disk lamp scene at
+    96x64, 8 spp through kernel 6, on the card against the plain CPU
+    path."""
+    import torch
+    from zyg_tpu_torch.io.take import load_take_dict
+    from zyg_tpu_torch.ops.surface_v2 import structural_ok_mesh_v2
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_dict, load_scene_file
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    take = _take("caustics_photons.take", (96, 56), 8)
+    take.photon.num_photons = 100_000
+    scene = load_scene_file(take.scene_filename)
+    imgs, secs = [], []
+    for device in (dev, "cpu"):
+        t0 = time.perf_counter()
+        imgs.append(Driver(take, scene, device=device).render_frame())
+        secs.append(time.perf_counter() - t0)
+    _golden_gate(imgs[0], imgs[1], "caustics 96x56x8 (100,000 paths)",
+                 f"card {secs[0]:.2f} s, cpu {secs[1]:.2f} s")
+    take = load_take_dict({
+        "camera": {"Perspective": {
+            "parameters": {"fov": 65},
+            "transformation": {"position": [0, 1.6, -3.8], "rotation": [16, 0, 0]},
+            "resolution": [96, 64]}},
+        "sampler": {"Sobol": {"samples_per_pixel": 8}},
+        "integrator": {"surface": {"PTMIS": {"depth": {"surface": 6}}}},
+    })
+    scene = load_scene_dict(lamp_root())
+    if not structural_ok_mesh_v2(scene):
+        raise AssertionError("the Sphere/Disk lamp scene does not take kernel 6's bounce")
+    imgs, secs = [], []
+    for device in (dev, "cpu"):
+        t0 = time.perf_counter()
+        imgs.append(Driver(take, scene, device=device).render_frame())
+        secs.append(time.perf_counter() - t0)
+    _golden_gate(imgs[0], imgs[1], "Sphere/Disk lamps 96x64x8",
+                 f"card {secs[0]:.2f} s, cpu {secs[1]:.2f} s")
+
+
 def general_profile(driver, spp: int) -> str:
     """The general body's loop over one render, counted on the host around
     the calls (so the render is not timed): its iterations over all chunks
@@ -2909,8 +3212,14 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
     (on the scan path, which flushes nothing, the peak is read over the
     timed renders), and with lanes_of ("surface" or "surface_v2") that
     kernel's lane shares in one more render, or ("general") the general
-    body's iterations and split resumes. Returns the kernel launches of
-    one render."""
+    body's iterations and split resumes. A render over SLOW_RENDER_S
+    profiles only its first chunk, of at most SLOW_PROFILE_SPP samples (a
+    trace of ~7,000 launches an iteration takes as long to read as to
+    record), and takes its peak memory over the timed renders, with no
+    flush-share render. Once the script has run SCRIPT_BUDGET_S, a path
+    is timed once, with no profile and no further render. A take with a photon
+    map bakes it first, twice, each bake timed. Returns the kernel
+    launches of one render."""
     import numpy as np
     import torch
     from zyg_tpu_torch import ops
@@ -2918,6 +3227,16 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
 
     res, spp = take.cameras[0].resolution, take.num_samples_per_pixel
     driver = Driver(take, scene, device=dev)
+    if take.photon.num_photons > 0:
+        # the frame's photon map, timed on its own (twice: the first bake
+        # of a map this size allocates its buffers)
+        for run in range(2):
+            t0 = time.perf_counter()
+            driver.bake_photons()
+            torch.cuda.synchronize()
+            log(f"{label}: photon bake {run} of {take.photon.num_photons} paths "
+                f"{time.perf_counter() - t0:.4f} s, {int(driver._photon_map.cell_start[-1])} "
+                f"valid photons, max_per_cell {driver._photon_map.max_per_cell}")
     driver.start_frame()
     driver.render_iterations(driver.chunk_size if driver.persistent else 1)  # warm-up
     torch.cuda.synchronize()
@@ -2925,7 +3244,8 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
     torch.cuda.reset_peak_memory_stats(dev)
     best = None
     runs = 0
-    while runs < 3 and not (runs == 2 and best["seconds"] > SLOW_RENDER_S):
+    late = time.perf_counter() - _CLOCK[0] > SCRIPT_BUDGET_S
+    while runs < (1 if late else 3) and not (runs == 2 and best["seconds"] > SLOW_RENDER_S):
         driver.start_frame()
         t0 = time.perf_counter()
         driver.render_iterations(spp)
@@ -2951,9 +3271,18 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
         f"{best['all_iterations']} in all {best['dispatches']} dispatches (chunks x tiles), "
         f"{best['rays'] / best['seconds'] / 1e6:.2f} Mrays/s, image mean {float(img.mean()):.6f}, "
         f"launches per render {({k: v for k, v in per_render.items() if v})}")
-    glue = profile_render(driver, spp, f"{label} {res[0]}x{res[1]} [{card}]", kernels)
+    if late:
+        log(f"{label} [{card}]: the script is past {SCRIPT_BUDGET_S:.0f} s: timed once, not "
+            f"profiled; peak device memory of one render {peak} B ({peak / 2**30:.3f} GiB)")
+        return per_render
+    slow = best["seconds"] > SLOW_RENDER_S
+    prof_spp = min(driver.chunk_size, SLOW_PROFILE_SPP, spp) if slow else spp
+    glue = profile_render(driver, prof_spp,
+                          f"{label} {res[0]}x{res[1]}{f' ({prof_spp} spp)' * (prof_spp != spp)} "
+                          f"[{card}]", kernels)
+    prof_iterations = max(driver.iterations, 1)
     shares = ""
-    if driver.persistent:
+    if driver.persistent and not slow:
         # one more render gives both the peak memory and the flush shares
         # (the host's counting adds a bool per lane and flush to the
         # device's tensors)
@@ -2963,8 +3292,8 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
         shares = (f"; flushes finish {full:.4f} of the lanes of a full-width launch, {mean:.4f} "
                   f"over all launches")
     log(f"{label} [{card}]: peak device memory of one render {peak} B ({peak / 2**30:.3f} GiB); "
-        f"glue launches per render {glue} ({glue / max(best['all_iterations'], 1):.0f} an "
-        f"iteration){shares}")
+        f"glue launches per profiled render ({prof_spp} spp) {glue} "
+        f"({glue / prof_iterations:.0f} an iteration){shares}")
     if lanes_of == "general":
         log(f"{label} [{card}]: {general_profile(driver, spp)}")
     elif lanes_of:
@@ -3027,6 +3356,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     checks["surface_v2"]["portal"] = check_surface_v2_portal(dev)
     torch.cuda.empty_cache()
+    checks["photon_gather"] = check_photon_gather(dev)
+    torch.cuda.empty_cache()
     for name in SOURCES:
         c = checks[name]
         lib = f", library {c['library_ms']:.4f} ms" if c["library_ms"] is not None else ""
@@ -3048,7 +3379,7 @@ def main() -> int:
     for phase in (phase_slice, phase_slice_mesh, phase_slice_textured, phase_slice_sunsky,
                   phase_slice_hero, phase_slice_portal, phase_slice_tree, phase_slice_material,
                   phase_slice_smoke, phase_slice_fire, phase_slice_cornell_variants,
-                  phase_slice_motion):
+                  phase_slice_motion, phase_slice_caustics):
         phase(dev)
         mark(phase.__name__)
     # launches: the CLI runs of the Cornell, trefoil, sunsky, hero,
@@ -3149,6 +3480,16 @@ def main() -> int:
         mark(f"main path {label}")
     frames = _cli_frames("motion.take", MOTION_KERNELS)
     mark("motion frames 0-1")
+    # the photon-map path at the take's own size: the CLI (bake and
+    # render), then the Driver (the bake timed on its own, then the render)
+    caustics_cli = _cli_run("caustics_photons.take", CAUSTICS_KERNELS)
+    for k in launches:
+        launches[k] += caustics_cli[k]
+    caustics = phase_main_path(
+        dev, card, "caustics_photons PTMIS",
+        *_take_scene("caustics_photons.take", CAUSTICS_RES, CAUSTICS_SPP,
+                     "caustics_photons PTMIS"), CAUSTICS_KERNELS)
+    mark("main path caustics_photons")
     measure_bounces(dev, card)
     mark("bounces")
 
@@ -3162,7 +3503,9 @@ def main() -> int:
                                "1280x720 4 spp textured-trefoil render + cli cornell.take, "
                                "cornell_filtered.take, cornell_ao.take, "
                                "cornell_aov_normals.take and cornell_aovs.take + cli "
-                               "forest.take + cli motion.take",
+                               "forest.take + cli motion.take + cli caustics_photons.take",
+                "launches_caustics_cli": caustics_cli[name],
+                "launches_caustics_render": caustics[name],
                 "launches_forest_cli": paths["forest.take"][0][name],
                 "launches_forest_render": paths["forest.take"][1][name],
                 "launches_motion_cli": paths["motion.take"][0][name],
@@ -3189,7 +3532,9 @@ def main() -> int:
                                                     "plain_ms", "bound_ms", "bound_by")}
                    for lanes in ("hero", "portal", "forest") if lanes in c},
                 # the motion-blur variant's share of lanes equal bit for bit
-                **({"exact_share": c["exact_share"]} if "exact_share" in c else {})}
+                **({"exact_share": c["exact_share"]} if "exact_share" in c else {}),
+                # the photon gather again on a dense map, the cap binding
+                **({"dense": c["dense"]} if "dense" in c else {})}
 
     print(json.dumps({"kernels": [entry(k) for k in SOURCES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,8 +9,10 @@ interaction walk's emissive variant on the fire path's lanes, the
 general body over fire.scene, kernel 6 on hero.take's and portal.take's
 first bounce, isect on portal.scene's tables, the filtered flush at
 the Cornell path's width and at small widths in its three footprint
-rules, and the traversal over forest.take's 144 instances and its
-motion-blur variant (kAnim) at seeded shutter times. Skipped without a card. This file imports no jax, so it also runs on a
+rules, the traversal over forest.take's 144 instances and its
+motion-blur variant (kAnim) at seeded shutter times, and the photon
+gather on caustics_photons.take's first bounce, a dense map and small
+widths. Skipped without a card. This file imports no jax, so it also runs on a
 machine without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -593,3 +595,84 @@ def test_fire_body_on_card_matches_cpu(cuda_device):
         a, b = getattr(r1.result, c).cpu().double(), getattr(r2.result, c).double()
         assert float(((a - b).abs() / (b.abs() + 1e-3)).max()) < tol, c
     assert float(r2.result.direct.sum()) > 0.0
+
+
+def test_photon_gather_matches_plain_on_card(cuda_device):
+    """The photon gather on caustics_photons.take's first-bounce lanes at
+    480x270 over its 200,000-path map baked on the card, and on a dense
+    map whose buckets exceed the 64-photon cap, at caps 64 and 4 (each
+    lane within 2e-3 of its largest channel plus 1e-6 of the batch's
+    largest value: shade_core.cuh's BSDF against render/materials.py's)."""
+    import chip_smoke
+
+    result = chip_smoke.check_photon_gather(cuda_device)  # raises on any disagreement
+    assert result["ms"] > 0.0 and result["dense"]["fullest_bucket"] > 64
+
+
+def _gather_case(dev, n, seed=21):
+    """A seeded photon cloud's map and n lanes in it with a Substitute's
+    parameters (the dense check's construction at small widths)."""
+    from zyg_tpu_torch.render import materials as M
+    from zyg_tpu_torch.render.integrator import photon as photon_mod
+    from zyg_tpu_torch.scene.loader import load_scene_dict
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    m = 20_000
+    p = (torch.rand((m, 3), generator=g) - 0.5) * 0.6
+    wi = torch.nn.functional.normalize(torch.randn((m, 3), generator=g), dim=1)
+    pmap = photon_mod.build_map(p.to(dev), wi.to(dev), torch.rand((m, 3), generator=g).to(dev),
+                                torch.ones(m, dtype=torch.bool, device=dev), 0.05, m)
+    pos = ((torch.rand((n, 3), generator=g) - 0.5) * 0.6).to(dev)
+    nrm = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=1).to(dev)
+    scene = load_scene_dict({
+        "materials": [{"name": "a", "rendering": {"Substitute": {"roughness": 0.5}}},
+                      {"name": "l", "rendering": {"Light": {"emittance": {"value": 1.0}}}}],
+        "entities": [{"type": "Prop", "shape": {"type": "Rectangle"}, "materials": ["a"]},
+                     {"type": "Light", "shape": {"type": "Sphere"}, "materials": ["l"]}]}, dev)
+    params = M.gather(scene.materials, torch.zeros(n, dtype=torch.int32, device=dev),
+                      medium_ior=torch.ones(n, device=dev), features=scene.mat_features)
+    return pmap, params, pos, nrm
+
+
+@pytest.mark.parametrize("case", [0, 1, 31, 129, 4096, "all inactive"])
+def test_photon_gather_launch_shapes(cuda_device, case):
+    import chip_smoke
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.ops import photon as op
+
+    n = 4096 if case == "all inactive" else case
+    pmap, params, pos, nrm = _gather_case(cuda_device, n)
+    active = torch.full((n,), case != "all inactive", dtype=torch.bool, device=cuda_device)
+    args = (pmap.p, pmap.wi, pmap.alpha, pmap.cell_start, params, pos, nrm, nrm, nrm, active,
+            0.05, 20_000, 64)
+    before = ops.launch_counts()["photon_gather"]
+    got = op.photon_gather(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["photon_gather"] == before + (n > 0)
+    assert got.shape == (n, 3) and got.device.type == "cuda"
+    if case == "all inactive":
+        assert not got.any()
+    chip_smoke._compare_gather(got, op.photon_gather_plain(*args))
+
+
+def test_photon_gather_refuses_what_it_cannot_take(cuda_device):
+    from zyg_tpu_torch.ops import photon as op
+
+    pmap, params, pos, nrm = _gather_case(cuda_device, 64)
+    active = torch.ones(64, dtype=torch.bool, device=cuda_device)
+    args = [pmap.p, pmap.wi, pmap.alpha, pmap.cell_start, params, pos, nrm, nrm, nrm, active,
+            0.05, 20_000, 64]
+    with pytest.raises(ValueError, match="rough glass"):
+        op.photon_gather(*args[:4], {**params, "features": {"rough_glass"}}, *args[5:])
+    bad = list(args)
+    bad[5] = pos.double()
+    with pytest.raises(ValueError, match="float32"):
+        op.photon_gather(*bad)
+    bad = list(args)
+    bad[6] = nrm.t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        op.photon_gather(*bad)
+    bad = list(args)
+    bad[3] = pmap.cell_start[:-1]
+    with pytest.raises(ValueError, match="shape"):
+        op.photon_gather(*bad)

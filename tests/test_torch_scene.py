@@ -78,12 +78,12 @@ def test_euler_rotation_matches_jax():
         {"materials": [{"name": "g", "rendering": {"Glass": {}}}],
          "entities": [{"type": "Prop", "shape": {"type": "Rectangle"}, "materials": ["g"]}]},
         {"entities": [{"type": "Prop", "shape": {"file": "mesh.obj"}}]},
-        {"entities": [{"type": "Light", "shape": {"type": "Sphere"},
+        {"entities": [{"type": "Light", "shape": {"type": "Cube"},
                        "materials": ["l"]}],
          "materials": [{"name": "l", "rendering": {"Light": {"emittance": {"value": 1}}}}]},
         {"entities": [{"type": "Prop", "shape": {"type": "Cube"}}]},
     ],
-    ids=["glass", "mesh", "sphere_light", "no_light"],
+    ids=["glass", "mesh", "cube_light", "no_light"],
 )
 def test_loader_refuses_outside_the_subset(scene):
     from zyg_tpu_torch.scene.loader import UnsupportedScene, load_scene_dict
@@ -100,8 +100,6 @@ def _light(shape, **extra):
 @pytest.mark.parametrize(
     "scene,reason",
     [
-        (_light({"type": "Sphere"}), "Sphere lights"),
-        (_light({"type": "Disk"}), "Disk lights"),
         (_light({"type": "Cube"}), "Cube lights"),
         (_light({"file": "proc:cube"}), "emissive meshes"),
         ({"entities": [{"type": "Instancer", "prototypes": []}]}, r"Instancer keys \['prototypes'\]"),
@@ -110,8 +108,7 @@ def _light(shape, **extra):
                                                               "scale": 2}}}]}, "Sky keys"),
         ({"entities": [{"type": "Camera"}]}, "entity 'Camera'"),
     ],
-    ids=["sphere_light", "disk_light", "cube_light", "mesh_light", "instancer", "hair_file",
-         "sky_key", "other_entity"],
+    ids=["cube_light", "mesh_light", "instancer", "hair_file", "sky_key", "other_entity"],
 )
 def test_loader_names_what_it_refuses(scene, reason):
     """Each light kind, entity and Sky parameter outside the port's subset

@@ -261,9 +261,14 @@ def test_v2_bounce_gates(jax_scene, port_scene):
     analytic = dataclasses.replace(port_scene, meshes=None, mesh_instances=None)
     assert not shade.structural_ok(analytic)
     assert surface_v2.structural_ok_mesh_v2(analytic)
-    # light shapes the port does not sample
-    sphere = dataclasses.replace(port_scene, prop_shape=port_scene.prop_shape.clone())
-    sphere.prop_shape[2] = int(ShapeType.SPHERE)
-    assert not surface_v2.structural_ok_mesh_v2(sphere)
+    # light shapes the port does not sample (a Cube's surface: the port
+    # samples Sphere and Disk lights since they joined kernel 6's glue)
+    cube = dataclasses.replace(port_scene, prop_shape=port_scene.prop_shape.clone())
+    cube.prop_shape[2] = int(ShapeType.CUBE)
+    assert not surface_v2.structural_ok_mesh_v2(cube)
     with pytest.raises(ValueError):
-        surface_v2.make_mesh_fused_body_v2(sphere, None)
+        surface_v2.make_mesh_fused_body_v2(cube, None)
+    for shape in (ShapeType.SPHERE, ShapeType.DISK):
+        lamp = dataclasses.replace(port_scene, prop_shape=port_scene.prop_shape.clone())
+        lamp.prop_shape[2] = int(shape)
+        assert surface_v2.structural_ok_mesh_v2(lamp)

@@ -163,3 +163,16 @@ def sample_disk_concentric(uv):
     x = torch.where(zero, 0.0, r * torch.cos(phi))
     y = torch.where(zero, 0.0, r * torch.sin(phi))
     return torch.stack([x, y], dim=-1)
+
+
+def sample_sphere_uniform(uv):
+    """Uniform direction on the unit sphere (zyg_tpu/core/vecmath.py:293-298):
+    uv [..., 2] -> (direction [..., 3], pdf 1/(4 pi) [...]). 1 - z*z is
+    fused as XLA fuses it; XLA's cos and sin round apart from torch's by
+    an ulp on a few percent of the lanes."""
+    u, v = uv[..., 0], uv[..., 1]
+    z = 1.0 - 2.0 * u
+    r = sqrt(torch.clamp(fma(-z, z, 1.0), min=0.0))
+    phi = (2.0 * math.pi) * v
+    return (torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1),
+            torch.full_like(u, 1.0 / (4.0 * math.pi)))

@@ -9,9 +9,10 @@ integrator (depth.surface and depth.volume, caustics, bsdf_split,
 light_sampling.split_threshold; regularize_roughness only at 0; the AOV
 integrator's value, num_samples and radius), the sensor's clamp,
 Blackman or Mitchell filter (always at radius 2) and alpha_transparency,
-the root `aov` classes, a tonemapper with exposure, and PNG, EXR or RGBE
-image export. Anything else raises `UnsupportedTake`, and so does the
-AOV integrator's Photon value (the photon map is not ported).
+the root `aov` classes, the root `photon` settings (the photon map), a
+tonemapper with exposure, and PNG, EXR or RGBE image export. Anything
+else raises `UnsupportedTake`, and so does the AOV integrator's Photon
+value (its wiring to the photon map is not ported).
 """
 
 from __future__ import annotations
@@ -48,6 +49,20 @@ class IntegratorSettings:
     aov_value: str = "AO"
     aov_num_samples: int = 1
     aov_radius: float = 1.0
+
+
+@dataclass
+class PhotonSettings:
+    """The photon map's settings (zyg_tpu/io/take.py:40-51)."""
+
+    num_photons: int = 0  # photon paths a frame; 0: no photon map
+    max_bounces: int = 2
+    search_radius: float = 0.01
+    full_light_path: bool = False
+    # gather at every primary diffuse vertex, not only after specular
+    # chains: set where the take traces no particles (the port refuses
+    # the `particle` key, so always)
+    not_only_through_specular: bool = False
 
 
 @dataclass
@@ -88,6 +103,7 @@ class Take:
     exporters: list[Exporter] = field(default_factory=list)
     # enabled sensor AOV classes (keys of ptmis.AOV_SPECS)
     aovs: tuple = ()
+    photon: PhotonSettings = field(default_factory=PhotonSettings)
 
 
 def _only(node: dict, allowed: set, what: str) -> None:
@@ -158,7 +174,8 @@ def _load_integrator(node: dict, take: Take) -> None:
         if kind == "AOV":
             s.aov_value = str(body.get("value", "AO"))
             if s.aov_value == "Photon":
-                raise UnsupportedTake("AOV value 'Photon' (the photon map is not ported)")
+                raise UnsupportedTake("AOV value 'Photon' (its wiring to the photon map is "
+                                      "not ported)")
             if s.aov_value not in AOV_VALUES:  # the AOV integrator's values
                 raise UnsupportedTake(f"AOV value {s.aov_value!r}")
             s.aov_num_samples = int(body.get("num_samples", 1))
@@ -190,8 +207,8 @@ def _load_sensor(node: dict) -> SensorSettings:
 
 
 def load_take_dict(root: dict, base_dir: str = "") -> Take:
-    _only(root, {"scene", "camera", "sampler", "integrator", "sensor", "aov", "post", "export"},
-          "take")
+    _only(root, {"scene", "camera", "sampler", "integrator", "sensor", "aov", "photon", "post",
+                 "export"}, "take")
     take = Take()
     take.scene_filename = root.get("scene", "")
     if take.scene_filename and base_dir:
@@ -208,6 +225,17 @@ def load_take_dict(root: dict, base_dir: str = "") -> Take:
         take.sensor = _load_sensor(root["sensor"])
     if isinstance(root.get("aov"), dict):
         take.aovs = parse_aovs(root["aov"])
+    ph = root.get("photon")
+    if isinstance(ph, dict):
+        _only(ph, {"num_photons", "max_bounces", "search_radius", "full_light_path"}, "photon")
+        take.photon = PhotonSettings(
+            num_photons=int(ph.get("num_photons", 0)),
+            max_bounces=int(ph.get("max_bounces", 2)),
+            search_radius=float(ph.get("search_radius", 0.01)),
+            full_light_path=bool(ph.get("full_light_path", False)),
+            # the JAX rule (num_particles_per_pixel == 0): no particle pass
+            not_only_through_specular=True,
+        )
     for pp in root.get("post", []):
         _only(pp, {"tonemapper"}, "post")
         for tname, tbody in pp["tonemapper"].items():

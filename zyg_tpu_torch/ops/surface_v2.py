@@ -15,8 +15,8 @@ the kernel:
           the normal map -> materials.gather (stochastic color and
           roughness texels, bilinear emission maps, the analytic Checker
           and Noise nodes point-sampled, IES profiles) -> eval_radiance ->
-          light_hit_pdf * light_select_pdf (rectangle SphQuad, canopy,
-          dome, distant cone, env-map density, the portal's windowed
+          light_hit_pdf * light_select_pdf (rectangle SphQuad, sphere
+          cone, disk, canopy, dome, distant cone, env-map density, the portal's windowed
           density; the light tree's pdf at the previous vertex) ->
           select_light (the power CDF, or the tree's descent at the hit) /
           sample_light / light_radiance (the NEE candidate: direction,
@@ -229,8 +229,8 @@ def surface_v2(fit, st: dict, ua, ub, max_depth: int, caustics: bool, nee_only: 
     return _surface_v2_cuda(fit, st, ua, ub, int(max_depth), bool(caustics), bool(nee_only))
 
 
-_V2_LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.CANOPY), int(ShapeType.DOME),
-                    int(ShapeType.DISTANT), ls.PORTAL}
+_V2_LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.SPHERE), int(ShapeType.DISK),
+                    int(ShapeType.CANOPY), int(ShapeType.DOME), int(ShapeType.DISTANT), ls.PORTAL}
 # the material features whose machinery runs in the glue (the JAX
 # package's _V2_XLA_SIDE_FEATURES)
 _V2_FEATURES = {"ies", "triplanar"}
@@ -240,7 +240,7 @@ _INF_SHADOW_TMAX = float(np.float32(RAY_MAX_T) * np.float32(0.9))
 
 def structural_ok_mesh_v2(scene) -> bool:
     """Can this scene run the general bounce? (at least one light, all
-    rectangles, canopies, domes, distant lights or portals; substitute and
+    rectangles, spheres, disks, canopies, domes, distant lights or portals; substitute and
     light materials with no feature but IES profiles and triplanar
     textures; analytic props the isect kernel tests)"""
     if scene.lights.count < 1:
@@ -315,7 +315,9 @@ class GeneralBounce:
         emission = torch.where(valid[:, None], M.eval_radiance(params, -s.d, frag.geo_n), 0.0)
         light_id = torch.where(valid, scene.prop_light[torch.clamp(hit.prop, min=0).long()], -1)
         if not self.settings.nee_only:
-            hit_lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d, time=s.time)
+            hit_lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d,
+                                       *ls.mis_hit(self.present, hit.t, frag, s.mis_o),
+                                       time=s.time)
                       * ls.light_select_pdf(scene, light_id, p=s.mis_o, n=s.mis_n))
         else:
             hit_lp = torch.zeros_like(hit.t)

@@ -14,7 +14,9 @@ Deterministic seeding law (ref worker.zig:136-149):
     pixel_id     = y * W + x
     sobol sample = pixel_id * num_expected_samples + iteration
     sobol seed   = iteration // num_expected_samples
-with num_expected_samples = max(spp, 2), as in the JAX driver.
+with num_expected_samples = max(spp, 2), as in the JAX driver. A take
+with a photon map bakes it first, each frame (`bake_photons`), and its
+dispatches gather it (the general body).
 """
 
 from __future__ import annotations
@@ -35,8 +37,10 @@ from ..scene.types import SceneData, UnsupportedScene
 from . import sensor as sensor_mod
 from .camera import generate_rays, sample_shutter_time
 from .integrator import aov as aov_mod
+from .integrator import photon as photon_mod
 from .integrator import pt as pt_mod
 from .integrator import ptmis as ptmis_mod
+from .integrator.lighttracer import check_emitters
 from .sensor import Framebuffer
 
 # the light tree's size from which the JAX Driver splits NEE over several
@@ -44,8 +48,9 @@ from .sensor import Framebuffer
 SPLIT_MIN_FINITE_LIGHTS = 16
 
 # samples per dispatch, by the JAX driver's rule (zyg_tpu/render/
-# driver.py:283-293): on the persistent path 8 for a scene with nested
-# device loops (of what the port loads, meshes and density grids), else 16
+# driver.py:279-293): on the persistent path 8 for a scene with nested
+# device loops (of what the port loads, meshes, density grids and photon
+# maps), else 16
 # for a shuffled dispatch and 64 for an unshuffled one (AOVs); on the scan
 # path min(16, _SCAN_LANES // pixels). The lane->pixel shuffle and the
 # final chunk's slack follow the chunk, so the port chunks the same way to
@@ -56,8 +61,8 @@ _CHUNK_UNSHUFFLED = 64
 _SCAN_LANES = 4_000_000
 # pixels per dispatch of a box-filtered scene with nested device loops, by
 # the JAX driver's tile rule (zyg_tpu/render/driver.py:185-190, :481-540):
-# mesh-only scenes in tiles of 2^21 pixels, scenes with density grids in
-# tiles of _HEAVY_TILE; each tile is its own dispatch with its own
+# mesh-only scenes in tiles of 2^21 pixels, scenes with density grids or
+# a photon map in tiles of _HEAVY_TILE; each tile is its own dispatch with its own
 # final-chunk slack, so the port tiles the same way. Filtered renders do
 # not tile: their splats cross tile borders.
 _HEAVY_TILE = 1 << 18
@@ -105,12 +110,19 @@ class Driver:
             max_depth=integ.max_depth_surface, max_depth_volume=integ.max_depth_volume,
             caustics=integ.caustics, nee_only=integ.kind == "PTDL", bsdf_split=integ.bsdf_split,
             collect_aovs=self.aov_names,
+            photons_not_only_through_specular=take.photon.not_only_through_specular,
         )
+        photons = take.photon.num_photons > 0
         # the dispatch's refusals surface here, not mid-render
         if self.persistent:
-            ptmis_mod.check_scene(scene, self.settings)
+            ptmis_mod.check_scene(scene, self.settings, photons=photons)
         else:
             self._check_scan_scene(scene)
+            if photons:
+                # the scan path bakes the map (its light paths) and does not
+                # gather it, as the JAX Driver does
+                check_emitters(scene)
+        self._photon_map = None  # the frame's photon map (bake_photons)
         self.device = resolve_device(device)
         self.scene = scene.to(self.device)
         self._pixel_ids = torch.arange(w * h, dtype=torch.int64, device=self.device)
@@ -120,7 +132,7 @@ class Driver:
         # so a dispatch with AOVs is unshuffled
         self._frame_width = w if (self.persistent and not self.aov_names) else 0
         spp = max(take.num_samples_per_pixel, 1)
-        self._heavy_loops = scene.meshes is not None or scene.grids is not None
+        self._heavy_loops = scene.meshes is not None or scene.grids is not None or photons
         if self.persistent:
             self.chunk_size = min(spp, _CHUNK_HEAVY if self._heavy_loops else (
                 _CHUNK if self._frame_width else _CHUNK_UNSHUFFLED))
@@ -167,12 +179,13 @@ class Driver:
         """The pixel ranges [t0, t1) of each dispatch of a chunk, as
         zyg_tpu/render/driver.py:484-519 cuts the frame: box-filtered scenes
         whose only nested loops are mesh walks in tiles of _MESH_TILE
-        pixels, with density grids of _HEAVY_TILE, the whole frame
-        otherwise."""
+        pixels, with density grids or a photon map of _HEAVY_TILE, the
+        whole frame otherwise."""
         n = self._pixel_ids.shape[0]
         tile = n
         if self._heavy_loops and self.filter_radius == 0:
-            tile = min(n, _MESH_TILE if self.scene.grids is None else _HEAVY_TILE)
+            mesh_only = self.scene.grids is None and self.take.photon.num_photons <= 0
+            tile = min(n, _MESH_TILE if mesh_only else _HEAVY_TILE)
         return [(t0, min(t0 + tile, n)) for t0 in range(0, n, tile)]
 
     def render_iterations(self, num: int | None = None) -> Framebuffer:
@@ -196,7 +209,7 @@ class Driver:
             max(self.take.num_samples_per_pixel, 2), self.settings, self._clamp_max,
             frame_width=self._frame_width, oversample_slack=slack,
             filter_name=self.take.sensor.filter_name, filter_radius=self.filter_radius,
-            resolution=self.camera.resolution,
+            resolution=self.camera.resolution, photon_map=self._photon_map,
         )
         self._fb.value[t0:t1] += acc
         self._fb.weight[t0:t1] += counts
@@ -259,9 +272,27 @@ class Driver:
         self.last_iterations = bounces
         self.iterations += bounces
 
+    def bake_photons(self) -> None:
+        """Trace the take's photon paths and build the hashed photon grid
+        (zyg_tpu/render/driver.py:557-588): path i's Sobol' sample index is
+        i * 2654435761 + 977 in uint32. The map carries the gather's scan
+        bound, the power of two at or above the fullest bucket."""
+        ps = self.take.photon
+        if ps.num_photons <= 0:
+            self._photon_map = None
+            return
+        keys = (mul_u32(torch.arange(ps.num_photons, dtype=torch.int64, device=self.device),
+                        2654435761) + 977) & MASK
+        p, wi, alpha, valid = photon_mod.bake(self.scene, keys, ps)
+        self._photon_map = photon_mod.build_map(p, wi, alpha, valid, ps.search_radius,
+                                                ps.num_photons)
+
     def render_frame(self) -> np.ndarray:
-        """Full frame at take spp. Returns linear [H, W, 3]."""
+        """Full frame at take spp, after the frame's photon bake. Returns
+        linear [H, W, 3]."""
         self.start_frame()
+        if self.take.photon.num_photons > 0:
+            self.bake_photons()
         if self.take.num_samples_per_pixel > 0:
             self.render_iterations(self.take.num_samples_per_pixel)
         return self.resolve()

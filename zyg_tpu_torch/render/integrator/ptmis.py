@@ -47,6 +47,10 @@ class PtmisSettings:
     # sensor AOV classes (keys of AOV_SPECS) collected at the primary hit
     # by the general body; () collects none
     collect_aovs: tuple = ()
+    # under a photon map: gather at every primary-chain vertex that can
+    # evaluate a BSDF, not only after a specular bounce (ref
+    # View.photons_not_only_through_specular)
+    photons_not_only_through_specular: bool = False
 
 
 # sensor AOV classes (ref aov_value.zig Class): name -> (channels,
@@ -261,19 +265,20 @@ def predivided_power_heuristic(f_pdf, g_pdf):
     return f_pdf / torch.clamp(g_pdf * g_pdf + f2, min=1e-20)
 
 
-def _make_body(scene, settings: PtmisSettings):
+def _make_body(scene, settings: PtmisSettings, photon_map=None):
     """One wavefront bounce (ptmis.py:326-352): the fused bounce for
     Cornell-class analytic scenes, the mesh bounce for untextured mesh
     scenes under rectangle lights, kernel 6's bounce for textured and
     env-lit scenes, and the general body for the rest (glass, media) and
-    for every dispatch that collects sensor AOVs (the JAX gates refuse AOVs
-    for kernels 3, 5 and 6: zyg_tpu/ops/shade.py:692, :1142, :1521); a
-    scene outside all four raises UnsupportedScene naming what it lacks."""
-    if settings.collect_aovs:
+    for every dispatch that collects sensor AOVs or gathers a photon map
+    (the JAX gates refuse both for kernels 3, 5 and 6:
+    zyg_tpu/ops/shade.py:690-692, :1140-1142, :1519-1521); a scene outside
+    all four raises UnsupportedScene naming what it lacks."""
+    if settings.collect_aovs or photon_map is not None:
         from .ptmis_general import GeneralBody
 
-        check_scene(scene, settings)
-        return GeneralBody(scene, settings)
+        check_scene(scene, settings, photons=photon_map is not None)
+        return GeneralBody(scene, settings, photon_map)
     if structural_ok(scene):
         return make_fused_body(scene, settings)
     if structural_ok_mesh(scene):
@@ -285,18 +290,26 @@ def _make_body(scene, settings: PtmisSettings):
     return GeneralBody(scene, settings)
 
 
-def check_scene(scene, settings: PtmisSettings) -> None:
+def check_scene(scene, settings: PtmisSettings, photons: bool = False) -> None:
     """Raise UnsupportedScene where no bounce renders the scene: the
-    dispatch's refusals, before a render starts. Sensor AOVs ride the
-    general body only."""
+    dispatch's refusals, before a render starts. Sensor AOVs and photon
+    maps ride the general body only."""
     from .ptmis_general import check_general
 
+    if photons:
+        try:
+            check_general(scene, settings, photons=True)
+        except UnsupportedScene as e:
+            raise UnsupportedScene(f"a photon map rides the general body, which refuses "
+                                   f"{e}") from None
     if settings.collect_aovs:
         try:
             check_general(scene, settings)
         except UnsupportedScene as e:
             raise UnsupportedScene(f"sensor AOVs {list(settings.collect_aovs)} ride the general "
                                    f"body, which refuses {e}") from None
+        return
+    if photons:
         return
     if structural_ok(scene) or structural_ok_mesh(scene) or structural_ok_mesh_v2(scene):
         return
@@ -341,6 +354,7 @@ def integrate_persistent(
     filter_name: str = "Blackman",
     filter_radius: int = 0,
     resolution: tuple = (0, 0),
+    photon_map=None,
 ):
     """Render `num_samples` samples/pixel with lane regeneration and, with
     frame_width > 0, per-sample lane->pixel shuffling (see the JAX
@@ -351,6 +365,9 @@ def integrate_persistent(
     radius 1 or 2: each finished sample then splats its (2r+1)^2 footprint
     at the subpixel offset the lane carries, taps outside the frame or the
     dispatch dropped with their weights).
+
+    photon_map (render/integrator/photon.py, or None): the frame's photon
+    map, gathered by the general body.
 
     frame_width == 0 is the unshuffled dispatch (sensor AOVs ride it):
     lane i renders pixel pixel_ids[0] + i, every pixel exactly num_samples
@@ -377,7 +394,7 @@ def integrate_persistent(
                          "unshuffled dispatches (frame_width 0)")
     dev = pixel_ids.device
     n = pixel_ids.shape[0]
-    body = _make_body(scene, settings)
+    body = _make_body(scene, settings, photon_map)
     general = getattr(body, "general", False)  # carries the medium stack and split slot
     stride = _coprime_stride(n) if shuffled else 0
     base = int(pixel_ids[0])

@@ -17,7 +17,7 @@ package's general body computes it:
   BSDF-hit emission with its MIS weight, and the segment's volume
   emission unweighted -> russian roulette -> which glass vertices split
   -> NEE at the surface or the scatter point (light tree or power CDF,
-  rectangle, dome and volume lights, over the whole sphere at a scatter
+  rectangle, sphere, disk, dome and volume lights, over the whole sphere at a scatter
   vertex; the BSDF, or the Henyey-Greenstein phase at a scatter,
   evaluated with the split's pdf convention; shadow any-hit and the
   transmittance through the volume props, the emitting one included) ->
@@ -43,9 +43,14 @@ roughness and coverage to the dispatch's pixel planes (_capture_aovs).
 The shadow-catcher alpha of the JAX body (ptmis.py:810-840) has no
 counterpart: the scene loader refuses the `shadow_catcher` entity key.
 
+With a photon map (render/integrator/photon.py) the primary chain's
+vertices that can evaluate a BSDF add the map's estimate to the direct
+class, after the segment's emission (the photon_gather kernel).
+
 Kernels on this path: isect (closest and any hit), traverse (mesh
 scenes), sobol_block (every draw), track (the grid media's walks,
-ops/track.py) and accum (the flushes, in ptmis.py).
+ops/track.py), photon_gather (ops/photon.py, under a photon map) and
+accum (the flushes, in ptmis.py).
 """
 
 from __future__ import annotations
@@ -65,6 +70,8 @@ from ...scene import light_sampling as ls
 from ...scene import shapes
 from ...scene.types import RAY_MAX_T, MaterialKind, ShapeType, UnsupportedScene
 from .. import materials as M
+from . import photon as photon_mod
+from .lighttracer import check_emitters
 from . import volume as vol_mod
 from .ptmis import IValue, PathState, power_heuristic, predivided_power_heuristic, split_enabled
 
@@ -72,15 +79,21 @@ _GLASS = int(MaterialKind.GLASS)
 _MEDIUM_KINDS = (int(MaterialKind.GLASS), int(MaterialKind.VOLUMETRIC))
 # the material features this body renders
 _FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media", "vol_emission"}
-_LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.DOME), ls.VOLUME}
+_LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.SPHERE), int(ShapeType.DISK),
+                 int(ShapeType.DOME), ls.VOLUME}
 
 
-def check_general(scene, settings) -> None:
+def check_general(scene, settings, photons: bool = False) -> None:
     """Raise UnsupportedScene naming the first feature of the scene that the
-    general body does not render."""
+    general body does not render (photons: under a photon map, whose
+    light paths start at the lights of lighttracer.sample_light_from and
+    whose gather kernel evaluates the substitute BSDF only)."""
     extra = set(scene.mat_features) - _FEATURES
     if extra:
         raise UnsupportedScene(f"material features {sorted(extra)}")
+    if photons and "rough_glass" in scene.mat_features:
+        raise UnsupportedScene("rough glass under a photon map (the gather kernel evaluates the "
+                               "substitute BSDF only)")
     if scene.portals:
         raise UnsupportedScene("portal lights on the general body (glass under a portal)")
     if scene.lights.count and int(ShapeType.CANOPY) in ls.light_shapes(scene):
@@ -94,6 +107,8 @@ def check_general(scene, settings) -> None:
         raise UnsupportedScene("Distant lights on the general body (glass under a sun)")
     if not shapes_ <= _LIGHT_SHAPES:
         raise UnsupportedScene(f"light shapes {sorted(shapes_ - _LIGHT_SHAPES)} on the general body")
+    if photons:
+        check_emitters(scene)
 
 
 def _offset_rows(p, n):
@@ -124,10 +139,13 @@ class GeneralBody:
 
     general = True  # integrate_persistent carries the medium stack and split slot
 
-    def __init__(self, scene, settings):
-        check_general(scene, settings)
+    def __init__(self, scene, settings, photon_map=None):
+        check_general(scene, settings, photons=photon_map is not None)
         self.scene = scene
         self.settings = settings
+        # the frame's photon map (render/integrator/photon.py), gathered at
+        # the primary chain's first vertices that can evaluate a BSDF
+        self.photon_map = photon_map
         feats = set(scene.mat_features)
         self.features = feats
         self.has_media = "media" in feats
@@ -213,8 +231,9 @@ class GeneralBody:
         if self.has_lights and not cfg.nee_only:
             # the previous real vertex's NEE sampled the sphere if it was a scatter
             ts = s.from_volume if self.scatters else None
-            lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d, total_sphere=ts,
-                                   time=s.time)
+            lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d,
+                                   *ls.mis_hit(self.present, hit.t, frag, s.mis_o),
+                                   total_sphere=ts, time=s.time)
                   * ls.light_select_pdf(scene, light_id, p=s.mis_o, n=s.mis_n,
                                         total_sphere=ts))
             mis_w = torch.where(s.singular | ~is_light, 1.0, power_heuristic(s.bxdf_pdf, lp))
@@ -231,6 +250,19 @@ class GeneralBody:
             # (ref pathtracer_mis: the Absorb event's li)
             vol_c = torch.where(s.alive[:, None], sw * s.throughput * ev.emission, 0.0)
             result = _add(result, vol_c, s.depth, 2, primary, s.singular)
+        if self.photon_map is not None:
+            # the photon map's estimate at the primary chain's vertices that
+            # can evaluate a BSDF (ref pathtracer_mis.zig photonLi -> direct;
+            # zyg_tpu/render/integrator/ptmis.py:607-628)
+            gather_ok = s.alive & valid & ~scatter & M.can_evaluate(params) & s.primary_chain
+            if not cfg.photons_not_only_through_specular:
+                gather_ok = gather_ok & (s.depth > 0) & s.singular
+            ph_li = photon_mod.gather(self.photon_map, params, frag.p, wo, frag.n, frag.geo_n,
+                                      gather_ok)
+            result = IValue(result.emission,
+                            result.direct + torch.where(gather_ok[:, None],
+                                                        sw * throughput0 * ph_li, 0.0),
+                            result.indirect)
 
         cont = (s.alive & (finite_hit | scatter) & ~absorbed & (s.depth < cfg.max_depth)
                 & (s.vol_depth < cfg.max_depth_volume))

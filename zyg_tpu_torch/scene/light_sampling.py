@@ -1,33 +1,36 @@
-"""Next-event estimation for rectangle, canopy, dome, distant, volume and
-portal lights: light selection, per-shape sampling, emitted radiance and
-the hit-side pdfs for MIS (counterpart of zyg_tpu/scene/light_sampling.py:
-62-98 selection by the power CDF or the light tree, :248-271 rectangle,
-:336-352 distant, :353-358 canopy, :360-369 dome, :472-488 env map,
+"""Next-event estimation for rectangle, sphere, disk, canopy, dome,
+distant, volume and portal lights: light selection, per-shape sampling,
+emitted radiance and the hit-side pdfs for MIS (counterpart of
+zyg_tpu/scene/light_sampling.py: 62-98 selection by the power CDF or the
+light tree, :248-271 rectangle, :273-312 sphere, :314-334 disk, :336-352
+distant, :353-358 canopy, :360-369 dome, :472-488 env map,
 :490-541 volume, :543-566 portal, :580-636 light_radiance with the IES
-profile, :660-665, :683-692, :731-752 light_hit_pdf).
+profile, :660-692, :731-752 light_hit_pdf).
 
 A scene with a light tree (two or more lights, one of them finite;
 scene/light_tree.py) selects by the tree's descent at the shading point
 and evaluates the matching pdf at the previous vertex; every other scene
-selects by the power CDF. The loader refuses Sphere, Disk, Cube and mesh
-lights, and the Driver refuses scenes whose light tree would split NEE
-(the JAX package's select_split / pdf_split, not ported).
+selects by the power CDF. The loader refuses Cube and mesh lights, and
+the Driver refuses scenes whose light tree would split NEE (the JAX
+package's select_split / pdf_split, not ported).
 
 Only the light shapes present in the scene are evaluated: `present` is the
 set of their ShapeType codes, with "volume" for the volume lights and
 "portal" for the portal lights, whose Rectangle is keyed apart
 (`light_shapes`, read once per render, the JAX package's static
 `scene.light_shapes`). Rectangles use the Urena spherical-rectangle
-helpers of ops/shade.py; a dome samples the hemisphere around the normal
-uniformly and a canopy the hemisphere around its axis, or either its
-emission map through the scene's env sampler when it has one; a distant
-light (the sun) samples its cone by a concentric disk; a volume light (an
-emissive Volumetric Cube) samples a point inside it, by its density grid's
-Distribution3D where it has one (a third uniform, xi3), and radiates
-mu_a * e * density there toward every direction; a portal samples the
-dome seen through its rectangle by its windowed distribution
-(scene/portal.py). A material with an IES profile scales its emission by
-the profile at the angle from the light's normal, on both sides of MIS.
+helpers of ops/shade.py; a sphere samples the cone it subtends, a disk a
+concentric point on its face (pdf by the distance and the cosine); a dome
+samples the hemisphere around the normal uniformly and a canopy the
+hemisphere around its axis, or either its emission map through the scene's
+env sampler when it has one; a distant light (the sun) samples its cone by
+a concentric disk; a volume light (an emissive Volumetric Cube) samples a
+point inside it, by its density grid's Distribution3D where it has one (a
+third uniform, xi3), and radiates mu_a * e * density there toward every
+direction; a portal samples the dome seen through its rectangle by its
+windowed distribution (scene/portal.py). A material with an IES profile
+scales its emission by the profile at the angle from the light's normal,
+on both sides of MIS.
 
 Arithmetic follows the JAX package's jitted bounces on the CPU: a multiply
 feeding an add is one fused multiply-add (core/fmath.py, core/vecmath.py).
@@ -54,6 +57,8 @@ from .textures import sample_bilinear
 from .types import RAY_MAX_T, ShapeType
 
 _RECT = int(ShapeType.RECTANGLE)
+_SPHERE = int(ShapeType.SPHERE)
+_DISK = int(ShapeType.DISK)
 _DIST = int(ShapeType.DISTANT)
 _DOME = int(ShapeType.DOME)
 _CANOPY = int(ShapeType.CANOPY)
@@ -227,6 +232,65 @@ def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None,
         rv = -ay / (0.5 * sy)
         uv_v[_RECT] = torch.stack([0.5 * (ru + 1.0), 0.5 * (rv + 1.0)], dim=-1)
 
+    if _SPHERE in present:
+        # the cone the sphere subtends from p, uniformly (a small-angle
+        # branch keeps 1 - cos accurate); the point's normal faces p
+        v = pos - p
+        l2 = torch.clamp(vm.dot(v, v), min=1e-20)
+        el = sqrt(l2)
+        sp_r = 0.5 * scale[:, 0]
+        z_axis = v / el[:, None]
+        tx, ty = vm.orthonormal_basis(z_axis)
+        sin2_max = torch.clamp((sp_r * sp_r) / l2, 0.0, 0.9999)
+        cos_max = sqrt(1.0 - sin2_max)
+        small = sin2_max < 0.00068523
+        cos_theta = fma(cos_max - 1.0, xi[:, 0], 1.0)
+        sin2_theta = torch.where(small, sin2_max * xi[:, 0], fma(-cos_theta, cos_theta, 1.0))
+        cos_theta = torch.where(small, sqrt(1.0 - sin2_theta), cos_theta)
+        one_minus_cos_max = torch.where(small, 0.5 * sin2_max, 1.0 - cos_max)
+        sin_max = sqrt(torch.clamp(sin2_max, min=1e-20))
+        ratio = torch.clamp(sin2_theta / torch.clamp(sin2_max, min=1e-20), max=1.0)
+        cos_alpha = torch.clamp(
+            fma(cos_theta, sqrt(torch.clamp(1.0 - ratio, min=0.0)), sin2_theta / sin_max), max=1.0)
+        sin_alpha = sqrt(torch.clamp(fma(-cos_alpha, cos_alpha, 1.0), min=0.0))
+        phi = xi[:, 1] * (2.0 * math.pi)
+        w_local = torch.stack([sin_alpha * torch.cos(phi), sin_alpha * torch.sin(phi), cos_alpha],
+                              dim=-1)
+        sph_n = -vm.frame_to_world(tx, ty, z_axis, w_local)
+        sph_p = fma(sp_r[:, None], sph_n, pos)
+        axis = sph_p - p
+        sph_t = vm.length(axis)
+        wi_v[_SPHERE] = axis / torch.clamp(sph_t, min=1e-20)[:, None]
+        pdf_v[_SPHERE] = 1.0 / torch.clamp((2.0 * math.pi) * one_minus_cos_max, min=1e-20)
+        lp_v[_SPHERE] = sph_p
+        ln_v[_SPHERE] = sph_n
+        valid_v[_SPHERE] = el > sp_r + 1e-7
+        t_v[_SPHERE] = sph_t
+        # the lat-long uv of the sampled normal (shapes.build_fragment's)
+        sxyz = vm.safe_normalize(vm.world_to_object_normal(rot, sph_n))
+        sphi = -torch.atan2(sxyz[:, 0], sxyz[:, 2]) + math.pi
+        stheta = torch.acos(torch.clamp(sxyz[:, 1], -1.0, 1.0))
+        uv_v[_SPHERE] = torch.stack([sphi * (0.5 / math.pi), stheta * (1.0 / math.pi)], dim=-1)
+
+    if _DISK in present:
+        # a concentric point on the disk, pdf = dist^2 / (|cos| area)
+        dk_r = 0.5 * scale[:, 0]
+        dxy = vm.sample_disk_concentric(xi)
+        dk_p = fma(dk_r[:, None], fma(dxy[:, 0:1], r0, dxy[:, 1:2] * r1), pos)
+        axis = dk_p - p
+        dk_sl = torch.clamp(vm.dot(axis, axis), min=1e-20)
+        dk_t = sqrt(dk_sl)
+        dk_wi = axis / dk_t[:, None]
+        dk_c = torch.abs(-vm.dot(r2, dk_wi))
+        wi_v[_DISK] = dk_wi
+        pdf_v[_DISK] = dk_sl / torch.clamp(dk_c * (math.pi * dk_r * dk_r), min=1e-20)
+        lp_v[_DISK] = dk_p
+        ln_v[_DISK] = r2
+        valid_v[_DISK] = dk_c > 1e-5
+        t_v[_DISK] = dk_t
+        # disk_intersect's uv: u = dot(-r0, k / r) for k = r (dxy . axes)
+        uv_v[_DISK] = torch.stack([0.5 * (1.0 - dxy[:, 0]), 0.5 * (1.0 - dxy[:, 1])], dim=-1)
+
     if _DIST in present:
         # the sun's cone: a concentric disk of radius tan(angular radius)
         # around the light's direction
@@ -372,15 +436,30 @@ def light_radiance(scene, light_idx, wi, light_n, uv, vol=None):
     return out
 
 
-def light_hit_pdf(scene, present: set, prop, ray_o, ray_d, total_sphere=None, time=None):
+def mis_hit(present: set, hit_t, frag, mis_o) -> tuple:
+    """(hit_t, hit_n) for light_hit_pdf: the hit's distance from the last
+    real vertex mis_o (null boundaries in between leave the line as it
+    is) and its geometric normal, as the JAX bodies pass them
+    (zyg_tpu/render/integrator/ptmis.py:568-572); (None, None) where no
+    Disk light reads them."""
+    if _DISK not in present:
+        return None, None
+    eff_t = torch.where(hit_t >= RAY_MAX_T, hit_t, vm.length(frag.p - mis_o))
+    return eff_t, frag.geo_n
+
+
+def light_hit_pdf(scene, present: set, prop, ray_o, ray_d, hit_t=None, hit_n=None,
+                  total_sphere=None, time=None):
     """Solid-angle pdf with which NEE from ray_o would have sampled the hit
-    on prop along ray_d: the light side of the BSDF-hit MIS weight;
-    total_sphere (bool[N] or None): the ray left a volume scatter vertex,
-    whose NEE samples a dome over the whole sphere. (The
-    JAX package's further arguments, the hit's distance, point and normal
-    and the normal at ray_o, zyg_tpu/scene/light_sampling.py:639, are read
-    only for Disk and mesh lights, which the port refuses.) time: the
-    lanes' shutter times, at which a moving light's pdf is evaluated."""
+    on prop along ray_d: the light side of the BSDF-hit MIS weight. hit_t
+    and hit_n, the hit's distance from ray_o and its geometric normal, are
+    read by the Disk's pdf, so a scene with Disk lights needs them (the
+    JAX package's point and the normal at
+    ray_o, zyg_tpu/scene/light_sampling.py:639, only by mesh lights, which
+    the port refuses). total_sphere (bool[N] or None): the ray left a
+    volume scatter vertex, whose NEE samples a dome over the whole sphere.
+    time: the lanes' shutter times, at which a moving light's pdf is
+    evaluated."""
     pm = torch.clamp(prop, min=0).long()
     shape = scene.prop_shape[pm]
     rot, pos, scale = _animated_transforms(scene, pm, scene.prop_rot[pm], scene.prop_pos[pm],
@@ -390,6 +469,21 @@ def light_hit_pdf(scene, present: set, prop, ray_o, ray_d, total_sphere=None, ti
         ol = _rect_local(ray_o, pos, rot)
         q = _sphquad_init(scale[:, 0], scale[:, 1], ol)
         vals[_RECT] = _sphquad_pdf(q, ol, scale[:, 0], scale[:, 1])
+    if _SPHERE in present:
+        v = pos - ray_o
+        l2 = torch.clamp(vm.dot(v, v), min=1e-20)
+        r = 0.5 * scale[:, 0]
+        sin2_max = torch.clamp((r * r) / l2, 0.0, 0.9999)
+        one_minus_cos = torch.where(sin2_max < 0.00068523, 0.5 * sin2_max,
+                                    1.0 - sqrt(1.0 - sin2_max))
+        vals[_SPHERE] = 1.0 / torch.clamp((2.0 * math.pi) * one_minus_cos, min=1e-20)
+    if _DISK in present:
+        if hit_t is None or hit_n is None:
+            raise ValueError("light_hit_pdf: a Disk light's pdf reads hit_t and hit_n")
+        sl = torch.clamp(hit_t * hit_t, min=1e-20)
+        c = torch.abs(vm.dot(hit_n, ray_d))
+        r = 0.5 * scale[:, 0]
+        vals[_DISK] = sl / torch.clamp(c * (math.pi * (r * r)), min=1e-20)
     if _DIST in present:
         vals[_DIST] = _cone_pdf(scale[:, 0])
     if _CANOPY in present:

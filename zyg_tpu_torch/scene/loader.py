@@ -19,8 +19,8 @@ emissive Volumetric Cube is a volume light, whose interior NEE samples
 through a Distribution3D over its density grid, core/distribution.py;
 any emissive medium gives off light along the walks), an emittance's IES
 profile ({"profile": {"file": "*.ies"}}, io/ies.py), and one or more
-emitting Rectangle, Canopy, Dome or Distant lights, volume lights or
-portals. Two or more
+emitting Rectangle, Sphere, Disk, Canopy, Dome or Distant lights, volume
+lights or portals. Two or more
 lights are selected as
 the JAX package selects them: by the power CDF when every light is
 infinite, through the SAOH light
@@ -40,8 +40,7 @@ shape and an unreadable IES file are dropped with a warning, and so are
 an unreadable Instancer source and the motion of an infinite light
 (rendered at shutter start).
 
-Everything else raises `UnsupportedScene`: Sphere, Disk, Cube and mesh
-lights, entities other than these, C-API image references ({"id": N}),
+Everything else raises `UnsupportedScene`: Cube and mesh lights, entities other than these, C-API image references ({"id": N}),
 texture file sequences ('#' in a file name), deforming meshes,
 EXR and other image formats, dispersive glass (abbe), coatings, flakes,
 masks, density files, emission maps on media, Volumetric materials on
@@ -101,7 +100,8 @@ _SHAPE_NAMES = {
 }
 _MAX_PROPS = 32  # analytic props (ops/shade.py MAX_PROPS)
 # the light shapes the port samples (scene/light_sampling.py)
-_LIGHT_SHAPES = (ShapeType.RECTANGLE, ShapeType.CANOPY, ShapeType.DOME, ShapeType.DISTANT)
+_LIGHT_SHAPES = (ShapeType.RECTANGLE, ShapeType.SPHERE, ShapeType.DISK, ShapeType.CANOPY,
+                 ShapeType.DOME, ShapeType.DISTANT)
 
 
 # ---------------------------------------------------------------------------
@@ -791,8 +791,8 @@ class SceneBuilder:
         for i, v in zip(light_props, vol_light):
             if not v and props[i].shape not in {int(s) for s in _LIGHT_SHAPES}:
                 raise UnsupportedScene(f"{ShapeType(props[i].shape).name.capitalize()} lights "
-                                       "(the port samples Rectangle, Dome, Distant and volume "
-                                       "lights)")
+                                       "(the port samples Rectangle, Sphere, Disk, Canopy, Dome, "
+                                       "Distant and volume lights)")
         if not light_props:
             raise UnsupportedScene("a scene without an emitting light")
         for d in self.materials:
@@ -869,6 +869,18 @@ class SceneBuilder:
             and self.materials[props[pi].material].emission_tex >= 0
         ]
 
+        # the finite props' bounding sphere, a union of prop spheres
+        # (zyg_tpu/scene/loader.py:1150-1164)
+        wmin, wmax = np.full(3, np.inf), np.full(3, -np.inf)
+        for p in props:
+            if p.shape in (int(ShapeType.CANOPY), int(ShapeType.DOME), int(ShapeType.DISTANT)):
+                continue
+            r = float(np.linalg.norm(np.asarray(p.trafo.scale, np.float64)))
+            c = np.asarray(p.trafo.position, np.float64)
+            wmin, wmax = np.minimum(wmin, c - r), np.maximum(wmax, c + r)
+        if not np.isfinite(wmin).all():
+            wmin, wmax = np.full(3, -1.0), np.full(3, 1.0)
+
         def t(x, dtype):
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
@@ -929,6 +941,8 @@ class SceneBuilder:
             animated_props=animated_props or None,
             animated_lights=animated_lights or None,
             prop_keys=t(self._prop_keys(K, key_trafos), f32) if animated_props else None,
+            world_center=tuple(float(x) for x in 0.5 * (wmin + wmax)),
+            world_radius=float(max(np.linalg.norm(wmax - wmin) * 0.5, 1e-3)),
         ).to(device)
 
     def _link_portals(self) -> list[dict]:
@@ -975,6 +989,13 @@ class SceneBuilder:
             rot = np.asarray(t.rotation, np.float32)
             r = 0.5 * float(np.hypot(s[0], s[1]))
             return pos, r, np.concatenate([rot[2], [1.0]]).astype(np.float32), True
+        if p.shape == int(ShapeType.DISK):  # one-sided: its normal cone is its axis
+            rot = np.asarray(t.rotation, np.float32)
+            s = np.asarray(t.scale, np.float32)
+            return pos, 0.5 * float(s[0]), np.concatenate([rot[2], [1.0]]).astype(np.float32), True
+        if p.shape == int(ShapeType.SPHERE):  # emits every way
+            s = np.asarray(t.scale, np.float32)
+            return pos, 0.5 * float(s[0]), np.array([0.0, 0.0, 1.0, -1.0], np.float32), True
         if p.shape == int(ShapeType.CUBE):  # a volume light: its bounding sphere, all directions
             r = 0.5 * float(np.linalg.norm(np.asarray(t.scale, np.float32)))
             return pos, r, np.array([0.0, 0.0, 1.0, -1.0], np.float32), True
@@ -1381,4 +1402,7 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
         animated_lights={int(i): True for i in d["animated_lights"]} or None
         if "animated_lights" in d else None,
         prop_keys=t("prop_keys") if "prop_keys" in d else None,
+        # optional: a caller may add the JAX scene's world bounds
+        world_center=tuple(float(x) for x in d.get("world_center", (0.0, 0.0, 0.0))),
+        world_radius=float(d.get("world_radius", 1.0)),
     )

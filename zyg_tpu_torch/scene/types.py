@@ -163,12 +163,17 @@ class SceneData:
     animated_props: dict = None
     animated_lights: dict = None
     prop_keys: torch.Tensor = None
+    # the bounding sphere of the finite props (host floats), from which an
+    # infinite light's photons start (render/integrator/lighttracer.py)
+    world_center: tuple = (0.0, 0.0, 0.0)
+    world_radius: float = 1.0
 
     def to(self, device) -> "SceneData":
         out = {}
         for f in fields(self):
             v = getattr(self, f.name)
-            if f.name in ("mat_features", "volume_props", "animated_props", "animated_lights"):
+            if f.name in ("mat_features", "volume_props", "animated_props", "animated_lights",
+                          "world_center", "world_radius"):
                 out[f.name] = v
             elif f.name in ("prop_groups", "vol_light_dist", "portals") and v is not None:
                 out[f.name] = {k: g.to(device) for k, g in v.items()}
