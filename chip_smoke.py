@@ -59,7 +59,11 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     own 480x270 over the map baked on the card from its 200,000 paths, and
     on a seeded dense map whose buckets exceed the 64-photon cap (at caps
     64 and 4), each lane within 2e-3 of its largest channel plus 1e-6 of
-    the batch's largest value, with the photon visits counted. Times each
+    the batch's largest value, with the photon visits counted; the
+    lighttracer's camera splat (lt_splat) on the first bounce of a
+    cornell_particles.take pass at its own 512x512 (every path's first
+    vertex), connections exact and RGB within rtol 4e-6, with its
+    candidates, connections and float4 atomics counted. Times each
     (median of runs, CUDA events; and its device time from the profiler,
     which leaves out the host's gaps between a short kernel's launches)
     beside its bound and, where one PyTorch call computes the same
@@ -99,7 +103,9 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     examples/takes/caustics_photons.take (a glass sphere under a Sphere
     lamp, a photon map) at 96x56, 8 spp with 100,000 photon paths, bake
     and gather on each device, and a Sphere and a Disk lamp over a floor
-    and a ball (kernel 6) at 96x64, 8 spp
+    and a ball (kernel 6) at 96x64, 8 spp, 4n. for
+    examples/takes/cornell_particles.take (the lighttracer alone, 0 spp)
+    at 64x64, 4 passes
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
@@ -178,6 +184,14 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     same size with the bake timed on its own, through the general body
     around sobol_block, isect, photon_gather and accum, which must each
     have launched; the same report and profile
+ 5m. the lighttracer main path: one pass of
+    examples/takes/cornell_particles.take at its own 512x512 timed, the
+    CLI on the take (64 particles a pixel; a copy at 16 when one pass
+    times 64 would take over 90 s, said in the log), then the Driver's
+    particle pass at 512x512 and 8 passes through sobol_block, isect and
+    lt_splat, which must each have launched: time, rays, Mrays/s, peak
+    memory and launches, the first 2 passes profiled (busy share, glue
+    launches a bounce, the kernels' device time)
  6. one bounce of the mesh bounce (kernel 5) against one of the general
     bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
     directly, timed in turns (CUDA events, medians)
@@ -228,6 +242,9 @@ REPLACES = {
     "traverse_anim": "zyg_tpu/scene/trimesh.py:1053",
     # not a TPU kernel: the JAX package's photon gather is an XLA fori_loop
     "photon_gather": "zyg_tpu/render/integrator/photon.py:219",
+    # not a TPU kernel: the JAX lighttracer's BSDF toward the camera and its
+    # scatter-add into the splat image (an XLA scatter)
+    "lt_splat": "zyg_tpu/render/integrator/lighttracer.py:287",
 }
 SOURCES = {
     "sobol_block": "zyg_tpu_torch/csrc/sobol_block.cu",
@@ -242,6 +259,7 @@ SOURCES = {
     "accum_filtered": "zyg_tpu_torch/csrc/accum.cu",
     "traverse_anim": "zyg_tpu_torch/csrc/traverse.cu",
     "photon_gather": "zyg_tpu_torch/csrc/photon.cu",
+    "lt_splat": "zyg_tpu_torch/csrc/lt_splat.cu",
 }
 CORNELL_KERNELS = ("sobol_block", "shade", "accum")
 # sobol_block's launch shapes besides the checks' width: 513 is one
@@ -321,6 +339,19 @@ CAUSTICS_KERNELS = ("sobol_block", "isect", "photon_gather", "accum")
 CAUSTICS_RES = (480, 270)
 CAUSTICS_SPP = 32
 N_CAUSTICS = CAUSTICS_RES[0] * CAUSTICS_RES[1]
+# the lighttracer path: cornell_particles.take's own 512x512 and 64
+# particles a pixel (W*H light paths a pass, up to 8 bounces, each vertex
+# connected to the camera), a host loop around sobol_block, isect and the
+# camera splat; the CLI renders a 16-pass copy when one pass times 64
+# would take over PARTICLE_CLI_BUDGET_S; the Driver renders 8 passes and
+# profiles 2
+PARTICLE_KERNELS = ("sobol_block", "isect", "lt_splat")
+PARTICLE_RES = (512, 512)
+PARTICLE_PPP = 64
+PARTICLE_CLI_BUDGET_S = 90.0
+PARTICLE_CLI_CUT_PPP = 16
+PARTICLE_RENDER_PASSES = 8
+PARTICLE_PROFILE_PASSES = 2
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -383,6 +414,11 @@ OPS_PHOTON_CELLS = 110
 OPS_PHOTON_TERMS = 150
 OPS_PHOTON_VISIT = 16
 OPS_PHOTON_EVAL = 230
+# the camera splat: a candidate lane's material and wo terms and one
+# substitute evaluation toward the camera (the gather's two counts), the
+# max and the test; an adding lane's three products of three
+OPS_LT_SPLAT_LANE = OPS_PHOTON_TERMS + OPS_PHOTON_EVAL + 4
+OPS_LT_SPLAT_ADD = 6
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -2063,6 +2099,104 @@ def check_photon_gather(dev) -> dict:
     return res
 
 
+def _particles_take(res, ppp):
+    """cornell_particles.take at res with ppp particles a pixel."""
+    from zyg_tpu_torch.io.take import load_take_file
+
+    take = load_take_file(os.path.join(REPO, "examples/takes/cornell_particles.take"))
+    take.cameras[0].resolution = res
+    take.num_particles_per_pixel = ppp
+    return take
+
+
+def _lt_splat_inputs(driver) -> list:
+    """The arguments of a particle pass's first camera splat (every path's
+    first vertex), captured at the call."""
+    import torch
+    from zyg_tpu_torch.render.integrator import lighttracer as lt_mod
+
+    orig = lt_mod.lt_splat
+    seen = []
+
+    def capture(*args):
+        if not seen:
+            seen.append([{k: v.clone() if isinstance(v, torch.Tensor) else v
+                          for k, v in a.items()} if isinstance(a, dict) else a.clone()
+                         for a in args])
+        return orig(*args)
+
+    lt_mod.lt_splat = capture
+    try:
+        driver.start_frame()
+        driver.render_particles(1)
+        torch.cuda.synchronize()
+    finally:
+        lt_mod.lt_splat = orig
+    return seen[0]
+
+
+def check_lt_splat(dev) -> dict:
+    """The camera splat on the first bounce of one particle pass of
+    cornell_particles.take at its own 512x512 (every path's first
+    vertex), against its plain version on the card: the connections
+    counted exactly, RGB within rtol 4e-6 (the atomics add in another
+    order), as the flush is held."""
+    import torch
+    from zyg_tpu_torch.ops import lt_splat as op
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    take = _particles_take(PARTICLE_RES, 1)
+    driver = Driver(take, load_scene_file(take.scene_filename), device=dev)
+    params, wo, wi, nrm, geo, tp, cam_pdf, ids, connect, blocked, splat0, _ = \
+        _lt_splat_inputs(driver)
+    lanes = (params, wo, wi, nrm, geo, tp, cam_pdf, ids, connect, blocked)
+    pixels = splat0.shape[0]
+
+    def fresh():
+        return (torch.zeros((pixels, 4), device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev))
+
+    got, got_count = fresh()
+    op.lt_splat(*lanes, got, got_count)
+    want, want_count = fresh()
+    op.lt_splat_plain(*lanes, want, want_count)
+    torch.cuda.synchronize()
+    if int(got_count) != int(want_count):
+        raise AssertionError(f"lt_splat: {int(got_count)} connections, the plain version "
+                             f"{int(want_count)}")
+    torch.testing.assert_close(got, want, rtol=4e-6,
+                               atol=4e-6 * float(want[:, :3].abs().max()))
+    conn, contrib = op.contributions(params, wo, wi, nrm, geo, tp, cam_pdf, connect, blocked)
+    n = wo.shape[0]
+    cand = int((connect & (params["kind"] == 0)).sum())
+    adds = int((conn & ~blocked).sum())
+    touched = int(torch.unique(ids[conn & ~blocked]).shape[0])
+    k_splat, k_count = fresh()
+    p_splat, p_count = fresh()
+    lib = torch.zeros((pixels, 3), device=dev)
+    dms = device_ms(lambda: op.lt_splat(*lanes, k_splat, k_count), "lt_splat")
+    # the bytes this run's data needs: every lane's connect flag; a
+    # candidate's directions, normals, material row and kind, throughput,
+    # pdf, pixel and blocked flag; each add's 12 B of RGB; the fit table
+    mat_bytes = 12 + 12 + 4 + 4 + 4 + 4
+    nbytes = n + cand * (48 + mat_bytes + 12 + 4 + 8 + 1) + adds * 12 + 112 * 4
+    res = {"max_abs_err": float((got - want).abs().max()),
+           "ms": time_ms(lambda: op.lt_splat(*lanes, k_splat, k_count), 20),
+           "device_ms": dms,
+           "plain_ms": time_ms(lambda: op.lt_splat_plain(*lanes, p_splat, p_count), 3, runs=3),
+           # the one PyTorch call that adds the same contributions by pixel
+           "library_ms": time_ms(lambda: lib.index_add_(0, ids, contrib), 20),
+           **bound(nbytes, cand * OPS_LT_SPLAT_LANE + adds * OPS_LT_SPLAT_ADD),
+           "lanes": n, "candidates": cand, "connections": int(want_count), "adds": adds}
+    log(f"lt_splat on cornell_particles' first bounce, {n} lanes: {cand} candidates "
+        f"(camera-visible, in the frame, a Substitute), {int(want_count)} connect (f > 0), "
+        f"{adds} add (unblocked) onto {touched} of {pixels} pixels; float4 atomics "
+        f"{adds / (dms * 1e-3) / 1e9:.2f} G/s at the device time; bytes needed {nbytes}")
+    del driver
+    return res
+
+
 def lane_sets(kernel: str, st: dict, ua, out: dict, max_depth: int, nee_only: bool,
               tables=None) -> dict:
     """The lane sets of ops/surface.py's and ops/surface_v2.py's LANE_READS
@@ -2965,6 +3099,27 @@ def phase_slice_caustics(dev) -> None:
                  f"card {secs[0]:.2f} s, cpu {secs[1]:.2f} s")
 
 
+def phase_slice_particles(dev) -> None:
+    """cornell_particles.take at 64x64, 4 passes (the particle pass
+    alone: 0 spp) on the card against the plain CPU path."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    take = _particles_take((64, 64), 4)
+    scene = load_scene_file(take.scene_filename)
+    imgs, secs, rays = [], [], []
+    for device in (dev, "cpu"):
+        t0 = time.perf_counter()
+        d = Driver(take, scene, device=device)
+        imgs.append(d.render_frame())
+        secs.append(time.perf_counter() - t0)
+        rays.append(d.rays_traced)
+    _golden_gate(imgs[0], imgs[1], "cornell_particles 64x64 (4 passes)",
+                 f"card {secs[0]:.2f} s, cpu {secs[1]:.2f} s; rays card {rays[0]}, cpu {rays[1]}")
+
+
 def general_profile(driver, spp: int) -> str:
     """The general body's loop over one render, counted on the host around
     the calls (so the render is not timed): its iterations over all chunks
@@ -3046,17 +3201,21 @@ def device_events(prof) -> list:
                 if e.device_type == DeviceType.CUDA]
 
 
-def profile_render(driver, spp: int, label: str, kernels) -> int:
+def profile_render(driver, spp: int, label: str, kernels, run=None) -> int:
     """Device kernel time of one warm render by kernel, from a torch.profiler
-    trace, and the device's busy share of the profiled wall time. Returns
-    the launches of kernels that are not the port's (the torch glue)."""
+    trace, and the device's busy share of the profiled wall time (run: what
+    renders after start_frame, by default spp samples). Returns the
+    launches of kernels that are not the port's (the torch glue)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         driver.start_frame()
         t0 = time.perf_counter()
-        driver.render_iterations(spp)
+        if run is not None:
+            run()
+        else:
+            driver.render_iterations(spp)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3118,10 +3277,10 @@ def flush_share(driver, spp: int) -> tuple[float, float]:
 
 
 def _cli_run(take_name: str, kernels, spp: int | None = None, out_name: str = "out.png",
-             companions: tuple = ()) -> dict:
-    """The user's entry point at the take's own size (with spp: on a copy
-    of the take with that many samples a pixel, written to a temporary
-    directory), writing out_name (.png, .exr or .hdr) and the AOV
+             companions: tuple = (), ppp: int | None = None) -> dict:
+    """The user's entry point at the take's own size (with spp or ppp: on a
+    copy of the take with that many samples or particles a pixel, written
+    to a temporary directory), writing out_name (.png, .exr or .hdr) and the AOV
     companion files out_<name>.exr, which are read back (EXR with the
     port's read_exr); returns its kernel launch counts."""
     import numpy as np
@@ -3133,12 +3292,15 @@ def _cli_run(take_name: str, kernels, spp: int | None = None, out_name: str = "o
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, out_name)
         take_path = os.path.join(REPO, "examples/takes", take_name)
-        if spp is not None:
+        if spp is not None or ppp is not None:
             with open(take_path) as f:
                 body = json.load(f)
             body["scene"] = os.path.normpath(os.path.join(os.path.dirname(take_path),
                                                           body["scene"]))
-            body["sampler"]["Sobol"]["samples_per_pixel"] = spp
+            if spp is not None:
+                body["sampler"]["Sobol"]["samples_per_pixel"] = spp
+            if ppp is not None:
+                body["integrator"]["particle"]["particles_per_pixel"] = ppp
             take_path = os.path.join(tmp, take_name)
             with open(take_path, "w") as f:
                 json.dump(body, f)
@@ -3154,7 +3316,8 @@ def _cli_run(take_name: str, kernels, spp: int | None = None, out_name: str = "o
             log(f"cli {take_name}: {f} read back, channels {sorted(ch)}, shape "
                 f"{planes.shape}, mean {float(planes.mean()):.6f}")
     launches = ops.launch_counts()
-    log(f"main path (cli {take_name}{f' at {spp} spp' if spp else ''}) launches: {launches}")
+    copy = f" at {spp} spp" if spp else (f" at {ppp} particles a pixel" if ppp else "")
+    log(f"main path (cli {take_name}{copy}) launches: {launches}")
     for name in kernels:
         if launches[name] <= 0:
             raise AssertionError(f"main path {take_name} never launched the {name} kernel")
@@ -3301,6 +3464,76 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
     return per_render
 
 
+def phase_particles(dev, card: str) -> tuple[dict, dict]:
+    """The lighttracer main path at cornell_particles.take's own 512x512:
+    one pass timed (a warm-up, and the CLI's budget), the CLI at the
+    take's 64 particles a pixel (a copy at PARTICLE_CLI_CUT_PPP where one
+    pass times 64 would take over PARTICLE_CLI_BUDGET_S, said in the log),
+    then the Driver's particle pass at PARTICLE_RENDER_PASSES passes: its
+    time, rays, Mrays/s, peak memory and launches, and its first
+    PARTICLE_PROFILE_PASSES passes profiled (busy share, glue launches a
+    bounce, lt_splat's and isect's device time). Returns the CLI's and the
+    render's kernel launches."""
+    import numpy as np
+    import torch
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.render.driver import Driver
+
+    label = "cornell_particles"
+    take, scene = _take_scene("cornell_particles.take", PARTICLE_RES, 0, label)
+    take.num_particles_per_pixel = PARTICLE_RENDER_PASSES
+    driver = Driver(take, scene, device=dev)
+    driver.start_frame()
+    t0 = time.perf_counter()
+    driver.render_particles(1)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    cut = first * PARTICLE_PPP > PARTICLE_CLI_BUDGET_S
+    log(f"{label}: one pass of {PARTICLE_RES[0] * PARTICLE_RES[1]} light paths {first:.4f} s "
+        f"(the process's first: with its loads); {PARTICLE_PPP} passes would take "
+        f"~{first * PARTICLE_PPP:.1f} s: the CLI renders "
+        + (f"a copy of the take at {PARTICLE_CLI_CUT_PPP} particles a pixel" if cut
+           else f"the take at its own {PARTICLE_PPP} particles a pixel"))
+    cli = _cli_run("cornell_particles.take", PARTICLE_KERNELS,
+                   ppp=PARTICLE_CLI_CUT_PPP if cut else None)
+    mark(f"main path {label} cli")
+
+    passes = PARTICLE_RENDER_PASSES
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    driver.start_frame()
+    t0 = time.perf_counter()
+    driver.render_particles(passes)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = ops.launch_counts()
+    for name in PARTICLE_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{label} render never launched the {name} kernel")
+    img = driver.resolve()
+    if not np.isfinite(img).all() or not img.mean() > 0.0:
+        raise AssertionError(f"{label} image is not finite with a positive mean")
+    # one camera splat a bounce that has live lanes
+    bounces = counts["lt_splat"]
+    log(f"{label} {PARTICLE_RES[0]}x{PARTICLE_RES[1]} {passes} passes [{card}]: {dt:.4f} s, "
+        f"{driver.rays_traced} rays, {driver.rays_traced / dt / 1e6:.2f} Mrays/s, "
+        f"{bounces / passes:.2f} bounces a pass, image mean {float(img.mean()):.6f}; peak "
+        f"device memory {peak} B ({peak / 2**30:.3f} GiB); launches per render "
+        f"{({k: v for k, v in counts.items() if v})}")
+    # two passes profile in ~3 s with the trace read, so they run past the
+    # script's budget too
+    before = ops.launch_counts()["lt_splat"]
+    prof = PARTICLE_PROFILE_PASSES
+    glue = profile_render(driver, prof, f"{label} {PARTICLE_RES[0]}x{PARTICLE_RES[1]} "
+                          f"({prof} passes) [{card}]", PARTICLE_KERNELS,
+                          run=lambda: driver.render_particles(prof))
+    prof_bounces = max(ops.launch_counts()["lt_splat"] - before, 1)
+    log(f"{label} [{card}]: glue launches in {prof} profiled passes {glue} ({prof_bounces} "
+        f"bounces, {glue / prof_bounces:.0f} a bounce)")
+    return cli, counts
+
+
 def measure_bounces(dev, card: str) -> None:
     """One bounce of the mesh bounce (kernel 5) and of the general bounce
     (kernel 6), each built directly, on the same 921,600-lane state over
@@ -3358,6 +3591,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     checks["photon_gather"] = check_photon_gather(dev)
     torch.cuda.empty_cache()
+    checks["lt_splat"] = check_lt_splat(dev)
+    torch.cuda.empty_cache()
     for name in SOURCES:
         c = checks[name]
         lib = f", library {c['library_ms']:.4f} ms" if c["library_ms"] is not None else ""
@@ -3379,7 +3614,7 @@ def main() -> int:
     for phase in (phase_slice, phase_slice_mesh, phase_slice_textured, phase_slice_sunsky,
                   phase_slice_hero, phase_slice_portal, phase_slice_tree, phase_slice_material,
                   phase_slice_smoke, phase_slice_fire, phase_slice_cornell_variants,
-                  phase_slice_motion, phase_slice_caustics):
+                  phase_slice_motion, phase_slice_caustics, phase_slice_particles):
         phase(dev)
         mark(phase.__name__)
     # launches: the CLI runs of the Cornell, trefoil, sunsky, hero,
@@ -3490,6 +3725,12 @@ def main() -> int:
         *_take_scene("caustics_photons.take", CAUSTICS_RES, CAUSTICS_SPP,
                      "caustics_photons PTMIS"), CAUSTICS_KERNELS)
     mark("main path caustics_photons")
+    # the lighttracer path at the take's own size: the CLI, then the
+    # Driver's particle pass
+    particles_cli, particles = phase_particles(dev, card)
+    for k in launches:
+        launches[k] += particles_cli[k]
+    mark("main path cornell_particles")
     measure_bounces(dev, card)
     mark("bounces")
 
@@ -3503,7 +3744,10 @@ def main() -> int:
                                "1280x720 4 spp textured-trefoil render + cli cornell.take, "
                                "cornell_filtered.take, cornell_ao.take, "
                                "cornell_aov_normals.take and cornell_aovs.take + cli "
-                               "forest.take + cli motion.take + cli caustics_photons.take",
+                               "forest.take + cli motion.take + cli caustics_photons.take + "
+                               "cli cornell_particles.take",
+                "launches_particles_cli": particles_cli[name],
+                "launches_particles_render": particles[name],
                 "launches_caustics_cli": caustics_cli[name],
                 "launches_caustics_render": caustics[name],
                 "launches_forest_cli": paths["forest.take"][0][name],

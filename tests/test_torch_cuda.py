@@ -10,9 +10,11 @@ general body over fire.scene, kernel 6 on hero.take's and portal.take's
 first bounce, isect on portal.scene's tables, the filtered flush at
 the Cornell path's width and at small widths in its three footprint
 rules, the traversal over forest.take's 144 instances and its
-motion-blur variant (kAnim) at seeded shutter times, and the photon
+motion-blur variant (kAnim) at seeded shutter times, the photon
 gather on caustics_photons.take's first bounce, a dense map and small
-widths. Skipped without a card. This file imports no jax, so it also runs on a
+widths, and the lighttracer's camera splat on cornell_particles.take's
+first bounce and on seeded lanes at small widths, with the particle pass
+on the card against the CPU. Skipped without a card. This file imports no jax, so it also runs on a
 machine without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -676,3 +678,107 @@ def test_photon_gather_refuses_what_it_cannot_take(cuda_device):
     bad[3] = pmap.cell_start[:-1]
     with pytest.raises(ValueError, match="shape"):
         op.photon_gather(*bad)
+
+
+def test_lt_splat_matches_plain_on_card(cuda_device):
+    """The camera splat on the first bounce of a 512x512 pass of
+    cornell_particles.take: connections exact, RGB within rtol 4e-6 (the
+    atomics add in another order)."""
+    import chip_smoke
+
+    result = chip_smoke.check_lt_splat(cuda_device)  # raises on any disagreement
+    assert result["ms"] > 0.0 and result["adds"] > 0
+
+
+def _splat_case(dev, n, seed=27):
+    """n seeded lanes over five material kinds (three Substitutes, smooth
+    glass and a Light: only the Substitutes can add) onto 64 pixels."""
+    from zyg_tpu_torch.render import materials as M
+    from zyg_tpu_torch.scene.loader import load_scene_dict
+
+    mats = [{"name": "white", "rendering": {"Substitute": {"roughness": 1.0}}},
+            {"name": "gold", "rendering": {"Substitute": {"color": [0.9, 0.6, 0.2],
+                                                          "roughness": 0.15, "metallic": 1.0}}},
+            {"name": "plastic", "rendering": {"Substitute": {"roughness": 0.35}}},
+            {"name": "glass", "rendering": {"Glass": {"ior": 1.5}}},
+            {"name": "lamp", "rendering": {"Light": {"emittance": {"value": 5.0}}}}]
+    scene = load_scene_dict({"materials": mats, "entities": [
+        {"type": "Light" if m["name"] == "lamp" else "Prop", "shape": {"type": "Rectangle"},
+         "materials": [m["name"]], "transformation": {"position": [i, 0, 0]}}
+        for i, m in enumerate(mats)]}, dev)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def unit():
+        return torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=1).to(dev)
+
+    nrm = unit()
+    geo = torch.nn.functional.normalize(nrm + 0.3 * unit(), dim=1)
+    mat = torch.randint(0, 5, (n,), generator=g, dtype=torch.int32).to(dev)
+    params = M.gather(scene.materials, mat, medium_ior=torch.ones(n, device=dev),
+                      features=scene.mat_features)
+    tp = (torch.rand((n, 3), generator=g) * 2.0).to(dev)
+    cam_pdf = torch.empty(n).exponential_(generator=g).to(dev)
+    ids = torch.randint(0, 64, (n,), generator=g).to(dev)
+    connect = (torch.rand(n, generator=g) < 0.8).to(dev)
+    blocked = (torch.rand(n, generator=g) < 0.2).to(dev)
+    return [params, unit(), unit(), nrm, geo, tp, cam_pdf, ids, connect, blocked]
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 129, 4096])
+def test_lt_splat_launch_shapes(cuda_device, n):
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.ops import lt_splat as op
+
+    args = _splat_case(cuda_device, n)
+    out = [(torch.zeros((64, 4), device=cuda_device),
+            torch.zeros(1, dtype=torch.int64, device=cuda_device)) for _ in range(2)]
+    before = ops.launch_counts()["lt_splat"]
+    op.lt_splat(*args, *out[0])
+    op.lt_splat_plain(*args, *out[1])
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lt_splat"] == before + (n > 0)
+    assert int(out[0][1]) == int(out[1][1])
+    if n == 4096:
+        assert int(out[0][1]) > n // 4 and float(out[0][0].max()) > 0.0
+    assert not out[0][0][:, 3].any()
+    # the Substitutes' BSDF: shade_core.cuh's rounding against
+    # render/materials.py's, a few ulps; then the atomics' order
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=4e-6,
+                               atol=4e-6 * float(out[1][0].abs().max()) + 1e-30)
+
+
+def test_lt_splat_refuses_what_it_cannot_take(cuda_device):
+    from zyg_tpu_torch.ops import lt_splat as op
+
+    args = _splat_case(cuda_device, 64)
+    splat = torch.zeros((64, 4), device=cuda_device)
+    count = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="rough glass"):
+        op.lt_splat({**args[0], "features": {"rough_glass"}}, *args[1:], splat, count)
+    bad = list(args)
+    bad[5] = args[5].double()
+    with pytest.raises(ValueError, match="float32"):
+        op.lt_splat(*bad, splat, count)
+    bad = list(args)
+    bad[1] = args[1].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        op.lt_splat(*bad, splat, count)
+    with pytest.raises(ValueError, match="shape"):
+        op.lt_splat(*args, torch.zeros((64, 3), device=cuda_device), count)
+    with pytest.raises(ValueError, match="int64"):
+        op.lt_splat(*args, splat, count.int())
+
+
+def test_particle_pass_card_vs_cpu(cuda_device):
+    """Four 32x32 passes of cornell_particles.take through the Driver on
+    the card and on the CPU: rays within 0.5 %, the golden gate."""
+    import chip_smoke
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    take = chip_smoke._particles_take((32, 32), 4)
+    scene = load_scene_file(take.scene_filename)
+    drivers = [Driver(take, scene, device=d) for d in (cuda_device, "cpu")]
+    imgs = [d.render_frame() for d in drivers]
+    assert abs(drivers[0].rays_traced - drivers[1].rays_traced) <= 5e-3 * drivers[1].rays_traced
+    chip_smoke._golden_gate(imgs[0], imgs[1], "particles 32x32x4", "card test")

@@ -4,6 +4,10 @@ what the port renders: -i/--input take, -o/--output image (.png, .exr or
 -n/--num-frames, -s/--stats, plus --device (default cuda; no CPU
 fallback). Sensor AOV planes go beside the image as <stem>_<name>.exr.
 
+`render_frame` runs a take's photon bake, its particle pass (the
+lighttracer's light paths) and its forward samples, in that order; -s
+reports the particle pass's rays apart.
+
 Each frame loads the scene with its animations resolved over the frame's
 shutter interval (the camera's frame_interval) and renders it with a new
 Driver. With more than one frame the images are <stem>_<frame:06d><ext>,
@@ -87,6 +91,10 @@ def main(argv=None) -> int:
         w, h = driver.camera.resolution
         spp = take.num_samples_per_pixel
         print(f"resolution {w}x{h}, {spp} spp, {driver.rays_traced / 1e6:.1f}M rays")
+        if take.num_particles_per_pixel > 0:
+            # the particle pass (render_frame runs it before the forward samples)
+            print(f"particle pass: {take.num_particles_per_pixel} light paths a pixel, "
+                  f"{driver.particle_rays / 1e6:.1f}M rays")
         print(f"{driver.rays_traced / render_time / 1e6:.1f} Mrays/s")
     return 0
 

@@ -4,10 +4,14 @@
 Supported: a Perspective camera (fov, its shutter's frame_step or
 frames_per_second, open, close, motion_blur and up to 8 slope handles,
 under parameters or beside them, transformation, resolution), the
-Sobol sampler's samples_per_pixel, a PTMIS, PTDL, PT or AOV surface
-integrator (depth.surface and depth.volume, caustics, bsdf_split,
-light_sampling.split_threshold; regularize_roughness only at 0; the AOV
-integrator's value, num_samples and radius), the sensor's clamp,
+Sobol sampler's samples_per_pixel (0: no forward pass), a PTMIS, PTDL,
+PT or AOV surface integrator (depth.surface and depth.volume, caustics,
+bsdf_split, light_sampling.split_threshold; regularize_roughness only at
+0; the AOV integrator's value, num_samples and radius), the `particle`
+integrator (the lighttracer: particles_per_pixel, default 1, and
+full_light_path, accepted and not read: the Driver derives it; beside a
+surface integrator it turns the forward pass's caustics off, as the JAX
+package does), the sensor's clamp,
 Blackman or Mitchell filter (always at radius 2) and alpha_transparency,
 the root `aov` classes, the root `photon` settings (the photon map), a
 tonemapper with exposure, and PNG, EXR or RGBE image export. Anything
@@ -60,8 +64,9 @@ class PhotonSettings:
     search_radius: float = 0.01
     full_light_path: bool = False
     # gather at every primary diffuse vertex, not only after specular
-    # chains: set where the take traces no particles (the port refuses
-    # the `particle` key, so always)
+    # chains: set where the take traces no particles (the JAX rule,
+    # num_particles_per_pixel == 0); with a particle pass the lighttracer
+    # carries the caustic chains
     not_only_through_specular: bool = False
 
 
@@ -104,6 +109,8 @@ class Take:
     # enabled sensor AOV classes (keys of ptmis.AOV_SPECS)
     aovs: tuple = ()
     photon: PhotonSettings = field(default_factory=PhotonSettings)
+    # light paths a pixel a frame (the `particle` integrator; 0: none)
+    num_particles_per_pixel: int = 0
 
 
 def _only(node: dict, allowed: set, what: str) -> None:
@@ -144,8 +151,14 @@ def _load_camera(node: dict) -> PerspectiveCamera:
 
 
 def _load_integrator(node: dict, take: Take) -> None:
-    _only(node, {"surface"}, "integrator")
-    surface = node["surface"]
+    _only(node, {"surface", "particle"}, "integrator")
+    particle = node.get("particle")
+    if particle:
+        # the lighttracer (zyg_tpu/io/take.py:189-195); full_light_path is
+        # derived by the Driver from the forward pass's spp
+        _only(particle, {"particles_per_pixel", "full_light_path"}, "particle integrator")
+        take.num_particles_per_pixel = int(particle.get("particles_per_pixel", 1))
+    surface = node.get("surface", {})
     _only(surface, {"AOV", "PT", "PTMIS", "PTDL"}, "surface integrator")
     for kind in ("AOV", "PT", "PTDL", "PTMIS"):
         if kind not in surface:
@@ -181,6 +194,10 @@ def _load_integrator(node: dict, take: Take) -> None:
             s.aov_num_samples = int(body.get("num_samples", 1))
             s.aov_radius = float(body.get("radius", 1.0))
         break
+    if particle and "surface" in node:
+        # caustic chains move to the lighttracer (ref take.zig: caustics_path
+        # = caustics and !lighttracer)
+        take.integrator.caustics = False
 
 
 def _load_sensor(node: dict) -> SensorSettings:
@@ -233,8 +250,7 @@ def load_take_dict(root: dict, base_dir: str = "") -> Take:
             max_bounces=int(ph.get("max_bounces", 2)),
             search_radius=float(ph.get("search_radius", 0.01)),
             full_light_path=bool(ph.get("full_light_path", False)),
-            # the JAX rule (num_particles_per_pixel == 0): no particle pass
-            not_only_through_specular=True,
+            not_only_through_specular=take.num_particles_per_pixel == 0,
         )
     for pp in root.get("post", []):
         _only(pp, {"tonemapper"}, "post")

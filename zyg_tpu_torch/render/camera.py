@@ -9,7 +9,11 @@ open*dur, f*frame_step + close*dur] seconds, dur = frame_step with
 motion blur, else 0 (`frame_interval`); a lane's shutter time in [0, 1]
 is a uniform draw mapped through the inverse CDF of the shutter's
 response, baked on the host (`_shutter_icdf`; None, the identity, for
-the uniform shutter)."""
+the uniform shutter).
+
+`camera_sample_to` connects a world point to the camera for the
+lighttracer (ref camera_perspective.zig sampleTo): its pixel, the
+direction and distance to the pinhole and the sensor importance."""
 
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core import vecmath as vm
 from ..core.fmath import fma
 
 
@@ -138,6 +143,41 @@ def sample_shutter_time(cam: CameraArrays, u: torch.Tensor) -> torch.Tensor:
     a = cam.shutter_icdf[i]
     b = cam.shutter_icdf[torch.clamp(i + 1, max=k)]
     return fma(f, b - a, a)
+
+
+def camera_sample_to(cam: CameraArrays, resolution, p: torch.Tensor):
+    """Connect world points p [N, 3] to the camera (zyg_tpu/render/
+    camera.py:282-312): (pixel xy int32[N, 2], the direction from p toward
+    the camera [N, 3], the distance t [N], the sensor-importance pdf wa *
+    wb [N], 0 where invalid, valid bool[N]). A point is valid in front of
+    the camera (cos > 1e-6) on a pixel of the frame; the pixel is the
+    floor of the sensor-plane offset, so its rounding decides border
+    pixels. The JAX operation order throughout, each division a
+    tensor-by-tensor division (on CUDA torch turns a division by a Python
+    float into a multiplication by its reciprocal)."""
+    w, h = resolution
+    po = vm.world_to_frame(cam.rot[0], cam.rot[1], cam.rot[2], p - cam.pos)
+    t = vm.length(po)
+    dirs = po / torch.clamp(t, min=1e-20)[:, None]
+    cos_theta = dirs[:, 2]
+    valid = cos_theta > 1e-6
+    # project onto the sensor plane
+    z = cam.d_base[2]
+    pd = (z / torch.clamp(dirs[:, 2], min=1e-6))[:, None] * dirs
+    offset = pd - cam.d_base
+    px = torch.floor(offset[:, 0] / cam.d_dx[0]).to(torch.int32)
+    py = torch.floor(offset[:, 1] / cam.d_dy[1]).to(torch.int32)
+    valid = valid & (px >= 0) & (px < w) & (py >= 0) & (py < h)
+    # the sensor area factor a (ref camera_perspective.zig update: self.a),
+    # float32 divisions of the Python constants as XLA rounds them
+    two = torch.full_like(z, 2.0)
+    a = torch.abs((two / z) * (torch.full_like(z, 2.0 * (h / w)) / z))
+    cos2 = cos_theta * cos_theta
+    wa = cos_theta / torch.clamp(t * t, min=1e-12)
+    wb = torch.ones_like(cos2) / torch.clamp(a * cos2 * cos2, min=1e-12)
+    pdf = torch.where(valid, wa * wb, 0.0)
+    dir_to_cam = vm.safe_normalize(cam.pos - p)
+    return torch.stack([px, py], dim=-1), dir_to_cam, t, pdf, valid
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,11 @@ Deterministic seeding law (ref worker.zig:136-149):
     sobol seed   = iteration // num_expected_samples
 with num_expected_samples = max(spp, 2), as in the JAX driver. A take
 with a photon map bakes it first, each frame (`bake_photons`), and its
-dispatches gather it (the general body).
+dispatches gather it (the general body). A take with the `particle`
+integrator traces its light paths next (`render_particles`, the
+lighttracer: W*H paths a pass, path keys pixel_id * max(ppp, 2) +
+pass), whose camera splats resolve as splat / passes added to the
+forward image (zero without forward samples).
 """
 
 from __future__ import annotations
@@ -37,10 +41,10 @@ from ..scene.types import SceneData, UnsupportedScene
 from . import sensor as sensor_mod
 from .camera import generate_rays, sample_shutter_time
 from .integrator import aov as aov_mod
+from .integrator import lighttracer as lt_mod
 from .integrator import photon as photon_mod
 from .integrator import pt as pt_mod
 from .integrator import ptmis as ptmis_mod
-from .integrator.lighttracer import check_emitters
 from .sensor import Framebuffer
 
 # the light tree's size from which the JAX Driver splits NEE over several
@@ -79,6 +83,13 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
+def particle_keys(pixel_ids: torch.Tensor, ppp: int, traced: int) -> torch.Tensor:
+    """The Sobol' sample indices of a particle pass's paths, one a pixel
+    (zyg_tpu/render/driver.py:421): pixel_id * max(ppp, 2) + the passes
+    traced before it, in uint32 (int64 tensors holding u32 values)."""
+    return (mul_u32(pixel_ids, max(ppp, 2)) + traced) & MASK
+
+
 class Driver:
     """Progressive frame renderer for one camera."""
 
@@ -113,15 +124,20 @@ class Driver:
             photons_not_only_through_specular=take.photon.not_only_through_specular,
         )
         photons = take.photon.num_photons > 0
-        # the dispatch's refusals surface here, not mid-render
-        if self.persistent:
+        particles = take.num_particles_per_pixel > 0
+        # the dispatch's refusals surface here, not mid-render; a light-only
+        # take (particles and no forward samples) runs no dispatch
+        dispatches = take.num_samples_per_pixel > 0 or not particles
+        if dispatches and self.persistent:
             ptmis_mod.check_scene(scene, self.settings, photons=photons)
-        else:
+        elif dispatches:
             self._check_scan_scene(scene)
             if photons:
                 # the scan path bakes the map (its light paths) and does not
                 # gather it, as the JAX Driver does
-                check_emitters(scene)
+                lt_mod.check_emitters(scene)
+        if particles:
+            lt_mod.check_lighttracer(scene)
         self._photon_map = None  # the frame's photon map (bake_photons)
         self.device = resolve_device(device)
         self.scene = scene.to(self.device)
@@ -153,6 +169,10 @@ class Driver:
     def start_frame(self):
         w, h = self.camera.resolution
         self._fb = Framebuffer.zeros(w * h, self.device)
+        # the particle pass's camera splats and its passes (render_particles)
+        self._splat = torch.zeros((w * h, 3), dtype=torch.float32, device=self.device)
+        self._particles_traced = 0
+        self.particle_rays = 0
         self._aov = ptmis_mod.aov_init(self.aov_names, w * h, self.device)
         self._iteration = 0
         self.rays_traced = 0
@@ -287,12 +307,43 @@ class Driver:
         self._photon_map = photon_mod.build_map(p, wi, alpha, valid, ps.search_radius,
                                                 ps.num_photons)
 
+    def particle_settings(self) -> "lt_mod.LighttracerSettings":
+        """The particle pass's settings (zyg_tpu/render/driver.py:437-440):
+        at most 8 bounces, and full light paths only without a forward
+        pass (beside one, the lighttracer adds the caustic chains)."""
+        return lt_mod.LighttracerSettings(
+            max_depth=min(self.take.integrator.max_depth_surface, 8),
+            full_light_path=self.take.num_samples_per_pixel == 0)
+
+    def render_particles(self, num_per_pixel: int | None = None) -> None:
+        """The backward pass (zyg_tpu/render/driver.py:410-427): num_per_pixel
+        passes (default the take's particles_per_pixel) of W*H light paths,
+        pass k's path keys pixel_id * max(ppp, 2) + k over the frame's
+        passes so far (uint32), each pass's splat added to the frame's."""
+        ppp = self.take.num_particles_per_pixel if num_per_pixel is None else num_per_pixel
+        if ppp <= 0:
+            return
+        cam_arrays = self.camera.arrays(self.device)
+        settings = self.particle_settings()
+        for _ in range(ppp):
+            keys = particle_keys(self._pixel_ids, ppp, self._particles_traced)
+            splat, rays = lt_mod.trace(self.scene, cam_arrays, self.camera.resolution, keys,
+                                       settings)
+            self._splat += splat
+            self._particles_traced += 1
+            rays = int(rays)
+            self.rays_traced += rays
+            self.particle_rays += rays
+
     def render_frame(self) -> np.ndarray:
-        """Full frame at take spp, after the frame's photon bake. Returns
-        linear [H, W, 3]."""
+        """Full frame: the frame's photon bake, the particle pass, then
+        the take's spp (zyg_tpu/render/driver.py:593-601). Returns linear
+        [H, W, 3]."""
         self.start_frame()
         if self.take.photon.num_photons > 0:
             self.bake_photons()
+        if self.take.num_particles_per_pixel > 0:
+            self.render_particles()
         if self.take.num_samples_per_pixel > 0:
             self.render_iterations(self.take.num_samples_per_pixel)
         return self.resolve()
@@ -300,6 +351,12 @@ class Driver:
     def resolve(self, tonemapped: bool = False) -> np.ndarray:
         w, h = self.camera.resolution
         img = self._fb.resolve().reshape(h, w, 3)
+        if self._particles_traced > 0:
+            # the light-traced splats, normalized by the passes and added to
+            # the forward image (zyg_tpu/render/driver.py:643-648)
+            passes = torch.full((), self._particles_traced, dtype=torch.float32,
+                                device=self.device)
+            img = img + (self._splat / passes).reshape(h, w, 3)
         if tonemapped:
             s = self.take.sensor
             img = sensor_mod.tonemap(img, s.tonemapper, s.exposure, look=s.look)

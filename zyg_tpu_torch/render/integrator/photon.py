@@ -32,13 +32,12 @@ from ...core.sobol import SobolSampler
 from ...ops.isect import prop_table
 from ...ops.photon import MAX_PER_CELL, TABLE_BITS, TABLE_SIZE, photon_gather
 from ...ops.photon import cell_hash as _cell_hash
-from ...ops.shade import _offset_ray
 from ...scene import light_sampling as ls
 from ...scene import shapes
 from ...scene.types import RAY_MAX_T
 from .. import materials as M
 from . import volume as vol_mod
-from .lighttracer import sample_light_from
+from .lighttracer import _offset_rows, _side, sample_light_from
 
 __all__ = ["TABLE_BITS", "TABLE_SIZE", "MAX_PER_CELL", "PhotonMap", "bake", "build_map",
            "gather", "_cell_hash"]
@@ -59,10 +58,6 @@ class PhotonMap:
     # photons scanned a bucket (capped at MAX_PER_CELL): the fullest
     # bucket's next power of two, as the JAX Driver sets it
     max_per_cell: int = MAX_PER_CELL
-
-
-def _offset_rows(p, n):
-    return torch.stack(_offset_ray(p.unbind(1), n.unbind(1)), dim=-1)
 
 
 def bake(scene, ray_keys: torch.Tensor, settings, max_depth: int = 8):
@@ -126,8 +121,7 @@ def bake(scene, ray_keys: torch.Tensor, settings, max_depth: int = 8):
         entering = vm.dot(wo, frag.geo_n) > 0.0
         medium = torch.where(bs.transmission & cont,
                              torch.where(entering, hit.prop, -1).to(torch.int32), medium)
-        side = torch.where((vm.dot(bs.wi, frag.geo_n) >= 0.0)[:, None], frag.geo_n, -frag.geo_n)
-        o = _offset_rows(frag.p, side)
+        o = _offset_rows(frag.p, _side(bs.wi, frag.geo_n))
         d = bs.wi
         smp.increment_padding()
         depth += 1
