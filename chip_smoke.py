@@ -48,8 +48,11 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     r1 shuffled and Mitchell r2 unshuffled, and in the scan path's
     clamp-to-edge mode on every lane, weights and RGB within rtol 1e-5 and
     1e-5 of the plane's largest magnitude, with its float4 atomics
-    counted; traverse again on forest.take's 640x360 first-bounce lanes
-    over its 144 static proc:sphere instances, hit records bit-exact, with
+    counted, both of its mappings (tap-major, lane-major) held to the same
+    tolerance and timed in turns in each mode, beside the 128-byte lines
+    one atomic instruction touches under each; traverse again on
+    forest.take's 640x360 first-bounce lanes over its 144 static
+    proc:sphere instances, hit records bit-exact, with
     the instance picks counted, and its motion-blur variant
     (traverse_anim, kAnim) on a moving copy of the forest the script
     writes (each instance a two-keyframe animation) at seeded shutter
@@ -59,7 +62,9 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     own 480x270 over the map baked on the card from its 200,000 paths, and
     on a seeded dense map whose buckets exceed the 64-photon cap (at caps
     64 and 4), each lane within 2e-3 of its largest channel plus 1e-6 of
-    the batch's largest value, with the photon visits counted; the
+    the batch's largest value, with the photon visits counted (and how
+    they fall on threads: one lane's most, a thread-a-lane warp's serial
+    trips); the
     lighttracer's camera splat (lt_splat) on the first bounce of a
     cornell_particles.take pass at its own 512x512 (every path's first
     vertex), connections exact and RGB within rtol 4e-6, with its
@@ -507,7 +512,8 @@ def phase_card() -> str:
 
 def sass_counts(so_path: str) -> dict:
     """Static SASS instructions of each kernel in a built library (NOPs not
-    counted), from `cuobjdump -sass`."""
+    counted), from `cuobjdump -sass`; a template's instantiations apart,
+    as name<its integer and bool arguments> (accum_filtered<F,R,tap_major>)."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([exe, "-sass", so_path], capture_output=True, text=True, check=True).stdout
     counts: dict = {}
@@ -517,6 +523,9 @@ def sass_counts(so_path: str) -> dict:
         if m:
             # mangled names hold the kernel's name after its length
             cur = next((k for k in SOURCES if f"{len(k) + 7}{k}_kernel" in m.group(1)), m.group(1))
+            t = re.search(rf"{len(cur) + 7}{cur}_kernelI((?:L[a-z]\d+E)+)E", m.group(1))
+            if t:
+                cur += "<" + ",".join(re.findall(r"L[a-z](\d+)E", t.group(1))) + ">"
             counts[cur] = 0
         elif cur is not None and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S", ln):
             counts[cur] += 1
@@ -1461,6 +1470,35 @@ def _filtered_case(mode: str, n: int, dev):
     return pid, was_alive, alive, (e, d, x), (inf, inf, 8.0), uv, False
 
 
+def atomic_lines(idx, tgt, ok) -> dict:
+    """How the filtered flush's atomics fall on the framebuffer's 128-byte
+    lines (8 float4 rows), for the finishing lanes idx (ascending) with
+    filtered_taps' targets tgt and valid taps ok ([T, m]): the distinct
+    lines one warp-wide atomic instruction touches and its active threads,
+    averaged over instructions, under the lane-major mapping (a thread a
+    lane of 32 consecutive lanes, an instruction a tap) and the tap-major
+    one (the warp's threads share the taps of its next 32 // T finishing
+    samples, an instruction those samples)."""
+    import torch
+
+    taps, m = tgt.shape
+    if not bool(ok.any()):
+        return {}
+    warp = idx // 32
+    rank = torch.arange(m, device=idx.device) - torch.searchsorted(warp, warp)
+    line = tgt[ok] // 8
+    nl = int(line.max()) + 1
+    inst = {"lane_major": (warp[None, :] * taps
+                           + torch.arange(taps, device=idx.device)[:, None])[ok],
+            "tap_major": (warp * 32 + rank // (32 // taps))[None, :].expand(taps, m)[ok]}
+    out = {}
+    for name, i in inst.items():
+        count = torch.unique(i).numel()
+        out[name] = {"lines_per_instruction": torch.unique(i * nl + line).numel() / count,
+                     "threads_per_instruction": line.numel() / count}
+    return out
+
+
 def check_accum_filtered(dev) -> dict:
     """The filtered flush against its plain version on Cornell 1080p's
     lanes: Mitchell r2 shuffled at the path's finish share (the
@@ -1469,10 +1507,13 @@ def check_accum_filtered(dev) -> dict:
     within rtol 1e-5 and an absolute 1e-5 of the plane's largest magnitude
     (float adds in atomic order; Mitchell's negative lobes cancel). Times
     each beside its bound (bytes, and the operations per finishing lane)
-    and the one PyTorch call that adds the same tap rows (index_add_)."""
+    and the one PyTorch call that adds the same tap rows (index_add_).
+    Both of the kernel's mappings (tap-major, lane-major) are held against
+    the plain version and timed in turns in each mode, beside the 128-byte
+    lines one atomic instruction touches under each (atomic_lines)."""
     import torch
-    from zyg_tpu_torch.ops.accum import (_radiance, filtered_taps, flush_filtered,
-                                         flush_filtered_plain)
+    from zyg_tpu_torch.ops.accum import (_launch_filtered, _radiance, filtered_taps,
+                                         flush_filtered, flush_filtered_plain)
 
     w, h = 1920, 1080
     n = w * h
@@ -1486,13 +1527,19 @@ def check_accum_filtered(dev) -> dict:
         args = (pid, was_alive, alive, planes, clamps, uv, w, h, name, r)
         a1 = flush_filtered(fb0.clone(), *args, clamp_edge=edge)
         a2 = flush_filtered_plain(fb0.clone(), *args, clamp_edge=edge)
+        mapped = {}
+        for tm in (True, False):
+            mapped[tm] = fb0.clone()
+            _launch_filtered(mapped[tm], *args, edge, 0, tap_major=tm)
         torch.cuda.synchronize()
-        for cols, what in ((slice(3, 4), "weights"), (slice(0, 3), "RGB")):
-            ref = a2[:, cols] - fb0[:, cols]
-            scale = float(ref.abs().max())
-            torch.testing.assert_close(a1[:, cols] - fb0[:, cols], ref, rtol=1e-5,
-                                       atol=1e-5 * scale,
-                                       msg=lambda m: f"accum_filtered {tag or 'mitchell_r2_'}{what}: {m}")
+        for got, how in ((a1, ""), (mapped[True], " tap-major"), (mapped[False], " lane-major")):
+            for cols, what in ((slice(3, 4), "weights"), (slice(0, 3), "RGB")):
+                ref = a2[:, cols] - fb0[:, cols]
+                scale = float(ref.abs().max())
+                torch.testing.assert_close(
+                    got[:, cols] - fb0[:, cols], ref, rtol=1e-5, atol=1e-5 * scale,
+                    msg=lambda m: f"accum_filtered {tag or 'mitchell_r2_'}{what}{how}: {m}")
+        del mapped
         fin = (torch.ones_like(pid, dtype=torch.bool) if was_alive is None
                else was_alive & ~alive)
         idx = torch.nonzero(fin).squeeze(1)
@@ -1521,12 +1568,25 @@ def check_accum_filtered(dev) -> dict:
         ops = m * (2 * (2 * r + 1) * OPS_FILTER_EVAL + taps * OPS_FILTER_TAP)
         b = bound(nbytes, ops)
         out.update({f"{tag}{k}": v for k, v in b.items()})
+        # the two mappings in turns (lane-major, tap-major, tap-major,
+        # lane-major), and the lines an atomic instruction touches under each
+        turns = {True: [], False: []}
+        for tm in (False, True, True, False):
+            turns[tm].append(device_ms(
+                lambda: _launch_filtered(a1, *args, edge, 0, tap_major=tm), "accum_filtered"))
+        lines = atomic_lines(idx, tgt, ok)
+        out[f"{tag}mappings"] = {"tap_major_device_ms": turns[True],
+                                 "lane_major_device_ms": turns[False], **lines}
         log(f"accum_filtered {mode} {name} r{r}: {m} of {n} lanes finish, {int(ok.sum())} float4 "
             f"atomics ({taps} taps a lane), max_abs_err {out[f'{tag}max_abs_err']:.3g}, kernel "
             f"{out[f'{tag}ms']:.4f} ms (device {out[f'{tag}device_ms']:.4f} ms), plain "
             f"{out[f'{tag}plain_ms']:.4f} ms, library {out[f'{tag}library_ms']:.4f} ms, bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {int(ok.sum()) / out[f'{tag}device_ms'] / 1e6:.1f} "
-            f"G atomics/s")
+            f"G atomics/s; the wrapper maps {'tap' if was_alive is not None else 'lane'}-major; "
+            f"device ms in turns, lane-major {turns[False]}, tap-major {turns[True]}; per atomic "
+            f"instruction, 128-B lines and threads: "
+            + ", ".join(f"{k} {v['lines_per_instruction']:.3f} and "
+                        f"{v['threads_per_instruction']:.3f}" for k, v in lines.items()))
         del a1, a2, a3, rows, tgt, wts, ok, tgt_ok, rgb
     return out
 
@@ -1991,7 +2051,12 @@ def gather_visits(ph_p, ph_wi, cell_start, pos, n, active, radius: float,
     "visiting" lanes; "in_range", those within r on the front, which
     evaluate the BSDF, on "lit" lanes; "rows" and "rows_in_range", the
     distinct photon rows of each; "buckets", the distinct buckets its
-    active lanes look up."""
+    active lanes look up. And how the visits fall on threads:
+    "most_lane_visits", one lane's most; "warp_serial_trips", the sum over
+    warps of 32 consecutive lanes of the warp's most visits of one lane
+    (the loop trips of a thread-a-lane design, where a warp waits on its
+    longest lane); "group_trips", the same for the kernel's group of 16
+    threads a lane: the sum over warps of the warp's most ceil(visits / 16)."""
     import torch
     from zyg_tpu_torch.ops import photon as op
 
@@ -2000,11 +2065,19 @@ def gather_visits(ph_p, ph_wi, cell_start, pos, n, active, radius: float,
     ok = op._in_range(ph_p, ph_wi, pos, n, lane, j, r2)[2]
     looked = torch.cat([torch.where(active & ~dup, h, -1)
                         for dup, h in op._cells(pos, rad, inv_cell)])
+    lanes = pos.shape[0]
+    per_lane = torch.nn.functional.pad(torch.bincount(lane, minlength=lanes), (0, (-lanes) % 32))
+
+    def trips(g: int) -> int:
+        return int((-(-per_lane // g)).view(-1, 32 // g).amax(dim=1).sum())
+
     return {"visits": int(j.shape[0]), "visiting": int(torch.unique(lane).shape[0]),
             "in_range": int(ok.sum()), "lit": int(torch.unique(lane[ok]).shape[0]),
             "rows": int(torch.unique(j).shape[0]),
             "rows_in_range": int(torch.unique(j[ok]).shape[0]),
-            "buckets": int((torch.unique(looked) >= 0).sum())}
+            "buckets": int((torch.unique(looked) >= 0).sum()),
+            "most_lane_visits": int(per_lane.max()) if lanes else 0,
+            "warp_serial_trips": trips(1), "group_trips": trips(16)}
 
 
 def check_photon_gather(dev) -> dict:
@@ -2057,6 +2130,9 @@ def check_photon_gather(dev) -> dict:
     log(f"photon_gather on caustics' first bounce, {n} lanes: {active} gather "
         f"({active / n:.4f}), {lit} lit; {v['visits']} photon visits "
         f"({v['visits'] / max(active, 1):.3f} a gathering lane) from {v['visiting']} lanes, "
+        f"at most {v['most_lane_visits']} on one lane, {v['warp_serial_trips']} serial trips of "
+        f"a thread a lane (the sum over warps of the warp's longest lane), {v['group_trips']} of "
+        f"a group of 16 threads a lane; "
         f"{v['in_range']} in range on {v['lit']} lanes, {v['rows']} photon rows "
         f"({v['rows_in_range']} in range) and {v['buckets']} buckets touched; max_per_cell "
         f"{cap}; max_abs_err {err:.3g} ({worst:.3f} of the tolerance); bytes needed {nbytes} "
@@ -2088,8 +2164,13 @@ def check_photon_gather(dev) -> dict:
         dargs = (dmap.p, dmap.wi, dmap.alpha, dmap.cell_start, drows, pos, wo, nrm, nrm,
                  active_d, 0.05, m, dcap)
         derr, dworst = _compare_gather(op.photon_gather(*dargs), op.photon_gather_plain(*dargs))
+        dv = gather_visits(dmap.p, dmap.wi, dmap.cell_start, pos, nrm, active_d, 0.05, dcap)
         dense[f"cap{dcap}"] = {"max_abs_err": derr, "share_of_tolerance": dworst,
-                               "ms": time_ms(lambda: op.photon_gather(*dargs), 5)}
+                               "ms": time_ms(lambda: op.photon_gather(*dargs), 5),
+                               "device_ms": device_ms(lambda: op.photon_gather(*dargs),
+                                                      "photon_gather", reps=5),
+                               **{k: dv[k] for k in ("visits", "in_range", "most_lane_visits",
+                                                     "warp_serial_trips", "group_trips")}}
     log(f"photon_gather on a dense map ({m} photons, fullest bucket {fullest}), {nd} lanes: "
         f"{dense}")
     if fullest <= 64:

@@ -8,17 +8,22 @@ measured by the same yardstick on the same machine:
         python3 kernel_ab.py $t surface surface_v2 trefoil textured
     done
 
-The names `cornell`, `trefoil`, `textured` and `sunsky` instead time one
-of the checkout's main paths: the Cornell take at 1920x1080 and 16 spp,
-the trefoil take and the bench's textured trefoil under its sky dome at
-1280x720 and 4 spp, and the sunsky take at its own 960x540, 32 spp. Each runs the checkout's own chip_smoke report of that
-path, then by one yardstick for every checkout 10 timed renders (their
-median and best), the peak device memory of one render and one profiled
-render's device time and launches by kernel name, printed as
-`RENDER <checkout> <path> <JSON>`; for the mesh paths one more render
-gives the lifecycle shares of kernel 5's or 6's lanes (dead on entry,
-missed, ended on a hit, reaching NEE, ...), in its first bounce and over
-all its launches: `LANES <checkout> <path> ...`.
+The names `cornell`, `trefoil`, `textured`, `sunsky`, `cornell_filtered`
+and `caustics` instead time one of the checkout's main paths: the Cornell
+take at 1920x1080 and 16 spp, the trefoil take and the bench's textured
+trefoil under its sky dome at 1280x720 and 4 spp, the sunsky take at its
+own 960x540, 32 spp, cornell_filtered.take (Mitchell, radius 2: the
+filtered flush) at 1920x1080 and 16 spp, and caustics_photons.take (the
+photon gather) at its own 480x270 in one chunk of 8 spp over the map
+baked from its 200,000 paths. Each but caustics first runs the
+checkout's own chip_smoke report of that path (caustics' takes ~20 s a
+render), then by one yardstick for every checkout 10 timed renders (3 of
+caustics, ~5 s each; their median and best), the peak device memory of
+one render and one profiled render's device time and launches by kernel
+name, printed as `RENDER <checkout> <path> <JSON>`; for the mesh paths
+one more render gives the lifecycle shares of kernel 5's or 6's lanes
+(dead on entry, missed, ended on a hit, reaching NEE, ...), in its first
+bounce and over all its launches: `LANES <checkout> <path> ...`.
 
 A `-DNAME[=VALUE]` argument builds the library with that macro defined
 (a build-time variant of a kernel); the label of each line then carries
@@ -32,7 +37,10 @@ disagrees with the plain version) and prints one line per kernel:
 `DEVICE <checkout> <kernel> median ...`: the median device time of the
 kernel's launches in a second run of the check, from the profiler (the
 check's CUDA-event times also count the device's idle gaps while the host
-issues a short kernel's launches). Compare two checkouts only within one
+queues a short kernel's launches), and one `DEVICE <checkout> <kernel>
+#k [ints] median ...` line for each run of consecutive launches whose
+integer arguments (lane counts, caps, modes) are the same, so that the
+check's cases are told apart. Compare two checkouts only within one
 command on one machine, in turns as above.
 """
 
@@ -48,16 +56,25 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-RENDERS = ("cornell", "trefoil", "textured", "sunsky")
+RENDERS = ("cornell", "trefoil", "textured", "sunsky", "cornell_filtered", "caustics")
+CAUSTICS_SPP = 8  # one chunk of the caustics path
 
 
 def render(chip_smoke, here, dev, label: str, path: str) -> None:
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from zyg_tpu_torch.render.driver import Driver
 
-    if path == "cornell":
+    spp, runs = None, 10
+    if path == "caustics":
+        # a Driver with its map baked; no chip_smoke report first
+        kernels = chip_smoke.CAUSTICS_KERNELS
+        drv = chip_smoke._caustics_driver(dev, spp=CAUSTICS_SPP)
+        spp, runs = CAUSTICS_SPP, 3
+    elif path == "cornell_filtered":
+        title, kernels = "cornell_filtered 1080p", chip_smoke.FILTERED_KERNELS
+        take, scene = chip_smoke._take_scene("cornell_filtered.take", (1920, 1080), 16, title)
+    elif path == "cornell":
         title, kernels = "Cornell PTMIS", chip_smoke.CORNELL_KERNELS
         take, scene = chip_smoke._take_scene("cornell_ptmis.take", (1920, 1080), 16, title)
     elif path == "trefoil":
@@ -70,14 +87,15 @@ def render(chip_smoke, here, dev, label: str, path: str) -> None:
     else:
         title, kernels = "textured trefoil PTMIS", chip_smoke.TEXTURED_KERNELS
         take, scene = chip_smoke._textured(dev, ci=False)
-    chip_smoke.phase_main_path(dev, chip_smoke.phase_card(), title, take, scene, kernels)
-    spp = take.num_samples_per_pixel
-    drv = Driver(take, scene, device=dev)
+    if spp is None:
+        chip_smoke.phase_main_path(dev, chip_smoke.phase_card(), title, take, scene, kernels)
+        spp = take.num_samples_per_pixel
+        drv = Driver(take, scene, device=dev)
     drv.start_frame()
     drv.render_iterations(spp)
     torch.cuda.synchronize()
     times = []
-    for _ in range(10):
+    for _ in range(runs):
         drv.start_frame()
         t0 = time.perf_counter()
         drv.render_iterations(spp)
@@ -93,17 +111,17 @@ def render(chip_smoke, here, dev, label: str, path: str) -> None:
         drv.render_iterations(spp)
         torch.cuda.synchronize()
     by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            row = by_name.setdefault(e.name, [0.0, 0])
-            row[0] += e.time_range.elapsed_us() / 1e6
-            row[1] += 1
+    # the raw device events: prof.events() takes minutes on caustics' ~400,000 launches
+    for name, sec in here.device_events(prof):
+        row = by_name.setdefault(name, [0.0, 0])
+        row[0] += sec
+        row[1] += 1
     print(f"RENDER {label} {path} " + json.dumps({
         "render_s": times, "median_s": statistics.median(times), "best_s": min(times),
         "peak_bytes": peak,
         "busy_s": sum(v[0] for v in by_name.values()),
         "launches": sum(v[1] for v in by_name.values()), "by_name": by_name}), flush=True)
-    if path != "cornell":
+    if path in ("trefoil", "textured", "sunsky"):
         kernel = "surface" if path == "trefoil" else "surface_v2"
         print(f"LANES {label} {path} {here.lane_shares(drv, spp, kernel)}", flush=True)
 
@@ -154,18 +172,45 @@ def main(argv: list[str]) -> int:
         # profiler at a time), and the median device time of the kernel's
         # launches there, most of them at the main path's width
         own = getattr(chip_smoke, "device_ms", None)
-        chip_smoke.device_ms = lambda *args, **kwargs: 0.0
+        # NaN, not 0: a check may divide by its device time
+        chip_smoke.device_ms = lambda *args, **kwargs: float("nan")
+        # the integer arguments of each launch but pointers, in launch order
+        launched = []
+        call = ops.Kernel.__call__
+
+        def counted(self, *args):
+            launched.append((self.name, tuple(a for a in args
+                                              if isinstance(a, int) and abs(a) < 1 << 40)))
+            return call(self, *args)
+
+        ops.Kernel.__call__ = counted
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 check(dev)
         finally:
             chip_smoke.device_ms = own
+            ops.Kernel.__call__ = call
         # `track` checks both tracking walks: the median is over both kernels
         kernel = {"sobol": "sobol_block_kernel", "track": "track_"}.get(name, f"{name}_kernel")
-        us = sorted(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and kernel in e.name)
+        events = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                        if e.device_type == DeviceType.CUDA and kernel in e.name)
+        us = sorted(t for _, t in events)
         print(f"DEVICE {label} {name} median {us[len(us) // 2] / 1e3:.5f} ms over {len(us)} launches",
               flush=True)
+        mine = [ints for k, ints in launched if f"{k}_kernel".startswith(kernel)]
+        if len(mine) == len(events):
+            runs: list = []
+            for ints, (_, t) in zip(mine, events):
+                if not runs or runs[-1][0] != ints:
+                    runs.append((ints, []))
+                runs[-1][1].append(t)
+            for k, (ints, ts) in enumerate(runs):
+                ts = sorted(ts)
+                print(f"DEVICE {label} {name} #{k} {list(ints)} median {ts[len(ts) // 2] / 1e3:.5f} "
+                      f"ms over {len(ts)} launches", flush=True)
+        else:
+            print(f"DEVICE {label} {name}: {len(events)} device events against {len(mine)} "
+                  "launches: no runs by argument", flush=True)
         torch.cuda.empty_cache()
     return 0
 

@@ -9,10 +9,12 @@ interaction walk's emissive variant on the fire path's lanes, the
 general body over fire.scene, kernel 6 on hero.take's and portal.take's
 first bounce, isect on portal.scene's tables, the filtered flush at
 the Cornell path's width and at small widths in its three footprint
-rules, the traversal over forest.take's 144 instances and its
+rules (with every finishing lane on one pixel, under both of its
+mappings), the traversal over forest.take's 144 instances and its
 motion-blur variant (kAnim) at seeded shutter times, the photon
 gather on caustics_photons.take's first bounce, a dense map and small
-widths, and the lighttracer's camera splat on cornell_particles.take's
+widths, with lanes at the 512-visit cap beside empty ones and lanes
+whose cells repeat, and the lighttracer's camera splat on cornell_particles.take's
 first bounce and on seeded lanes at small widths, with the particle pass
 on the card against the CPU. Skipped without a card. This file imports no jax, so it also runs on a
 machine without the JAX package:
@@ -104,7 +106,7 @@ def test_accum_small_widths(cuda_device, n):
     torch.testing.assert_close(a1, a2, rtol=4e-6, atol=4e-6 * float(a2[:, 0:3].abs().max()))
 
 
-@pytest.mark.parametrize("n", [0, 1, 31, 129])
+@pytest.mark.parametrize("n", [0, 1, 27, 28, 31, 129])
 @pytest.mark.parametrize("mode", ["drop", "clamp_edge", "tile"])
 @pytest.mark.parametrize("name,r", [("Mitchell", 2), ("Blackman", 1)])
 def test_accum_filtered_small_widths(cuda_device, n, mode, name, r):
@@ -127,6 +129,39 @@ def test_accum_filtered_small_widths(cuda_device, n, mode, name, r):
     a2 = flush_filtered_plain(fb0.clone(), *args, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(a1, a2, rtol=1e-5, atol=1e-5 * float(a2.abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["clamp_edge", "tile"])
+@pytest.mark.parametrize("name,r", [("Mitchell", 2), ("Blackman", 1)])
+@pytest.mark.parametrize("tap_major", [True, False])
+def test_accum_filtered_one_pixel(cuda_device, mode, name, r, tap_major):
+    """Every finishing lane of two warps on one pixel of a 16x4 frame (the
+    tile: rows [16, 48) of it): each atomic instruction adds many taps to
+    the same rows, under both of the kernel's mappings (taps shared by the
+    warp's threads, or one thread a lane) and through the wrapper."""
+    from zyg_tpu_torch.ops.accum import _launch_filtered, flush_filtered, flush_filtered_plain
+
+    n = 64
+    g = torch.Generator(device="cpu").manual_seed(3)
+    rows, base = (32, 16) if mode == "tile" else (64, 0)
+    pid = torch.full((n,), 21, dtype=torch.int64)
+    fin = torch.rand(n, generator=g) < 0.6
+    planes = [(torch.rand((n, 3), generator=g) * 4.0).to(cuda_device) for _ in range(3)]
+    uv = torch.rand((n, 2), generator=g).to(cuda_device)
+    args = [pid.to(cuda_device), fin.to(cuda_device), torch.zeros(n, dtype=torch.bool,
+                                                                  device=cuda_device),
+            planes, (float("inf"), 2.0, 1.0), uv, 16, 4, name, r]
+    if mode == "clamp_edge":
+        args[1:5] = [None, None, planes[:1], (float("inf"),)]
+    fb0 = torch.rand((rows, 4), generator=g).to(cuda_device)
+    edge = mode == "clamp_edge"
+    want = flush_filtered_plain(fb0.clone(), *args, clamp_edge=edge, base=base)
+    got = fb0.clone()
+    _launch_filtered(got, *args, edge, base, tap_major=tap_major)
+    wrapped = flush_filtered(fb0.clone(), *args, clamp_edge=edge, base=base)
+    torch.cuda.synchronize()
+    for a in (got, wrapped):
+        torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("case", SHAPES + ["all dead"])
@@ -636,7 +671,7 @@ def _gather_case(dev, n, seed=21):
     return pmap, params, pos, nrm
 
 
-@pytest.mark.parametrize("case", [0, 1, 31, 129, 4096, "all inactive"])
+@pytest.mark.parametrize("case", [0, 1, 31, 33, 129, 257, 4096, "all inactive"])
 def test_photon_gather_launch_shapes(cuda_device, case):
     import chip_smoke
     from zyg_tpu_torch import ops
@@ -655,6 +690,78 @@ def test_photon_gather_launch_shapes(cuda_device, case):
     if case == "all inactive":
         assert not got.any()
     chip_smoke._compare_gather(got, op.photon_gather_plain(*args))
+
+
+def test_photon_gather_full_lanes_beside_empty_ones(cuda_device):
+    """Lanes whose 8 cells all hold more than the cap (512 visits each) in
+    the warps of lanes that visit nothing or do not gather: a group's
+    trips and its early exit must not leak into its neighbours'."""
+    import chip_smoke
+    from zyg_tpu_torch.ops import photon as op
+    from zyg_tpu_torch.render.integrator import photon as photon_mod
+
+    n, m = 96, 4000
+    _, params, _, nrm = _gather_case(cuda_device, n)
+    g = torch.Generator(device="cpu").manual_seed(41)
+    centre = torch.tensor([0.013, 0.021, 0.037])
+    p = centre + (torch.rand((m, 3), generator=g) - 0.5) * 0.2
+    wi = torch.nn.functional.normalize(torch.randn((m, 3), generator=g), dim=1)
+    pmap = photon_mod.build_map(p.to(cuda_device), wi.to(cuda_device),
+                                torch.rand((m, 3), generator=g).to(cuda_device),
+                                torch.ones(m, dtype=torch.bool, device=cuda_device), 0.05, m)
+    # far from every photon, but for the full lanes near the cloud's centre
+    pos = 5.0 + torch.arange(n, dtype=torch.float32)[:, None] * 0.3 + torch.zeros(3)
+    full = [0, 5, 17, 37, 63]
+    pos[full] = centre + torch.tensor([[0.0, 0.0, 0.0], [0.004, 0.0, 0.0], [0.0, 0.003, 0.0],
+                                       [0.0, 0.0, 0.002], [0.001, 0.002, 0.003]])
+    active = torch.ones(n, dtype=torch.bool)
+    active[[1, 6, 36, 62]] = False
+    pos, active = pos.to(cuda_device), active.to(cuda_device)
+    args = (pmap.p, pmap.wi, pmap.alpha, pmap.cell_start, params, pos, nrm, nrm, nrm, active,
+            0.05, m, 64)
+    v = chip_smoke.gather_visits(pmap.p, pmap.wi, pmap.cell_start, pos, nrm, active, 0.05, 64)
+    assert v["most_lane_visits"] == 512 and v["visits"] == 512 * len(full)
+    got, want = op.photon_gather(*args), op.photon_gather_plain(*args)
+    torch.cuda.synchronize()
+    chip_smoke._compare_gather(got, want)
+    assert (want[full].amax(dim=1) > 0).all()
+    assert not got[[k for k in range(n) if k not in full]].any()
+
+
+def test_photon_gather_repeated_cells(cuda_device):
+    """Every lane on a point where the sphere's cells repeat on one axis or
+    more (lo == hi there: points near a cell's centre, where float32
+    rounding keeps pos - r and pos + r in one cell), so the kernel's scan
+    skips cells as the plain version does."""
+    import chip_smoke
+    from zyg_tpu_torch.ops import photon as op
+
+    n = 512
+    pmap, params, pos, nrm = _gather_case(cuda_device, n)
+    rad, inv_cell = op.scalars(0.05, 1)[:2]
+    # cell centres and their float32 neighbours in the cloud, kept where
+    # they repeat (the same arithmetic as op._cells)
+    centres = (torch.arange(-3, 3, dtype=torch.float32) + 0.5) * 0.1
+    cand = torch.cat([centres])
+    for _ in range(4):
+        cand = torch.cat([cand, torch.nextafter(cand, cand + 1), torch.nextafter(cand, cand - 1)])
+    cand = torch.unique(cand)
+    rep = cand[torch.floor((cand - rad) * inv_cell) == torch.floor((cand + rad) * inv_cell)]
+    assert rep.numel() > 0
+    g = torch.Generator(device="cpu").manual_seed(43)
+    pick = rep[torch.randint(0, rep.numel(), (n, 3), generator=g)]
+    axes = torch.rand((n, 3), generator=g) < 0.5
+    axes[torch.arange(n), torch.randint(0, 3, (n,), generator=g)] = True  # one axis at least
+    pos = torch.where(axes.to(cuda_device), pick.to(cuda_device), pos).contiguous()
+    dup = torch.stack([d for d, _ in op._cells(pos, rad, inv_cell)], dim=1)
+    assert dup.any(dim=1).all()
+    active = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    args = (pmap.p, pmap.wi, pmap.alpha, pmap.cell_start, params, pos, nrm, nrm, nrm, active,
+            0.05, 20_000, 64)
+    got, want = op.photon_gather(*args), op.photon_gather_plain(*args)
+    torch.cuda.synchronize()
+    chip_smoke._compare_gather(got, want)
+    assert (want.amax(dim=1) > 0).any()
 
 
 def test_photon_gather_refuses_what_it_cannot_take(cuda_device):

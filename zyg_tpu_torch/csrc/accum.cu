@@ -111,7 +111,26 @@ extern "C" int zyg_flush_pixels(void* fb, const void* pid, const void* was_alive
 // of 0.2005 and r = 2, a launch adds ~10.4 M float4 rows into the 33 MB
 // framebuffer, which stays in the 50 MB L2; the device-memory traffic
 // (pid and masks of every lane, radiance and offset of the finishing
-// ones) is ~39 MB.
+// ones) is ~39 MB. How fast the L2 takes the atomics depends on how many
+// 128-byte lines one warp-wide atomic instruction touches.
+//
+// Design: two mappings of taps to threads, each a template instantiation
+// for the radius (1, 2) and the filter (Blackman, Mitchell), so the
+// weights live in registers.
+//   Tap-major (the persistent path's shuffled and unshuffled dispatches,
+//     where a fifth of the lanes finish, each on an unrelated pixel): a
+//     warp finds its finishing lanes with __ballot_sync and walks them.
+//     Each finishing lane computes its clamped RGB sum and its separable
+//     weights wx, wy once; the warp's threads take the taps of the next
+//     32 / (2r+1)^2 samples (one at r = 2, three at r = 1), thread t tap
+//     (t / (2r+1), t % (2r+1)) of its sample, and fetch the sample's
+//     values with shuffles. So one atomic instruction adds 2r+1 runs of
+//     2r+1 consecutive float4 rows (80 B a run at r = 2): about 2(2r+1)
+//     lines, where a lane a thread touches up to 32.
+//   Lane-major (the scan path's splat, every lane finished, lane i on
+//     pixel i): one thread a lane adds its taps one after another; one
+//     instruction then adds 32 consecutive rows, about 4 lines.
+// The wrapper picks the mapping from its arguments (ops/accum.py).
 //
 // Rounding: the filters round as the plain versions in
 // render/sensor.py, which round as XLA rounds the JAX formulas (fmaf
@@ -132,8 +151,6 @@ struct FilteredArgs {
   int nplanes;
   const float* sub_uv;  // [n, 2] subpixel offsets in [0, 1)
   int64_t n, base, width, height;  // base: the global pixel of local row 0
-  int filter;  // 0 Blackman, 1 Mitchell
-  int radius;  // 1 or 2
   int clamp_edge;  // 1: clamp taps onto the frame, 0: drop them
 };
 
@@ -156,65 +173,155 @@ __device__ __forceinline__ float mitchell_w(float x) {
   return 0.0f;
 }
 
-__device__ __forceinline__ float filter_w(int filter, float x, float r) {
-  return filter == 1 ? mitchell_w(x * (2.0f / r)) : blackman_w(x, r);
+enum : int { kBlackman = 0, kMitchell = 1 };  // ops/accum.py FILTERS
+
+template <int F, int R>
+__device__ __forceinline__ float filter_w(float x) {
+  const float r = (float)R;
+  return F == kMitchell ? mitchell_w(x * (2.0f / r)) : blackman_w(x, r);
 }
 
 __device__ __forceinline__ int64_t clamp_index(int64_t x, int64_t size) {
   return x < 0 ? 0 : (x >= size ? size - 1 : x);
 }
 
-__global__ void accum_filtered_kernel(FilteredArgs a) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  if (a.was_alive != nullptr && (!a.was_alive[i] || a.alive[i])) return;
+// One finishing lane's sample: its clamped RGB sum, its weights along x
+// and y (tap k at offset k - R), its local pixel and the global pixel's
+// column and row.
+template <int R>
+struct Sample {
   float v[3];
+  float wx[2 * R + 1], wy[2 * R + 1];
+  int64_t p, gx, gy;
+};
+
+template <int F, int R>
+__device__ __forceinline__ Sample<R> load_sample(const FilteredArgs& a, int64_t i) {
+  Sample<R> s;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     // (emission + direct) + indirect, as the box flush
     float acc = clamp_max(a.rad[0][i * a.rad_stride[0] + c], a.clamp[0]);
-    for (int k = 1; k < a.nplanes; ++k)
-      acc = acc + clamp_max(a.rad[k][i * a.rad_stride[k] + c], a.clamp[k]);
-    v[c] = acc;
+#pragma unroll
+    for (int k = 1; k < 3; ++k)
+      if (k < a.nplanes) acc = acc + clamp_max(a.rad[k][i * a.rad_stride[k] + c], a.clamp[k]);
+    s.v[c] = acc;
   }
-  const int R = a.radius;
-  const float r = (float)R;
   const float su = a.sub_uv[2 * i] - 0.5f;
   const float sv = a.sub_uv[2 * i + 1] - 0.5f;
-  float wx[5], wy[5];
+#pragma unroll
   for (int k = 0; k <= 2 * R; ++k) {
-    wx[k] = filter_w(a.filter, su - (float)(k - R), r);
-    wy[k] = filter_w(a.filter, sv - (float)(k - R), r);
+    s.wx[k] = filter_w<F, R>(su - (float)(k - R));
+    s.wy[k] = filter_w<F, R>(sv - (float)(k - R));
   }
-  const int64_t p = a.pid[i];
-  const int64_t g = a.base + p;
-  const int64_t gx = g % a.width, gy = g / a.width;
-  for (int dy = -R; dy <= R; ++dy) {
-    for (int dx = -R; dx <= R; ++dx) {
-      int64_t t;
-      if (a.clamp_edge) {
-        const int64_t tx = clamp_index(gx + dx, a.width);
-        const int64_t ty = clamp_index(gy + dy, a.height);
-        t = ty * a.width + tx - a.base;
-      } else {
-        if (gx + dx < 0 || gx + dx >= a.width || gy + dy < 0 || gy + dy >= a.height) continue;
-        t = p + dy * a.width + dx;
+  s.p = a.pid[i];
+  const int64_t g = a.base + s.p;
+  s.gx = g % a.width;
+  s.gy = g / a.width;
+  return s;
+}
+
+// tap (dx, dy) of a sample at local pixel p (global column gx, row gy):
+// its local row, or -1 where the footprint rule drops it
+__device__ __forceinline__ int64_t tap_row(const FilteredArgs& a, int64_t p, int64_t gx,
+                                           int64_t gy, int dx, int dy) {
+  int64_t t;
+  if (a.clamp_edge) {
+    t = clamp_index(gy + dy, a.height) * a.width + clamp_index(gx + dx, a.width) - a.base;
+  } else {
+    if (gx + dx < 0 || gx + dx >= a.width || gy + dy < 0 || gy + dy >= a.height) return -1;
+    t = p + dy * a.width + dx;
+  }
+  return t < 0 || t >= a.rows ? -1 : t;
+}
+
+__device__ __forceinline__ void add_tap(const FilteredArgs& a, int64_t t, const float* v,
+                                        float w) {
+  atomicAdd(reinterpret_cast<float4*>(a.fb + 4 * t),
+            make_float4(v[0] * w, v[1] * w, v[2] * w, w));
+}
+
+template <int F, int R, bool kTapMajor>
+__global__ void __launch_bounds__(256) accum_filtered_kernel(FilteredArgs a) {
+  constexpr int D = 2 * R + 1;  // taps a row
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool fin =
+      i < a.n && (a.was_alive == nullptr || (a.was_alive[i] && !a.alive[i]));
+  if (!kTapMajor) {
+    if (!fin) return;
+    const Sample<R> s = load_sample<F, R>(a, i);
+#pragma unroll
+    for (int dy = -R; dy <= R; ++dy) {
+#pragma unroll
+      for (int dx = -R; dx <= R; ++dx) {
+        const int64_t t = tap_row(a, s.p, s.gx, s.gy, dx, dy);
+        if (t >= 0) add_tap(a, t, s.v, s.wx[dx + R] * s.wy[dy + R]);
       }
-      if (t < 0 || t >= a.rows) continue;
-      const float w = wx[dx + R] * wy[dy + R];
-      atomicAdd(reinterpret_cast<float4*>(a.fb + 4 * t),
-                make_float4(v[0] * w, v[1] * w, v[2] * w, w));
+    }
+    return;
+  }
+  // tap-major: the whole warp walks its finishing lanes, so no thread
+  // leaves before the ballot (the block is whole warps)
+  constexpr int kPer = 32 / (D * D);  // samples an instruction: 1 at r = 2, 3 at r = 1
+  Sample<R> s = {};
+  if (fin) s = load_sample<F, R>(a, i);
+  const int lane = threadIdx.x & 31;
+  const int q = lane / (D * D);  // this thread's sample of the kPer; q == kPer: idle
+  const int tap = lane % (D * D);
+  const int ix = tap % D, iy = tap / D;
+  unsigned todo = __ballot_sync(0xffffffffu, fin);
+  while (todo) {
+    // the next kPer finishing lanes; src < 0: none for this thread
+    int src = -1;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int next = todo ? __ffs(todo) - 1 : -1;
+      src = q == k ? next : src;
+      todo &= todo - 1u;
+    }
+    const int from = src < 0 ? lane : src;
+    float v[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v[c] = __shfl_sync(0xffffffffu, s.v[c], from);
+    float wx = 0.0f, wy = 0.0f;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const float x = __shfl_sync(0xffffffffu, s.wx[k], from);
+      const float y = __shfl_sync(0xffffffffu, s.wy[k], from);
+      wx = ix == k ? x : wx;
+      wy = iy == k ? y : wy;
+    }
+    const int64_t p = __shfl_sync(0xffffffffu, s.p, from);
+    const int64_t gx = __shfl_sync(0xffffffffu, s.gx, from);
+    const int64_t gy = __shfl_sync(0xffffffffu, s.gy, from);
+    if (src >= 0) {
+      const int64_t t = tap_row(a, p, gx, gy, ix - R, iy - R);
+      if (t >= 0) add_tap(a, t, v, wx * wy);
     }
   }
 }
 
-// rad: nplanes pointers, strides: their row strides, clamp: their limits
+template <int F, int R>
+cudaError_t launch_filtered(const FilteredArgs& a, bool tap_major, cudaStream_t stream) {
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
+  if (tap_major)
+    accum_filtered_kernel<F, R, true><<<blocks, threads, 0, stream>>>(a);
+  else
+    accum_filtered_kernel<F, R, false><<<blocks, threads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// rad: nplanes pointers, strides: their row strides, clamp: their limits;
+// filter: 0 Blackman, 1 Mitchell; tap_major: 1 the warp's threads share a
+// sample's taps, 0 one thread a lane
 extern "C" int zyg_flush_filtered(void* fb, int64_t rows, const void* pid, const void* was_alive,
                                   const void* alive, const void** rad, const int64_t* strides,
                                   const float* clamp, int nplanes, const void* sub_uv, int64_t n,
                                   int64_t base, int64_t width, int64_t height, int filter,
-                                  int radius, int clamp_edge, void* stream) {
-  if (nplanes < 1 || nplanes > 3 || radius < 1 || radius > 2 || width < 1 || height < 1)
+                                  int radius, int clamp_edge, int tap_major, void* stream) {
+  if (nplanes < 1 || nplanes > 3 || radius < 1 || radius > 2 || width < 1 || height < 1 ||
+      (filter != kBlackman && filter != kMitchell))
     return (int)cudaErrorInvalidValue;
   FilteredArgs a;
   a.fb = (float*)fb;
@@ -233,11 +340,15 @@ extern "C" int zyg_flush_filtered(void* fb, int64_t rows, const void* pid, const
   a.base = base;
   a.width = width;
   a.height = height;
-  a.filter = filter;
-  a.radius = radius;
   a.clamp_edge = clamp_edge;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  accum_filtered_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool tm = tap_major != 0;
+  cudaError_t err;
+  if (filter == kMitchell)
+    err = radius == 2 ? launch_filtered<kMitchell, 2>(a, tm, st)
+                      : launch_filtered<kMitchell, 1>(a, tm, st);
+  else
+    err = radius == 2 ? launch_filtered<kBlackman, 2>(a, tm, st)
+                      : launch_filtered<kBlackman, 1>(a, tm, st);
+  return (int)err;
 }

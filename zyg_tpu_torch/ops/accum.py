@@ -43,7 +43,7 @@ _FILTERED = register(
     [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
      ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p],
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 )
 FILTERS = {"Blackman": 0, "Mitchell": 1}
 
@@ -210,13 +210,26 @@ def flush_filtered(fb: torch.Tensor, pid: torch.Tensor, was_alive, alive, planes
         if p.dim() != 2 or p.shape != (n, 3) or p.stride(1) != 1:
             raise ValueError(f"flush_filtered.planes[{k}]: expected [{n}, 3] rows with unit "
                              "column stride")
+    if n > 0:
+        # a fifth of the lanes finish on the persistent path, each on an
+        # unrelated pixel: the warp's threads share each sample's taps;
+        # every lane finishes on the scan path, lane by pixel: a lane a thread
+        _launch_filtered(fb, pid, was_alive, alive, planes, clamps, sub_uv, width, height,
+                         filter_name, radius, clamp_edge, base, tap_major=was_alive is not None)
+    return fb
+
+
+def _launch_filtered(fb, pid, was_alive, alive, planes, clamps, sub_uv, width: int, height: int,
+                     filter_name: str, radius: int, clamp_edge: bool, base: int,
+                     tap_major: bool) -> None:
+    """One launch of the filtered flush kernel on flush_filtered's checked
+    arguments (n > 0): the warp's threads share each finishing sample's
+    taps (tap_major), or one thread adds a lane's taps (csrc/accum.cu)."""
     ptrs = (ctypes.c_void_p * 3)(*[p.data_ptr() for p in planes])
     strides = (ctypes.c_int64 * 3)(*[p.stride(0) for p in planes])
     limits = (ctypes.c_float * 3)(*[float(c) for c in clamps])
-    if n > 0:
-        _FILTERED(fb.data_ptr(), fb.shape[0], pid.data_ptr(),
-                  None if was_alive is None else was_alive.data_ptr(),
-                  None if alive is None else alive.data_ptr(), ptrs, strides, limits,
-                  len(planes), sub_uv.data_ptr(), n, base, width, height, FILTERS[filter_name],
-                  radius, int(clamp_edge), stream_handle(dev))
-    return fb
+    _FILTERED(fb.data_ptr(), fb.shape[0], pid.data_ptr(),
+              None if was_alive is None else was_alive.data_ptr(),
+              None if alive is None else alive.data_ptr(), ptrs, strides, limits, len(planes),
+              sub_uv.data_ptr(), pid.shape[0], base, width, height, FILTERS[filter_name], radius,
+              int(clamp_edge), int(tap_major), stream_handle(pid.device))

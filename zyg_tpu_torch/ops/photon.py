@@ -19,7 +19,10 @@ still holds a photon (the JAX loop adds 0 at the others), in one batch,
 then sums them in the JAX order. Arithmetic as XLA rounds it on the CPU: dot products and
 1 - d^2 * (1/r^2) fused (core/fmath.py), the division by the cosine an
 IEEE division. The kernel's BSDF rounds as the fused kernels' do
-(csrc/shade_core.cuh), a few ulps from the plain version's.
+(csrc/shade_core.cuh), a few ulps from the plain version's, and it sums a
+lane's terms in another order (a group of threads a lane, each its own
+partial, then a tree); the terms are non-negative, so both sides light
+the same lanes.
 """
 
 from __future__ import annotations
