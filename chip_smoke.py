@@ -40,7 +40,8 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     exact; and both tracking walks (track_interaction, track_transmittance)
     on the smoke path's own glue inputs at its 518,400 lanes, scatter and
     absorb decisions exact and t/w/trv/tau within rtol 1e-5, with the
-    lane-steps and collisions the lanes take, and track_interaction's
+    lane-steps and collisions the lanes take and the share of thread-steps
+    that would walk with one thread a lane (warp_efficiency), and track_interaction's
     emissive variant on the fire path's own glue inputs (518,400 lanes,
     fire.scene's grey medium and a spectral copy), t, w, decisions and
     emission bit-exact; the filtered flush (accum_filtered) on the Cornell
@@ -1122,7 +1123,8 @@ def check_track_emission(dev) -> dict:
                                             lanes["grid"], k)
         ops = stats["steps"] * OPS_TRACK_STEP + stats["collisions"] * OPS_TRACK_COLLISION
         name = f"fire {'grey' if variant == 'fire' else 'spectral'}"
-        res = {"max_abs_err": 0.0,
+        eff, warp_longest = warp_efficiency(stats["lane_steps"])
+        res = {"warp_efficiency": eff, "longest_walk": stats["iterations"], "max_abs_err": 0.0,
                "ms": time_ms(lambda: track.track_interaction(*args, e_med=e_med), 10),
                "device_ms": device_ms(lambda: track.track_interaction(*args, e_med=e_med),
                                       "track_interaction"),
@@ -1130,13 +1132,30 @@ def check_track_emission(dev) -> dict:
         log(f"track_interaction ({name}, emissive): t, w, decisions and emission bit-exact on "
             f"{walking.numel()} lanes ({int(p[2].sum())} scatter, {absorbed} absorbed of "
             f"{int(walking.sum())} walking lanes, emission sum {float(p[4].sum()):.6g}); "
-            f"{stats['steps']} lane-steps, {stats['collisions']} tentative collisions; "
+            f"{stats['steps']} lane-steps, {stats['collisions']} tentative collisions, "
+            f"longest walk {stats['iterations']} steps; with a thread a lane a warp's longest "
+            f"walk {warp_longest:.2f} steps on average, warp efficiency {eff:.4f}; "
             f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations; kernel {res['ms']:.4f} ms "
             f"(device {res['device_ms']:.4f} ms), plain {plain_ms:.4f} ms, bound "
             f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
         out[name] = res
         torch.cuda.empty_cache()
     return out
+
+
+def warp_efficiency(lane_steps, warp: int = 32) -> tuple[float, float]:
+    """The share of thread-steps that walk when one thread walks one lane
+    to its end and a warp runs until its longest walk ends, warps taken as
+    consecutive groups of `warp` lanes: the lane-steps over `warp` x the
+    sum over warps of the warp's longest walk (1 where no lane walks);
+    and the mean longest walk of a warp. lane_steps: int64 [N], each
+    lane's steps (the plain walks' stats["lane_steps"])."""
+    import torch
+
+    pad = (-lane_steps.numel()) % warp
+    longest = torch.nn.functional.pad(lane_steps, (0, pad)).view(-1, warp).amax(dim=1)
+    slots = int(longest.sum()) * warp
+    return (int(lane_steps.sum()) / slots if slots else 1.0), float(longest.double().mean())
 
 
 def _track_bytes(inputs: list, flag, outputs) -> float:
@@ -1200,13 +1219,17 @@ def check_track(dev) -> dict:
         flag = lanes["grid"] if name == "track_interaction" else lanes["inside"]
         nbytes = arena_bytes + _track_bytes(per_lane, flag, k)
         ops = stats["steps"] * OPS_TRACK_STEP + stats["collisions"] * OPS_TRACK_COLLISION
-        res = {"max_abs_err": err, "ms": time_ms(lambda: kfn(*args), 10),
+        eff, warp_longest = warp_efficiency(stats["lane_steps"])
+        res = {"warp_efficiency": eff, "longest_walk": stats["iterations"],
+               "max_abs_err": err, "ms": time_ms(lambda: kfn(*args), 10),
                "device_ms": device_ms(lambda: kfn(*args), name), "plain_ms": plain_ms,
                "library_ms": None, **bound(nbytes, ops)}
         log(f"{name}: decisions exact, floats {'bit-exact' if exact else 'within rtol 1e-5'} "
             f"on {walking.numel()} lanes ({events}); {stats['steps']} lane-steps, "
             f"{stats['collisions']} tentative collisions ({stats['steps'] / max(int(walking.sum()), 1):.1f} "
-            f"steps a walking lane); {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations")
+            f"steps a walking lane, longest walk {stats['iterations']} steps; with a thread a "
+            f"lane a warp's longest walk {warp_longest:.2f} steps on average, warp efficiency "
+            f"{eff:.4f}); {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations")
         out[name] = res
     out["track_interaction"]["emissive"] = check_track_emission(dev)
     return out

@@ -8,17 +8,19 @@ measured by the same yardstick on the same machine:
         python3 kernel_ab.py $t surface surface_v2 trefoil textured
     done
 
-The names `cornell`, `trefoil`, `textured`, `sunsky`, `cornell_filtered`
-and `caustics` instead time one of the checkout's main paths: the Cornell
-take at 1920x1080 and 16 spp, the trefoil take and the bench's textured
-trefoil under its sky dome at 1280x720 and 4 spp, the sunsky take at its
-own 960x540, 32 spp, cornell_filtered.take (Mitchell, radius 2: the
-filtered flush) at 1920x1080 and 16 spp, and caustics_photons.take (the
-photon gather) at its own 480x270 in one chunk of 8 spp over the map
-baked from its 200,000 paths. Each but caustics first runs the
-checkout's own chip_smoke report of that path (caustics' takes ~20 s a
-render), then by one yardstick for every checkout 10 timed renders (3 of
-caustics, ~5 s each; their median and best), the peak device memory of
+The names `cornell`, `trefoil`, `textured`, `sunsky`, `cornell_filtered`,
+`caustics`, `smoke` and `fire` instead time one of the checkout's main
+paths: the Cornell take at 1920x1080 and 16 spp, the trefoil take and the
+bench's textured trefoil under its sky dome at 1280x720 and 4 spp, the
+sunsky take at its own 960x540, 32 spp, cornell_filtered.take (Mitchell,
+radius 2: the filtered flush) at 1920x1080 and 16 spp,
+caustics_photons.take (the photon gather) at its own 480x270 in one chunk
+of 8 spp over the map baked from its 200,000 paths, and smoke.take and
+fire.take (the tracking walks) at their own 960x540 and 8 spp. Each but
+caustics first runs the checkout's own chip_smoke report of that path
+(caustics' takes ~20 s a render), then by one yardstick for every
+checkout 10 timed renders (3 of caustics, smoke and fire, ~5-10 s each;
+their median and best), the peak device memory of
 one render and one profiled render's device time and launches by kernel
 name, printed as `RENDER <checkout> <path> <JSON>`; for the mesh paths
 one more render gives the lifecycle shares of kernel 5's or 6's lanes
@@ -35,7 +37,9 @@ checkout's chip_smoke.py for each named kernel (each raises if its kernel
 disagrees with the plain version) and prints one line per kernel:
 `AB <checkout> <kernel> <the check's result as JSON>`, then
 `DEVICE <checkout> <kernel> median ...`: the median device time of the
-kernel's launches in a second run of the check, from the profiler (the
+kernel's launches in a second run of the check (`track` checks both
+tracking walks and prints a line for each, `track_interaction` and
+`track_transmittance`), from the profiler (the
 check's CUDA-event times also count the device's idle gaps while the host
 queues a short kernel's launches), and one `DEVICE <checkout> <kernel>
 #k [ints] median ...` line for each run of consecutive launches whose
@@ -56,8 +60,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-RENDERS = ("cornell", "trefoil", "textured", "sunsky", "cornell_filtered", "caustics")
+RENDERS = ("cornell", "trefoil", "textured", "sunsky", "cornell_filtered", "caustics", "smoke",
+           "fire")
 CAUSTICS_SPP = 8  # one chunk of the caustics path
+# the kernels a check launches, by the names of their device events
+CHECK_KERNELS = {"sobol": ("sobol_block",), "track": ("track_interaction", "track_transmittance")}
 
 
 def render(chip_smoke, here, dev, label: str, path: str) -> None:
@@ -71,6 +78,13 @@ def render(chip_smoke, here, dev, label: str, path: str) -> None:
         kernels = chip_smoke.CAUSTICS_KERNELS
         drv = chip_smoke._caustics_driver(dev, spp=CAUSTICS_SPP)
         spp, runs = CAUSTICS_SPP, 3
+    elif path in ("smoke", "fire"):
+        title = f"{path} PTMIS"
+        kernels = chip_smoke.SMOKE_KERNELS if path == "smoke" else chip_smoke.FIRE_KERNELS
+        res, spp_take = ((chip_smoke.SMOKE_RES, chip_smoke.SMOKE_SPP) if path == "smoke"
+                         else (chip_smoke.FIRE_RES, chip_smoke.FIRE_SPP))
+        take, scene = chip_smoke._take_scene(f"{path}.take", res, spp_take, title)
+        runs = 3
     elif path == "cornell_filtered":
         title, kernels = "cornell_filtered 1080p", chip_smoke.FILTERED_KERNELS
         take, scene = chip_smoke._take_scene("cornell_filtered.take", (1920, 1080), 16, title)
@@ -190,27 +204,28 @@ def main(argv: list[str]) -> int:
         finally:
             chip_smoke.device_ms = own
             ops.Kernel.__call__ = call
-        # `track` checks both tracking walks: the median is over both kernels
-        kernel = {"sobol": "sobol_block_kernel", "track": "track_"}.get(name, f"{name}_kernel")
-        events = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
-                        if e.device_type == DeviceType.CUDA and kernel in e.name)
-        us = sorted(t for _, t in events)
-        print(f"DEVICE {label} {name} median {us[len(us) // 2] / 1e3:.5f} ms over {len(us)} launches",
-              flush=True)
-        mine = [ints for k, ints in launched if f"{k}_kernel".startswith(kernel)]
-        if len(mine) == len(events):
-            runs: list = []
-            for ints, (_, t) in zip(mine, events):
-                if not runs or runs[-1][0] != ints:
-                    runs.append((ints, []))
-                runs[-1][1].append(t)
-            for k, (ints, ts) in enumerate(runs):
-                ts = sorted(ts)
-                print(f"DEVICE {label} {name} #{k} {list(ints)} median {ts[len(ts) // 2] / 1e3:.5f} "
-                      f"ms over {len(ts)} launches", flush=True)
-        else:
-            print(f"DEVICE {label} {name}: {len(events)} device events against {len(mine)} "
-                  "launches: no runs by argument", flush=True)
+        device = prof.events()
+        for kname in CHECK_KERNELS.get(name, (name,)):
+            kernel = f"{kname}_kernel"
+            events = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in device
+                            if e.device_type == DeviceType.CUDA and kernel in e.name)
+            us = sorted(t for _, t in events)
+            print(f"DEVICE {label} {kname} median {us[len(us) // 2] / 1e3:.5f} ms over {len(us)} "
+                  "launches", flush=True)
+            mine = [ints for k, ints in launched if k == kname]
+            if len(mine) == len(events):
+                runs: list = []
+                for ints, (_, t) in zip(mine, events):
+                    if not runs or runs[-1][0] != ints:
+                        runs.append((ints, []))
+                    runs[-1][1].append(t)
+                for k, (ints, ts) in enumerate(runs):
+                    ts = sorted(ts)
+                    print(f"DEVICE {label} {kname} #{k} {list(ints)} median "
+                          f"{ts[len(ts) // 2] / 1e3:.5f} ms over {len(ts)} launches", flush=True)
+            else:
+                print(f"DEVICE {label} {kname}: {len(events)} device events against {len(mine)} "
+                      "launches: no runs by argument", flush=True)
         torch.cuda.empty_cache()
     return 0
 

@@ -6,7 +6,10 @@ and the per-pixel flush at small widths, isect on material_test's tables,
 and the general body (torch around isect and sobol_block) on the card
 against the CPU at 0, 1, 31 and 129 lanes; the tracking walks, with the
 interaction walk's emissive variant on the fire path's lanes, the
-general body over fire.scene, kernel 6 on hero.take's and portal.take's
+general body over fire.scene, the walks' lane mapping (twice smoke's
+lanes with a NaN lane among them, repeated launches, both row forms over
+dense, sparse and multi-grid arenas, and the refusals of misaligned rows
+and strided lanes), kernel 6 on hero.take's and portal.take's
 first bounce, isect on portal.scene's tables, the filtered flush at
 the Cornell path's width and at small widths in its three footprint
 rules (with every finishing lane on one pixel, under both of its
@@ -607,6 +610,175 @@ def test_emissive_track_launch_shapes(cuda_device, fire_walk_inputs, variant, ca
         assert bool(k[3].all()) and bool((k[4].amax(-1) > 0).all())
     if case == "nan":
         assert stats["iterations"] == track.MAX_STEPS and not bool(k[4].any())
+
+
+def _doubled_with_nan(args, at: int, j: int):
+    """args with each lane tensor twice over (lanes n..2n-1 repeat 0..n-1,
+    keys included), lane j's direction NaN and j walking."""
+    lanes = {k: torch.cat([v, v]) for k, v in args[at].items()}
+    for k in ("d", "ld", "inv"):
+        lanes[k][j] = float("nan")
+    out = list(args)
+    out[at] = lanes
+    if at == 2:
+        out[3] = {k: torch.cat([v, v]) for k, v in args[3].items()}
+    return tuple(out)
+
+
+@pytest.mark.parametrize("walk", ["interaction", "transmittance"])
+def test_track_more_lanes_than_a_wave(cuda_device, walk_inputs, walk):
+    """Each walk on smoke's 518,400 lanes twice over (1,036,800 lanes, many
+    passes of the resident grid's threads), with a NaN lane among the
+    walking lanes of the first half: every other lane equals the plain
+    walk on the card (decisions exact, floats within rtol 1e-5), the
+    second half equals the first, and the NaN lane stops at the step cap
+    with its plain walk's outputs (run on the CPU, as the "nan" case
+    does)."""
+    from zyg_tpu_torch.ops import track
+
+    ia, ta = walk_inputs
+    if walk == "interaction":
+        args, at, flag = ia, 2, "grid"
+        kfn, pfn = track.track_interaction, track.track_interaction_plain
+    else:
+        args, at, flag = ta, 5, "inside"
+        kfn, pfn = track.track_transmittance, track.track_transmittance_plain
+    n = args[at][flag].shape[0]
+    walking = args[at][flag] >= 0 if flag == "grid" else args[at][flag]
+    j = int(torch.nonzero(walking)[1000])
+    doubled = _doubled_with_nan(args, at, j)
+    k = kfn(*doubled)
+    # the plain walk on the card with lane j not walking, then lane j alone on the CPU
+    rest = list(doubled)
+    rest[at] = dict(doubled[at])
+    rest[at][flag] = doubled[at][flag].clone()
+    rest[at][flag][j] = -1 if flag == "grid" else False
+    p = pfn(*rest)
+    one = list(doubled)
+    one[at] = {key: v[j:j + 1].cpu() for key, v in doubled[at].items()}
+    if at == 2:
+        one[3] = {key: v[j:j + 1].cpu() for key, v in doubled[3].items()}
+    one = [_to_cpu(x) for x in one]
+    stats = {}
+    p_nan = pfn(*one, stats=stats)
+    torch.cuda.synchronize()
+    assert stats["iterations"] == track.MAX_STEPS
+    others = torch.ones(2 * n, dtype=torch.bool, device=cuda_device)
+    others[j] = False
+    for a, b, c in zip(k, p, p_nan):
+        assert a.shape[0] == 2 * n
+        if a.dtype == torch.bool:
+            assert torch.equal(a[others], b[others])
+            assert torch.equal(a[j:j + 1].cpu(), c)
+        else:
+            torch.testing.assert_close(a[others], b[others], rtol=1e-5, atol=1e-7)
+            torch.testing.assert_close(a[j:j + 1].cpu(), c, rtol=1e-5, atol=1e-7, equal_nan=True)
+        half = torch.arange(n, device=cuda_device) != j
+        assert torch.equal(a[:n][half], a[n:][half])
+
+
+@pytest.mark.parametrize("walk", ["interaction", "transmittance"])
+def test_track_repeated_launches_agree(cuda_device, walk_inputs, walk):
+    """Two launches in a row on the same inputs give equal outputs, two
+    launches counted: the lane counter starts from zero at each launch."""
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.ops import track
+
+    ia, ta = walk_inputs
+    kfn = track.track_interaction if walk == "interaction" else track.track_transmittance
+    args = ia if walk == "interaction" else ta
+    before = ops.launch_counts()[f"track_{walk}"]
+    first = kfn(*args)
+    second = kfn(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[f"track_{walk}"] == before + 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _arena_case(dev, case):
+    """A grid arena whose rows the kernels read from global memory ("dense
+    multi": three 64^3 fbm grids, 1,536 rows; "sparse multi": three mostly
+    empty 64^3 grids, page-table addressing) or stage on chip ("sparse
+    one": one such grid, 512 rows)."""
+    import numpy as np
+    from zyg_tpu_torch.scene.grids import build_grid_arena, make_fbm_grid
+
+    if case == "dense multi":
+        grids = [make_fbm_grid(64, seed=s) for s in (1, 2, 3)]
+    else:
+        grids = []
+        for s in range(1 if case == "sparse one" else 3):
+            blob = np.zeros((64, 64, 64), np.float32)
+            blob[5 + s:20, 10:30 + s, 30:50] = np.random.default_rng(s).random(
+                (15 - s, 20 + s, 20)) * 2.0
+            grids.append(blob)
+    return build_grid_arena(grids).to(dev)
+
+
+@pytest.mark.parametrize("walk", ["interaction", "transmittance"])
+@pytest.mark.parametrize("case", ["dense multi", "sparse multi", "sparse one"])
+def test_track_row_forms(cuda_device, walk_inputs, walk, case):
+    """Both row forms of each walk against the plain version on the card,
+    on smoke's lanes over other arenas: rows read from global memory
+    (more than ROWS_ON_CHIP rows) and staged on chip (a sparse arena's
+    pages too). The interaction lanes spread over the arena's grids, the
+    transmittance walk takes the last grid. Decisions exact, floats within
+    rtol 1e-5."""
+    from zyg_tpu_torch.ops import track
+
+    arena = _arena_case(cuda_device, case)
+    g = arena.dims.shape[0]
+    assert track.rows_on_chip(arena) == (case == "sparse one")
+    assert arena.sparse == (case != "dense multi")
+    ia, ta = walk_inputs
+    if walk == "interaction":
+        lanes = dict(ia[2])
+        grid = lanes["grid"]
+        lanes["grid"] = torch.where(grid >= 0, torch.arange(grid.shape[0], device=cuda_device) % g,
+                                    -1).to(torch.int32)
+        args = (arena, ia[1], lanes) + ia[3:]
+        kfn, pfn = track.track_interaction, track.track_interaction_plain
+    else:
+        args = (arena, ta[1], ta[2], g - 1) + ta[4:]
+        kfn, pfn = track.track_transmittance, track.track_transmittance_plain
+    k = kfn(*args)
+    stats = {}
+    p = pfn(*args, stats=stats)
+    torch.cuda.synchronize()
+    assert stats["collisions"] > 1000
+    for a, b in zip(k, p):
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+def test_track_refuses_misaligned_rows_and_strided_lanes(cuda_device, walk_inputs):
+    """Supergrid rows off a 16-byte boundary (read as float4, and staged
+    on chip) and a lane input that is not contiguous are refused by name,
+    before any launch."""
+    import dataclasses
+
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.ops import track
+
+    ia, ta = walk_inputs
+    arena = ia[0]
+    buf = torch.empty(arena.sdata.numel() + 1, device=cuda_device)
+    shifted = buf[1:].view_as(arena.sdata)
+    shifted.copy_(arena.sdata)
+    bad = dataclasses.replace(arena, sdata=shifted)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        track.track_interaction(bad, *ia[1:])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        track.track_transmittance(bad, *ta[1:])
+    lanes = dict(ta[5])
+    lanes["lo"] = lanes["lo"].t().contiguous().t()
+    with pytest.raises(ValueError, match="track_transmittance.lo: expected a contiguous tensor"):
+        track.track_transmittance(*ta[:5], lanes, ta[6])
+    assert ops.launch_counts() == before
 
 
 def test_fire_body_on_card_matches_cpu(cuda_device):

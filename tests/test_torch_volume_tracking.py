@@ -276,3 +276,49 @@ def test_emissive_sample_interaction_matches_jax(variant):
             e = ps.materials.emission[int(ps.prop_material[1])].numpy()
             absorbed = pe.absorb.numpy()
             np.testing.assert_array_equal(e_p[absorbed], np.broadcast_to(e, (absorbed.sum(), 3)))
+
+
+def test_walk_lane_steps_warp_efficiency_and_rows_on_chip():
+    """What the kernels' lane mapping acts on, counted by the plain walks
+    on every fourth lane of the smoke path's own glue inputs
+    (chip_smoke._smoke_walk_inputs, 518,400 lanes; the cut keeps the test
+    under 10 s): each lane's steps ("lane_steps") sum to the lane-steps
+    and their largest is the longest walk; chip_smoke.warp_efficiency (the
+    share of thread-steps that walk with one thread a lane) on a
+    hand-made case and on these lanes; and the choice of the kernels'
+    row form: smoke's 512 supergrid rows fit on chip, three 64^3 fbm
+    grids' 1,536 rows do not."""
+    import chip_smoke
+    from zyg_tpu_torch.ops import track
+    from zyg_tpu_torch.scene.grids import build_grid_arena, make_fbm_grid
+
+    # two warps of 4 lanes: 12 lane-steps in 4 x (4 + 2) thread-steps; a
+    # padded last warp; no lane walking
+    eff, longest = chip_smoke.warp_efficiency(torch.tensor([1, 2, 3, 4, 0, 0, 0, 2]), warp=4)
+    assert eff == 12 / 24 and longest == 3.0
+    eff, longest = chip_smoke.warp_efficiency(torch.tensor([2, 2, 2, 2, 5]), warp=4)
+    assert eff == 13 / 28 and longest == 3.5
+    assert chip_smoke.warp_efficiency(torch.zeros(64, dtype=torch.int64)) == (1.0, 0.0)
+
+    ia, ta = chip_smoke._smoke_walk_inputs("cpu")
+    ia = ia[:2] + tuple({k: v[::4].contiguous() for k, v in x.items()} for x in ia[2:4]) + ia[4:]
+    ta = ta[:5] + ({k: v[::4].contiguous() for k, v in ta[5].items()},) + ta[6:]
+    shares = {}
+    for name, fn, args, walking in (
+            ("interaction", track.track_interaction_plain, ia, ia[2]["grid"] >= 0),
+            ("transmittance", track.track_transmittance_plain, ta, ta[5]["inside"])):
+        stats = {}
+        fn(*args, stats=stats)
+        steps = stats["lane_steps"]
+        assert steps.dtype == torch.int64 and steps.shape == walking.shape
+        assert int(steps.sum()) == stats["steps"]
+        assert int(steps.max()) == stats["iterations"]
+        assert bool((steps[walking] > 0).all()) and not bool(steps[~walking].any())
+        shares[name] = chip_smoke.warp_efficiency(steps)[0]
+    # the shadow rays come in no order: most of a warp's thread-steps idle
+    assert shares["transmittance"] < 0.35 < shares["interaction"]
+
+    assert track.rows_on_chip(ia[0]) and ia[0].sdata.shape[0] == 512
+    multi = build_grid_arena([make_fbm_grid(64, seed=s) for s in (1, 2, 3)])
+    assert multi.sdata.shape[0] == 3 * 512 > track.ROWS_ON_CHIP
+    assert not track.rows_on_chip(multi)

@@ -22,9 +22,14 @@ re-hashed after every step. A walk stops when it leaves its segment,
 scatters, is absorbed, its ratio falls below 1e-5, or after 16,384 steps
 (insurance against a NaN ray).
 
-The JAX package's compaction cascade (`_TRACK_MIN`) only relocates
-lanes, so it is not ported: the kernel walks each lane to its end in
-its own thread, and the plain version steps the lanes that are not done.
+The JAX package's compaction cascade (`_TRACK_MIN`) re-packs the live
+lanes so that the while loop does not pay the slowest lane's steps at
+full width. The kernel's counterpart is persistent warps that refill
+finished threads from a lane counter (csrc/track.cu); the wrapper
+allocates the counter, one int64 of scratch a launch, which the entry
+point zeroes on the stream. The plain version steps the lanes that are
+not done. Where the whole supergrid fits in ROWS_ON_CHIP rows
+(`rows_on_chip`), each block of the kernel stages it in shared memory.
 
 Arithmetic is the JAX formulas, rounded as XLA rounds them on the CPU:
 `lo + t * ld`, `o + t * d` and the transforms' dot products are fused
@@ -45,22 +50,34 @@ from ..core.vecmath import dot
 from ..scene.grids import GridArena, _cell_flat, local_majorant_free, sample_density_stochastic
 
 MAX_STEPS = 16384  # the walks' step cap
+# supergrid rows a block of the kernels stages in shared memory (16 KB;
+# csrc/track.cu TRACK_ROWS_ON_CHIP)
+ROWS_ON_CHIP = 1024
 
 _INTERACTION = register(
     "track_interaction",
     "zyg_track_interaction",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+     ctypes.c_int64, ctypes.c_void_p],
 )
 _TRANSMITTANCE = register(
     "track_transmittance",
     "zyg_track_transmittance",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-     ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
 )
 
 # the per-lane inputs of each walk, in the kernels' pointer order
 INTERACTION_LANES = ("lo", "ld", "inv", "seg", "mu_t_max", "grid", "eps", "o", "d", "mp", "key")
 TRANSMITTANCE_LANES = ("lo", "ld", "inv", "t0", "t1", "eps", "o", "d", "key", "inside")
+
+
+def rows_on_chip(arena: GridArena) -> bool:
+    """Whether the kernels stage the arena's supergrid rows in shared
+    memory: all of them fit in ROWS_ON_CHIP rows. The interaction walk
+    stages every row (its lanes may sit in different grids), the
+    transmittance walk its grid's."""
+    return arena.sdata.shape[0] <= ROWS_ON_CHIP
 
 
 def to_object(rot, scale, v, recip: bool):
@@ -119,6 +136,12 @@ def _count(stats, live, collide):
         stats["steps"] = stats.get("steps", 0) + int(live.numel())
         stats["collisions"] = stats.get("collisions", 0) + int(collide.sum())
         stats["iterations"] = stats.get("iterations", 0) + 1
+        stats["lane_steps"][live] += 1
+
+
+def _start_count(stats, n: int, dev) -> None:
+    if stats is not None:
+        stats["lane_steps"] = torch.zeros(n, dtype=torch.int64, device=dev)
 
 
 def track_interaction_plain(arena: GridArena, props, lanes: dict, coef: dict, grey: bool,
@@ -131,8 +154,9 @@ def track_interaction_plain(arena: GridArena, props, lanes: dict, coef: dict, gr
     and with e_med ([N, 3], the emission of each lane's medium) a fifth
     result, the emission [N, 3] collected at an absorption (0 elsewhere).
     stats (a dict, optional) gains the lane-steps walked ("steps"), the
-    tentative collisions among them ("collisions") and the steps of the
-    longest walk ("iterations")."""
+    tentative collisions among them ("collisions"), the steps of the
+    longest walk ("iterations") and each lane's steps ("lane_steps",
+    int64 [N], of this call)."""
     rot_t, pos_t, scale_t = props
     grid = lanes["grid"]
     n = grid.shape[0]
@@ -144,6 +168,7 @@ def track_interaction_plain(arena: GridArena, props, lanes: dict, coef: dict, gr
     emis = None if e_med is None else torch.zeros((n, 3), dtype=torch.float32, device=dev)
     key = u32(lanes["key"])
     live = torch.nonzero(grid >= 0).squeeze(1)
+    _start_count(stats, n, dev)
     it = 0
     while live.numel() > 0 and it < MAX_STEPS:
         L = {k: lanes[k][live] for k in INTERACTION_LANES}
@@ -228,6 +253,7 @@ def track_transmittance_plain(arena: GridArena, props, prop: int, grid: int, con
     tau = torch.zeros(n, dtype=torch.float32, device=dev)
     key = u32(lanes["key"])
     live = torch.nonzero(lanes["inside"]).squeeze(1)
+    _start_count(stats, n, dev)
     it = 0
     while live.numel() > 0 and it < MAX_STEPS:
         L = {k: lanes[k][live] for k in TRANSMITTANCE_LANES}
@@ -300,7 +326,7 @@ def _arena_ptrs(arena: GridArena, props, dev, kind: str) -> list:
     g = arena.dims.shape[0]
     check_cuda(f"{kind}.data", arena.data, torch.float32, dev)
     check_cuda(f"{kind}.dims", arena.dims, torch.int32, dev, (g, 3))
-    check_cuda(f"{kind}.sdata", arena.sdata, torch.float32, dev)
+    check_cuda(f"{kind}.sdata", arena.sdata, torch.float32, dev, (arena.sdata.shape[0], 4))
     if arena.sdata.data_ptr() % 16:
         raise ValueError(f"{kind}: the supergrid rows must be 16-byte aligned (float4 reads)")
     check_cuda(f"{kind}.soffset", arena.soffset, torch.int32, dev, (g,))
@@ -339,9 +365,10 @@ def track_interaction(arena: GridArena, props, lanes: dict, coef: dict, grey: bo
     else:
         ptrs += [None, None]
     if n > 0:
-        arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        _INTERACTION(arr, int(grey), int(arena.sparse), int(emis is not None), n,
-                     stream_handle(dev))
+        counter = torch.empty(1, dtype=torch.int64, device=dev)
+        arr = (ctypes.c_void_p * (len(ptrs) + 1))(*ptrs, counter.data_ptr())
+        _INTERACTION(arr, int(grey), int(arena.sparse), int(emis is not None),
+                     int(rows_on_chip(arena)), arena.sdata.shape[0], n, stream_handle(dev))
     return (t, w, scat, absb) if emis is None else (t, w, scat, absb, emis)
 
 
@@ -365,8 +392,10 @@ def track_transmittance(arena: GridArena, props, prop: int, grid: int, consts, l
     tau = torch.empty(n, dtype=torch.float32, device=dev)
     ptrs += [trv.data_ptr(), tau.data_ptr()]
     if n > 0:
-        arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        _TRANSMITTANCE(arr, int(grey), int(arena.sparse), prop, grid, n, stream_handle(dev))
+        counter = torch.empty(1, dtype=torch.int64, device=dev)
+        arr = (ctypes.c_void_p * (len(ptrs) + 1))(*ptrs, counter.data_ptr())
+        _TRANSMITTANCE(arr, int(grey), int(arena.sparse), int(rows_on_chip(arena)),
+                       arena.sdata.shape[0], prop, grid, n, stream_handle(dev))
     return trv, tau
 
 
