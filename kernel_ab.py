@@ -9,18 +9,22 @@ measured by the same yardstick on the same machine:
     done
 
 The names `cornell`, `trefoil`, `textured`, `sunsky`, `cornell_filtered`,
-`caustics`, `smoke` and `fire` instead time one of the checkout's main
-paths: the Cornell take at 1920x1080 and 16 spp, the trefoil take and the
-bench's textured trefoil under its sky dome at 1280x720 and 4 spp, the
-sunsky take at its own 960x540, 32 spp, cornell_filtered.take (Mitchell,
-radius 2: the filtered flush) at 1920x1080 and 16 spp,
-caustics_photons.take (the photon gather) at its own 480x270 in one chunk
-of 8 spp over the map baked from its 200,000 paths, and smoke.take and
-fire.take (the tracking walks) at their own 960x540 and 8 spp. Each but
-caustics first runs the checkout's own chip_smoke report of that path
-(caustics' takes ~20 s a render), then by one yardstick for every
-checkout 10 timed renders (3 of caustics, smoke and fire, ~5-10 s each;
-their median and best), the peak device memory of
+`caustics`, `smoke`, `fire`, `forest` and `particles` instead time one of
+the checkout's main paths: the Cornell take at 1920x1080 and 16 spp, the
+trefoil take and the bench's textured trefoil under its sky dome at
+1280x720 and 4 spp, the sunsky take at its own 960x540, 32 spp,
+cornell_filtered.take (Mitchell, radius 2: the filtered flush) at
+1920x1080 and 16 spp, caustics_photons.take (the photon gather) at its
+own 480x270 in one chunk of 8 spp over the map baked from its 200,000
+paths, smoke.take and fire.take (the tracking walks) at their own
+960x540 and 8 spp, forest.take (144 instances: the traversal's instance
+pick) at its own 640x360 and 16 spp, and cornell_particles.take (the
+camera splat) at its own 512x512 over 8 passes of the Driver's particle
+pass. Each but caustics and particles first runs the checkout's own
+chip_smoke report of that path (caustics' takes ~20 s a render, the
+particles CLI ~20 s), then by one yardstick for every checkout 10 timed
+renders (3 of caustics, smoke and fire, ~5-10 s each, 5 of forest and
+particles, ~2 s each; their median and best), the peak device memory of
 one render and one profiled render's device time and launches by kernel
 name, printed as `RENDER <checkout> <path> <JSON>`; for the mesh paths
 one more render gives the lifecycle shares of kernel 5's or 6's lanes
@@ -61,10 +65,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 RENDERS = ("cornell", "trefoil", "textured", "sunsky", "cornell_filtered", "caustics", "smoke",
-           "fire")
+           "fire", "forest", "particles")
 CAUSTICS_SPP = 8  # one chunk of the caustics path
+PARTICLE_PASSES = 8  # the particle passes of one particles render
 # the kernels a check launches, by the names of their device events
-CHECK_KERNELS = {"sobol": ("sobol_block",), "track": ("track_interaction", "track_transmittance")}
+CHECK_KERNELS = {"sobol": ("sobol_block",), "track": ("track_interaction", "track_transmittance"),
+                 "traverse_forest": ("traverse",)}
 
 
 def render(chip_smoke, here, dev, label: str, path: str) -> None:
@@ -78,6 +84,18 @@ def render(chip_smoke, here, dev, label: str, path: str) -> None:
         kernels = chip_smoke.CAUSTICS_KERNELS
         drv = chip_smoke._caustics_driver(dev, spp=CAUSTICS_SPP)
         spp, runs = CAUSTICS_SPP, 3
+    elif path == "particles":
+        # the Driver's particle pass; no chip_smoke report first
+        take, scene = chip_smoke._take_scene("cornell_particles.take", chip_smoke.PARTICLE_RES, 0,
+                                             "cornell_particles")
+        take.num_particles_per_pixel = PARTICLE_PASSES
+        drv = Driver(take, scene, device=dev)
+        spp, runs = PARTICLE_PASSES, 5
+    elif path == "forest":
+        title, kernels = "forest PTMIS", chip_smoke.FOREST_KERNELS
+        take, scene = chip_smoke._take_scene("forest.take", chip_smoke.FOREST_RES,
+                                             chip_smoke.FOREST_SPP, title)
+        runs = 5
     elif path in ("smoke", "fire"):
         title = f"{path} PTMIS"
         kernels = chip_smoke.SMOKE_KERNELS if path == "smoke" else chip_smoke.FIRE_KERNELS
@@ -105,24 +123,25 @@ def render(chip_smoke, here, dev, label: str, path: str) -> None:
         chip_smoke.phase_main_path(dev, chip_smoke.phase_card(), title, take, scene, kernels)
         spp = take.num_samples_per_pixel
         drv = Driver(take, scene, device=dev)
+    run = drv.render_particles if path == "particles" else drv.render_iterations
     drv.start_frame()
-    drv.render_iterations(spp)
+    run(spp)
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         drv.start_frame()
         t0 = time.perf_counter()
-        drv.render_iterations(spp)
+        run(spp)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats(dev)
     drv.start_frame()
-    drv.render_iterations(spp)
+    run(spp)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         drv.start_frame()
-        drv.render_iterations(spp)
+        run(spp)
         torch.cuda.synchronize()
     by_name: dict[str, list] = {}
     # the raw device events: prof.events() takes minutes on caustics' ~400,000 launches

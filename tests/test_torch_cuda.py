@@ -14,11 +14,15 @@ first bounce, isect on portal.scene's tables, the filtered flush at
 the Cornell path's width and at small widths in its three footprint
 rules (with every finishing lane on one pixel, under both of its
 mappings), the traversal over forest.take's 144 instances and its
-motion-blur variant (kAnim) at seeded shutter times, the photon
+motion-blur variant (kAnim) at seeded shutter times, the instance pick
+on tables of 1 to 1,000 rows with ties in clusters of identical boxes
+(static and moving), the photon
 gather on caustics_photons.take's first bounce, a dense map and small
 widths, with lanes at the 512-visit cap beside empty ones and lanes
 whose cells repeat, and the lighttracer's camera splat on cornell_particles.take's
-first bounce and on seeded lanes at small widths, with the particle pass
+first bounce and on seeded lanes from 1 to 4,096, and at 4,096 and
+262,145 lanes onto 64 pixels, onto one pixel or none connecting, with
+the particle pass
 on the card against the CPU. Skipped without a card. This file imports no jax, so it also runs on a
 machine without the JAX package:
 
@@ -301,6 +305,126 @@ def test_traverse_anim_launch_shapes(cuda_device, moving_pair, case):
     assert torch.equal(kb, pb)
     if case in ("all dead", "all miss"):
         assert not bool((k[1] >= 0).any()) and not bool(kb.any())
+
+
+def _pick_case(dev, ninst: int, moving: bool, n: int = 4096, seed: int = 41):
+    """An instance table of ninst rows where the pick is delicate: up to 8
+    clusters of 5 identical sphere instances (one box each cluster, props
+    10c + m + 1; member m < 3 hidden from ray class m), the rest scattered
+    spheres and cubes (props 1000 + k) in a cube whose volume grows with
+    ninst; moving: cluster 0 turns from 170 to 190 degrees about y (the
+    quaternions' dot product is negative), cluster 1 repeats its start row
+    as its end row (slerp's close branch), every third scattered row
+    moves. A third of the rays start inside a cluster (entry t 0 in all of
+    its boxes; inside the one sphere when ninst is 1). Returns (arena,
+    itab, o, d, tmax, smax, time or None, primary)."""
+    import numpy as np
+    from zyg_tpu_torch.scene import trimesh
+    from zyg_tpu_torch.scene.loader import rotation_matrix_from_euler_degrees as rot
+
+    rng = np.random.default_rng(seed + ninst)
+    reach = 2.5 * max(ninst / 36.0, 1.0) ** (1.0 / 3.0)
+    nclus = min(ninst // 10, 8)
+    centres = rng.uniform(-reach / 2, reach / 2, (max(nclus, 1), 3)).astype(np.float32)
+    inst = []
+    for c in range(nclus):
+        base = dict(mesh=0, rot=rot([20.0 * c, 170.0 if c == 0 else 35.0 * c, 0.0]),
+                    pos=centres[c], scale=np.full(3, 0.6, np.float32))
+        if moving and c == 0:
+            base.update(rot1=rot([0.0, 190.0, 0.0]), pos1=centres[c] + np.float32([0.1, 0, 0]),
+                        scale1=np.full(3, 0.55, np.float32))
+        if moving and c == 1:
+            base.update(rot1=base["rot"], pos1=base["pos"], scale1=base["scale"])
+        inst += [dict(base, prop=10 * c + m + 1, vis=tuple(k != m for k in range(3)))
+                 for m in range(5)]
+    for k in range(ninst - len(inst)):
+        angles = rng.uniform(-180.0, 180.0, 3)
+        pos = rng.uniform(-reach, reach, 3).astype(np.float32)
+        scale = rng.uniform(0.2, 0.5, 3).astype(np.float32)
+        ins = dict(prop=1000 + k, mesh=k % 2, rot=rot(angles), pos=pos, scale=scale,
+                   vis=tuple(bool(v) for v in rng.random(3) > 0.15))
+        if ninst == 1:
+            ins.update(mesh=0, rot=rot([0.0, 170.0, 0.0]), pos=np.zeros(3, np.float32),
+                       scale=np.full(3, 0.8, np.float32), vis=(True, True, True))
+        if moving and (k % 3 == 0 or ninst == 1):
+            ins.update(rot1=rot([0.0, 190.0, 0.0]) if ninst == 1 else
+                       rot(angles + rng.uniform(-60.0, 60.0, 3)),
+                       pos1=(ins["pos"] + rng.uniform(-0.3, 0.3, 3)).astype(np.float32),
+                       scale1=(ins["scale"] * rng.uniform(0.8, 1.2, 3)).astype(np.float32))
+        inst.append(ins)
+    arena, host = trimesh.build_arena([trimesh.make_sphere_mesh(8, 12), trimesh.make_cube_mesh()])
+    itab = trimesh.build_instance_table(host, inst)
+    assert itab.trafo.shape[0] == ninst and itab.has_anim == moving
+    if moving:
+        tf = itab.trafo
+        assert bool(((tf[:, 0:4] * tf[:, 10:14]).sum(1) < 0).any())  # the flip
+        assert bool((tf[:, 0:10] != tf[:, 10:20]).any(1).any())
+        if ninst > 1:
+            assert bool((tf[:, 0:10] == tf[:, 10:20]).all(1).any())  # close rows
+    k = n // 3
+    o = rng.uniform(-reach - 0.5, reach + 0.5, (n, 3)).astype(np.float32)
+    tgt = rng.uniform(-reach / 2, reach / 2, (n, 3)).astype(np.float32)
+    o[:k] = (centres[rng.integers(0, max(nclus, 1), k)] if nclus else 0.0) \
+        + rng.uniform(-0.08, 0.08, (k, 3)).astype(np.float32)
+    tgt[:k] = o[:k] + rng.normal(size=(k, 3)).astype(np.float32)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    time = rng.random(n).astype(np.float32)
+    time[:64], time[64:128] = 0.0, 1.0
+    tmax = np.full(n, 2.14748313e9, np.float32)
+    tmax[::11] = 0.0
+    smax = np.linalg.norm(tgt - o, axis=1).astype(np.float32)
+    smax[::7] = 0.0
+    primary = rng.random(n) < 0.5
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return (arena.to(dev), itab.to(dev), t(o), t(d.astype(np.float32)), t(tmax), t(smax),
+            t(time) if moving else None, t(primary))
+
+
+@pytest.mark.parametrize("moving", [False, True], ids=["static", "moving"])
+@pytest.mark.parametrize("ninst", [1, 31, 32, 33, 144, 1000])
+def test_traverse_pick_on_tied_tables(cuda_device, ninst, moving):
+    """The instance pick in both of the kernel's forms: the lane pick
+    below the warp pick's 8 rows (1 row) and above the shared-memory
+    table's 512 (1,000 rows, read from device memory), the warp pick in
+    between (31-33 rows: one or two box rounds a thread; 144 rows), with
+    ties at entry t 0 in clusters of
+    identical boxes, rows hidden from a ray class, any-hit rays that stop
+    at their first hit, and moving rows with times 0 and 1, equal start
+    and end rows and a negative quaternion dot product: hit ids exact on
+    every lane, the records bit-exact (static) or t/u/v within rtol 2e-5
+    (moving), any-hit exact; a cluster hit carries the cluster's first
+    member visible to the ray's class."""
+    import chip_smoke
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.ops import traverse
+
+    arena, itab, o, d, tmax, smax, time, prim = _pick_case(cuda_device, ninst, moving)
+    name = "traverse_anim" if moving else "traverse"
+    before = ops.launch_counts()[name]
+    k = traverse.intersect_instances(arena, itab, o, d, 0.0, tmax, "reflection", prim, time=time)
+    p = traverse.traverse_plain(arena, itab, o, d, 0.0, tmax, 1, prim, False, time=time)
+    kb = traverse.intersect_instances(arena, itab, o, d, 0.0, smax, "shadow", any_hit=True,
+                                      time=time)
+    pb = traverse.traverse_plain(arena, itab, o, d, 0.0, smax, 2, None, True, time=time)
+    torch.cuda.synchronize()
+    traverse.check_errors(cuda_device)
+    assert ops.launch_counts()[name] == before + 2
+    assert torch.equal(kb, pb) and 0 < int(pb.sum()) < o.shape[0]
+    assert torch.equal(k[1], p[1]) and torch.equal(k[4], p[4])
+    if moving:
+        chip_smoke._compare_walks(k, p, f"{name} ({ninst} instances)")
+    else:
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+    prop = k[4].cpu()
+    cluster = (prop >= 1) & (prop <= 80)
+    first = torch.where(prim.cpu(), 1, 0)  # member 0 is hidden from the camera column
+    assert torch.equal(prop[cluster], ((prop - 1) // 10 * 10 + first + 1)[cluster])
+    if ninst >= 10:
+        assert int(cluster.sum()) >= o.shape[0] // 10
 
 
 @pytest.mark.parametrize("field", ["node_rows", "tri_rows"])
@@ -1003,7 +1127,7 @@ def _splat_case(dev, n, seed=27):
     return [params, unit(), unit(), nrm, geo, tp, cam_pdf, ids, connect, blocked]
 
 
-@pytest.mark.parametrize("n", [0, 1, 31, 129, 4096])
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 129, 4096])
 def test_lt_splat_launch_shapes(cuda_device, n):
     from zyg_tpu_torch import ops
     from zyg_tpu_torch.ops import lt_splat as op
@@ -1024,6 +1148,42 @@ def test_lt_splat_launch_shapes(cuda_device, n):
     # render/materials.py's, a few ulps; then the atomics' order
     torch.testing.assert_close(out[0][0], out[1][0], rtol=4e-6,
                                atol=4e-6 * float(out[1][0].abs().max()) + 1e-30)
+
+
+@pytest.mark.parametrize("n", [4096, 262145])
+@pytest.mark.parametrize("case", ["64 pixels", "one pixel", "none connect"])
+def test_lt_splat_contention(cuda_device, n, case):
+    """Many adds a pixel: the seeded lanes onto 64 pixels (~1,600 adds a
+    pixel at 262,145 lanes), every lane onto pixel 0, or no lane
+    connecting (nothing added, count 0). The count exact; each pixel
+    within rtol 2e-4 of the float64 sum of the plain version's
+    contributions: ~40 % of the lanes add, in an order the atomics
+    choose, and a float32 sum of k terms rounds up to k/2 ulps away from
+    the exact one (the rtol 4e-6 of the launch shapes holds at ~25 adds a
+    pixel, not here)."""
+    from zyg_tpu_torch.ops import lt_splat as op
+
+    args = _splat_case(cuda_device, n)
+    if case == "one pixel":
+        args[7] = torch.zeros_like(args[7])
+    elif case == "none connect":
+        args[8] = torch.zeros_like(args[8])
+    splat = torch.zeros((64, 4), device=cuda_device)
+    count = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    op.lt_splat(*args, splat, count)
+    conn, contrib = op.contributions(*args[:7], args[8], args[9])
+    torch.cuda.synchronize()
+    assert int(count) == int(conn.sum())
+    if case == "none connect":
+        assert int(count) == 0 and not splat.any()
+        return
+    assert int(count) > n // 4 and not splat[:, 3].any()
+    want = torch.zeros((64, 3), dtype=torch.float64, device=cuda_device)
+    want.index_add_(0, args[7], contrib.double())
+    if case == "one pixel":
+        assert not splat[1:].any()
+    torch.testing.assert_close(splat[:, :3].double(), want, rtol=2e-4,
+                               atol=2e-4 * float(want.abs().max()))
 
 
 def test_lt_splat_refuses_what_it_cannot_take(cuda_device):

@@ -23,18 +23,38 @@
 // vector atomic into a [P, 4] splat that stays in L2 (4 MB at 512x512).
 // A Cornell vertex lands on a pixel of the frame nearly at random, so
 // the atomics scatter; their rate, not the bytes, may bind (the filtered
-// flush's ran at 41.2 G float4 atomics/s).
-// Design, a simple kernel: one thread a lane, 128 threads a block, the
-// GGX energy fit in shared memory, no early return before the warp's
-// ballot.
+// flush's ran at 41.2 G float4 atomics/s). A first bounce's ~160,000
+// atomics are not the limit (the tap-major filtered flush adds ~70 G/s);
+// the latency of the reads is: a thread that reads `connect`, then
+// `kind`, then the rest, then evaluates and adds, waits three times, and
+// a thread a lane at the BSDF's ~150 registers leaves ~12 warps an SM to
+// cover those waits.
+// Design:
+// - every lane's inputs are read at once, before the BSDF, and the BSDF
+//   is evaluated on every lane in range and masked after (a warp's
+//   coalesced reads fetch its lines for its candidates anyway, and ~80 %
+//   of a first bounce's lanes are candidates): one wait a lane;
+// - __launch_bounds__(LT_SPLAT_THREADS, LT_SPLAT_MIN_BLOCKS) holds the
+//   registers to what that many resident blocks allow, with no spill;
+// - the grid is the card's resident blocks striding over the lanes, so
+//   each block loads the GGX energy fit into shared memory once; a launch
+//   on fewer lanes (the later bounces) takes one block per 128 lanes;
+// - a warp counts its connecting lanes by ballot over its strides and adds
+//   them with one atomic at the end. The ballots see the full mask: every
+//   thread of a block runs the same strides.
 //
 // Numerics: built with -fmad=false; the BSDF rounds as shade_core.cuh
 // rounds it (the fused kernels' order), a few float32 ulps from
 // render/materials.py's; the atomics add in another order than the plain
 // version's index_add_.
+#include "launch.cuh"
 #include "shade_core.cuh"
 
 #define LT_SPLAT_THREADS 128
+// resident blocks an SM the registers must allow: at 3 the kernel takes
+// 154 registers with no spill; 4 (128 registers) spilled 112 B and 5
+// more, both slower
+#define LT_SPLAT_MIN_BLOCKS 3
 
 namespace {
 
@@ -60,39 +80,49 @@ struct LtSplatArgs {
   int64_t lanes;
 };
 
-__global__ void __launch_bounds__(LT_SPLAT_THREADS) lt_splat_kernel(LtSplatArgs a) {
+__global__ void __launch_bounds__(LT_SPLAT_THREADS, LT_SPLAT_MIN_BLOCKS)
+    lt_splat_kernel(LtSplatArgs a) {
   __shared__ float fit[FIT_N];
   for (int k = threadIdx.x; k < FIT_N; k += blockDim.x) fit[k] = a.fit[k];
   __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  bool conn = false;
-  // render/materials.py _SUBSTITUTE: the kind eval_bsdf evaluates here
-  if (i < a.lanes && __ldg(a.connect + i) && __ldg(a.kind + i) == 0) {
-    const V3 wo = ld3(a.wo, i);
-    const V3 wi = ld3(a.wi, i);
-    Mat mat;
-    mat.albedo = ld3(a.albedo, i);
-    mat.f0 = ld3(a.f0, i);
-    mat.alpha = __ldg(a.alpha + i);
-    mat.metallic = __ldg(a.metallic + i);
-    mat.specular = __ldg(a.specular + i);
-    const MatTerms mt = mat_terms(fit, mat);
-    const V3 ns = shading_normal(wo, ld3(a.n, i), ld3(a.geo_n, i));
-    const WoTerms w = wo_terms(fit, mat.alpha, mt.f0m, wo, ns);
-    V3 f;
-    float pdf;
-    eval_terms(fit, mat, mt, w, wo, wi, ns, f, pdf);
-    conn = max3(f) > 0.0f;
-    if (conn && !__ldg(a.blocked + i)) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  unsigned conns = 0;  // the warp's connecting lanes so far
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < a.lanes; base += stride) {
+    const int64_t i = base + threadIdx.x;
+    bool conn = false;
+    if (i < a.lanes) {
+      const bool cand = (__ldg(a.connect + i) != 0) & (__ldg(a.kind + i) == 0);
+      const bool blocked = __ldg(a.blocked + i) != 0;
+      const V3 wo = ld3(a.wo, i);
+      const V3 wi = ld3(a.wi, i);
+      const V3 n = ld3(a.n, i);
+      const V3 geo_n = ld3(a.geo_n, i);
+      Mat mat;
+      mat.albedo = ld3(a.albedo, i);
+      mat.f0 = ld3(a.f0, i);
+      mat.alpha = __ldg(a.alpha + i);
+      mat.metallic = __ldg(a.metallic + i);
+      mat.specular = __ldg(a.specular + i);
       const float cp = __ldg(a.cam_pdf + i);
       const V3 tp = ld3(a.throughput, i);
-      atomicAdd(reinterpret_cast<float4*>(a.splat + 4 * __ldg(a.ids + i)),
-                make_float4(cp * tp.x * f.x, cp * tp.y * f.y, cp * tp.z * f.z, 0.0f));
+      const int64_t pix = __ldg(a.ids + i);
+      // render/materials.py _SUBSTITUTE: the kind eval_bsdf evaluates here;
+      // the other lanes' values are masked
+      const MatTerms mt = mat_terms(fit, mat);
+      const V3 ns = shading_normal(wo, n, geo_n);
+      const WoTerms w = wo_terms(fit, mat.alpha, mt.f0m, wo, ns);
+      V3 f;
+      float pdf;
+      eval_terms(fit, mat, mt, w, wo, wi, ns, f, pdf);
+      conn = cand && max3(f) > 0.0f;
+      if (conn && !blocked) {
+        atomicAdd(reinterpret_cast<float4*>(a.splat + 4 * pix),
+                  make_float4(cp * tp.x * f.x, cp * tp.y * f.y, cp * tp.z * f.z, 0.0f));
+      }
     }
+    conns += __popc(__ballot_sync(0xffffffffu, conn));
   }
-  const unsigned ballot = __ballot_sync(0xffffffffu, conn);
-  if ((threadIdx.x & 31) == 0 && ballot != 0u)
-    atomicAdd(a.count, (unsigned long long)__popc(ballot));
+  if ((threadIdx.x & 31) == 0 && conns != 0u) atomicAdd(a.count, (unsigned long long)conns);
 }
 
 }  // namespace
@@ -123,7 +153,12 @@ extern "C" int zyg_lt_splat(void** ptrs, int64_t lanes, int64_t pixels, void* st
   a.splat = (float*)ptrs[k++];
   a.count = (unsigned long long*)ptrs[k++];
   a.lanes = lanes;
-  const unsigned blocks = (unsigned)((lanes + LT_SPLAT_THREADS - 1) / LT_SPLAT_THREADS);
+  int resident = 0;
+  const cudaError_t err =
+      resident_blocks((const void*)lt_splat_kernel, LT_SPLAT_THREADS, &resident);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t want = (lanes + LT_SPLAT_THREADS - 1) / LT_SPLAT_THREADS;
+  const unsigned blocks = (unsigned)(want < resident ? want : resident);
   lt_splat_kernel<<<blocks, LT_SPLAT_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

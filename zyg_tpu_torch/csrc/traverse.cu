@@ -47,6 +47,29 @@
 // first hit. A stack overflow or a runaway walk sets a flag that the
 // wrapper turns into an exception; it never truncates a walk silently.
 //
+// The instance level: a pick tests every instance box (forest.take's 144
+// boxes, ~2.3 picks a ray), which a lane alone loops over while the rest
+// of its warp waits, walking or not. The kernel has two forms, chosen per
+// launch from the table's size:
+// - the warp pick (TRAV_WARP_PICK_MIN to TRAV_SMEM_INST instances): a
+//   block stages the boxes and their visibility bits in shared memory
+//   (two float4s an instance), and the lanes that pick in a step are
+//   served one after another by the whole warp: thread j tests boxes j,
+//   j + 32, ... of the picking ray, keeps its nearest by strict <, and
+//   two warp reductions take the least entry t's bits and then the least
+//   index at that t. nearc is >= +0.0 (zmax(x, 0.0f) never returns -0.0)
+//   or the ineligible kBig, and a NaN bound is ineligible, so the bits
+//   order as the floats do: the pick is the serial scan's, ties at one
+//   entry t going to the smallest index. When more lanes pick in a step
+//   than that pays for (pickers x (ceil(ninst / 32) + 1) >= ninst, in box
+//   tests), each picking lane scans the staged boxes alone, every lane of
+//   the warp on the same box (a broadcast read);
+// - the lane pick (fewer instances, as a scene of a few mesh props, or
+//   more than the shared-memory table holds): each lane scans the
+//   instance arrays alone, with no staging and no ballot of the picking
+//   lanes. Measured on the card (tools/pick_probe.py), the lane pick is
+//   as fast or faster up to 4 instances and the warp pick from 8.
+//
 // Motion blur (traverse_anim_kernel, the kAnim variant): an instance row
 // also holds the shutter-end transform (columns 10-19), and the ray's
 // shutter time t in [0, 1] (one more float a ray) picks the transform:
@@ -54,9 +77,12 @@
 // trimesh.py:1145-1155 does per lane and core/vecmath.py's quat_slerp and
 // lerp write it (acosf, sinf, IEEE divisions, fmaf exactly where the
 // plain version fuses). The instance boxes are already the union over
-// the shutter, so the pick is unchanged. It runs once an instance visit:
-// ~60 operations beside the ~300 of a wide node; the static variant is
-// compiled without it.
+// the shutter, so the pick is unchanged. In the warp pick's form, what
+// depends on the instance alone (cosom, the sign flip, om, sinom, the
+// close test) is computed once a block beside the staged boxes, by the
+// same operations, and an instance entry computes the two sine weights at
+// its time, the lerps and the normalize. The static variant is compiled
+// without it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -70,6 +96,10 @@
 #define TRAV_THREADS 128
 #define TRAV_NODE_F4 16  // float4s per node row (64 floats)
 #define TRAV_LEAF_F4 27  // float4s per leaf row (108 floats)
+#define TRAV_SMEM_INST 512  // the most instances a block stages in shared memory
+#ifndef TRAV_WARP_PICK_MIN
+#define TRAV_WARP_PICK_MIN 8  // the fewest instances whose tables launch the warp pick
+#endif
 
 namespace {
 
@@ -177,12 +207,15 @@ __device__ __forceinline__ bool start(const TravArgs& a, int64_t id, Ray& r) {
   return true;
 }
 
-// the instance's transform at shutter time t: core/vecmath.py's
-// quat_slerp of q0 -> q1 (the cos < 0 flip, the lerp above 0.9995, the
-// sine weights over max(sin, 1e-12), the normalize) and lerps of the
-// position and scale (fmaf(b - a, t, a))
-__device__ __forceinline__ void transform_at(const float* tf, float t, float* q, float* pos,
-                                             float* scale) {
+// what a moving instance's slerp takes from its rows alone:
+// core/vecmath.py's quat_slerp up to its sine weights (the dot product,
+// the cos < 0 flip, acos of the clamped |cos|, the sine over max(sin,
+// 1e-12), the lerp above 0.9995)
+struct Slerp {
+  float om, sinom, flip, close;  // flip: -1 or 1; close: 1 or 0
+};
+
+__device__ __forceinline__ Slerp slerp_terms(const float* tf) {
   float qa[4], qb[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -190,20 +223,27 @@ __device__ __forceinline__ void transform_at(const float* tf, float t, float* q,
     qb[k] = __ldg(tf + 10 + k);
   }
   float cosom = fmaf(qa[3], qb[3], fmaf(qa[2], qb[2], fmaf(qa[1], qb[1], qa[0] * qb[0])));
-  if (cosom < 0.0f) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) qb[k] = -qb[k];
-  }
+  const bool flip = cosom < 0.0f;
   cosom = fabsf(cosom);
   const float om = acosf(zmin(zmax(cosom, -1.0f), 1.0f));
-  const float sinom = zmax(sinf(om), 1e-12f);
-  const bool close = cosom > 0.9995f;
+  return Slerp{om, zmax(sinf(om), 1e-12f), flip ? -1.0f : 1.0f, cosom > 0.9995f ? 1.0f : 0.0f};
+}
+
+// the instance's transform at shutter time t from its slerp terms: the
+// sine weights (or the lerp's), the quaternions' weighted sum and its
+// normalize, and lerps of the position and scale (fmaf(b - a, t, a))
+__device__ __forceinline__ void transform_at(const float* tf, Slerp s, float t, float* q,
+                                             float* pos, float* scale) {
   const float one_t = 1.0f - t;
-  const float wa = close ? one_t : sinf(one_t * om) / sinom;
-  const float wb = close ? t : sinf(t * om) / sinom;
+  const bool close = s.close != 0.0f;
+  const float wa = close ? one_t : sinf(one_t * s.om) / s.sinom;
+  const float wb = close ? t : sinf(t * s.om) / s.sinom;
   float out[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) out[k] = fmaf(wa, qa[k], wb * qb[k]);
+  for (int k = 0; k < 4; ++k) {
+    const float qb = __ldg(tf + 10 + k);
+    out[k] = fmaf(wa, __ldg(tf + k), wb * (s.flip < 0.0f ? -qb : qb));
+  }
   const float norm =
       sqrtf(fmaf(out[3], out[3], fmaf(out[2], out[2], fmaf(out[1], out[1], out[0] * out[0]))));
 #pragma unroll
@@ -216,42 +256,147 @@ __device__ __forceinline__ void transform_at(const float* tf, float t, float* q,
   }
 }
 
-// the nearest eligible instance strictly after (last_t, last_i); returns
-// false (the ray is done) if there is none, or the rounds are spent, or an
-// any-hit ray has its hit. Otherwise sets up the object-space walk.
+// what a pick needs of its ray: the world ray, its box entry bound and
+// the cursor of the instances it walked
+struct PickRay {
+  F3 o, inv;
+  float best_t, last_t;
+  int last_i, col;  // col: the visibility column of the ray's class
+};
+
+// instance box k as a ray of visibility column col reads it: its bounds
+// and whether it is visible, from the staged table (kStaged) or from the
+// instance arrays
+struct Box {
+  float lo[3], hi[3];
+  bool vis;
+};
+
+template <bool kStaged>
+__device__ __forceinline__ Box load_box(const TravArgs& a, const float4* inst, int k, int col) {
+  Box b;
+  if constexpr (kStaged) {
+    const float4 l = inst[2 * k], h = inst[2 * k + 1];
+    b.lo[0] = l.x, b.lo[1] = l.y, b.lo[2] = l.z;
+    b.hi[0] = h.x, b.hi[1] = h.y, b.hi[2] = h.z;
+    b.vis = ((__float_as_uint(l.w) >> col) & 1u) != 0;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      b.lo[c] = __ldg(a.wmin + 3 * k + c);
+      b.hi[c] = __ldg(a.wmax + 3 * k + c);
+    }
+    b.vis = __ldg(a.vis + 3 * k + col) != 0;
+  }
+  return b;
+}
+
+// stage the instance table a block reads at every pick: per instance its
+// box as two float4s, (lo, visibility bits c = 0, 1, 2 of the columns)
+// and (hi, 0), then for kAnim its slerp terms
 template <bool kAnim>
-__device__ __forceinline__ bool pick_instance(const TravArgs& a, Ray& r) {
-  if (r.round >= a.ninst || (a.any_hit && r.best.prim >= 0)) return false;
-  const int64_t id = r.id;
-  const F3 o{__ldg(a.o + 3 * id), __ldg(a.o + 3 * id + 1), __ldg(a.o + 3 * id + 2)};
-  const F3 d{__ldg(a.d + 3 * id), __ldg(a.d + 3 * id + 1), __ldg(a.d + 3 * id + 2)};
-  const F3 inv = inv3(d);
-  float bt = kBig;
-  int bi = -1;
+__device__ __forceinline__ void stage_instances(const TravArgs& a, float4* inst) {
+  for (int k = threadIdx.x; k < a.ninst; k += blockDim.x) {
+    const unsigned vis = (__ldg(a.vis + 3 * k) != 0 ? 1u : 0u) |
+                         (__ldg(a.vis + 3 * k + 1) != 0 ? 2u : 0u) |
+                         (__ldg(a.vis + 3 * k + 2) != 0 ? 4u : 0u);
+    inst[2 * k] = make_float4(__ldg(a.wmin + 3 * k), __ldg(a.wmin + 3 * k + 1),
+                              __ldg(a.wmin + 3 * k + 2), __uint_as_float(vis));
+    inst[2 * k + 1] = make_float4(__ldg(a.wmax + 3 * k), __ldg(a.wmax + 3 * k + 1),
+                                  __ldg(a.wmax + 3 * k + 2), 0.0f);
+    if constexpr (kAnim) {
+      const Slerp sl = slerp_terms(a.trafo + 24 * k);
+      inst[2 * a.ninst + k] = make_float4(sl.om, sl.sinom, sl.flip, sl.close);
+    }
+  }
+}
+
+// box k's clipped entry t if the ray may pick it, else kBig: entered
+// (nearc <= far), visible to the ray's class, before the best hit and
+// strictly after (last_t, last_i) in (entry t, index) order
+__device__ __forceinline__ float box_entry(const TravArgs& a, const Box& b, int k,
+                                           const PickRay& p) {
+  const float lx = (b.lo[0] - p.o.x) * p.inv.x, hx = (b.hi[0] - p.o.x) * p.inv.x;
+  const float ly = (b.lo[1] - p.o.y) * p.inv.y, hy = (b.hi[1] - p.o.y) * p.inv.y;
+  const float lz = (b.lo[2] - p.o.z) * p.inv.z, hz = (b.hi[2] - p.o.z) * p.inv.z;
+  const float near = zmax(zmax(zmin(lx, hx), zmin(ly, hy)), zmin(lz, hz));
+  const float far = zmin(zmin(zmax(lx, hx), zmax(ly, hy)), zmax(lz, hz));
+  const float nearc = zmax(zmax(near, a.tmin), 0.0f);
+  const bool elig = (nearc <= far) & b.vis & (nearc < p.best_t) &
+                    ((nearc > p.last_t) | ((nearc == p.last_t) & (k > p.last_i)));
+  return elig ? nearc : kBig;
+}
+
+// the nearest eligible box of one lane's ray, the lane alone over every
+// box (the first of equal entries wins): sets bt, bi, or leaves bi < 0
+template <bool kStaged>
+__device__ __forceinline__ void pick_lane(const TravArgs& a, const float4* inst,
+                                          const PickRay& p, float& bt, int& bi) {
   for (int k = 0; k < a.ninst; ++k) {
-    const float* lo = a.wmin + 3 * k;
-    const float* hi = a.wmax + 3 * k;
-    const float lx = (__ldg(lo) - o.x) * inv.x, hx = (__ldg(hi) - o.x) * inv.x;
-    const float ly = (__ldg(lo + 1) - o.y) * inv.y, hy = (__ldg(hi + 1) - o.y) * inv.y;
-    const float lz = (__ldg(lo + 2) - o.z) * inv.z, hz = (__ldg(hi + 2) - o.z) * inv.z;
-    const float near = zmax(zmax(zmin(lx, hx), zmin(ly, hy)), zmin(lz, hz));
-    const float far = zmin(zmin(zmax(lx, hx), zmax(ly, hy)), zmax(lz, hz));
-    const float nearc = zmax(zmax(near, a.tmin), 0.0f);
-    const bool vis = __ldg(a.vis + 3 * k + (r.prim_ray ? 0 : a.vis_col)) != 0;
-    const bool elig = (nearc <= far) & vis & (nearc < r.best.t) &
-                      ((nearc > r.last_t) | ((nearc == r.last_t) & (k > r.last_i)));
-    const float te = elig ? nearc : kBig;
+    const float te = box_entry(a, load_box<kStaged>(a, inst, k, p.col), k, p);
     if (te < bt) {
       bt = te;
       bi = k;
     }
   }
-  if (bi < 0) return false;
-  // the ray in the instance's object space (t stays in world units)
+}
+
+// the nearest eligible staged box of each picking lane's ray, the lanes
+// served one after another by the whole warp (every lane calls it;
+// pickers: the ballot of the picking lanes); sets bt, bi in each picking
+// lane
+__device__ __forceinline__ void pick_warp(const TravArgs& a, const float4* inst,
+                                          unsigned pickers, unsigned lane, const PickRay& mine,
+                                          float& bt, int& bi) {
+  const unsigned big = __float_as_uint(kBig);
+  while (pickers != 0) {
+    const int src = __ffs(pickers) - 1;
+    pickers &= pickers - 1;
+    PickRay p;
+    p.o = F3{__shfl_sync(kFull, mine.o.x, src), __shfl_sync(kFull, mine.o.y, src),
+             __shfl_sync(kFull, mine.o.z, src)};
+    p.inv = F3{__shfl_sync(kFull, mine.inv.x, src), __shfl_sync(kFull, mine.inv.y, src),
+               __shfl_sync(kFull, mine.inv.z, src)};
+    p.best_t = __shfl_sync(kFull, mine.best_t, src);
+    p.last_t = __shfl_sync(kFull, mine.last_t, src);
+    p.last_i = __shfl_sync(kFull, mine.last_i, src);
+    p.col = __shfl_sync(kFull, mine.col, src);
+    float tl = kBig;
+    int il = -1;
+    for (int k = (int)lane; k < a.ninst; k += 32) {
+      const float te = box_entry(a, load_box<true>(a, inst, k, p.col), k, p);
+      if (te < tl) {
+        tl = te;
+        il = k;
+      }
+    }
+    const unsigned tb = __float_as_uint(tl);
+    const unsigned tmin = __reduce_min_sync(kFull, tb);
+    const unsigned kmin = __reduce_min_sync(kFull, tb == tmin ? (unsigned)il : 0xFFFFFFFFu);
+    if ((int)lane == src && tmin < big) {
+      bt = __uint_as_float(tmin);
+      bi = (int)kmin;
+    }
+  }
+}
+
+// the ray enters instance bi (picked at entry t bt): its object-space ray
+// for the BLAS walk (t stays in world units); kStaged: a moving
+// instance's slerp terms from the staged table
+template <bool kAnim, bool kStaged>
+__device__ __forceinline__ void enter_instance(const TravArgs& a, const float4* inst, Ray& r,
+                                               F3 o, F3 d, float bt, int bi) {
   const float* tf = a.trafo + 24 * bi;
   float q[4], pos[3], scale[3];
   if constexpr (kAnim) {
-    transform_at(tf, __ldg(a.time + id), q, pos, scale);
+    Slerp sl;
+    if constexpr (kStaged) {
+      const float4 v = inst[2 * a.ninst + bi];
+      sl = Slerp{v.x, v.y, v.z, v.w};
+    } else {
+      sl = slerp_terms(tf);
+    }
+    transform_at(tf, sl, __ldg(a.time + r.id), q, pos, scale);
   } else {
 #pragma unroll
     for (int k = 0; k < 4; ++k) q[k] = __ldg(tf + k);
@@ -281,7 +426,6 @@ __device__ __forceinline__ bool pick_instance(const TravArgs& a, Ray& r) {
   r.steps = 0;
   r.found = 0;
   r.walking = true;
-  return true;
 }
 
 // one step of the instance's BLAS walk: a wide node or a leaf, then the
@@ -406,10 +550,44 @@ __device__ __forceinline__ int walk_step(const TravArgs& a, Ray& r, int* stack) 
   return -2;
 }
 
-template <bool kAnim>
-__device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack) {
+// a ray between two instances that cannot pick: its rounds are spent, or
+// an any-hit ray has its hit
+__device__ __forceinline__ bool pick_done(const TravArgs& a, const Ray& r) {
+  return r.round >= a.ninst || (a.any_hit && r.best.prim >= 0);
+}
+
+// what the pick needs of lane r's ray (the world ray read again)
+__device__ __forceinline__ PickRay pick_ray(const TravArgs& a, const Ray& r, F3& o, F3& d) {
+  const int64_t id = r.id;
+  o = F3{__ldg(a.o + 3 * id), __ldg(a.o + 3 * id + 1), __ldg(a.o + 3 * id + 2)};
+  d = F3{__ldg(a.d + 3 * id), __ldg(a.d + 3 * id + 1), __ldg(a.d + 3 * id + 2)};
+  return PickRay{o, inv3(d), r.best.t, r.last_t, r.last_i, r.prim_ray ? 0 : a.vis_col};
+}
+
+// after a pick: a ray with no eligible instance is done, else it enters bi
+template <bool kAnim, bool kStaged>
+__device__ __forceinline__ void end_pick(const TravArgs& a, const float4* inst, Ray& r, F3 o,
+                                         F3 d, float bt, int bi) {
+  if (bi < 0) {
+    finish(a, r);
+    r.id = -1;
+  } else {
+    enter_instance<kAnim, kStaged>(a, inst, r, o, d, bt, bi);
+  }
+}
+
+// kWarpPick: the warp pick's form, over the table staged in inst_s; else
+// the lane pick's, over the instance arrays
+template <bool kAnim, bool kWarpPick>
+__device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack,
+                                             float4* const inst_s) {
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
+  if constexpr (kWarpPick) {
+    stage_instances<kAnim>(a, inst_s);
+    __syncthreads();
+  }
+  const int box_rounds = (a.ninst + 31) >> 5;  // a warp pick's box tests a thread
   // the warp's pool of ray ids [pool, pool_end): the same in every lane
   int64_t pool = 0, pool_end = 0;
   bool dry = false;
@@ -438,13 +616,44 @@ __device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack
       idle = __ballot_sync(kFull, r.id < 0);
     }
     if (__ballot_sync(kFull, r.id >= 0) == 0) break;
-    // ---- one step of this lane's ray
-    if (r.id < 0) continue;
-    if (!r.walking && !pick_instance<kAnim>(a, r)) {
-      finish(a, r);
-      r.id = -1;
-      continue;
+    // ---- the lanes between two instances pick the nearest eligible one
+    // strictly after (last_t, last_i), or end their ray
+    if constexpr (kWarpPick) {
+      bool picking = r.id >= 0 && !r.walking;
+      if (picking && pick_done(a, r)) {
+        finish(a, r);
+        r.id = -1;
+        picking = false;
+      }
+      const unsigned pickers = __ballot_sync(kFull, picking);
+      if (pickers != 0) {
+        F3 o{0.0f, 0.0f, 0.0f}, d{0.0f, 0.0f, 0.0f};
+        PickRay p;  // read only from the picking lanes
+        if (picking) p = pick_ray(a, r, o, d);
+        float bt = kBig;
+        int bi = -1;
+        if (__popc(pickers) * (box_rounds + 1) < a.ninst) {
+          pick_warp(a, inst_s, pickers, lane, p, bt, bi);
+        } else if (picking) {
+          pick_lane<true>(a, inst_s, p, bt, bi);
+        }
+        if (picking) end_pick<kAnim, true>(a, inst_s, r, o, d, bt, bi);
+      }
+    } else if (r.id >= 0 && !r.walking) {
+      if (pick_done(a, r)) {
+        finish(a, r);
+        r.id = -1;
+      } else {
+        F3 o, d;
+        const PickRay p = pick_ray(a, r, o, d);
+        float bt = kBig;
+        int bi = -1;
+        pick_lane<false>(a, nullptr, p, bt, bi);
+        end_pick<kAnim, false>(a, nullptr, r, o, d, bt, bi);
+      }
     }
+    // ---- one step of this lane's walk
+    if (r.id < 0) continue;
     const int end = walk_step(a, r, stack);
     if (end == -2) continue;
     r.walking = false;
@@ -460,14 +669,27 @@ __device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack
   }
 }
 
-__global__ void __launch_bounds__(TRAV_THREADS) traverse_kernel(TravArgs a) {
-  __shared__ int stack_s[TRAV_MAX_STACK * TRAV_THREADS];
-  traverse_run<false>(a, stack_s + threadIdx.x);
+// the form a table launches, and its dynamic shared memory (the staged
+// instance table of stage_instances)
+__host__ __device__ constexpr bool warp_pick(int ninst) {
+  return ninst >= TRAV_WARP_PICK_MIN && ninst <= TRAV_SMEM_INST;
+}
+__host__ __device__ constexpr size_t inst_smem(bool anim, int ninst) {
+  return warp_pick(ninst) ? (size_t)ninst * (anim ? 3 : 2) * sizeof(float4) : 0;
 }
 
+template <bool kWarpPick>
+__global__ void __launch_bounds__(TRAV_THREADS) traverse_kernel(TravArgs a) {
+  __shared__ int stack_s[TRAV_MAX_STACK * TRAV_THREADS];
+  extern __shared__ float4 inst_s[];
+  traverse_run<false, kWarpPick>(a, stack_s + threadIdx.x, inst_s);
+}
+
+template <bool kWarpPick>
 __global__ void __launch_bounds__(TRAV_THREADS) traverse_anim_kernel(TravArgs a) {
   __shared__ int stack_s[TRAV_MAX_STACK * TRAV_THREADS];
-  traverse_run<true>(a, stack_s + threadIdx.x);
+  extern __shared__ float4 inst_s[];
+  traverse_run<true, kWarpPick>(a, stack_s + threadIdx.x, inst_s);
 }
 
 }  // namespace
@@ -508,18 +730,18 @@ static int launch_traverse(bool anim, void** ptrs, int ninst, int vis_col, int a
   a.n = n;
   if (((uintptr_t)a.node_rows | (uintptr_t)a.tri_rows) & 15) return (int)cudaErrorMisalignedAddress;
   if (anim && a.time == nullptr) return (int)cudaErrorInvalidValue;
-  const void* kernel = anim ? (const void*)traverse_anim_kernel : (const void*)traverse_kernel;
+  const bool wp = warp_pick(ninst);
+  void (*const kernel)(TravArgs) =
+      anim ? (wp ? traverse_anim_kernel<true> : traverse_anim_kernel<false>)
+           : (wp ? traverse_kernel<true> : traverse_kernel<false>);
+  const size_t smem = inst_smem(anim, ninst);
   int resident = 0;
-  cudaError_t err = resident_blocks(kernel, TRAV_THREADS, &resident);
+  cudaError_t err = resident_blocks((const void*)kernel, TRAV_THREADS, &resident, smem);
   if (err == cudaSuccess) err = cudaMemsetAsync(a.next, 0, sizeof(unsigned long long), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const int64_t want = (n + TRAV_THREADS - 1) / TRAV_THREADS;
   const unsigned blocks = (unsigned)(want < resident ? want : resident);
-  if (anim) {
-    traverse_anim_kernel<<<blocks, TRAV_THREADS, 0, (cudaStream_t)stream>>>(a);
-  } else {
-    traverse_kernel<<<blocks, TRAV_THREADS, 0, (cudaStream_t)stream>>>(a);
-  }
+  kernel<<<blocks, TRAV_THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -534,11 +756,12 @@ extern "C" int zyg_traverse_anim(void** ptrs, int ninst, int vis_col, int any_hi
   return launch_traverse(true, ptrs, ninst, vis_col, any_hit, stack_d, tmin, n, stream);
 }
 
-// the lanes one pass of the resident grid covers on the current device
+// the lanes one pass of the resident grid covers on the current device,
+// for a table of fewer than TRAV_WARP_PICK_MIN instances
 extern "C" int zyg_traverse_resident_lanes(int64_t* out) {
-  return (int)resident_lanes((const void*)traverse_kernel, TRAV_THREADS, out);
+  return (int)resident_lanes((const void*)traverse_kernel<false>, TRAV_THREADS, out);
 }
 
 extern "C" int zyg_traverse_anim_resident_lanes(int64_t* out) {
-  return (int)resident_lanes((const void*)traverse_anim_kernel, TRAV_THREADS, out);
+  return (int)resident_lanes((const void*)traverse_anim_kernel<false>, TRAV_THREADS, out);
 }
