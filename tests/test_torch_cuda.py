@@ -309,8 +309,9 @@ def test_traverse_anim_launch_shapes(cuda_device, moving_pair, case):
 
 def _pick_case(dev, ninst: int, moving: bool, n: int = 4096, seed: int = 41):
     """An instance table of ninst rows where the pick is delicate: up to 8
-    clusters of 5 identical sphere instances (one box each cluster, props
-    10c + m + 1; member m < 3 hidden from ray class m), the rest scattered
+    clusters (one from 5 rows on, one each 10 rows from 20) of 5 identical
+    sphere instances (one box each cluster, props 10c + m + 1; member
+    m < 3 hidden from ray class m), the rest scattered
     spheres and cubes (props 1000 + k) in a cube whose volume grows with
     ninst; moving: cluster 0 turns from 170 to 190 degrees about y (the
     quaternions' dot product is negative), cluster 1 repeats its start row
@@ -324,7 +325,7 @@ def _pick_case(dev, ninst: int, moving: bool, n: int = 4096, seed: int = 41):
 
     rng = np.random.default_rng(seed + ninst)
     reach = 2.5 * max(ninst / 36.0, 1.0) ** (1.0 / 3.0)
-    nclus = min(ninst // 10, 8)
+    nclus = min(max(ninst // 10, int(ninst >= 5)), 8)
     centres = rng.uniform(-reach / 2, reach / 2, (max(nclus, 1), 3)).astype(np.float32)
     inst = []
     for c in range(nclus):
@@ -384,25 +385,16 @@ def _pick_case(dev, ninst: int, moving: bool, n: int = 4096, seed: int = 41):
             t(time) if moving else None, t(primary))
 
 
-@pytest.mark.parametrize("moving", [False, True], ids=["static", "moving"])
-@pytest.mark.parametrize("ninst", [1, 31, 32, 33, 144, 1000])
-def test_traverse_pick_on_tied_tables(cuda_device, ninst, moving):
-    """The instance pick in both of the kernel's forms: the lane pick
-    below the warp pick's 8 rows (1 row) and above the shared-memory
-    table's 512 (1,000 rows, read from device memory), the warp pick in
-    between (31-33 rows: one or two box rounds a thread; 144 rows), with
-    ties at entry t 0 in clusters of
-    identical boxes, rows hidden from a ray class, any-hit rays that stop
-    at their first hit, and moving rows with times 0 and 1, equal start
-    and end rows and a negative quaternion dot product: hit ids exact on
-    every lane, the records bit-exact (static) or t/u/v within rtol 2e-5
-    (moving), any-hit exact; a cluster hit carries the cluster's first
-    member visible to the ray's class."""
+def _check_pick(dev, ninst: int, moving: bool, n: int = 4096) -> None:
+    """_pick_case's table and rays through the kernel and the plain walk:
+    hit ids exact on every lane, the records bit-exact (static) or t/u/v
+    within rtol 2e-5 (moving), any-hit exact; a cluster hit carries the
+    cluster's first member visible to the ray's class."""
     import chip_smoke
     from zyg_tpu_torch import ops
     from zyg_tpu_torch.ops import traverse
 
-    arena, itab, o, d, tmax, smax, time, prim = _pick_case(cuda_device, ninst, moving)
+    arena, itab, o, d, tmax, smax, time, prim = _pick_case(dev, ninst, moving, n)
     name = "traverse_anim" if moving else "traverse"
     before = ops.launch_counts()[name]
     k = traverse.intersect_instances(arena, itab, o, d, 0.0, tmax, "reflection", prim, time=time)
@@ -411,7 +403,7 @@ def test_traverse_pick_on_tied_tables(cuda_device, ninst, moving):
                                       time=time)
     pb = traverse.traverse_plain(arena, itab, o, d, 0.0, smax, 2, None, True, time=time)
     torch.cuda.synchronize()
-    traverse.check_errors(cuda_device)
+    traverse.check_errors(dev)
     assert ops.launch_counts()[name] == before + 2
     assert torch.equal(kb, pb) and 0 < int(pb.sum()) < o.shape[0]
     assert torch.equal(k[1], p[1]) and torch.equal(k[4], p[4])
@@ -423,8 +415,30 @@ def test_traverse_pick_on_tied_tables(cuda_device, ninst, moving):
     cluster = (prop >= 1) & (prop <= 80)
     first = torch.where(prim.cpu(), 1, 0)  # member 0 is hidden from the camera column
     assert torch.equal(prop[cluster], ((prop - 1) // 10 * 10 + first + 1)[cluster])
-    if ninst >= 10:
+    if ninst >= 5:
         assert int(cluster.sum()) >= o.shape[0] // 10
+
+
+@pytest.mark.parametrize("moving", [False, True], ids=["static", "moving"])
+@pytest.mark.parametrize("ninst", [1, 7, 8, 31, 32, 33, 144, 1000])
+def test_traverse_pick_on_tied_tables(cuda_device, ninst, moving):
+    """The instance pick in both of the kernel's forms: the lane pick
+    below the warp pick's 8 rows (1 and 7 rows), the warp pick from 8
+    rows on (8 rows: its threshold; 31-33 rows: one or two box rounds a
+    thread; 144 and 1,000 rows), with ties at entry t 0 in clusters of
+    identical boxes, rows hidden from a ray class, any-hit rays that stop
+    at their first hit, and moving rows with times 0 and 1, equal start
+    and end rows and a negative quaternion dot product (_check_pick)."""
+    _check_pick(cuda_device, ninst, moving)
+
+
+@pytest.mark.parametrize("moving", [False, True], ids=["static", "moving"])
+def test_traverse_warp_pick_launch_shapes(cuda_device, moving):
+    """The warp pick's form (144 rows) over one lane more than a pass of
+    the resident grid covers, so that warps take rays from the counter
+    more than once (_check_pick)."""
+    symbol = "zyg_traverse_anim_resident_lanes" if moving else "zyg_traverse_resident_lanes"
+    _check_pick(cuda_device, 144, moving, _lanes("resident+1", symbol))
 
 
 @pytest.mark.parametrize("field", ["node_rows", "tri_rows"])

@@ -70,8 +70,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "launch.cuh"
 
 #define TRACK_SUPER 8
@@ -79,7 +77,6 @@
 #define TRACK_THREADS 128
 // supergrid rows a block stages in shared memory (16 KB): ops/track.py ROWS_ON_CHIP
 #define TRACK_ROWS_ON_CHIP 1024
-#define TRACK_MAX_DEVICES 64
 
 namespace {
 
@@ -719,25 +716,13 @@ __global__ void __launch_bounds__(TRACK_THREADS, kMinBlocks)
       });
 }
 
-// the resident blocks of each kernel form on each device, queried at the
-// form's first launch there: interaction forms 0-7 (grey * 4 + emit * 2 +
-// rows on chip), transmittance forms 8-11 (8 + grey * 2 + rows on chip)
-std::atomic<int> g_resident[12][TRACK_MAX_DEVICES];
-
 // blocks of a launch over n lanes: the resident grid, or fewer for few lanes;
 // and the lane counter zeroed on the stream
-cudaError_t prepare(const void* kernel, int form, int64_t n, unsigned long long* next,
-                    cudaStream_t st, unsigned* blocks) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+cudaError_t prepare(const void* kernel, int64_t n, unsigned long long* next, cudaStream_t st,
+                    unsigned* blocks) {
+  int resident = 0;
+  const cudaError_t err = resident_blocks(kernel, TRACK_THREADS, &resident);
   if (err != cudaSuccess) return err;
-  const bool cached = dev >= 0 && dev < TRACK_MAX_DEVICES;
-  int resident = cached ? g_resident[form][dev].load(std::memory_order_relaxed) : 0;
-  if (resident <= 0) {
-    err = resident_blocks(kernel, TRACK_THREADS, &resident);
-    if (err != cudaSuccess) return err;
-    if (cached) g_resident[form][dev].store(resident, std::memory_order_relaxed);
-  }
   const int64_t want = (n + TRACK_THREADS - 1) / TRACK_THREADS;
   *blocks = (unsigned)(want < resident ? want : resident);
   return cudaMemsetAsync(next, 0, sizeof(unsigned long long), st);
@@ -747,7 +732,7 @@ template <bool kGrey, bool kEmit, bool kRows>
 cudaError_t launch_interaction(const InteractionArgs& q, cudaStream_t st) {
   unsigned blocks = 0;
   const cudaError_t err = prepare((const void*)track_interaction_kernel<kGrey, kEmit, kRows>,
-                                  kGrey * 4 + kEmit * 2 + kRows, q.n, q.next, st, &blocks);
+                                  q.n, q.next, st, &blocks);
   if (err != cudaSuccess) return err;
   track_interaction_kernel<kGrey, kEmit, kRows><<<blocks, TRACK_THREADS, 0, st>>>(q);
   return cudaGetLastError();
@@ -756,8 +741,8 @@ cudaError_t launch_interaction(const InteractionArgs& q, cudaStream_t st) {
 template <bool kGrey, bool kRows>
 cudaError_t launch_transmittance(const TransmittanceArgs& q, cudaStream_t st) {
   unsigned blocks = 0;
-  const cudaError_t err = prepare((const void*)track_transmittance_kernel<kGrey, kRows>,
-                                  8 + kGrey * 2 + kRows, q.n, q.next, st, &blocks);
+  const cudaError_t err = prepare((const void*)track_transmittance_kernel<kGrey, kRows>, q.n,
+                                  q.next, st, &blocks);
   if (err != cudaSuccess) return err;
   track_transmittance_kernel<kGrey, kRows><<<blocks, TRACK_THREADS, 0, st>>>(q);
   return cudaGetLastError();

@@ -51,24 +51,21 @@
 // boxes, ~2.3 picks a ray), which a lane alone loops over while the rest
 // of its warp waits, walking or not. The kernel has two forms, chosen per
 // launch from the table's size:
-// - the warp pick (TRAV_WARP_PICK_MIN to TRAV_SMEM_INST instances): a
-//   block stages the boxes and their visibility bits in shared memory
-//   (two float4s an instance), and the lanes that pick in a step are
-//   served one after another by the whole warp: thread j tests boxes j,
-//   j + 32, ... of the picking ray, keeps its nearest by strict <, and
-//   two warp reductions take the least entry t's bits and then the least
-//   index at that t. nearc is >= +0.0 (zmax(x, 0.0f) never returns -0.0)
-//   or the ineligible kBig, and a NaN bound is ineligible, so the bits
-//   order as the floats do: the pick is the serial scan's, ties at one
-//   entry t going to the smallest index. When more lanes pick in a step
-//   than that pays for (pickers x (ceil(ninst / 32) + 1) >= ninst, in box
-//   tests), each picking lane scans the staged boxes alone, every lane of
-//   the warp on the same box (a broadcast read);
-// - the lane pick (fewer instances, as a scene of a few mesh props, or
-//   more than the shared-memory table holds): each lane scans the
-//   instance arrays alone, with no staging and no ballot of the picking
-//   lanes. Measured on the card (tools/pick_probe.py), the lane pick is
-//   as fast or faster up to 4 instances and the warp pick from 8.
+// - the warp pick (kWarpPickMin instances or more): the lanes that pick
+//   in a step are served one after another by the whole warp: thread j
+//   tests boxes j, j + 32, ... of the picking ray, read from the instance
+//   arrays (coalesced across the warp), keeps its nearest by strict <,
+//   and two warp reductions take the least entry t's bits and then the
+//   least index at that t. nearc is >= +0.0 (zmax(x, 0.0f) never returns
+//   -0.0) or the ineligible kBig, and a NaN bound is ineligible, so the
+//   bits order as the floats do: the pick is the serial scan's, ties at
+//   one entry t going to the smallest index. When more lanes pick in a
+//   step than that pays for (pickers x (ceil(ninst / 32) + 1) >= ninst,
+//   in box tests), each picking lane scans the boxes alone;
+// - the lane pick (fewer instances, as a scene of a few mesh props): each
+//   lane scans the instance arrays alone, with no ballot of the picking
+//   lanes. Measured on the card, the lane pick is as fast or faster up to
+//   4 instances and the warp pick from 8 (PERF.md).
 //
 // Motion blur (traverse_anim_kernel, the kAnim variant): an instance row
 // also holds the shutter-end transform (columns 10-19), and the ray's
@@ -77,12 +74,9 @@
 // trimesh.py:1145-1155 does per lane and core/vecmath.py's quat_slerp and
 // lerp write it (acosf, sinf, IEEE divisions, fmaf exactly where the
 // plain version fuses). The instance boxes are already the union over
-// the shutter, so the pick is unchanged. In the warp pick's form, what
-// depends on the instance alone (cosom, the sign flip, om, sinom, the
-// close test) is computed once a block beside the staged boxes, by the
-// same operations, and an instance entry computes the two sine weights at
-// its time, the lerps and the normalize. The static variant is compiled
-// without it.
+// the shutter, so the pick is unchanged. It runs once an instance visit:
+// ~60 operations beside the ~300 of a wide node; the static variant is
+// compiled without it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -96,16 +90,13 @@
 #define TRAV_THREADS 128
 #define TRAV_NODE_F4 16  // float4s per node row (64 floats)
 #define TRAV_LEAF_F4 27  // float4s per leaf row (108 floats)
-#define TRAV_SMEM_INST 512  // the most instances a block stages in shared memory
-#ifndef TRAV_WARP_PICK_MIN
-#define TRAV_WARP_PICK_MIN 8  // the fewest instances whose tables launch the warp pick
-#endif
 
 namespace {
 
 constexpr int kMissKey = 0x7F800000;
 constexpr float kBig = 3.4e38f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kWarpPickMin = 8;  // the fewest instances whose tables launch the warp pick
 
 struct TravArgs {
   const float4* node_rows;  // [W, 64]
@@ -207,15 +198,12 @@ __device__ __forceinline__ bool start(const TravArgs& a, int64_t id, Ray& r) {
   return true;
 }
 
-// what a moving instance's slerp takes from its rows alone:
-// core/vecmath.py's quat_slerp up to its sine weights (the dot product,
-// the cos < 0 flip, acos of the clamped |cos|, the sine over max(sin,
-// 1e-12), the lerp above 0.9995)
-struct Slerp {
-  float om, sinom, flip, close;  // flip: -1 or 1; close: 1 or 0
-};
-
-__device__ __forceinline__ Slerp slerp_terms(const float* tf) {
+// the instance's transform at shutter time t: core/vecmath.py's
+// quat_slerp of q0 -> q1 (the cos < 0 flip, the lerp above 0.9995, the
+// sine weights over max(sin, 1e-12), the normalize) and lerps of the
+// position and scale (fmaf(b - a, t, a))
+__device__ __forceinline__ void transform_at(const float* tf, float t, float* q, float* pos,
+                                             float* scale) {
   float qa[4], qb[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -223,27 +211,20 @@ __device__ __forceinline__ Slerp slerp_terms(const float* tf) {
     qb[k] = __ldg(tf + 10 + k);
   }
   float cosom = fmaf(qa[3], qb[3], fmaf(qa[2], qb[2], fmaf(qa[1], qb[1], qa[0] * qb[0])));
-  const bool flip = cosom < 0.0f;
+  if (cosom < 0.0f) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) qb[k] = -qb[k];
+  }
   cosom = fabsf(cosom);
   const float om = acosf(zmin(zmax(cosom, -1.0f), 1.0f));
-  return Slerp{om, zmax(sinf(om), 1e-12f), flip ? -1.0f : 1.0f, cosom > 0.9995f ? 1.0f : 0.0f};
-}
-
-// the instance's transform at shutter time t from its slerp terms: the
-// sine weights (or the lerp's), the quaternions' weighted sum and its
-// normalize, and lerps of the position and scale (fmaf(b - a, t, a))
-__device__ __forceinline__ void transform_at(const float* tf, Slerp s, float t, float* q,
-                                             float* pos, float* scale) {
+  const float sinom = zmax(sinf(om), 1e-12f);
+  const bool close = cosom > 0.9995f;
   const float one_t = 1.0f - t;
-  const bool close = s.close != 0.0f;
-  const float wa = close ? one_t : sinf(one_t * s.om) / s.sinom;
-  const float wb = close ? t : sinf(t * s.om) / s.sinom;
+  const float wa = close ? one_t : sinf(one_t * om) / sinom;
+  const float wb = close ? t : sinf(t * om) / sinom;
   float out[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float qb = __ldg(tf + 10 + k);
-    out[k] = fmaf(wa, __ldg(tf + k), wb * (s.flip < 0.0f ? -qb : qb));
-  }
+  for (int k = 0; k < 4; ++k) out[k] = fmaf(wa, qa[k], wb * qb[k]);
   const float norm =
       sqrtf(fmaf(out[3], out[3], fmaf(out[2], out[2], fmaf(out[1], out[1], out[0] * out[0]))));
 #pragma unroll
@@ -265,50 +246,21 @@ struct PickRay {
 };
 
 // instance box k as a ray of visibility column col reads it: its bounds
-// and whether it is visible, from the staged table (kStaged) or from the
-// instance arrays
+// and whether it is visible
 struct Box {
   float lo[3], hi[3];
   bool vis;
 };
 
-template <bool kStaged>
-__device__ __forceinline__ Box load_box(const TravArgs& a, const float4* inst, int k, int col) {
+__device__ __forceinline__ Box load_box(const TravArgs& a, int k, int col) {
   Box b;
-  if constexpr (kStaged) {
-    const float4 l = inst[2 * k], h = inst[2 * k + 1];
-    b.lo[0] = l.x, b.lo[1] = l.y, b.lo[2] = l.z;
-    b.hi[0] = h.x, b.hi[1] = h.y, b.hi[2] = h.z;
-    b.vis = ((__float_as_uint(l.w) >> col) & 1u) != 0;
-  } else {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      b.lo[c] = __ldg(a.wmin + 3 * k + c);
-      b.hi[c] = __ldg(a.wmax + 3 * k + c);
-    }
-    b.vis = __ldg(a.vis + 3 * k + col) != 0;
+  for (int c = 0; c < 3; ++c) {
+    b.lo[c] = __ldg(a.wmin + 3 * k + c);
+    b.hi[c] = __ldg(a.wmax + 3 * k + c);
   }
+  b.vis = __ldg(a.vis + 3 * k + col) != 0;
   return b;
-}
-
-// stage the instance table a block reads at every pick: per instance its
-// box as two float4s, (lo, visibility bits c = 0, 1, 2 of the columns)
-// and (hi, 0), then for kAnim its slerp terms
-template <bool kAnim>
-__device__ __forceinline__ void stage_instances(const TravArgs& a, float4* inst) {
-  for (int k = threadIdx.x; k < a.ninst; k += blockDim.x) {
-    const unsigned vis = (__ldg(a.vis + 3 * k) != 0 ? 1u : 0u) |
-                         (__ldg(a.vis + 3 * k + 1) != 0 ? 2u : 0u) |
-                         (__ldg(a.vis + 3 * k + 2) != 0 ? 4u : 0u);
-    inst[2 * k] = make_float4(__ldg(a.wmin + 3 * k), __ldg(a.wmin + 3 * k + 1),
-                              __ldg(a.wmin + 3 * k + 2), __uint_as_float(vis));
-    inst[2 * k + 1] = make_float4(__ldg(a.wmax + 3 * k), __ldg(a.wmax + 3 * k + 1),
-                                  __ldg(a.wmax + 3 * k + 2), 0.0f);
-    if constexpr (kAnim) {
-      const Slerp sl = slerp_terms(a.trafo + 24 * k);
-      inst[2 * a.ninst + k] = make_float4(sl.om, sl.sinom, sl.flip, sl.close);
-    }
-  }
 }
 
 // box k's clipped entry t if the ray may pick it, else kBig: entered
@@ -329,11 +281,10 @@ __device__ __forceinline__ float box_entry(const TravArgs& a, const Box& b, int 
 
 // the nearest eligible box of one lane's ray, the lane alone over every
 // box (the first of equal entries wins): sets bt, bi, or leaves bi < 0
-template <bool kStaged>
-__device__ __forceinline__ void pick_lane(const TravArgs& a, const float4* inst,
-                                          const PickRay& p, float& bt, int& bi) {
+__device__ __forceinline__ void pick_lane(const TravArgs& a, const PickRay& p, float& bt,
+                                          int& bi) {
   for (int k = 0; k < a.ninst; ++k) {
-    const float te = box_entry(a, load_box<kStaged>(a, inst, k, p.col), k, p);
+    const float te = box_entry(a, load_box(a, k, p.col), k, p);
     if (te < bt) {
       bt = te;
       bi = k;
@@ -341,13 +292,12 @@ __device__ __forceinline__ void pick_lane(const TravArgs& a, const float4* inst,
   }
 }
 
-// the nearest eligible staged box of each picking lane's ray, the lanes
+// the nearest eligible box of each picking lane's ray, the lanes
 // served one after another by the whole warp (every lane calls it;
 // pickers: the ballot of the picking lanes); sets bt, bi in each picking
 // lane
-__device__ __forceinline__ void pick_warp(const TravArgs& a, const float4* inst,
-                                          unsigned pickers, unsigned lane, const PickRay& mine,
-                                          float& bt, int& bi) {
+__device__ __forceinline__ void pick_warp(const TravArgs& a, unsigned pickers, unsigned lane,
+                                          const PickRay& mine, float& bt, int& bi) {
   const unsigned big = __float_as_uint(kBig);
   while (pickers != 0) {
     const int src = __ffs(pickers) - 1;
@@ -364,7 +314,7 @@ __device__ __forceinline__ void pick_warp(const TravArgs& a, const float4* inst,
     float tl = kBig;
     int il = -1;
     for (int k = (int)lane; k < a.ninst; k += 32) {
-      const float te = box_entry(a, load_box<true>(a, inst, k, p.col), k, p);
+      const float te = box_entry(a, load_box(a, k, p.col), k, p);
       if (te < tl) {
         tl = te;
         il = k;
@@ -381,22 +331,14 @@ __device__ __forceinline__ void pick_warp(const TravArgs& a, const float4* inst,
 }
 
 // the ray enters instance bi (picked at entry t bt): its object-space ray
-// for the BLAS walk (t stays in world units); kStaged: a moving
-// instance's slerp terms from the staged table
-template <bool kAnim, bool kStaged>
-__device__ __forceinline__ void enter_instance(const TravArgs& a, const float4* inst, Ray& r,
-                                               F3 o, F3 d, float bt, int bi) {
+// for the BLAS walk (t stays in world units)
+template <bool kAnim>
+__device__ __forceinline__ void enter_instance(const TravArgs& a, Ray& r, F3 o, F3 d, float bt,
+                                               int bi) {
   const float* tf = a.trafo + 24 * bi;
   float q[4], pos[3], scale[3];
   if constexpr (kAnim) {
-    Slerp sl;
-    if constexpr (kStaged) {
-      const float4 v = inst[2 * a.ninst + bi];
-      sl = Slerp{v.x, v.y, v.z, v.w};
-    } else {
-      sl = slerp_terms(tf);
-    }
-    transform_at(tf, sl, __ldg(a.time + r.id), q, pos, scale);
+    transform_at(tf, __ldg(a.time + r.id), q, pos, scale);
   } else {
 #pragma unroll
     for (int k = 0; k < 4; ++k) q[k] = __ldg(tf + k);
@@ -565,28 +507,22 @@ __device__ __forceinline__ PickRay pick_ray(const TravArgs& a, const Ray& r, F3&
 }
 
 // after a pick: a ray with no eligible instance is done, else it enters bi
-template <bool kAnim, bool kStaged>
-__device__ __forceinline__ void end_pick(const TravArgs& a, const float4* inst, Ray& r, F3 o,
-                                         F3 d, float bt, int bi) {
+template <bool kAnim>
+__device__ __forceinline__ void end_pick(const TravArgs& a, Ray& r, F3 o, F3 d, float bt,
+                                         int bi) {
   if (bi < 0) {
     finish(a, r);
     r.id = -1;
   } else {
-    enter_instance<kAnim, kStaged>(a, inst, r, o, d, bt, bi);
+    enter_instance<kAnim>(a, r, o, d, bt, bi);
   }
 }
 
-// kWarpPick: the warp pick's form, over the table staged in inst_s; else
-// the lane pick's, over the instance arrays
+// kWarpPick: the warp pick's form; else the lane pick's
 template <bool kAnim, bool kWarpPick>
-__device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack,
-                                             float4* const inst_s) {
+__device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack) {
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
-  if constexpr (kWarpPick) {
-    stage_instances<kAnim>(a, inst_s);
-    __syncthreads();
-  }
   const int box_rounds = (a.ninst + 31) >> 5;  // a warp pick's box tests a thread
   // the warp's pool of ray ids [pool, pool_end): the same in every lane
   int64_t pool = 0, pool_end = 0;
@@ -633,11 +569,11 @@ __device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack
         float bt = kBig;
         int bi = -1;
         if (__popc(pickers) * (box_rounds + 1) < a.ninst) {
-          pick_warp(a, inst_s, pickers, lane, p, bt, bi);
+          pick_warp(a, pickers, lane, p, bt, bi);
         } else if (picking) {
-          pick_lane<true>(a, inst_s, p, bt, bi);
+          pick_lane(a, p, bt, bi);
         }
-        if (picking) end_pick<kAnim, true>(a, inst_s, r, o, d, bt, bi);
+        if (picking) end_pick<kAnim>(a, r, o, d, bt, bi);
       }
     } else if (r.id >= 0 && !r.walking) {
       if (pick_done(a, r)) {
@@ -648,8 +584,8 @@ __device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack
         const PickRay p = pick_ray(a, r, o, d);
         float bt = kBig;
         int bi = -1;
-        pick_lane<false>(a, nullptr, p, bt, bi);
-        end_pick<kAnim, false>(a, nullptr, r, o, d, bt, bi);
+        pick_lane(a, p, bt, bi);
+        end_pick<kAnim>(a, r, o, d, bt, bi);
       }
     }
     // ---- one step of this lane's walk
@@ -669,27 +605,16 @@ __device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack
   }
 }
 
-// the form a table launches, and its dynamic shared memory (the staged
-// instance table of stage_instances)
-__host__ __device__ constexpr bool warp_pick(int ninst) {
-  return ninst >= TRAV_WARP_PICK_MIN && ninst <= TRAV_SMEM_INST;
-}
-__host__ __device__ constexpr size_t inst_smem(bool anim, int ninst) {
-  return warp_pick(ninst) ? (size_t)ninst * (anim ? 3 : 2) * sizeof(float4) : 0;
-}
-
 template <bool kWarpPick>
 __global__ void __launch_bounds__(TRAV_THREADS) traverse_kernel(TravArgs a) {
   __shared__ int stack_s[TRAV_MAX_STACK * TRAV_THREADS];
-  extern __shared__ float4 inst_s[];
-  traverse_run<false, kWarpPick>(a, stack_s + threadIdx.x, inst_s);
+  traverse_run<false, kWarpPick>(a, stack_s + threadIdx.x);
 }
 
 template <bool kWarpPick>
 __global__ void __launch_bounds__(TRAV_THREADS) traverse_anim_kernel(TravArgs a) {
   __shared__ int stack_s[TRAV_MAX_STACK * TRAV_THREADS];
-  extern __shared__ float4 inst_s[];
-  traverse_run<true, kWarpPick>(a, stack_s + threadIdx.x, inst_s);
+  traverse_run<true, kWarpPick>(a, stack_s + threadIdx.x);
 }
 
 }  // namespace
@@ -730,18 +655,17 @@ static int launch_traverse(bool anim, void** ptrs, int ninst, int vis_col, int a
   a.n = n;
   if (((uintptr_t)a.node_rows | (uintptr_t)a.tri_rows) & 15) return (int)cudaErrorMisalignedAddress;
   if (anim && a.time == nullptr) return (int)cudaErrorInvalidValue;
-  const bool wp = warp_pick(ninst);
+  const bool wp = ninst >= kWarpPickMin;
   void (*const kernel)(TravArgs) =
       anim ? (wp ? traverse_anim_kernel<true> : traverse_anim_kernel<false>)
            : (wp ? traverse_kernel<true> : traverse_kernel<false>);
-  const size_t smem = inst_smem(anim, ninst);
   int resident = 0;
-  cudaError_t err = resident_blocks((const void*)kernel, TRAV_THREADS, &resident, smem);
+  cudaError_t err = resident_blocks((const void*)kernel, TRAV_THREADS, &resident);
   if (err == cudaSuccess) err = cudaMemsetAsync(a.next, 0, sizeof(unsigned long long), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const int64_t want = (n + TRAV_THREADS - 1) / TRAV_THREADS;
   const unsigned blocks = (unsigned)(want < resident ? want : resident);
-  kernel<<<blocks, TRAV_THREADS, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<blocks, TRAV_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -756,12 +680,22 @@ extern "C" int zyg_traverse_anim(void** ptrs, int ninst, int vis_col, int any_hi
   return launch_traverse(true, ptrs, ninst, vis_col, any_hit, stack_d, tmin, n, stream);
 }
 
-// the lanes one pass of the resident grid covers on the current device,
-// for a table of fewer than TRAV_WARP_PICK_MIN instances
+// the lanes one pass of the resident grid covers on the current device:
+// the larger of the two forms' (the lane pick's and the warp pick's)
+static int resident_lanes_of(const void* lane_form, const void* warp_form, int64_t* out) {
+  int64_t lane = 0, warp = 0;
+  cudaError_t err = resident_lanes(lane_form, TRAV_THREADS, &lane);
+  if (err == cudaSuccess) err = resident_lanes(warp_form, TRAV_THREADS, &warp);
+  *out = lane > warp ? lane : warp;
+  return (int)err;
+}
+
 extern "C" int zyg_traverse_resident_lanes(int64_t* out) {
-  return (int)resident_lanes((const void*)traverse_kernel<false>, TRAV_THREADS, out);
+  return resident_lanes_of((const void*)traverse_kernel<false>, (const void*)traverse_kernel<true>,
+                           out);
 }
 
 extern "C" int zyg_traverse_anim_resident_lanes(int64_t* out) {
-  return (int)resident_lanes((const void*)traverse_anim_kernel<false>, TRAV_THREADS, out);
+  return resident_lanes_of((const void*)traverse_anim_kernel<false>,
+                           (const void*)traverse_anim_kernel<true>, out);
 }

@@ -4,12 +4,11 @@ the 8-wide BLAS traversal (counterpart of zyg_tpu/scene/trimesh.py:544-935
 Kernel: csrc/traverse.cu. The JAX package walks the BVH in XLA; on the
 card it is this port's own kernel: persistent warps that take rays from a
 counter, one ray per lane at a time, reading the arena rows as 16-byte
-loads (the wrapper checks the arena's alignment). On a table of 8 to 512
-instances a warp serves the instance picks of its lanes one ray at a
-time with all of its threads over a box table staged in shared memory
-(a lane alone where more of its lanes pick at once than that pays for);
-on a smaller or larger table each lane picks alone from the instance
-arrays (csrc/traverse.cu tells why).
+loads (the wrapper checks the arena's alignment). On a table of 8
+instances or more a warp serves the instance picks of its lanes one ray
+at a time with all of its threads over the instance arrays (a lane alone
+where more of its lanes pick at once than that pays for); on a smaller
+table each lane picks alone (csrc/traverse.cu tells why).
 
 The walk, per ray (the JAX package's, so both pick the same triangle):
 - instances in strict (entry t, index) order: the nearest world AABB
