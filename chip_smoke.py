@@ -69,49 +69,59 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     lighttracer's camera splat (lt_splat) on the first bounce of a
     cornell_particles.take pass at its own 512x512 (every path's first
     vertex), connections exact and RGB within rtol 4e-6, with its
-    candidates, connections and float4 atomics counted. Times each
+    candidates, connections and float4 atomics counted; the point walk
+    (points) on sparks.take's 640x360 first-bounce lanes over its moving
+    arena at seeded shutter times and held at shutter open, and the curve
+    walk (curves) on hairball.take's 384x384 first-bounce lanes, closest
+    and any-hit, bit-exact, with the node and leaf rows the walks visit
+    counted. Times each
     (median of runs, CUDA events; and its device time from the profiler,
     which leaves out the host's gaps between a short kernel's launches)
     beside its bound and, where one PyTorch call computes the same
     function, that call's time
- 4. a 128x128, 16 spp Cornell render on the card against the port's plain
+ 4. (every gate at GATE_SPP = 4 samples a pixel) a 128x128, 4 spp
+    Cornell render on the card against the port's plain
     CPU render: mean energy within 1.5%, 4x4-downsampled RMSE within 6%
     of the mean (the JAX package's golden-gate statistics)
- 4b. the same gate for the 30,720-triangle trefoil at 96x56, 16 spp,
-    4c. for the CI textured trefoil under a baked sky dome at 96x56, 16 spp,
+ 4b. the same gate for the 30,720-triangle trefoil at 96x56, 4 spp,
+    4c. for the CI textured trefoil under a baked sky dome at 96x56, 4 spp,
     4d. for examples/takes/sunsky.take (a Sky: baked dome + distant sun)
-    at 96x56, 16 spp, depth 4, 4e. for two rectangle lamps under a
+    at 96x56, 4 spp, depth 4, 4e. for two rectangle lamps under a
     constant dome (analytic props; NEE through the light tree) at 96x96,
-    16 spp, and 4f. for examples/takes/material_test.take (glass through
-    the general body, BSDF splitting) at 96x72, 16 spp, depth 6, 4g. for
+    4 spp, and 4f. for examples/takes/material_test.take (glass through
+    the general body, BSDF splitting) at 96x72, 4 spp, depth 6, 4g. for
     examples/takes/smoke.take (a density-grid medium through the tracking
     kernel) and examples/takes/volumes.take (a homogeneous medium beside
-    glass) at 96x56, 8 spp, 4h. for examples/takes/fire.take (an emissive
-    medium, its own volume light) at 96x56, 8 spp and fire.scene with a
+    glass) at 96x56, 4 spp, 4h. for examples/takes/fire.take (an emissive
+    medium, its own volume light) at 96x56, 4 spp and fire.scene with a
     Rectangle lamp beside the fire (the light tree over a surface and a
-    volume light) at 64x48, 8 spp, 4i. for examples/takes/hero.take
+    volume light) at 64x48, 4 spp, 4i. for examples/takes/hero.take
     (texture nodes: an analytic Checker albedo and a baked Mix/Noise
-    roughness on the 491,520-triangle trefoil under a Sky) at 96x56, 16
+    roughness on the 491,520-triangle trefoil under a Sky) at 96x56, 4
     spp, depth 5, 4j. for examples/takes/portal.take (a Sky through a
-    portal into a closed room) at 96x72, 16 spp, depth 8, and a canopy +
+    portal into a closed room) at 96x72, 4 spp, depth 8, and a canopy +
     IES scene the script writes (a Canopy with a PNG emission map beside
-    a Rectangle lamp with an LM-63 profile) at 96x72, 16 spp, depth 6,
+    a Rectangle lamp with an LM-63 profile) at 96x72, 4 spp, depth 6,
     4k. for cornell.take, cornell_filtered.take, cornell_ao.take,
-    cornell_aov_normals.take and cornell_aovs.take at 96x96 (8 spp; AO
-    16, aov_normals 1), with cornell_aovs' Albedo, Depth and
+    cornell_aov_normals.take and cornell_aovs.take at 96x96 (4 spp;
+    aov_normals 1), with cornell_aovs' Albedo, Depth and
     ShadingNormal planes on 99 % of the pixels within 1e-4, 1e-5, 1e-4,
     4l. for examples/takes/forest.take (an Instancer of 144 proc:sphere
-    instances under a Sky) at 96x56, 8 spp, and examples/takes/motion.take
-    (a moving Sphere and a turning Cube) at 96x56, 16 spp, with and
+    instances under a Sky) at 96x56, 4 spp, and examples/takes/motion.take
+    (a moving Sphere and a turning Cube) at 96x56, 4 spp, with and
     without motion: the card and the CPU agree that the Sphere is smeared
     (a strip across its path at least 2 % darker than without motion on
     both, the card's strip within 1 % of the CPU's), 4m. for
     examples/takes/caustics_photons.take (a glass sphere under a Sphere
-    lamp, a photon map) at 96x56, 8 spp with 100,000 photon paths, bake
+    lamp, a photon map) at 96x56, 4 spp with 100,000 photon paths, bake
     and gather on each device, and a Sphere and a Disk lamp over a floor
-    and a ball (kernel 6) at 96x64, 8 spp, 4n. for
+    and a ball (kernel 6) at 96x64, 4 spp, 4n. for
     examples/takes/cornell_particles.take (the lighttracer alone, 0 spp)
-    at 64x64, 4 passes
+    at 64x64, 4 passes, 4o. for examples/takes/sparks.take (a moving
+    point cloud through kernel 6 and the point walk) at 96x56, 4 spp
+    over its frame-0 shutter, and examples/takes/hairball.take (hair
+    through the general body, the curve walk and the hair BSDF) at 96x96,
+    4 spp, depth 4
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
@@ -133,43 +143,46 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     size; sobol_block, isect, surface_v2, traverse and accum must each
     have launched; the same report and profile, and the lifecycle shares
     of kernel 6's lanes in the first bounce and over all its launches
- 5e. the material main path: the CLI on examples/takes/material_test.take
-    at its own 1024x768, 32 spp, then the Driver at 1024x768, 16 spp
-    (bench.py::bench_material's work), depth 10, through the general body
+ 5e. the material main path: the CLI on a copy of
+    examples/takes/material_test.take at CLI_CUT_SPP (4; its own
+    1024x768), then the Driver at 1024x768, MATERIAL_SPP (8; half of
+    bench.py::bench_material's work), depth 10, through the general body
     (torch) around sobol_block, isect and accum, which must each have
     launched; the same report and profile, the iterations over all chunks
     (isect closest launches) and the share of lanes that resume a parked
     split branch
  5f. the smoke main path: the CLI on a copy of examples/takes/smoke.take
-    at 8 spp (its own 960x540, PTMIS depth 24 / volume 128; the take's 64
+    at CLI_CUT_SPP (4; its own 960x540, PTMIS depth 24 / volume 128; the take's 64
     spp took 73-87 s), then the Driver at the same size with 8 spp after
-    a warm-up chunk (bench.py::bench_volume's
+    a warm-up (bench.py::bench_volume's
     work: two tiles of 262,144 and 256,256 pixels, one 8-sample chunk),
     through the general body around sobol_block, isect, track_interaction,
     track_transmittance and accum, which must each have launched; the
     same report and profile, with the iterations over all chunks and tiles
  5g. the fire main path: the CLI on a copy of examples/takes/fire.take at
-    8 spp (its own 960x540, PTMIS depth 16 / volume 128; the take's 64 spp
+    CLI_CUT_SPP (4; its own 960x540, PTMIS depth 16 / volume 128; the take's 64 spp
     would take ~70-120 s), then the Driver at the same size with 8 spp
-    after a warm-up chunk, through the general body around sobol_block,
+    after a warm-up, through the general body around sobol_block,
     isect, the emissive track_interaction, track_transmittance and accum,
     which must each have launched; the same report and profile
  5h. the hero main path: the CLI on examples/takes/hero.take at its own
     1280x720, 16 spp, PTMIS depth 5, ACES, then the Driver at the same
     size; sobol_block, isect, surface_v2, traverse and accum must each
     have launched; the same report and profile, and kernel 6's lane shares
- 5i. the portal main path: the CLI on examples/takes/portal.take at its
-    own 512x384, 32 spp, PTMIS depth 8, then the Driver at the same size;
+ 5i. the portal main path: the CLI on a copy of examples/takes/portal.take
+    at CLI_CUT_SPP (4; its own 512x384, PTMIS depth 8), then the Driver
+    at the same size and PORTAL_SPP (16);
     sobol_block, isect, surface_v2 and accum must each have launched; the
     same report and profile, kernel 6's lane shares, and the portal
-    sampler's calls a render with its device time and launches a call by
-    kernel name
+    sampler's calls in a render of SLOW_PROFILE_SPP (2) spp with its
+    device time and launches a call by kernel name
  5j. the integrator and sensor variants on Cornell, each take at its own
     size: the CLI (cornell_filtered.take to .hdr, cornell_aov_normals.take
     and cornell_aovs.take to .exr, whose output and AOV companion files
     are read back with the port's read_exr), then the Driver and the
-    same report: cornell.take (PT, 512x512, 16 spp: the per-sample scan
-    path around sobol_block and isect), cornell_filtered.take (Mitchell,
+    same report: cornell.take (PT, 512x512, SCAN_CUT_SPP = 4 spp through
+    the CLI and the Driver: the per-sample scan path around sobol_block
+    and isect), cornell_filtered.take (Mitchell,
     512x512, 16 spp: the persistent path through shade and the filtered
     flush, accum_filtered), cornell_ao.take and cornell_aov_normals.take
     (the AOV integrator, 512x512 at 16 and 1 spp), cornell_aovs.take
@@ -184,20 +197,30 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     surface_v2 and accum, which must each have launched; the same report
     and profile and kernel 6's lane shares; then the CLI on motion.take
     with -f 0 -n 2: both frames written and different
- 5l. the photon-map main path: the CLI on
-    examples/takes/caustics_photons.take at its own 480x270, 32 spp,
-    PTMIS depth 16 with its 200,000 photon paths, then the Driver at the
-    same size with the bake timed on its own, through the general body
+ 5l. the photon-map main path: the CLI on a copy of
+    examples/takes/caustics_photons.take at CLI_CUT_SPP (4; its own
+    480x270, PTMIS depth 16 with its 200,000 photon paths), then the
+    Driver at the same size and CAUSTICS_MAIN_SPP (8: one chunk) with the
+    bake timed on its own, through the general body
     around sobol_block, isect, photon_gather and accum, which must each
     have launched; the same report and profile
  5m. the lighttracer main path: one pass of
     examples/takes/cornell_particles.take at its own 512x512 timed, the
     CLI on the take (64 particles a pixel; a copy at 16 when one pass
-    times 64 would take over 90 s, said in the log), then the Driver's
+    times 64 would take over PARTICLE_CLI_BUDGET_S = 20 s, said in the
+    log), then the Driver's
     particle pass at 512x512 and 8 passes through sobol_block, isect and
     lt_splat, which must each have launched: time, rays, Mrays/s, peak
     memory and launches, the first 2 passes profiled (busy share, glue
     launches a bounce, the kernels' device time)
+ 5n. the point-cloud and hair main paths, first of the main paths: the
+    CLI on examples/takes/sparks.take (640x360, 32 spp, PTMIS depth 4, a
+    1/24 s shutter) and examples/takes/hairball.take (384x384, 32 spp,
+    depth 8), then the Driver at the same sizes; sparks through
+    sobol_block, isect, surface_v2, points and accum (kernel 6's lane
+    shares), hairball through the general body around sobol_block,
+    isect, curves and accum, which must each have launched; the same
+    report and profile
  6. one bounce of the mesh bounce (kernel 5) against one of the general
     bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
     directly, timed in turns (CUDA events, medians)
@@ -251,6 +274,10 @@ REPLACES = {
     # not a TPU kernel: the JAX lighttracer's BSDF toward the camera and its
     # scatter-add into the splat image (an XLA scatter)
     "lt_splat": "zyg_tpu/render/integrator/lighttracer.py:287",
+    # not TPU kernels: the JAX package's point and curve walks are XLA
+    # while loops
+    "points": "zyg_tpu/scene/points.py:205",
+    "curves": "zyg_tpu/scene/curves.py:290",
 }
 SOURCES = {
     "sobol_block": "zyg_tpu_torch/csrc/sobol_block.cu",
@@ -266,6 +293,8 @@ SOURCES = {
     "traverse_anim": "zyg_tpu_torch/csrc/traverse.cu",
     "photon_gather": "zyg_tpu_torch/csrc/photon.cu",
     "lt_splat": "zyg_tpu_torch/csrc/lt_splat.cu",
+    "points": "zyg_tpu_torch/csrc/points.cu",
+    "curves": "zyg_tpu_torch/csrc/curves.cu",
 }
 CORNELL_KERNELS = ("sobol_block", "shade", "accum")
 # sobol_block's launch shapes besides the checks' width: 513 is one
@@ -281,12 +310,12 @@ N_SKY = SUNSKY_RES[0] * SUNSKY_RES[1]
 # spp and depth 10
 MATERIAL_KERNELS = ("sobol_block", "isect", "accum")
 MATERIAL_RES = (1024, 768)
-MATERIAL_SPP = 16
+MATERIAL_SPP = 8  # the Driver render (bench_material's 16: 4.8-8.0 s a render on an H100)
 MATERIAL_DEPTH = 10
 N_MATERIAL = MATERIAL_RES[0] * MATERIAL_RES[1]
 # the smoke path: the general body around sobol_block, isect, track and
 # accum, at smoke.take's own 960x540, PTMIS depth 24 / volume 128, timed as
-# bench.py::bench_volume times it (8 spp after a warm-up chunk)
+# bench.py::bench_volume times it (8 spp after a warm-up)
 SMOKE_KERNELS = ("sobol_block", "isect", "track_interaction", "track_transmittance", "accum")
 SMOKE_RES = (960, 540)
 SMOKE_SPP = 8
@@ -295,7 +324,7 @@ SMOKE_DEPTH_VOLUME = 128
 N_SMOKE = SMOKE_RES[0] * SMOKE_RES[1]
 # the fire path: smoke's kernels with the walk's emissive variant and volume
 # lights in NEE, at fire.take's own 960x540, PTMIS depth 16 / volume 128,
-# timed as smoke is (8 spp after a warm-up chunk)
+# timed as smoke is (8 spp after a warm-up)
 FIRE_KERNELS = SMOKE_KERNELS
 FIRE_RES = (960, 540)
 FIRE_SPP = 8
@@ -311,7 +340,7 @@ HERO_SPP = 16
 # portal.take's own 512x384, 32 spp, PTMIS depth 8
 PORTAL_KERNELS = ("sobol_block", "isect", "surface_v2", "accum")
 PORTAL_RES = (512, 384)
-PORTAL_SPP = 32
+PORTAL_SPP = 16  # the Driver render (the take's own 32: 7.7-14.2 s a render on an H100)
 N_PORTAL = PORTAL_RES[0] * PORTAL_RES[1]
 # the integrator and sensor variants on Cornell, each at its take's own
 # size: (resolution, spp, the kernels its main path launches). PT and AOV
@@ -354,10 +383,20 @@ N_CAUSTICS = CAUSTICS_RES[0] * CAUSTICS_RES[1]
 PARTICLE_KERNELS = ("sobol_block", "isect", "lt_splat")
 PARTICLE_RES = (512, 512)
 PARTICLE_PPP = 64
-PARTICLE_CLI_BUDGET_S = 90.0
+PARTICLE_CLI_BUDGET_S = 20.0
 PARTICLE_CLI_CUT_PPP = 16
 PARTICLE_RENDER_PASSES = 8
 PARTICLE_PROFILE_PASSES = 2
+# the point-cloud and hair paths at their takes' own sizes: sparks.take
+# (640x360, 32 spp, PTMIS depth 4, a 1/24 s shutter with motion blur)
+# through kernel 6 with the point walk, hairball.take (384x384, 32 spp,
+# depth 8) through the general body with the curve walk
+SPARKS_KERNELS = ("sobol_block", "isect", "surface_v2", "points", "accum")
+SPARKS_RES = (640, 360)
+SPARKS_SPP = 32
+HAIRBALL_KERNELS = ("sobol_block", "isect", "curves", "accum")
+HAIRBALL_RES = (384, 384)
+HAIRBALL_SPP = 32
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -367,12 +406,30 @@ FP32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 16.7e12
 # a main path's render time above which it is timed best of 2, not 3, and
 # profiled over its first chunk of at most SLOW_PROFILE_SPP samples
-SLOW_RENDER_S = 2.0
-SLOW_PROFILE_SPP = 8
+SLOW_RENDER_S = 1.5
+SLOW_PROFILE_SPP = 2
+# samples of a main path's warm-up render on the persistent path (the same
+# code and buffers as a whole chunk; one sample on the scan path)
+WARMUP_SPP = 2
 # the script's clock past which a main path is timed once, with no
 # profile and no further render: a host that runs ~1.3x slower than most
 # then still finishes well inside the 1200 s limit
 SCRIPT_BUDGET_S = 800.0
+# samples a pixel of the card-against-CPU gates (phases 4-4o): the card and
+# the CPU trace the same sample sequences, so the gate's statistics hold a
+# wrong image at 4 as at 16 (the CPU renders launch no kernel and took a
+# quarter of the script's time at 8-16)
+GATE_SPP = 4
+# a main path's render time above which it is timed once
+VERY_SLOW_RENDER_S = 5.0
+# samples a pixel of the main paths the script renders at fewer than their
+# takes' own: the CLI on copies of portal.take, material_test.take,
+# smoke.take, fire.take and caustics_photons.take at CLI_CUT_SPP (their 32
+# and 64 spp took 15-87 s through the CLI on an H100), cornell.take's per-sample scan
+# path at SCAN_CUT_SPP
+CLI_CUT_SPP = 4
+SCAN_CUT_SPP = 4
+CAUSTICS_MAIN_SPP = 8  # the caustics Driver render: one chunk
 # share of a full-width flush launch's lanes whose sample finishes there
 # on the Cornell 1080p 16 spp path: 0.2005, measured by phase 5's
 # flush_share (NVIDIA H100 80GB HBM3; PERF.md)
@@ -425,6 +482,16 @@ OPS_PHOTON_EVAL = 230
 # max and the test; an adding lane's three products of three
 OPS_LT_SPLAT_LANE = OPS_PHOTON_TERMS + OPS_PHOTON_EVAL + 4
 OPS_LT_SPLAT_ADD = 6
+# the point and curve walks: a binary node's slab test (six differences and
+# products, six min/max, four compares); a leaf of 4 points (each: the
+# lerp's 9, the offset, two fused dot chains, the discriminant's 4, the
+# root, two divisions, the range tests and selects, ~45); a leaf of 4
+# round-cone segments (each: 9 differences, 7 fused dot chains, the body's
+# 12 fused steps and its root and division, the caps' two roots, the
+# range tests, mins and the axial parameter, ~110)
+OPS_NODE2 = 25
+OPS_POINT_LEAF = 4 * 45
+OPS_CURVE_LEAF = 4 * 110
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -1236,7 +1303,7 @@ def check_track(dev) -> dict:
 
 
 def phase_slice_smoke(dev) -> None:
-    """smoke.take and volumes.take at 96x56, 8 spp on the
+    """smoke.take and volumes.take at 96x56, 4 spp on the
     card against the plain CPU path (the general body with the tracking
     kernel; volumes: the homogeneous closed form beside glass)."""
     import torch
@@ -1244,7 +1311,7 @@ def phase_slice_smoke(dev) -> None:
     from zyg_tpu_torch.scene.loader import load_scene_file
 
     for name, res in (("smoke.take", (96, 56)), ("volumes.take", (96, 56))):
-        take = _take(name, res, 8)
+        take = _take(name, res, GATE_SPP)
         scene = load_scene_file(take.scene_filename)
         t0 = time.perf_counter()
         card = Driver(take, scene, device=dev).render_frame()
@@ -1253,21 +1320,21 @@ def phase_slice_smoke(dev) -> None:
         t0 = time.perf_counter()
         cpu = Driver(take, scene, device="cpu").render_frame()
         t_cpu = time.perf_counter() - t0
-        _golden_gate(card, cpu, f"{name[:-5]} {res[0]}x{res[1]}x8",
+        _golden_gate(card, cpu, f"{name[:-5]} {res[0]}x{res[1]}x{GATE_SPP}",
                      f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
 def phase_slice_fire(dev) -> None:
-    """fire.take at 96x56, 8 spp, and fire.scene with a Rectangle lamp
+    """fire.take at 96x56, 4 spp, and fire.scene with a Rectangle lamp
     beside the emissive cube (the light tree selects between a surface
-    and a volume light) at 64x48, 8 spp, on the card against the plain
+    and a volume light) at 64x48, 4 spp, on the card against the plain
     CPU path (the emissive walk, volume lights in NEE)."""
     import torch
     from zyg_tpu_torch.render.driver import Driver
     from zyg_tpu_torch.scene.loader import load_scene_dict
 
     for variant, res in (("fire", (96, 56)), ("lamp", (64, 48))):
-        take = _take("fire.take", res, 8)
+        take = _take("fire.take", res, GATE_SPP)
         scene = load_scene_dict(fire_root(variant))
         if (scene.light_tree is not None) != (variant == "lamp"):
             raise AssertionError(f"fire ({variant}): light tree {scene.light_tree is not None}")
@@ -1278,7 +1345,7 @@ def phase_slice_fire(dev) -> None:
         t0 = time.perf_counter()
         cpu = Driver(take, scene, device="cpu").render_frame()
         t_cpu = time.perf_counter() - t0
-        _golden_gate(card, cpu, f"{variant} {res[0]}x{res[1]}x8",
+        _golden_gate(card, cpu, f"{variant} {res[0]}x{res[1]}x{GATE_SPP}",
                      f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
@@ -2301,6 +2368,169 @@ def check_lt_splat(dev) -> dict:
     return res
 
 
+def _camera_lanes(dev, take_name, res, seed):
+    """A take's camera rays at res, one a pixel at a seeded subpixel offset,
+    with seeded shutter times: (o, d, time)."""
+    import torch
+    from zyg_tpu_torch.render.camera import generate_rays
+
+    cam = _take(take_name, res, 1).cameras[0]
+    w, h = res
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pids = torch.arange(w * h)
+    xy = torch.stack([pids % w, pids // w], dim=-1).to(dev)
+    uv = torch.rand((w * h, 2), generator=g).to(dev)
+    o, d = generate_rays(cam.arrays(dev), xy, uv)
+    return o.contiguous(), d.contiguous(), torch.rand(w * h, generator=g).to(dev)
+
+
+def _walk_lanes(dev, take_name, res, seed, shape):
+    """The take's scene over frame 0's shutter on the card, its first prop
+    of ShapeType `shape`, and its camera rays at res in that prop's object
+    space: (scene, prop, root [N], o, d, time)."""
+    import torch
+    from zyg_tpu_torch.core import vecmath as vm
+
+    _, scene = _take_scene(take_name, res, 1, take_name[:-5])
+    scene = scene.to(dev)
+    k = int(torch.nonzero(scene.prop_shape == int(shape))[0])
+    o, d, tl = _camera_lanes(dev, take_name, res, seed)
+    rot, pos, scale = scene.prop_rot[k], scene.prop_pos[k], scene.prop_scale[k]
+    o_l = vm.world_to_object_point(rot, scale, pos, o).contiguous()
+    d_l = vm.world_to_object_vector(rot, scale, d).contiguous()
+    ids = scene.prop_cloud if scene.points is not None else scene.prop_curve
+    roots = scene.points.cloud_root if scene.points is not None else scene.curves.curve_root
+    root = roots[ids[k]].to(torch.int32).expand(o.shape[0]).contiguous()
+    return scene, k, root, o_l, d_l, tl
+
+
+def _walk_rows_bound(n, lane_bytes, counts, node_bytes, leaf_bytes, ops_leaf) -> dict:
+    """The least time of a point or curve walk over n rays: each lane's
+    inputs and outputs once (lane_bytes a lane) and every row the walks
+    visited once, beside the plain walk's node visits and leaf tests."""
+    rows = int(counts["node_seen"].sum()) * node_bytes + int(counts["leaf_seen"].sum()) * leaf_bytes
+    return bound(n * lane_bytes + rows, counts["nodes"] * OPS_NODE2 + counts["leaves"] * ops_leaf)
+
+
+def check_points(dev) -> dict:
+    """The point walk on sparks.take's 640x360 first-bounce lanes (camera
+    rays in the cloud's object space at seeded shutter times) against
+    the plain walk: closest and any-hit over the take's moving arena (its
+    particles lerped over the 1/24 s shutter) and over the same arena held
+    at shutter open, t and prim bit-exact. Times the moving closest walk
+    beside its bound and the plain walk."""
+    import dataclasses
+
+    import torch
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.ops import points
+    from zyg_tpu_torch.scene import points as pts
+    from zyg_tpu_torch.scene.types import RAY_MAX_T, ShapeType
+
+    scene, _, root, o, d, tl = _walk_lanes(dev, "sparks.take", SPARKS_RES, 29, ShapeType.POINTS)
+    arena = scene.points
+    if not arena.has_motion:
+        raise AssertionError("points: sparks' arena does not move over the shutter")
+    n = o.shape[0]
+    tmax = torch.full((n,), RAY_MAX_T, device=dev)
+    still = dataclasses.replace(arena, has_motion=False)
+    counts = {"nodes": 0, "leaves": 0,
+              "node_seen": torch.zeros(arena.node_rows.shape[0], dtype=torch.bool, device=dev),
+              "leaf_seen": torch.zeros(arena.point_rows.shape[0], dtype=torch.bool, device=dev)}
+    notes = []
+    for label, ar, time_ in (("moving", arena, tl), ("still", still, None)):
+        for any_hit in (False, True):
+            before = ops.launch_counts()["points"]
+            kt, kp = points.walk(ar, root, o, d, 0.0, tmax, time=time_, any_hit=any_hit)
+            if ops.launch_counts()["points"] != before + 1:
+                raise AssertionError("points: the walk did not launch the points kernel")
+            first = label == "moving" and not any_hit
+            pt, pp = pts.traverse(ar, root, o, d, 0.0, tmax, time=time_, any_hit=any_hit,
+                                  counts=counts if first else None)
+            torch.cuda.synchronize()
+            if not (torch.equal(kp, pp) and torch.equal(kt, pt)):
+                bad = int(((kp != pp) | (kt != pt)).sum())
+                raise AssertionError(f"points ({label}, {'any' if any_hit else 'closest'} hit): "
+                                     f"{bad} lanes differ from the plain walk")
+            notes.append(f"{label} {'any-hit' if any_hit else 'closest'} {int((kp >= 0).sum())} "
+                         "hits")
+    log(f"points on sparks' {n} first-bounce lanes: bit-exact ({', '.join(notes)}); the moving "
+        f"closest walks visited {counts['nodes']} node rows ({int(counts['node_seen'].sum())} of "
+        f"{arena.node_rows.shape[0]} distinct) and tested {counts['leaves']} leaf rows "
+        f"({int(counts['leaf_seen'].sum())} of {arena.point_rows.shape[0]} distinct)")
+
+    def run(ar=arena, time_=tl, any_hit=False):
+        return points.walk(ar, root, o, d, 0.0, tmax, time=time_, any_hit=any_hit)
+
+    return {
+        "max_abs_err": 0.0,
+        "ms": time_ms(run, 20),
+        "device_ms": device_ms(run, "points"),
+        "anyhit_ms": time_ms(lambda: run(any_hit=True), 20),
+        "still_ms": time_ms(lambda: run(still, None), 20),
+        "plain_ms": time_ms(lambda: pts.traverse(arena, root, o, d, 0.0, tmax, time=tl), 1,
+                            runs=3),
+        # in: o, d, tmax, time and root; out: t and prim; 48-byte node rows
+        # and 128-byte leaf rows
+        **_walk_rows_bound(n, 24 + 4 + 4 + 4 + 8, counts, 48, 128, OPS_POINT_LEAF),
+        "library_ms": None,
+    }
+
+
+def check_curves(dev) -> dict:
+    """The curve walk on hairball.take's 384x384 first-bounce lanes
+    (camera rays in the hair's object space) against the plain walk:
+    closest and any-hit, t, s and prim bit-exact. Times the closest walk
+    beside its bound and the plain walk."""
+    import torch
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.ops import curves
+    from zyg_tpu_torch.scene import curves as crv
+    from zyg_tpu_torch.scene.types import RAY_MAX_T, ShapeType
+
+    scene, _, root, o, d, _ = _walk_lanes(dev, "hairball.take", HAIRBALL_RES, 31,
+                                          ShapeType.CURVES)
+    arena = scene.curves
+    n = o.shape[0]
+    tmax = torch.full((n,), RAY_MAX_T, device=dev)
+    counts = {"nodes": 0, "leaves": 0,
+              "node_seen": torch.zeros(arena.node_rows.shape[0], dtype=torch.bool, device=dev),
+              "leaf_seen": torch.zeros(arena.seg_rows.shape[0], dtype=torch.bool, device=dev)}
+    notes = []
+    for any_hit in (False, True):
+        before = ops.launch_counts()["curves"]
+        k = curves.walk(arena, root, o, d, 0.0, tmax, any_hit=any_hit)
+        if ops.launch_counts()["curves"] != before + 1:
+            raise AssertionError("curves: the walk did not launch the curves kernel")
+        p = crv.traverse(arena, root, o, d, 0.0, tmax, any_hit=any_hit,
+                         counts=None if any_hit else counts)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(k, p)):
+            bad = int(((k[0] != p[0]) | (k[1] != p[1]) | (k[2] != p[2])).sum())
+            raise AssertionError(f"curves ({'any' if any_hit else 'closest'} hit): {bad} lanes "
+                                 "differ from the plain walk")
+        notes.append(f"{'any-hit' if any_hit else 'closest'} {int((k[2] >= 0).sum())} hits")
+    log(f"curves on hairball's {n} first-bounce lanes: bit-exact ({', '.join(notes)}); the "
+        f"closest walks visited {counts['nodes']} node rows ({int(counts['node_seen'].sum())} of "
+        f"{arena.node_rows.shape[0]} distinct) and tested {counts['leaves']} leaf rows "
+        f"({int(counts['leaf_seen'].sum())} of {arena.seg_rows.shape[0]} distinct)")
+
+    def run(any_hit=False):
+        return curves.walk(arena, root, o, d, 0.0, tmax, any_hit=any_hit)
+
+    return {
+        "max_abs_err": 0.0,
+        "ms": time_ms(run, 20),
+        "device_ms": device_ms(run, "curves"),
+        "anyhit_ms": time_ms(lambda: run(True), 20),
+        "plain_ms": time_ms(lambda: crv.traverse(arena, root, o, d, 0.0, tmax), 1, runs=3),
+        # in: o, d, tmax and root; out: t, s and prim; 48-byte node rows and
+        # 160-byte leaf rows
+        **_walk_rows_bound(n, 24 + 4 + 4 + 12, counts, 48, 160, OPS_CURVE_LEAF),
+        "library_ms": None,
+    }
+
+
 def lane_sets(kernel: str, st: dict, ua, out: dict, max_depth: int, nee_only: bool,
               tables=None) -> dict:
     """The lane sets of ops/surface.py's and ops/surface_v2.py's LANE_READS
@@ -2599,14 +2829,14 @@ def _golden_gate(card_img, cpu_img, label: str, times: str) -> None:
 
 
 def phase_slice(dev) -> None:
-    """128x128, 16 spp on the card (kernels) against the plain CPU path
+    """128x128, GATE_SPP (4) spp on the card (kernels) against the plain CPU path
     (the CPU render is the costly half)."""
     import torch
     from zyg_tpu_torch.render.driver import Driver
     from zyg_tpu_torch.scene.loader import load_scene_file
 
     torch.set_num_threads(os.cpu_count() or 1)
-    take = _take("cornell_ptmis.take", (128, 128), 16)
+    take = _take("cornell_ptmis.take", (128, 128), GATE_SPP)
     scene = load_scene_file(take.scene_filename)
     t0 = time.perf_counter()
     card = Driver(take, scene, device=dev).render_frame()
@@ -2614,7 +2844,7 @@ def phase_slice(dev) -> None:
     t0 = time.perf_counter()
     cpu = Driver(take, scene, device="cpu").render_frame()
     t_cpu = time.perf_counter() - t0
-    _golden_gate(card, cpu, "slice 128x128x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    _golden_gate(card, cpu, f"slice 128x128x{GATE_SPP}", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
 def _ci_trefoil(res, spp):
@@ -2710,7 +2940,7 @@ def _textured(dev, ci: bool):
 
 
 def phase_slice_textured(dev) -> None:
-    """The CI textured trefoil at 96x56, 16 spp on the card against the
+    """The CI textured trefoil at 96x56, 4 spp on the card against the
     plain CPU path."""
     import torch
     from zyg_tpu_torch.render.driver import Driver
@@ -2723,15 +2953,15 @@ def phase_slice_textured(dev) -> None:
     t0 = time.perf_counter()
     cpu = Driver(take, scene, device="cpu").render_frame()
     t_cpu = time.perf_counter() - t0
-    _golden_gate(card, cpu, "textured trefoil 96x56x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    _golden_gate(card, cpu, f"textured trefoil 96x56x{GATE_SPP}", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
 def phase_slice_mesh(dev) -> None:
-    """The CI trefoil at 96x56, 16 spp on the card against the plain CPU path."""
+    """The CI trefoil at 96x56, 4 spp on the card against the plain CPU path."""
     import torch
     from zyg_tpu_torch.render.driver import Driver
 
-    take, scene = _ci_trefoil((96, 56), 16)
+    take, scene = _ci_trefoil((96, 56), GATE_SPP)
     t0 = time.perf_counter()
     card = Driver(take, scene, device=dev).render_frame()
     t_card = time.perf_counter() - t0
@@ -2739,17 +2969,17 @@ def phase_slice_mesh(dev) -> None:
     t0 = time.perf_counter()
     cpu = Driver(take, scene, device="cpu").render_frame()
     t_cpu = time.perf_counter() - t0
-    _golden_gate(card, cpu, "trefoil 96x56x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    _golden_gate(card, cpu, f"trefoil 96x56x{GATE_SPP}", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
 def phase_slice_sunsky(dev) -> None:
-    """sunsky.take at 96x56, 16 spp, depth 4 on the card against the plain
+    """sunsky.take at 96x56, 4 spp, depth 4 on the card against the plain
     CPU path."""
     import torch
     from zyg_tpu_torch.render.driver import Driver
     from zyg_tpu_torch.scene.loader import load_scene_file
 
-    take = _take("sunsky.take", (96, 56), 16)
+    take = _take("sunsky.take", (96, 56), GATE_SPP)
     take.integrator.max_depth_surface = 4
     scene = load_scene_file(take.scene_filename)
     t0 = time.perf_counter()
@@ -2759,17 +2989,17 @@ def phase_slice_sunsky(dev) -> None:
     t0 = time.perf_counter()
     cpu = Driver(take, scene, device="cpu").render_frame()
     t_cpu = time.perf_counter() - t0
-    _golden_gate(card, cpu, "sunsky 96x56x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    _golden_gate(card, cpu, f"sunsky 96x56x{GATE_SPP}", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
 def phase_slice_hero(dev) -> None:
-    """hero.take at 96x56, 16 spp, depth 5 on the card against the plain
+    """hero.take at 96x56, 4 spp, depth 5 on the card against the plain
     CPU path."""
     import torch
     from zyg_tpu_torch.render.driver import Driver
     from zyg_tpu_torch.scene.loader import load_scene_file
 
-    take = _take("hero.take", (96, 56), 16)
+    take = _take("hero.take", (96, 56), GATE_SPP)
     scene = load_scene_file(take.scene_filename)
     t0 = time.perf_counter()
     card = Driver(take, scene, device=dev).render_frame()
@@ -2778,18 +3008,18 @@ def phase_slice_hero(dev) -> None:
     t0 = time.perf_counter()
     cpu = Driver(take, scene, device="cpu").render_frame()
     t_cpu = time.perf_counter() - t0
-    _golden_gate(card, cpu, "hero 96x56x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    _golden_gate(card, cpu, f"hero 96x56x{GATE_SPP}", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
 def phase_slice_portal(dev) -> None:
-    """portal.take at 96x72, 16 spp, depth 8, and a canopy + IES scene the
-    script writes at 96x72, 16 spp, on the card against the plain CPU
+    """portal.take at 96x72, 4 spp, depth 8, and a canopy + IES scene the
+    script writes at 96x72, 4 spp, on the card against the plain CPU
     path."""
     import torch
     from zyg_tpu_torch.render.driver import Driver
     from zyg_tpu_torch.scene.loader import load_scene_file
 
-    take = _take("portal.take", (96, 72), 16)
+    take = _take("portal.take", (96, 72), GATE_SPP)
     scene = load_scene_file(take.scene_filename)
     t0 = time.perf_counter()
     card = Driver(take, scene, device=dev).render_frame()
@@ -2798,16 +3028,16 @@ def phase_slice_portal(dev) -> None:
     t0 = time.perf_counter()
     cpu = Driver(take, scene, device="cpu").render_frame()
     t_cpu = time.perf_counter() - t0
-    _golden_gate(card, cpu, "portal 96x72x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    _golden_gate(card, cpu, f"portal 96x72x{GATE_SPP}", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
     with tempfile.TemporaryDirectory() as tmp:
-        take, scene = _canopy_ies_scene(tmp, (96, 72), 16)
+        take, scene = _canopy_ies_scene(tmp, (96, 72), GATE_SPP)
         t0 = time.perf_counter()
         card = Driver(take, scene, device=dev).render_frame()
         t_card = time.perf_counter() - t0
         t0 = time.perf_counter()
         cpu = Driver(take, scene, device="cpu").render_frame()
         t_cpu = time.perf_counter() - t0
-    _golden_gate(card, cpu, "canopy + IES 96x72x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    _golden_gate(card, cpu, f"canopy + IES 96x72x{GATE_SPP}", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
 # an LM-63 profile with its beam down the lamp's normal
@@ -2996,12 +3226,12 @@ def _tree_scene(res, spp):
 
 
 def phase_slice_tree(dev) -> None:
-    """The two-lamp tree scene at 96x96, 16 spp on the card against the
+    """The two-lamp tree scene at 96x96, 4 spp on the card against the
     plain CPU path."""
     import torch
     from zyg_tpu_torch.render.driver import Driver
 
-    take, scene = _tree_scene((96, 96), 16)
+    take, scene = _tree_scene((96, 96), GATE_SPP)
     t0 = time.perf_counter()
     card = Driver(take, scene, device=dev).render_frame()
     t_card = time.perf_counter() - t0
@@ -3009,18 +3239,18 @@ def phase_slice_tree(dev) -> None:
     t0 = time.perf_counter()
     cpu = Driver(take, scene, device="cpu").render_frame()
     t_cpu = time.perf_counter() - t0
-    _golden_gate(card, cpu, "two lamps + dome (light tree) 96x96x16",
+    _golden_gate(card, cpu, f"two lamps + dome (light tree) 96x96x{GATE_SPP}",
                  f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
 def phase_slice_material(dev) -> None:
-    """material_test.take at 96x72, 16 spp, depth 6 on the card against the
+    """material_test.take at 96x72, 4 spp, depth 6 on the card against the
     plain CPU path (the general body, glass and BSDF splitting)."""
     import torch
     from zyg_tpu_torch.render.driver import Driver
     from zyg_tpu_torch.scene.loader import load_scene_file
 
-    take = _take("material_test.take", (96, 72), 16)
+    take = _take("material_test.take", (96, 72), GATE_SPP)
     take.integrator.max_depth_surface = 6
     scene = load_scene_file(take.scene_filename)
     t0 = time.perf_counter()
@@ -3030,7 +3260,7 @@ def phase_slice_material(dev) -> None:
     t0 = time.perf_counter()
     cpu = Driver(take, scene, device="cpu").render_frame()
     t_cpu = time.perf_counter() - t0
-    _golden_gate(card, cpu, "material_test 96x72x16", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    _golden_gate(card, cpu, f"material_test 96x72x{GATE_SPP}", f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
 def phase_slice_cornell_variants(dev) -> None:
@@ -3048,8 +3278,9 @@ def phase_slice_cornell_variants(dev) -> None:
     from zyg_tpu_torch.scene.loader import load_scene_file
 
     torch.set_num_threads(os.cpu_count() or 1)
-    for name, spp in (("cornell.take", 8), ("cornell_filtered.take", 8), ("cornell_ao.take", 16),
-                      ("cornell_aov_normals.take", 1), ("cornell_aovs.take", 8)):
+    for name, spp in (("cornell.take", GATE_SPP), ("cornell_filtered.take", GATE_SPP),
+                      ("cornell_ao.take", GATE_SPP), ("cornell_aov_normals.take", 1),
+                      ("cornell_aovs.take", GATE_SPP)):
         take = _take(name, (96, 96), spp)
         scene = load_scene_file(take.scene_filename)
         t0 = time.perf_counter()
@@ -3092,7 +3323,7 @@ def _strip_of_path(cam, start, end, radius):
 
 
 def phase_slice_motion(dev) -> None:
-    """forest.take at 96x56, 8 spp and motion.take at 96x56, 16 spp on the
+    """forest.take at 96x56, 4 spp and motion.take at 96x56, 4 spp on the
     card against the plain CPU path, and motion.take's Sphere smeared on
     both: the mean of a strip across its path beyond its shutter-start
     place, at the take's shutter, against a render of the scene without
@@ -3104,7 +3335,7 @@ def phase_slice_motion(dev) -> None:
     from zyg_tpu_torch.scene.loader import load_scene_file
 
     torch.set_num_threads(os.cpu_count() or 1)
-    for name, spp in (("forest.take", 8), ("motion.take", 16)):
+    for name, spp in (("forest.take", GATE_SPP), ("motion.take", GATE_SPP)):
         take = _take(name, (96, 56), spp)
         cam = take.cameras[0]
         t0_, t1_ = cam.frame_interval(0)
@@ -3130,6 +3361,31 @@ def phase_slice_motion(dev) -> None:
             if not (mc < 0.98 * sc and mp < 0.98 * sp and abs(mc / mp - 1.0) < 0.01):
                 raise AssertionError("motion: the card and the CPU do not agree that the Sphere "
                                      "is smeared across its path")
+
+
+def phase_slice_sparks_hairball(dev) -> None:
+    """sparks.take at 96x56, 4 spp over its frame-0 shutter (kernel 6 with
+    the moving point walk) and hairball.take at 96x96, 4 spp, depth 4
+    (the general body with the curve walk and the hair BSDF) on the card
+    against the plain CPU path."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    for name, res, depth in (("sparks.take", (96, 56), None), ("hairball.take", (96, 96), 4)):
+        take = _take(name, res, 4)
+        if depth is not None:
+            take.integrator.max_depth_surface = depth
+        scene = load_scene_file(take.scene_filename, "cpu", *take.cameras[0].frame_interval(0))
+        t0 = time.perf_counter()
+        card = Driver(take, scene, device=dev).render_frame()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = Driver(take, scene, device="cpu").render_frame()
+        t_cpu = time.perf_counter() - t0
+        _golden_gate(card, cpu, f"{name[:-5]} {res[0]}x{res[1]}x4",
+                     f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
 
 
 def lamp_root() -> dict:
@@ -3162,9 +3418,9 @@ def lamp_root() -> dict:
 
 
 def phase_slice_caustics(dev) -> None:
-    """caustics_photons.take at 96x56, 8 spp with 100,000 photon paths (the
+    """caustics_photons.take at 96x56, 4 spp with 100,000 photon paths (the
     bake and the gather on each device) and the Sphere/Disk lamp scene at
-    96x64, 8 spp through kernel 6, on the card against the plain CPU
+    96x64, 4 spp through kernel 6, on the card against the plain CPU
     path."""
     import torch
     from zyg_tpu_torch.io.take import load_take_dict
@@ -3173,7 +3429,7 @@ def phase_slice_caustics(dev) -> None:
     from zyg_tpu_torch.scene.loader import load_scene_dict, load_scene_file
 
     torch.set_num_threads(os.cpu_count() or 1)
-    take = _take("caustics_photons.take", (96, 56), 8)
+    take = _take("caustics_photons.take", (96, 56), GATE_SPP)
     take.photon.num_photons = 100_000
     scene = load_scene_file(take.scene_filename)
     imgs, secs = [], []
@@ -3181,14 +3437,14 @@ def phase_slice_caustics(dev) -> None:
         t0 = time.perf_counter()
         imgs.append(Driver(take, scene, device=device).render_frame())
         secs.append(time.perf_counter() - t0)
-    _golden_gate(imgs[0], imgs[1], "caustics 96x56x8 (100,000 paths)",
+    _golden_gate(imgs[0], imgs[1], f"caustics 96x56x{GATE_SPP} (100,000 paths)",
                  f"card {secs[0]:.2f} s, cpu {secs[1]:.2f} s")
     take = load_take_dict({
         "camera": {"Perspective": {
             "parameters": {"fov": 65},
             "transformation": {"position": [0, 1.6, -3.8], "rotation": [16, 0, 0]},
             "resolution": [96, 64]}},
-        "sampler": {"Sobol": {"samples_per_pixel": 8}},
+        "sampler": {"Sobol": {"samples_per_pixel": GATE_SPP}},
         "integrator": {"surface": {"PTMIS": {"depth": {"surface": 6}}}},
     })
     scene = load_scene_dict(lamp_root())
@@ -3199,7 +3455,7 @@ def phase_slice_caustics(dev) -> None:
         t0 = time.perf_counter()
         imgs.append(Driver(take, scene, device=device).render_frame())
         secs.append(time.perf_counter() - t0)
-    _golden_gate(imgs[0], imgs[1], "Sphere/Disk lamps 96x64x8",
+    _golden_gate(imgs[0], imgs[1], f"Sphere/Disk lamps 96x64x{GATE_SPP}",
                  f"card {secs[0]:.2f} s, cpu {secs[1]:.2f} s")
 
 
@@ -3472,9 +3728,9 @@ def _take_scene(take_name, res, spp, label):
 
 def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=None) -> dict:
     """A main path through the Driver at the take's resolution and spp:
-    warm-up (one chunk; one sample on the per-sample scan path, whose
-    chunk is most of a render), best of 3 (of 2 when a render takes over
-    SLOW_RENDER_S: host drift exceeds a third run's worth there), one
+    warm-up (WARMUP_SPP samples; one sample on the per-sample scan path), best of 3 (of 2 when a render takes over
+    SLOW_RENDER_S: host drift exceeds a third run's worth there; once over
+    VERY_SLOW_RENDER_S), one
     profiled render, one render for the peak memory and the flush shares
     (on the scan path, which flushes nothing, the peak is read over the
     timed renders), and with lanes_of ("surface" or "surface_v2") that
@@ -3482,7 +3738,8 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
     body's iterations and split resumes. A render over SLOW_RENDER_S
     profiles only its first chunk, of at most SLOW_PROFILE_SPP samples (a
     trace of ~7,000 launches an iteration takes as long to read as to
-    record), and takes its peak memory over the timed renders, with no
+    record), takes its lane shares or iterations over that many samples,
+    and takes its peak memory over the timed renders, with no
     flush-share render. Once the script has run SCRIPT_BUDGET_S, a path
     is timed once, with no profile and no further render. A take with a photon
     map bakes it first, twice, each bake timed. Returns the kernel
@@ -3505,14 +3762,15 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
                 f"{time.perf_counter() - t0:.4f} s, {int(driver._photon_map.cell_start[-1])} "
                 f"valid photons, max_per_cell {driver._photon_map.max_per_cell}")
     driver.start_frame()
-    driver.render_iterations(driver.chunk_size if driver.persistent else 1)  # warm-up
+    driver.render_iterations(min(driver.chunk_size, WARMUP_SPP) if driver.persistent else 1)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     best = None
     runs = 0
     late = time.perf_counter() - _CLOCK[0] > SCRIPT_BUDGET_S
-    while runs < (1 if late else 3) and not (runs == 2 and best["seconds"] > SLOW_RENDER_S):
+    while runs < (1 if late else 3) and not (runs == 2 and best["seconds"] > SLOW_RENDER_S) \
+            and not (runs == 1 and best["seconds"] > VERY_SLOW_RENDER_S):
         driver.start_frame()
         t0 = time.perf_counter()
         driver.render_iterations(spp)
@@ -3562,9 +3820,11 @@ def phase_main_path(dev, card: str, label: str, take, scene, kernels, lanes_of=N
         f"glue launches per profiled render ({prof_spp} spp) {glue} "
         f"({glue / prof_iterations:.0f} an iteration){shares}")
     if lanes_of == "general":
-        log(f"{label} [{card}]: {general_profile(driver, spp)}")
+        log(f"{label} [{card}]: {general_profile(driver, prof_spp)}"
+            f"{f' ({prof_spp} spp)' * (prof_spp != spp)}")
     elif lanes_of:
-        log(f"{label} [{card}]: {lane_shares(driver, spp, lanes_of)}")
+        log(f"{label} [{card}]: {lane_shares(driver, prof_spp, lanes_of)}"
+            f"{f' ({prof_spp} spp)' * (prof_spp != spp)}")
     return per_render
 
 
@@ -3697,6 +3957,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     checks["lt_splat"] = check_lt_splat(dev)
     torch.cuda.empty_cache()
+    checks["points"] = check_points(dev)
+    torch.cuda.empty_cache()
+    checks["curves"] = check_curves(dev)
+    torch.cuda.empty_cache()
     for name in SOURCES:
         c = checks[name]
         lib = f", library {c['library_ms']:.4f} ms" if c["library_ms"] is not None else ""
@@ -3718,12 +3982,29 @@ def main() -> int:
     for phase in (phase_slice, phase_slice_mesh, phase_slice_textured, phase_slice_sunsky,
                   phase_slice_hero, phase_slice_portal, phase_slice_tree, phase_slice_material,
                   phase_slice_smoke, phase_slice_fire, phase_slice_cornell_variants,
-                  phase_slice_motion, phase_slice_caustics, phase_slice_particles):
+                  phase_slice_motion, phase_slice_caustics, phase_slice_particles,
+                  phase_slice_sparks_hairball):
         phase(dev)
         mark(phase.__name__)
     # launches: the CLI runs of the Cornell, trefoil, sunsky, hero,
     # material, smoke and fire paths and one render of the textured path
     launches = {k: 0 for k in SOURCES}
+    # the point-cloud and hair paths at their takes' own sizes: the CLI, then
+    # the Driver (kernel 6's lane shares on sparks; hairball, which never
+    # splits, takes no general_profile render: its iterations are in the
+    # report)
+    new_paths = {}
+    for take_name, res, spp, kernels, lanes_of in (
+            ("sparks.take", SPARKS_RES, SPARKS_SPP, SPARKS_KERNELS, "surface_v2"),
+            ("hairball.take", HAIRBALL_RES, HAIRBALL_SPP, HAIRBALL_KERNELS, None)):
+        label = f"{take_name[:-5]} PTMIS"
+        cli_counts = _cli_run(take_name, kernels)
+        for k in launches:
+            launches[k] += cli_counts[k]
+        new_paths[take_name] = (cli_counts, phase_main_path(
+            dev, card, label, *_take_scene(take_name, res, spp, label), kernels,
+            lanes_of=lanes_of))
+        mark(f"main path {label}")
     for take_name, label, res, spp, kernels in (
             ("cornell_ptmis.take", "Cornell PTMIS", (1920, 1080), 16, CORNELL_KERNELS),
             ("trefoil.take", "trefoil PTMIS", MESH_RES, MESH_SPP, MESH_KERNELS)):
@@ -3751,15 +4032,15 @@ def main() -> int:
                            *_take_scene("hero.take", HERO_RES, HERO_SPP, "hero PTMIS"),
                            HERO_KERNELS, lanes_of="surface_v2")
     mark("main path hero")
-    portal_cli = _cli_run("portal.take", PORTAL_KERNELS)
+    portal_cli = _cli_run("portal.take", PORTAL_KERNELS, spp=CLI_CUT_SPP)
     for k in launches:
         launches[k] += portal_cli[k]
     take, scene = _take_scene("portal.take", PORTAL_RES, PORTAL_SPP, "portal PTMIS")
     portal = phase_main_path(dev, card, "portal PTMIS", take, scene, PORTAL_KERNELS,
                              lanes_of="surface_v2")
-    log(f"portal PTMIS [{card}]: {portal_sampler_profile(dev, scene, PORTAL_SPP)}")
+    log(f"portal PTMIS [{card}]: {portal_sampler_profile(dev, scene, SLOW_PROFILE_SPP)}")
     mark("main path portal")
-    material_cli = _cli_run("material_test.take", MATERIAL_KERNELS)
+    material_cli = _cli_run("material_test.take", MATERIAL_KERNELS, spp=CLI_CUT_SPP)
     for k in launches:
         launches[k] += material_cli[k]
     take, scene = _take_scene("material_test.take", MATERIAL_RES, MATERIAL_SPP, "material PTMIS")
@@ -3768,16 +4049,16 @@ def main() -> int:
                     lanes_of="general")
     mark("main path material")
     # smoke.take's own 64 spp through the CLI took 73-87 s: the CLI renders
-    # a copy of the take at 8 spp, as fire's does
-    smoke_cli = _cli_run("smoke.take", SMOKE_KERNELS, spp=SMOKE_SPP)
+    # a copy of the take at CLI_CUT_SPP, as fire's does
+    smoke_cli = _cli_run("smoke.take", SMOKE_KERNELS, spp=CLI_CUT_SPP)
     for k in launches:
         launches[k] += smoke_cli[k]
     take, scene = _take_scene("smoke.take", SMOKE_RES, SMOKE_SPP, "smoke PTMIS")
     smoke = phase_main_path(dev, card, "smoke PTMIS", take, scene, SMOKE_KERNELS)
     mark("main path smoke")
     # fire.take's own 64 spp through the CLI would take ~70-120 s, as
-    # smoke's did: the CLI renders a copy of the take at 8 spp
-    fire_cli = _cli_run("fire.take", FIRE_KERNELS, spp=FIRE_SPP)
+    # smoke's did: the CLI renders a copy of the take at CLI_CUT_SPP
+    fire_cli = _cli_run("fire.take", FIRE_KERNELS, spp=CLI_CUT_SPP)
     for k in launches:
         launches[k] += fire_cli[k]
     take, scene = _take_scene("fire.take", FIRE_RES, FIRE_SPP, "fire PTMIS")
@@ -3792,12 +4073,15 @@ def main() -> int:
         out_name = {"cornell_filtered.take": "out.hdr", "cornell_aov_normals.take": "out.exr",
                     "cornell_aovs.take": "out.exr"}.get(take_name, "out.png")
         companions = ("albedo", "depth", "shading_normal") if take_name == "cornell_aovs.take" else ()
-        slice_cli[take_name] = _cli_run(take_name, kernels, out_name=out_name,
-                                        companions=companions)
+        scan = take_name == "cornell.take"  # the per-sample scan path
+        slice_cli[take_name] = _cli_run(take_name, kernels, spp=SCAN_CUT_SPP if scan else None,
+                                        out_name=out_name, companions=companions)
         for k in launches:
             launches[k] += slice_cli[take_name][k]
         label = take_name[:-5]
-        phase_main_path(dev, card, label, *_take_scene(take_name, res, spp, label), kernels)
+        phase_main_path(dev, card, label,
+                        *_take_scene(take_name, res, SCAN_CUT_SPP if scan else spp, label),
+                        kernels)
         mark(f"main path {label}")
     filtered = phase_main_path(
         dev, card, "cornell_filtered 1080p",
@@ -3821,12 +4105,12 @@ def main() -> int:
     mark("motion frames 0-1")
     # the photon-map path at the take's own size: the CLI (bake and
     # render), then the Driver (the bake timed on its own, then the render)
-    caustics_cli = _cli_run("caustics_photons.take", CAUSTICS_KERNELS)
+    caustics_cli = _cli_run("caustics_photons.take", CAUSTICS_KERNELS, spp=CLI_CUT_SPP)
     for k in launches:
         launches[k] += caustics_cli[k]
     caustics = phase_main_path(
         dev, card, "caustics_photons PTMIS",
-        *_take_scene("caustics_photons.take", CAUSTICS_RES, CAUSTICS_SPP,
+        *_take_scene("caustics_photons.take", CAUSTICS_RES, CAUSTICS_MAIN_SPP,
                      "caustics_photons PTMIS"), CAUSTICS_KERNELS)
     mark("main path caustics_photons")
     # the lighttracer path at the take's own size: the CLI, then the
@@ -3842,14 +4126,20 @@ def main() -> int:
         c = checks[name]
         return {"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
-                "launches_of": "cli cornell_ptmis.take + cli trefoil.take + cli sunsky.take "
-                               "+ cli hero.take + cli portal.take + cli material_test.take "
-                               "+ cli smoke.take and cli fire.take (copies at 8 spp) + one "
-                               "1280x720 4 spp textured-trefoil render + cli cornell.take, "
+                "launches_of": "cli sparks.take + cli hairball.take + cli "
+                               "cornell_ptmis.take + cli trefoil.take + cli sunsky.take + cli "
+                               "hero.take + cli portal.take, material_test.take, smoke.take "
+                               "and fire.take (copies at 4 spp) + one 1280x720 4 spp "
+                               "textured-trefoil render + cli cornell.take (a copy at 4 spp), "
                                "cornell_filtered.take, cornell_ao.take, "
                                "cornell_aov_normals.take and cornell_aovs.take + cli "
-                               "forest.take + cli motion.take + cli caustics_photons.take + "
-                               "cli cornell_particles.take",
+                               "forest.take + cli motion.take + cli caustics_photons.take (a "
+                               "copy at 4 spp) + cli cornell_particles.take (a copy at 16 "
+                               "particles a pixel where 64 would take over 20 s)",
+                "launches_sparks_cli": new_paths["sparks.take"][0][name],
+                "launches_sparks_render": new_paths["sparks.take"][1][name],
+                "launches_hairball_cli": new_paths["hairball.take"][0][name],
+                "launches_hairball_render": new_paths["hairball.take"][1][name],
                 "launches_particles_cli": particles_cli[name],
                 "launches_particles_render": particles[name],
                 "launches_caustics_cli": caustics_cli[name],
@@ -3882,7 +4172,10 @@ def main() -> int:
                 # the motion-blur variant's share of lanes equal bit for bit
                 **({"exact_share": c["exact_share"]} if "exact_share" in c else {}),
                 # the photon gather again on a dense map, the cap binding
-                **({"dense": c["dense"]} if "dense" in c else {})}
+                **({"dense": c["dense"]} if "dense" in c else {}),
+                # the walks' any-hit forms, the point walk on the still arena
+                **{f: c[f] for f in ("anyhit_ms", "still_ms")
+                   if f in c and name in ("points", "curves")}}
 
     print(json.dumps({"kernels": [entry(k) for k in SOURCES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

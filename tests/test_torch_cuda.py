@@ -19,7 +19,11 @@ on tables of 1 to 1,000 rows with ties in clusters of identical boxes
 (static and moving), the photon
 gather on caustics_photons.take's first bounce, a dense map and small
 widths, with lanes at the 512-visit cap beside empty ones and lanes
-whose cells repeat, and the lighttracer's camera splat on cornell_particles.take's
+whose cells repeat, the point and curve walks on sparks.take's and
+hairball.take's first bounce and at small widths (lanes that do not
+walk, bounds short of every hit, a NaN ray, the moving arena at shutter
+open and close) with their refusals, sparks and hairball through the
+Driver on the card against the CPU, and the lighttracer's camera splat on cornell_particles.take's
 first bounce and on seeded lanes from 1 to 4,096, and at 4,096 and
 262,145 lanes onto 64 pixels, onto one pixel or none connecting, with
 the particle pass
@@ -49,7 +53,7 @@ def cuda_device():
 @pytest.mark.parametrize("kernel", ["sobol_block", "isect", "accum", "shade", "surface", "traverse",
                                     "surface_v2", "surface_v2_hero", "isect_portal",
                                     "surface_v2_portal", "accum_filtered", "traverse_forest",
-                                    "traverse_anim"])
+                                    "traverse_anim", "points", "curves"])
 def test_kernel_matches_plain_on_card(cuda_device, kernel):
     """surface_v2_hero: kernel 6 on the first bounce of a 1280x720
     hero.take render, whose roughness varies per lane across the knot;
@@ -61,7 +65,11 @@ def test_kernel_matches_plain_on_card(cuda_device, kernel):
     r2 and Blackman r1 shuffled, unshuffled and clamped to the edge;
     traverse_forest: the walk over forest.take's 144 instances on its
     640x360 first-bounce lanes, bit-exact; traverse_anim: the motion-blur
-    variant on a moving copy of the forest at seeded shutter times."""
+    variant on a moving copy of the forest at seeded shutter times;
+    points: the point walk on sparks.take's 640x360 first-bounce lanes,
+    moving and held at shutter open, closest and any-hit, bit-exact;
+    curves: the curve walk on hairball.take's 384x384 first-bounce lanes,
+    bit-exact."""
     import chip_smoke
 
     check = {"sobol_block": chip_smoke.check_sobol, "isect": chip_smoke.check_isect,
@@ -73,7 +81,8 @@ def test_kernel_matches_plain_on_card(cuda_device, kernel):
              "surface_v2_portal": chip_smoke.check_surface_v2_portal,
              "accum_filtered": chip_smoke.check_accum_filtered,
              "traverse_forest": chip_smoke.check_traverse_forest,
-             "traverse_anim": chip_smoke.check_traverse_anim}[kernel]
+             "traverse_anim": chip_smoke.check_traverse_anim,
+             "points": chip_smoke.check_points, "curves": chip_smoke.check_curves}[kernel]
     result = check(cuda_device)  # raises on any disagreement
     assert result["ms"] > 0.0
 
@@ -1235,3 +1244,118 @@ def test_particle_pass_card_vs_cpu(cuda_device):
     imgs = [d.render_frame() for d in drivers]
     assert abs(drivers[0].rays_traced - drivers[1].rays_traced) <= 5e-3 * drivers[1].rays_traced
     chip_smoke._golden_gate(imgs[0], imgs[1], "particles 32x32x4", "card test")
+
+
+@pytest.fixture(scope="module")
+def bvh2_arenas(cuda_device):
+    """sparks' point arena over its frame-0 shutter and hairball's curve
+    arena on the card, with each take's camera rays in the prop's object
+    space (chip_smoke._walk_lanes): {"points": ..., "curves": ...}."""
+    import chip_smoke
+    from zyg_tpu_torch.scene.types import ShapeType
+
+    out = {}
+    for kind, take, res, shape in (("points", "sparks.take", (64, 36), ShapeType.POINTS),
+                                   ("curves", "hairball.take", (48, 48), ShapeType.CURVES)):
+        scene, _, root, o, d, tl = chip_smoke._walk_lanes(cuda_device, take, res, 41, shape)
+        out[kind] = (scene.points if kind == "points" else scene.curves, root, o, d, tl)
+    return out
+
+
+def _bvh2_case(lanes, n, case):
+    """n of the lanes (repeated where n exceeds them), with the case's
+    twist: "no walk" (every root -1), "short" (tmax 0.5: before every
+    hit), "nan" (one ray with a NaN direction), "ends" (shutter times 0
+    and 1)."""
+    arena, root, o, d, tl = lanes
+    idx = torch.arange(n, device=o.device) % max(o.shape[0], 1)
+    root, o, d, tl = (root[idx].contiguous(), o[idx].contiguous(), d[idx].contiguous(),
+                      tl[idx].contiguous())
+    tmax = torch.full((n,), 1e30, device=o.device)
+    if case == "no walk":
+        root = torch.full_like(root, -1)
+    elif case == "short":
+        tmax = torch.full_like(tmax, 0.5)
+    elif case == "nan" and n:
+        d[n // 2, 1] = float("nan")
+    elif case == "ends":
+        tl = (torch.arange(n, device=o.device) % 2).to(torch.float32)
+    return arena, root, o, d, tl, tmax
+
+
+@pytest.mark.parametrize("case", ["plain", "no walk", "short", "nan", "ends"])
+@pytest.mark.parametrize("n", [0, 1, 31, 129, 2305])
+@pytest.mark.parametrize("kind", ["points", "curves"])
+def test_walk_launch_shapes(cuda_device, bvh2_arenas, kind, n, case):
+    """The point and curve walks at small widths and the twists of
+    _bvh2_case, closest and any-hit, bit-exact against the plain walks on
+    the card; each call launches its kernel once (none at 0 lanes)."""
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.ops import curves, points
+    from zyg_tpu_torch.scene import curves as crv
+    from zyg_tpu_torch.scene import points as pts
+
+    arena, root, o, d, tl, tmax = _bvh2_case(bvh2_arenas[kind], n, case)
+    for any_hit in (False, True):
+        before = ops.launch_counts()[kind]
+        if kind == "points":
+            k = points.walk(arena, root, o, d, 0.0, tmax, time=tl, any_hit=any_hit)
+            p = pts.traverse(arena, root, o, d, 0.0, tmax, time=tl, any_hit=any_hit)
+        else:
+            k = curves.walk(arena, root, o, d, 0.0, tmax, any_hit=any_hit)
+            p = crv.traverse(arena, root, o, d, 0.0, tmax, any_hit=any_hit)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[kind] == before + (1 if n else 0)
+        for a, b in zip(k, p):
+            if a.dtype.is_floating_point:  # a NaN equals a NaN here
+                a, b = torch.nan_to_num(a, nan=-7.0), torch.nan_to_num(b, nan=-7.0)
+            assert torch.equal(a, b)
+        if case in ("no walk", "short"):
+            assert not bool((k[-1] >= 0).any())
+
+
+def test_walks_refuse_what_they_cannot_take(cuda_device, bvh2_arenas):
+    """A CUDA tensor launches the kernel or raises: a moving arena without
+    shutter times, rows off a 16-byte boundary, the wrong dtypes."""
+    import dataclasses
+
+    from zyg_tpu_torch.ops import curves, points
+
+    arena, root, o, d, tl = bvh2_arenas["points"]
+    tmax = torch.full((o.shape[0],), 1e30, device=cuda_device)
+    with pytest.raises(ValueError, match="shutter times"):
+        points.walk(arena, root, o, d, 0.0, tmax)
+    rows = arena.node_rows
+    shifted = torch.empty(rows.numel() + 1, dtype=rows.dtype, device=cuda_device)[1:].view(rows.shape)
+    shifted.copy_(rows)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        points.walk(dataclasses.replace(arena, node_rows=shifted), root, o, d, 0.0, tmax, time=tl)
+    with pytest.raises(ValueError, match="int32"):
+        points.walk(arena, root.long(), o, d, 0.0, tmax, time=tl)
+    carena, croot, co, cd, _ = bvh2_arenas["curves"]
+    ctmax = torch.full((co.shape[0],), 1e30, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        curves.walk(carena, croot, co.double(), cd, 0.0, ctmax)
+    with pytest.raises(ValueError, match="segment rows"):
+        curves.walk(dataclasses.replace(carena, seg_rows=carena.seg_rows[:, :36].contiguous()),
+                    croot, co, cd, 0.0, ctmax)
+
+
+@pytest.mark.parametrize("take, res, depth", [("sparks.take", (64, 36), None),
+                                              ("hairball.take", (48, 48), 4)])
+def test_point_and_hair_renders_card_vs_cpu(cuda_device, take, res, depth):
+    """sparks (kernel 6 and the moving point walk) and hairball (the general
+    body, the curve walk and the hair BSDF) through the Driver on the card
+    and on the CPU at 4 spp: the golden gate, rays within 0.5 %."""
+    import chip_smoke
+    from zyg_tpu_torch.render.driver import Driver
+    from zyg_tpu_torch.scene.loader import load_scene_file
+
+    t = chip_smoke._take(take, res, 4)
+    if depth is not None:
+        t.integrator.max_depth_surface = depth
+    scene = load_scene_file(t.scene_filename, "cpu", *t.cameras[0].frame_interval(0))
+    drivers = [Driver(t, scene, device=dev) for dev in (cuda_device, "cpu")]
+    imgs = [drv.render_frame() for drv in drivers]
+    assert abs(drivers[0].rays_traced - drivers[1].rays_traced) <= 5e-3 * drivers[1].rays_traced
+    chip_smoke._golden_gate(imgs[0], imgs[1], f"{take} {res[0]}x{res[1]}x4", "card test")

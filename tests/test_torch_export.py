@@ -15,9 +15,9 @@ example takes that load, against the JAX package:
   Take's settings;
 - the CLI (`--device cpu`) on 16x16 copies of the five takes, its default
   output name, its .exr/.hdr outputs and companion files read back;
-- of the 22 example takes, 20 load through `load_take_file`,
-  `load_scene_file` and `Driver(device="cpu")`, the other 2 stop at a
-  refusal by name.
+- all 22 example takes load through `load_take_file`, `load_scene_file`
+  and `Driver(device="cpu")`, none refused (sparks' point cloud and
+  hairball's .hair strands included).
 """
 
 import glob
@@ -288,10 +288,7 @@ def test_example_takes_load_or_refuse_by_name():
         except (UnsupportedTake, UnsupportedScene) as e:
             refused[name] = str(e)
     assert len(loaded) + len(refused) == 22
-    assert set(SLICE) | {"forest", "motion", "caustics_photons",
-                         "cornell_particles"} <= set(loaded), loaded
-    assert len(loaded) == 20, loaded
-    assert sorted(refused) == ["hairball", "sparks"]
-    assert ".hair" in refused["hairball"]
-    # the shutter loads now: sparks waits only on its points file
-    assert "../assets/sparks.json" in refused["sparks"]
+    assert set(SLICE) | {"forest", "motion", "caustics_photons", "cornell_particles",
+                         "hairball", "sparks"} <= set(loaded), loaded
+    assert len(loaded) == 22, loaded
+    assert refused == {}

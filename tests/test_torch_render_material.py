@@ -137,7 +137,10 @@ def _glass_root(glass=None, extra_entities=(), extra_materials=()):
                  extra_entities=[{"type": "Prop", "shape": {"file": "proc:sphere"},
                                   "materials": ["v"]}]),
      "Volumetric"),
-    (_glass_root(extra_materials=[{"name": "h", "rendering": {"Hair": {}}}],
+    # the Hair material loads (tests/test_torch_hair.py); a roughness
+    # texture on it is refused by name
+    (_glass_root(extra_materials=[{"name": "h", "rendering": {"Hair": {
+        "roughness": {"file": "r.png"}}}}],
                  extra_entities=[{"type": "Prop", "shape": {"type": "Cube"}, "materials": ["h"]}]),
      "Hair"),
     (_glass_root({"ior": 1.5, "normal": {"file": "n.png"}}), "normal"),

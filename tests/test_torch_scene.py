@@ -103,7 +103,10 @@ def _light(shape, **extra):
         (_light({"type": "Cube"}), "Cube lights"),
         (_light({"file": "proc:cube"}), "emissive meshes"),
         ({"entities": [{"type": "Instancer", "prototypes": []}]}, r"Instancer keys \['prototypes'\]"),
-        ({"entities": [{"type": "Prop", "shape": {"file": "curly.hair"}}]}, r"curly\.hair"),
+        # hair loads (tests/test_torch_hair.py); as an Instancer's prototype
+        # it is refused, the file named
+        ({"entities": [{"type": "Instancer", "prototype": {"shape": {"file": "curly.hair"}},
+                        "instances": [{"position": [0, 0, 0]}]}]}, r"curly\.hair"),
         ({"entities": [{"type": "Sky", "parameters": {"sun": {"rotation": [0, 0, 0],
                                                               "scale": 2}}}]}, "Sky keys"),
         ({"entities": [{"type": "Camera"}]}, "entity 'Camera'"),

@@ -627,6 +627,8 @@ def structural_ok(scene) -> bool:
     disk props, substitute and light materials)."""
     if scene.meshes is not None:
         return False  # mesh scenes take the mesh bounce (ops/surface.py)
+    if scene.curves is not None or scene.points is not None:
+        return False  # as the JAX gate (zyg_tpu/ops/shade.py:702): ops/surface_v2.py
     if scene.textures is not None or scene.env is not None:
         return False  # textured and env-lit scenes take ops/surface_v2.py
     if scene.light_tree is not None:

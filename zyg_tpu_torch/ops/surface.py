@@ -111,6 +111,8 @@ def structural_ok_mesh(scene) -> bool:
     props)"""
     if scene.meshes is None:
         return False  # analytic-only scenes take the fused bounce
+    if scene.curves is not None or scene.points is not None:
+        return False  # as the JAX gate (zyg_tpu/ops/shade.py:1152): ops/surface_v2.py
     if scene.textures is not None or scene.env is not None:
         return False  # textured and env-lit scenes take ops/surface_v2.py
     if scene.light_tree is not None:

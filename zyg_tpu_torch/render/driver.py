@@ -53,7 +53,7 @@ SPLIT_MIN_FINITE_LIGHTS = 16
 
 # samples per dispatch, by the JAX driver's rule (zyg_tpu/render/
 # driver.py:279-293): on the persistent path 8 for a scene with nested
-# device loops (of what the port loads, meshes, density grids and photon
+# device loops (meshes, curves, point clouds, density grids and photon
 # maps), else 16
 # for a shuffled dispatch and 64 for an unshuffled one (AOVs); on the scan
 # path min(16, _SCAN_LANES // pixels). The lane->pixel shuffle and the
@@ -65,8 +65,8 @@ _CHUNK_UNSHUFFLED = 64
 _SCAN_LANES = 4_000_000
 # pixels per dispatch of a box-filtered scene with nested device loops, by
 # the JAX driver's tile rule (zyg_tpu/render/driver.py:185-190, :481-540):
-# mesh-only scenes in tiles of 2^21 pixels, scenes with density grids or
-# a photon map in tiles of _HEAVY_TILE; each tile is its own dispatch with its own
+# mesh-only scenes in tiles of 2^21 pixels, scenes with curves, point
+# clouds, density grids or a photon map in tiles of _HEAVY_TILE; each tile is its own dispatch with its own
 # final-chunk slack, so the port tiles the same way. Filtered renders do
 # not tile: their splats cross tile borders.
 _HEAVY_TILE = 1 << 18
@@ -148,7 +148,8 @@ class Driver:
         # so a dispatch with AOVs is unshuffled
         self._frame_width = w if (self.persistent and not self.aov_names) else 0
         spp = max(take.num_samples_per_pixel, 1)
-        self._heavy_loops = scene.meshes is not None or scene.grids is not None or photons
+        self._heavy_loops = (scene.meshes is not None or scene.curves is not None
+                             or scene.points is not None or scene.grids is not None or photons)
         if self.persistent:
             self.chunk_size = min(spp, _CHUNK_HEAVY if self._heavy_loops else (
                 _CHUNK if self._frame_width else _CHUNK_UNSHUFFLED))
@@ -199,12 +200,14 @@ class Driver:
         """The pixel ranges [t0, t1) of each dispatch of a chunk, as
         zyg_tpu/render/driver.py:484-519 cuts the frame: box-filtered scenes
         whose only nested loops are mesh walks in tiles of _MESH_TILE
-        pixels, with density grids or a photon map of _HEAVY_TILE, the
-        whole frame otherwise."""
+        pixels, with curves, point clouds, density grids or a photon map of
+        _HEAVY_TILE, the whole frame otherwise."""
         n = self._pixel_ids.shape[0]
         tile = n
         if self._heavy_loops and self.filter_radius == 0:
-            mesh_only = self.scene.grids is None and self.take.photon.num_photons <= 0
+            sc = self.scene
+            mesh_only = (sc.meshes is not None and sc.curves is None and sc.points is None
+                         and sc.grids is None and self.take.photon.num_photons <= 0)
             tile = min(n, _MESH_TILE if mesh_only else _HEAVY_TILE)
         return [(t0, min(t0 + tile, n)) for t0 in range(0, n, tile)]
 

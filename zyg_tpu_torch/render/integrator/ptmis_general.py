@@ -21,9 +21,9 @@ package's general body computes it:
   vertex; the BSDF, or the Henyey-Greenstein phase at a scatter,
   evaluated with the split's pdf convention; shadow any-hit and the
   transmittance through the volume props, the emitting one included) ->
-  the BSDF or phase sample (substitute, smooth or rough glass, the
-  Volumetric boundary's pass-through; the reflect branch forced on
-  splitting lanes) -> the stack update where a ray crosses a medium
+  the BSDF or phase sample (substitute, smooth or rough glass, hair on
+  the curve fragment's tangent frame, the Volumetric boundary's
+  pass-through; the reflect branch forced on splitting lanes) -> the stack update where a ray crosses a medium
   boundary -> the refract branch parked in the lane's resume slot.
 
 The Sobol' draws keep the JAX body's order: u_dist (scenes with media),
@@ -34,8 +34,10 @@ time (`has_media`, `split_on`, ...); this one decides the same things
 once per render in `__init__` and computes nothing for refused features,
 which `check_general` names: portal lights, Canopy lights, image
 textures, env-mapped domes and Distant lights on this body, and material
-features other than glass, rough glass, media, volumetric, spectral media
-and emissive media (so IES profiles and triplanar textures).
+features other than glass, rough glass, media, volumetric, spectral media,
+emissive media and hair (so IES profiles and triplanar textures). Scenes
+with hair get the fragment's tangent frame (the JAX body asks for it,
+zyg_tpu/render/integrator/ptmis.py:371-373).
 
 With settings.collect_aovs (every dispatch with sensor AOVs rides this
 body) the primary hit also adds its albedo, depth, material id, normals,
@@ -48,7 +50,8 @@ vertices that can evaluate a BSDF add the map's estimate to the direct
 class, after the segment's emission (the photon_gather kernel).
 
 Kernels on this path: isect (closest and any hit), traverse (mesh
-scenes), sobol_block (every draw), track (the grid media's walks,
+scenes), curves and points (scenes with curves or point clouds,
+ops/curves.py and ops/points.py), sobol_block (every draw), track (the grid media's walks,
 ops/track.py), photon_gather (ops/photon.py, under a photon map) and
 accum (the flushes, in ptmis.py).
 """
@@ -78,7 +81,8 @@ from .ptmis import IValue, PathState, power_heuristic, predivided_power_heuristi
 _GLASS = int(MaterialKind.GLASS)
 _MEDIUM_KINDS = (int(MaterialKind.GLASS), int(MaterialKind.VOLUMETRIC))
 # the material features this body renders
-_FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media", "vol_emission"}
+_FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media", "vol_emission",
+             "hair"}
 _LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.SPHERE), int(ShapeType.DISK),
                  int(ShapeType.DOME), ls.VOLUME}
 
@@ -149,6 +153,8 @@ class GeneralBody:
         feats = set(scene.mat_features)
         self.features = feats
         self.has_media = "media" in feats
+        # hair reads the fragment's tangent frame and its offset across the fiber
+        self.has_hair = "hair" in feats
         # Volumetric media scatter: the scatter, phase and NEE-at-a-scatter
         # branches exist only then (glass interiors only absorb)
         self.scatters = "volumetric" in feats
@@ -175,7 +181,8 @@ class GeneralBody:
         ray_tmax = torch.where(s.alive, RAY_MAX_T, 0.0)
         hit = shapes.intersect_scene(scene, self.refl, s.o, s.d, 0.0, ray_tmax, primary=primary,
                                      time=s.time)
-        frag = shapes.build_fragment(scene, hit, s.o, s.d, time=s.time)
+        frag = shapes.build_fragment(scene, hit, s.o, s.d, need_tangents=self.has_hair,
+                                     time=s.time)
         valid = hit.valid()
         prop_c = torch.clamp(hit.prop, min=0)
         mat_c = torch.clamp(frag.material, min=0).long()
@@ -187,7 +194,7 @@ class GeneralBody:
             medium_ior, max_prio_excl, _ = vol_mod.stack_info_at_hit(scene, s.medium, prop_c)
         else:
             medium_ior = torch.ones_like(hit.t)
-        params = M.gather(scene.materials, frag.material, medium_ior=medium_ior,
+        params = M.gather(scene.materials, frag.material, uv=frag.uv, medium_ior=medium_ior,
                           features=self.features)
         wo = -s.d
         finite_hit = valid & (hit.t < RAY_MAX_T)
@@ -305,7 +312,8 @@ class GeneralBody:
             # light_n is 0: the shadow ray's end takes no offset)
             radiance = ls.light_radiance(scene, light_idx, lsmp.wi, lsmp.light_n, lsmp.uv,
                                          vol=(lsmp.vol_mask, lsmp.vol_radiance))
-            f, bpdf = M.eval_bsdf(params, wo, lsmp.wi, frag.n, frag.geo_n, glass_split=will_split)
+            f, bpdf = M.eval_bsdf(params, wo, lsmp.wi, frag.n, frag.geo_n, glass_split=will_split,
+                                  t=frag.t, b=frag.b)
             if self.scatters:
                 # a scatter vertex evaluates the phase function instead
                 ph = M.hg_phase(vm.dot(s.d, lsmp.wi), g_med)
@@ -344,7 +352,8 @@ class GeneralBody:
         branch = None
         if self.split_on:
             branch = torch.where(will_split, 0, -1).to(torch.int32)
-        bs = M.sample_bsdf(params, wo, frag.n, frag.geo_n, s3, glass_branch=branch)
+        bs = M.sample_bsdf(params, wo, frag.n, frag.geo_n, s3, glass_branch=branch, t=frag.t,
+                           b=frag.b)
         # false interfaces override the BSDF by a straight-through null event
         # (a Volumetric boundary is one already: bs.passthrough)
         wi = torch.where(false_if[:, None], -wo, bs.wi)

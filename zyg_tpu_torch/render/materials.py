@@ -7,15 +7,18 @@ bounce (counterpart of zyg_tpu/render/materials.py:116 `ior_to_f0`,
 substitute BSDF as the XLA general body calls it, :786-976 the rough and
 smooth dielectric, :977-1132 `sample_bsdf`/`eval_bsdf` with BSDF-split
 forcing, :1134 `can_evaluate`, :1148-1247 the medium coefficients, the
-Henyey-Greenstein phase and russian roulette).
+Henyey-Greenstein phase and russian roulette, :1255-1518 the Chiang hair
+BSDF).
 
 The general bounce's functions take the scene's material features (a
 set: "glass", "rough_glass", "media", "volumetric", "spectral_media",
-"vol_emission") in params["features"] and compute only what those
-features need, as the JAX package compiles the rest away (a Volumetric
-material emits inside its medium, never at its boundary: eval_radiance);
-the port refuses every other feature (coatings, translucency, flakes,
-anisotropy, hair, dispersion). Fused kernels
+"vol_emission", "hair") in params["features"] and compute only what
+those features need, as the JAX package compiles the rest away (a
+Volumetric material emits inside its medium, never at its boundary:
+eval_radiance); the port refuses every other feature (coatings,
+translucency, flakes, anisotropy, dispersion). The hair BSDF takes the
+fragment's tangent frame (t along the fiber, b, n) and its offset across
+the fiber, h = 2 v - 1 of the curve fragment's uv. Fused kernels
 keep their own component-form copies of the substitute BSDF
 (ops/shade.py), held against the JAX kernel bodies.
 
@@ -48,6 +51,7 @@ MIN_ALPHA = MIN_ROUGHNESS * MIN_ROUGHNESS
 _SUBSTITUTE = 0  # scene.types.MaterialKind codes
 _GLASS = 1
 _VOLUMETRIC = 4
+_HAIR = 5
 _PI = math.pi
 
 
@@ -67,7 +71,8 @@ def gather(materials, mat_id, textures=None, uv=None, tex_xi=None, medium_ior=No
     HDR map turns a bright texel into rare large spikes on the MIS'd
     BSDF-hit estimator. uv_alt [N, 2] is the alternate (triplanar) uv of
     textures that ask for it, footprint [N] the analytic procedurals'
-    filter width (scene/textures.py). Returns
+    filter width (scene/textures.py). uv without textures is read by the
+    hair BSDF only (features with "hair"). Returns
     kind (int32), albedo, f0 and emission [N, 3], alpha, metallic and
     specular [N], two_sided (bool), and where features (the scene's
     material feature set) holds "ies", the IES profile [N, 32].
@@ -117,6 +122,11 @@ def gather(materials, mat_id, textures=None, uv=None, tex_xi=None, medium_ior=No
         out.update(color=color, ior=ior, ior_outside=medium_ior,
                    attenuation_distance=materials.attenuation_distance[m],
                    features=set(features or ()))
+    if features and "hair" in features:
+        out["hair"] = materials.hair[m]
+        if uv is not None:
+            # the offset across the fiber (ref hair_sample.zig: h = 2 (v - 1/2))
+            out["hair_h"] = torch.clamp(2.0 * (uv[:, 1] - 0.5), -1.0, 1.0)
     return out
 
 
@@ -564,9 +574,10 @@ def sample_glass(params, wo, n, geo_n, s3, glass_branch=None) -> BsdfSample:
     )
 
 
-def sample_bsdf(params, wo, n, geo_n, s3, glass_branch=None) -> BsdfSample:
+def sample_bsdf(params, wo, n, geo_n, s3, glass_branch=None, t=None, b=None) -> BsdfSample:
     """Sample the BSDF; s3 [N, 3]: the lobe uniform and the 2-D sample.
-    glass_branch: BSDF-split forcing of the glass lanes (sample_glass)."""
+    glass_branch: BSDF-split forcing of the glass lanes (sample_glass);
+    t, b: the tangent frame, which hair lanes need."""
     kind = params["kind"]
     wi, weight, pdf, sub_ok, reg_a = _substitute_sample(params, wo, n, geo_n, s3[:, 0],
                                                         s3[:, 1:3])
@@ -586,6 +597,16 @@ def sample_bsdf(params, wo, n, geo_n, s3, glass_branch=None) -> BsdfSample:
         transmission = is_glass & g.transmission
         reg_a = torch.where(is_glass, g.reg_alpha, reg_a)
         fresnel = g.fresnel
+    if "hair" in params["features"] and t is not None:
+        is_hair = kind == _HAIR
+        h_wi, h_w, h_pdf, h_ok = hair_sample(params, wo, t, b, n, s3)
+        wi = torch.where(is_hair[:, None], h_wi, wi)
+        weight = torch.where(is_hair[:, None], h_w, weight)
+        pdf = torch.where(is_hair, h_pdf, pdf)
+        valid = torch.where(is_hair, h_ok, valid)
+        # hair scatters through the fiber: a sample across it transmits
+        transmission = torch.where(is_hair, dot(h_wi, geo_n) < 0.0, transmission)
+        reg_a = torch.where(is_hair, 1.0, reg_a)
     passthrough = torch.zeros_like(valid)
     if "volumetric" in params["features"]:
         # Volumetric boundaries pass straight through (ref volumetric_material.zig)
@@ -604,10 +625,11 @@ def sample_bsdf(params, wo, n, geo_n, s3, glass_branch=None) -> BsdfSample:
     )
 
 
-def eval_bsdf(params, wo, wi, n, geo_n, glass_split=None):
-    """f(wo, wi) * |cos| and pdf for NEE and MIS; glass_split: lanes that
-    take both fresnel branches at this vertex (their pdf drops the
-    selection factor)."""
+def eval_bsdf(params, wo, wi, n, geo_n, glass_split=None, t=None, b=None):
+    """f(wo, wi) * |cos| and pdf for NEE and MIS (hair: f with no cosine,
+    the hair convention); glass_split: lanes that take both fresnel
+    branches at this vertex (their pdf drops the selection factor); t, b:
+    the tangent frame, which hair lanes need."""
     kind = params["kind"]
     f, pdf = _substitute_eval(params, wo, wi, n, geo_n)
     is_sub = kind == _SUBSTITUTE
@@ -618,15 +640,22 @@ def eval_bsdf(params, wo, wi, n, geo_n, glass_split=None):
         f_gl, pdf_gl = _glass_rough_eval(params, wo, wi, n, geo_n, split=glass_split)
         f = torch.where(gl[:, None], f_gl, f)
         pdf = torch.where(gl, pdf_gl, pdf)
+    if "hair" in params["features"] and t is not None:
+        is_hair = kind == _HAIR
+        f_h, pdf_h = hair_eval(params, wo, wi, t, b, n)
+        f = torch.where(is_hair[:, None], f_h, f)
+        pdf = torch.where(is_hair, pdf_h, pdf)
     return f, pdf
 
 
 def can_evaluate(params):
-    """Substitute and rough glass lanes can do NEE; smooth glass (a delta
-    BSDF) and emitters cannot (ref glass_sample.zig:51)."""
+    """Substitute, rough glass and hair lanes can do NEE; smooth glass (a
+    delta BSDF) and emitters cannot (ref glass_sample.zig:51)."""
     ok = params["kind"] == _SUBSTITUTE
     if "rough_glass" in params["features"]:
         ok = ok | ((params["kind"] == _GLASS) & (params["alpha"] > MIN_ALPHA * 1.001))
+    if "hair" in params["features"]:
+        ok = ok | (params["kind"] == _HAIR)
     return ok
 
 
@@ -708,3 +737,218 @@ def russian_roulette(throughput, r):
     kill = (p < 1.0) & (r >= p)
     scale = torch.where(p < 1.0, 1.0 / torch.clamp(p, min=1e-12), 1.0)
     return throughput * torch.where(kill, 0.0, scale)[:, None], kill
+
+
+# ---------------------------------------------------------------------------
+# Hair: Chiang et al. 2016, "A Practical and Controllable Hair and Fur Model
+# for Production Path Tracing" (ref material/hair/hair_sample.zig; the JAX
+# package's zyg_tpu/render/materials.py:1255-1518, operation for operation).
+# Lobes p = 0..2 (R, TT, TRT) with logistic azimuthal and von Mises-like
+# longitudinal terms, and a residual lobe p = 3 with an isotropic azimuth.
+# The local frame is (t, b, n), the tangent along the fiber on x.
+# ---------------------------------------------------------------------------
+
+_HAIR_MAX_P = 3
+
+
+def _hair_i0(x):
+    """Modified Bessel I0, 10 terms (ref hair_sample.zig I0)."""
+    val = torch.zeros_like(x)
+    x2i = torch.ones_like(x)
+    ifact = ifour = 1.0
+    for i in range(10):
+        if i > 1:
+            ifact *= i
+        val = val + x2i / (ifour * ifact * ifact)
+        x2i = x2i * x * x
+        ifour *= 4.0
+    return val
+
+
+def _hair_log_i0(x, i0):
+    """log I0(x), by its asymptote above 12; i0 = _hair_i0(x)."""
+    xc = torch.clamp(x, min=1e-9)
+    big = x + 0.5 * (-math.log(2.0 * _PI) + torch.log(1.0 / xc) + 1.0 / (8.0 * xc))
+    return torch.where(x > 12.0, big, torch.log(torch.clamp(i0, min=1e-30)))
+
+
+def _hair_mp(cos_i, cos_o, sin_i, sin_o, v):
+    """The longitudinal lobe (ref mp); v <= 0.1 in the log domain. I0 is
+    evaluated once for both branches (the JAX package evaluates it in
+    each: the same values)."""
+    v = torch.clamp(v, min=1e-5)
+    a = cos_i * cos_o / v
+    b = sin_i * sin_o / v
+    i0 = _hair_i0(a)
+    lo = torch.exp(_hair_log_i0(a, i0) - b - 1.0 / v + 0.6931 + torch.log(1.0 / (2.0 * v)))
+    hi = torch.exp(-b) * i0 / (torch.sinh(1.0 / v) * 2.0 * v)
+    return torch.where(v <= 0.1, lo, hi)
+
+
+def _hair_logistic(x, s):
+    e = torch.exp(-torch.abs(x) / s)
+    return e / (s * (1.0 + e) ** 2)
+
+
+def _hair_logistic_cdf(x, s):
+    return 1.0 / (1.0 + torch.exp(-x / s))
+
+
+def _hair_trimmed_logistic(x, s, a, b):
+    return _hair_logistic(x, s) / (_hair_logistic_cdf(b, s) - _hair_logistic_cdf(a, s))
+
+
+def _hair_sample_trimmed_logistic(u, s, a, b):
+    ka = _hair_logistic_cdf(a, s)
+    kb = _hair_logistic_cdf(b, s)
+    lu = ka + u * (kb - ka)
+    x = -s * torch.log(1.0 / torch.clamp(lu, 1e-6, 1.0 - 1e-6) - 1.0)
+    return torch.clamp(x, a, b)
+
+
+def _hair_fresnel(cos_theta, eta):
+    """Dielectric Fresnel, the ratio inverted from inside (ref hair fresnel)."""
+    eta_e = torch.where(cos_theta < 0.0, 1.0 / eta, eta)
+    ci = torch.abs(cos_theta)
+    s2t = (1.0 - ci * ci) / (eta_e * eta_e)
+    ct = torch.sqrt(torch.clamp(1.0 - s2t, min=0.0))
+    r_par = (eta_e * ci - ct) / torch.clamp(eta_e * ci + ct, min=1e-9)
+    r_per = (ci - eta_e * ct) / torch.clamp(ci + eta_e * ct, min=1e-9)
+    return torch.where(s2t >= 1.0, 1.0, 0.5 * (r_par * r_par + r_per * r_per))
+
+
+def _hair_phi(p, gamma_o, gamma_t):
+    return 2.0 * p * gamma_t - 2.0 * gamma_o + p * _PI
+
+
+def _hair_np(phi, p, s, gamma_o, gamma_t):
+    dphi = phi - _hair_phi(p, gamma_o, gamma_t)
+    dphi = torch.remainder(dphi + _PI, 2.0 * _PI) - _PI  # wrapped to [-pi, pi)
+    return _hair_trimmed_logistic(dphi, s, -_PI, _PI)
+
+
+def _hair_setup(params, wo, t, b, n) -> dict:
+    """Per-lane hair state (ref hair_sample.zig Sample.init)."""
+    hc = params["hair"]  # [N, 6]: mu_a(3), v0, s, alpha
+    mu_a, v0 = hc[:, 0:3], hc[:, 3]
+    s = torch.clamp(hc[:, 4], min=1e-4)
+    alpha = hc[:, 5]
+    eta = params["ior"]
+    sin_o = torch.clamp(dot(wo, t), -1.0, 1.0)
+    cos_o = torch.sqrt(torch.clamp(1.0 - sin_o * sin_o, min=1e-9))
+    phi_o = torch.atan2(dot(wo, n), dot(wo, b))
+    h = torch.clamp(params.get("hair_h", torch.zeros_like(eta)), -1.0, 1.0)
+    etap = torch.sqrt(torch.clamp(eta * eta - sin_o * sin_o, min=1e-9)) / cos_o
+    sin_gt = torch.clamp(h / etap, -1.0, 1.0)
+    cos_gt = torch.sqrt(torch.clamp(1.0 - sin_gt * sin_gt, min=0.0))
+    sin_tt = sin_o / eta
+    cos_tt = torch.sqrt(torch.clamp(1.0 - sin_tt * sin_tt, min=1e-9))
+    tr = torch.exp(-mu_a * (2.0 * cos_gt / cos_tt)[:, None])
+    # the lobes' attenuations ap[p] (ref apFunc)
+    f = _hair_fresnel(cos_o * torch.sqrt(torch.clamp(1.0 - h * h, min=0.0)), eta)
+    refl = [f[:, None].expand_as(tr), ((1.0 - f) ** 2)[:, None] * tr]
+    ftr = f[:, None] * tr
+    for p in range(2, _HAIR_MAX_P):
+        refl.append(refl[p - 1] * ftr)
+    refl.append(refl[_HAIR_MAX_P - 1] * ftr / torch.clamp(1.0 - ftr, min=1.0 - 0.999))
+    means = [r.mean(dim=-1) for r in refl]
+    asum = sum(means)
+    # the scale tilt's angle-doubling series (ref commit())
+    s0, c0 = torch.sin(alpha), torch.cos(alpha)
+    s1, c1 = 2.0 * c0 * s0, c0 * c0 - s0 * s0
+    s2, c2 = 2.0 * c1 * s1, c1 * c1 - s1 * s1
+    return {"v": (v0, 0.25 * v0, 4.0 * v0), "s": s, "sin_o": sin_o, "cos_o": cos_o,
+            "phi_o": phi_o, "gamma_o": torch.asin(h), "gamma_t": torch.asin(sin_gt),
+            "sin2k": (s0, s1, s2), "cos2k": (c0, c1, c2), "refl": refl,
+            "pdf": [m / torch.clamp(asum, min=1e-20) for m in means]}
+
+
+def _hair_thetap_o(st, p: int):
+    """The outgoing angle tilted by the scales for lobe p (sin, |cos|)."""
+    sin_o, cos_o = st["sin_o"], st["cos_o"]
+    s2k, c2k = st["sin2k"], st["cos2k"]
+    if p == 0:
+        sp, cp = sin_o * c2k[1] - cos_o * s2k[1], cos_o * c2k[1] + sin_o * s2k[1]
+    elif p == 1:
+        sp, cp = sin_o * c2k[0] + cos_o * s2k[0], cos_o * c2k[0] - sin_o * s2k[0]
+    elif p == 2:
+        sp, cp = sin_o * c2k[2] + cos_o * s2k[2], cos_o * c2k[2] - sin_o * s2k[2]
+    else:
+        sp, cp = sin_o, cos_o
+    return sp, torch.abs(cp)
+
+
+def _hair_eval_angles(st, cos_i, sin_i, phi):
+    fsum = torch.zeros_like(st["refl"][0])
+    pdf_sum = torch.zeros_like(cos_i)
+    v = st["v"]
+    for p in range(_HAIR_MAX_P):
+        sp, cp = _hair_thetap_o(st, p)
+        mnp = (_hair_mp(cos_i, cp, sin_i, sp, v[min(p, 2)])
+               * _hair_np(phi, float(p), st["s"], st["gamma_o"], st["gamma_t"]))
+        fsum = fsum + mnp[:, None] * st["refl"][p]
+        pdf_sum = pdf_sum + mnp * st["pdf"][p]
+    # the residual lobe: an isotropic azimuth
+    tmp = _hair_mp(cos_i, st["cos_o"], sin_i, st["sin_o"], v[2])
+    fsum = fsum + (tmp / (2.0 * _PI))[:, None] * st["refl"][_HAIR_MAX_P]
+    pdf_sum = pdf_sum + tmp * st["pdf"][_HAIR_MAX_P] / (2.0 * _PI)
+    return fsum, pdf_sum
+
+
+def hair_eval(params, wo, wi, t, b, n):
+    """(f [N, 3], the radiance response with no cosine, pdf [N])."""
+    st = _hair_setup(params, wo, t, b, n)
+    sin_i = torch.clamp(dot(wi, t), -1.0, 1.0)
+    cos_i = torch.sqrt(torch.clamp(1.0 - sin_i * sin_i, min=1e-9))
+    phi = torch.atan2(dot(wi, n), dot(wi, b)) - st["phi_o"]
+    return _hair_eval_angles(st, cos_i, sin_i, phi)
+
+
+def hair_sample(params, wo, t, b, n, s3):
+    """(wi, weight, pdf, ok) of a hair BSDF sample (ref Sample.sample). s3:
+    the lobe choice (rescaled into the longitudinal sample, where the
+    reference draws a fourth number) and the longitudinal and azimuthal
+    uniforms."""
+    st = _hair_setup(params, wo, t, b, n)
+    r, u1, u2 = s3[:, 0], s3[:, 1], s3[:, 2]
+    # the lobe by its pdf's CDF, r rescaled within the chosen lobe
+    p_sel = torch.full(r.shape, _HAIR_MAX_P, dtype=torch.int32, device=r.device)
+    u0 = torch.zeros_like(r)
+    acc = torch.zeros_like(r)
+    chosen = torch.zeros(r.shape, dtype=torch.bool, device=r.device)
+    for p in range(_HAIR_MAX_P + 1):
+        pd = st["pdf"][p]
+        take = ~chosen & (acc + pd >= r)
+        p_sel = torch.where(take, p, p_sel)
+        u0 = torch.where(take, torch.clamp((r - acc) / torch.clamp(pd, min=1e-9), 0.0, 1.0), u0)
+        chosen = chosen | take
+        acc = acc + pd
+    u0 = torch.where(chosen, u0, u1)  # degenerate pdfs: fall back
+    sp = cp = vp = None
+    vs = st["v"]
+    for p in range(_HAIR_MAX_P + 1):
+        spp, cpp = _hair_thetap_o(st, p)
+        sel = p_sel == p
+        sp = spp if sp is None else torch.where(sel, spp, sp)
+        cp = cpp if cp is None else torch.where(sel, cpp, cp)
+        vpp = vs[min(p, 2)]
+        vp = vpp if vp is None else torch.where(sel, vpp, vp)
+    # the longitudinal angle from the lobe
+    cos_t = 1.0 + vp * torch.log(torch.clamp(u0, min=1e-5)
+                                 + (1.0 - u0) * torch.exp(-2.0 / torch.clamp(vp, min=1e-5)))
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    cos_phi_l = torch.cos(2.0 * _PI * u1)
+    sin_i = torch.clamp(-cos_t * sp + sin_t * cos_phi_l * cp, -1.0, 1.0)
+    cos_i = torch.sqrt(torch.clamp(1.0 - sin_i * sin_i, min=1e-9))
+    # the azimuth
+    dphi = _hair_sample_trimmed_logistic(u2, st["s"], -_PI, _PI)
+    phi_p = _hair_phi(p_sel.to(torch.float32), st["gamma_o"], st["gamma_t"])
+    phi = torch.where(p_sel < _HAIR_MAX_P, phi_p + dphi, 2.0 * _PI * u2)
+    phi_i = st["phi_o"] + phi
+    wi = (sin_i[:, None] * t + (cos_i * torch.cos(phi_i))[:, None] * b
+          + (cos_i * torch.sin(phi_i))[:, None] * n)
+    wi = vm.safe_normalize(wi)
+    f, pdf = _hair_eval_angles(st, cos_i, sin_i, phi)
+    ok = pdf > 1e-9
+    weight = torch.where(ok[:, None], f / torch.clamp(pdf, min=1e-9)[:, None], 0.0)
+    return wi, weight, pdf, ok

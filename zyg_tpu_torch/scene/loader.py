@@ -2,8 +2,11 @@
 plain numpy then torch).
 
 Supported: Prop and Light entities with analytic Rectangle/Cube/Sphere/
-Disk/Canopy/Dome/Distant shapes (Celestial_disk is a Distant) or procedural
-triangle meshes (shape "file": "proc:..."), the Sky entity (a baked
+Disk/Canopy/Dome/Distant shapes (Celestial_disk is a Distant), procedural
+triangle meshes (shape "file": "proc:..."), point clouds (a JSON
+point_list file, io/mesh.py; a particle exporter's frame stack is sampled
+at the frame's shutter, scene/points.py) and hair (a .hair file,
+io/hair.py, flattened into round-cone segments, scene/curves.py), the Sky entity (a baked
 Preetham dome plus a distant sun, scene/sky.py), Portal entities (a
 Rectangle through which an image-mapped dome, such as the Sky's, is
 sampled; scene/portal.py), Instancer entities (one prototype shape
@@ -11,7 +14,9 @@ under many transforms, from the entity or its "source" file), nested
 child entities, Euler or look-at transformations, an entity's animation
 keyframes (resolved over the frame's shutter interval by `build`),
 Substitute, Light and Glass materials with constant parameters (Glass: color or attenuation_color, ior,
-roughness, attenuation_distance, priority), Volumetric media
+roughness, attenuation_distance, priority), the Hair material (color or
+eumelanin and pheomelanin, roughness as a number or [beta_m, beta_n],
+ior; the Chiang hair BSDF of render/materials.py), Volumetric media
 (attenuation_color, subsurface_color, attenuation_distance, anisotropy,
 and a procedural `fbm` or `constant` density map built into the density
 grid arena of scene/grids.py) on analytic props, with emission (an
@@ -44,7 +49,8 @@ Everything else raises `UnsupportedScene`: Cube and mesh lights, entities other 
 texture file sequences ('#' in a file name), deforming meshes,
 EXR and other image formats, dispersive glass (abbe), coatings, flakes,
 masks, density files, emission maps on media, Volumetric materials on
-mesh props and every other material kind (Hair, Debug, Sky). (Scenes
+mesh, point or curve props, point clouds and hair in Instancers, and
+every other material kind (Debug, Sky). (Scenes
 whose light tree would split NEE, glass under textures, env maps, Distant
 lights, Canopy lights or portals, and IES profiles or triplanar textures
 off the textured bounce are refused by render/driver.py.) The port
@@ -65,7 +71,10 @@ import torch
 from ..core.distribution import Distribution3D
 from ..io.exr import read_exr
 from ..io.ies import PROFILE_BINS, ies_profile_bins
-from ..io.mesh import load_mesh_file
+from ..io.fs import open_stream
+from ..io.hair import read_hair
+from ..io.mesh import is_point_cloud_file, load_mesh_file, load_point_cloud_file
+from ..io.resource import GLOBAL as RESOURCES
 from ..io.png import read_png
 from ..io.rgbe import read_hdr
 from ..render.materials import MIN_ROUGHNESS
@@ -75,6 +84,10 @@ from .grids import GridArena, build_grid_arena, make_fbm_grid
 from .light_tree import ARRAY_FIELDS as _TREE_FIELDS
 from .light_tree import LightTree, build_light_tree
 from . import procedural
+from .curves import CurveArena, HostCurves
+from .curves import build_arena as build_curve_arena
+from .points import HostPoints, PointArena, resolve_motion
+from .points import build_arena as build_point_arena
 from .portal import ARRAY_FIELDS as _PORTAL_FIELDS
 from .portal import PortalDist, build_portal_dist, make_portal_dist
 from .sky import SUN_ANGULAR_RADIUS, bake_sky, sun_radiance
@@ -309,6 +322,10 @@ class MaterialDesc:
     density_grid: int = -1
     # an emittance's IES profile (io/ies.py): float32[PROFILE_BINS], or None
     ies: np.ndarray | None = None
+    # Hair: the azimuthal roughness beta_n (roughness is beta_m) and an
+    # absorption from melanin, or None (from the colour)
+    hair_beta_n: float = 0.3
+    hair_mu_a: np.ndarray | None = None
 
 
 def _read_color(v) -> np.ndarray:
@@ -328,7 +345,8 @@ _GLASS_KEYS = {"color", "attenuation_color", "ior", "roughness", "attenuation_di
                "priority"}
 _VOLUMETRIC_KEYS = {"color", "attenuation_color", "subsurface_color", "attenuation_distance",
                     "anisotropy", "density", "density_map", "priority", "emittance"}
-_OTHER_KINDS = {"Debug", "Hair", "Sky"}
+_HAIR_KEYS = {"color", "roughness", "eumelanin", "pheomelanin", "ior"}
+_OTHER_KINDS = {"Debug", "Sky"}
 
 
 def _load_density_grid(v) -> np.ndarray | None:
@@ -430,7 +448,7 @@ def _texture(v, srgb: bool, builder: "SceneBuilder | None", base_dir: str) -> in
 def parse_material(value: dict, builder: "SceneBuilder | None" = None,
                    base_dir: str = "") -> MaterialDesc:
     """One material JSON node (ref material_provider.zig loadMaterial),
-    Substitute, Light, Glass and Volumetric kinds; texture nodes (image
+    Substitute, Light, Glass, Hair and Volumetric kinds; texture nodes (image
     files resolved against base_dir) and a Volumetric density map go into
     builder's texture arena and grid list."""
     rendering = value.get("rendering", value)
@@ -457,6 +475,12 @@ def parse_material(value: dict, builder: "SceneBuilder | None" = None,
         elif kind_name == "Volumetric":
             desc.kind = int(MaterialKind.VOLUMETRIC)
             allowed = _VOLUMETRIC_KEYS
+        elif kind_name == "Hair":
+            # the JAX loader's Hair defaults (zyg_tpu/scene/loader.py:292-295)
+            desc.kind = int(MaterialKind.HAIR)
+            desc.roughness = 0.3
+            desc.color = np.full(3, 0.5, np.float32)
+            allowed = _HAIR_KEYS
         else:
             continue
         if not isinstance(body, dict):
@@ -478,6 +502,22 @@ def parse_material(value: dict, builder: "SceneBuilder | None" = None,
                 desc.attenuation_distance = float(v)
             elif key == "priority":
                 desc.priority = int(v)
+            elif key == "roughness" and kind_name == "Hair":
+                # a number (beta_m = beta_n) or [beta_m, beta_n]
+                if isinstance(v, (list, tuple)):
+                    desc.roughness = float(v[0])
+                    desc.hair_beta_n = float(v[1] if len(v) > 1 else v[0])
+                elif isinstance(v, (int, float)):
+                    desc.roughness = desc.hair_beta_n = float(v)
+                else:
+                    raise UnsupportedScene(f"Hair roughness {v!r}")
+            elif key == "eumelanin":
+                # ref hair_material.zig absorptionFromMelanin
+                desc.hair_mu_a = (float(v) * np.array([0.419, 0.697, 1.37], np.float32)
+                                  + float(body.get("pheomelanin", 0.0))
+                                  * np.array([0.187, 0.4, 1.05], np.float32))
+            elif key == "pheomelanin":
+                pass  # read with eumelanin; alone it is ignored, as by the JAX loader
             elif key == "roughness":
                 t = tex(v, srgb=False)
                 if t >= 0:
@@ -540,6 +580,26 @@ def _load_profile(v, base_dir: str) -> np.ndarray | None:
     return bins
 
 
+def hair_constants(d: MaterialDesc) -> np.ndarray:
+    """[mu_a(3), v0, s, alpha] of a Hair material, zeros for other kinds
+    (zyg_tpu/scene/loader.py:499 _hair_constants; ref hair_material.zig
+    commit()), in float64 then rounded to float32 as there."""
+    if d.kind != int(MaterialKind.HAIR):
+        return np.zeros(6, np.float32)
+    bm = float(np.clip(d.roughness, 1e-3, 1.0))
+    bn = float(np.clip(d.hair_beta_n, 1e-3, 1.0))
+    v0 = (0.726 * bm + 0.812 * bm * bm + 3.7 * bm**20) ** 2
+    s = 0.626657069 * (0.265 * bn + 1.194 * bn * bn + 5.372 * bn**22)
+    if d.hair_mu_a is not None:
+        mu_a = np.asarray(d.hair_mu_a, np.float64)
+    else:
+        denom = (5.969 - 0.215 * bn + 2.532 * bn**2 - 10.73 * bn**3 + 5.574 * bn**4
+                 + 0.245 * bn**5)
+        sq = np.log(np.clip(np.asarray(d.color, np.float64), 1e-5, 1.0)) / denom
+        mu_a = sq * sq
+    return np.concatenate([mu_a, [v0, s, np.deg2rad(2.0)]]).astype(np.float32)
+
+
 def _emissive_volumetric(m: MaterialDesc) -> bool:
     return m.kind == int(MaterialKind.VOLUMETRIC) and float(np.max(m.emission)) > 0.0
 
@@ -548,7 +608,8 @@ def material_features(kinds, roughness, color, subsurface, emission, texcoord=()
                       ies=False) -> set:
     """The material features present, by the JAX loader's rules
     (zyg_tpu/scene/loader.py:1232-1315) over every material of the table:
-    "ies" where a material has an IES profile (ies),
+    "hair" with any Hair material, "ies" where a material has an IES
+    profile (ies),
     "media" with any Glass or Volumetric material, "glass" with any Glass,
     "rough_glass" with any Glass rougher than MIN_ROUGHNESS * 1.001,
     "volumetric" with any Volumetric material, "vol_emission" with an
@@ -559,6 +620,8 @@ def material_features(kinds, roughness, color, subsurface, emission, texcoord=()
     glass = [float(r) for k, r in zip(kinds, roughness) if k == int(MaterialKind.GLASS)]
     vols = [i for i, k in enumerate(kinds) if k == int(MaterialKind.VOLUMETRIC)]
     feats = {"ies"} if ies else set()
+    if int(MaterialKind.HAIR) in kinds:
+        feats.add("hair")
     if glass or vols:
         feats.add("media")
     if glass:
@@ -592,6 +655,8 @@ class PropDesc:
     visible_shadow: bool = True
     is_light: bool = False
     mesh_id: int = -1  # index into SceneBuilder.meshes for mesh props
+    cloud_id: int = -1  # index into SceneBuilder.point_clouds for point props
+    curve_id: int = -1  # index into SceneBuilder.curve_shapes for curve props
     # keyframes [(seconds, Transformation)] (parse_animation), or None
     animation: list | None = None
 
@@ -603,6 +668,10 @@ class SceneBuilder:
         self.materials: list[MaterialDesc] = []
         self.meshes: list[HostMesh] = []
         self.density_grids: list[np.ndarray] = []
+        self.point_clouds: list[HostPoints] = []
+        self.curve_shapes: list[HostCurves] = []
+        self._points_by_name: dict[str, int] = {}
+        self._curves_by_name: dict[str, int] = {}
         self.textures = TextureBuilder()
         self._mat_by_name: dict[str, int] = {}
         self._mesh_by_name: dict[str, int] = {}
@@ -665,6 +734,24 @@ class SceneBuilder:
         return self.add_prop(PropDesc(shape=int(ShapeType.TRIANGLE_MESH), trafo=trafo,
                                       material=material, mesh_id=mesh_id, **kw))
 
+    def add_points(self, cloud: HostPoints, name: str | None = None) -> int:
+        """A point cloud -> its cloud id (one a name)."""
+        if name and name in self._points_by_name:
+            return self._points_by_name[name]
+        self.point_clouds.append(cloud)
+        if name:
+            self._points_by_name[name] = len(self.point_clouds) - 1
+        return len(self.point_clouds) - 1
+
+    def add_curves(self, curves: HostCurves, name: str | None = None) -> int:
+        """A curve set (hair strands) -> its curve id (one a name)."""
+        if name and name in self._curves_by_name:
+            return self._curves_by_name[name]
+        self.curve_shapes.append(curves)
+        if name:
+            self._curves_by_name[name] = len(self.curve_shapes) - 1
+        return len(self.curve_shapes) - 1
+
     def _light_weight(self, p: PropDesc) -> float:
         """Luminance-weighted emission times emitting area (4 pi for a dome;
         an emission map scales by its mean luminance); for a volume light
@@ -712,11 +799,13 @@ class SceneBuilder:
         uniform samples, K = 8 where a keyframe lies strictly inside the
         shutter, else K = 1 (the endpoint slerp). An animated prop's trafo
         becomes its shutter-start transform; one that moves joins
-        animated_props ((prop, shape) keys) with its shutter-end transform,
-        and analytic lights among them animated_lights. Motion of an
-        infinite light stays at shutter start, with the JAX package's
-        warning. Returns (K, animated_props, animated_lights, end
-        transforms {prop: Transformation}, key transforms {prop: [K+1]})."""
+        animated_curves or animated_points ({prop: True}) if it is a curve
+        or point prop, else animated_props ((prop, shape) keys), with its
+        shutter-end transform, and analytic lights among them
+        animated_lights. Motion of an infinite light stays at shutter
+        start, with the JAX package's warning. Returns (K, animated_props,
+        animated_lights, animated_curves, animated_points, end transforms
+        {prop: Transformation}, key transforms {prop: [K+1]})."""
         props = self.props
         K = 1
         if time1 > time0 and any(p.animation and any(time0 < kt < time1 for kt, _ in p.animation)
@@ -724,6 +813,7 @@ class SceneBuilder:
             K = 8
         infinite = {int(ShapeType.DOME), int(ShapeType.CANOPY), int(ShapeType.DISTANT)}
         animated_props, animated_lights, end_trafo, key_trafos = {}, {}, {}, {}
+        animated_curves, animated_points = {}, {}
         for i, p in enumerate(props):
             if not p.animation:
                 continue
@@ -741,12 +831,18 @@ class SceneBuilder:
                 warnings.warn("motion blur on emissive-mesh/infinite-light props is not "
                               f"supported yet; prop {i} rendered at shutter start", stacklevel=3)
                 continue
-            animated_props[(i, p.shape)] = True
-            if p.is_light:
-                animated_lights[i] = True
+            if p.curve_id >= 0:
+                animated_curves[i] = True
+            elif p.cloud_id >= 0:
+                animated_points[i] = True
+            else:
+                animated_props[(i, p.shape)] = True
+                if p.is_light:
+                    animated_lights[i] = True
             end_trafo[i] = samples[-1]
             key_trafos[i] = samples
-        return K, animated_props, animated_lights, end_trafo, key_trafos
+        return (K, animated_props, animated_lights, animated_curves, animated_points, end_trafo,
+                key_trafos)
 
     def _prop_keys(self, K: int, key_trafos: dict) -> np.ndarray:
         """[P, K+1, 10] shutter keyframe rows (quaternion | position |
@@ -773,8 +869,9 @@ class SceneBuilder:
         props = self.props
         if not props:
             raise UnsupportedScene("scene without props")
-        K, animated_props, animated_lights, end_trafo, key_trafos = self._resolve_motion(
-            time0, time0 if time1 is None else time1)
+        t1 = time0 if time1 is None else time1
+        (K, animated_props, animated_lights, animated_curves, animated_points, end_trafo,
+         key_trafos) = self._resolve_motion(time0, t1)
         # an emissive Volumetric Cube is a volume light (ref scene.zig
         # createLight; zyg_tpu/scene/loader.py:1063-1074); on another shape
         # it only glows along the walks
@@ -782,7 +879,8 @@ class SceneBuilder:
             if _emissive_volumetric(self.materials[p.material]) and p.shape == int(ShapeType.CUBE):
                 p.is_light = True
         portal_pending = self._link_portals()
-        analytic = [i for i, p in enumerate(props) if p.mesh_id < 0]
+        analytic = [i for i, p in enumerate(props)
+                    if p.mesh_id < 0 and p.curve_id < 0 and p.cloud_id < 0]
         if len(analytic) > _MAX_PROPS:
             raise UnsupportedScene(f"{len(analytic)} analytic props (at most {_MAX_PROPS})")
         light_props = [i for i, p in enumerate(props) if p.is_light and self._light_weight(p) > 0.0]
@@ -808,6 +906,8 @@ class SceneBuilder:
         for i, p in enumerate(props):
             m = self.materials[p.material]
             if m.kind == int(MaterialKind.VOLUMETRIC):
+                if p.curve_id >= 0 or p.cloud_id >= 0:
+                    raise UnsupportedScene("a Volumetric material on a point or curve prop")
                 if p.mesh_id >= 0:
                     what = ("an emissive Volumetric material (vol_emission)"
                             if _emissive_volumetric(m) else "a Volumetric material")
@@ -853,6 +953,15 @@ class SceneBuilder:
             if i not in animated_ids:
                 groups.setdefault(props[i].shape, []).append(i)
         meshes, instances = self._build_meshes(end_trafo)
+        # point clouds resolved over the frame's shutter, and curve sets; their
+        # props stay out of prop_groups (zyg_tpu/scene/loader.py:1174-1192)
+        point_props = [i for i, p in enumerate(props) if p.cloud_id >= 0]
+        curve_props = [i for i, p in enumerate(props) if p.curve_id >= 0]
+        points = curves = None
+        if point_props:
+            points = build_point_arena([resolve_motion(c, time0, t1) for c in self.point_clouds])
+        if curve_props:
+            curves = build_curve_arena(self.curve_shapes)
         # volume lights over a density grid sample their interior by density
         vol_light_dist = {
             li: Distribution3D.build(self.density_grids[self.materials[props[pi].material]
@@ -916,6 +1025,7 @@ class SceneBuilder:
                 density_grid=t([d.density_grid for d in mats], i32),
                 ies=t(np.stack([d.ies if d.ies is not None else np.ones(PROFILE_BINS, np.float32)
                                 for d in mats]), f32),
+                hair=t(np.stack([hair_constants(d) for d in mats]), f32),
             ),
             lights=Lights(
                 prop=t(light_props, i32),
@@ -940,9 +1050,20 @@ class SceneBuilder:
             portals=portals or None,
             animated_props=animated_props or None,
             animated_lights=animated_lights or None,
-            prop_keys=t(self._prop_keys(K, key_trafos), f32) if animated_props else None,
+            prop_keys=(t(self._prop_keys(K, key_trafos), f32)
+                       if animated_props or animated_curves or animated_points else None),
             world_center=tuple(float(x) for x in 0.5 * (wmin + wmax)),
             world_radius=float(max(np.linalg.norm(wmax - wmin) * 0.5, 1e-3)),
+            points=points,
+            point_props=(t([i for i in point_props if i not in animated_points], i32)
+                         if points is not None else None),
+            prop_cloud=t([p.cloud_id for p in props], i32) if points is not None else None,
+            animated_points=animated_points or None,
+            curves=curves,
+            curve_props=(t([i for i in curve_props if i not in animated_curves], i32)
+                         if curves is not None else None),
+            prop_curve=t([p.curve_id for p in props], i32) if curves is not None else None,
+            animated_curves=animated_curves or None,
         ).to(device)
 
     def _link_portals(self) -> list[dict]:
@@ -1102,6 +1223,35 @@ def _shape_of(shape_node: dict, builder: SceneBuilder) -> tuple[int, int]:
     raise UnsupportedScene(f"shape {shape_node!r}")
 
 
+def _read_hair_file(path: str) -> HostCurves:
+    with open_stream(path) as f:
+        return read_hair(f)
+
+
+def _shape_ids(shape_node: dict, builder: SceneBuilder) -> tuple[int, int, int, int]:
+    """A Prop's or Light's shape node -> (ShapeType code, mesh id, cloud
+    id, curve id), -1 where not that kind, by the JAX loader's order
+    (zyg_tpu/scene/loader.py:1618-1680): an analytic type, a point-list
+    JSON file (one cloud a name), a .hair file (decoded once per file
+    across scene loads, io/resource.py), else a mesh."""
+    fname = shape_node.get("file")
+    if shape_node.get("type") not in _SHAPE_NAMES and fname is not None:
+        path = os.path.join(builder.base_dir, fname)
+        if is_point_cloud_file(path):
+            cloud_id = builder._points_by_name.get(fname, -1)
+            if cloud_id < 0:
+                cloud_id = builder.add_points(load_point_cloud_file(path), fname)
+            return int(ShapeType.POINTS), -1, cloud_id, -1
+        if fname.endswith(".hair"):
+            curve_id = builder._curves_by_name.get(fname, -1)
+            if curve_id < 0:
+                curve_id = builder.add_curves(
+                    RESOURCES.get_or_load("hair", path, (), _read_hair_file), fname)
+            return int(ShapeType.CURVES), -1, -1, curve_id
+    shape, mesh_id = _shape_of(shape_node, builder)
+    return shape, mesh_id, -1, -1
+
+
 def _load_instancer(e: dict, parent: Transformation, local_materials,
                     builder: SceneBuilder) -> None:
     """An Instancer entity: one prototype shape under many transforms, each
@@ -1175,7 +1325,7 @@ def _load_entities(entities, parent: Transformation, local_materials, builder: S
             raise UnsupportedScene(f"entity keys {sorted(extra)}")
         local = read_transformation(e.get("transformation"))
         trafo = parent.compose(local)
-        shape, mesh_id = _shape_of(e.get("shape", {}), builder)
+        shape, mesh_id, cloud_id, curve_id = _shape_ids(e.get("shape", {}), builder)
         mat_names = e.get("materials", [])
         mat = builder.material_id(mat_names[0], local_materials) if mat_names else builder._fallback
         is_light = etype == "Light"
@@ -1191,6 +1341,8 @@ def _load_entities(entities, parent: Transformation, local_materials, builder: S
             visible_shadow=occluding and bool(vis.get("in_shadow", True)),
             is_light=is_light,
             mesh_id=mesh_id,
+            cloud_id=cloud_id,
+            curve_id=curve_id,
             animation=parse_animation(e.get("animation"), parent, local),
         ))
         if "entities" in e:
@@ -1226,18 +1378,20 @@ _PLAIN = ("prop_shape", "prop_rot", "prop_pos", "prop_scale", "prop_material",
 _MATERIAL = ("kind", "color", "roughness", "metallic", "ior", "specular", "emission",
              "two_sided", "color_tex", "roughness_tex", "emission_tex", "normal_tex",
              "attenuation_distance", "priority", "subsurface_color", "volumetric_anisotropy",
-             "density_grid", "ies")
+             "density_grid", "ies", "hair")
 # the material features the port renders (the general bounce's, and
 # "triplanar", which only the textured bounce renders; the JAX package
 # names more, each of which the port refuses)
 _FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media", "vol_emission",
-             "triplanar", "ies"}
+             "triplanar", "ies", "hair"}
 _LIGHT = ("prop", "two_sided", "cdf", "volume")
 _DIST3 = ("slice_cdf", "row_cdf", "col_cdf", "pdf_grid")
 _ARENA = ("node_rows", "tri_rows", "attr_rows", "mesh_root")
 _INSTANCES = ("wmin", "wmax", "trafo", "vis")
 _TEXTURES = ("data", "offset", "width", "height", "address", "texcoord")
 _ENV = ("table", "light")
+_POINTS = ("node_rows", "point_rows", "cloud_root")
+_CURVES = ("node_rows", "seg_rows", "seg_strand", "curve_root")
 
 
 def scene_arrays(scene) -> dict[str, np.ndarray]:
@@ -1256,7 +1410,10 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     "portals.<light>.<prop>.<f>", with a mapped dome or canopy
     "env.canopy" (a bool an entry), for moving props "animated_props"
     (int64 [A, 2] (prop, shape) rows in key order), "animated_lights" and
-    "prop_keys", with meshes "mesh_instances.has_anim", and
+    "prop_keys", with meshes "mesh_instances.has_anim", for point clouds
+    "points.<f>" (with "points.has_motion"), "point_props", "prop_cloud"
+    and "animated_points", for curves "curves.<f>", "curve_props",
+    "prop_curve" and "animated_curves", and
     "mat_features", the sorted feature names as a string array. A JAX scene with a feature outside the port's raises
     UnsupportedScene naming it."""
     def arr(x):
@@ -1270,6 +1427,8 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
         # density grids and normal maps (all -1) and the profiles (all 1) unset
         if v is None and k == "ies":
             v = np.ones(arr(mats.kind).shape + (PROFILE_BINS,), np.float32)
+        elif v is None and k == "hair":
+            v = np.zeros(arr(mats.kind).shape + (6,), np.float32)
         elif v is None:
             v = np.full(arr(mats.kind).shape, -1 if k in ("density_grid", "normal_tex") else 0,
                         np.int32)
@@ -1332,7 +1491,21 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
         d["animated_props"] = np.asarray([(int(i), int(st)) for i, st in scene.animated_props],
                                          np.int64).reshape(-1, 2)
         d["animated_lights"] = np.asarray([int(i) for i in scene.animated_lights or ()], np.int64)
+    if scene.prop_keys is not None:
         d["prop_keys"] = arr(scene.prop_keys)
+    if scene.points is not None:
+        d.update({f"points.{k}": arr(getattr(scene.points, k)) for k in _POINTS})
+        d["points.has_motion"] = np.asarray(bool(scene.points.has_motion))
+        d["point_props"] = arr(scene.point_props)
+        d["prop_cloud"] = arr(scene.prop_cloud)
+        d["animated_points"] = np.asarray(sorted(int(i) for i in scene.animated_points or ()),
+                                          np.int64)
+    if scene.curves is not None:
+        d.update({f"curves.{k}": arr(getattr(scene.curves, k)) for k in _CURVES})
+        d["curve_props"] = arr(scene.curve_props)
+        d["prop_curve"] = arr(scene.prop_curve)
+        d["animated_curves"] = np.asarray(sorted(int(i) for i in scene.animated_curves or ()),
+                                          np.int64)
     tree = scene.light_tree
     if tree is not None:
         d.update({f"light_tree.{k}": arr(getattr(tree, k)) for k in _TREE_FIELDS})
@@ -1376,6 +1549,12 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
     if "grids.data" in d:
         grids = GridArena(**{k: t(f"grids.{k}") for k in _GRID_FIELDS},
                           sparse=bool(d["grids.sparse"]))
+    points = curves = None
+    if "points.node_rows" in d:
+        points = PointArena(**{k: t(f"points.{k}") for k in _POINTS},
+                            has_motion=bool(d["points.has_motion"]))
+    if "curves.node_rows" in d:
+        curves = CurveArena(**{k: t(f"curves.{k}") for k in _CURVES})
     light_tree = None
     if "light_tree.center" in d:
         light_tree = LightTree(**{k: t(f"light_tree.{k}") for k in _TREE_FIELDS},
@@ -1405,4 +1584,12 @@ def scene_from_jax_arrays(d: dict[str, np.ndarray], device: torch.device | str =
         # optional: a caller may add the JAX scene's world bounds
         world_center=tuple(float(x) for x in d.get("world_center", (0.0, 0.0, 0.0))),
         world_radius=float(d.get("world_radius", 1.0)),
+        points=points,
+        point_props=t("point_props") if points is not None else None,
+        prop_cloud=t("prop_cloud") if points is not None else None,
+        animated_points={int(i): True for i in d.get("animated_points", ())} or None,
+        curves=curves,
+        curve_props=t("curve_props") if curves is not None else None,
+        prop_curve=t("prop_curve") if curves is not None else None,
+        animated_curves={int(i): True for i in d.get("animated_curves", ())} or None,
     )

@@ -6,9 +6,12 @@ offsets of the bounces are in ops/surface.py's and ops/surface_v2.py's
 kernels and plain versions.
 
 A closest hit tests the analytic props first (ops/isect.py, kernel 2),
-then walks the mesh instances bounded by that hit (ops/traverse.py); a
-shadow ray tests the analytic props, then walks the meshes only where
-nothing blocked it yet.
+then walks the mesh instances bounded by that hit (ops/traverse.py),
+then each curve prop's and each point prop's segments or spheres in
+object space (ops/curves.py, ops/points.py), static props in prop order
+before the moving ones, as zyg_tpu/scene/shapes.py:354-465 does; a
+shadow ray tests the analytic props, then walks the meshes, curves and
+points only where nothing blocked it yet.
 """
 
 from __future__ import annotations
@@ -22,8 +25,12 @@ import torch
 from ..core import vecmath as vm
 from ..core.encoding import oct_normal_unpack
 from ..core.fmath import fma
+from ..ops import curves as curve_walk
 from ..ops import isect, traverse
+from ..ops import points as point_walk
 from . import env_sampling, portal
+from .curves import segment_fields
+from .points import point_center
 from .types import RAY_MAX_T, ShapeType
 
 
@@ -33,7 +40,7 @@ class Hit:
     prop: torch.Tensor  # int32[N] prop id, -1 on a miss
     u: torch.Tensor  # float32[N]
     v: torch.Tensor  # float32[N]
-    prim: torch.Tensor  # int32[N] padded arena triangle id, -1 off meshes
+    prim: torch.Tensor  # int32[N] padded arena triangle, segment or point id, -1 elsewhere
 
     def valid(self) -> torch.Tensor:
         return self.prop >= 0
@@ -112,6 +119,42 @@ def _animated_hits(scene, o, d, tmin: float, tmax, time):
         yield pk, isect.prop_hit(int(st), r, ox, oy, oz, dx, dy, dz, tmin, tmax)
 
 
+def _walked_props(scene) -> list[tuple[int, bool, bool]]:
+    """(prop, moves, is_curve) of the curve props, then of the point props,
+    each kind's static props in prop order before its moving ones."""
+    out = []
+    for static, moving, is_curve in ((scene.curve_props, scene.animated_curves, True),
+                                     (scene.point_props, scene.animated_points, False)):
+        if static is not None:
+            out += [(int(k), False, is_curve) for k in static.tolist()]
+        out += [(int(k), True, is_curve) for k in (moving or {})]
+    return out
+
+
+def _walk(scene, k: int, moves: bool, is_curve: bool, o, d, time, walks, tmin: float, tmax,
+          any_hit: bool = False):
+    """(t, u, prim) of prop k's curve or point walk for rays o, d [N, 3] in
+    its object space (a moving prop's transform, and a moving cloud's
+    centers, at the lanes' shutter times `time`; None: the shutter's start)
+    over the lanes where `walks` (bool [N]); u is a curve hit's axial
+    parameter, 0 on points."""
+    tl = torch.zeros(o.shape[0], device=o.device) if time is None else time
+    if moves:
+        rot, pos, scale = prop_transform_at(scene, k, tl)
+    else:
+        rot, pos, scale = scene.prop_rot[k], scene.prop_pos[k], scene.prop_scale[k]
+    o_l = vm.world_to_object_point(rot, scale, pos, o)
+    d_l = vm.world_to_object_vector(rot, scale, d)
+    arena = scene.curves if is_curve else scene.points
+    root = (arena.curve_root[scene.prop_curve[k]] if is_curve
+            else arena.cloud_root[scene.prop_cloud[k]])
+    root = torch.where(walks, root.to(torch.int32), -1).expand(o.shape[0]).contiguous()
+    if is_curve:
+        return curve_walk.walk(arena, root, o_l, d_l, tmin, tmax, any_hit=any_hit)
+    t, prim = point_walk.walk(arena, root, o_l, d_l, tmin, tmax, time=tl, any_hit=any_hit)
+    return t, torch.zeros_like(t), prim
+
+
 def intersect_scene(scene, table: isect.PropTable, o, d, tmin: float, tmax, primary=None,
                     time=None) -> Hit:
     """Closest hit over all props for the ray class of table (the scene's
@@ -145,6 +188,22 @@ def intersect_scene(scene, table: isect.PropTable, o, d, tmin: float, tmax, prim
         u_b = torch.where(closer, tu, u_b)
         v_b = torch.where(closer, tv, v_b)
         prim = torch.where(closer, tp, prim)
+    if scene.curves is not None or scene.points is not None:
+        vis = {"camera": scene.prop_visible_camera, "reflection": scene.prop_visible_reflection,
+               "shadow": scene.prop_visible_shadow}[table.ray_class]
+        tmax_t = torch.as_tensor(tmax, dtype=torch.float32, device=o.device)
+        for k, moves, is_curve in _walked_props(scene):
+            lane_vis = vis[k].expand(o.shape[0])
+            if primary is not None:
+                lane_vis = torch.where(primary, scene.prop_visible_camera[k], lane_vis)
+            t, u, pr = _walk(scene, k, moves, is_curve, o, d, time, lane_vis, tmin,
+                             torch.minimum(tmax_t, t_b))
+            closer = (pr >= 0) & (t < t_b) & lane_vis
+            t_b = torch.where(closer, t, t_b)
+            p_b = torch.where(closer, k, p_b)
+            u_b = torch.where(closer, u, u_b)
+            v_b = torch.where(closer, 0.0, v_b)
+            prim = torch.where(closer, pr, prim)
     return Hit(t_b, p_b, u_b, v_b, prim)
 
 
@@ -162,6 +221,10 @@ def occluded(scene, table: isect.PropTable, o, d, tmin: float, tmax, time=None) 
             torch.where(blocked, tmin, tmax_t),  # already blocked: skip the walk
             "shadow", any_hit=True, time=_walk_time(scene, o, time),
         )
+    for k, moves, is_curve in _walked_props(scene):
+        _, _, pr = _walk(scene, k, moves, is_curve, o, d, time,
+                         ~blocked & scene.prop_visible_shadow[k], tmin, tmax, any_hit=True)
+        blocked = blocked | (pr >= 0)
     return blocked
 
 
@@ -181,18 +244,26 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
     the shutter's start). As in the JAX package, the present shape types
     are the static groups' (a moving prop leaves them): a moving prop whose
     shape no static prop shares takes the first present type's normal
-    rule (zyg_tpu/scene/shapes.py:626-654)."""
+    rule (zyg_tpu/scene/shapes.py:626-654). A curve hit's frame is the
+    strand's tangent, the bitangent across it and the cylinder's normal,
+    its uv (the strand parameter, (h + 1) / 2 of the offset h across the
+    strand seen from the ray), which the hair BSDF reads, so scenes with
+    a Hair material get uv by default; a point hit's normal is the
+    sphere's at its center at the lane's shutter time
+    (zyg_tpu/scene/shapes.py:820-866)."""
     if need_uv is None:
-        need_uv = scene.textures is not None
+        need_uv = scene.textures is not None or "hair" in scene.mat_features
     present = {int(k) for k in scene.prop_groups}
     prop = torch.clamp(hit.prop, min=0).long()
     shape = scene.prop_shape[prop]
     rot = scene.prop_rot[prop]
     pos = scene.prop_pos[prop]
     scale = scene.prop_scale[prop]
-    if scene.animated_props:
+    anim_ids = ({pk for pk, _ in scene.animated_props or ()} | set(scene.animated_curves or ())
+                | set(scene.animated_points or ()))
+    if anim_ids:
         tl = torch.zeros_like(hit.t) if time is None else time
-        for pk in sorted({pk for pk, _ in scene.animated_props}):
+        for pk in sorted(anim_ids):
             rk, pk_pos, pk_scale = prop_transform_at(scene, pk, tl)
             m1 = (prop == pk)[:, None]
             rot = torch.where(m1[:, :, None], rk, rot)
@@ -274,7 +345,8 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
 
     if scene.meshes is not None:
         is_mesh = ((shape == int(ShapeType.TRIANGLE_MESH)) & (hit.prim >= 0))[:, None]
-        row = scene.meshes.attr_rows[torch.clamp(hit.prim, min=0).long()]
+        # a curve's or point's prim indexes its own arena: read row 0 there
+        row = scene.meshes.attr_rows[torch.where(is_mesh[:, 0], hit.prim, 0).long()]
         gn_l = vm.safe_normalize(vm.cross(row[:, 3:6], row[:, 6:9]))
         u, v = hit.u[:, None], hit.v[:, None]
         w0 = (1.0 - hit.u - hit.v)[:, None]
@@ -292,6 +364,42 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
             mt, mb = vm.orthonormal_basis(ns_w)
             tangent = torch.where(is_mesh, mt, tangent)
             bitangent = torch.where(is_mesh, mb, bitangent)
+    if scene.curves is not None:
+        is_curve = ((shape == int(ShapeType.CURVES)) & (hit.prim >= 0))[:, None]
+        seg = segment_fields(scene.curves, torch.where(is_curve[:, 0], hit.prim, 0))
+        s_ax = hit.u
+        o_l = vm.world_to_object_point(rot, scale, pos, o)
+        d_l = vm.world_to_object_vector(rot, scale, d)
+        p_l = fma(hit.t[:, None], d_l, o_l)
+        c_l = fma(s_ax[:, None], seg["pb"] - seg["pa"], seg["pa"])
+        r_l = torch.clamp(fma(s_ax, seg["rb"] - seg["ra"], seg["ra"]), min=1e-9)
+        t_l = vm.safe_normalize(seg["pb"] - seg["pa"])
+        # the offset across the strand, in the plane seen from the ray
+        b_view = vm.safe_normalize(vm.cross(t_l, -d_l))
+        hh = torch.clamp(vm.dot(p_l - c_l, b_view) / r_l, -1.0, 1.0)
+        cn_w = vm.safe_normalize(vm.object_to_world_normal(rot, vm.safe_normalize(p_l - c_l)))
+        geo_n = torch.where(is_curve, cn_w, geo_n)
+        n = torch.where(is_curve, cn_w, n)
+        if need_tangents:
+            ct_w = vm.safe_normalize(vm.object_to_world_normal(rot, t_l))
+            tangent = torch.where(is_curve, ct_w, tangent)
+            bitangent = torch.where(is_curve, vm.safe_normalize(vm.cross(cn_w, ct_w)), bitangent)
+        if need_uv:
+            cu = fma(s_ax, seg["u1"] - seg["u0"], seg["u0"])
+            uv = torch.where(is_curve, torch.stack([cu, 0.5 * (hh + 1.0)], dim=-1), uv)
+    if scene.points is not None:
+        is_point = ((shape == int(ShapeType.POINTS)) & (hit.prim >= 0))[:, None]
+        tlp = torch.zeros_like(hit.t) if time is None else time
+        pc, _ = point_center(scene.points, torch.where(is_point[:, 0], hit.prim, 0), tlp)
+        o_l = vm.world_to_object_point(rot, scale, pos, o)
+        p_l = fma(hit.t[:, None], vm.world_to_object_vector(rot, scale, d), o_l)
+        pn_w = vm.safe_normalize(vm.object_to_world_normal(rot, vm.safe_normalize(p_l - pc)))
+        geo_n = torch.where(is_point, pn_w, geo_n)
+        n = torch.where(is_point, pn_w, n)
+        if need_tangents:
+            pt_t, pt_b = vm.orthonormal_basis(pn_w)
+            tangent = torch.where(is_point, pt_t, tangent)
+            bitangent = torch.where(is_point, pt_b, bitangent)
     # a portal's rectangle emits the linked dome's map, read at the ray
     # direction's dome uv (ref scene.zig lightPortalUvw)
     if uv is not None:

@@ -10,7 +10,8 @@ two or more lights of which one is finite the light tree
 (scene/light_tree.py), for volume lights over a density grid their
 interior-point distributions (core/distribution.py), for portal lights
 their windowed portal-image distributions (scene/portal.py), for motion
-blur the moving props and their shutter keyframes, and the
+blur the moving props and their shutter keyframes, for point-cloud and
+curve props their arenas (scene/points.py, scene/curves.py), and the
 material features and volume props by
 which the general bounce decides, once per render, what it computes
 (the JAX package's static `mat_features` and `volume_props`).
@@ -95,6 +96,9 @@ class Materials:
     # IES profiles (io/ies.py): the emission's intensity over the polar
     # angle from the emitting surface's normal, 32 bins; all ones unprofiled
     ies: torch.Tensor  # float32[M, 32]
+    # the Hair material's constants [mu_a(3), v0, s, alpha] (zeros on other
+    # kinds; scene/loader.py hair_constants), or None without hair
+    hair: torch.Tensor = None  # float32[M, 6]
 
     def to(self, device) -> "Materials":
         return to_device(self, device)
@@ -167,13 +171,26 @@ class SceneData:
     # infinite light's photons start (render/integrator/lighttracer.py)
     world_center: tuple = (0.0, 0.0, 0.0)
     world_radius: float = 1.0
+    # point clouds and curves (hair): the arena (points.PointArena,
+    # curves.CurveArena), its static props (int32[K], outside prop_groups,
+    # as in the JAX arrays), each prop's cloud or curve set (int32[P], -1
+    # elsewhere) and the moving props {prop: True}, walked at each lane's
+    # shutter time; None without such props
+    points: object = None
+    point_props: torch.Tensor = None
+    prop_cloud: torch.Tensor = None
+    animated_points: dict = None
+    curves: object = None
+    curve_props: torch.Tensor = None
+    prop_curve: torch.Tensor = None
+    animated_curves: dict = None
 
     def to(self, device) -> "SceneData":
         out = {}
         for f in fields(self):
             v = getattr(self, f.name)
             if f.name in ("mat_features", "volume_props", "animated_props", "animated_lights",
-                          "world_center", "world_radius"):
+                          "world_center", "world_radius", "animated_points", "animated_curves"):
                 out[f.name] = v
             elif f.name in ("prop_groups", "vol_light_dist", "portals") and v is not None:
                 out[f.name] = {k: g.to(device) for k, g in v.items()}
