@@ -234,6 +234,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -615,7 +616,8 @@ def phase_build() -> None:
         log(f"sobol_block: {sass['sobol_block']} static instructions; at one issue a lane each, "
             f"{N_MAIN} lanes take {int_issue_ms(sass['sobol_block'], N_MAIN):.4f} ms of integer "
             f"issue (byte bound {bound(N_MAIN * (8 + 24), 0)['bound_ms']:.4f} ms)")
-    for name in ("shade", "surface", "surface_v2", "traverse", "traverse_anim"):
+    for name in ("shade", "surface", "surface_v2", "traverse", "traverse_anim", "points",
+                 "curves"):
         log(f"{name}: one pass of the resident grid covers "
             f"{ops.resident_lanes(f'zyg_{name}_resident_lanes')} lanes")
 
@@ -2412,17 +2414,122 @@ def _walk_rows_bound(n, lane_bytes, counts, node_bytes, leaf_bytes, ops_leaf) ->
     return bound(n * lane_bytes + rows, counts["nodes"] * OPS_NODE2 + counts["leaves"] * ops_leaf)
 
 
-def check_points(dev) -> dict:
-    """The point walk on sparks.take's 640x360 first-bounce lanes (camera
-    rays in the cloud's object space at seeded shutter times) against
-    the plain walk: closest and any-hit over the take's moving arena (its
-    particles lerped over the 1/24 s shutter) and over the same arena held
-    at shutter open, t and prim bit-exact. Times the moving closest walk
-    beside its bound and the plain walk."""
-    import dataclasses
+def _incoherent_lanes(dev, node_rows, root: int, n: int, seed: int):
+    """n rays from seeded origins uniform in node row root's box, along
+    seeded directions uniform on the sphere, with seeded shutter times
+    (torch.Generator on the CPU): (root [N], o, d, time), all walking from
+    root. Camera rays alone favour designs that need coherent lanes."""
+    import torch
 
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lo, hi = node_rows[root, 0:3].cpu(), node_rows[root, 3:6].cpu()
+    o = lo + (hi - lo) * torch.rand((n, 3), generator=g)
+    z = 2.0 * torch.rand(n, generator=g) - 1.0
+    phi = 2.0 * math.pi * torch.rand(n, generator=g)
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    d = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+    tl = torch.rand(n, generator=g)
+    return (torch.full((n,), root, dtype=torch.int32, device=dev), o.to(dev).contiguous(),
+            d.to(dev).contiguous(), tl.to(dev))
+
+
+def walk_diagnosis(counts: dict) -> dict:
+    """What the warps of a walk with a thread a lane do, from the plain
+    walk's counts (lanes in groups of 32, each warp stepping until its
+    longest walk ends; scene/points.py count_steps): the share of its
+    thread-steps that walk (warp_efficiency), its warp-steps, the share of
+    them that run the leaf branch (a lane of the warp tests a leaf) and
+    the lanes at a leaf in such a step."""
+    import torch
+
+    eff, longest = warp_efficiency(counts["lane_steps"])
+    steps = counts["lane_steps"]
+    pad = (-steps.numel()) % 32
+    warp_steps = int(torch.nn.functional.pad(steps, (0, pad)).view(-1, 32).amax(dim=1).sum())
+    leaf_steps = counts["leaf_warp_steps"]
+    return {"warp_efficiency": eff, "longest_walk_mean": longest, "warp_steps": warp_steps,
+            "leaf_branch_share": leaf_steps / max(warp_steps, 1),
+            "leaf_lanes_per_step": counts["leaves"] / max(leaf_steps, 1),
+            "node_visits": counts["nodes"], "leaf_tests": counts["leaves"]}
+
+
+def _check_walk(name: str, sets: dict, variants: list, kwalk, pwalk, n_rows: tuple,
+                row_bytes: tuple, lane_bytes: int, ops_leaf: int) -> dict:
+    """The point or curve walk (name) through its kernel against the plain
+    walk on each lane set (sets: {set: lanes}), closest and any-hit, in
+    each variant ((label, kwargs); the first is the one timed, a second
+    one is timed closest as `still_ms`), every output bit-exact; each call
+    launches the kernel once. kwalk(lanes, any_hit, **kw) and pwalk(lanes,
+    any_hit, counts, **kw) run the two walks. Per set: the diagnosis of
+    a thread a lane (walk_diagnosis, the first variant's closest walk),
+    the kernel's CUDA-event and device times closest and any-hit, the
+    plain walk's time and the bound from its counts. Returns the first
+    set's results, with each other set's under its name."""
     import torch
     from zyg_tpu_torch import ops
+
+    out = {}
+    for set_name, lanes in sets.items():
+        n = lanes[1].shape[0]
+        counts = {"nodes": 0, "leaves": 0,
+                  "node_seen": torch.zeros(n_rows[0], dtype=torch.bool, device=lanes[1].device),
+                  "leaf_seen": torch.zeros(n_rows[1], dtype=torch.bool, device=lanes[1].device),
+                  "lane_steps": torch.zeros(n, dtype=torch.int64, device=lanes[1].device)}
+        notes = []
+        for v, (label, kw) in enumerate(variants):
+            for any_hit in (False, True):
+                before = ops.launch_counts()[name]
+                k = kwalk(lanes, any_hit, **kw)
+                if ops.launch_counts()[name] != before + 1:
+                    raise AssertionError(f"{name}: the walk did not launch the {name} kernel")
+                p = pwalk(lanes, any_hit, counts if v == 0 and not any_hit else None, **kw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(k, p)):
+                    bad = int(sum((a != b) for a, b in zip(k, p)).bool().sum())
+                    raise AssertionError(f"{name} ({set_name}, {label}, "
+                                         f"{'any' if any_hit else 'closest'} hit): {bad} lanes "
+                                         "differ from the plain walk")
+                notes.append(f"{label} {'any-hit' if any_hit else 'closest'} "
+                             f"{int((k[-1] >= 0).sum())} hits")
+        diag = walk_diagnosis(counts)
+        label0, kw0 = variants[0]
+        res = {"max_abs_err": 0.0, "ms": time_ms(lambda: kwalk(lanes, False, **kw0), 20),
+               "device_ms": device_ms(lambda: kwalk(lanes, False, **kw0), name),
+               "anyhit_ms": time_ms(lambda: kwalk(lanes, True, **kw0), 20),
+               "plain_ms": time_ms(lambda: pwalk(lanes, False, None, **kw0), 1, runs=3),
+               **_walk_rows_bound(n, lane_bytes, counts, *row_bytes, ops_leaf),
+               "library_ms": None, "diagnosis": diag}
+        if len(variants) > 1:
+            res["still_ms"] = time_ms(lambda: kwalk(lanes, False, **variants[1][1]), 20)
+        log(f"{name} on {n} {set_name} lanes: bit-exact ({', '.join(notes)}); the {label0} "
+            f"closest walks visited {counts['nodes']} node rows "
+            f"({int(counts['node_seen'].sum())} of {n_rows[0]} distinct) and tested "
+            f"{counts['leaves']} leaf rows ({int(counts['leaf_seen'].sum())} of {n_rows[1]} "
+            f"distinct); with a thread a lane: warp efficiency {diag['warp_efficiency']:.4f} "
+            f"(longest walk of a warp {diag['longest_walk_mean']:.2f} steps on average), "
+            f"{diag['warp_steps']} warp-steps, {diag['leaf_branch_share']:.4f} of them run the "
+            f"leaf branch for {diag['leaf_lanes_per_step']:.2f} lanes at a leaf on average; "
+            f"kernel {res['ms']:.4f} ms (device {res['device_ms']:.4f} ms, any-hit "
+            f"{res['anyhit_ms']:.4f} ms{', still %.4f ms' % res['still_ms'] if 'still_ms' in res else ''}), "
+            f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+        if out:
+            out[set_name] = res
+        else:
+            out = res
+    return out
+
+
+def check_points(dev) -> dict:
+    """The point walk on sparks.take's 640x360 first-bounce lanes (camera
+    rays in the cloud's object space at seeded shutter times) and on as
+    many incoherent lanes (_incoherent_lanes in the cloud's root box)
+    against the plain walk: closest and any-hit over the take's moving
+    arena (its particles lerped over the 1/24 s shutter), on the camera
+    lanes also over the same arena held at shutter open, t and prim
+    bit-exact (_check_walk). Times the moving walks beside their bound and
+    the plain walk; the incoherent set's results under "incoherent"."""
+    import dataclasses
+
     from zyg_tpu_torch.ops import points
     from zyg_tpu_torch.scene import points as pts
     from zyg_tpu_torch.scene.types import RAY_MAX_T, ShapeType
@@ -2431,104 +2538,57 @@ def check_points(dev) -> dict:
     arena = scene.points
     if not arena.has_motion:
         raise AssertionError("points: sparks' arena does not move over the shutter")
-    n = o.shape[0]
-    tmax = torch.full((n,), RAY_MAX_T, device=dev)
+    import torch
+
+    tmax = torch.full((o.shape[0],), RAY_MAX_T, device=dev)
     still = dataclasses.replace(arena, has_motion=False)
-    counts = {"nodes": 0, "leaves": 0,
-              "node_seen": torch.zeros(arena.node_rows.shape[0], dtype=torch.bool, device=dev),
-              "leaf_seen": torch.zeros(arena.point_rows.shape[0], dtype=torch.bool, device=dev)}
-    notes = []
-    for label, ar, time_ in (("moving", arena, tl), ("still", still, None)):
-        for any_hit in (False, True):
-            before = ops.launch_counts()["points"]
-            kt, kp = points.walk(ar, root, o, d, 0.0, tmax, time=time_, any_hit=any_hit)
-            if ops.launch_counts()["points"] != before + 1:
-                raise AssertionError("points: the walk did not launch the points kernel")
-            first = label == "moving" and not any_hit
-            pt, pp = pts.traverse(ar, root, o, d, 0.0, tmax, time=time_, any_hit=any_hit,
-                                  counts=counts if first else None)
-            torch.cuda.synchronize()
-            if not (torch.equal(kp, pp) and torch.equal(kt, pt)):
-                bad = int(((kp != pp) | (kt != pt)).sum())
-                raise AssertionError(f"points ({label}, {'any' if any_hit else 'closest'} hit): "
-                                     f"{bad} lanes differ from the plain walk")
-            notes.append(f"{label} {'any-hit' if any_hit else 'closest'} {int((kp >= 0).sum())} "
-                         "hits")
-    log(f"points on sparks' {n} first-bounce lanes: bit-exact ({', '.join(notes)}); the moving "
-        f"closest walks visited {counts['nodes']} node rows ({int(counts['node_seen'].sum())} of "
-        f"{arena.node_rows.shape[0]} distinct) and tested {counts['leaves']} leaf rows "
-        f"({int(counts['leaf_seen'].sum())} of {arena.point_rows.shape[0]} distinct)")
+    inc = _incoherent_lanes(dev, arena.node_rows, int(root[0]), o.shape[0], 37)
 
-    def run(ar=arena, time_=tl, any_hit=False):
-        return points.walk(ar, root, o, d, 0.0, tmax, time=time_, any_hit=any_hit)
+    def kwalk(lanes, any_hit, ar=arena, moving=True):
+        r, o_, d_, t_ = lanes
+        return points.walk(ar, r, o_, d_, 0.0, tmax, time=t_ if moving else None,
+                           any_hit=any_hit)
 
-    return {
-        "max_abs_err": 0.0,
-        "ms": time_ms(run, 20),
-        "device_ms": device_ms(run, "points"),
-        "anyhit_ms": time_ms(lambda: run(any_hit=True), 20),
-        "still_ms": time_ms(lambda: run(still, None), 20),
-        "plain_ms": time_ms(lambda: pts.traverse(arena, root, o, d, 0.0, tmax, time=tl), 1,
-                            runs=3),
-        # in: o, d, tmax, time and root; out: t and prim; 48-byte node rows
-        # and 128-byte leaf rows
-        **_walk_rows_bound(n, 24 + 4 + 4 + 4 + 8, counts, 48, 128, OPS_POINT_LEAF),
-        "library_ms": None,
-    }
+    def pwalk(lanes, any_hit, counts, ar=arena, moving=True):
+        r, o_, d_, t_ = lanes
+        return pts.traverse(ar, r, o_, d_, 0.0, tmax, time=t_ if moving else None,
+                            any_hit=any_hit, counts=counts)
+
+    return _check_walk(
+        "points", {"first-bounce": (root, o, d, tl), "incoherent": inc},
+        [("moving", {}), ("still", {"ar": still, "moving": False})], kwalk, pwalk,
+        (arena.node_rows.shape[0], arena.point_rows.shape[0]),
+        # 48-byte node rows and 128-byte leaf rows; in: o, d, tmax, time and
+        # root; out: t and prim
+        (48, 128), 24 + 4 + 4 + 4 + 8, OPS_POINT_LEAF)
 
 
 def check_curves(dev) -> dict:
     """The curve walk on hairball.take's 384x384 first-bounce lanes
-    (camera rays in the hair's object space) against the plain walk:
-    closest and any-hit, t, s and prim bit-exact. Times the closest walk
-    beside its bound and the plain walk."""
+    (camera rays in the hair's object space) and on as many incoherent
+    lanes in the hair's root box against the plain walk: closest and
+    any-hit, t, s and prim bit-exact (_check_walk). Times the walks beside
+    their bound and the plain walk; the incoherent set's results under
+    "incoherent"."""
     import torch
-    from zyg_tpu_torch import ops
     from zyg_tpu_torch.ops import curves
     from zyg_tpu_torch.scene import curves as crv
     from zyg_tpu_torch.scene.types import RAY_MAX_T, ShapeType
 
-    scene, _, root, o, d, _ = _walk_lanes(dev, "hairball.take", HAIRBALL_RES, 31,
-                                          ShapeType.CURVES)
+    scene, _, root, o, d, tl = _walk_lanes(dev, "hairball.take", HAIRBALL_RES, 31,
+                                           ShapeType.CURVES)
     arena = scene.curves
-    n = o.shape[0]
-    tmax = torch.full((n,), RAY_MAX_T, device=dev)
-    counts = {"nodes": 0, "leaves": 0,
-              "node_seen": torch.zeros(arena.node_rows.shape[0], dtype=torch.bool, device=dev),
-              "leaf_seen": torch.zeros(arena.seg_rows.shape[0], dtype=torch.bool, device=dev)}
-    notes = []
-    for any_hit in (False, True):
-        before = ops.launch_counts()["curves"]
-        k = curves.walk(arena, root, o, d, 0.0, tmax, any_hit=any_hit)
-        if ops.launch_counts()["curves"] != before + 1:
-            raise AssertionError("curves: the walk did not launch the curves kernel")
-        p = crv.traverse(arena, root, o, d, 0.0, tmax, any_hit=any_hit,
-                         counts=None if any_hit else counts)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(k, p)):
-            bad = int(((k[0] != p[0]) | (k[1] != p[1]) | (k[2] != p[2])).sum())
-            raise AssertionError(f"curves ({'any' if any_hit else 'closest'} hit): {bad} lanes "
-                                 "differ from the plain walk")
-        notes.append(f"{'any-hit' if any_hit else 'closest'} {int((k[2] >= 0).sum())} hits")
-    log(f"curves on hairball's {n} first-bounce lanes: bit-exact ({', '.join(notes)}); the "
-        f"closest walks visited {counts['nodes']} node rows ({int(counts['node_seen'].sum())} of "
-        f"{arena.node_rows.shape[0]} distinct) and tested {counts['leaves']} leaf rows "
-        f"({int(counts['leaf_seen'].sum())} of {arena.seg_rows.shape[0]} distinct)")
-
-    def run(any_hit=False):
-        return curves.walk(arena, root, o, d, 0.0, tmax, any_hit=any_hit)
-
-    return {
-        "max_abs_err": 0.0,
-        "ms": time_ms(run, 20),
-        "device_ms": device_ms(run, "curves"),
-        "anyhit_ms": time_ms(lambda: run(True), 20),
-        "plain_ms": time_ms(lambda: crv.traverse(arena, root, o, d, 0.0, tmax), 1, runs=3),
-        # in: o, d, tmax and root; out: t, s and prim; 48-byte node rows and
-        # 160-byte leaf rows
-        **_walk_rows_bound(n, 24 + 4 + 4 + 12, counts, 48, 160, OPS_CURVE_LEAF),
-        "library_ms": None,
-    }
+    tmax = torch.full((o.shape[0],), RAY_MAX_T, device=dev)
+    inc = _incoherent_lanes(dev, arena.node_rows, int(root[0]), o.shape[0], 41)
+    return _check_walk(
+        "curves", {"first-bounce": (root, o, d, tl), "incoherent": inc}, [("hair", {})],
+        lambda lanes, any_hit: curves.walk(arena, *lanes[:3], 0.0, tmax, any_hit=any_hit),
+        lambda lanes, any_hit, counts: crv.traverse(arena, *lanes[:3], 0.0, tmax,
+                                                    any_hit=any_hit, counts=counts),
+        (arena.node_rows.shape[0], arena.seg_rows.shape[0]),
+        # 48-byte node rows and 160-byte leaf rows; in: o, d, tmax and root;
+        # out: t, s and prim
+        (48, 160), 24 + 4 + 4 + 12, OPS_CURVE_LEAF)
 
 
 def lane_sets(kernel: str, st: dict, ua, out: dict, max_depth: int, nee_only: bool,
@@ -4166,15 +4226,17 @@ def main() -> int:
                 **({"emissive": c["emissive"]} if "emissive" in c else {}),
                 # kernel 6 again on hero.take's and portal.take's own
                 # first-bounce lanes, the traversal on forest.take's
+                # and the walks on incoherent lanes
                 **{lanes: {k: c[lanes][k] for k in ("max_abs_err", "ms", "device_ms",
                                                     "plain_ms", "bound_ms", "bound_by")}
-                   for lanes in ("hero", "portal", "forest") if lanes in c},
+                   for lanes in ("hero", "portal", "forest", "incoherent") if lanes in c},
                 # the motion-blur variant's share of lanes equal bit for bit
                 **({"exact_share": c["exact_share"]} if "exact_share" in c else {}),
                 # the photon gather again on a dense map, the cap binding
                 **({"dense": c["dense"]} if "dense" in c else {}),
                 # the walks' any-hit forms, the point walk on the still arena
-                **{f: c[f] for f in ("anyhit_ms", "still_ms")
+                # and what a thread a lane's warps would do on their lanes
+                **{f: c[f] for f in ("anyhit_ms", "still_ms", "diagnosis")
                    if f in c and name in ("points", "curves")}}
 
     print(json.dumps({"kernels": [entry(k) for k in SOURCES]}))

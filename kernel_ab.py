@@ -9,8 +9,8 @@ measured by the same yardstick on the same machine:
     done
 
 The names `cornell`, `trefoil`, `textured`, `sunsky`, `cornell_filtered`,
-`caustics`, `smoke`, `fire`, `forest` and `particles` instead time one of
-the checkout's main paths: the Cornell take at 1920x1080 and 16 spp, the
+`caustics`, `smoke`, `fire`, `forest`, `particles`, `sparks` and
+`hairball` instead time one of the checkout's main paths: the Cornell take at 1920x1080 and 16 spp, the
 trefoil take and the bench's textured trefoil under its sky dome at
 1280x720 and 4 spp, the sunsky take at its own 960x540, 32 spp,
 cornell_filtered.take (Mitchell, radius 2: the filtered flush) at
@@ -20,13 +20,19 @@ paths, smoke.take and fire.take (the tracking walks) at their own
 960x540 and 8 spp, forest.take (144 instances: the traversal's instance
 pick) at its own 640x360 and 16 spp, and cornell_particles.take (the
 camera splat) at its own 512x512 over 8 passes of the Driver's particle
-pass. Each but caustics and particles first runs the checkout's own
-chip_smoke report of that path (caustics' takes ~20 s a render, the
-particles CLI ~20 s), then by one yardstick for every checkout 10 timed
-renders (3 of caustics, smoke and fire, ~5-10 s each, 5 of forest and
-particles, ~2 s each; their median and best), the peak device memory of
+pass, sparks.take (the point walk) at its own 640x360 and 32 spp and
+hairball.take (the curve walk) at its own 384x384 and 32 spp. Each but
+caustics and particles first runs the checkout's own chip_smoke report
+of that path (caustics' takes ~20 s a render, the particles CLI ~20 s),
+then by one yardstick for every checkout 10 timed renders (3 of
+caustics, smoke and fire, ~5-10 s each, 5 of forest, particles and
+sparks, ~1-2 s each; their median and best), the peak device memory of
 one render and one profiled render's device time and launches by kernel
-name, printed as `RENDER <checkout> <path> <JSON>`; for the mesh paths
+name, printed as `RENDER <checkout> <path> <JSON>`. hairball (~13 s a
+render) is timed once after a warm-up of SLOW_WARMUP_SPP samples, its
+peak read over that render, and profiled over its first SLOW_PROFILE_SPP
+samples (`profiled_spp` in its line), as chip_smoke.py treats renders
+over 5 s; for the mesh paths
 one more render gives the lifecycle shares of kernel 5's or 6's lanes
 (dead on entry, missed, ended on a hit, reaching NEE, ...), in its first
 bounce and over all its launches: `LANES <checkout> <path> ...`.
@@ -65,7 +71,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 RENDERS = ("cornell", "trefoil", "textured", "sunsky", "cornell_filtered", "caustics", "smoke",
-           "fire", "forest", "particles")
+           "fire", "forest", "particles", "sparks", "hairball")
+# the paths timed once, after a short warm-up, and profiled over their
+# first samples: their renders take over 5 s
+SLOW = ("hairball",)
+SLOW_WARMUP_SPP = 2
+SLOW_PROFILE_SPP = 2
 CAUSTICS_SPP = 8  # one chunk of the caustics path
 PARTICLE_PASSES = 8  # the particle passes of one particles render
 # the kernels a check launches, by the names of their device events
@@ -91,6 +102,14 @@ def render(chip_smoke, here, dev, label: str, path: str) -> None:
         take.num_particles_per_pixel = PARTICLE_PASSES
         drv = Driver(take, scene, device=dev)
         spp, runs = PARTICLE_PASSES, 5
+    elif path in ("sparks", "hairball"):
+        title = f"{path} PTMIS"
+        kernels, res, spp_take = ((chip_smoke.SPARKS_KERNELS, chip_smoke.SPARKS_RES,
+                                   chip_smoke.SPARKS_SPP) if path == "sparks" else
+                                  (chip_smoke.HAIRBALL_KERNELS, chip_smoke.HAIRBALL_RES,
+                                   chip_smoke.HAIRBALL_SPP))
+        take, scene = chip_smoke._take_scene(f"{path}.take", res, spp_take, title)
+        runs = 1 if path in SLOW else 5
     elif path == "forest":
         title, kernels = "forest PTMIS", chip_smoke.FOREST_KERNELS
         take, scene = chip_smoke._take_scene("forest.take", chip_smoke.FOREST_RES,
@@ -124,24 +143,28 @@ def render(chip_smoke, here, dev, label: str, path: str) -> None:
         spp = take.num_samples_per_pixel
         drv = Driver(take, scene, device=dev)
     run = drv.render_particles if path == "particles" else drv.render_iterations
+    slow = path in SLOW
     drv.start_frame()
-    run(spp)
+    run(min(spp, SLOW_WARMUP_SPP) if slow else spp)
     torch.cuda.synchronize()
     times = []
+    torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(runs):
         drv.start_frame()
         t0 = time.perf_counter()
         run(spp)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    torch.cuda.reset_peak_memory_stats(dev)
-    drv.start_frame()
-    run(spp)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    if not slow:
+        torch.cuda.reset_peak_memory_stats(dev)
         drv.start_frame()
         run(spp)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof_spp = min(spp, SLOW_PROFILE_SPP) if slow else spp
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        drv.start_frame()
+        run(prof_spp)
         torch.cuda.synchronize()
     by_name: dict[str, list] = {}
     # the raw device events: prof.events() takes minutes on caustics' ~400,000 launches
@@ -151,7 +174,7 @@ def render(chip_smoke, here, dev, label: str, path: str) -> None:
         row[1] += 1
     print(f"RENDER {label} {path} " + json.dumps({
         "render_s": times, "median_s": statistics.median(times), "best_s": min(times),
-        "peak_bytes": peak,
+        "peak_bytes": peak, "profiled_spp": prof_spp,
         "busy_s": sum(v[0] for v in by_name.values()),
         "launches": sum(v[1] for v in by_name.values()), "by_name": by_name}), flush=True)
     if path in ("trefoil", "textured", "sunsky"):

@@ -20,9 +20,10 @@ on tables of 1 to 1,000 rows with ties in clusters of identical boxes
 gather on caustics_photons.take's first bounce, a dense map and small
 widths, with lanes at the 512-visit cap beside empty ones and lanes
 whose cells repeat, the point and curve walks on sparks.take's and
-hairball.take's first bounce and at small widths (lanes that do not
-walk, bounds short of every hit, a NaN ray, the moving arena at shutter
-open and close) with their refusals, sparks and hairball through the
+hairball.take's first bounce and on as many incoherent lanes, and at
+small widths and one lane past a pass of their resident grid (lanes that
+do not walk, bounds short of every hit, a NaN ray, the moving arena at
+shutter open and close, incoherent rays) with their refusals, sparks and hairball through the
 Driver on the card against the CPU, and the lighttracer's camera splat on cornell_particles.take's
 first bounce and on seeded lanes from 1 to 4,096, and at 4,096 and
 262,145 lanes onto 64 pixels, onto one pixel or none connecting, with
@@ -67,9 +68,10 @@ def test_kernel_matches_plain_on_card(cuda_device, kernel):
     640x360 first-bounce lanes, bit-exact; traverse_anim: the motion-blur
     variant on a moving copy of the forest at seeded shutter times;
     points: the point walk on sparks.take's 640x360 first-bounce lanes,
-    moving and held at shutter open, closest and any-hit, bit-exact;
-    curves: the curve walk on hairball.take's 384x384 first-bounce lanes,
-    bit-exact."""
+    moving and held at shutter open, closest and any-hit, and on as many
+    incoherent lanes, bit-exact; curves: the curve walk on hairball.take's
+    384x384 first-bounce lanes and on as many incoherent lanes, closest and
+    any-hit, bit-exact."""
     import chip_smoke
 
     check = {"sobol_block": chip_smoke.check_sobol, "isect": chip_smoke.check_isect,
@@ -1266,8 +1268,15 @@ def _bvh2_case(lanes, n, case):
     """n of the lanes (repeated where n exceeds them), with the case's
     twist: "no walk" (every root -1), "short" (tmax 0.5: before every
     hit), "nan" (one ray with a NaN direction), "ends" (shutter times 0
-    and 1)."""
+    and 1), "incoherent" (n seeded rays from the tree's root box in
+    seeded directions, chip_smoke._incoherent_lanes)."""
+    import chip_smoke
+
     arena, root, o, d, tl = lanes
+    if case == "incoherent":
+        root, o, d, tl = chip_smoke._incoherent_lanes(o.device, arena.node_rows, int(root[0]), n,
+                                                      43)
+        return arena, root, o, d, tl, torch.full((n,), 1e30, device=o.device)
     idx = torch.arange(n, device=o.device) % max(o.shape[0], 1)
     root, o, d, tl = (root[idx].contiguous(), o[idx].contiguous(), d[idx].contiguous(),
                       tl[idx].contiguous())
@@ -1283,18 +1292,21 @@ def _bvh2_case(lanes, n, case):
     return arena, root, o, d, tl, tmax
 
 
-@pytest.mark.parametrize("case", ["plain", "no walk", "short", "nan", "ends"])
-@pytest.mark.parametrize("n", [0, 1, 31, 129, 2305])
+@pytest.mark.parametrize("case", ["plain", "no walk", "short", "nan", "ends", "incoherent"])
+@pytest.mark.parametrize("n", [0, 1, 31, 129, 2305, "resident+1"])
 @pytest.mark.parametrize("kind", ["points", "curves"])
 def test_walk_launch_shapes(cuda_device, bvh2_arenas, kind, n, case):
-    """The point and curve walks at small widths and the twists of
-    _bvh2_case, closest and any-hit, bit-exact against the plain walks on
-    the card; each call launches its kernel once (none at 0 lanes)."""
+    """The point and curve walks at small widths, and at one lane more than
+    a pass of their resident grid (whose warps refill their threads from
+    the lane counter), with the twists of _bvh2_case, closest and any-hit,
+    bit-exact against the plain walks on the card; each call launches its
+    kernel once (none at 0 lanes)."""
     from zyg_tpu_torch import ops
     from zyg_tpu_torch.ops import curves, points
     from zyg_tpu_torch.scene import curves as crv
     from zyg_tpu_torch.scene import points as pts
 
+    n = _lanes(n, f"zyg_{kind}_resident_lanes")
     arena, root, o, d, tl, tmax = _bvh2_case(bvh2_arenas[kind], n, case)
     for any_hit in (False, True):
         before = ops.launch_counts()[kind]

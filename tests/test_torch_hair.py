@@ -431,3 +431,29 @@ def test_cli_renders_hairball(tmp_path):
     assert cli.main(["-i", str(path), "-o", str(out), "--device", "cpu"]) == 0
     img = read_png(str(out))
     assert img.shape == (24, 24, 3) and img.mean() > 5
+
+
+def test_curve_walk_step_counts_by_hand():
+    """The plain curve walk's lane steps and leaf warp-steps on a port-only
+    arena of two clusters of 2 straight strands (2 segments each: a root
+    and two leaves of 4 segments): test_torch_points.check_step_counts'
+    hand count, and each cluster's lanes hit its z = 0.2 strand (1 and 3)."""
+    from test_torch_points import check_step_counts
+    from zyg_tpu_torch.scene import curves as crv
+
+    pts = []
+    for x in (-5.0, 5.0):
+        for z in (-0.2, 0.2):
+            pts.append(np.stack([np.full(4, x), np.linspace(-1.0, 1.0, 4), np.full(4, z)], -1))
+    host = crv.HostCurves(points=np.concatenate(pts).astype(np.float32),
+                          widths=np.full(16, 0.2, np.float32),
+                          curve_starts=np.arange(0, 16, 4), strand_ids=np.arange(4),
+                          strand_u=np.tile(np.array([[0.0, 1.0]], np.float32), (4, 1)))
+    arena = crv.build_arena([host])
+    prim = check_step_counts(
+        arena.node_rows,
+        lambda root, o, d, tmax, counts: crv.traverse(arena, root, o, d, 0.0, tmax,
+                                                      counts=counts),
+        int(arena.curve_root[0]))
+    strand = crv.segment_fields(arena, prim[prim >= 0])["strand"]
+    assert torch.equal(strand, torch.tensor([1] * 10 + [3] * 4, dtype=strand.dtype))

@@ -478,3 +478,71 @@ def test_moving_point_and_curve_props_match_jax():
     assert t_same.sum() > 0.85 * on.sum()
     np.testing.assert_allclose(frag.n.numpy()[t_same], np.asarray(jf.n)[t_same], rtol=0, atol=1e-4)
     assert (blocked.numpy() == np.asarray(jb)).mean() >= 0.995 and blocked.numpy().mean() > 0.05
+
+
+def cluster_rays(root: int):
+    """40 rays down -z, in two groups of 32 lanes, over a tree of a root
+    and two leaves, one over x = -5 and one over x = +5: lanes 0-9 pass
+    through the first, 10-19 above every box, 20-31 do not walk (root -1),
+    32-35 pass through the second, 36-39 do not walk. (o, d, root [40],
+    each lane's node steps counted by hand: the root, the first leaf and
+    the second for a lane that enters the root's box, the root alone for
+    one that does not.)"""
+    x = np.zeros(40, np.float32)
+    x[0:10] = -5.0 + 0.01 * np.arange(-5, 5)
+    x[32:36] = 5.0 + 0.01 * np.arange(-2, 2)
+    y = np.zeros(40, np.float32)
+    y[10:20] = 20.0
+    o = torch.as_tensor(np.stack([x, y, np.full(40, 10.0, np.float32)], axis=-1))
+    d = torch.tensor([[0.0, 0.0, -1.0]]).expand(40, 3).contiguous()
+    roots = torch.full((40,), root, dtype=torch.int32)
+    roots[20:32] = -1
+    roots[36:40] = -1
+    steps = torch.zeros(40, dtype=torch.int64)
+    steps[0:10] = 3
+    steps[10:20] = 1
+    steps[32:36] = 3
+    return o, d, roots, steps
+
+
+def check_step_counts(arena_rows, traverse, root):
+    """The plain walk's diagnosis counts (scene/points.py count_steps) on
+    cluster_rays against the hand count: each lane's node steps, their sum
+    equal to the node visits (52), the leaf tests (the 14 lanes through a
+    cluster, once each) and the warp-steps of a thread a lane that run the
+    leaf branch (2: lanes 0-9 at the first leaf in the walk's second step,
+    lanes 32-35 at the second leaf in its third). Returns the walk's
+    prims."""
+    assert arena_rows.shape[0] == 3 and float(arena_rows[0, 8]) == -1.0
+    assert bool((arena_rows[1:, 8] >= 0).all())
+    o, d, roots, steps = cluster_rays(root)
+    counts = {"nodes": 0, "leaves": 0, "lane_steps": torch.zeros(40, dtype=torch.int64)}
+    out = traverse(roots, o, d, torch.full((40,), 1e30), counts)
+    assert torch.equal(counts["lane_steps"], steps)
+    assert int(counts["lane_steps"].sum()) == counts["nodes"] == 52
+    assert counts["leaves"] == 14
+    assert counts["leaf_warp_steps"] == 2
+    prim = out[-1]
+    assert bool((prim[0:10] >= 0).all()) and bool((prim[32:36] >= 0).all())
+    assert not bool((prim[10:32] >= 0).any()) and not bool((prim[36:] >= 0).any())
+    return prim
+
+
+def test_point_walk_step_counts_by_hand():
+    """The plain point walk's lane steps and leaf warp-steps on a port-only
+    arena of two clusters of 4 points (a root and two leaves): the hand
+    count of check_step_counts, and each cluster's lanes hit its points."""
+    from zyg_tpu_torch.scene import points as pts
+
+    cluster = np.array([[0.0, 0.0, 0.0], [0.0, 0.6, 0.0], [0.0, 0.0, 0.6], [0.0, -0.6, 0.0]],
+                       np.float32)
+    pos = np.concatenate([cluster + [-5.0, 0.0, 0.0], cluster + [5.0, 0.0, 0.0]])
+    arena = pts.build_arena([pts.HostPoints(positions=pos, radii=np.full(8, 0.3, np.float32))])
+    prim = check_step_counts(
+        arena.node_rows,
+        lambda root, o, d, tmax, counts: pts.traverse(arena, root, o, d, 0.0, tmax,
+                                                      counts=counts),
+        int(arena.cloud_root[0]))
+    # the nearest point of each cluster along -z is its z = 0.6 point
+    packed = arena.point_rows.reshape(-1, pts.POINT_F)[prim[prim >= 0].long()]
+    assert torch.equal(packed[:, 2], torch.full((14,), 0.6))

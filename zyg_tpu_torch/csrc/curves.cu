@@ -5,18 +5,31 @@
 // :346 _traverse_stage (not a TPU kernel: the JAX package walks in XLA);
 // the plain torch version is zyg_tpu_torch/scene/curves.py::traverse.
 //
-// One thread a ray, the node walk of points.cu (walk2.cuh). A hit leaf's
-// 4 segments are tested in slot order with the rounded-cone test
-// (zyg_tpu/scene/curves.py:225 _cone_test: the cone body's quadratic with
-// its k2 guard, then the two spherical caps, the nearest in range wins)
-// on the normalized direction, its bounds and hit scaled by the
-// direction's length; a later slot or leaf at an equal t takes the hit.
-// Outputs t, the axial parameter s of the hit segment (the body's y / d2
-// clamped to [0, 1], 0 or 1 on a cap) and the segment. kAnyHit stops at
-// the first hit. Rounding as the plain version's: fused dot chains, the
-// first product of a sum or difference of products fused into the rest
-// and each further product term onto that (fmaf; built with
-// -fmad=false), IEEE division and square root.
+// The node walk of points.cu (walk2.cuh). A hit leaf's 4 segments are
+// tested with the rounded-cone test (zyg_tpu/scene/curves.py:225
+// _cone_test: the cone body's quadratic with its k2 guard, then the two
+// spherical caps, the nearest in range wins) on the normalized direction,
+// each bounded by the best t at entry scaled by the direction's length,
+// then replayed in slot order: a slot takes the hit where its t is within
+// the running best (a later slot or leaf at an equal t takes it). Outputs
+// t, the axial parameter s of the hit segment (the body's y / d2 clamped
+// to [0, 1], 0 or 1 on a cap) and the segment. kAnyHit stops at the
+// first hit.
+//
+// What bounds it on an H100: per lane it reads 32 bytes and writes 12,
+// and walks ~31 node rows (hairball.take's 1,623-row tree, 198 KB with its
+// leaves, in L1/L2), so it is bound by the instructions its warps issue
+// and the chain of dependent row reads. A segment test is ~110 operations
+// (three square roots, two IEEE divisions): with a thread a ray the parent
+// ran the leaf's 4 tests on ~73 % of its warp-steps for 4 % of lane-steps
+// at a leaf, and held all ten float4s of a leaf in registers. Design
+// (walk2.cuh): persistent warps that refill finished threads, and leaf
+// tests shared across the warp, a thread a (lane, slot) pair loading only
+// its own segment's 40 bytes (five 8-byte loads); the node rows from the
+// read-only path or from a copy in shared memory (kShared, as points.cu). Rounding as the plain version's: fused dot chains, the first
+// product of a sum or difference of products fused into the rest and each
+// further product term onto that (fmaf; built with -fmad=false), IEEE
+// division and square root.
 #include "walk2.cuh"
 
 #define CURVES_FAR 3.0e38f
@@ -31,7 +44,9 @@ struct CurvesArgs {
   float* t_out;  // [N]
   float* s_out;  // [N]
   int32_t* prim_out;  // [N] group * 4 + slot, -1 on a miss
+  unsigned long long* next;  // the lane counter, zeroed before the launch
   float tmin;
+  int n_rows;  // M
   int64_t n;
 };
 
@@ -87,58 +102,115 @@ __device__ __forceinline__ ConeHit cone_test(const float* o, const float* dn, co
   return c;
 }
 
-template <bool kAnyHit>
-__global__ void __launch_bounds__(WALK2_THREADS) curves_kernel(CurvesArgs a) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  float o[3], d[3], inv[3], dn[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    o[k] = __ldg(a.o + 3 * i + k);
-    d[k] = __ldg(a.d + 3 * i + k);
-    inv[k] = inv_dir2(d[k]);
+// the primitive policy of walk2_lanes: a lane's inputs o(3) d(3) tmax, a
+// slot test's ray o(3) dn(3) and the direction's length, a slot's result
+// its t along dn (NaN on a miss) and s
+struct CurvesPrim {
+  static constexpr int kWords = 7;
+  static constexpr int kRayWords = 7;
+  using Hit = ConeHit;
+  CurvesArgs a;
+
+  __device__ __forceinline__ void skip(int64_t i) const {
+    a.t_out[i] = __ldg(a.tmax + i);
+    a.s_out[i] = 0.0f;
+    a.prim_out[i] = -1;
   }
-  const float dlen = zmax(sqrtf(zmax(dot3f(d[0], d[0], d[1], d[1], d[2], d[2]), 0.0f)), 1e-20f);
+  __device__ __forceinline__ void load(int64_t i, float* col) const {
 #pragma unroll
-  for (int k = 0; k < 3; ++k) dn[k] = d[k] / dlen;
-  const float tmin_u = a.tmin * dlen;
-  float tb = __ldg(a.tmax + i), sb = 0.0f;
-  int pb = -1;
-  int ptr = __ldg(a.root + i);
-  while (ptr >= 0) {
-    const Node2 nd = load_node2(a.nodes, ptr);
-    const bool hit = slab2(nd, o, inv, a.tmin, tb);
-    if (hit & (nd.group >= 0)) {
-      const float4* sr = a.srows + 10 * (int64_t)nd.group;
-      float seg[40];
-#pragma unroll
-      for (int q = 0; q < 10; ++q) {
-        const float4 v = __ldg(sr + q);
-        seg[4 * q] = v.x;
-        seg[4 * q + 1] = v.y;
-        seg[4 * q + 2] = v.z;
-        seg[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const ConeHit c = cone_test(o, dn, seg + 10 * j, tmin_u, tb * dlen);
-        if ((c.t < CURVES_FAR) & (j < nd.cnt)) {
-          tb = c.t / dlen;
-          sb = c.s;
-          pb = nd.group * 4 + j;
-        }
-      }
+    for (int k = 0; k < 3; ++k) {
+      col[32 * k] = __ldg(a.o + 3 * i + k);
+      col[32 * (3 + k)] = __ldg(a.d + 3 * i + k);
     }
-    ptr = hit ? nd.hit : nd.miss;
-    if (kAnyHit && pb >= 0) break;
+    col[32 * 6] = __ldg(a.tmax + i);
   }
-  a.t_out[i] = tb;
-  a.s_out[i] = sb;
-  a.prim_out[i] = pb;
+  __device__ __forceinline__ void start(walk2::Lane& r, const float* col, float* ray) const {
+    float d[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      d[k] = col[32 * (3 + k)];
+      r.o[k] = col[32 * k];
+      r.inv[k] = walk2::inv_dir2(d[k]);
+      ray[32 * k] = r.o[k];
+    }
+    r.dl = zmax(sqrtf(zmax(dot3f(d[0], d[0], d[1], d[1], d[2], d[2]), 0.0f)), 1e-20f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) ray[32 * (3 + k)] = d[k] / r.dl;
+    ray[32 * 6] = r.dl;
+    r.tb = col[32 * 6];
+    r.sb = 0.0f;
+    r.pb = -1;
+  }
+  // the slot tests' upper bound, in dn units
+  __device__ __forceinline__ float bound(const walk2::Lane& r) const { return r.tb * r.dl; }
+  static __device__ __forceinline__ ConeHit miss() {
+    return ConeHit{__int_as_float(0x7FC00000), 0.0f};
+  }
+  static __device__ __forceinline__ ConeHit shfl(ConeHit h, int src) {
+    return ConeHit{__shfl_sync(walk2::kFull, h.t, src), __shfl_sync(walk2::kFull, h.s, src)};
+  }
+  // slot `slot` of leaf group `group` against the ray words, within
+  // [tmin, tb] (ray units): its t along dn, or NaN, and s
+  __device__ __forceinline__ ConeHit test(const float* ray, int group, int slot, float ub) const {
+    const float o[3] = {ray[0], ray[32], ray[64]};
+    const float dn[3] = {ray[96], ray[128], ray[160]};
+    const float dl = ray[192];
+    const float2* sr = reinterpret_cast<const float2*>(a.srows) + 20 * (int64_t)group + 5 * slot;
+    float seg[10];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) {
+      const float2 v = __ldg(sr + q);
+      seg[2 * q] = v.x;
+      seg[2 * q + 1] = v.y;
+    }
+    ConeHit c = cone_test(o, dn, seg, a.tmin * dl, ub);
+    if (!(c.t < CURVES_FAR)) c.t = miss().t;
+    return c;
+  }
+  __device__ __forceinline__ void take(walk2::Lane& r, ConeHit h, int group, int slot,
+                                       int cnt) const {
+    if ((h.t <= r.tb * r.dl) & (slot < cnt)) {
+      r.tb = h.t / r.dl;
+      r.sb = h.s;
+      r.pb = group * walk2::kSlots + slot;
+    }
+  }
+  __device__ __forceinline__ void finish(const walk2::Lane& r) const {
+    a.t_out[r.id] = r.tb;
+    a.s_out[r.id] = r.sb;
+    a.prim_out[r.id] = r.pb;
+  }
+};
+
+template <bool kAnyHit, bool kShared>
+__global__ void __launch_bounds__(WALK2_THREADS) curves_kernel(CurvesArgs a) {
+  using P = CurvesPrim;
+  extern __shared__ float4 curves_rows_s[];
+  __shared__ float stage[WALK2_THREADS / 32][(P::kWords + 1) * 32];
+  __shared__ float ray[WALK2_THREADS / 32][P::kRayWords * 32];
+  __shared__ int list[WALK2_THREADS / 32][32];
+  const float4* rows = walk2::stage_rows<kShared>(a.nodes, a.n_rows, curves_rows_s);
+  const int w = threadIdx.x / 32;
+  walk2::walk2_lanes<kAnyHit, kShared>(P{a}, rows, a.root, a.tmin, a.n, a.next, stage[w], ray[w],
+                                       list[w]);
 }
 
-// ptrs: nodes, segment rows, root, o, d, tmax, t, s, prim
-extern "C" int zyg_curves(void** ptrs, int any_hit, float tmin, int64_t n, void* stream) {
+template <bool kAnyHit, bool kShared>
+cudaError_t launch_curves(const CurvesArgs& a, cudaStream_t st) {
+  const void* kernel = (const void*)curves_kernel<kAnyHit, kShared>;
+  const size_t smem = walk2::rows_bytes(kShared, a.n_rows);
+  unsigned blocks = 0;
+  const cudaError_t err = walk2::prepare(kernel, smem, a.n, a.next, st, &blocks);
+  if (err != cudaSuccess) return err;
+  curves_kernel<kAnyHit, kShared><<<blocks, WALK2_THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// ptrs: nodes, segment rows, root, o, d, tmax, t, s, prim, the lane
+// counter (one uint64 of scratch); n_rows: the node rows
+extern "C" int zyg_curves(void** ptrs, int any_hit, int n_rows, float tmin, int64_t n,
+                          void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
   CurvesArgs a;
   a.nodes = (const float4*)ptrs[0];
   a.srows = (const float4*)ptrs[1];
@@ -149,13 +221,26 @@ extern "C" int zyg_curves(void** ptrs, int any_hit, float tmin, int64_t n, void*
   a.t_out = (float*)ptrs[6];
   a.s_out = (float*)ptrs[7];
   a.prim_out = (int32_t*)ptrs[8];
+  a.next = (unsigned long long*)ptrs[9];
   a.tmin = tmin;
+  a.n_rows = n_rows;
   a.n = n;
-  const unsigned blocks = (unsigned)((n + WALK2_THREADS - 1) / WALK2_THREADS);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (any_hit)
-    curves_kernel<true><<<blocks, WALK2_THREADS, 0, s>>>(a);
-  else
-    curves_kernel<false><<<blocks, WALK2_THREADS, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  if (a.next == nullptr || n_rows < 1) return (int)cudaErrorInvalidValue;
+  using Launch = cudaError_t (*)(const CurvesArgs&, cudaStream_t);
+  static const Launch forms[4] = {launch_curves<false, false>, launch_curves<false, true>,
+                                  launch_curves<true, false>, launch_curves<true, true>};
+  return (int)forms[2 * !!any_hit + walk2::rows_shared(n_rows)](a, (cudaStream_t)stream);
+}
+
+// the lanes one pass of the resident grid covers on the current device:
+// the more of the two forms that read the node rows from device memory
+extern "C" int zyg_curves_resident_lanes(int64_t* out) {
+  int64_t closest = 0, any = 0;
+  cudaError_t err = resident_lanes((const void*)curves_kernel<false, false>, WALK2_THREADS,
+                                   &closest);
+  if (err == cudaSuccess) {
+    err = resident_lanes((const void*)curves_kernel<true, false>, WALK2_THREADS, &any);
+  }
+  *out = closest > any ? closest : any;
+  return (int)err;
 }

@@ -5,17 +5,32 @@
 // :253 _traverse_stage (not a TPU kernel: the JAX package walks in XLA);
 // the plain torch version is zyg_tpu_torch/scene/points.py::traverse.
 //
-// One thread a ray. It follows the hit and miss links from its root (-1:
-// the lane does not walk): a node whose box the ray enters within [tmin,
-// best t] is hit; at a hit leaf it tests the leaf's 4 packed points in
-// slot order with the stable quadratic bounded by the running best t,
-// where a later slot or leaf at an equal t takes the hit, as the plain
-// walk does. kMotion lerps each center by the ray's shutter time toward
-// its shutter-close position; kAnyHit stops at the first hit. Rows are
-// read as 16-byte loads (the wrapper checks the alignment). Every
-// expression keeps the plain version's rounding: fused dot chains and the
-// products fused into the sums they feed, as fmaf (the library is built
-// with -fmad=false), IEEE division and square root.
+// Each lane follows the hit and miss links from its root (-1: the lane
+// does not walk): a node whose box the ray enters within [tmin, best t] is
+// hit; at a hit leaf its 4 packed points are tested with the stable
+// quadratic, each bounded by the best t at entry, and replayed in slot
+// order: a slot takes the hit where it is within the running best t, so a
+// later slot or leaf at an equal t takes it, as the plain walk does.
+// kMotion lerps each center by the ray's shutter time toward its
+// shutter-close position; kAnyHit stops at the first hit.
+//
+// What bounds it on an H100: per lane it reads 36-40 bytes and writes 8,
+// and walks ~27 node rows (sparks.take's 405-row tree, 45 KB with its
+// leaves, stays in L1/L2), so it is bound by the instructions its warps
+// issue and the chain of dependent row reads, not by bytes. With a thread
+// a ray the parent ran the leaf branch (4 point tests, ~180 operations)
+// on nearly every warp-step, because any one of the 32 lanes at a leaf
+// runs it for all, and ran each warp until its longest walk ended.
+// Design (walk2.cuh): persistent warps that refill finished threads from
+// a lane counter, and leaf tests shared across the warp, a thread a
+// (lane, slot) pair, each loading only its own point's 32 bytes; with a
+// grid of few lanes each, warps stay full. The node rows are read through
+// the read-only path, or from a copy in shared memory (kShared, built with
+// WALK2_STAGE_ROWS, where they fit in WALK2_ROWS_ON_CHIP rows). Rows are
+// read as 16-byte loads (the wrapper checks the alignment). Every expression keeps
+// the plain version's rounding: fused dot chains and the products fused
+// into the sums they feed, as fmaf (the library is built with
+// -fmad=false), IEEE division and square root.
 #include "walk2.cuh"
 
 struct PointsArgs {
@@ -28,66 +43,123 @@ struct PointsArgs {
   const float* time;  // [N] shutter times (kMotion), else null
   float* t_out;  // [N]
   int32_t* prim_out;  // [N] group * 4 + slot, -1 on a miss
+  unsigned long long* next;  // the lane counter, zeroed before the launch
   float tmin;
+  int n_rows;  // M
   int64_t n;
 };
 
-template <bool kMotion, bool kAnyHit>
-__global__ void __launch_bounds__(WALK2_THREADS) points_kernel(PointsArgs a) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  float o[3], d[3], inv[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    o[k] = __ldg(a.o + 3 * i + k);
-    d[k] = __ldg(a.d + 3 * i + k);
-    inv[k] = inv_dir2(d[k]);
+// the primitive policy of walk2_lanes: a lane's inputs o(3) d(3) tmax
+// time, a slot test's ray o(3) d(3) time, a slot's result its t (NaN on a
+// miss)
+template <bool kMotion>
+struct PointsPrim {
+  static constexpr int kWords = 8;
+  static constexpr int kRayWords = 7;
+  using Hit = float;
+  PointsArgs a;
+
+  __device__ __forceinline__ void skip(int64_t i) const {
+    a.t_out[i] = __ldg(a.tmax + i);
+    a.prim_out[i] = -1;
   }
-  const float tl = kMotion ? __ldg(a.time + i) : 0.0f;
-  const float d2 = dot3f(d[0], d[0], d[1], d[1], d[2], d[2]);
-  const float den = zmax(d2, 1e-20f);
-  float tb = __ldg(a.tmax + i);
-  int pb = -1;
-  int ptr = __ldg(a.root + i);
-  while (ptr >= 0) {
-    const Node2 nd = load_node2(a.nodes, ptr);
-    const bool hit = slab2(nd, o, inv, a.tmin, tb);
-    if (hit & (nd.group >= 0)) {
-      const float4* pr = a.prows + 8 * (int64_t)nd.group;
+  __device__ __forceinline__ void load(int64_t i, float* col) const {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 p = __ldg(pr + 2 * j), q = __ldg(pr + 2 * j + 1);
-        float c[3] = {p.x, p.y, p.z};
-        const float r = p.w;
-        if (kMotion) {
-          c[0] = fmaf(tl, q.x - c[0], c[0]);
-          c[1] = fmaf(tl, q.y - c[1], c[1]);
-          c[2] = fmaf(tl, q.z - c[2], c[2]);
-        }
-        const float lx = c[0] - o[0], ly = c[1] - o[1], lz = c[2] - o[2];
-        const float b = dot3f(lx, d[0], ly, d[1], lz, d[2]);
-        const float det = fmaf(b, b, -(d2 * fmaf(-r, r, dot3f(lx, lx, ly, ly, lz, lz))));
-        const float sq = sqrtf(zmax(det, 0.0f));
-        const float t0 = (b - sq) / den;
-        const float t1 = (b + sq) / den;
-        const float t = ((t0 >= a.tmin) & (t0 <= tb)) ? t0 : t1;
-        const bool ok = (det >= 0.0f) & (r > 0.0f) & (t >= a.tmin) & (t <= tb) & (j < nd.cnt);
-        if (ok) {
-          tb = t;
-          pb = nd.group * 4 + j;
-        }
-      }
+    for (int k = 0; k < 3; ++k) {
+      col[32 * k] = __ldg(a.o + 3 * i + k);
+      col[32 * (3 + k)] = __ldg(a.d + 3 * i + k);
     }
-    ptr = hit ? nd.hit : nd.miss;
-    if (kAnyHit && pb >= 0) break;
+    col[32 * 6] = __ldg(a.tmax + i);
+    col[32 * 7] = kMotion ? __ldg(a.time + i) : 0.0f;
   }
-  a.t_out[i] = tb;
-  a.prim_out[i] = pb;
+  __device__ __forceinline__ void start(walk2::Lane& r, const float* col, float* ray) const {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float d = col[32 * (3 + k)];
+      r.o[k] = col[32 * k];
+      r.inv[k] = walk2::inv_dir2(d);
+      ray[32 * k] = r.o[k];
+      ray[32 * (3 + k)] = d;
+    }
+    ray[32 * 6] = col[32 * 7];
+    r.tb = col[32 * 6];
+    r.pb = -1;
+  }
+  __device__ __forceinline__ float bound(const walk2::Lane& r) const { return r.tb; }
+  static __device__ __forceinline__ float miss() { return __int_as_float(0x7FC00000); }
+  static __device__ __forceinline__ float shfl(float h, int src) {
+    return __shfl_sync(walk2::kFull, h, src);
+  }
+  // slot `slot` of leaf group `group` against the ray words, within
+  // [tmin, tb]: its t, or NaN
+  __device__ __forceinline__ float test(const float* ray, int group, int slot, float tb) const {
+    const float o[3] = {ray[0], ray[32], ray[64]};
+    const float d[3] = {ray[96], ray[128], ray[160]};
+    const float4* pr = a.prows + 8 * (int64_t)group + 2 * slot;
+    const float4 p = __ldg(pr);
+    float c[3] = {p.x, p.y, p.z};
+    const float r = p.w;
+    if (kMotion) {
+      const float4 q = __ldg(pr + 1);
+      const float tl = ray[192];
+      c[0] = fmaf(tl, q.x - c[0], c[0]);
+      c[1] = fmaf(tl, q.y - c[1], c[1]);
+      c[2] = fmaf(tl, q.z - c[2], c[2]);
+    }
+    const float d2 = dot3f(d[0], d[0], d[1], d[1], d[2], d[2]);
+    const float den = zmax(d2, 1e-20f);
+    const float lx = c[0] - o[0], ly = c[1] - o[1], lz = c[2] - o[2];
+    const float b = dot3f(lx, d[0], ly, d[1], lz, d[2]);
+    const float det = fmaf(b, b, -(d2 * fmaf(-r, r, dot3f(lx, lx, ly, ly, lz, lz))));
+    const float sq = sqrtf(zmax(det, 0.0f));
+    const float t0 = (b - sq) / den;
+    const float t1 = (b + sq) / den;
+    const float t = ((t0 >= a.tmin) & (t0 <= tb)) ? t0 : t1;
+    const bool ok = (det >= 0.0f) & (r > 0.0f) & (t >= a.tmin) & (t <= tb);
+    return ok ? t : miss();
+  }
+  __device__ __forceinline__ void take(walk2::Lane& r, float t, int group, int slot,
+                                       int cnt) const {
+    if ((t <= r.tb) & (slot < cnt)) {
+      r.tb = t;
+      r.pb = group * walk2::kSlots + slot;
+    }
+  }
+  __device__ __forceinline__ void finish(const walk2::Lane& r) const {
+    a.t_out[r.id] = r.tb;
+    a.prim_out[r.id] = r.pb;
+  }
+};
+
+template <bool kMotion, bool kAnyHit, bool kShared>
+__global__ void __launch_bounds__(WALK2_THREADS) points_kernel(PointsArgs a) {
+  using P = PointsPrim<kMotion>;
+  extern __shared__ float4 points_rows_s[];
+  __shared__ float stage[WALK2_THREADS / 32][(P::kWords + 1) * 32];
+  __shared__ float ray[WALK2_THREADS / 32][P::kRayWords * 32];
+  __shared__ int list[WALK2_THREADS / 32][32];
+  const float4* rows = walk2::stage_rows<kShared>(a.nodes, a.n_rows, points_rows_s);
+  const int w = threadIdx.x / 32;
+  walk2::walk2_lanes<kAnyHit, kShared>(P{a}, rows, a.root, a.tmin, a.n, a.next, stage[w], ray[w],
+                                       list[w]);
 }
 
-// ptrs: nodes, point rows, root, o, d, tmax, time (or null), t, prim
-extern "C" int zyg_points(void** ptrs, int any_hit, int motion, float tmin, int64_t n,
+template <bool kMotion, bool kAnyHit, bool kShared>
+cudaError_t launch_points(const PointsArgs& a, cudaStream_t st) {
+  const void* kernel = (const void*)points_kernel<kMotion, kAnyHit, kShared>;
+  const size_t smem = walk2::rows_bytes(kShared, a.n_rows);
+  unsigned blocks = 0;
+  const cudaError_t err = walk2::prepare(kernel, smem, a.n, a.next, st, &blocks);
+  if (err != cudaSuccess) return err;
+  points_kernel<kMotion, kAnyHit, kShared><<<blocks, WALK2_THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// ptrs: nodes, point rows, root, o, d, tmax, time (or null), t, prim, the
+// lane counter (one uint64 of scratch); n_rows: the node rows
+extern "C" int zyg_points(void** ptrs, int any_hit, int motion, int n_rows, float tmin, int64_t n,
                           void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
   PointsArgs a;
   a.nodes = (const float4*)ptrs[0];
   a.prows = (const float4*)ptrs[1];
@@ -98,21 +170,36 @@ extern "C" int zyg_points(void** ptrs, int any_hit, int motion, float tmin, int6
   a.time = (const float*)ptrs[6];
   a.t_out = (float*)ptrs[7];
   a.prim_out = (int32_t*)ptrs[8];
+  a.next = (unsigned long long*)ptrs[9];
   a.tmin = tmin;
+  a.n_rows = n_rows;
   a.n = n;
-  if (motion && a.time == nullptr) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n + WALK2_THREADS - 1) / WALK2_THREADS);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (motion) {
-    if (any_hit)
-      points_kernel<true, true><<<blocks, WALK2_THREADS, 0, s>>>(a);
-    else
-      points_kernel<true, false><<<blocks, WALK2_THREADS, 0, s>>>(a);
-  } else {
-    if (any_hit)
-      points_kernel<false, true><<<blocks, WALK2_THREADS, 0, s>>>(a);
-    else
-      points_kernel<false, false><<<blocks, WALK2_THREADS, 0, s>>>(a);
+  if ((motion && a.time == nullptr) || a.next == nullptr || n_rows < 1) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  using Launch = cudaError_t (*)(const PointsArgs&, cudaStream_t);
+  static const Launch forms[8] = {
+      launch_points<false, false, false>, launch_points<false, false, true>,
+      launch_points<false, true, false>,  launch_points<false, true, true>,
+      launch_points<true, false, false>,  launch_points<true, false, true>,
+      launch_points<true, true, false>,   launch_points<true, true, true>};
+  return (int)forms[4 * !!motion + 2 * !!any_hit + walk2::rows_shared(n_rows)](
+      a, (cudaStream_t)stream);
+}
+
+// the lanes one pass of the resident grid covers on the current device:
+// the most of the forms that read the node rows from device memory
+extern "C" int zyg_points_resident_lanes(int64_t* out) {
+  const void* forms[4] = {(const void*)points_kernel<false, false, false>,
+                          (const void*)points_kernel<false, true, false>,
+                          (const void*)points_kernel<true, false, false>,
+                          (const void*)points_kernel<true, true, false>};
+  *out = 0;
+  for (const void* k : forms) {
+    int64_t lanes = 0;
+    const cudaError_t err = resident_lanes(k, WALK2_THREADS, &lanes);
+    if (err != cudaSuccess) return (int)err;
+    if (lanes > *out) *out = lanes;
+  }
+  return (int)cudaSuccess;
 }

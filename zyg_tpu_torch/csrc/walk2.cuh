@@ -1,21 +1,87 @@
 // The binary threaded BVH walk shared by the point and curve kernels
 // (points.cu, curves.cu): node rows [M, 12] of min(3) max(3) hit link,
 // miss link, leaf group (-1 inner), count, pad(2), as the JAX package's
-// zyg_tpu/scene/points.py and curves.py lay them out. Read as three
-// 16-byte loads; a row's leaf primitives are tested by the caller.
+// zyg_tpu/scene/points.py and curves.py lay them out, read as three
+// 16-byte loads. One skeleton, walk2_lanes, runs both walks; a primitive
+// policy (points.cu PointsPrim, curves.cu CurvesPrim) gives it a lane's
+// inputs and outputs and the test of one leaf slot.
+//
+// Design (what bounds the walks and what it does about it, points.cu):
+// - persistent warps that refill finished threads: the grid is the card's
+//   resident blocks, capped so that a thread takes about kClaims lanes,
+//   and each warp claims 32 lanes at a time from a lane counter in device
+//   memory (one atomicAdd by its thread 0). At a claim thread t reads lane
+//   base + t's root: a lane that does not walk (root -1) has its outputs
+//   written there; a walking one has its inputs copied into column t of
+//   the warp's stage buffer in shared memory. Idle threads take the
+//   walking lanes in rank order from there, so a refill waits on shared
+//   memory, not on device memory. The warp leaves when the counter has
+//   passed n and none of its threads holds a lane.
+// - each warp-step every thread that holds a lane visits one node row; a
+//   __ballot_sync gives the lanes that stand at a hit leaf. From
+//   kSharedMin such lanes on, the warp tests their (lane, slot) pairs
+//   together, 32 a pass (8 lanes x 4 slots): a thread reads its owner's
+//   ray from the warp's ray buffer in shared memory, the owner's bound at
+//   entry and leaf group by shuffles, loads only its own primitive's row,
+//   and the owner gathers its four results by shuffles and replays them in
+//   slot order, as the plain walks do. Fewer lanes test their own slots.
+// Every loop and collective is warp-uniform on the full mask. Each lane
+// keeps its own step order and its own arithmetic, so the outputs do not
+// depend on the mapping.
 #pragma once
+#include "launch.cuh"
 #include "prop_hit.cuh"
 
-#define WALK2_THREADS 256
+#define WALK2_THREADS 128
+// node rows a block may copy into shared memory (96 KB)
+#define WALK2_ROWS_ON_CHIP 2048
+
+// 1: each block copies the node rows into shared memory where they fit in
+// WALK2_ROWS_ON_CHIP rows, and the walk reads them there
+#ifndef WALK2_STAGE_ROWS
+#define WALK2_STAGE_ROWS 0
+#endif
+
+// the fewest lanes at a leaf in one warp-step from which the warp shares
+// their slot tests (fewer test their own four slots alone)
+#ifndef WALK2_SHARED_MIN
+#define WALK2_SHARED_MIN 2
+#endif
+// the lanes a thread of the grid takes on average, which caps the grid
+// below the resident blocks for few lanes: fewer, fuller warps
+#ifndef WALK2_CLAIMS
+#define WALK2_CLAIMS 2
+#endif
+
+namespace walk2 {
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kSharedMin = WALK2_SHARED_MIN;
+constexpr int kClaims = WALK2_CLAIMS;
+constexpr bool kStageRows = WALK2_STAGE_ROWS != 0;
+constexpr int kSlots = 4;  // primitives a leaf row
+constexpr int kPassLanes = 32 / kSlots;  // lanes a shared pass serves
 
 struct Node2 {
   float lo[3], hi[3];
   int hit, miss, group, cnt;
 };
 
+// row ptr of the node rows, from device memory (read-only path) or from
+// the block's copy in shared memory
+template <bool kShared>
 __device__ __forceinline__ Node2 load_node2(const float4* rows, int ptr) {
   const float4* r = rows + 3 * (int64_t)ptr;
-  const float4 a = __ldg(r), b = __ldg(r + 1), c = __ldg(r + 2);
+  float4 a, b, c;
+  if (kShared) {
+    a = r[0];
+    b = r[1];
+    c = r[2];
+  } else {
+    a = __ldg(r);
+    b = __ldg(r + 1);
+    c = __ldg(r + 2);
+  }
   Node2 n;
   n.lo[0] = a.x;
   n.lo[1] = a.y;
@@ -49,3 +115,187 @@ __device__ __forceinline__ bool slab2(const Node2& n, const float* o, const floa
   }
   return (tn <= tf) & (tf >= tmin) & (tn <= tb);
 }
+
+// one walking lane in its thread
+struct Lane {
+  int64_t id;  // -1: the thread holds no lane
+  float o[3], inv[3];
+  float tb;  // the best t so far (tmax at the start)
+  int pb;  // group * 4 + slot of the best hit, -1
+  int ptr;  // the next node row
+  float sb, dl;  // curves: the hit's axial parameter, the direction's length
+};
+
+// What the skeleton needs of a primitive policy P:
+//   P::kWords        the floats of a walking lane's inputs in the stage buffer
+//   P::kRayWords     the floats of its ray that a slot test reads
+//   P::Hit           one slot's result (t NaN on a miss)
+//   skip(i, tmax)    write the outputs of lane i, which does not walk
+//   load(i, col)     copy lane i's inputs into a stage column (stride 32)
+//   start(r, col, ray)  take a staged lane: fill r, write the thread's ray words
+//   bound(r)         the bound a slot test of r's leaf takes (the best t at entry)
+//   test(ray, group, slot, bound)  one slot against the ray words
+//   shfl(h, src)     h from thread src of the warp
+//   take(r, h, group, slot, cnt)  replay one slot's result in slot order
+//   finish(r)        write r's outputs
+// smem: the warp's stage buffer (P::kWords + 1) x 32 floats (word 0 the
+// root), its ray buffer P::kRayWords x 32 and its list of 32 ints.
+template <bool kAnyHit, bool kShared, class P>
+__device__ __forceinline__ void walk2_lanes(const P& p, const float4* rows, const int32_t* root,
+                                            float tmin, int64_t n, unsigned long long* next,
+                                            float* stage, float* ray, int* list) {
+  const int lane = (int)(threadIdx.x & 31u);
+  const unsigned lower = (1u << lane) - 1u;
+  int64_t base = 0;
+  unsigned avail = 0;  // the claimed lanes that walk and wait for a thread
+  bool dry = false;
+  Lane r;
+  r.id = -1;
+  r.ptr = -1;
+  while (true) {
+    // ---- idle threads take the claimed lanes in rank order
+    unsigned idle = __ballot_sync(kFull, r.id < 0);
+    while (idle != 0 && !dry) {
+      if (avail == 0) {
+        unsigned long long b = 0;
+        if (lane == 0) b = atomicAdd(next, 32ull);
+        base = (int64_t)__shfl_sync(kFull, b, 0);
+        if (base >= n) {
+          dry = true;
+          break;
+        }
+        __syncwarp();  // the stage buffer's last reads before its new lanes
+        const int64_t i = base + lane;
+        bool walks = false;
+        if (i < n) {
+          const int rt = __ldg(root + i);
+          walks = rt >= 0;
+          if (walks) {
+            stage[lane] = __int_as_float(rt);
+            p.load(i, stage + 32 + lane);
+          } else {
+            p.skip(i);
+          }
+        }
+        avail = __ballot_sync(kFull, walks);
+        continue;
+      }
+      const int take = __popc(idle) < __popc(avail) ? __popc(idle) : __popc(avail);
+      const bool mine = (avail >> lane) & 1u;
+      const int col_rank = __popc(avail & lower);
+      __syncwarp();  // the list's last reads before its new entries
+      if (mine && col_rank < take) list[col_rank] = lane;
+      __syncwarp();
+      const int rank = __popc(idle & lower);
+      if (((idle >> lane) & 1u) && rank < take) {
+        const int col = list[rank];
+        r.id = base + col;
+        r.ptr = __float_as_int(stage[col]);
+        p.start(r, stage + 32 + col, ray + lane);
+      }
+      avail = __ballot_sync(kFull, mine && col_rank >= take);
+      idle = __ballot_sync(kFull, r.id < 0);
+    }
+    if (idle == kFull) break;  // only once dry: an idle warp that is not dry refills
+    // ---- one node row of each walking lane
+    Node2 nd;
+    nd.group = -1;
+    nd.cnt = 0;
+    bool hit = false;
+    if (r.id >= 0) {
+      nd = load_node2<kShared>(rows, r.ptr);
+      hit = slab2(nd, r.o, r.inv, tmin, r.tb);
+    }
+    const bool at_leaf = hit & (nd.group >= 0);
+    const unsigned leaves = __ballot_sync(kFull, at_leaf);
+    if (leaves != 0) {
+      const int n_leaf = __popc(leaves);
+      if (n_leaf < kSharedMin) {
+        // few lanes at a leaf: each tests its own slots
+        if (at_leaf) {
+          typename P::Hit h[kSlots];
+          const float bnd = p.bound(r);
+#pragma unroll
+          for (int j = 0; j < kSlots; ++j) h[j] = p.test(ray + lane, nd.group, j, bnd);
+#pragma unroll
+          for (int j = 0; j < kSlots; ++j) p.take(r, h[j], nd.group, j, nd.cnt);
+        }
+      } else {
+        // the (lane, slot) pairs of the lanes at a leaf, 32 a pass
+        const int my_rank = __popc(leaves & lower);
+        __syncwarp();  // the list's last reads before its new entries
+        if (at_leaf) list[my_rank] = lane;
+        __syncwarp();
+        const float bnd = p.bound(r);
+        const int slot = lane & (kSlots - 1);
+        for (int pass = 0; pass * kPassLanes < n_leaf; ++pass) {
+          const int k = pass * kPassLanes + lane / kSlots;
+          const bool tests = k < n_leaf;
+          const int owner = tests ? list[k] : lane;
+          const float b = __shfl_sync(kFull, bnd, owner);
+          const int g = __shfl_sync(kFull, nd.group, owner);
+          typename P::Hit h = P::miss();
+          if (tests) h = p.test(ray + owner, g, slot, b);
+          const bool owns = at_leaf && my_rank / kPassLanes == pass;
+          const int src = kSlots * (my_rank % kPassLanes);
+#pragma unroll
+          for (int j = 0; j < kSlots; ++j) {
+            const typename P::Hit hj = P::shfl(h, src + j);
+            if (owns) p.take(r, hj, nd.group, j, nd.cnt);
+          }
+        }
+      }
+    }
+    if (r.id >= 0) {
+      r.ptr = hit ? nd.hit : nd.miss;
+      if (r.ptr < 0 || (kAnyHit && r.pb >= 0)) {
+        p.finish(r);
+        r.id = -1;
+      }
+    }
+  }
+}
+
+// the block's copy of the node rows (kShared), before any walk
+template <bool kShared>
+__device__ __forceinline__ const float4* stage_rows(const float4* rows, int n_rows,
+                                                    float4* smem) {
+  if (!kShared) return rows;
+  for (int k = threadIdx.x; k < 3 * n_rows; k += blockDim.x) smem[k] = __ldg(rows + k);
+  __syncthreads();
+  return smem;
+}
+
+// whether a launch over n_rows node rows reads them from shared memory
+inline bool rows_shared(int n_rows) { return kStageRows && n_rows <= WALK2_ROWS_ON_CHIP; }
+
+// the dynamic shared memory of a launch: the node rows (kShared)
+inline size_t rows_bytes(bool shared, int n_rows) {
+  return shared ? (size_t)n_rows * 3 * sizeof(float4) : 0;
+}
+
+// blocks of a launch over n lanes: the card's resident blocks of the kernel
+// with smem bytes of dynamic shared memory, capped at a whole number of
+// blocks an SM that gives each thread about kClaims lanes; and the lane
+// counter zeroed on the stream
+inline cudaError_t prepare(const void* kernel, size_t smem, int64_t n, unsigned long long* next,
+                           cudaStream_t st, unsigned* blocks) {
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  int resident = 0, dev = 0, sms = 0;
+  err = resident_blocks(kernel, WALK2_THREADS, &resident, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t per_sm =
+      (n + (int64_t)sms * WALK2_THREADS * kClaims - 1) / ((int64_t)sms * WALK2_THREADS * kClaims);
+  const int64_t needed = (n + WALK2_THREADS - 1) / WALK2_THREADS;
+  const int64_t want = per_sm * sms < needed ? per_sm * sms : needed;
+  *blocks = (unsigned)(want < resident ? want : resident);
+  return cudaMemsetAsync(next, 0, sizeof(unsigned long long), st);
+}
+
+}  // namespace walk2

@@ -1,10 +1,12 @@
 """The curve walk over a scene's curve arena (counterpart of
 zyg_tpu/scene/curves.py:290 `traverse`, an XLA while_loop in the JAX
-package). Kernel: csrc/curves.cu, one thread a ray over the node rows,
-the leaf's 4 round-cone segments in slot order on the normalized
-direction, with an any-hit form. The plain version is scene/curves.py
-`traverse`, which the wrapper runs for CPU tensors; a CUDA tensor
-launches the kernel or raises.
+package). Kernel: csrc/curves.cu over the skeleton of csrc/walk2.cuh
+(ops/points.py tells it): persistent warps that refill finished
+threads from a lane counter, with the 4 round-cone segment tests of the
+lanes at a leaf, on the normalized direction, shared across the warp
+and replayed in slot order by their lanes; an any-hit form. The plain
+version is scene/curves.py `traverse`, which the wrapper runs for CPU
+tensors; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from . import check_cuda, register, stream_handle
 from ..scene import curves as crv
 
 _KERNEL = register("curves", "zyg_curves",
-                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64,
+                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int64,
                     ctypes.c_void_p])
 
 
@@ -39,11 +41,13 @@ def _curves_cuda(arena, root, o, d, tmin: float, tmax, any_hit: bool):
     t = torch.empty(n, dtype=torch.float32, device=dev)
     s = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
+    counter = torch.empty(1, dtype=torch.int64, device=dev)
     ptrs = [arena.node_rows.data_ptr(), arena.seg_rows.data_ptr(), root.data_ptr(), o.data_ptr(),
-            d.data_ptr(), tmax.data_ptr(), t.data_ptr(), s.data_ptr(), prim.data_ptr()]
+            d.data_ptr(), tmax.data_ptr(), t.data_ptr(), s.data_ptr(), prim.data_ptr(),
+            counter.data_ptr()]
     if n > 0:
-        _KERNEL((ctypes.c_void_p * len(ptrs))(*ptrs), int(any_hit), float(tmin), n,
-                stream_handle(dev))
+        _KERNEL((ctypes.c_void_p * len(ptrs))(*ptrs), int(any_hit),
+                arena.node_rows.shape[0], float(tmin), n, stream_handle(dev))
     return t, s, prim
 
 

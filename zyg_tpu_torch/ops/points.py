@@ -1,10 +1,15 @@
 """The point-cloud walk over a scene's point arena (counterpart of
 zyg_tpu/scene/points.py:205 `traverse`, an XLA while_loop in the JAX
-package). Kernel: csrc/points.cu, one thread a ray over the node rows,
-the leaf's 4 points in slot order, with a motion form that lerps each
-center by the ray's shutter time and an any-hit form. The plain version
-is scene/points.py `traverse`, which the wrapper runs for CPU tensors;
-a CUDA tensor launches the kernel or raises.
+package). Kernel: csrc/points.cu over the skeleton of csrc/walk2.cuh:
+persistent warps that claim 32 lanes at a time from a lane counter and
+refill finished threads, with the 4 point tests of the lanes that stand
+at a leaf shared across the warp and replayed in slot order by their
+lanes; a motion form lerps each center by the ray's shutter time, an
+any-hit form stops at the first hit. The wrapper allocates the counter,
+one int64 of scratch a launch, which the entry point zeroes on the
+stream. The plain version is scene/points.py `traverse`, which the
+wrapper runs for CPU tensors; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -17,8 +22,8 @@ from . import check_cuda, register, stream_handle
 from ..scene import points as pts
 
 _KERNEL = register("points", "zyg_points",
-                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int64,
-                    ctypes.c_void_p])
+                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_int64, ctypes.c_void_p])
 
 
 def _points_cuda(arena, root, o, d, tmin: float, tmax, time, any_hit: bool):
@@ -40,12 +45,14 @@ def _points_cuda(arena, root, o, d, tmin: float, tmax, time, any_hit: bool):
         check_cuda("points.time", time, torch.float32, dev, (n,))
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
+    counter = torch.empty(1, dtype=torch.int64, device=dev)
     ptrs = [arena.node_rows.data_ptr(), arena.point_rows.data_ptr(), root.data_ptr(),
             o.data_ptr(), d.data_ptr(), tmax.data_ptr(),
-            time.data_ptr() if arena.has_motion else None, t.data_ptr(), prim.data_ptr()]
+            time.data_ptr() if arena.has_motion else None, t.data_ptr(), prim.data_ptr(),
+            counter.data_ptr()]
     if n > 0:
         _KERNEL((ctypes.c_void_p * len(ptrs))(*ptrs), int(any_hit), int(arena.has_motion),
-                float(tmin), n, stream_handle(dev))
+                arena.node_rows.shape[0], float(tmin), n, stream_handle(dev))
     return t, prim
 
 

@@ -32,7 +32,7 @@ import torch
 from ..core import vecmath as vm
 from ..core.fmath import fma, sqrt
 from .bvh import build_bvh
-from .points import LEAF_SIZE, inv_dir, leaf_scatter, link_rows, slab
+from .points import LEAF_SIZE, count_steps, inv_dir, leaf_scatter, link_rows, slab
 from .types import to_device
 
 SEG_F = 10  # floats a packed segment: pa(3) ra pb(3) rb u0 u1
@@ -198,8 +198,8 @@ def traverse(arena: CurveArena, root, o, d, tmin: float, tmax, any_hit: bool = F
     (object space; d need not be unit) walking from root [N] (int32, -1:
     the lane does not walk) over [tmin, tmax [N]]; t starts at tmax. Any-
     hit stops a ray at its first hit. counts, if given, accumulates the
-    node rows visited and the leaf rows tested, and marks them as
-    scene/points.py traverse does."""
+    node rows visited and the leaf rows tested, marks them and counts the
+    lanes' steps as scene/points.py traverse does."""
     dev = o.device
     n = o.shape[0]
     t = tmax.clone()
@@ -215,16 +215,10 @@ def traverse(arena: CurveArena, root, o, d, tmin: float, tmax, any_hit: bool = F
         row = arena.node_rows[ptr]
         hit = slab(row, oo, ii, tmin, t[ids])
         group = row[:, 8].long()
-        if counts is not None:
-            counts["nodes"] += ids.numel()
-            if "node_seen" in counts:
-                counts["node_seen"][ptr] = True
         leaf = torch.nonzero(hit & (group >= 0)).squeeze(1)
+        if counts is not None:
+            count_steps(counts, ids, ptr, leaf, group)
         if leaf.numel():
-            if counts is not None:
-                counts["leaves"] += leaf.numel()
-                if "leaf_seen" in counts:
-                    counts["leaf_seen"][group[leaf]] = True
             lid = ids[leaf]
             g = group[leaf]
             seg = arena.seg_rows[g].reshape(-1, LEAF_SIZE, SEG_F)

@@ -189,6 +189,25 @@ def sphere_test(o, d, c, r, tmin, tmax):
     return t, ok & (t >= tmin) & (t <= tmax)
 
 
+def count_steps(counts: dict, ids, ptr, leaf, group) -> None:
+    """One step of a plain walk (this module's and scene/curves.py's
+    traverse) into counts: lanes ids at node rows ptr, of which the ones
+    at positions leaf test leaf groups group[leaf]. The plain loop steps
+    every walking lane once an iteration, as a thread a lane would, so the
+    groups of 32 lane ids with a lane in leaf are the warp-steps of that
+    mapping that run the leaf branch."""
+    counts["nodes"] += ids.numel()
+    counts["leaves"] += leaf.numel()
+    if "node_seen" in counts:
+        counts["node_seen"][ptr] = True
+    if "leaf_seen" in counts:
+        counts["leaf_seen"][group[leaf]] = True
+    if "lane_steps" in counts:
+        counts["lane_steps"][ids] += 1
+        counts["leaf_warp_steps"] = (counts.get("leaf_warp_steps", 0)
+                                     + torch.unique(ids[leaf] // 32).numel())
+
+
 def traverse(arena: PointArena, root, o, d, tmin: float, tmax, time=None, any_hit: bool = False,
              counts: dict | None = None):
     """(t [N], prim [N] int32: padded arena point group*4 + slot, -1 on a
@@ -199,7 +218,10 @@ def traverse(arena: PointArena, root, o, d, tmin: float, tmax, time=None, any_hi
     together; counts ({"nodes": 0, "leaves": 0}), if given, accumulates
     the node rows visited and the leaf rows tested, and marks the rows in
     bool tensors under "node_seen" [M] and "leaf_seen" [G] where it holds
-    them."""
+    them. Where it holds "lane_steps" (int64 [N]) it adds each lane's node
+    steps there, and under "leaf_warp_steps" the warp-steps of a thread a
+    lane (lanes in groups of 32) in which a lane of the group tests a leaf
+    (count_steps)."""
     dev = o.device
     n = o.shape[0]
     t = tmax.clone()
@@ -213,16 +235,10 @@ def traverse(arena: PointArena, root, o, d, tmin: float, tmax, time=None, any_hi
         row = arena.node_rows[ptr]
         hit = slab(row, oo, ii, tmin, t[ids])
         group = row[:, 8].long()
-        if counts is not None:
-            counts["nodes"] += ids.numel()
-            if "node_seen" in counts:
-                counts["node_seen"][ptr] = True
         leaf = torch.nonzero(hit & (group >= 0)).squeeze(1)
+        if counts is not None:
+            count_steps(counts, ids, ptr, leaf, group)
         if leaf.numel():
-            if counts is not None:
-                counts["leaves"] += leaf.numel()
-                if "leaf_seen" in counts:
-                    counts["leaf_seen"][group[leaf]] = True
             lid = ids[leaf]
             g = group[leaf]
             pt = arena.point_rows[g].reshape(-1, LEAF_SIZE, POINT_F)
