@@ -102,13 +102,14 @@ __device__ __forceinline__ ConeHit cone_test(const float* o, const float* dn, co
   return c;
 }
 
-// the primitive policy of walk2_lanes: a lane's inputs o(3) d(3) tmax, a
-// slot test's ray o(3) dn(3) and the direction's length, a slot's result
+// the primitive policy of walk2_lanes: a lane's ray words dn(3), the
+// normalized direction, and dl, the direction's length; a slot's result
 // its t along dn (NaN on a miss) and s
 struct CurvesPrim {
-  static constexpr int kWords = 7;
-  static constexpr int kRayWords = 7;
-  using Hit = ConeHit;
+  static constexpr int kHitWords = 2;
+  struct Hit {
+    float v[kHitWords];
+  };
   CurvesArgs a;
 
   __device__ __forceinline__ void skip(int64_t i) const {
@@ -117,41 +118,29 @@ struct CurvesPrim {
     a.prim_out[i] = -1;
   }
   __device__ __forceinline__ void load(int64_t i, float* col) const {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      col[32 * k] = __ldg(a.o + 3 * i + k);
-      col[32 * (3 + k)] = __ldg(a.d + 3 * i + k);
-    }
-    col[32 * 6] = __ldg(a.tmax + i);
-  }
-  __device__ __forceinline__ void start(walk2::Lane& r, const float* col, float* ray) const {
     float d[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      d[k] = col[32 * (3 + k)];
-      r.o[k] = col[32 * k];
-      r.inv[k] = walk2::inv_dir2(d[k]);
-      ray[32 * k] = r.o[k];
+      d[k] = __ldg(a.d + 3 * i + k);
+      col[32 * (walk2::kO + k)] = __ldg(a.o + 3 * i + k);
+      col[32 * (walk2::kInv + k)] = walk2::inv_dir2(d[k]);
     }
-    r.dl = zmax(sqrtf(zmax(dot3f(d[0], d[0], d[1], d[1], d[2], d[2]), 0.0f)), 1e-20f);
+    const float dl = zmax(sqrtf(zmax(dot3f(d[0], d[0], d[1], d[1], d[2], d[2]), 0.0f)), 1e-20f);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) ray[32 * (3 + k)] = d[k] / r.dl;
-    ray[32 * 6] = r.dl;
-    r.tb = col[32 * 6];
+    for (int k = 0; k < 3; ++k) col[32 * (walk2::kExtraAt + k)] = d[k] / dl;
+    col[32 * (walk2::kExtraAt + 3)] = dl;
+    col[32 * walk2::kTmax] = __ldg(a.tmax + i);
+  }
+  __device__ __forceinline__ void start(walk2::Lane& r, const float* ray) const {
+    r.dl = ray[32 * 6];
     r.sb = 0.0f;
-    r.pb = -1;
   }
   // the slot tests' upper bound, in dn units
   __device__ __forceinline__ float bound(const walk2::Lane& r) const { return r.tb * r.dl; }
-  static __device__ __forceinline__ ConeHit miss() {
-    return ConeHit{__int_as_float(0x7FC00000), 0.0f};
-  }
-  static __device__ __forceinline__ ConeHit shfl(ConeHit h, int src) {
-    return ConeHit{__shfl_sync(walk2::kFull, h.t, src), __shfl_sync(walk2::kFull, h.s, src)};
-  }
-  // slot `slot` of leaf group `group` against the ray words, within
-  // [tmin, tb] (ray units): its t along dn, or NaN, and s
-  __device__ __forceinline__ ConeHit test(const float* ray, int group, int slot, float ub) const {
+  // slot `slot` of leaf group `group` against the ray words o(3) dn(3) dl,
+  // within [tmin, ub] (dn units): its t along dn, or NaN, and s
+  __device__ __forceinline__ void test(const float* ray, int group, int slot, float ub,
+                                       Hit& h) const {
     const float o[3] = {ray[0], ray[32], ray[64]};
     const float dn[3] = {ray[96], ray[128], ray[160]};
     const float dl = ray[192];
@@ -163,15 +152,15 @@ struct CurvesPrim {
       seg[2 * q] = v.x;
       seg[2 * q + 1] = v.y;
     }
-    ConeHit c = cone_test(o, dn, seg, a.tmin * dl, ub);
-    if (!(c.t < CURVES_FAR)) c.t = miss().t;
-    return c;
+    const ConeHit c = cone_test(o, dn, seg, a.tmin * dl, ub);
+    h.v[0] = c.t < CURVES_FAR ? c.t : __int_as_float(0x7FC00000);
+    h.v[1] = c.s;
   }
-  __device__ __forceinline__ void take(walk2::Lane& r, ConeHit h, int group, int slot,
+  __device__ __forceinline__ void take(walk2::Lane& r, const Hit& h, int group, int slot,
                                        int cnt) const {
-    if ((h.t <= r.tb * r.dl) & (slot < cnt)) {
-      r.tb = h.t / r.dl;
-      r.sb = h.s;
+    if ((h.v[0] <= r.tb * r.dl) & (slot < cnt)) {
+      r.tb = h.v[0] / r.dl;
+      r.sb = h.v[1];
       r.pb = group * walk2::kSlots + slot;
     }
   }
@@ -184,15 +173,10 @@ struct CurvesPrim {
 
 template <bool kAnyHit, bool kShared>
 __global__ void __launch_bounds__(WALK2_THREADS) curves_kernel(CurvesArgs a) {
-  using P = CurvesPrim;
   extern __shared__ float4 curves_rows_s[];
-  __shared__ float stage[WALK2_THREADS / 32][(P::kWords + 1) * 32];
-  __shared__ float ray[WALK2_THREADS / 32][P::kRayWords * 32];
-  __shared__ int list[WALK2_THREADS / 32][32];
-  const float4* rows = walk2::stage_rows<kShared>(a.nodes, a.n_rows, curves_rows_s);
-  const int w = threadIdx.x / 32;
-  walk2::walk2_lanes<kAnyHit, kShared>(P{a}, rows, a.root, a.tmin, a.n, a.next, stage[w], ray[w],
-                                       list[w]);
+  __shared__ walk2::Buffers<CurvesPrim::kHitWords> buf;
+  walk2::walk2_block<kAnyHit, kShared>(CurvesPrim{a}, a.nodes, a.n_rows, a.root, a.tmin, a.n,
+                                       a.next, curves_rows_s, buf);
 }
 
 template <bool kAnyHit, bool kShared>

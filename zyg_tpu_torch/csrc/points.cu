@@ -49,14 +49,14 @@ struct PointsArgs {
   int64_t n;
 };
 
-// the primitive policy of walk2_lanes: a lane's inputs o(3) d(3) tmax
-// time, a slot test's ray o(3) d(3) time, a slot's result its t (NaN on a
-// miss)
+// the primitive policy of walk2_lanes: a lane's ray words d(3) and its
+// shutter time, a slot's result its t (NaN on a miss)
 template <bool kMotion>
 struct PointsPrim {
-  static constexpr int kWords = 8;
-  static constexpr int kRayWords = 7;
-  using Hit = float;
+  static constexpr int kHitWords = 1;
+  struct Hit {
+    float v[kHitWords];
+  };
   PointsArgs a;
 
   __device__ __forceinline__ void skip(int64_t i) const {
@@ -66,33 +66,20 @@ struct PointsPrim {
   __device__ __forceinline__ void load(int64_t i, float* col) const {
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      col[32 * k] = __ldg(a.o + 3 * i + k);
-      col[32 * (3 + k)] = __ldg(a.d + 3 * i + k);
+      const float d = __ldg(a.d + 3 * i + k);
+      col[32 * (walk2::kO + k)] = __ldg(a.o + 3 * i + k);
+      col[32 * (walk2::kInv + k)] = walk2::inv_dir2(d);
+      col[32 * (walk2::kExtraAt + k)] = d;
     }
-    col[32 * 6] = __ldg(a.tmax + i);
-    col[32 * 7] = kMotion ? __ldg(a.time + i) : 0.0f;
+    col[32 * walk2::kTmax] = __ldg(a.tmax + i);
+    col[32 * (walk2::kExtraAt + 3)] = kMotion ? __ldg(a.time + i) : 0.0f;
   }
-  __device__ __forceinline__ void start(walk2::Lane& r, const float* col, float* ray) const {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float d = col[32 * (3 + k)];
-      r.o[k] = col[32 * k];
-      r.inv[k] = walk2::inv_dir2(d);
-      ray[32 * k] = r.o[k];
-      ray[32 * (3 + k)] = d;
-    }
-    ray[32 * 6] = col[32 * 7];
-    r.tb = col[32 * 6];
-    r.pb = -1;
-  }
+  __device__ __forceinline__ void start(walk2::Lane&, const float*) const {}
   __device__ __forceinline__ float bound(const walk2::Lane& r) const { return r.tb; }
-  static __device__ __forceinline__ float miss() { return __int_as_float(0x7FC00000); }
-  static __device__ __forceinline__ float shfl(float h, int src) {
-    return __shfl_sync(walk2::kFull, h, src);
-  }
-  // slot `slot` of leaf group `group` against the ray words, within
-  // [tmin, tb]: its t, or NaN
-  __device__ __forceinline__ float test(const float* ray, int group, int slot, float tb) const {
+  // slot `slot` of leaf group `group` against the ray words o(3) d(3)
+  // time, within [tmin, tb]: its t, or NaN
+  __device__ __forceinline__ void test(const float* ray, int group, int slot, float tb,
+                                       Hit& h) const {
     const float o[3] = {ray[0], ray[32], ray[64]};
     const float d[3] = {ray[96], ray[128], ray[160]};
     const float4* pr = a.prows + 8 * (int64_t)group + 2 * slot;
@@ -116,12 +103,12 @@ struct PointsPrim {
     const float t1 = (b + sq) / den;
     const float t = ((t0 >= a.tmin) & (t0 <= tb)) ? t0 : t1;
     const bool ok = (det >= 0.0f) & (r > 0.0f) & (t >= a.tmin) & (t <= tb);
-    return ok ? t : miss();
+    h.v[0] = ok ? t : __int_as_float(0x7FC00000);
   }
-  __device__ __forceinline__ void take(walk2::Lane& r, float t, int group, int slot,
+  __device__ __forceinline__ void take(walk2::Lane& r, const Hit& h, int group, int slot,
                                        int cnt) const {
-    if ((t <= r.tb) & (slot < cnt)) {
-      r.tb = t;
+    if ((h.v[0] <= r.tb) & (slot < cnt)) {
+      r.tb = h.v[0];
       r.pb = group * walk2::kSlots + slot;
     }
   }
@@ -133,15 +120,10 @@ struct PointsPrim {
 
 template <bool kMotion, bool kAnyHit, bool kShared>
 __global__ void __launch_bounds__(WALK2_THREADS) points_kernel(PointsArgs a) {
-  using P = PointsPrim<kMotion>;
   extern __shared__ float4 points_rows_s[];
-  __shared__ float stage[WALK2_THREADS / 32][(P::kWords + 1) * 32];
-  __shared__ float ray[WALK2_THREADS / 32][P::kRayWords * 32];
-  __shared__ int list[WALK2_THREADS / 32][32];
-  const float4* rows = walk2::stage_rows<kShared>(a.nodes, a.n_rows, points_rows_s);
-  const int w = threadIdx.x / 32;
-  walk2::walk2_lanes<kAnyHit, kShared>(P{a}, rows, a.root, a.tmin, a.n, a.next, stage[w], ray[w],
-                                       list[w]);
+  __shared__ walk2::Buffers<PointsPrim<kMotion>::kHitWords> buf;
+  walk2::walk2_block<kAnyHit, kShared>(PointsPrim<kMotion>{a}, a.nodes, a.n_rows, a.root, a.tmin,
+                                       a.n, a.next, points_rows_s, buf);
 }
 
 template <bool kMotion, bool kAnyHit, bool kShared>

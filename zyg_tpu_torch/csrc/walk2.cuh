@@ -32,7 +32,9 @@
 #include "launch.cuh"
 #include "prop_hit.cuh"
 
+#ifndef WALK2_THREADS
 #define WALK2_THREADS 128
+#endif
 // node rows a block may copy into shared memory (96 KB)
 #define WALK2_ROWS_ON_CHIP 2048
 
@@ -45,12 +47,21 @@
 // the fewest lanes at a leaf in one warp-step from which the warp shares
 // their slot tests (fewer test their own four slots alone)
 #ifndef WALK2_SHARED_MIN
-#define WALK2_SHARED_MIN 2
+#define WALK2_SHARED_MIN 1
 #endif
 // the lanes a thread of the grid takes on average, which caps the grid
 // below the resident blocks for few lanes: fewer, fuller warps
 #ifndef WALK2_CLAIMS
 #define WALK2_CLAIMS 2
+#endif
+// the idle threads of a warp from which it refills them
+#ifndef WALK2_REFILL
+#define WALK2_REFILL 1
+#endif
+// once the lane counter is dry, up to this many lanes at a leaf test their
+// own slots alone
+#ifndef WALK2_DRY_ALONE
+#define WALK2_DRY_ALONE 0
 #endif
 
 namespace walk2 {
@@ -58,13 +69,24 @@ namespace walk2 {
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kSharedMin = WALK2_SHARED_MIN;
 constexpr int kClaims = WALK2_CLAIMS;
+constexpr int kRefill = WALK2_REFILL;
+constexpr int kDryAlone = WALK2_DRY_ALONE;
 constexpr bool kStageRows = WALK2_STAGE_ROWS != 0;
 constexpr int kSlots = 4;  // primitives a leaf row
 constexpr int kPassLanes = 32 / kSlots;  // lanes a shared pass serves
+// a staged lane's words (word-major, 32 lanes a word): its root, o(3),
+// 1/d(3), tmax, then the primitive's kExtra ray words that its slot tests
+// read with o (the ray buffer: o(3) and those)
+constexpr int kRoot = 0, kO = 1, kInv = 4, kTmax = 7, kExtraAt = 8;
+constexpr int kExtra = 4;
+constexpr int kStageWords = kExtraAt + kExtra;
+constexpr int kRayWords = 3 + kExtra;
 
+// a node row as read: the links, group and count stay float32 (exact
+// integers) and are converted where they are used
 struct Node2 {
   float lo[3], hi[3];
-  int hit, miss, group, cnt;
+  float hit, miss, group, cnt;
 };
 
 // row ptr of the node rows, from device memory (read-only path) or from
@@ -82,23 +104,26 @@ __device__ __forceinline__ Node2 load_node2(const float4* rows, int ptr) {
     b = __ldg(r + 1);
     c = __ldg(r + 2);
   }
-  Node2 n;
-  n.lo[0] = a.x;
-  n.lo[1] = a.y;
-  n.lo[2] = a.z;
-  n.hi[0] = a.w;
-  n.hi[1] = b.x;
-  n.hi[2] = b.y;
-  // the links, group and count are float32 rows, exact integers
-  n.hit = (int)b.z;
-  n.miss = (int)b.w;
-  n.group = (int)c.x;
-  n.cnt = (int)c.y;
-  return n;
+  return Node2{{a.x, a.y, a.z}, {a.w, b.x, b.y}, b.z, b.w, c.x, c.y};
 }
 
 __device__ __forceinline__ float inv_dir2(float d) {
   return 1.0f / (fabsf(d) < 1e-20f ? (d < 0.0f ? -1e-20f : 1e-20f) : d);
+}
+
+// min and max that return NaN when either operand is NaN, in one
+// instruction (torch.minimum/maximum's NaN rule; a NaN's payload and the
+// sign of a zero may differ from zmin/zmax's, which no comparison below
+// can see)
+__device__ __forceinline__ float nmin(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // the node's box entered within [tmin, tb] (torch.minimum/maximum: NaN wins)
@@ -109,9 +134,9 @@ __device__ __forceinline__ bool slab2(const Node2& n, const float* o, const floa
   for (int k = 0; k < 3; ++k) {
     const float t0 = (n.lo[k] - o[k]) * inv[k];
     const float t1 = (n.hi[k] - o[k]) * inv[k];
-    const float lo = zmin(t0, t1), hi = zmax(t0, t1);
-    tn = k == 0 ? lo : zmax(tn, lo);
-    tf = k == 0 ? hi : zmin(tf, hi);
+    const float lo = nmin(t0, t1), hi = nmax(t0, t1);
+    tn = k == 0 ? lo : nmax(tn, lo);
+    tf = k == 0 ? hi : nmin(tf, hi);
   }
   return (tn <= tf) & (tf >= tmin) & (tn <= tb);
 }
@@ -127,23 +152,23 @@ struct Lane {
 };
 
 // What the skeleton needs of a primitive policy P:
-//   P::kWords        the floats of a walking lane's inputs in the stage buffer
-//   P::kRayWords     the floats of its ray that a slot test reads
-//   P::Hit           one slot's result (t NaN on a miss)
-//   skip(i, tmax)    write the outputs of lane i, which does not walk
-//   load(i, col)     copy lane i's inputs into a stage column (stride 32)
-//   start(r, col, ray)  take a staged lane: fill r, write the thread's ray words
+//   P::kHitWords     the floats of one slot's result (its t first, NaN on a miss)
+//   skip(i)          write the outputs of lane i, which does not walk
+//   load(i, col)     lane i's staged words after its root (o, 1/d, tmax and
+//                    the kExtra ray words) into a stage column (stride 32)
+//   start(r, ray)    the primitive's own registers of a lane just taken
 //   bound(r)         the bound a slot test of r's leaf takes (the best t at entry)
-//   test(ray, group, slot, bound)  one slot against the ray words
-//   shfl(h, src)     h from thread src of the warp
-//   take(r, h, group, slot, cnt)  replay one slot's result in slot order
+//   test(ray, group, slot, bound, h)  one slot against the ray words into h
+//   take(r, h, group, slot, cnt)      replay one slot's result in slot order
 //   finish(r)        write r's outputs
-// smem: the warp's stage buffer (P::kWords + 1) x 32 floats (word 0 the
-// root), its ray buffer P::kRayWords x 32 and its list of 32 ints.
+// Shared memory a warp: its stage buffer kStageWords x 32 floats, its ray
+// buffer kRayWords x 32, its list of 32 ints and its result buffer
+// P::kHitWords x 32 floats (16-byte aligned).
 template <bool kAnyHit, bool kShared, class P>
 __device__ __forceinline__ void walk2_lanes(const P& p, const float4* rows, const int32_t* root,
                                             float tmin, int64_t n, unsigned long long* next,
-                                            float* stage, float* ray, int* list) {
+                                            float* stage, float* ray, int* list, float* res) {
+  constexpr int kHitWords = P::kHitWords;
   const int lane = (int)(threadIdx.x & 31u);
   const unsigned lower = (1u << lane) - 1u;
   int64_t base = 0;
@@ -153,75 +178,91 @@ __device__ __forceinline__ void walk2_lanes(const P& p, const float4* rows, cons
   r.id = -1;
   r.ptr = -1;
   while (true) {
-    // ---- idle threads take the claimed lanes in rank order
+    // ---- once kRefill threads are idle, they take the claimed lanes in
+    // rank order
     unsigned idle = __ballot_sync(kFull, r.id < 0);
-    while (idle != 0 && !dry) {
-      if (avail == 0) {
-        unsigned long long b = 0;
-        if (lane == 0) b = atomicAdd(next, 32ull);
-        base = (int64_t)__shfl_sync(kFull, b, 0);
-        if (base >= n) {
-          dry = true;
-          break;
-        }
-        __syncwarp();  // the stage buffer's last reads before its new lanes
-        const int64_t i = base + lane;
-        bool walks = false;
-        if (i < n) {
-          const int rt = __ldg(root + i);
-          walks = rt >= 0;
-          if (walks) {
-            stage[lane] = __int_as_float(rt);
-            p.load(i, stage + 32 + lane);
-          } else {
-            p.skip(i);
+    if (!dry && __popc(idle) >= kRefill) {
+      while (idle != 0) {
+        if (avail == 0) {
+          unsigned long long b = 0;
+          if (lane == 0) b = atomicAdd(next, 32ull);
+          base = (int64_t)__shfl_sync(kFull, b, 0);
+          if (base >= n) {
+            dry = true;
+            break;
           }
+          __syncwarp();  // the stage buffer's last reads before its new lanes
+          const int64_t i = base + lane;
+          bool walks = false;
+          if (i < n) {
+            const int rt = __ldg(root + i);
+            walks = rt >= 0;
+            if (walks) {
+              stage[32 * kRoot + lane] = __int_as_float(rt);
+              p.load(i, stage + lane);
+            } else {
+              p.skip(i);
+            }
+          }
+          avail = __ballot_sync(kFull, walks);
+          continue;
         }
-        avail = __ballot_sync(kFull, walks);
-        continue;
+        const int take = __popc(idle) < __popc(avail) ? __popc(idle) : __popc(avail);
+        const bool mine = (avail >> lane) & 1u;
+        const int col_rank = __popc(avail & lower);
+        __syncwarp();  // the list's last reads before its new entries
+        if (mine && col_rank < take) list[col_rank] = lane;
+        __syncwarp();
+        const int rank = __popc(idle & lower);
+        if (((idle >> lane) & 1u) && rank < take) {
+          const float* col = stage + list[rank];
+          r.id = base + (col - stage);
+          r.ptr = __float_as_int(col[32 * kRoot]);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            r.o[k] = col[32 * (kO + k)];
+            r.inv[k] = col[32 * (kInv + k)];
+            ray[32 * k + lane] = r.o[k];
+          }
+#pragma unroll
+          for (int e = 0; e < kExtra; ++e) ray[32 * (3 + e) + lane] = col[32 * (kExtraAt + e)];
+          r.tb = col[32 * kTmax];
+          r.pb = -1;
+          p.start(r, ray + lane);
+        }
+        avail = __ballot_sync(kFull, mine && col_rank >= take);
+        idle = __ballot_sync(kFull, r.id < 0);
       }
-      const int take = __popc(idle) < __popc(avail) ? __popc(idle) : __popc(avail);
-      const bool mine = (avail >> lane) & 1u;
-      const int col_rank = __popc(avail & lower);
-      __syncwarp();  // the list's last reads before its new entries
-      if (mine && col_rank < take) list[col_rank] = lane;
-      __syncwarp();
-      const int rank = __popc(idle & lower);
-      if (((idle >> lane) & 1u) && rank < take) {
-        const int col = list[rank];
-        r.id = base + col;
-        r.ptr = __float_as_int(stage[col]);
-        p.start(r, stage + 32 + col, ray + lane);
-      }
-      avail = __ballot_sync(kFull, mine && col_rank >= take);
-      idle = __ballot_sync(kFull, r.id < 0);
     }
     if (idle == kFull) break;  // only once dry: an idle warp that is not dry refills
     // ---- one node row of each walking lane
     Node2 nd;
-    nd.group = -1;
-    nd.cnt = 0;
+    nd.group = -1.0f;
     bool hit = false;
     if (r.id >= 0) {
       nd = load_node2<kShared>(rows, r.ptr);
       hit = slab2(nd, r.o, r.inv, tmin, r.tb);
     }
-    const bool at_leaf = hit & (nd.group >= 0);
+    const bool at_leaf = hit & (nd.group >= 0.0f);
     const unsigned leaves = __ballot_sync(kFull, at_leaf);
     if (leaves != 0) {
       const int n_leaf = __popc(leaves);
-      if (n_leaf < kSharedMin) {
+      const int group = at_leaf ? (int)nd.group : 0;
+      const int cnt = at_leaf ? (int)nd.cnt : 0;
+      typename P::Hit h[kSlots];
+      if (n_leaf < kSharedMin || (dry && n_leaf <= kDryAlone)) {
         // few lanes at a leaf: each tests its own slots
         if (at_leaf) {
-          typename P::Hit h[kSlots];
           const float bnd = p.bound(r);
 #pragma unroll
-          for (int j = 0; j < kSlots; ++j) h[j] = p.test(ray + lane, nd.group, j, bnd);
+          for (int j = 0; j < kSlots; ++j) p.test(ray + lane, group, j, bnd, h[j]);
 #pragma unroll
-          for (int j = 0; j < kSlots; ++j) p.take(r, h[j], nd.group, j, nd.cnt);
+          for (int j = 0; j < kSlots; ++j) p.take(r, h[j], group, j, cnt);
         }
       } else {
-        // the (lane, slot) pairs of the lanes at a leaf, 32 a pass
+        // the (lane, slot) pairs of the lanes at a leaf, 32 a pass: thread
+        // t tests slot t % 4 of the pass's lane t / 4, and a lane reads its
+        // four results from the result buffer, one 16-byte load a word
         const int my_rank = __popc(leaves & lower);
         __syncwarp();  // the list's last reads before its new entries
         if (at_leaf) list[my_rank] = lane;
@@ -233,21 +274,32 @@ __device__ __forceinline__ void walk2_lanes(const P& p, const float4* rows, cons
           const bool tests = k < n_leaf;
           const int owner = tests ? list[k] : lane;
           const float b = __shfl_sync(kFull, bnd, owner);
-          const int g = __shfl_sync(kFull, nd.group, owner);
-          typename P::Hit h = P::miss();
-          if (tests) h = p.test(ray + owner, g, slot, b);
-          const bool owns = at_leaf && my_rank / kPassLanes == pass;
-          const int src = kSlots * (my_rank % kPassLanes);
+          const int g = __shfl_sync(kFull, group, owner);
+          typename P::Hit mine;
+          mine.v[0] = __int_as_float(0x7FC00000);  // NaN: no hit
+          if (tests) p.test(ray + owner, g, slot, b, mine);
+          __syncwarp();  // the result buffer's last reads
 #pragma unroll
-          for (int j = 0; j < kSlots; ++j) {
-            const typename P::Hit hj = P::shfl(h, src + j);
-            if (owns) p.take(r, hj, nd.group, j, nd.cnt);
+          for (int w = 0; w < kHitWords; ++w) res[32 * w + lane] = mine.v[w];
+          __syncwarp();
+          if (at_leaf && my_rank / kPassLanes == pass) {
+            const int at = kSlots * (my_rank % kPassLanes);
+#pragma unroll
+            for (int w = 0; w < kHitWords; ++w) {
+              const float4 q = *reinterpret_cast<const float4*>(res + 32 * w + at);
+              h[0].v[w] = q.x;
+              h[1].v[w] = q.y;
+              h[2].v[w] = q.z;
+              h[3].v[w] = q.w;
+            }
+#pragma unroll
+            for (int j = 0; j < kSlots; ++j) p.take(r, h[j], group, j, cnt);
           }
         }
       }
     }
     if (r.id >= 0) {
-      r.ptr = hit ? nd.hit : nd.miss;
+      r.ptr = (int)(hit ? nd.hit : nd.miss);
       if (r.ptr < 0 || (kAnyHit && r.pb >= 0)) {
         p.finish(r);
         r.id = -1;
@@ -272,6 +324,29 @@ inline bool rows_shared(int n_rows) { return kStageRows && n_rows <= WALK2_ROWS_
 // the dynamic shared memory of a launch: the node rows (kShared)
 inline size_t rows_bytes(bool shared, int n_rows) {
   return shared ? (size_t)n_rows * 3 * sizeof(float4) : 0;
+}
+
+// The per-warp buffers of a block of WALK2_THREADS threads
+template <int kHitWords>
+struct Buffers {
+  static constexpr int kWarps = WALK2_THREADS / 32;
+  float4 res[kWarps][kHitWords * 8];
+  float stage[kWarps][kStageWords * 32];
+  float ray[kWarps][kRayWords * 32];
+  int list[kWarps][32];
+};
+
+// the kernels' body: the block's node rows and buffers, then its warps'
+// walks
+template <bool kAnyHit, bool kShared, class P>
+__device__ __forceinline__ void walk2_block(const P& p, const float4* nodes, int n_rows,
+                                            const int32_t* root, float tmin, int64_t n,
+                                            unsigned long long* next, float4* rows_smem,
+                                            Buffers<P::kHitWords>& buf) {
+  const float4* rows = stage_rows<kShared>(nodes, n_rows, rows_smem);
+  const int w = threadIdx.x / 32;
+  walk2_lanes<kAnyHit, kShared>(p, rows, root, tmin, n, next, buf.stage[w], buf.ray[w],
+                                buf.list[w], reinterpret_cast<float*>(buf.res[w]));
 }
 
 // blocks of a launch over n lanes: the card's resident blocks of the kernel
