@@ -11,8 +11,8 @@ ops/points.py and ops/curves.py wrappers, and prints for the second run:
 the warps, their warp-steps, the share of those thread-steps that hold a
 lane (the persistent mapping's warp efficiency), the share of warp-steps
 that run the leaf branch, the lanes at a leaf in such a step, the shared
-passes and the steps whose leaf lanes test alone, the claims and refills,
-and the cycles a warp lives on average and at most. The counters cost time: read the kernels' times from
+passes, the claims and refills, and the cycles a warp lives on average
+and at most. The counters cost time: read the kernels' times from
 chip_smoke.py or kernel_ab.py, not from here.
 
     python3 tools/walk2_probe.py [-DNAME[=VALUE] ...]
@@ -23,9 +23,10 @@ built without counters, held bit-exact against the plain walks on every
 case above, then timed in turns (variants forward, backward, forward) on
 each case by the profiler's device time of 20 launches
 (chip_smoke.device_ms), printed as `TIME <variant> <case> ...` with the
-median of its turns:
+median of its turns. The variants of PERF.md §6 (PR 21) were macros of
+walk2.cuh's earlier forms, in this repository's history:
 
-    python3 tools/walk2_probe.py --time "" "-DWALK2_CLAIMS=1" "-DWALK2_STAGE_ROWS=1"
+    python3 tools/walk2_probe.py --time "" "-DWALK2_CLAIMS=1" "-DWALK2_SHARED_MIN=2"
 
 Needs the CUDA toolkit and a card; imports no JAX.
 """
@@ -43,29 +44,26 @@ CSRC = os.path.join(REPO, "zyg_tpu_torch", "csrc")
 
 # the counters, patched into walk2_lanes: (source text, its replacement);
 # q[k]: warp-steps, thread-steps that hold a lane, warp-steps that run the
-# leaf branch, lanes at a leaf summed over them, shared passes, steps whose
-# leaf lanes test alone, claims, cycles, warps, refills, and (an atomicMax)
-# the longest-lived warp's cycles
+# leaf branch, lanes at a leaf summed over them, shared passes, claims,
+# refills, cycles, warps, and (an atomicMax) the longest-lived warp's cycles
 PATCHES = [
     ("namespace walk2 {\n",
-     "__device__ unsigned long long g_probe[11];\nnamespace walk2 {\n"),
+     "__device__ unsigned long long g_probe[10];\nnamespace walk2 {\n"),
     ("  Lane r;\n  r.id = -1;\n",
-     "  unsigned long long q[11] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0};\n"
+     "  unsigned long long q[10] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 0};\n"
      "  const long long q_t0 = clock64();\n  Lane r;\n  r.id = -1;\n"),
     ("if (lane == 0) b = atomicAdd(next, 32ull);\n",
-     "if (lane == 0) b = atomicAdd(next, 32ull);\n++q[6];\n"),
+     "if (lane == 0) b = atomicAdd(next, 32ull);\n++q[5];\n"),
     ("const int take = __popc(idle) < __popc(avail) ? __popc(idle) : __popc(avail);\n",
-     "const int take = __popc(idle) < __popc(avail) ? __popc(idle) : __popc(avail);\n++q[9];\n"),
+     "const int take = __popc(idle) < __popc(avail) ? __popc(idle) : __popc(avail);\n++q[6];\n"),
     ("    if (idle == kFull) break;",
-     "    if (idle == kFull) {\n      q[7] = q[10] = (unsigned long long)(clock64() - q_t0);\n"
-     "      if (lane == 0) {\n        for (int k = 0; k < 10; ++k) atomicAdd(&g_probe[k], q[k]);\n"
-     "        atomicMax(&g_probe[10], q[10]);\n"
+     "    if (idle == kFull) {\n      q[7] = q[9] = (unsigned long long)(clock64() - q_t0);\n"
+     "      if (lane == 0) {\n        for (int k = 0; k < 9; ++k) atomicAdd(&g_probe[k], q[k]);\n"
+     "        atomicMax(&g_probe[9], q[9]);\n"
      "      }\n      break;\n    }\n    ++q[0];\n    q[1] += 32 - __popc(idle);"),
     ("    const unsigned leaves = __ballot_sync(kFull, at_leaf);\n",
      "    const unsigned leaves = __ballot_sync(kFull, at_leaf);\n"
      "    if (leaves != 0) {\n      ++q[2];\n      q[3] += __popc(leaves);\n    }\n"),
-    ("if (n_leaf < kSharedMin || (dry && n_leaf <= kDryAlone)) {\n",
-     "if (n_leaf < kSharedMin || (dry && n_leaf <= kDryAlone)) {\n++q[5];\n"),
     ("for (int pass = 0; pass * kPassLanes < n_leaf; ++pass) {\n",
      "for (int pass = 0; pass * kPassLanes < n_leaf; ++pass) {\n++q[4];\n"),
 ]
@@ -76,7 +74,7 @@ extern "C" int probe_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));
 }
 extern "C" int probe_reset() {
-  const unsigned long long z[11] = {0};
+  const unsigned long long z[10] = {0};
   return (int)cudaMemcpyToSymbol(g_probe, z, sizeof(z));
 }
 """
@@ -192,16 +190,16 @@ def count(argv: list[str], cases) -> None:
             raise RuntimeError("walk2_probe: resetting the counters failed")
         fn()
         torch.cuda.synchronize()
-        out = (ctypes.c_ulonglong * 11)()
+        out = (ctypes.c_ulonglong * 10)()
         if lib.probe_read(out) != 0:
             raise RuntimeError("walk2_probe: reading the counters failed")
-        (steps, busy, leaf_steps, leaf_lanes, passes, alone, claims, cycles, warps, refills,
+        (steps, busy, leaf_steps, leaf_lanes, passes, claims, refills, cycles, warps,
          longest) = list(out)
         print(f"PROBE {label} {name}: {warps} warps, {steps} warp-steps ({steps / warps:.1f} a "
               f"warp), warp efficiency {busy / max(32 * steps, 1):.4f}; leaf branch in "
               f"{leaf_steps / max(steps, 1):.4f} of the warp-steps, "
               f"{leaf_lanes / max(leaf_steps, 1):.2f} lanes at a leaf in such a step, {passes} "
-              f"shared passes, {alone} steps whose leaf lanes test alone; {claims} claims, "
+              f"shared passes; {claims} claims, "
               f"{refills} refills; cycles a warp {cycles / warps:.0f}, the longest-lived "
               f"{longest}", flush=True)
 

@@ -17,18 +17,22 @@
 // first hit.
 //
 // What bounds it on an H100: per lane it reads 32 bytes and writes 12,
-// and walks ~31 node rows (hairball.take's 1,623-row tree, 198 KB with its
-// leaves, in L1/L2), so it is bound by the instructions its warps issue
-// and the chain of dependent row reads. A segment test is ~110 operations
-// (three square roots, two IEEE divisions): with a thread a ray the parent
-// ran the leaf's 4 tests on ~73 % of its warp-steps for 4 % of lane-steps
-// at a leaf, and held all ten float4s of a leaf in registers. Design
-// (walk2.cuh): persistent warps that refill finished threads, and leaf
-// tests shared across the warp, a thread a (lane, slot) pair loading only
-// its own segment's 40 bytes (five 8-byte loads); the node rows from the
-// read-only path or from a copy in shared memory (kShared, as points.cu). Rounding as the plain version's: fused dot chains, the first
-// product of a sum or difference of products fused into the rest and each
-// further product term onto that (fmaf; built with -fmad=false), IEEE
+// and walks ~31 node rows (hairball.take's 2,033-row tree, 260 KB with
+// its leaves, in L1/L2), so it is bound by the instructions its warps
+// issue and the chain of dependent reads and divisions of each step. A
+// segment test is ~110 operations (three square roots, two IEEE
+// divisions): with a thread a ray (PR 20) a warp ran a leaf's 4 tests on
+// 21 % of its warp-steps on hairball's camera rays for 4.5 lanes at a
+// leaf (35 % for 1.4 lanes on incoherent rays), held all ten float4s of a
+// leaf in registers, and ran until its longest walk ended. Design
+// (walk2.cuh): persistent warps that refill finished threads, with each
+// lane's 1/d, unit direction and length computed once at its claim, and
+// the leaf tests shared across the warp, a thread a (lane, slot) pair
+// loading only its own segment's 40 bytes (five 8-byte loads); the node
+// rows through the read-only path (a copy in shared memory, 97 KB a block,
+// measured slower). Rounding as the plain version's: fused dot chains, the
+// first product of a sum or difference of products fused into the rest and
+// each further product term onto that (fmaf; built with -fmad=false), IEEE
 // division and square root.
 #include "walk2.cuh"
 
@@ -46,7 +50,6 @@ struct CurvesArgs {
   int32_t* prim_out;  // [N] group * 4 + slot, -1 on a miss
   unsigned long long* next;  // the lane counter, zeroed before the launch
   float tmin;
-  int n_rows;  // M
   int64_t n;
 };
 
@@ -171,29 +174,25 @@ struct CurvesPrim {
   }
 };
 
-template <bool kAnyHit, bool kShared>
+template <bool kAnyHit>
 __global__ void __launch_bounds__(WALK2_THREADS) curves_kernel(CurvesArgs a) {
-  extern __shared__ float4 curves_rows_s[];
   __shared__ walk2::Buffers<CurvesPrim::kHitWords> buf;
-  walk2::walk2_block<kAnyHit, kShared>(CurvesPrim{a}, a.nodes, a.n_rows, a.root, a.tmin, a.n,
-                                       a.next, curves_rows_s, buf);
+  walk2::walk2_lanes<kAnyHit>(CurvesPrim{a}, a.nodes, a.root, a.tmin, a.n, a.next, buf);
 }
 
-template <bool kAnyHit, bool kShared>
+template <bool kAnyHit>
 cudaError_t launch_curves(const CurvesArgs& a, cudaStream_t st) {
-  const void* kernel = (const void*)curves_kernel<kAnyHit, kShared>;
-  const size_t smem = walk2::rows_bytes(kShared, a.n_rows);
   unsigned blocks = 0;
-  const cudaError_t err = walk2::prepare(kernel, smem, a.n, a.next, st, &blocks);
+  const cudaError_t err =
+      walk2::prepare((const void*)curves_kernel<kAnyHit>, a.n, a.next, st, &blocks);
   if (err != cudaSuccess) return err;
-  curves_kernel<kAnyHit, kShared><<<blocks, WALK2_THREADS, smem, st>>>(a);
+  curves_kernel<kAnyHit><<<blocks, WALK2_THREADS, 0, st>>>(a);
   return cudaGetLastError();
 }
 
 // ptrs: nodes, segment rows, root, o, d, tmax, t, s, prim, the lane
-// counter (one uint64 of scratch); n_rows: the node rows
-extern "C" int zyg_curves(void** ptrs, int any_hit, int n_rows, float tmin, int64_t n,
-                          void* stream) {
+// counter (one uint64 of scratch)
+extern "C" int zyg_curves(void** ptrs, int any_hit, float tmin, int64_t n, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   CurvesArgs a;
   a.nodes = (const float4*)ptrs[0];
@@ -207,24 +206,18 @@ extern "C" int zyg_curves(void** ptrs, int any_hit, int n_rows, float tmin, int6
   a.prim_out = (int32_t*)ptrs[8];
   a.next = (unsigned long long*)ptrs[9];
   a.tmin = tmin;
-  a.n_rows = n_rows;
   a.n = n;
-  if (a.next == nullptr || n_rows < 1) return (int)cudaErrorInvalidValue;
-  using Launch = cudaError_t (*)(const CurvesArgs&, cudaStream_t);
-  static const Launch forms[4] = {launch_curves<false, false>, launch_curves<false, true>,
-                                  launch_curves<true, false>, launch_curves<true, true>};
-  return (int)forms[2 * !!any_hit + walk2::rows_shared(n_rows)](a, (cudaStream_t)stream);
+  if (a.next == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(any_hit ? launch_curves<true>(a, s) : launch_curves<false>(a, s));
 }
 
 // the lanes one pass of the resident grid covers on the current device:
-// the more of the two forms that read the node rows from device memory
+// the more of the two forms'
 extern "C" int zyg_curves_resident_lanes(int64_t* out) {
   int64_t closest = 0, any = 0;
-  cudaError_t err = resident_lanes((const void*)curves_kernel<false, false>, WALK2_THREADS,
-                                   &closest);
-  if (err == cudaSuccess) {
-    err = resident_lanes((const void*)curves_kernel<true, false>, WALK2_THREADS, &any);
-  }
+  cudaError_t err = resident_lanes((const void*)curves_kernel<false>, WALK2_THREADS, &closest);
+  if (err == cudaSuccess) err = resident_lanes((const void*)curves_kernel<true>, WALK2_THREADS, &any);
   *out = closest > any ? closest : any;
   return (int)err;
 }

@@ -1,21 +1,19 @@
 // Grid sizing for the persistent kernels (shade.cu, surface.cu, surface_v2.cu,
-// traverse.cu, track.cu, lt_splat.cu, points.cu, curves.cu): as many blocks
-// as the current device holds at once, so each block does its set-up once
-// and then loops over the work.
+// traverse.cu, track.cu, lt_splat.cu, and points.cu and curves.cu through
+// walk2.cuh): as many blocks as the current device holds at once, so each
+// block does its set-up once and then loops over the work.
 #pragma once
 #include <cuda_runtime.h>
 
 #include <mutex>
 
-// SMs x resident blocks of `threads` threads of `kernel` per SM, with smem
-// bytes of dynamic shared memory a block, queried at the first call for a
-// kernel, block size, dynamic shared memory and device and kept (the
+// SMs x resident blocks of `threads` threads of `kernel` per SM, queried
+// at the first call for a kernel, block size and device and kept (the
 // occupancy query costs more host time than a small launch)
-static cudaError_t resident_blocks(const void* kernel, int threads, int* out, size_t smem = 0) {
+static cudaError_t resident_blocks(const void* kernel, int threads, int* out) {
   struct Known {
     const void* kernel;
     int threads, dev, blocks;
-    size_t smem;
   };
   static Known known[64];
   static int n_known = 0;
@@ -26,8 +24,7 @@ static cudaError_t resident_blocks(const void* kernel, int threads, int* out, si
   {
     const std::lock_guard<std::mutex> lock(mu);
     for (int i = 0; i < n_known; ++i) {
-      if (known[i].kernel == kernel && known[i].threads == threads && known[i].dev == dev &&
-          known[i].smem == smem) {
+      if (known[i].kernel == kernel && known[i].threads == threads && known[i].dev == dev) {
         *out = known[i].blocks;
         return cudaSuccess;
       }
@@ -35,14 +32,12 @@ static cudaError_t resident_blocks(const void* kernel, int threads, int* out, si
   }
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  }
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
   if (err != cudaSuccess) return err;
   if (sms < 1 || per_sm < 1) return cudaErrorInvalidConfiguration;
   *out = sms * per_sm;
   const std::lock_guard<std::mutex> lock(mu);
-  if (n_known < 64) known[n_known++] = Known{kernel, threads, dev, *out, smem};
+  if (n_known < 64) known[n_known++] = Known{kernel, threads, dev, *out};
   return cudaSuccess;
 }
 

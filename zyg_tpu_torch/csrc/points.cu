@@ -17,20 +17,21 @@
 // What bounds it on an H100: per lane it reads 36-40 bytes and writes 8,
 // and walks ~27 node rows (sparks.take's 405-row tree, 45 KB with its
 // leaves, stays in L1/L2), so it is bound by the instructions its warps
-// issue and the chain of dependent row reads, not by bytes. With a thread
-// a ray the parent ran the leaf branch (4 point tests, ~180 operations)
-// on nearly every warp-step, because any one of the 32 lanes at a leaf
-// runs it for all, and ran each warp until its longest walk ended.
-// Design (walk2.cuh): persistent warps that refill finished threads from
-// a lane counter, and leaf tests shared across the warp, a thread a
-// (lane, slot) pair, each loading only its own point's 32 bytes; with a
-// grid of few lanes each, warps stay full. The node rows are read through
-// the read-only path, or from a copy in shared memory (kShared, built with
-// WALK2_STAGE_ROWS, where they fit in WALK2_ROWS_ON_CHIP rows). Rows are
-// read as 16-byte loads (the wrapper checks the alignment). Every expression keeps
-// the plain version's rounding: fused dot chains and the products fused
-// into the sums they feed, as fmaf (the library is built with
-// -fmad=false), IEEE division and square root.
+// issue and the chain of dependent reads and divisions of each step, not
+// by bytes. With a thread a ray (PR 20) a warp ran the leaf branch, 4
+// point tests, for every lane whenever one lane stood at a leaf (43 % of
+// the warp-steps on sparks' camera rays, for 8.5 lanes on average; 59 %
+// for 2.2 lanes on incoherent rays), and ran until its longest walk ended
+// (27 % of its thread-steps walk on incoherent rays). Design (walk2.cuh):
+// persistent warps that refill finished threads from a lane counter, with
+// each lane's 1/d computed once at its claim, and the leaf tests of a
+// step shared across the warp, a thread a (lane, slot) pair, each loading
+// only its own point's 16 or 32 bytes; the node rows through the
+// read-only path (a copy in shared memory measured no faster). Rows are
+// read as 16-byte loads (the wrapper checks the alignment). Every
+// expression keeps the plain version's rounding: fused dot chains and the
+// products fused into the sums they feed, as fmaf (the library is built
+// with -fmad=false), IEEE division and square root.
 #include "walk2.cuh"
 
 struct PointsArgs {
@@ -45,7 +46,6 @@ struct PointsArgs {
   int32_t* prim_out;  // [N] group * 4 + slot, -1 on a miss
   unsigned long long* next;  // the lane counter, zeroed before the launch
   float tmin;
-  int n_rows;  // M
   int64_t n;
 };
 
@@ -118,28 +118,25 @@ struct PointsPrim {
   }
 };
 
-template <bool kMotion, bool kAnyHit, bool kShared>
+template <bool kMotion, bool kAnyHit>
 __global__ void __launch_bounds__(WALK2_THREADS) points_kernel(PointsArgs a) {
-  extern __shared__ float4 points_rows_s[];
   __shared__ walk2::Buffers<PointsPrim<kMotion>::kHitWords> buf;
-  walk2::walk2_block<kAnyHit, kShared>(PointsPrim<kMotion>{a}, a.nodes, a.n_rows, a.root, a.tmin,
-                                       a.n, a.next, points_rows_s, buf);
+  walk2::walk2_lanes<kAnyHit>(PointsPrim<kMotion>{a}, a.nodes, a.root, a.tmin, a.n, a.next, buf);
 }
 
-template <bool kMotion, bool kAnyHit, bool kShared>
+template <bool kMotion, bool kAnyHit>
 cudaError_t launch_points(const PointsArgs& a, cudaStream_t st) {
-  const void* kernel = (const void*)points_kernel<kMotion, kAnyHit, kShared>;
-  const size_t smem = walk2::rows_bytes(kShared, a.n_rows);
   unsigned blocks = 0;
-  const cudaError_t err = walk2::prepare(kernel, smem, a.n, a.next, st, &blocks);
+  const cudaError_t err =
+      walk2::prepare((const void*)points_kernel<kMotion, kAnyHit>, a.n, a.next, st, &blocks);
   if (err != cudaSuccess) return err;
-  points_kernel<kMotion, kAnyHit, kShared><<<blocks, WALK2_THREADS, smem, st>>>(a);
+  points_kernel<kMotion, kAnyHit><<<blocks, WALK2_THREADS, 0, st>>>(a);
   return cudaGetLastError();
 }
 
 // ptrs: nodes, point rows, root, o, d, tmax, time (or null), t, prim, the
-// lane counter (one uint64 of scratch); n_rows: the node rows
-extern "C" int zyg_points(void** ptrs, int any_hit, int motion, int n_rows, float tmin, int64_t n,
+// lane counter (one uint64 of scratch)
+extern "C" int zyg_points(void** ptrs, int any_hit, int motion, float tmin, int64_t n,
                           void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   PointsArgs a;
@@ -154,28 +151,22 @@ extern "C" int zyg_points(void** ptrs, int any_hit, int motion, int n_rows, floa
   a.prim_out = (int32_t*)ptrs[8];
   a.next = (unsigned long long*)ptrs[9];
   a.tmin = tmin;
-  a.n_rows = n_rows;
   a.n = n;
-  if ((motion && a.time == nullptr) || a.next == nullptr || n_rows < 1) {
-    return (int)cudaErrorInvalidValue;
+  if ((motion && a.time == nullptr) || a.next == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (motion) {
+    return (int)(any_hit ? launch_points<true, true>(a, s) : launch_points<true, false>(a, s));
   }
-  using Launch = cudaError_t (*)(const PointsArgs&, cudaStream_t);
-  static const Launch forms[8] = {
-      launch_points<false, false, false>, launch_points<false, false, true>,
-      launch_points<false, true, false>,  launch_points<false, true, true>,
-      launch_points<true, false, false>,  launch_points<true, false, true>,
-      launch_points<true, true, false>,   launch_points<true, true, true>};
-  return (int)forms[4 * !!motion + 2 * !!any_hit + walk2::rows_shared(n_rows)](
-      a, (cudaStream_t)stream);
+  return (int)(any_hit ? launch_points<false, true>(a, s) : launch_points<false, false>(a, s));
 }
 
 // the lanes one pass of the resident grid covers on the current device:
-// the most of the forms that read the node rows from device memory
+// the most of the four forms'
 extern "C" int zyg_points_resident_lanes(int64_t* out) {
-  const void* forms[4] = {(const void*)points_kernel<false, false, false>,
-                          (const void*)points_kernel<false, true, false>,
-                          (const void*)points_kernel<true, false, false>,
-                          (const void*)points_kernel<true, true, false>};
+  const void* forms[4] = {(const void*)points_kernel<false, false>,
+                          (const void*)points_kernel<false, true>,
+                          (const void*)points_kernel<true, false>,
+                          (const void*)points_kernel<true, true>};
   *out = 0;
   for (const void* k : forms) {
     int64_t lanes = 0;

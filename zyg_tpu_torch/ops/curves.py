@@ -19,7 +19,7 @@ from . import check_cuda, register, stream_handle
 from ..scene import curves as crv
 
 _KERNEL = register("curves", "zyg_curves",
-                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int64,
+                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64,
                     ctypes.c_void_p])
 
 
@@ -46,8 +46,8 @@ def _curves_cuda(arena, root, o, d, tmin: float, tmax, any_hit: bool):
             d.data_ptr(), tmax.data_ptr(), t.data_ptr(), s.data_ptr(), prim.data_ptr(),
             counter.data_ptr()]
     if n > 0:
-        _KERNEL((ctypes.c_void_p * len(ptrs))(*ptrs), int(any_hit),
-                arena.node_rows.shape[0], float(tmin), n, stream_handle(dev))
+        _KERNEL((ctypes.c_void_p * len(ptrs))(*ptrs), int(any_hit), float(tmin), n,
+                stream_handle(dev))
     return t, s, prim
 
 

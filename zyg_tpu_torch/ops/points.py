@@ -22,8 +22,8 @@ from . import check_cuda, register, stream_handle
 from ..scene import points as pts
 
 _KERNEL = register("points", "zyg_points",
-                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_int64, ctypes.c_void_p])
+                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int64,
+                    ctypes.c_void_p])
 
 
 def _points_cuda(arena, root, o, d, tmin: float, tmax, time, any_hit: bool):
@@ -52,7 +52,7 @@ def _points_cuda(arena, root, o, d, tmin: float, tmax, time, any_hit: bool):
             counter.data_ptr()]
     if n > 0:
         _KERNEL((ctypes.c_void_p * len(ptrs))(*ptrs), int(any_hit), int(arena.has_motion),
-                arena.node_rows.shape[0], float(tmin), n, stream_handle(dev))
+                float(tmin), n, stream_handle(dev))
     return t, prim
 
 
