@@ -2499,8 +2499,10 @@ def _check_walk(name: str, sets: dict, variants: list, kwalk, pwalk, n_rows: tup
                "plain_ms": time_ms(lambda: pwalk(lanes, False, None, **kw0), 1, runs=3),
                **_walk_rows_bound(n, lane_bytes, counts, *row_bytes, ops_leaf),
                "library_ms": None, "diagnosis": diag}
+        still = ""
         if len(variants) > 1:
             res["still_ms"] = time_ms(lambda: kwalk(lanes, False, **variants[1][1]), 20)
+            still = f", {variants[1][0]} {res['still_ms']:.4f} ms"
         log(f"{name} on {n} {set_name} lanes: bit-exact ({', '.join(notes)}); the {label0} "
             f"closest walks visited {counts['nodes']} node rows "
             f"({int(counts['node_seen'].sum())} of {n_rows[0]} distinct) and tested "
@@ -2510,7 +2512,7 @@ def _check_walk(name: str, sets: dict, variants: list, kwalk, pwalk, n_rows: tup
             f"{diag['warp_steps']} warp-steps, {diag['leaf_branch_share']:.4f} of them run the "
             f"leaf branch for {diag['leaf_lanes_per_step']:.2f} lanes at a leaf on average; "
             f"kernel {res['ms']:.4f} ms (device {res['device_ms']:.4f} ms, any-hit "
-            f"{res['anyhit_ms']:.4f} ms{', still %.4f ms' % res['still_ms'] if 'still_ms' in res else ''}), "
+            f"{res['anyhit_ms']:.4f} ms{still}), "
             f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
         if out:
             out[set_name] = res

@@ -10,9 +10,10 @@ measured by the same yardstick on the same machine:
 
 The names `cornell`, `trefoil`, `textured`, `sunsky`, `cornell_filtered`,
 `caustics`, `smoke`, `fire`, `forest`, `particles`, `sparks` and
-`hairball` instead time one of the checkout's main paths: the Cornell take at 1920x1080 and 16 spp, the
-trefoil take and the bench's textured trefoil under its sky dome at
-1280x720 and 4 spp, the sunsky take at its own 960x540, 32 spp,
+`hairball` instead time one of the checkout's main paths: the Cornell
+take at 1920x1080 and 16 spp, the trefoil take and the bench's textured
+trefoil under its sky dome at 1280x720 and 4 spp, the sunsky take at its
+own 960x540, 32 spp,
 cornell_filtered.take (Mitchell, radius 2: the filtered flush) at
 1920x1080 and 16 spp, caustics_photons.take (the photon gather) at its
 own 480x270 in one chunk of 8 spp over the map baked from its 200,000

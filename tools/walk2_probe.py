@@ -17,16 +17,9 @@ chip_smoke.py or kernel_ab.py, not from here.
 
     python3 tools/walk2_probe.py [-DNAME[=VALUE] ...]
 
-With --time, each argument after it is one build-time variant of the two
-walks (its -D flags in one string; "" the source as it stands): each is
-built without counters, held bit-exact against the plain walks on every
-case above, then timed in turns (variants forward, backward, forward) on
-each case by the profiler's device time of 20 launches
-(chip_smoke.device_ms), printed as `TIME <variant> <case> ...` with the
-median of its turns. The variants of PERF.md §6 (PR 21) were macros of
-walk2.cuh's earlier forms, in this repository's history:
-
-    python3 tools/walk2_probe.py --time "" "-DWALK2_CLAIMS=1" "-DWALK2_SHARED_MIN=2"
+The build-time variants of PERF.md §6 (PR 21) were timed by this
+script's `--time` mode at the commits whose walk2.cuh read their macros
+(00549f0 and da56fcf).
 
 Needs the CUDA toolkit and a card; imports no JAX.
 """
@@ -89,66 +82,44 @@ def probe_source(src: str) -> str:
     return src
 
 
-def build(variants: list[tuple[list[str], bool]]) -> list:
-    """The two walks built into one library a variant (its flags, and the
-    counters patched in or the source as it stands), one nvcc each, all
-    running together."""
+def build(flags: list[str]) -> ctypes.CDLL:
+    """The two walks with the counters patched in, built with flags into
+    their own library."""
     from zyg_tpu_torch import ops
     from zyg_tpu_torch.ops import curves, points
 
-    jobs = []
-    for k, (flags, counters) in enumerate(variants):
-        build_dir = os.path.join(REPO, "zyg_tpu_torch", "_build", f"walk2_probe_{k}")
-        os.makedirs(build_dir, exist_ok=True)
-        for name in os.listdir(CSRC):
-            if name.endswith((".cuh", ".cu")):
-                shutil.copy(os.path.join(CSRC, name), build_dir)
-        if counters:
-            path = os.path.join(build_dir, "walk2.cuh")
-            with open(path) as f:
-                text = probe_source(f.read())
-            with open(path, "w") as f:
-                f.write(text)
-        cu = os.path.join(build_dir, "probe.cu")
-        with open(cu, "w") as f:
-            f.write('#include "walk2.cuh"\n' + (TAIL if counters else TAIL.split("extern")[0]))
-        so = os.path.join(build_dir, "libwalk2_probe.so")
-        jobs.append((so, counters, subprocess.Popen(
-            [ops._nvcc(), *ops.ARCH_FLAGS, *ops.NVCC_FLAGS, *flags, "-shared", f"-I{build_dir}",
-             "-o", so, cu], stdout=subprocess.DEVNULL)))
-    libs = []
-    for so, counters, proc in jobs:
-        if proc.wait() != 0:
-            raise RuntimeError(f"walk2_probe: nvcc failed for {so}")
-        lib = ctypes.CDLL(so)
-        lib.zyg_points.argtypes = points._KERNEL.argtypes
-        lib.zyg_curves.argtypes = curves._KERNEL.argtypes
-        for fn in (lib.zyg_points, lib.zyg_curves):
-            fn.restype = ctypes.c_int
-        if counters:
-            lib.probe_read.argtypes = [ctypes.c_void_p]
-            lib.probe_read.restype = lib.probe_reset.restype = ctypes.c_int
-        libs.append(lib)
-    return libs
-
-
-def use(lib) -> None:
-    """The wrappers launch lib's entry points."""
-    from zyg_tpu_torch.ops import curves, points
-
-    points._KERNEL._fn = lib.zyg_points
-    curves._KERNEL._fn = lib.zyg_curves
+    build_dir = os.path.join(REPO, "zyg_tpu_torch", "_build", "walk2_probe")
+    os.makedirs(build_dir, exist_ok=True)
+    for name in os.listdir(CSRC):
+        if name.endswith((".cuh", ".cu")):
+            shutil.copy(os.path.join(CSRC, name), build_dir)
+    path = os.path.join(build_dir, "walk2.cuh")
+    with open(path) as f:
+        text = probe_source(f.read())
+    with open(path, "w") as f:
+        f.write(text)
+    cu = os.path.join(build_dir, "probe.cu")
+    with open(cu, "w") as f:
+        f.write('#include "walk2.cuh"\n' + TAIL)
+    so = os.path.join(build_dir, "libwalk2_probe.so")
+    subprocess.run([ops._nvcc(), *ops.ARCH_FLAGS, *ops.NVCC_FLAGS, *flags, "-shared",
+                    f"-I{build_dir}", "-o", so, cu], check=True, stdout=subprocess.DEVNULL)
+    lib = ctypes.CDLL(so)
+    lib.zyg_points.argtypes = points._KERNEL.argtypes
+    lib.zyg_curves.argtypes = curves._KERNEL.argtypes
+    lib.probe_read.argtypes = [ctypes.c_void_p]
+    for fn in (lib.zyg_points, lib.zyg_curves, lib.probe_read, lib.probe_reset):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def walk_cases(dev) -> list:
-    """(case name, the kernel walk, the plain walk) on chip_smoke's lanes:
-    the point walk over sparks' moving arena and the curve walk, on the
-    first-bounce and the incoherent lanes, closest and any-hit."""
+    """(case name, the walk) on chip_smoke's lanes: the point walk over
+    sparks' moving arena and the curve walk, on the first-bounce and the
+    incoherent lanes, closest and any-hit."""
     import chip_smoke
     import torch
     from zyg_tpu_torch.ops import curves, points
-    from zyg_tpu_torch.scene import curves as crv
-    from zyg_tpu_torch.scene import points as pts
     from zyg_tpu_torch.scene.types import RAY_MAX_T, ShapeType
 
     cases = []
@@ -165,25 +136,29 @@ def walk_cases(dev) -> list:
                 if kind == "points":
                     fn = (lambda ar=arena, ln=lanes, ah=any_hit, tm=tmax:
                           points.walk(ar, *ln[:3], 0.0, tm, time=ln[3], any_hit=ah))
-                    plain = (lambda ar=arena, ln=lanes, ah=any_hit, tm=tmax:
-                             pts.traverse(ar, *ln[:3], 0.0, tm, time=ln[3], any_hit=ah))
                 else:
                     fn = (lambda ar=arena, ln=lanes, ah=any_hit, tm=tmax:
                           curves.walk(ar, *ln[:3], 0.0, tm, any_hit=ah))
-                    plain = (lambda ar=arena, ln=lanes, ah=any_hit, tm=tmax:
-                             crv.traverse(ar, *ln[:3], 0.0, tm, any_hit=ah))
-                cases.append((f"{kind} {set_name} {'any-hit' if any_hit else 'closest'}", fn,
-                              plain))
+                cases.append((f"{kind} {set_name} {'any-hit' if any_hit else 'closest'}", fn))
     return cases
 
 
-def count(argv: list[str], cases) -> None:
+def main(argv: list[str]) -> int:
+    sys.path.insert(0, REPO)
     import torch
 
-    lib = build([(argv, True)])[0]
-    use(lib)
+    if not torch.cuda.is_available():
+        print("walk2_probe: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    from zyg_tpu_torch.ops import curves, points
+
+    cases = walk_cases(torch.device("cuda", 0))
+    lib = build(argv)
+    # the wrappers launch the probe build's entry points
+    points._KERNEL._fn = lib.zyg_points
+    curves._KERNEL._fn = lib.zyg_curves
     label = " ".join(argv) or "as built"
-    for name, fn, _ in cases:
+    for name, fn in cases:
         fn()
         torch.cuda.synchronize()
         if lib.probe_reset() != 0:
@@ -202,50 +177,6 @@ def count(argv: list[str], cases) -> None:
               f"shared passes; {claims} claims, "
               f"{refills} refills; cycles a warp {cycles / warps:.0f}, the longest-lived "
               f"{longest}", flush=True)
-
-
-def time_variants(variants: list[str], cases) -> None:
-    import statistics
-
-    import chip_smoke
-    import torch
-
-    libs = build([(v.split(), False) for v in variants])
-    for v, lib in zip(variants, libs):
-        use(lib)
-        for name, fn, plain in cases:
-            k, p = fn(), plain()
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(k, p)):
-                raise AssertionError(f"walk2_probe: variant {v!r} differs from the plain walk "
-                                     f"on {name}")
-        print(f"EXACT {v or 'as built'}: every case bit-exact against the plain walks",
-              flush=True)
-    times: dict = {}
-    order = list(range(len(variants)))
-    for turn in range(3):
-        for k in (order if turn % 2 == 0 else order[::-1]):
-            use(libs[k])
-            for name, fn, _ in cases:
-                times.setdefault((k, name), []).append(
-                    chip_smoke.device_ms(fn, name.split()[0]))
-    for (k, name), ts in sorted(times.items()):
-        print(f"TIME {variants[k] or 'as built'} | {name}: median {statistics.median(ts):.5f} ms "
-              f"of turns {[round(t, 5) for t in ts]}", flush=True)
-
-
-def main(argv: list[str]) -> int:
-    sys.path.insert(0, REPO)
-    import torch
-
-    if not torch.cuda.is_available():
-        print("walk2_probe: torch sees no CUDA device", file=sys.stderr)
-        return 1
-    cases = walk_cases(torch.device("cuda", 0))
-    if argv[:1] == ["--time"]:
-        time_variants(argv[1:], cases)
-    else:
-        count(argv, cases)
     return 0
 
 
