@@ -74,7 +74,12 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     arena at seeded shutter times and held at shutter open, and the curve
     walk (curves) on hairball.take's 384x384 first-bounce lanes, closest
     and any-hit, bit-exact, with the node and leaf rows the walks visit
-    counted. Times each
+    counted; the traversal's deforming forms (traverse_deform,
+    traverse_anim_deform) on the 921,600 1280x720 camera lanes of the
+    491,520-triangle trefoil written as a two-frame .sub (slice_files) at
+    seeded shutter times (0 and 1 on some lanes, a NaN ray), closest and
+    any-hit, and over a moving instance of it, every hit record and flag
+    bit-exact, timed beside the static form on the same lanes. Times each
     (median of runs, CUDA events; and its device time from the profiler,
     which leaves out the host's gaps between a short kernel's launches)
     beside its bound and, where one PyTorch call computes the same
@@ -121,7 +126,10 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     point cloud through kernel 6 and the point walk) at 96x56, 4 spp
     over its frame-0 shutter, and examples/takes/hairball.take (hair
     through the general body, the curve walk and the hair BSDF) at 96x96,
-    4 spp, depth 4
+    4 spp, depth 4, 4p. for a 30,720-triangle trefoil as a two-frame .sub
+    under trefoil.scene's lamp (kernel 5 and the deforming walk) and one
+    lit by an emissive .glb panel of 2,048 triangles alone (kernel 6, the
+    primitive light tree) at 96x56, 4 spp
  5. the Cornell main path: the CLI on examples/takes/cornell_ptmis.take at
     its own 512x512, then the Driver at 1920x1080 and 16 spp; the
     sobol_block, shade and accum kernels must each have launched, the image
@@ -221,6 +229,14 @@ Phases (each raises on failure; the exit code is non-zero on any failure):
     shares), hairball through the general body around sobol_block,
     isect, curves and accum, which must each have launched; the same
     report and profile
+ 5o. the mesh-file paths, after 5n: the CLI on trefoil.take over each
+    scene slice_files writes (1280x720, 4 spp, depth 4), then the Driver
+    at the same size, the load with its BVH build and primitive light
+    tree timed: the deforming trefoil-512x480 .sub under the lamp through
+    sobol_block, isect, surface, traverse_deform and accum, and the
+    trefoil-512x480 over a floor lit by the emissive .glb panel alone
+    through sobol_block, isect, surface_v2, traverse and accum, which
+    must each have launched; the same report and profile
  6. one bounce of the mesh bounce (kernel 5) against one of the general
     bounce (kernel 6) on the bench trefoil's 921,600 lanes, both built
     directly, timed in turns (CUDA events, medians)
@@ -279,6 +295,9 @@ REPLACES = {
     # while loops
     "points": "zyg_tpu/scene/points.py:205",
     "curves": "zyg_tpu/scene/curves.py:290",
+    # the deforming leaf of the walk (XLA), static table and moving table
+    "traverse_deform": "zyg_tpu/scene/trimesh.py:894",
+    "traverse_anim_deform": "zyg_tpu/scene/trimesh.py:894",
 }
 SOURCES = {
     "sobol_block": "zyg_tpu_torch/csrc/sobol_block.cu",
@@ -296,6 +315,8 @@ SOURCES = {
     "lt_splat": "zyg_tpu_torch/csrc/lt_splat.cu",
     "points": "zyg_tpu_torch/csrc/points.cu",
     "curves": "zyg_tpu_torch/csrc/curves.cu",
+    "traverse_deform": "zyg_tpu_torch/csrc/traverse.cu",
+    "traverse_anim_deform": "zyg_tpu_torch/csrc/traverse.cu",
 }
 CORNELL_KERNELS = ("sobol_block", "shade", "accum")
 # sobol_block's launch shapes besides the checks' width: 513 is one
@@ -398,6 +419,12 @@ SPARKS_SPP = 32
 HAIRBALL_KERNELS = ("sobol_block", "isect", "curves", "accum")
 HAIRBALL_RES = (384, 384)
 HAIRBALL_SPP = 32
+# the mesh-file paths, at bench_mesh's 1280x720, 4 spp: the deforming
+# trefoil from a two-frame .sub under trefoil.scene's lamp (kernel 5) and
+# the trefoil lit by an emissive glTF panel alone (kernel 6)
+DEFORM_KERNELS = ("sobol_block", "isect", "surface", "traverse_deform", "accum")
+GLB_KERNELS = ("sobol_block", "isect", "surface_v2", "traverse", "accum")
+GLB_PANEL = 33  # the panel's grid: 2 x 32^2 = 2,048 emissive triangles (a primitive tree)
 
 # the least time the card could take: bytes over the memory rate or
 # operations over the float32 (non-tensor) peak, NVIDIA H100 SXM data sheet
@@ -492,6 +519,7 @@ OPS_LT_SPLAT_ADD = 6
 # range tests, mins and the axial parameter, ~110)
 OPS_NODE2 = 25
 OPS_POINT_LEAF = 4 * 45
+OPS_DEFORM_LEAF = 108  # a deforming leaf's lerp: one fma a float of its row
 OPS_CURVE_LEAF = 4 * 110
 
 
@@ -616,8 +644,8 @@ def phase_build() -> None:
         log(f"sobol_block: {sass['sobol_block']} static instructions; at one issue a lane each, "
             f"{N_MAIN} lanes take {int_issue_ms(sass['sobol_block'], N_MAIN):.4f} ms of integer "
             f"issue (byte bound {bound(N_MAIN * (8 + 24), 0)['bound_ms']:.4f} ms)")
-    for name in ("shade", "surface", "surface_v2", "traverse", "traverse_anim", "points",
-                 "curves"):
+    for name in ("shade", "surface", "surface_v2", "traverse", "traverse_anim", "traverse_deform",
+                 "traverse_anim_deform", "points", "curves"):
         log(f"{name}: one pass of the resident grid covers "
             f"{ops.resident_lanes(f'zyg_{name}_resident_lanes')} lanes")
 
@@ -3987,6 +4015,323 @@ def measure_bounces(dev, card: str) -> None:
         f"v2 {times['v2']}); lifecycles equal {same}")
 
 
+# ---------------------------------------------------------------------------
+# mesh files, deforming meshes and emissive meshes: the files the paths load
+# ---------------------------------------------------------------------------
+
+
+def _displaced(mesh):
+    """The second position frame of the deforming trefoil: each vertex
+    pushed along its normal by a ripple of up to 0.12 and the whole knot
+    shifted 0.15 along x (object units)."""
+    import numpy as np
+
+    p = mesh.positions
+    bump = (0.12 * np.sin(5.0 * p[:, 0] + 3.0 * p[:, 1])).astype(np.float32)
+    return (p + mesh.normals * bump[:, None] + np.float32([0.15, 0.0, 0.0])).astype(np.float32)
+
+
+def _panel_glb(path: str, nx: int, emission, strength: float) -> None:
+    """A .glb of one emissive nx x nx panel, 2 (nx - 1)^2 triangles facing
+    down, under a node that lifts, tilts and widens it."""
+    import struct
+
+    import numpy as np
+
+    x, z = np.meshgrid(np.linspace(-0.5, 0.5, nx), np.linspace(-0.5, 0.5, nx), indexing="ij")
+    pos = np.stack([x, np.zeros_like(x), z], -1).reshape(-1, 3).astype(np.float32)
+    i = np.arange(nx - 1)[:, None] * nx + np.arange(nx - 1)[None]
+    idx = np.concatenate([np.stack([i, i + nx + 1, i + 1], -1).reshape(-1, 3),
+                          np.stack([i, i + nx, i + nx + 1], -1).reshape(-1, 3)]).astype(np.uint32)
+    blob = pos.tobytes() + idx.tobytes()
+    doc = {"asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+           "nodes": [{"mesh": 0, "translation": [0.0, 2.5, -0.3],
+                      "rotation": [-0.08715574, 0.0, 0.0, 0.9961947], "scale": [3.0, 1.0, 2.0]}],
+           "meshes": [{"primitives": [{"attributes": {"POSITION": 0}, "indices": 1,
+                                       "material": 0}]}],
+           "materials": [{"name": "panel", "emissiveFactor": list(emission),
+                          "extensions": {"KHR_materials_emissive_strength":
+                                         {"emissiveStrength": strength}}}],
+           "accessors": [{"bufferView": 0, "componentType": 5126, "count": len(pos),
+                          "type": "VEC3"},
+                         {"bufferView": 1, "componentType": 5125, "count": idx.size,
+                          "type": "SCALAR"}],
+           "bufferViews": [{"buffer": 0, "byteOffset": 0, "byteLength": pos.nbytes},
+                           {"buffer": 0, "byteOffset": pos.nbytes, "byteLength": idx.nbytes}],
+           "buffers": [{"byteLength": len(blob)}]}
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    body = (struct.pack("<II", len(js), 0x4E4F534A) + js
+            + struct.pack("<II", len(blob), 0x004E4942) + blob)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+
+
+@functools.lru_cache(maxsize=1)
+def slice_files() -> str:
+    """A temporary directory (removed at exit) with the files this slice's
+    paths load, written by the port's own writers: trefoil.sub (the
+    proc:trefoil-512x480 mesh, its second position frame _displaced) and
+    small.sub (the same at 128x120, for the card-vs-CPU gate), deform.scene
+    and deform_small.scene (trefoil.scene's setup, its mesh from the
+    .sub), panel.glb (an emissive panel of GLB_PANEL^2 cells' triangles)
+    and glb.scene (the trefoil-512x480 over a floor, lit by the panel
+    alone) with glb_small.scene (a 128x120 trefoil)."""
+    import atexit
+
+    from zyg_tpu_torch.io.mesh import load_mesh_file
+    from zyg_tpu_torch.io.sub_mesh import write_sub_mesh
+
+    tmp = tempfile.mkdtemp(prefix="zyg_slice_")
+    atexit.register(shutil.rmtree, tmp, True)
+    t0 = time.perf_counter()
+    with open(os.path.join(REPO, "examples/scenes/trefoil.scene")) as f:
+        tref = json.load(f)
+    for name, proc in (("trefoil", "proc:trefoil-512x480"), ("small", "proc:trefoil-128x120")):
+        m = load_mesh_file(proc)
+        write_sub_mesh(os.path.join(tmp, f"{name}.sub"), m,
+                       position_frames=[m.positions, _displaced(m)])
+        root = json.loads(json.dumps(tref))
+        root["entities"][0]["shape"]["file"] = f"{name}.sub"
+        with open(os.path.join(tmp, "deform.scene" if name == "trefoil"
+                               else "deform_small.scene"), "w") as f:
+            json.dump(root, f)
+    _panel_glb(os.path.join(tmp, "panel.glb"), GLB_PANEL, (1.0, 0.9, 0.75), 3.0)
+    for name, proc in (("glb", "proc:trefoil-512x480"), ("glb_small", "proc:trefoil-128x120")):
+        root = {"materials": [
+            {"name": "grey", "rendering": {"Substitute": {"color": [0.6, 0.6, 0.6],
+                                                          "roughness": 0.5}}},
+            {"name": "floor", "rendering": {"Substitute": {"color": [0.5, 0.45, 0.4]}}}],
+            "entities": [
+                {"type": "Prop", "shape": {"file": proc}, "materials": ["grey"],
+                 "transformation": {"scale": [0.35, 0.35, 0.35]}},
+                {"type": "Prop", "shape": {"type": "Rectangle"}, "materials": ["floor"],
+                 "transformation": {"position": [0, -1.3, 0], "rotation": [90, 0, 0],
+                                    "scale": [12, 12, 1]}},
+                {"type": "Prop", "shape": {"file": "panel.glb"}}]}
+        with open(os.path.join(tmp, f"{name}.scene"), "w") as f:
+            json.dump(root, f)
+    log(f"slice files (two-frame .sub meshes by write_sub_mesh, the emissive .glb, scenes) "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    return tmp
+
+
+def _slice_take(scene_name: str, res, spp: int):
+    """trefoil.take over scene_name (a file of slice_files()) at res, spp."""
+    from zyg_tpu_torch.io.take import load_take_file
+
+    tmp = slice_files()
+    with open(os.path.join(REPO, "examples/takes/trefoil.take")) as f:
+        body = json.load(f)
+    body["scene"] = os.path.join(tmp, scene_name)
+    body["camera"]["Perspective"]["resolution"] = list(res)
+    body["sampler"]["Sobol"]["samples_per_pixel"] = spp
+    path = os.path.join(tmp, f"{os.path.splitext(scene_name)[0]}_{res[0]}x{res[1]}.take")
+    with open(path, "w") as f:
+        json.dump(body, f)
+    return load_take_file(path)
+
+
+def _slice_scene(scene_name: str, res, spp: int, label: str):
+    """(take, scene) of a slice_files() scene, the load timed: for a scene
+    with an emissive mesh, the primitive light tree's build apart."""
+    from zyg_tpu_torch.scene import loader
+
+    take = _slice_take(scene_name, res, spp)
+    spent = []
+    orig = loader.SceneBuilder._mesh_light_tree
+
+    def timed(self, *args):
+        t0 = time.perf_counter()
+        out = orig(self, *args)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    loader.SceneBuilder._mesh_light_tree = timed
+    try:
+        t0 = time.perf_counter()
+        scene = loader.load_scene_file(take.scene_filename, "cpu",
+                                       *take.cameras[0].frame_interval(0))
+        dt = time.perf_counter() - t0
+    finally:
+        loader.SceneBuilder._mesh_light_tree = orig
+    m = scene.meshes
+    trees = scene.mesh_light_trees or {}
+    tri = (f", {int(scene.lights.tri_count.sum())} emissive triangles, primitive light tree "
+           f"build {sum(spent):.2f} s ({', '.join(str(t.depth) for t, _ in trees.values())} "
+           f"levels)" if scene.lights.tri_count is not None else "")
+    log(f"{label}: scene load + arena build {dt:.2f} s ({m.tri_rows.shape[0]} leaf rows, "
+        f"deforming {m.tri_rows_d is not None}{tri})")
+    return take, scene
+
+
+def check_traverse_deform(dev) -> dict:
+    """The deforming form of the walk (traverse_deform, and
+    traverse_anim_deform over a moving table) against its plain version,
+    bit-exact: t, prim, u, v, prop and the any-hit flags. On the
+    deforming trefoil of path A (491,520 triangles from trefoil.sub) at
+    its 1280x720 camera lanes, 921,600, at seeded shutter times in [0, 1]
+    (exactly 0 and 1 on some lanes, one NaN ray), closest and any-hit
+    (shadow rays toward the lamp); then on a table whose one instance of
+    the deforming mesh moves (the slerp and the lerp). Times the form
+    beside the static form on the same lanes (the arena without its
+    deltas) and its bound: each lane's inputs and outputs, the node rows
+    it reads and both leaf rows of each leaf visit, beside the work the
+    plain walk counted."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.ops import traverse
+    from zyg_tpu_torch.render.camera import generate_rays
+    from zyg_tpu_torch.scene import trimesh
+    from zyg_tpu_torch.scene.loader import rotation_matrix_from_euler_degrees as rot
+    from zyg_tpu_torch.scene.types import RAY_MAX_T
+
+    take, scene = _slice_scene("deform.scene", MESH_RES, MESH_SPP, "deforming trefoil")
+    scene = scene.to(dev)
+    arena, itab = scene.meshes, scene.mesh_instances
+    if arena.tri_rows_d is None:
+        raise AssertionError("traverse_deform: the .sub trefoil loaded without its second frame")
+    w, h = MESH_RES
+    n = w * h
+    g = torch.Generator(device="cpu").manual_seed(29)
+    pids = torch.arange(n)
+    xy = torch.stack([pids % w, pids // w], dim=-1).to(dev)
+    o, d = generate_rays(take.cameras[0].arrays(dev), xy, torch.rand((n, 2), generator=g).to(dev))
+    o, d = o.contiguous(), d.contiguous()
+    tl = torch.rand(n, generator=g).to(dev)
+    tl[:4096], tl[4096:8192] = 0.0, 1.0
+    d[8192] = float("nan")
+    tmax = torch.full((n,), RAY_MAX_T, device=dev)
+    prim = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def exact(k, p, what):
+        for name, a, b in zip(("t", "prim", "u", "v", "prop"), k, p):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name} differs from the plain walk on "
+                                     f"{int((a != b).sum())} lanes")
+
+    def run(tab, name, time_=tl, tm=tmax, any_hit=False, o_=o, d_=d):
+        before = ops.launch_counts()[name]
+        k = traverse.intersect_instances(arena, tab, o_, d_, 0.0, tm, "shadow" if any_hit
+                                         else "camera", None if any_hit else prim,
+                                         any_hit=any_hit, time=time_)
+        if ops.launch_counts()[name] != before + 1:
+            raise AssertionError(f"{name}: the walk did not launch {name}")
+        return k
+
+    k = run(itab, "traverse_deform")
+    counts = {"nodes": 0, "leaves": 0}
+    p = traverse.traverse_plain(arena, itab, o, d, 0.0, tmax, 0, prim, False, counts, time=tl)
+    lamp = scene.prop_pos[int(scene.lights.prop[0])]
+    hit = p[1] >= 0
+    so = torch.where(hit[:, None], o + (p[0] - 1e-3)[:, None] * d, o).contiguous()
+    sv = lamp[None] - so
+    smax = torch.where(hit, sv.norm(dim=1), 0.0)
+    sd = (sv / sv.norm(dim=1, keepdim=True)).contiguous()
+    kb = run(itab, "traverse_deform", tm=smax, any_hit=True, o_=so, d_=sd)
+    pb = traverse.traverse_plain(arena, itab, so, sd, 0.0, smax, 2, None, True, time=tl)
+    torch.cuda.synchronize()
+    traverse.check_errors(dev)
+    exact(k, p, "traverse_deform")
+    if not torch.equal(kb, pb):
+        raise AssertionError(f"traverse_deform: {int((kb != pb).sum())} any-hit results differ")
+    if int(k[1][8192]) != -1:
+        raise AssertionError("traverse_deform: the NaN ray hit")
+    still = traverse.intersect_instances(dataclasses.replace(arena, tri_rows_d=None,
+                                                             attr_rows_d=None),
+                                         itab, o, d, 0.0, tmax, "camera", prim)
+    moved = float((still[1] != k[1]).float().mean())
+
+    # a moving table over the deforming mesh: the slerp at entry, the lerp at each leaf
+    host = {"node_rows": arena.node_rows.cpu().numpy(), "mesh_root": arena.mesh_root.cpu().numpy()}
+    mtab = trimesh.build_instance_table(host, [dict(
+        prop=0, mesh=0, rot=np.eye(3, dtype=np.float32), pos=np.zeros(3, np.float32),
+        scale=np.full(3, 0.35, np.float32), rot1=rot([0, 25, 10]),
+        pos1=np.float32([0.3, 0.1, 0.0]), scale1=np.full(3, 0.4, np.float32))]).to(dev)
+    ka = run(mtab, "traverse_anim_deform")
+    pa = traverse.traverse_plain(arena, mtab, o, d, 0.0, tmax, 0, prim, False, time=tl)
+    kab = run(mtab, "traverse_anim_deform", tm=smax, any_hit=True, o_=so, d_=sd)
+    pab = traverse.traverse_plain(arena, mtab, so, sd, 0.0, smax, 2, None, True, time=tl)
+    torch.cuda.synchronize()
+    traverse.check_errors(dev)
+    exact(ka, pa, "traverse_anim_deform")
+    if not torch.equal(kab, pab):
+        raise AssertionError(f"traverse_anim_deform: {int((kab != pab).sum())} any-hit results "
+                             "differ")
+    log(f"traverse_deform on the deforming trefoil's {n} camera lanes: {int(hit.sum())} hit, "
+        f"{int(pb.sum())} shadow rays blocked, every hit record and any-hit flag equal to the "
+        f"plain walk's (times 0 and 1 on 8,192 lanes, a NaN ray); {moved:.4f} of the lanes hit "
+        f"another triangle than at frame 0; the walks visited {counts['nodes']} node rows and "
+        f"{counts['leaves']} leaf rows; traverse_anim_deform over a moving instance: "
+        f"{int((pa[1] >= 0).sum())} hit, {int(pab.sum())} blocked, all equal")
+
+    def walk(a=arena):
+        return traverse.intersect_instances(a, itab, o, d, 0.0, tmax, "camera", prim, time=tl)
+
+    static = dataclasses.replace(arena, tri_rows_d=None, attr_rows_d=None)
+    out = {
+        "max_abs_err": 0.0,
+        "ms": time_ms(walk, 5),
+        "device_ms": device_ms(walk, "traverse_deform", 5),
+        "static_ms": time_ms(lambda: walk(static), 5),
+        "static_device_ms": device_ms(lambda: walk(static), "traverse", 5),
+        "anyhit_ms": time_ms(lambda: traverse.intersect_instances(
+            arena, itab, so, sd, 0.0, smax, "shadow", any_hit=True, time=tl), 5),
+        "plain_ms": time_ms(lambda: traverse.traverse_plain(arena, itab, o, d, 0.0, tmax, 0, prim,
+                                                            False, time=tl), 1, runs=1),
+        # each lane's o, d, tmax, primary, time in and t, prim, u, v, prop
+        # out; the node rows read and both leaf rows of each leaf visit
+        **bound(n * (29 + 4 + 20) + counts["nodes"] * 256 + counts["leaves"] * 2 * 432,
+                counts["nodes"] * OPS_NODE + counts["leaves"] * (OPS_LEAF + OPS_DEFORM_LEAF)
+                + n * OPS_INSTANCE),
+        "library_ms": None,
+    }
+    anim_counts = {"nodes": 0, "leaves": 0}
+    traverse.traverse_plain(arena, mtab, o, d, 0.0, tmax, 0, prim, False, anim_counts, time=tl)
+    anim = {
+        "max_abs_err": 0.0,
+        "ms": time_ms(lambda: traverse.intersect_instances(arena, mtab, o, d, 0.0, tmax, "camera",
+                                                           prim, time=tl), 5),
+        "device_ms": device_ms(lambda: traverse.intersect_instances(
+            arena, mtab, o, d, 0.0, tmax, "camera", prim, time=tl), "traverse_anim_deform", 5),
+        "plain_ms": time_ms(lambda: traverse.traverse_plain(arena, mtab, o, d, 0.0, tmax, 0,
+                                                            prim, False, time=tl), 1, runs=1),
+        **bound(n * (29 + 4 + 20) + anim_counts["nodes"] * 256 + anim_counts["leaves"] * 2 * 432,
+                anim_counts["nodes"] * OPS_NODE
+                + anim_counts["leaves"] * (OPS_LEAF + OPS_DEFORM_LEAF)
+                + n * (OPS_INSTANCE + OPS_SLERP)),
+        "library_ms": None,
+    }
+    log(f"traverse_deform: kernel {out['ms']:.4f} ms (device {out['device_ms']:.4f} ms) against "
+        f"the static form on the same lanes {out['static_ms']:.4f} ms (device "
+        f"{out['static_device_ms']:.4f} ms); any-hit {out['anyhit_ms']:.4f} ms; "
+        f"traverse_anim_deform {anim['ms']:.4f} ms (device {anim['device_ms']:.4f} ms)")
+    return {"traverse_deform": out, "traverse_anim_deform": anim}
+
+
+def phase_slice_deform_glb(dev) -> None:
+    """The deforming SUB trefoil (128x120, kernel 5) and the trefoil lit by
+    the emissive glTF panel (kernel 6, the primitive light tree) at 96x56,
+    4 spp on the card against the plain CPU path."""
+    import torch
+    from zyg_tpu_torch.render.driver import Driver
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    for name in ("deform_small.scene", "glb_small.scene"):
+        take, scene = _slice_scene(name, (96, 56), GATE_SPP, f"{name[:-6]} gate")
+        t0 = time.perf_counter()
+        card = Driver(take, scene, device=dev).render_frame()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = Driver(take, scene, device="cpu").render_frame()
+        t_cpu = time.perf_counter() - t0
+        _golden_gate(card, cpu, f"{name[:-6]} 96x56x{GATE_SPP}",
+                     f"card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4023,10 +4368,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     checks["curves"] = check_curves(dev)
     torch.cuda.empty_cache()
+    checks.update(check_traverse_deform(dev))
+    torch.cuda.empty_cache()
     for name in SOURCES:
         c = checks[name]
         lib = f", library {c['library_ms']:.4f} ms" if c["library_ms"] is not None else ""
         anyhit = f" (any-hit {c['anyhit_ms']:.4f} ms)" if "anyhit_ms" in c else ""
+        if "static_ms" in c:
+            anyhit += (f" (the static form on the same lanes {c['static_ms']:.4f} ms, device "
+                       f"{c['static_device_ms']:.4f} ms)")
         if "all_lanes_ms" in c:
             anyhit = (f" (all lanes {c['all_lanes_ms']:.4f} ms, device {c['all_lanes_device_ms']:.4f} ms, "
                       f"plain {c['all_lanes_plain_ms']:.4f} ms, "
@@ -4045,7 +4395,7 @@ def main() -> int:
                   phase_slice_hero, phase_slice_portal, phase_slice_tree, phase_slice_material,
                   phase_slice_smoke, phase_slice_fire, phase_slice_cornell_variants,
                   phase_slice_motion, phase_slice_caustics, phase_slice_particles,
-                  phase_slice_sparks_hairball):
+                  phase_slice_sparks_hairball, phase_slice_deform_glb):
         phase(dev)
         mark(phase.__name__)
     # launches: the CLI runs of the Cornell, trefoil, sunsky, hero,
@@ -4066,6 +4416,20 @@ def main() -> int:
         new_paths[take_name] = (cli_counts, phase_main_path(
             dev, card, label, *_take_scene(take_name, res, spp, label), kernels,
             lanes_of=lanes_of))
+        mark(f"main path {label}")
+    # the mesh-file paths: the CLI on the take over the written scene, then
+    # the Driver (the scene's load with its primitive light tree timed)
+    slice_paths = {}
+    for scene_name, label, kernels in (
+            ("deform.scene", "deforming trefoil PTMIS", DEFORM_KERNELS),
+            ("glb.scene", "emissive glTF PTMIS", GLB_KERNELS)):
+        _slice_take(scene_name, MESH_RES, MESH_SPP)  # writes the take file the CLI reads
+        cli_counts = _cli_run(os.path.join(slice_files(), f"{scene_name[:-6]}_{MESH_RES[0]}x"
+                                           f"{MESH_RES[1]}.take"), kernels)
+        for k in launches:
+            launches[k] += cli_counts[k]
+        slice_paths[scene_name] = (cli_counts, phase_main_path(
+            dev, card, label, *_slice_scene(scene_name, MESH_RES, MESH_SPP, label), kernels))
         mark(f"main path {label}")
     for take_name, label, res, spp, kernels in (
             ("cornell_ptmis.take", "Cornell PTMIS", (1920, 1080), 16, CORNELL_KERNELS),
@@ -4188,7 +4552,9 @@ def main() -> int:
         c = checks[name]
         return {"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
-                "launches_of": "cli sparks.take + cli hairball.take + cli "
+                "launches_of": "cli sparks.take + cli hairball.take + cli of trefoil.take "
+                               "over the deforming .sub trefoil and over the emissive glTF "
+                               "scene (1280x720, 4 spp) + cli "
                                "cornell_ptmis.take + cli trefoil.take + cli sunsky.take + cli "
                                "hero.take + cli portal.take, material_test.take, smoke.take "
                                "and fire.take (copies at 4 spp) + one 1280x720 4 spp "
@@ -4198,6 +4564,10 @@ def main() -> int:
                                "forest.take + cli motion.take + cli caustics_photons.take (a "
                                "copy at 4 spp) + cli cornell_particles.take (a copy at 16 "
                                "particles a pixel where 64 would take over 20 s)",
+                "launches_deform_cli": slice_paths["deform.scene"][0][name],
+                "launches_deform_render": slice_paths["deform.scene"][1][name],
+                "launches_glb_cli": slice_paths["glb.scene"][0][name],
+                "launches_glb_render": slice_paths["glb.scene"][1][name],
                 "launches_sparks_cli": new_paths["sparks.take"][0][name],
                 "launches_sparks_render": new_paths["sparks.take"][1][name],
                 "launches_hairball_cli": new_paths["hairball.take"][0][name],
@@ -4239,7 +4609,10 @@ def main() -> int:
                 # the walks' any-hit forms, the point walk on the still arena
                 # and what a thread a lane's warps would do on their lanes
                 **{f: c[f] for f in ("anyhit_ms", "still_ms", "diagnosis")
-                   if f in c and name in ("points", "curves")}}
+                   if f in c and name in ("points", "curves")},
+                # the deforming form beside the static form on the same lanes
+                **{f: c[f] for f in ("anyhit_ms", "static_ms", "static_device_ms")
+                   if f in c and name == "traverse_deform"}}
 
     print(json.dumps({"kernels": [entry(k) for k in SOURCES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

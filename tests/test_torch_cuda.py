@@ -54,7 +54,7 @@ def cuda_device():
 @pytest.mark.parametrize("kernel", ["sobol_block", "isect", "accum", "shade", "surface", "traverse",
                                     "surface_v2", "surface_v2_hero", "isect_portal",
                                     "surface_v2_portal", "accum_filtered", "traverse_forest",
-                                    "traverse_anim", "points", "curves"])
+                                    "traverse_anim", "points", "curves", "traverse_deform"])
 def test_kernel_matches_plain_on_card(cuda_device, kernel):
     """surface_v2_hero: kernel 6 on the first bounce of a 1280x720
     hero.take render, whose roughness varies per lane across the knot;
@@ -71,7 +71,10 @@ def test_kernel_matches_plain_on_card(cuda_device, kernel):
     moving and held at shutter open, closest and any-hit, and on as many
     incoherent lanes, bit-exact; curves: the curve walk on hairball.take's
     384x384 first-bounce lanes and on as many incoherent lanes, closest and
-    any-hit, bit-exact."""
+    any-hit, bit-exact; traverse_deform: the deforming form on the 921,600
+    camera lanes of a two-frame .sub trefoil-512x480 at seeded shutter
+    times (0 and 1 on some lanes, a NaN ray), closest and any-hit, and
+    traverse_anim_deform over a moving instance of it, bit-exact."""
     import chip_smoke
 
     check = {"sobol_block": chip_smoke.check_sobol, "isect": chip_smoke.check_isect,
@@ -84,9 +87,11 @@ def test_kernel_matches_plain_on_card(cuda_device, kernel):
              "accum_filtered": chip_smoke.check_accum_filtered,
              "traverse_forest": chip_smoke.check_traverse_forest,
              "traverse_anim": chip_smoke.check_traverse_anim,
-             "points": chip_smoke.check_points, "curves": chip_smoke.check_curves}[kernel]
+             "points": chip_smoke.check_points, "curves": chip_smoke.check_curves,
+             "traverse_deform": chip_smoke.check_traverse_deform}[kernel]
     result = check(cuda_device)  # raises on any disagreement
-    assert result["ms"] > 0.0
+    for r in (result.values() if kernel == "traverse_deform" else [result]):
+        assert r["ms"] > 0.0
 
 
 def _lanes(shape, symbol: str) -> int:
@@ -316,6 +321,103 @@ def test_traverse_anim_launch_shapes(cuda_device, moving_pair, case):
     assert torch.equal(kb, pb)
     if case in ("all dead", "all miss"):
         assert not bool((k[1] >= 0).any()) and not bool(kb.any())
+
+
+@pytest.fixture(scope="module")
+def deforming_tables(cuda_device):
+    """A trefoil whose second position frame is displaced (a deforming
+    arena) beside a static sphere, under rotated_pair's two instances, and
+    the same with the first instance moving."""
+    import numpy as np
+    import chip_smoke
+    from zyg_tpu_torch.scene import trimesh
+    from zyg_tpu_torch.scene.loader import rotation_matrix_from_euler_degrees as rot
+
+    m = trimesh.make_trefoil_mesh(48, 32)
+    m = m._replace(positions_end=chip_smoke._displaced(m))
+    arena, host = trimesh.build_arena([m, trimesh.make_sphere_mesh(8, 12)])
+    first = dict(prop=1, mesh=0, rot=rot([30, -50, 70]), pos=np.float32([0.3, -0.2, 0.5]),
+                 scale=np.float32([0.35, 0.5, 0.3]))
+    second = dict(prop=2, mesh=1, rot=np.eye(3, dtype=np.float32),
+                  pos=np.float32([-0.5, 0.4, 0.1]), scale=np.full(3, 0.6, np.float32),
+                  vis=(False, True, False))
+    still = trimesh.build_instance_table(host, [first, second])
+    moving = trimesh.build_instance_table(host, [
+        dict(first, rot1=rot([10, 40, 75]), pos1=np.float32([0.9, 0.3, 0.2]),
+             scale1=np.float32([0.45, 0.4, 0.3])), second])
+    assert arena.tri_rows_d is not None and moving.has_anim and not still.has_anim
+    return arena.to(cuda_device), {"still": still.to(cuda_device),
+                                   "moving": moving.to(cuda_device)}
+
+
+@pytest.mark.parametrize("table", ["still", "moving"])
+@pytest.mark.parametrize("case", SHAPES + ["all dead", "all miss"])
+def test_traverse_deform_launch_shapes(cuda_device, deforming_tables, table, case):
+    """The deforming forms (traverse_deform over a static table,
+    traverse_anim_deform over a moving one) at the persistent grid's
+    launch shapes, at seeded shutter times with 0 and 1 on some lanes and
+    a NaN ray: every hit record and any-hit flag equal to the plain
+    walk's; without times the walk is the walk at time 0."""
+    import chip_smoke
+    from zyg_tpu_torch import ops
+    from zyg_tpu_torch.ops import traverse
+    from zyg_tpu_torch.scene.types import RAY_MAX_T
+
+    arena, tables = deforming_tables
+    itab = tables[table]
+    name = "traverse_anim_deform" if table == "moving" else "traverse_deform"
+    n = 129 if case in ("all dead", "all miss") else _lanes(case, f"zyg_{name}_resident_lanes")
+    o, d, tgt = chip_smoke._mesh_rays(n, cuda_device, seed=23)
+    if case == "all miss":
+        d = o / o.norm(dim=1, keepdim=True)
+        o = 6.0 * d
+    g = torch.Generator(device="cpu").manual_seed(11)
+    alive = (torch.rand(n, generator=g) < 0.9).to(cuda_device) & (case != "all dead")
+    prim = (torch.rand(n, generator=g) < 0.5).to(cuda_device)
+    time = torch.rand(n, generator=g).to(cuda_device)
+    if n > 40:
+        time[:16], time[16:32] = 0.0, 1.0
+        d[33] = float("nan")
+    tmax = torch.where(alive, RAY_MAX_T, 0.0)
+    smax = torch.where(alive, (tgt - o).norm(dim=1), 0.0)
+    before = ops.launch_counts()[name]
+    k = traverse.intersect_instances(arena, itab, o, d, 0.0, tmax, "reflection", prim, time=time)
+    p = traverse.traverse_plain(arena, itab, o, d, 0.0, tmax, 1, prim, False, time=time)
+    kb = traverse.intersect_instances(arena, itab, o, d, 0.0, smax, "shadow", any_hit=True,
+                                      time=time)
+    pb = traverse.traverse_plain(arena, itab, o, d, 0.0, smax, 2, None, True, time=time)
+    torch.cuda.synchronize()
+    traverse.check_errors(cuda_device)
+    assert ops.launch_counts()[name] == before + (2 if n > 0 else 0)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.equal(kb, pb)
+    if case in ("all dead", "all miss"):
+        assert not bool((k[1] >= 0).any()) and not bool(kb.any())
+    if table == "still" and n > 0:
+        k0 = traverse.intersect_instances(arena, itab, o, d, 0.0, tmax, "reflection", prim)
+        kz = traverse.intersect_instances(arena, itab, o, d, 0.0, tmax, "reflection", prim,
+                                          time=torch.zeros_like(time))
+        assert all(torch.equal(a, b) for a, b in zip(k0, kz))
+
+
+def test_traverse_deform_rejects_misaligned_deltas(cuda_device, deforming_tables):
+    """The leaf deltas are read as 16-byte loads too: a misaligned
+    tri_rows_d is refused, never walked."""
+    import dataclasses
+
+    import chip_smoke
+    from zyg_tpu_torch.ops import traverse
+
+    arena, tables = deforming_tables
+    rows = arena.tri_rows_d
+    shifted = torch.empty(rows.numel() + 1, dtype=rows.dtype, device=cuda_device)[1:].view(rows.shape)
+    shifted.copy_(rows)
+    bad = dataclasses.replace(arena, tri_rows_d=shifted)
+    o, d, _ = chip_smoke._mesh_rays(64, cuda_device, seed=13)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        traverse.intersect_instances(bad, tables["still"], o, d, 0.0, 1e30, "reflection",
+                                     time=torch.zeros(64, device=cuda_device))
 
 
 def _pick_case(dev, ninst: int, moving: bool, n: int = 4096, seed: int = 41):

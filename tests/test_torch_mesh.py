@@ -256,8 +256,7 @@ def test_loader_builds_mesh_scenes_like_jax(tmp_path):
         np.testing.assert_array_equal(x, y, err_msg=k)
 
 
-@pytest.mark.parametrize("shape", [{"file": "mesh.obj"}, {"file": "proc:torus"},
-                                   {"file": "model.gltf"}], ids=["obj", "unknown_proc", "gltf"])
+@pytest.mark.parametrize("shape", [{"file": "proc:torus"}], ids=["unknown_proc"])
 def test_loader_refuses_mesh_files(shape):
     from zyg_tpu_torch.scene.loader import UnsupportedScene, load_scene_dict
 

@@ -101,7 +101,6 @@ def _light(shape, **extra):
     "scene,reason",
     [
         (_light({"type": "Cube"}), "Cube lights"),
-        (_light({"file": "proc:cube"}), "emissive meshes"),
         ({"entities": [{"type": "Instancer", "prototypes": []}]}, r"Instancer keys \['prototypes'\]"),
         # hair loads (tests/test_torch_hair.py); as an Instancer's prototype
         # it is refused, the file named
@@ -111,7 +110,7 @@ def _light(shape, **extra):
                                                               "scale": 2}}}]}, "Sky keys"),
         ({"entities": [{"type": "Camera"}]}, "entity 'Camera'"),
     ],
-    ids=["cube_light", "mesh_light", "instancer", "hair_file", "sky_key", "other_entity"],
+    ids=["cube_light", "instancer", "hair_file", "sky_key", "other_entity"],
 )
 def test_loader_names_what_it_refuses(scene, reason):
     """Each light kind, entity and Sky parameter outside the port's subset

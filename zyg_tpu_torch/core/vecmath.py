@@ -132,6 +132,24 @@ def object_to_world_normal(rot, v):
     return fma(v2, rot[..., 2, :], fma(v0, rot[..., 0, :], v1 * rot[..., 1, :]))
 
 
+def object_to_world_vector(rot, scale, v):
+    """sum_i (v_i * scale_i) * rot[i]: an object-space vector to world."""
+    return object_to_world_normal(rot, v * scale)
+
+
+def object_to_world_point(rot, scale, pos, p):
+    return object_to_world_vector(rot, scale, p) + pos
+
+
+def sample_triangle_uniform(uv):
+    """Uniform barycentrics (u, v) on the unit triangle from uv [N, 2]
+    (Heitz 2019's square-root-free map, zyg_tpu/core/vecmath.py:315)."""
+    u, v = uv[..., 0], uv[..., 1]
+    lt = u < v
+    return torch.stack([torch.where(lt, 0.5 * u, u - 0.5 * v),
+                        torch.where(lt, v - 0.5 * u, 0.5 * v)], dim=-1)
+
+
 def world_to_object_normal(rot, v):
     """(v . rot[0], v . rot[1], v . rot[2]): rotation only."""
     return torch.stack([dot(v, rot[..., 0, :]), dot(v, rot[..., 1, :]), dot(v, rot[..., 2, :])], -1)

@@ -77,6 +77,18 @@
 // the shutter, so the pick is unchanged. It runs once an instance visit:
 // ~60 operations beside the ~300 of a wide node; the static variant is
 // compiled without it.
+//
+// Deforming meshes (the kDeform forms, traverse_deform_kernel and
+// traverse_anim_deform_kernel): the arena also holds each leaf row's
+// shutter-end minus shutter-start deltas (tri_rows_d), and a leaf test
+// first lerps the row to the ray's shutter time, fmaf(time, trd, tr) a
+// float, as the plain walk fuses it (XLA:CPU fuses the JAX walk's
+// single-use product, zyg_tpu/scene/trimesh.py:894-897). It reads another
+// 27 float4s a leaf visit and the ray's time once at its start. A
+// template flag rather than a branch on the pointer: the static forms
+// keep the code they had, and the deforming forms have kernel names of
+// their own, so a trace shows which one ran; the build compiles eight
+// forms instead of four (the register and SASS counts are in PERF.md).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -101,6 +113,7 @@ constexpr int kWarpPickMin = 8;  // the fewest instances whose tables launch the
 struct TravArgs {
   const float4* node_rows;  // [W, 64]
   const float4* tri_rows;  // [G, 108]
+  const float4* tri_rows_d;  // [G, 108] deltas of a deforming arena, else null
   const float* wmin;  // [I, 3]
   const float* wmax;  // [I, 3]
   const float* trafo;  // [I, 24]
@@ -109,7 +122,7 @@ struct TravArgs {
   const float* d;  // [N, 3]
   const float* tmax;  // [N]
   const uint8_t* primary;  // [N] or null
-  const float* time;  // [N] shutter times (the kAnim variant), else null
+  const float* time;  // [N] shutter times (kAnim or a deforming arena), else null
   int* err;  // [1] bit 0: stack overflow, bit 1: runaway walk
   unsigned long long* next;  // [1] the next ray id to hand out
   float* t_out;
@@ -162,6 +175,7 @@ struct Ray {
                     // ray is read again at each instance pick)
   Best best;
   int prop;
+  float time;  // the ray's shutter time (read where a.time is given)
   bool prim_ray, walking;
   float last_t, bt;  // the last instance walked and the current one: entry t ...
   int last_i, bi;  // ... and index
@@ -191,6 +205,7 @@ __device__ __forceinline__ bool start(const TravArgs& a, int64_t id, Ray& r) {
     return false;
   }
   r.prim_ray = a.primary != nullptr && __ldg(a.primary + id) != 0;
+  r.time = a.time != nullptr ? __ldg(a.time + id) : 0.0f;
   r.last_t = -1.0f;
   r.last_i = -1;
   r.round = 0;
@@ -338,7 +353,7 @@ __device__ __forceinline__ void enter_instance(const TravArgs& a, Ray& r, F3 o, 
   const float* tf = a.trafo + 24 * bi;
   float q[4], pos[3], scale[3];
   if constexpr (kAnim) {
-    transform_at(tf, __ldg(a.time + r.id), q, pos, scale);
+    transform_at(tf, r.time, q, pos, scale);
   } else {
 #pragma unroll
     for (int k = 0; k < 4; ++k) q[k] = __ldg(tf + k);
@@ -373,6 +388,7 @@ __device__ __forceinline__ void enter_instance(const TravArgs& a, Ray& r, F3 o, 
 // one step of the instance's BLAS walk: a wide node or a leaf, then the
 // pop. Returns -2 while the walk goes on, else its end: 1 if it found a
 // closer hit, 0 if not, -1 if it had to stop early (the error flag is set).
+template <bool kDeform>
 __device__ __forceinline__ int walk_step(const TravArgs& a, Ray& r, int* stack) {
   if (r.steps >= TRAV_MAX_STEPS) {
     atomicOr(a.err, 2);
@@ -441,13 +457,22 @@ __device__ __forceinline__ int walk_step(const TravArgs& a, Ray& r, int* stack) 
     // ---- leaf: Moller-Trumbore over its triangles (lowest slot wins a tie)
     const int g = -r.node - 2;
     const float4* tr = a.tri_rows + (int64_t)g * TRAV_LEAF_F4;
+    const float4* trd = kDeform ? a.tri_rows_d + (int64_t)g * TRAV_LEAF_F4 : nullptr;
     float t16 = kBig, u16 = 0.0f, v16 = 0.0f;
     int jj = 0;
 #pragma unroll
     for (int q = 0; q < TRAV_LEAF / 4; ++q) {
       float f[36];  // 4 triangles of (p0, e1, e2)
 #pragma unroll
-      for (int k = 0; k < 9; ++k) unpack4(__ldg(tr + 9 * q + k), f + 4 * k);
+      for (int k = 0; k < 9; ++k) {
+        float4 row = __ldg(tr + 9 * q + k);
+        if constexpr (kDeform) {  // a deforming leaf at the ray's shutter time
+          const float4 dr = __ldg(trd + 9 * q + k);
+          row = make_float4(fmaf(r.time, dr.x, row.x), fmaf(r.time, dr.y, row.y),
+                            fmaf(r.time, dr.z, row.z), fmaf(r.time, dr.w, row.w));
+        }
+        unpack4(row, f + 4 * k);
+      }
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int j = 4 * q + c;
@@ -519,7 +544,7 @@ __device__ __forceinline__ void end_pick(const TravArgs& a, Ray& r, F3 o, F3 d, 
 }
 
 // kWarpPick: the warp pick's form; else the lane pick's
-template <bool kAnim, bool kWarpPick>
+template <bool kAnim, bool kDeform, bool kWarpPick>
 __device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack) {
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
@@ -590,7 +615,7 @@ __device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack
     }
     // ---- one step of this lane's walk
     if (r.id < 0) continue;
-    const int end = walk_step(a, r, stack);
+    const int end = walk_step<kDeform>(a, r, stack);
     if (end == -2) continue;
     r.walking = false;
     if (end < 0) {
@@ -608,20 +633,33 @@ __device__ __forceinline__ void traverse_run(const TravArgs& a, int* const stack
 template <bool kWarpPick>
 __global__ void __launch_bounds__(TRAV_THREADS) traverse_kernel(TravArgs a) {
   __shared__ int stack_s[TRAV_MAX_STACK * TRAV_THREADS];
-  traverse_run<false, kWarpPick>(a, stack_s + threadIdx.x);
+  traverse_run<false, false, kWarpPick>(a, stack_s + threadIdx.x);
 }
 
 template <bool kWarpPick>
 __global__ void __launch_bounds__(TRAV_THREADS) traverse_anim_kernel(TravArgs a) {
   __shared__ int stack_s[TRAV_MAX_STACK * TRAV_THREADS];
-  traverse_run<true, kWarpPick>(a, stack_s + threadIdx.x);
+  traverse_run<true, false, kWarpPick>(a, stack_s + threadIdx.x);
+}
+
+template <bool kWarpPick>
+__global__ void __launch_bounds__(TRAV_THREADS) traverse_deform_kernel(TravArgs a) {
+  __shared__ int stack_s[TRAV_MAX_STACK * TRAV_THREADS];
+  traverse_run<false, true, kWarpPick>(a, stack_s + threadIdx.x);
+}
+
+template <bool kWarpPick>
+__global__ void __launch_bounds__(TRAV_THREADS) traverse_anim_deform_kernel(TravArgs a) {
+  __shared__ int stack_s[TRAV_MAX_STACK * TRAV_THREADS];
+  traverse_run<true, true, kWarpPick>(a, stack_s + threadIdx.x);
 }
 
 }  // namespace
 
 // ptrs: node_rows, tri_rows, wmin, wmax, trafo, vis, o, d, tmax, primary
 // (or null), err, the ray counter, then t, prim, u, v, prop (closest) or
-// blocked (any-hit), then the rays' shutter times (anim; else unread)
+// blocked (any-hit), then the rays' shutter times (null unless anim or a
+// deforming arena) and the arena's leaf deltas (null unless deforming)
 static int launch_traverse(bool anim, void** ptrs, int ninst, int vis_col, int any_hit,
                            int stack_d, float tmin, int64_t n, void* stream) {
   if (stack_d < 1 || stack_d > TRAV_MAX_STACK || ninst < 0 || n < 1) {
@@ -638,7 +676,8 @@ static int launch_traverse(bool anim, void** ptrs, int ninst, int vis_col, int a
   a.d = (const float*)ptrs[7];
   a.tmax = (const float*)ptrs[8];
   a.primary = (const uint8_t*)ptrs[9];
-  a.time = anim ? (const float*)ptrs[any_hit ? 13 : 17] : nullptr;
+  a.time = (const float*)ptrs[any_hit ? 13 : 17];
+  a.tri_rows_d = (const float4*)ptrs[any_hit ? 14 : 18];
   a.err = (int*)ptrs[10];
   a.next = (unsigned long long*)ptrs[11];
   a.t_out = any_hit ? nullptr : (float*)ptrs[12];
@@ -653,12 +692,17 @@ static int launch_traverse(bool anim, void** ptrs, int ninst, int vis_col, int a
   a.stack_d = stack_d;
   a.tmin = tmin;
   a.n = n;
-  if (((uintptr_t)a.node_rows | (uintptr_t)a.tri_rows) & 15) return (int)cudaErrorMisalignedAddress;
-  if (anim && a.time == nullptr) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)a.node_rows | (uintptr_t)a.tri_rows | (uintptr_t)a.tri_rows_d) & 15) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  if ((anim || a.tri_rows_d != nullptr) && a.time == nullptr) return (int)cudaErrorInvalidValue;
   const bool wp = ninst >= kWarpPickMin;
   void (*const kernel)(TravArgs) =
-      anim ? (wp ? traverse_anim_kernel<true> : traverse_anim_kernel<false>)
-           : (wp ? traverse_kernel<true> : traverse_kernel<false>);
+      a.tri_rows_d != nullptr
+          ? (anim ? (wp ? traverse_anim_deform_kernel<true> : traverse_anim_deform_kernel<false>)
+                  : (wp ? traverse_deform_kernel<true> : traverse_deform_kernel<false>))
+          : (anim ? (wp ? traverse_anim_kernel<true> : traverse_anim_kernel<false>)
+                  : (wp ? traverse_kernel<true> : traverse_kernel<false>));
   int resident = 0;
   cudaError_t err = resident_blocks((const void*)kernel, TRAV_THREADS, &resident);
   if (err == cudaSuccess) err = cudaMemsetAsync(a.next, 0, sizeof(unsigned long long), (cudaStream_t)stream);
@@ -674,7 +718,7 @@ extern "C" int zyg_traverse(void** ptrs, int ninst, int vis_col, int any_hit, in
   return launch_traverse(false, ptrs, ninst, vis_col, any_hit, stack_d, tmin, n, stream);
 }
 
-// the motion-blur variant: ptrs as zyg_traverse's, then the shutter times
+// the motion-blur variant: ptrs as zyg_traverse's (the shutter times given)
 extern "C" int zyg_traverse_anim(void** ptrs, int ninst, int vis_col, int any_hit, int stack_d,
                                  float tmin, int64_t n, void* stream) {
   return launch_traverse(true, ptrs, ninst, vis_col, any_hit, stack_d, tmin, n, stream);
@@ -698,4 +742,14 @@ extern "C" int zyg_traverse_resident_lanes(int64_t* out) {
 extern "C" int zyg_traverse_anim_resident_lanes(int64_t* out) {
   return resident_lanes_of((const void*)traverse_anim_kernel<false>,
                            (const void*)traverse_anim_kernel<true>, out);
+}
+
+extern "C" int zyg_traverse_deform_resident_lanes(int64_t* out) {
+  return resident_lanes_of((const void*)traverse_deform_kernel<false>,
+                           (const void*)traverse_deform_kernel<true>, out);
+}
+
+extern "C" int zyg_traverse_anim_deform_resident_lanes(int64_t* out) {
+  return resident_lanes_of((const void*)traverse_anim_deform_kernel<false>,
+                           (const void*)traverse_anim_deform_kernel<true>, out);
 }

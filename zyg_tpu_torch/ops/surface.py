@@ -383,9 +383,11 @@ def make_mesh_fused_body(scene, settings):
         smp.increment_padding()
 
         tmax = torch.where(s.alive, RAY_MAX_T, 0.0)
+        # the lanes' shutter times: a deforming mesh is walked and shaded
+        # at them (zyg_tpu/ops/shade.py:1247-1253, :1290)
         hit = shapes.intersect_scene(scene, tables.refl, s.o, s.d, 0.0, tmax,
-                                     primary=s.depth == 0)
-        frag = shapes.build_fragment(scene, hit, s.o, s.d)
+                                     primary=s.depth == 0, time=s.time)
+        frag = shapes.build_fragment(scene, hit, s.o, s.d, time=s.time)
         valid = hit.valid()
         st = s.fields()
         st.update(
@@ -396,7 +398,7 @@ def make_mesh_fused_body(scene, settings):
         )
         r = surface(tables, st, ua, ub, settings.max_depth, settings.caustics, settings.nee_only)
         blocked = shapes.occluded(scene, tables.shadow, r["shadow_o"], r["shadow_d"], 0.0,
-                                  r["shadow_tmax"])
+                                  r["shadow_tmax"], time=s.time)
         nee = torch.where((r["nee_active"] & ~blocked)[:, None], r["nee"], 0.0)
         nee_dir = (s.depth < 1)[:, None]
         r["direct"] = r["direct"] + torch.where(nee_dir, nee, 0.0)

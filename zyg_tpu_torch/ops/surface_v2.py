@@ -230,7 +230,8 @@ def surface_v2(fit, st: dict, ua, ub, max_depth: int, caustics: bool, nee_only: 
 
 
 _V2_LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.SPHERE), int(ShapeType.DISK),
-                    int(ShapeType.CANOPY), int(ShapeType.DOME), int(ShapeType.DISTANT), ls.PORTAL}
+                    int(ShapeType.CANOPY), int(ShapeType.DOME), int(ShapeType.DISTANT),
+                    int(ShapeType.TRIANGLE_MESH), ls.PORTAL}
 # the material features whose machinery runs in the glue (the JAX
 # package's _V2_XLA_SIDE_FEATURES)
 _V2_FEATURES = {"ies", "triplanar"}
@@ -240,7 +241,8 @@ _INF_SHADOW_TMAX = float(np.float32(RAY_MAX_T) * np.float32(0.9))
 
 def structural_ok_mesh_v2(scene) -> bool:
     """Can this scene run the general bounce? (at least one light, all
-    rectangles, spheres, disks, canopies, domes, distant lights or portals; substitute and
+    rectangles, spheres, disks, canopies, domes, distant lights, emissive
+    meshes or portals; substitute and
     light materials with no feature but IES profiles and triplanar
     textures; analytic props the isect kernel tests)"""
     if scene.lights.count < 1:
@@ -317,7 +319,7 @@ class GeneralBounce:
         if not self.settings.nee_only:
             hit_lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d,
                                        *ls.mis_hit(self.present, hit.t, frag, s.mis_o),
-                                       time=s.time)
+                                       time=s.time, hit_prim=hit.prim, n_at_origin=s.mis_n)
                       * ls.light_select_pdf(scene, light_id, p=s.mis_o, n=s.mis_n))
         else:
             hit_lp = torch.zeros_like(hit.t)
@@ -332,7 +334,7 @@ class GeneralBounce:
         # ---- the NEE candidate
         light_idx, sel_pdf = ls.select_light(scene, u_sel, p=frag.p, n=frag.n)
         lsmp = ls.sample_light(scene, self.present, light_idx, frag.p, frag.geo_n, xi_l,
-                               time=s.time)
+                               time=s.time, ns=frag.n)
         radiance = ls.light_radiance(scene, light_idx, lsmp.wi, lsmp.light_n, lsmp.uv)
         side = (vm.dot(lsmp.wi, frag.geo_n) >= 0.0)[:, None]
         shadow_o = _offset_rows(frag.p, torch.where(side, frag.geo_n, -frag.geo_n))

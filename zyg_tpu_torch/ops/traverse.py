@@ -43,6 +43,16 @@ transform at that time, the start and end rows slerped and lerped
 (core/vecmath.py quat_slerp, lerp; zyg_tpu/scene/trimesh.py:1145-1155).
 On the card that is the kernel's kAnim variant (traverse_anim). A moving
 table without times raises.
+
+Deforming meshes (MeshArena.tri_rows_d): each leaf's 12 triangles are
+lerped to the ray's shutter time before the test, fmaf(time, trd, tr)
+(XLA:CPU fuses the JAX walk's single-use product into the add,
+zyg_tpu/scene/trimesh.py:894-897; probed: unfused, t differs on ~22 % of
+the hits). Without times a deforming arena walks at the shutter's start
+(:640-641). A moving instance of a deforming mesh takes both, the slerp
+at its entry and the lerp at each leaf. On the card these are the
+kernel's deforming forms, traverse_deform and traverse_anim_deform,
+counted apart from the static ones.
 """
 
 from __future__ import annotations
@@ -53,12 +63,16 @@ import torch
 
 from . import check_cuda, register, stream_handle
 from ..core import vecmath as vm
+from ..core.fmath import fma
 from ..scene.trimesh import BRANCH, LEAF_SIZE
 
 _ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
          ctypes.c_int64, ctypes.c_void_p]
 _KERNEL = register("traverse", "zyg_traverse", _ARGS)
 _KERNEL_ANIM = register("traverse_anim", "zyg_traverse_anim", _ARGS)
+# the same entry points over a deforming arena (the leaf lerp), counted apart
+_KERNEL_DEFORM = register("traverse_deform", "zyg_traverse", _ARGS)
+_KERNEL_ANIM_DEFORM = register("traverse_anim_deform", "zyg_traverse_anim", _ARGS)
 
 MAX_STACK = 32  # csrc/traverse.cu TRAV_MAX_STACK: arenas up to depth 31
 _MISS_KEY = 0x7F800000  # +inf bits: sorts after every hit key
@@ -88,15 +102,26 @@ def _tri_test(o, d, p0, e1, e2, tmin, tmax):
     return t, u, v, hit
 
 
-def _blas_plain(arena, root, o, d, tmin, tmax, any_hit: bool, counts: dict | None):
+def _leaf_rows(arena, g, time):
+    """Leaf rows g [K, 12, 9]: a deforming arena's lerped to the rays'
+    shutter times, tr + time * trd with the product fused into the add
+    (the JAX walk's rounding, zyg_tpu/scene/trimesh.py:894-897)."""
+    tr = arena.tri_rows[g].reshape(-1, LEAF_SIZE, 9)
+    if arena.tri_rows_d is None:
+        return tr
+    return fma(time[:, None, None], arena.tri_rows_d[g].reshape(-1, LEAF_SIZE, 9), tr)
+
+
+def _blas_plain(arena, root, o, d, tmin, tmax, any_hit: bool, counts: dict | None, time=None):
     """Walk each ray's BLAS from root (int64[N], all >= 0) in object space.
     Returns (t, prim, u, v); t starts at tmax and only shrinks. counts, if
-    given, accumulates the node and leaf rows visited."""
+    given, accumulates the node and leaf rows visited. time: the rays'
+    shutter times, to which a deforming arena's leaves are lerped."""
     dev = o.device
     n = root.shape[0]
     B = BRANCH
     stack_d = arena.max_depth + 1
-    rows_all, trows = arena.node_rows, arena.tri_rows
+    rows_all = arena.node_rows
     out_t = tmax.clone()
     out_prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
     out_u = torch.zeros(n, device=dev)
@@ -168,7 +193,7 @@ def _blas_plain(arena, root, o, d, tmin, tmax, any_hit: bool, counts: dict | Non
             counts["leaves"] += lf.numel()
         if lf.numel():
             g = -node[lf] - 2
-            tr = trows[g].reshape(-1, LEAF_SIZE, 9)
+            tr = _leaf_rows(arena, g, time[ids[lf]] if time is not None else None)
             tt, uu, vv, th = _tri_test(oo[lf, None, :], dd[lf, None, :], tr[..., 0:3],
                                        tr[..., 3:6], tr[..., 6:9], tmin, t[lf, None])
             tmask = torch.where(th, tt, _BIG)
@@ -221,6 +246,8 @@ def traverse_plain(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, 
     dev = o.device
     n = o.shape[0]
     ninst = itab.trafo.shape[0]
+    if arena.tri_rows_d is not None and time is None:
+        time = torch.zeros(n, dtype=torch.float32, device=dev)  # the shutter's start
     inv = _inv_dir(d)
     t = tmax.clone()
     prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
@@ -266,7 +293,8 @@ def traverse_plain(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, 
             o_l = vm.world_to_object_point(rot, scale, pos, o[a])
             d_l = vm.world_to_object_vector(rot, scale, d[a])
             mt, mp, mu, mv = _blas_plain(arena, row[:, 20].to(torch.int64), o_l, d_l, tmin,
-                                         t[a], any_hit, counts)
+                                         t[a], any_hit, counts,
+                                         time[a] if arena.tri_rows_d is not None else None)
             closer = mp >= 0
             ca = a[closer]
             t[ca], prim[ca], u[ca], v[ca] = mt[closer], mp[closer], mu[closer], mv[closer]
@@ -298,9 +326,14 @@ def _traverse_cuda(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, 
     check_cuda("traverse.tmax", tmax, torch.float32, dev, (n,))
     if primary is not None:
         check_cuda("traverse.primary", primary, torch.bool, dev, (n,))
-    if itab.has_anim:
+    deforms = arena.tri_rows_d is not None
+    if deforms:
+        check_cuda("traverse.tri_rows_d", arena.tri_rows_d, torch.float32, dev,
+                   tuple(arena.tri_rows.shape))
+    if itab.has_anim or deforms:
         check_cuda("traverse.time", time, torch.float32, dev, (n,))
-    for name, rows in (("node_rows", arena.node_rows), ("tri_rows", arena.tri_rows)):
+    for name, rows in (("node_rows", arena.node_rows), ("tri_rows", arena.tri_rows),
+                       ("tri_rows_d", arena.tri_rows_d if deforms else arena.tri_rows)):
         if rows.data_ptr() % 16:
             raise ValueError(f"traverse.{name}: the kernel reads rows as 16-byte loads and needs "
                              "a 16-byte aligned tensor")
@@ -322,11 +355,12 @@ def _traverse_cuda(arena, itab, o, d, tmin: float, tmax, vis_col: int, primary, 
             d.data_ptr(), tmax.data_ptr(), primary.data_ptr() if primary is not None else None,
             _errors[dev].data_ptr(), next_ray.data_ptr()]
     ptrs += [x.data_ptr() for x in outs]
-    if itab.has_anim:
-        ptrs.append(time.data_ptr())
+    ptrs += [time.data_ptr() if itab.has_anim or deforms else None,
+             arena.tri_rows_d.data_ptr() if deforms else None]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     if n > 0:
-        kernel = _KERNEL_ANIM if itab.has_anim else _KERNEL
+        kernel = ((_KERNEL_ANIM_DEFORM if deforms else _KERNEL_ANIM) if itab.has_anim
+                  else (_KERNEL_DEFORM if deforms else _KERNEL))
         kernel(arr, ninst, vis_col, int(any_hit), stack_d, float(tmin), n, stream_handle(dev))
     return outs[0] if any_hit else tuple(outs)
 
@@ -354,6 +388,9 @@ def intersect_instances(arena, itab, o, d, tmin: float, tmax, ray_class: str = "
     n = o.shape[0]
     if itab.has_anim and time is None:
         raise ValueError("traverse: a table with moving instances needs the rays' shutter times")
+    if arena.tri_rows_d is not None and time is None:
+        # a deforming arena without times walks at the shutter's start
+        time = torch.zeros(n, dtype=torch.float32, device=o.device)
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=o.device).expand(n).contiguous()
     if o.device.type == "cpu":
         return traverse_plain(arena, itab, o, d, float(tmin), tmax, _VIS[ray_class], primary,

@@ -6,7 +6,10 @@ emits from a uniform point of its surface in a cosine distribution about
 its normal: a Rectangle (two-sided ones pick a side by u_side and double
 the weight, as the power CDF doubles their area; a portal's weight is
 modulated by its linked dome's map in the emitted direction), a Sphere
-(never two-sided: a point on the sphere, its outward normal) or a Disk.
+(never two-sided: a point on the sphere, its outward normal), a Disk,
+or an emissive mesh (a triangle by the light's area CDF, as NEE picks it
+without the primitive tree, then a uniform point on it from the CDF
+draw's fraction times 64 and the second uniform, JAX :88-125).
 The weight is Le times the emitting area times pi (the cosine cancels
 against the direction's pdf), times the IES profile at the emitted
 angle from the unflipped normal where the material has one. The infinite
@@ -15,9 +18,8 @@ scene.world_radius): a Distant light along its axis from the disk
 upstream of the scene, weight Le times its cone's solid angle times pi
 R^2; a Dome or Canopy (uniform or mapped) inward from a disk about a
 uniform direction, weight its radiance in that direction
-(light_sampling.light_radiance) times 4 pi^2 R^2. Volume lights and
-emissive meshes (which the loader refuses) raise UnsupportedScene naming
-them (`check_emitters`).
+(light_sampling.light_radiance) times 4 pi^2 R^2. Volume lights raise
+UnsupportedScene naming them (`check_emitters`).
 
 `trace` (JAX :218-341) is the particle pass: one light path per lane,
 each vertex connected to the camera (render/camera.py::camera_sample_to)
@@ -62,7 +64,8 @@ _DISK = int(ShapeType.DISK)
 _DIST = int(ShapeType.DISTANT)
 _DOME = int(ShapeType.DOME)
 _CANOPY = int(ShapeType.CANOPY)
-_EMITTERS = {_RECT, _SPHERE, _DISK, _DIST, _DOME, _CANOPY, ls.PORTAL}
+_MESH = int(ShapeType.TRIANGLE_MESH)
+_EMITTERS = {_RECT, _SPHERE, _DISK, _DIST, _DOME, _CANOPY, _MESH, ls.PORTAL}
 
 
 @dataclass(frozen=True)
@@ -120,7 +123,8 @@ def sample_light_from(scene, light_idx, xi4, u_side=None):
 
     is_sphere = shape == _SPHERE
     is_disk = shape == _DISK
-    finite = (shape == _RECT) | is_sphere | is_disk
+    is_mesh = shape == _MESH
+    finite = (shape == _RECT) | is_sphere | is_disk | is_mesh
     present = ls.light_shapes(scene)
     if _SPHERE in present:
         sp_dir, _ = vm.sample_sphere_uniform(xi4[:, 0:2])
@@ -135,6 +139,20 @@ def sample_light_from(scene, light_idx, xi4, u_side=None):
         dk_p = fma(dk_r[:, None], fma(dxy[:, 0:1], r0, dxy[:, 1:2] * r1), pos)
         p = torch.where(is_disk[:, None], dk_p, p)
         area = torch.where(is_disk, math.pi * dk_r * dk_r, area)
+    if _MESH in present:
+        u_tri = xi4[:, 0]
+        tri, mesh_area, _ = ls.pick_triangle(scene, light_idx, u_tri)
+        row = scene.meshes.attr_rows[tri]
+        p0 = vm.object_to_world_point(rot, scale, pos, row[:, 0:3])
+        e1 = vm.object_to_world_vector(rot, scale, row[:, 3:6])
+        e2 = vm.object_to_world_vector(rot, scale, row[:, 6:9])
+        # a fresh 2-D point: the CDF pick spent xi4[0], so its fraction x 64
+        bc = vm.sample_triangle_uniform(
+            torch.stack([torch.remainder(u_tri * 64.0, 1.0), xi4[:, 1]], dim=-1))
+        mm = is_mesh[:, None]
+        p = torch.where(mm, fma(bc[:, 1:2], e2, fma(bc[:, 0:1], e1, p0)), p)
+        geo_n = torch.where(mm, vm.safe_normalize(vm.cross(e1, e2)), geo_n)
+        area = torch.where(is_mesh, mesh_area, area)
 
     m = scene.prop_material[prop].long()
     radiance = scene.materials.emission[m]

@@ -84,7 +84,7 @@ _MEDIUM_KINDS = (int(MaterialKind.GLASS), int(MaterialKind.VOLUMETRIC))
 _FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media", "vol_emission",
              "hair"}
 _LIGHT_SHAPES = {int(ShapeType.RECTANGLE), int(ShapeType.SPHERE), int(ShapeType.DISK),
-                 int(ShapeType.DOME), ls.VOLUME}
+                 int(ShapeType.DOME), int(ShapeType.TRIANGLE_MESH), ls.VOLUME}
 
 
 def check_general(scene, settings, photons: bool = False) -> None:
@@ -240,7 +240,8 @@ class GeneralBody:
             ts = s.from_volume if self.scatters else None
             lp = (ls.light_hit_pdf(scene, self.present, hit.prop, s.mis_o, s.d,
                                    *ls.mis_hit(self.present, hit.t, frag, s.mis_o),
-                                   total_sphere=ts, time=s.time)
+                                   total_sphere=ts, time=s.time, hit_prim=hit.prim,
+                                   n_at_origin=s.mis_n)
                   * ls.light_select_pdf(scene, light_id, p=s.mis_o, n=s.mis_n,
                                         total_sphere=ts))
             mis_w = torch.where(s.singular | ~is_light, 1.0, power_heuristic(s.bxdf_pdf, lp))
@@ -307,7 +308,7 @@ class GeneralBody:
             can_nee = cont & (scatter | M.can_evaluate(params)) & ~false_if
             light_idx, sel_pdf = ls.select_light(scene, u_sel, p=nee_p, n=frag.n, total_sphere=ts)
             lsmp = ls.sample_light(scene, self.present, light_idx, nee_p, frag.geo_n, xi_l,
-                                   total_sphere=ts, xi3=xi3_l, time=s.time)
+                                   total_sphere=ts, xi3=xi3_l, time=s.time, ns=frag.n)
             # a volume light's lanes radiate from their interior point (its
             # light_n is 0: the shadow ray's end takes no offset)
             radiance = ls.light_radiance(scene, light_idx, lsmp.wi, lsmp.light_n, lsmp.uv,

@@ -1,5 +1,5 @@
 """Next-event estimation for rectangle, sphere, disk, canopy, dome,
-distant, volume and portal lights: light selection, per-shape sampling,
+distant, mesh, volume and portal lights: light selection, per-shape sampling,
 emitted radiance and the hit-side pdfs for MIS (counterpart of
 zyg_tpu/scene/light_sampling.py: 62-98 selection by the power CDF or the
 light tree, :248-271 rectangle, :273-312 sphere, :314-334 disk, :336-352
@@ -10,9 +10,15 @@ profile, :660-692, :731-752 light_hit_pdf).
 A scene with a light tree (two or more lights, one of them finite;
 scene/light_tree.py) selects by the tree's descent at the shading point
 and evaluates the matching pdf at the previous vertex; every other scene
-selects by the power CDF. The loader refuses Cube and mesh lights, and
-the Driver refuses scenes whose light tree would split NEE (the JAX
+selects by the power CDF. The loader refuses Cube lights, and the
+Driver refuses scenes whose light tree would split NEE (the JAX
 package's select_split / pdf_split, not ported).
+
+An emissive mesh (:366-440, :694-730) picks a triangle by its area CDF
+(a binary search in the light's slice), or, where the mesh has a
+primitive light tree (scene/loader.py, 512 triangles or more), by the
+tree's descent at the shading point; the tree's selection pdf folds into
+an effective area, the triangle's over that pdf, on both sides of MIS.
 
 Only the light shapes present in the scene are evaluated: `present` is the
 set of their ShapeType codes, with "volume" for the volume lights and
@@ -62,6 +68,8 @@ _DISK = int(ShapeType.DISK)
 _DIST = int(ShapeType.DISTANT)
 _DOME = int(ShapeType.DOME)
 _CANOPY = int(ShapeType.CANOPY)
+_MESH = int(ShapeType.TRIANGLE_MESH)
+_TRI_SEARCH_STEPS = 24  # the binary search in a mesh light's CDF slice (2^24 triangles)
 
 
 VOLUME = "volume"  # light_shapes' key of the volume lights
@@ -194,14 +202,79 @@ def _volume_sample(scene, light_idx, prop, rot, pos, scale, p, xi, xi3):
     return axis / dist_t[:, None], sl / vol * p3, wp, dist_t, radiance
 
 
+def pick_triangle(scene, light_idx, u):
+    """Each lane's triangle of its mesh light by the light's area CDF:
+    (padded arena triangle id, the light's world area, its tri_offset);
+    the 24-step binary search for the first CDF entry >= u in the light's
+    slice (zyg_tpu/scene/light_sampling.py:372-388). Lanes of other lights
+    read the slice at 0 (tri_offset < 0 marks them)."""
+    lights = scene.lights
+    li = torch.clamp(light_idx, 0, lights.count - 1).long()
+    t_off = lights.tri_offset[li].long()
+    t_cnt = lights.tri_count[li].long()
+    last = lights.tri_cdf.shape[0] - 1
+    lo = torch.clamp(t_off, min=0)
+    hi = lo + torch.clamp(t_cnt, min=1)
+    for _ in range(_TRI_SEARCH_STEPS):
+        mid = (lo + hi) // 2
+        below = lights.tri_cdf[torch.clamp(mid, 0, last)] < u
+        lo = torch.where(below, mid + 1, lo)
+        hi = torch.where(below, hi, mid)
+    tri = lights.tri_idx[torch.clamp(lo, 0, lights.tri_idx.shape[0] - 1)].long()
+    return tri, lights.area[li], t_off
+
+
+def _mesh_tree_pick(scene, light_idx, tri, area, p, n, u, total_sphere):
+    """On the lanes of a mesh light with a primitive light tree, the
+    tree's triangle at (p, n) and its effective area, the triangle's area
+    over its selection pdf, so that the pdf sl / (cos * area) holds for
+    both picks (zyg_tpu/scene/light_sampling.py:389-402)."""
+    for (l_const, _), (tree, aux) in sorted((scene.mesh_light_trees or {}).items()):
+        m_l = light_idx == l_const
+        loc, psel = lt.select(tree, p, n, u, total_sphere)
+        loc = loc.long()
+        tri = torch.where(m_l, aux["arena"][loc].long(), tri)
+        area = torch.where(m_l, aux["area"][loc] / torch.clamp(psel, min=1e-20), area)
+    return tri, area
+
+
+def _mesh_sample(scene, light_idx, rot, pos, scale, p, n, xi, total_sphere):
+    """A point on each lane's mesh light seen from p: (wi, pdf, point,
+    normal, distance, valid, uv), the triangle by the area CDF or the
+    primitive tree, the point uniform on it (zyg_tpu/scene/
+    light_sampling.py:366-440)."""
+    tri, area, t_off = pick_triangle(scene, light_idx, xi[:, 0])
+    tri, area = _mesh_tree_pick(scene, light_idx, tri, area, p, n, xi[:, 0], total_sphere)
+    row = scene.meshes.attr_rows[tri]
+    p0 = vm.object_to_world_point(rot, scale, pos, row[:, 0:3])
+    e1 = vm.object_to_world_vector(rot, scale, row[:, 3:6])
+    e2 = vm.object_to_world_vector(rot, scale, row[:, 6:9])
+    bc = vm.sample_triangle_uniform(xi)
+    mp = fma(bc[:, 1:2], e2, fma(bc[:, 0:1], e1, p0))
+    mn = vm.safe_normalize(vm.cross(e1, e2))
+    axis = mp - p
+    sl = torch.clamp(vm.dot(axis, axis), min=1e-20)
+    mt = sqrt(sl)
+    wi = axis / mt[:, None]
+    cosl = torch.abs(vm.dot(mn, wi))
+    pdf = sl / torch.clamp(cosl * area, min=1e-20)
+    valid = (t_off >= 0) & (cosl > 1e-5) & (area > 0.0)
+    w0 = (1.0 - bc[:, 0] - bc[:, 1])[:, None]
+    uv = fma(bc[:, 1:2], row[:, 16:18], fma(bc[:, 0:1], row[:, 14:16], w0 * row[:, 12:14]))
+    return wi, pdf, mp, mn, mt, valid, uv
+
+
 def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None,
-                 xi3=None, time=None) -> LightSample:
+                 xi3=None, time=None, ns=None) -> LightSample:
     """Sample a direction toward light light_idx from the shading points p
     with geometric normals n; xi [N, 2] uniforms, and xi3 [N] a third one
     where the scene has volume lights. total_sphere (bool[N] or None):
     lanes at a volume scatter vertex, where a dome samples the whole
     sphere and no light is below a horizon. time (float32[N] or None):
-    the lanes' shutter times, at which a moving light is sampled."""
+    the lanes' shutter times, at which a moving light is sampled. ns: the
+    shading normals, at which a mesh light's primitive tree picks (the
+    normal the hit side's pdf reads, mis_n), n where None. A mesh light
+    is sampled at its shutter-start transform."""
     prop = _light_prop(scene, light_idx)
     shape = scene.prop_shape[prop]
     rot, pos, scale = _animated_transforms(scene, prop, scene.prop_rot[prop],
@@ -330,6 +403,11 @@ def sample_light(scene, present: set, light_idx, p, n, xi, total_sphere=None,
             pdf_v[_DOME] = torch.where(total_sphere, 1.0 / (4.0 * math.pi), pdf_v[_DOME])
         valid_v[_DOME] = ones_b
 
+    if _MESH in present:
+        (wi_v[_MESH], pdf_v[_MESH], lp_v[_MESH], ln_v[_MESH], t_v[_MESH], valid_v[_MESH],
+         uv_v[_MESH]) = _mesh_sample(scene, light_idx, rot, pos, scale, p,
+                                     ns if ns is not None else n, xi, total_sphere)
+
     wi = _sel(shape, wi_v, torch.zeros_like(p))
     pdf = _sel(shape, pdf_v, torch.zeros_like(far_t))
     light_p = _sel(shape, lp_v, fma(wi, RAY_MAX_T, p))
@@ -441,25 +519,26 @@ def mis_hit(present: set, hit_t, frag, mis_o) -> tuple:
     real vertex mis_o (null boundaries in between leave the line as it
     is) and its geometric normal, as the JAX bodies pass them
     (zyg_tpu/render/integrator/ptmis.py:568-572); (None, None) where no
-    Disk light reads them."""
-    if _DISK not in present:
+    Disk or mesh light reads them."""
+    if _DISK not in present and _MESH not in present:
         return None, None
     eff_t = torch.where(hit_t >= RAY_MAX_T, hit_t, vm.length(frag.p - mis_o))
     return eff_t, frag.geo_n
 
 
 def light_hit_pdf(scene, present: set, prop, ray_o, ray_d, hit_t=None, hit_n=None,
-                  total_sphere=None, time=None):
+                  total_sphere=None, time=None, hit_prim=None, n_at_origin=None):
     """Solid-angle pdf with which NEE from ray_o would have sampled the hit
     on prop along ray_d: the light side of the BSDF-hit MIS weight. hit_t
     and hit_n, the hit's distance from ray_o and its geometric normal, are
-    read by the Disk's pdf, so a scene with Disk lights needs them (the
-    JAX package's point and the normal at
-    ray_o, zyg_tpu/scene/light_sampling.py:639, only by mesh lights, which
-    the port refuses). total_sphere (bool[N] or None): the ray left a
+    read by the Disk's and the mesh lights' pdfs, so a scene with such
+    lights needs them. total_sphere (bool[N] or None): the ray left a
     volume scatter vertex, whose NEE samples a dome over the whole sphere.
     time: the lanes' shutter times, at which a moving light's pdf is
-    evaluated."""
+    evaluated. hit_prim and n_at_origin (the hit's arena triangle and the
+    normal at ray_o, mis_n): a mesh light with a primitive tree folds the
+    tree's pdf of that triangle from (ray_o, n_at_origin) into its area,
+    as the sample side does (zyg_tpu/scene/light_sampling.py:694-730)."""
     pm = torch.clamp(prop, min=0).long()
     shape = scene.prop_shape[pm]
     rot, pos, scale = _animated_transforms(scene, pm, scene.prop_rot[pm], scene.prop_pos[pm],
@@ -494,6 +573,22 @@ def light_hit_pdf(scene, present: set, prop, ray_o, ray_d, hit_t=None, hit_n=Non
                                  device=ray_o.device)
         if total_sphere is not None:
             vals[_DOME] = torch.where(total_sphere, 1.0 / (4.0 * math.pi), vals[_DOME])
+    if _MESH in present:
+        if hit_t is None or hit_n is None:
+            raise ValueError("light_hit_pdf: a mesh light's pdf reads hit_t and hit_n")
+        li = scene.prop_light[pm]
+        area = scene.lights.area[torch.clamp(li, 0, scene.lights.count - 1).long()]
+        sl = torch.clamp(hit_t * hit_t, min=1e-20)
+        c = torch.abs(vm.dot(hit_n, ray_d))
+        if scene.mesh_light_trees and hit_prim is not None:
+            for (l_const, base), (tree, aux) in sorted(scene.mesh_light_trees.items()):
+                lof = aux["local_of"]
+                loc = lof[torch.clamp(hit_prim.long() - base, 0, lof.shape[0] - 1)].long()
+                okl = (li == l_const) & (hit_prim >= base) & (loc >= 0)
+                psel = lt.pdf(tree, ray_o, n_at_origin, torch.clamp(loc, min=0), total_sphere)
+                area = torch.where(okl, aux["area"][torch.clamp(loc, min=0)]
+                                   / torch.clamp(psel, min=1e-20), area)
+        vals[_MESH] = torch.where(area > 0.0, sl / torch.clamp(c * area, min=1e-20), 0.0)
     out = _sel(shape, vals, torch.zeros(shape.shape, dtype=torch.float32, device=ray_o.device))
     if scene.env is not None:
         # mapped domes: NEE samples the map, so MIS needs the map's density

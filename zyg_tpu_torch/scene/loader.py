@@ -2,8 +2,12 @@
 plain numpy then torch).
 
 Supported: Prop and Light entities with analytic Rectangle/Cube/Sphere/
-Disk/Canopy/Dome/Distant shapes (Celestial_disk is a Distant), procedural
-triangle meshes (shape "file": "proc:..."), point clouds (a JSON
+Disk/Canopy/Dome/Distant shapes (Celestial_disk is a Distant), triangle
+meshes (shape "file": "proc:...", an OBJ, zyg JSON or SUB file, io/mesh.py,
+a SUB with several position frames deforming over the shutter; a glTF or
+GLB file expands into props of its own, io/gltf.py), emissive meshes (a
+mesh prop with a Light material, NEE by the triangles' area CDF or, from
+512 triangles, a primitive light tree), point clouds (a JSON
 point_list file, io/mesh.py; a particle exporter's frame stack is sampled
 at the frame's shutter, scene/points.py) and hair (a .hair file,
 io/hair.py, flattened into round-cone segments, scene/curves.py), the Sky entity (a baked
@@ -42,14 +46,17 @@ sampler's address modes and texcoord (UV0, Triplanar, ObjectPos); through
 gets an env-map sampler (scene/env_sampling.py). As the JAX loader does,
 a Portal whose link is not an image-mapped dome, a Portal of another
 shape and an unreadable IES file are dropped with a warning, and so are
-an unreadable Instancer source and the motion of an infinite light
-(rendered at shutter start).
+an unreadable Instancer source, a mesh file that gives no mesh, and the
+motion of an infinite light or an emissive mesh (rendered at shutter
+start).
 
-Everything else raises `UnsupportedScene`: Cube and mesh lights, entities other than these, C-API image references ({"id": N}),
-texture file sequences ('#' in a file name), deforming meshes,
-EXR and other image formats, dispersive glass (abbe), coatings, flakes,
+Everything else raises `UnsupportedScene`: Cube lights, unknown procedural
+meshes, entities other than these, C-API image references ({"id": N}),
+texture file sequences ('#' in a file name), image formats other than
+PNG, HDR and EXR, dispersive glass (abbe), coatings, flakes,
 masks, density files, emission maps on media, Volumetric materials on
-mesh, point or curve props, point clouds and hair in Instancers, and
+mesh, point or curve props, point clouds and hair as an Instancer's
+prototype, and
 every other material kind (Debug, Sky). (Scenes
 whose light tree would split NEE, glass under textures, env maps, Distant
 lights, Canopy lights or portals, and IES profiles or triplanar textures
@@ -63,6 +70,7 @@ import ast
 import json
 import os
 import warnings
+import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -73,6 +81,7 @@ from ..io.exr import read_exr
 from ..io.ies import PROFILE_BINS, ies_profile_bins
 from ..io.fs import open_stream
 from ..io.hair import read_hair
+from ..io.gltf import load_gltf_into
 from ..io.mesh import is_point_cloud_file, load_mesh_file, load_point_cloud_file
 from ..io.resource import GLOBAL as RESOURCES
 from ..io.png import read_png
@@ -92,7 +101,7 @@ from .portal import ARRAY_FIELDS as _PORTAL_FIELDS
 from .portal import PortalDist, build_portal_dist, make_portal_dist
 from .sky import SUN_ANGULAR_RADIUS, bake_sky, sun_radiance
 from .textures import TextureArena, TextureBuilder
-from .trimesh import (HostMesh, InstanceTable, MeshArena, _np_quat, build_arena,
+from .trimesh import (HostMesh, InstanceTable, MeshArena, _np_quat, build_arena, build_blas,
                       build_instance_table)
 from .types import Lights, Materials, MaterialKind, SceneData, ShapeType, UnsupportedScene
 
@@ -114,7 +123,11 @@ _SHAPE_NAMES = {
 _MAX_PROPS = 32  # analytic props (ops/shade.py MAX_PROPS)
 # the light shapes the port samples (scene/light_sampling.py)
 _LIGHT_SHAPES = (ShapeType.RECTANGLE, ShapeType.SPHERE, ShapeType.DISK, ShapeType.CANOPY,
-                 ShapeType.DOME, ShapeType.DISTANT)
+                 ShapeType.DOME, ShapeType.DISTANT, ShapeType.TRIANGLE_MESH)
+# emissive meshes of this many triangles or more that do not move get a
+# primitive light tree over their triangles, smaller ones the flat area
+# CDF (zyg_tpu/scene/loader.py:194, ref light_tree.zig:520)
+_PRIM_TREE_MIN = 512
 
 
 # ---------------------------------------------------------------------------
@@ -675,6 +688,7 @@ class SceneBuilder:
         self.textures = TextureBuilder()
         self._mat_by_name: dict[str, int] = {}
         self._mesh_by_name: dict[str, int] = {}
+        self._blas_keys: list = []  # each mesh's BVH cache key (add_mesh), or None
         self._tex_by_key: dict[tuple, int] = {}
         # Portal entities: {"trafo", "light" (index over the lights declared
         # so far), "prop" (the portal's prop once built, -1 when dropped)}
@@ -723,11 +737,23 @@ class SceneBuilder:
         return len(self.props) - 1
 
     def add_mesh(self, mesh: HostMesh, name: str | None = None) -> int:
+        """A mesh -> its mesh id (one a name). A named mesh's BVH is built
+        once a process and reused by every scene load that names it with
+        the same content fingerprint (io/resource.py; a static and a
+        deforming copy of one file key apart, zyg_tpu/scene/loader.py:
+        757-790)."""
         if name and name in self._mesh_by_name:
             return self._mesh_by_name[name]
         self.meshes.append(mesh)
+        key = None
         if name:
             self._mesh_by_name[name] = len(self.meshes) - 1
+            pos, idx = np.asarray(mesh.positions), np.asarray(mesh.indices)
+            key = (name, (pos.shape, idx.shape,
+                          zlib.crc32(pos[::max(1, len(pos) // 64)].tobytes()),
+                          zlib.crc32(idx[::max(1, len(idx) // 64)].tobytes()),
+                          mesh.positions_end is not None))
+        self._blas_keys.append(key)
         return len(self.meshes) - 1
 
     def add_mesh_prop(self, mesh_id: int, trafo: Transformation, material: int, **kw) -> int:
@@ -785,13 +811,81 @@ class SceneBuilder:
             area = float(2.0 * (s[0] * s[1] + s[0] * s[2] + s[1] * s[2]))
         elif shape == ShapeType.DISTANT:
             area = float(2.0 * np.pi * (1.0 - np.sqrt(1.0 / (s[0] ** 2 + 1.0))))
-        elif shape in (ShapeType.CANOPY, ShapeType.DOME):
+        elif shape == ShapeType.TRIANGLE_MESH:
+            area = self._mesh_world_area(p)
+        else:  # canopy and dome
             area = 4.0 * np.pi
-        else:
-            raise UnsupportedScene("emissive meshes")
         if m.two_sided:
             area *= 2.0
         return lum * area
+
+    def _mesh_world(self, p: PropDesc):
+        """(world vertices [V, 3], indices [F, 3]) of mesh prop p, float32
+        under its transform, as the JAX loader computes them."""
+        mesh = self.meshes[p.mesh_id]
+        pos = np.asarray(mesh.positions, np.float32)
+        return (pos * p.trafo.scale) @ p.trafo.rotation + p.trafo.position, \
+            np.asarray(mesh.indices, np.int32)
+
+    def _mesh_world_area(self, p: PropDesc) -> float:
+        """The world area of mesh prop p (zyg_tpu/scene/loader.py:898)."""
+        w, idx = self._mesh_world(p)
+        e1 = w[idx[:, 1]] - w[idx[:, 0]]
+        e2 = w[idx[:, 2]] - w[idx[:, 0]]
+        return float(0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1).sum())
+
+    def _mesh_light_cdf(self, p: PropDesc, info: dict):
+        """(area CDF over the triangles in BVH leaf order, their padded
+        arena ids, total world area) of emissive mesh prop p
+        (zyg_tpu/scene/loader.py:962). A triangle that spatial splits
+        copied into several leaves counts once, at its first copy."""
+        w, idx = self._mesh_world(p)
+        areas = 0.5 * np.linalg.norm(np.cross(w[idx[:, 1]] - w[idx[:, 0]],
+                                              w[idx[:, 2]] - w[idx[:, 0]]), axis=-1)
+        order = np.asarray(info["order"])
+        _, sel = np.unique(order, return_index=True)
+        sel = np.sort(sel)
+        areas = areas[order[sel]]
+        total = max(float(areas.sum()), 1e-20)
+        cdf = np.cumsum(areas / total).astype(np.float32)
+        cdf[-1] = 1.0
+        return cdf, np.asarray(info["arena_ids"])[sel], total
+
+    def _mesh_light_tree(self, p: PropDesc, info: dict):
+        """The primitive light tree over emissive mesh prop p's triangles
+        (zyg_tpu/scene/loader.py:908; ref light_tree.zig:520): (tree, aux
+        {"arena": the arena id of each local triangle, "area": its world
+        area, "local_of": the local triangle of each arena id from base},
+        base, the mesh's first arena id). Each triangle enters once, at its
+        first leaf copy, and every copy's hit maps to that entry."""
+        w, idx = self._mesh_world(p)
+        order = np.asarray(info["order"])
+        _, sel = np.unique(order, return_index=True)
+        sel = np.sort(sel)
+        ord_u = order[sel]
+        v0, v1, v2 = w[idx[ord_u, 0]], w[idx[ord_u, 1]], w[idx[ord_u, 2]]
+        cn = np.cross(v1 - v0, v2 - v0)
+        areas = 0.5 * np.linalg.norm(cn, axis=-1)
+        nrm = cn / np.maximum(np.linalg.norm(cn, axis=-1, keepdims=True), 1e-20)
+        cent = (v0 + v1 + v2) / 3.0
+        radii = np.sqrt(np.maximum.reduce([np.sum((v - cent) ** 2, axis=-1)
+                                           for v in (v0, v1, v2)]))
+        two = bool(self.materials[p.material].two_sided)
+        cones = np.concatenate([nrm, np.ones((len(nrm), 1), np.float32)], -1)
+        tree = build_light_tree(cent.astype(np.float32), radii.astype(np.float32),
+                                cones.astype(np.float32),
+                                np.maximum(areas, 1e-12).astype(np.float32),
+                                np.full(len(nrm), two, bool), np.ones(len(nrm), bool))
+        arena_ids = np.asarray(info["arena_ids"], np.int64)
+        base = int(arena_ids.min())
+        local_by_tri = np.full(int(order.max()) + 1, -1, np.int32)
+        local_by_tri[ord_u] = np.arange(len(ord_u), dtype=np.int32)
+        local_of = np.full(int(arena_ids.max()) - base + 1, -1, np.int32)
+        local_of[arena_ids - base] = local_by_tri[order]
+        aux = {"arena": torch.from_numpy(arena_ids[sel].astype(np.int32)),
+               "area": torch.from_numpy(areas.astype(np.float32)),
+               "local_of": torch.from_numpy(local_of)}
+        return tree, aux, base
 
     def _resolve_motion(self, time0: float, time1: float):
         """Each animated prop's transforms over the shutter [time0, time1]
@@ -890,7 +984,7 @@ class SceneBuilder:
             if not v and props[i].shape not in {int(s) for s in _LIGHT_SHAPES}:
                 raise UnsupportedScene(f"{ShapeType(props[i].shape).name.capitalize()} lights "
                                        "(the port samples Rectangle, Sphere, Disk, Canopy, Dome, "
-                                       "Distant and volume lights)")
+                                       "Distant, mesh and volume lights)")
         if not light_props:
             raise UnsupportedScene("a scene without an emitting light")
         for d in self.materials:
@@ -934,7 +1028,7 @@ class SceneBuilder:
         # the many-light tree over the finite lights (ref light_tree_builder.zig)
         light_tree = None
         if len(light_props) >= 2 and float(weights.sum()) > 0.0:
-            bounds = [self._light_bounds(props[pi]) for pi in light_props]
+            bounds = [self._light_bounds(props[pi], self.meshes) for pi in light_props]
             light_tree = build_light_tree(
                 np.stack([b[0] for b in bounds]),
                 np.asarray([b[1] for b in bounds], np.float32),
@@ -952,7 +1046,8 @@ class SceneBuilder:
         for i in analytic:
             if i not in animated_ids:
                 groups.setdefault(props[i].shape, []).append(i)
-        meshes, instances = self._build_meshes(end_trafo)
+        meshes, instances, mesh_info = self._build_meshes(end_trafo)
+        mesh_lights = self._mesh_lights(light_props, weights, mesh_info)
         # point clouds resolved over the frame's shutter, and curve sets; their
         # props stay out of prop_groups (zyg_tpu/scene/loader.py:1174-1192)
         point_props = [i for i, p in enumerate(props) if p.cloud_id >= 0]
@@ -1032,6 +1127,8 @@ class SceneBuilder:
                 two_sided=t([mats[props[i].material].two_sided for i in light_props], torch.bool),
                 cdf=t(cdf, f32),
                 volume=t(vol_light, torch.bool),
+                **{k: t(v, f32 if k in ("area", "tri_cdf") else i32)
+                   for k, v in mesh_lights["arrays"].items()},
             ),
             prop_groups={k: t(v, i32) for k, v in sorted(groups.items())},
             meshes=meshes,
@@ -1064,6 +1161,7 @@ class SceneBuilder:
                          if curves is not None else None),
             prop_curve=t([p.curve_id for p in props], i32) if curves is not None else None,
             animated_curves=animated_curves or None,
+            mesh_light_trees=mesh_lights["trees"],
         ).to(device)
 
     def _link_portals(self) -> list[dict]:
@@ -1099,7 +1197,7 @@ class SceneBuilder:
         return [pe for pe in self.portals if pe["prop"] >= 0]
 
     @staticmethod
-    def _light_bounds(p: PropDesc):
+    def _light_bounds(p: PropDesc, meshes=None):
         """(center [3], radius, cone [4], finite) of a light prop: the
         bounding sphere and normal cone the tree's importance uses (ref
         light_tree_builder.zig light properties)."""
@@ -1120,17 +1218,65 @@ class SceneBuilder:
         if p.shape == int(ShapeType.CUBE):  # a volume light: its bounding sphere, all directions
             r = 0.5 * float(np.linalg.norm(np.asarray(t.scale, np.float32)))
             return pos, r, np.array([0.0, 0.0, 1.0, -1.0], np.float32), True
+        if p.shape == int(ShapeType.TRIANGLE_MESH):  # its world box's sphere, all directions
+            v = np.asarray(meshes[p.mesh_id].positions, np.float32)
+            vw = (v * np.asarray(t.scale, np.float32)) @ np.asarray(t.rotation, np.float32) + pos
+            lo, hi = vw.min(axis=0), vw.max(axis=0)
+            return ((0.5 * (lo + hi)).astype(np.float32), 0.5 * float(np.linalg.norm(hi - lo)),
+                    np.array([0.0, 0.0, 1.0, -1.0], np.float32), True)
         # infinite shapes (distant, dome)
         return pos, 0.0, np.array([0.0, 0.0, 1.0, -1.0], np.float32), False
 
+    def _mesh_lights(self, light_props: list, weights, mesh_info: list) -> dict:
+        """The emissive meshes' triangle tables (zyg_tpu/scene/loader.py:
+        1432-1470): {"arrays": {area [L] (each mesh light's world area, 0
+        for other lights), tri_offset [L] (its slice of tri_cdf, -1 for
+        other lights), tri_count [L], tri_cdf, tri_idx (padded arena
+        triangle ids)} or {} without mesh lights, "trees": {(light, base
+        arena id): (LightTree, aux)} of the primitive light trees, or
+        None}. A mesh light of _PRIM_TREE_MIN triangles or more that does
+        not move gets a primitive tree."""
+        props = self.props
+        if not any(props[pi].mesh_id >= 0 for pi in light_props):
+            return {"arrays": {}, "trees": None}
+        area, off, cnt, cdfs, ids, trees = [], [], [], [], [], {}
+        n = 0
+        for li, pi in enumerate(light_props):
+            p = props[pi]
+            if p.mesh_id >= 0 and weights[li] > 0.0:
+                mcdf, tids, total = self._mesh_light_cdf(p, mesh_info[p.mesh_id])
+                area.append(total)
+                off.append(n)
+                cnt.append(len(tids))
+                cdfs.append(mcdf)
+                ids.append(tids)
+                n += len(tids)
+                if len(tids) >= _PRIM_TREE_MIN and not p.animation:
+                    tree, aux, base = self._mesh_light_tree(p, mesh_info[p.mesh_id])
+                    trees[(li, base)] = (tree, aux)
+            else:
+                area.append(0.0)
+                off.append(-1)
+                cnt.append(0)
+        return {"arrays": {"area": np.asarray(area, np.float32), "tri_offset": off,
+                           "tri_count": cnt,
+                           "tri_cdf": np.concatenate(cdfs) if cdfs else np.zeros(1, np.float32),
+                           "tri_idx": np.concatenate(ids) if ids else np.zeros(1, np.int32)},
+                "trees": trees or None}
+
     def _build_meshes(self, end_trafo: dict):
-        """(arena, instance table) over the mesh props, or (None, None); a
-        moving mesh prop's row also holds its shutter-end transform
-        (end_trafo: interior keyframes resample to the chord there)."""
+        """(arena, instance table, per-mesh host info) over the mesh props,
+        or (None, None, []); a moving mesh prop's row also holds its
+        shutter-end transform (end_trafo: interior keyframes resample to
+        the chord there). A named mesh's BVH comes from the process's
+        resource cache (add_mesh)."""
         mesh_props = [i for i, p in enumerate(self.props) if p.mesh_id >= 0]
         if not mesh_props:
-            return None, None
-        arena, host = build_arena(self.meshes)
+            return None, None, []
+        prebuilt = [None if key is None else
+                    RESOURCES.get_or_load("blas", key[0], key[1], lambda _, m=mesh: build_blas(m))
+                    for mesh, key in zip(self.meshes, self._blas_keys)]
+        arena, host = build_arena(self.meshes, prebuilt)
         instances = []
         for i in mesh_props:
             p = self.props[i]
@@ -1143,7 +1289,7 @@ class SceneBuilder:
                 te = end_trafo[i]
                 ins.update(rot1=te.rotation, pos1=te.position, scale1=te.scale)
             instances.append(ins)
-        return arena, build_instance_table(host, instances)
+        return arena, build_instance_table(host, instances), host["info"]
 
 
 _ENTITY_KEYS = {"type", "shape", "materials", "transformation", "visibility",
@@ -1208,9 +1354,13 @@ def _load_portal(e: dict, parent: Transformation, builder: SceneBuilder) -> None
                             "light": int(e.get("light", 0)), "prop": None})
 
 
-def _shape_of(shape_node: dict, builder: SceneBuilder) -> tuple[int, int]:
+def _shape_of(shape_node: dict, builder: SceneBuilder) -> tuple[int, int] | None:
     """A shape node -> (ShapeType code, mesh id or -1): an analytic shape
-    by its type, or a mesh file (one mesh a file name)."""
+    by its type, or a mesh file (one mesh a file name, resolved against
+    the scene file's directory, decoded once a process: io/resource.py;
+    io/mesh.py load_mesh_file). None where the file gave no mesh, which
+    drops the prop with a warning, as the JAX loader drops it
+    (zyg_tpu/scene/loader.py:1670-1680)."""
     stype = shape_node.get("type")
     if stype in _SHAPE_NAMES:
         return int(_SHAPE_NAMES[stype]), -1
@@ -1218,7 +1368,13 @@ def _shape_of(shape_node: dict, builder: SceneBuilder) -> tuple[int, int]:
         fname = shape_node["file"]
         mesh_id = builder._mesh_by_name.get(fname, -1)
         if mesh_id < 0:
-            mesh_id = builder.add_mesh(load_mesh_file(fname), fname)
+            path = fname if fname.startswith("proc:") else os.path.join(builder.base_dir, fname)
+            mesh = RESOURCES.get_or_load("mesh", path, (), load_mesh_file)
+            if mesh is None:
+                warnings.warn(f"mesh file {fname!r} gave no mesh; the prop is dropped",
+                              stacklevel=3)
+                return None
+            mesh_id = builder.add_mesh(mesh, fname)
         return int(ShapeType.TRIANGLE_MESH), mesh_id
     raise UnsupportedScene(f"shape {shape_node!r}")
 
@@ -1228,7 +1384,7 @@ def _read_hair_file(path: str) -> HostCurves:
         return read_hair(f)
 
 
-def _shape_ids(shape_node: dict, builder: SceneBuilder) -> tuple[int, int, int, int]:
+def _shape_ids(shape_node: dict, builder: SceneBuilder) -> tuple[int, int, int, int] | None:
     """A Prop's or Light's shape node -> (ShapeType code, mesh id, cloud
     id, curve id), -1 where not that kind, by the JAX loader's order
     (zyg_tpu/scene/loader.py:1618-1680): an analytic type, a point-list
@@ -1248,8 +1404,8 @@ def _shape_ids(shape_node: dict, builder: SceneBuilder) -> tuple[int, int, int, 
                 curve_id = builder.add_curves(
                     RESOURCES.get_or_load("hair", path, (), _read_hair_file), fname)
             return int(ShapeType.CURVES), -1, -1, curve_id
-    shape, mesh_id = _shape_of(shape_node, builder)
-    return shape, mesh_id, -1, -1
+    shape = _shape_of(shape_node, builder)
+    return None if shape is None else (*shape, -1, -1)
 
 
 def _load_instancer(e: dict, parent: Transformation, local_materials,
@@ -1283,7 +1439,14 @@ def _load_instancer(e: dict, parent: Transformation, local_materials,
     extra = set(proto) - {"shape", "materials"}
     if extra:
         raise UnsupportedScene(f"Instancer prototype keys {sorted(extra)}")
-    shape, mesh_id = _shape_of(proto.get("shape", {}), builder)
+    fname = proto.get("shape", {}).get("file", "")
+    if fname and (fname.endswith(".hair")
+                  or is_point_cloud_file(os.path.join(builder.base_dir, fname))):
+        raise UnsupportedScene(f"points or hair as an Instancer's prototype ({fname!r})")
+    shape = _shape_of(proto.get("shape", {}), builder)
+    if shape is None:
+        return
+    shape, mesh_id = shape
     mat_names = proto.get("materials", e.get("materials", []))
     mat = builder.material_id(mat_names[0], local_materials) if mat_names else builder._fallback
     for inst in instances:
@@ -1325,7 +1488,20 @@ def _load_entities(entities, parent: Transformation, local_materials, builder: S
             raise UnsupportedScene(f"entity keys {sorted(extra)}")
         local = read_transformation(e.get("transformation"))
         trafo = parent.compose(local)
-        shape, mesh_id, cloud_id, curve_id = _shape_ids(e.get("shape", {}), builder)
+        fname = e.get("shape", {}).get("file", "")
+        if fname.endswith((".gltf", ".glb")):
+            # a glTF file expands into props of its own under the entity's
+            # transform (io/gltf.py; zyg_tpu/scene/loader.py:1663-1669)
+            load_gltf_into(builder, os.path.join(builder.base_dir, fname), trafo)
+            if "entities" in e:
+                _load_entities(e["entities"], trafo, local_materials, builder)
+            continue
+        ids = _shape_ids(e.get("shape", {}), builder)
+        if ids is None:
+            if "entities" in e:
+                _load_entities(e["entities"], trafo, local_materials, builder)
+            continue
+        shape, mesh_id, cloud_id, curve_id = ids
         mat_names = e.get("materials", [])
         mat = builder.material_id(mat_names[0], local_materials) if mat_names else builder._fallback
         is_light = etype == "Light"
@@ -1387,6 +1563,8 @@ _FEATURES = {"glass", "rough_glass", "media", "volumetric", "spectral_media", "v
 _LIGHT = ("prop", "two_sided", "cdf", "volume")
 _DIST3 = ("slice_cdf", "row_cdf", "col_cdf", "pdf_grid")
 _ARENA = ("node_rows", "tri_rows", "attr_rows", "mesh_root")
+_ARENA_DEFORM = ("tri_rows_d", "attr_rows_d")
+_MESH_LIGHT = ("area", "tri_offset", "tri_count", "tri_cdf", "tri_idx")
 _INSTANCES = ("wmin", "wmax", "trafo", "vis")
 _TEXTURES = ("data", "offset", "width", "height", "address", "texcoord")
 _ENV = ("table", "light")
@@ -1410,7 +1588,11 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
     "portals.<light>.<prop>.<f>", with a mapped dome or canopy
     "env.canopy" (a bool an entry), for moving props "animated_props"
     (int64 [A, 2] (prop, shape) rows in key order), "animated_lights" and
-    "prop_keys", with meshes "mesh_instances.has_anim", for point clouds
+    "prop_keys", with meshes "mesh_instances.has_anim" (and with a deforming
+    mesh "meshes.tri_rows_d" and "meshes.attr_rows_d"), with emissive meshes
+    "lights.<area, tri_offset, tri_count, tri_cdf, tri_idx>" and
+    "mesh_light_trees.<light>.<base>.<f>" (the tree's arrays and scalars,
+    and "aux.<arena, area, local_of>"), for point clouds
     "points.<f>" (with "points.has_motion"), "point_props", "prop_cloud"
     and "animated_points", for curves "curves.<f>", "curve_props",
     "prop_curve" and "animated_curves", and
@@ -1459,12 +1641,25 @@ def scene_arrays(scene) -> dict[str, np.ndarray]:
         # a hand-built JAX scene may leave the volume flags (all False) unset
         d[f"lights.{k}"] = (arr(v) if v is not None
                             else np.zeros(arr(scene.lights.prop).shape, bool))
+    toff = getattr(scene.lights, "tri_offset", None)
+    if toff is not None and (arr(toff) >= 0).any():
+        d.update({f"lights.{k}": arr(getattr(scene.lights, k)) for k in _MESH_LIGHT})
+    for (li, base), (mtree, aux) in sorted((getattr(scene, "mesh_light_trees", None)
+                                            or {}).items()):
+        pre = f"mesh_light_trees.{int(li)}.{int(base)}"
+        d.update({f"{pre}.{k}": arr(getattr(mtree, k)) for k in _TREE_FIELDS})
+        d[f"{pre}.depth"] = np.asarray(mtree.depth, np.int64)
+        d[f"{pre}.inf_weight"] = np.asarray(mtree.inf_weight, np.float64)
+        d[f"{pre}.num_finite"] = np.asarray(mtree.num_finite, np.int64)
+        d.update({f"{pre}.aux.{k}": arr(v) for k, v in sorted(aux.items())})
     for li, dist in sorted((scene.vol_light_dist or {}).items()):
         d.update({f"vol_light_dist.{int(li)}.{k}": arr(getattr(dist, k)) for k in _DIST3})
     d.update({f"prop_groups.{int(k)}": arr(v) for k, v in (scene.prop_groups or {}).items()})
     if scene.meshes is not None:
         m = scene.meshes
         d.update({f"meshes.{k}": arr(getattr(m, k)) for k in _ARENA})
+        d.update({f"meshes.{k}": arr(getattr(m, k)) for k in _ARENA_DEFORM
+                  if getattr(m, k, None) is not None})
         # the JAX arena carries its depth as the static key of `meta`
         depth = m.max_depth if hasattr(m, "max_depth") else next(iter(m.meta))[0]
         d["meshes.max_depth"] = np.asarray(depth, np.int64)

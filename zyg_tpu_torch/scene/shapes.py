@@ -250,7 +250,9 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
     strand seen from the ray), which the hair BSDF reads, so scenes with
     a Hair material get uv by default; a point hit's normal is the
     sphere's at its center at the lane's shutter time
-    (zyg_tpu/scene/shapes.py:820-866)."""
+    (zyg_tpu/scene/shapes.py:820-866). On a deforming mesh the geometric
+    normal is the triangle's at the lane's shutter time where time is
+    given (:780-786), the shading normal frame 0's."""
     if need_uv is None:
         need_uv = scene.textures is not None or "hair" in scene.mat_features
     present = {int(k) for k in scene.prop_groups}
@@ -346,8 +348,16 @@ def build_fragment(scene, hit: Hit, o, d, need_uv: bool | None = None,
     if scene.meshes is not None:
         is_mesh = ((shape == int(ShapeType.TRIANGLE_MESH)) & (hit.prim >= 0))[:, None]
         # a curve's or point's prim indexes its own arena: read row 0 there
-        row = scene.meshes.attr_rows[torch.where(is_mesh[:, 0], hit.prim, 0).long()]
-        gn_l = vm.safe_normalize(vm.cross(row[:, 3:6], row[:, 6:9]))
+        ri = torch.where(is_mesh[:, 0], hit.prim, 0).long()
+        row = scene.meshes.attr_rows[ri]
+        e1, e2 = row[:, 3:6], row[:, 6:9]
+        if scene.meshes.attr_rows_d is not None and time is not None:
+            # a deforming mesh: the edges at the lane's shutter time (the
+            # geometric normal follows; the shading normals stay frame 0's)
+            row_d = scene.meshes.attr_rows_d[ri]
+            e1 = fma(time[:, None], row_d[:, 3:6], e1)
+            e2 = fma(time[:, None], row_d[:, 6:9], e2)
+        gn_l = vm.safe_normalize(vm.cross(e1, e2))
         u, v = hit.u[:, None], hit.v[:, None]
         w0 = (1.0 - hit.u - hit.v)[:, None]
         tn = oct_normal_unpack(row[:, 9:12].contiguous().view(torch.int32))  # [N, 3, 3]

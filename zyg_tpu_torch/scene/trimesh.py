@@ -23,8 +23,13 @@ quaternion, position, scale, root node, prop id and visibility. The
 traversal over both is ops/traverse.py.
 
 An animated mesh prop is an instance with a shutter-end transform: the
-walk slerps and lerps the two per ray at the ray's shutter time. Motion
-meshes (shutter-end positions) are refused.
+walk slerps and lerps the two per ray at the ray's shutter time. A
+deforming mesh (a HostMesh with shutter-end positions, as a SUB file's
+last position frame gives it) is bounded over both endpoints, and the
+arena then also holds the end-minus-start deltas of its leaf rows
+(tri_rows_d [G, 108]) and of p0, e1 and e2 (attr_rows_d [G*12, 12]; zero
+rows for the meshes that do not deform), which the walk and the fragment
+lerp to each ray's shutter time (zyg_tpu/scene/trimesh.py:471-514).
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 from .bvh import FlatBVH, build_bvh
-from .types import UnsupportedScene, to_device
+from .types import to_device
 
 LEAF_SIZE = 12  # triangles per leaf row (padded)
 COLLAPSE_GRAN = 4  # binary leaf size before the wide collapse
@@ -56,6 +61,11 @@ class MeshArena:
     attr_rows: torch.Tensor  # float32[G*12, 20]
     mesh_root: torch.Tensor  # int32[K] root wide node per mesh
     max_depth: int  # wide-tree depth (the traversal stack needs max_depth + 1)
+    # deforming meshes: the shutter-end minus shutter-start deltas of
+    # tri_rows and of attr_rows' p0, e1, e2 ([9:12] pad); None when no
+    # mesh deforms
+    tri_rows_d: torch.Tensor = None  # float32[G, 108]
+    attr_rows_d: torch.Tensor = None  # float32[G*12, 12]
 
     def to(self, device) -> "MeshArena":
         return to_device(self, device)
@@ -89,7 +99,7 @@ class HostMesh(NamedTuple):
     normals: np.ndarray | None = None  # [V, 3]
     uvs: np.ndarray | None = None  # [V, 2]
     parts: np.ndarray | None = None  # [F] part id
-    positions_end: np.ndarray | None = None  # [V, 3] deforming meshes (refused)
+    positions_end: np.ndarray | None = None  # [V, 3] shutter-end positions (deforming)
 
 
 def _subtree_ranges(bvh: FlatBVH):
@@ -217,30 +227,58 @@ def _pack_wide(bvh: FlatBVH, group_off: int, node_off: int, tri_min, tri_max):
     return rows, max(depths) + 1, granges
 
 
-def _mesh_bounds(pos, idx):
+def _mesh_bounds(mesh: HostMesh):
+    """Per-triangle AABBs; a deforming mesh's bound both shutter endpoints
+    (ref triangle_motion_tree.zig interval bounds)."""
+    pos = np.asarray(mesh.positions, np.float32)
+    idx = np.asarray(mesh.indices, np.int32)
     v0, v1, v2 = pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]
-    return np.minimum(np.minimum(v0, v1), v2), np.maximum(np.maximum(v0, v1), v2)
+    pmin = np.minimum(np.minimum(v0, v1), v2)
+    pmax = np.maximum(np.maximum(v0, v1), v2)
+    if mesh.positions_end is not None:
+        pe = np.asarray(mesh.positions_end, np.float32)
+        w0, w1, w2 = pe[idx[:, 0]], pe[idx[:, 1]], pe[idx[:, 2]]
+        pmin = np.minimum(pmin, np.minimum(np.minimum(w0, w1), w2))
+        pmax = np.maximum(pmax, np.maximum(np.maximum(w0, w1), w2))
+    return pmin, pmax
 
 
-def build_arena(meshes: list[HostMesh]) -> tuple[MeshArena, dict]:
+def build_blas(mesh: HostMesh) -> FlatBVH:
+    """The binary SAH tree of one mesh (over both endpoints if it deforms)."""
+    return build_bvh(*_mesh_bounds(mesh), leaf_size=COLLAPSE_GRAN)
+
+
+def build_arena(meshes: list[HostMesh], prebuilt: list | None = None) -> tuple[MeshArena, dict]:
     """Build per-mesh wide BVHs and pack them into one arena (CPU tensors).
+    prebuilt: each mesh's binary tree (build_blas) or None to build it.
     Also returns host copies {"node_rows", "mesh_root"} for the instance
-    table build."""
+    table build, and "info": per mesh {"order": the leaf-order triangle
+    permutation, "arena_ids": the padded arena triangle id of each
+    leaf-order position} for the emissive meshes' triangle tables."""
     from ..core.encoding import oct_normal_pack
 
     all_rows, all_trirows, all_attr, roots = [], [], [], []
+    all_trirows_d, all_attr_d, host_info = [], [], []
+    any_motion = any(m.positions_end is not None for m in meshes)
     node_off = group_off = 0
     max_depth = 1
-    for mesh in meshes:
-        if mesh.positions_end is not None:
-            raise UnsupportedScene("deforming meshes (shutter-end positions)")
+    for mi, mesh in enumerate(meshes):
         pos = np.asarray(mesh.positions, np.float32)
         idx = np.asarray(mesh.indices, np.int32)
-        bvh = build_bvh(*_mesh_bounds(pos, idx), leaf_size=COLLAPSE_GRAN)
+        bvh = prebuilt[mi] if prebuilt is not None and prebuilt[mi] is not None \
+            else build_blas(mesh)
         order = bvh.prim_order
         p0 = pos[idx[order, 0]]
         e1 = pos[idx[order, 1]] - p0
         e2 = pos[idx[order, 2]] - p0
+        if any_motion:
+            if mesh.positions_end is not None:
+                pe = np.asarray(mesh.positions_end, np.float32)
+                p0e = pe[idx[order, 0]]
+                dp0, de1, de2 = p0e - p0, (pe[idx[order, 1]] - p0e) - e1, \
+                    (pe[idx[order, 2]] - p0e) - e2
+            else:
+                dp0, de1, de2 = np.zeros_like(p0), np.zeros_like(e1), np.zeros_like(e2)
         if mesh.normals is not None:
             nrm = np.asarray(mesh.normals, np.float32)
             tn = np.stack([nrm[idx[order, k]] for k in range(3)], axis=1)
@@ -257,8 +295,13 @@ def build_arena(meshes: list[HostMesh]) -> tuple[MeshArena, dict]:
                 else np.zeros(len(order), np.int32))
 
         # per-triangle AABBs in leaf order for the collapse's chunk boxes
+        # (a deforming mesh's over both endpoints)
         t_lo = np.minimum(np.minimum(p0, p0 + e1), p0 + e2)
         t_hi = np.maximum(np.maximum(p0, p0 + e1), p0 + e2)
+        if any_motion and mesh.positions_end is not None:
+            q0, q1, q2 = p0 + dp0, p0 + dp0 + e1 + de1, p0 + dp0 + e2 + de2
+            t_lo = np.minimum(t_lo, np.minimum(np.minimum(q0, q1), q2))
+            t_hi = np.maximum(t_hi, np.maximum(np.maximum(q0, q1), q2))
         rows, depth, granges = _pack_wide(bvh, group_off, node_off, t_lo, t_hi)
         max_depth = max(max_depth, depth)
 
@@ -271,47 +314,57 @@ def build_arena(meshes: list[HostMesh]) -> tuple[MeshArena, dict]:
         src = np.repeat(g_first, g_cnt) + within
         dst = np.repeat(np.arange(num_groups) * LEAF_SIZE, g_cnt) + within
         tp = num_groups * LEAF_SIZE
-        pp0 = np.zeros((tp, 3), np.float32)
-        pe1 = np.zeros((tp, 3), np.float32)
-        pe2 = np.zeros((tp, 3), np.float32)
-        pn = np.zeros((tp, 3, 3), np.float32)
-        puv = np.zeros((tp, 3, 2), np.float32)
-        ppart = np.zeros(tp, np.int32)
-        pp0[dst] = p0[src]
-        pe1[dst] = e1[src]
-        pe2[dst] = e2[src]
-        pn[dst] = tn[src]
-        puv[dst] = tuv[src]
-        ppart[dst] = part[src]
-        tri_rows = np.concatenate(
-            [pp0.reshape(num_groups, -1, 3), pe1.reshape(num_groups, -1, 3),
-             pe2.reshape(num_groups, -1, 3)], axis=2,
-        ).reshape(num_groups, LEAF_SIZE * 9)
 
+        def padded(a):
+            out = np.zeros((tp,) + a.shape[1:], a.dtype)
+            out[dst] = a[src]
+            return out
+
+        def rows_of(a, b, c):  # [G, LEAF_SIZE, 9]: (p0, e1, e2) a triangle
+            return np.concatenate([a.reshape(num_groups, -1, 3), b.reshape(num_groups, -1, 3),
+                                   c.reshape(num_groups, -1, 3)],
+                                  axis=2).reshape(num_groups, LEAF_SIZE * 9)
+
+        pp0, pe1, pe2 = padded(p0), padded(e1), padded(e2)
+        all_trirows.append(rows_of(pp0, pe1, pe2))
         attr = np.zeros((tp, 20), np.float32)
         attr[:, 0:3] = pp0
         attr[:, 3:6] = pe1
         attr[:, 6:9] = pe2
-        attr[:, 9:12] = np.ascontiguousarray(oct_normal_pack(pn).astype(np.uint32)).view(np.float32)
-        attr[:, 12:18] = puv.reshape(tp, 6)
-        attr[:, 18] = ppart.astype(np.float32)
-        all_rows.append(rows)
-        all_trirows.append(tri_rows)
+        attr[:, 9:12] = np.ascontiguousarray(
+            oct_normal_pack(padded(tn)).astype(np.uint32)).view(np.float32)
+        attr[:, 12:18] = padded(tuv).reshape(tp, 6)
+        attr[:, 18] = padded(part).astype(np.float32)
         all_attr.append(attr)
+        if any_motion:
+            pd0, pd1, pd2 = padded(dp0), padded(de1), padded(de2)
+            all_trirows_d.append(rows_of(pd0, pd1, pd2))
+            attr_d = np.zeros((tp, 12), np.float32)
+            attr_d[:, 0:3], attr_d[:, 3:6], attr_d[:, 6:9] = pd0, pd1, pd2
+            all_attr_d.append(attr_d)
+        arena_ids = np.empty(total, np.int64)
+        arena_ids[src] = dst + group_off * LEAF_SIZE
+        host_info.append({"order": order, "arena_ids": arena_ids.astype(np.int32)})
+        all_rows.append(rows)
         roots.append(node_off)
         node_off += rows.shape[0]
         group_off += num_groups
+
+    def cat(xs):
+        return torch.from_numpy(np.concatenate(xs, axis=0))
 
     host_nodes = np.concatenate(all_rows, axis=0)
     host_roots = np.array(roots, np.int32)
     arena = MeshArena(
         node_rows=torch.from_numpy(host_nodes),
-        tri_rows=torch.from_numpy(np.concatenate(all_trirows, axis=0)),
-        attr_rows=torch.from_numpy(np.concatenate(all_attr, axis=0)),
+        tri_rows=cat(all_trirows),
+        attr_rows=cat(all_attr),
         mesh_root=torch.from_numpy(host_roots),
         max_depth=int(max_depth),
+        tri_rows_d=cat(all_trirows_d) if any_motion else None,
+        attr_rows_d=cat(all_attr_d) if any_motion else None,
     )
-    return arena, {"node_rows": host_nodes, "mesh_root": host_roots}
+    return arena, {"node_rows": host_nodes, "mesh_root": host_roots, "info": host_info}
 
 
 def _np_quat(rot) -> np.ndarray:

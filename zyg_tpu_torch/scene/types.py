@@ -7,7 +7,8 @@ shape type, for mesh scenes the triangle arena and the mesh instance table
 (scene/trimesh.py), for textured scenes the texture arena
 (scene/textures.py) and the env-map sampler (scene/env_sampling.py), for
 two or more lights of which one is finite the light tree
-(scene/light_tree.py), for volume lights over a density grid their
+(scene/light_tree.py), for emissive meshes their triangle area CDFs and
+the primitive light trees of the large ones, for volume lights over a density grid their
 interior-point distributions (core/distribution.py), for portal lights
 their windowed portal-image distributions (scene/portal.py), for motion
 blur the moving props and their shutter keyframes, for point-cloud and
@@ -112,6 +113,15 @@ class Lights:
     # volume lights (emissive Volumetric Cubes): NEE samples a point
     # inside the prop instead of on its surface
     volume: torch.Tensor  # bool[L]
+    # emissive meshes (None without them): each light's world area (0
+    # for other lights), the slice [tri_offset, tri_offset + tri_count)
+    # of the triangle area CDF that is its (-1, 0 for other lights), and
+    # the padded arena triangle id of each CDF entry
+    area: torch.Tensor = None  # float32[L]
+    tri_offset: torch.Tensor = None  # int32[L]
+    tri_count: torch.Tensor = None  # int32[L]
+    tri_cdf: torch.Tensor = None  # float32[T]
+    tri_idx: torch.Tensor = None  # int32[T]
 
     @property
     def count(self) -> int:
@@ -184,6 +194,13 @@ class SceneData:
     curve_props: torch.Tensor = None
     prop_curve: torch.Tensor = None
     animated_curves: dict = None
+    # the primitive light trees of the large emissive meshes: {(light
+    # index, the mesh's first arena triangle id): (light_tree.LightTree
+    # over its triangles, {"arena": int32 [T] each tree entry's arena
+    # triangle, "area": float32 [T] its world area, "local_of": int32 the
+    # tree entry of each arena triangle from the base, -1 for none})}, or
+    # None
+    mesh_light_trees: dict = None
 
     def to(self, device) -> "SceneData":
         out = {}
@@ -194,6 +211,9 @@ class SceneData:
                 out[f.name] = v
             elif f.name in ("prop_groups", "vol_light_dist", "portals") and v is not None:
                 out[f.name] = {k: g.to(device) for k, g in v.items()}
+            elif f.name == "mesh_light_trees" and v is not None:
+                out[f.name] = {k: (tree.to(device), {a: x.to(device) for a, x in aux.items()})
+                               for k, (tree, aux) in v.items()}
             else:
                 out[f.name] = v if v is None else v.to(device)
         return SceneData(**out)
