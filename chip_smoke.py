@@ -4133,32 +4133,35 @@ def _slice_take(scene_name: str, res, spp: int):
 
 
 def _slice_scene(scene_name: str, res, spp: int, label: str):
-    """(take, scene) of a slice_files() scene, the load timed: for a scene
-    with an emissive mesh, the primitive light tree's build apart."""
+    """(take, scene) of a slice_files() scene, the load timed; for a scene
+    with an emissive mesh, the primitive light tree's build timed apart:
+    light_tree.build_light_tree run again on each tree's leaves (each
+    triangle's centre, radius, cone, area and sidedness as the loader gave
+    them), which must give the loaded tree back."""
+    import numpy as np
     from zyg_tpu_torch.scene import loader
+    from zyg_tpu_torch.scene.light_tree import build_light_tree
 
     take = _slice_take(scene_name, res, spp)
-    spent = []
-    orig = loader.SceneBuilder._mesh_light_tree
-
-    def timed(self, *args):
-        t0 = time.perf_counter()
-        out = orig(self, *args)
-        spent.append(time.perf_counter() - t0)
-        return out
-
-    loader.SceneBuilder._mesh_light_tree = timed
-    try:
-        t0 = time.perf_counter()
-        scene = loader.load_scene_file(take.scene_filename, "cpu",
-                                       *take.cameras[0].frame_interval(0))
-        dt = time.perf_counter() - t0
-    finally:
-        loader.SceneBuilder._mesh_light_tree = orig
+    t0 = time.perf_counter()
+    scene = loader.load_scene_file(take.scene_filename, "cpu", *take.cameras[0].frame_interval(0))
+    dt = time.perf_counter() - t0
     m = scene.meshes
     trees = scene.mesh_light_trees or {}
+    spent = 0.0
+    for tree, _ in trees.values():
+        leaf = tree.light_leaf.numpy()
+        ins = [getattr(tree, k).numpy()[leaf] for k in ("center", "radius", "cone", "power",
+                                                         "two_sided")]
+        t0 = time.perf_counter()
+        again = build_light_tree(*ins, np.ones(len(leaf), bool))
+        spent += time.perf_counter() - t0
+        if not all(np.array_equal(getattr(again, k).numpy(), getattr(tree, k).numpy())
+                   for k in ("center", "radius", "cone", "power", "child0", "light")):
+            raise AssertionError(f"{label}: the primitive light tree built again from its "
+                                 "leaves differs from the loaded one")
     tri = (f", {int(scene.lights.tri_count.sum())} emissive triangles, primitive light tree "
-           f"build {sum(spent):.2f} s ({', '.join(str(t.depth) for t, _ in trees.values())} "
+           f"build {spent:.2f} s ({', '.join(str(t.depth) for t, _ in trees.values())} "
            f"levels)" if scene.lights.tri_count is not None else "")
     log(f"{label}: scene load + arena build {dt:.2f} s ({m.tri_rows.shape[0]} leaf rows, "
         f"deforming {m.tri_rows_d is not None}{tri})")
@@ -4175,9 +4178,9 @@ def check_traverse_deform(dev) -> dict:
     (shadow rays toward the lamp); then on a table whose one instance of
     the deforming mesh moves (the slerp and the lerp). Times the form
     beside the static form on the same lanes (the arena without its
-    deltas) and its bound: each lane's inputs and outputs, the node rows
-    it reads and both leaf rows of each leaf visit, beside the work the
-    plain walk counted."""
+    deltas) and its bound: each lane's inputs and outputs, the instance
+    table and the arena with its leaf deltas, each read once, beside the
+    work the plain walk counted (each leaf visit's test and lerp)."""
     import dataclasses
 
     import numpy as np
@@ -4272,6 +4275,12 @@ def check_traverse_deform(dev) -> dict:
         return traverse.intersect_instances(a, itab, o, d, 0.0, tmax, "camera", prim, time=tl)
 
     static = dataclasses.replace(arena, tri_rows_d=None, attr_rows_d=None)
+    arena_bytes = (arena.node_rows.numel() + arena.tri_rows.numel()
+                   + arena.tri_rows_d.numel()) * 4
+
+    def table_bytes(tab):  # trafo, world box and visibility of each instance
+        return tab.trafo.shape[0] * (24 * 4 + 2 * 3 * 4 + 3)
+
     out = {
         "max_abs_err": 0.0,
         "ms": time_ms(walk, 5),
@@ -4283,8 +4292,8 @@ def check_traverse_deform(dev) -> dict:
         "plain_ms": time_ms(lambda: traverse.traverse_plain(arena, itab, o, d, 0.0, tmax, 0, prim,
                                                             False, time=tl), 1, runs=1),
         # each lane's o, d, tmax, primary, time in and t, prim, u, v, prop
-        # out; the node rows read and both leaf rows of each leaf visit
-        **bound(n * (29 + 4 + 20) + counts["nodes"] * 256 + counts["leaves"] * 2 * 432,
+        # out; the table and the arena, its leaf deltas included, read once
+        **bound(n * (29 + 4 + 20) + table_bytes(itab) + arena_bytes,
                 counts["nodes"] * OPS_NODE + counts["leaves"] * (OPS_LEAF + OPS_DEFORM_LEAF)
                 + n * OPS_INSTANCE),
         "library_ms": None,
@@ -4299,7 +4308,7 @@ def check_traverse_deform(dev) -> dict:
             arena, mtab, o, d, 0.0, tmax, "camera", prim, time=tl), "traverse_anim_deform", 5),
         "plain_ms": time_ms(lambda: traverse.traverse_plain(arena, mtab, o, d, 0.0, tmax, 0,
                                                             prim, False, time=tl), 1, runs=1),
-        **bound(n * (29 + 4 + 20) + anim_counts["nodes"] * 256 + anim_counts["leaves"] * 2 * 432,
+        **bound(n * (29 + 4 + 20) + table_bytes(mtab) + arena_bytes,
                 anim_counts["nodes"] * OPS_NODE
                 + anim_counts["leaves"] * (OPS_LEAF + OPS_DEFORM_LEAF)
                 + n * (OPS_INSTANCE + OPS_SLERP)),

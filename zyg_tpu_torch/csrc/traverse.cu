@@ -86,9 +86,11 @@
 // single-use product, zyg_tpu/scene/trimesh.py:894-897). It reads another
 // 27 float4s a leaf visit and the ray's time once at its start. A
 // template flag rather than a branch on the pointer: the static forms
-// keep the code they had, and the deforming forms have kernel names of
-// their own, so a trace shows which one ran; the build compiles eight
-// forms instead of four (the register and SASS counts are in PERF.md).
+// keep the code they had, and the deforming forms have kernel names and
+// entry points of their own (zyg_traverse_deform,
+// zyg_traverse_anim_deform), so the entry point alone picks the form and
+// a trace shows which one ran; the build compiles eight forms instead of
+// four (the register and SASS counts are in PERF.md).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -658,10 +660,11 @@ __global__ void __launch_bounds__(TRAV_THREADS) traverse_anim_deform_kernel(Trav
 
 // ptrs: node_rows, tri_rows, wmin, wmax, trafo, vis, o, d, tmax, primary
 // (or null), err, the ray counter, then t, prim, u, v, prop (closest) or
-// blocked (any-hit), then the rays' shutter times (null unless anim or a
-// deforming arena) and the arena's leaf deltas (null unless deforming)
-static int launch_traverse(bool anim, void** ptrs, int ninst, int vis_col, int any_hit,
-                           int stack_d, float tmin, int64_t n, void* stream) {
+// blocked (any-hit), then the rays' shutter times (read by the anim and
+// deforming forms, else unread) and the arena's leaf deltas (read by the
+// deforming forms, else unread)
+static int launch_traverse(bool anim, bool deform, void** ptrs, int ninst, int vis_col,
+                           int any_hit, int stack_d, float tmin, int64_t n, void* stream) {
   if (stack_d < 1 || stack_d > TRAV_MAX_STACK || ninst < 0 || n < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -676,8 +679,8 @@ static int launch_traverse(bool anim, void** ptrs, int ninst, int vis_col, int a
   a.d = (const float*)ptrs[7];
   a.tmax = (const float*)ptrs[8];
   a.primary = (const uint8_t*)ptrs[9];
-  a.time = (const float*)ptrs[any_hit ? 13 : 17];
-  a.tri_rows_d = (const float4*)ptrs[any_hit ? 14 : 18];
+  a.time = anim || deform ? (const float*)ptrs[any_hit ? 13 : 17] : nullptr;
+  a.tri_rows_d = deform ? (const float4*)ptrs[any_hit ? 14 : 18] : nullptr;
   a.err = (int*)ptrs[10];
   a.next = (unsigned long long*)ptrs[11];
   a.t_out = any_hit ? nullptr : (float*)ptrs[12];
@@ -695,10 +698,11 @@ static int launch_traverse(bool anim, void** ptrs, int ninst, int vis_col, int a
   if (((uintptr_t)a.node_rows | (uintptr_t)a.tri_rows | (uintptr_t)a.tri_rows_d) & 15) {
     return (int)cudaErrorMisalignedAddress;
   }
-  if ((anim || a.tri_rows_d != nullptr) && a.time == nullptr) return (int)cudaErrorInvalidValue;
+  if ((anim || deform) && a.time == nullptr) return (int)cudaErrorInvalidValue;
+  if (deform && a.tri_rows_d == nullptr) return (int)cudaErrorInvalidValue;
   const bool wp = ninst >= kWarpPickMin;
   void (*const kernel)(TravArgs) =
-      a.tri_rows_d != nullptr
+      deform
           ? (anim ? (wp ? traverse_anim_deform_kernel<true> : traverse_anim_deform_kernel<false>)
                   : (wp ? traverse_deform_kernel<true> : traverse_deform_kernel<false>))
           : (anim ? (wp ? traverse_anim_kernel<true> : traverse_anim_kernel<false>)
@@ -715,13 +719,25 @@ static int launch_traverse(bool anim, void** ptrs, int ninst, int vis_col, int a
 
 extern "C" int zyg_traverse(void** ptrs, int ninst, int vis_col, int any_hit, int stack_d,
                             float tmin, int64_t n, void* stream) {
-  return launch_traverse(false, ptrs, ninst, vis_col, any_hit, stack_d, tmin, n, stream);
+  return launch_traverse(false, false, ptrs, ninst, vis_col, any_hit, stack_d, tmin, n, stream);
 }
 
 // the motion-blur variant: ptrs as zyg_traverse's (the shutter times given)
 extern "C" int zyg_traverse_anim(void** ptrs, int ninst, int vis_col, int any_hit, int stack_d,
                                  float tmin, int64_t n, void* stream) {
-  return launch_traverse(true, ptrs, ninst, vis_col, any_hit, stack_d, tmin, n, stream);
+  return launch_traverse(true, false, ptrs, ninst, vis_col, any_hit, stack_d, tmin, n, stream);
+}
+
+// the deforming forms: ptrs as zyg_traverse's (the shutter times and the
+// leaf deltas given), over a static table and over a moving one
+extern "C" int zyg_traverse_deform(void** ptrs, int ninst, int vis_col, int any_hit,
+                                   int stack_d, float tmin, int64_t n, void* stream) {
+  return launch_traverse(false, true, ptrs, ninst, vis_col, any_hit, stack_d, tmin, n, stream);
+}
+
+extern "C" int zyg_traverse_anim_deform(void** ptrs, int ninst, int vis_col, int any_hit,
+                                        int stack_d, float tmin, int64_t n, void* stream) {
+  return launch_traverse(true, true, ptrs, ninst, vis_col, any_hit, stack_d, tmin, n, stream);
 }
 
 // the lanes one pass of the resident grid covers on the current device:

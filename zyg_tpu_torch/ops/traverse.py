@@ -70,9 +70,9 @@ _ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int
          ctypes.c_int64, ctypes.c_void_p]
 _KERNEL = register("traverse", "zyg_traverse", _ARGS)
 _KERNEL_ANIM = register("traverse_anim", "zyg_traverse_anim", _ARGS)
-# the same entry points over a deforming arena (the leaf lerp), counted apart
-_KERNEL_DEFORM = register("traverse_deform", "zyg_traverse", _ARGS)
-_KERNEL_ANIM_DEFORM = register("traverse_anim_deform", "zyg_traverse_anim", _ARGS)
+# the deforming forms (the leaf lerp), entry points of their own
+_KERNEL_DEFORM = register("traverse_deform", "zyg_traverse_deform", _ARGS)
+_KERNEL_ANIM_DEFORM = register("traverse_anim_deform", "zyg_traverse_anim_deform", _ARGS)
 
 MAX_STACK = 32  # csrc/traverse.cu TRAV_MAX_STACK: arenas up to depth 31
 _MISS_KEY = 0x7F800000  # +inf bits: sorts after every hit key
